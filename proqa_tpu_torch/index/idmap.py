@@ -1,0 +1,40 @@
+"""Index-row <-> document-id mapping.
+
+Counterpart of proqa_tpu/index/idmap.py (which cannot be imported without
+JAX: its package __init__ imports the device index). Dense index row i maps to
+the doc id of the paragraph encoded into that row. The on-disk artifact,
+`idx_id.json` = {"0": id0, "1": id1, ...}, is written byte for byte as the
+JAX package writes it.
+"""
+from __future__ import annotations
+
+import json
+from typing import Iterable, Sequence
+
+
+class IdMap:
+    def __init__(self, ids: Sequence[str]):
+        self._ids = list(ids)
+
+    def __len__(self) -> int:
+        return len(self._ids)
+
+    def __getitem__(self, row: int) -> str:
+        return self._ids[row]
+
+    def rows_to_ids(self, rows: Iterable[int]) -> list[str]:
+        return [self._ids[int(r)] for r in rows]
+
+    @classmethod
+    def from_doc_ids(cls, doc_ids: Iterable[str]) -> "IdMap":
+        return cls(list(doc_ids))
+
+    def save(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump({str(i): d for i, d in enumerate(self._ids)}, f)
+
+    @classmethod
+    def load(cls, path: str) -> "IdMap":
+        with open(path) as f:
+            raw = json.load(f)
+        return cls([raw[str(i)] for i in range(len(raw))])

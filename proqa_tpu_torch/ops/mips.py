@@ -1,0 +1,192 @@
+"""Exact maximum-inner-product search (MIPS) top-k.
+
+Counterpart of proqa_tpu/ops/mips.py. The corpus is a [N, D] bf16 (or f32)
+matrix on the device. Exact top-k with k <= 512 over a corpus too large for a
+full [Q, N] top-k runs the three-stage block-max pipeline of
+ops/mips_kernel.py, whose first stage is kernel K1 on a CUDA corpus.
+
+Exactness of the block-max selection (unchanged from the JAX package): if row
+r is among the true top-k, its block's max >= score(r) >= v_k; any block
+ranked above r's block holds an element >= score(r), so with kb >= k blocks
+visited r's block is always visited. Ties can swap equal-valued results, never
+lose recall.
+
+All search functions return (values [Q, k] f32, indices [Q, k] int64) sorted
+descending. The int32 row ids of the JAX package appear at DenseIndex.search.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from proqa_tpu_torch.ops.dot import dot_f32
+
+NEG_INF = float(np.float32(-3.0e38))  # finite in bf16 too; the f32 value exactly
+
+
+def _scores(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
+    return dot_f32(queries, corpus.to(queries.dtype).T)
+
+
+def pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
+    """[N, D] -> [N rounded up to `multiple`, D], the new rows zero."""
+    n_pad = (-x.shape[0]) % multiple
+    if n_pad:
+        x = torch.cat([x, x.new_zeros(n_pad, x.shape[1])])
+    return x
+
+
+def _mask_padding(scores: torch.Tensor, n_valid: int | None) -> torch.Tensor:
+    n = scores.shape[-1]
+    if n_valid is None or n_valid >= n:
+        return scores
+    valid = torch.arange(n, device=scores.device) < n_valid
+    return torch.where(valid[None, :], scores, NEG_INF)
+
+
+def exact_topk(scores: torch.Tensor, k: int):
+    """Exact top-k along the last axis. The JAX package's group hierarchy
+    exists to keep XLA's TPU top-k narrow; torch.topk needs no such help."""
+    return torch.topk(scores, k, dim=-1)
+
+
+def rescore_block_candidates(q_emb, blocks_ids, corpus_blocks, *, k: int, block: int,
+                             n_valid: int):
+    """Exact top-k among each query's candidate blocks (the gather + matmul
+    `take` path of the JAX package).
+
+    q_emb [QC, D]; blocks_ids [QC, kb] candidate block ids; corpus_blocks
+    [NB, block, D]. Returns (values [QC, k] f32, row indices [QC, k] int64)."""
+    qc, kb = blocks_ids.shape
+    d = q_emb.shape[1]
+    cand = corpus_blocks[blocks_ids].to(q_emb.dtype).view(qc, kb * block, d)
+    s = dot_f32(cand, q_emb[:, :, None]).view(qc, kb * block)
+    offs = torch.arange(block, device=blocks_ids.device)
+    flat_idx = (blocks_ids[:, :, None] * block + offs).view(qc, kb * block)
+    s = torch.where(flat_idx < n_valid, s, NEG_INF)
+    vals, sel = exact_topk(s, k)
+    return vals, torch.gather(flat_idx, 1, sel)
+
+
+def sanitize_padding(vals: torch.Tensor, idx: torch.Tensor):
+    """Degenerate-tail contract: slots whose score is the padding sentinel
+    (masked padded rows, k > real rows) come back as (NEG_INF, row 0), never
+    a padded row's index."""
+    invalid = vals <= NEG_INF
+    return vals.masked_fill(invalid, NEG_INF), idx.masked_fill(invalid, 0)
+
+
+def mips_topk_reference(queries, corpus, k: int, *, n_valid: int | None = None):
+    """Naive full-score top-k: ground truth for tests, and the search for
+    small N."""
+    scores = _scores(queries, corpus)
+    if n_valid is None:
+        return exact_topk(scores, k)
+    vals, idx = exact_topk(_mask_padding(scores, n_valid), k)
+    return sanitize_padding(vals, idx)
+
+
+def mips_topk_blockmax(queries, corpus, k: int, *, block: int = 256, kb: int | None = None,
+                       q_chunk: int = 256, n_valid: int | None = None):
+    """Exact two-phase block-max top-k without the kernel: block maxima of
+    the full [Q, N] score matrix, then a rescore of each query's top-kb
+    blocks. The JAX package's path off the TPU; here reached by direct call."""
+    q, d = queries.shape
+    n_unpadded = corpus.shape[0]
+    corpus = pad_rows(corpus, block)
+    if n_valid is None:
+        n_valid = n_unpadded
+    nb = corpus.shape[0] // block
+    if kb is None:
+        kb = max(k, min(128, nb))
+    kb = min(kb, nb)
+    if kb < min(k, nb):
+        raise ValueError("kb < k breaks the exactness guarantee")
+    corpus_blocks = corpus.view(nb, block, d)
+    out_v, out_i = [], []
+    for s in range(0, q, q_chunk):
+        qe = queries[s:s + q_chunk]
+        scores = _mask_padding(_scores(qe, corpus), n_valid)
+        bmax = scores.view(qe.shape[0], nb, block).amax(dim=-1)
+        top_blocks = exact_topk(bmax, kb).indices
+        v, i = rescore_block_candidates(qe, top_blocks, corpus_blocks, k=k, block=block,
+                                        n_valid=n_valid)
+        out_v.append(v)
+        out_i.append(i)
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def mips_topk_chunked_approx(queries, corpus, k: int, *, chunk: int = 1 << 19,
+                             n_valid: int | None = None):
+    """Streaming top-k for large k (the QA trainer's top-5000 candidates).
+    The JAX package takes `lax.approx_max_k` of each chunk; torch has no
+    counterpart, so each chunk keeps its exact top-k, a superset of the
+    approximate one, and one final top-k merges the chunks."""
+    n = corpus.shape[0]
+    if n_valid is None:
+        n_valid = n
+    cand_v, cand_i = [], []
+    for off in range(0, n, chunk):
+        s = _scores(queries, corpus[off:off + chunk])
+        rows = off + torch.arange(s.shape[1], device=s.device)
+        s = torch.where(rows[None, :] < n_valid, s, NEG_INF)
+        v, i = exact_topk(s, min(k, s.shape[1]))
+        cand_v.append(v)
+        cand_i.append(i + off)
+    cv, ci = torch.cat(cand_v, dim=1), torch.cat(cand_i, dim=1)
+    if cv.shape[1] < k:  # degenerate small-corpus call: keep k output columns
+        pad = k - cv.shape[1]
+        cv = torch.nn.functional.pad(cv, (0, pad), value=NEG_INF)
+        ci = torch.nn.functional.pad(ci, (0, pad))
+    vals, sel = exact_topk(cv, k)
+    return vals, torch.gather(ci, 1, sel)
+
+
+def envelope_block(n: int, qp: int = 2048) -> int:
+    """Stage-1 reduce-block size at corpus size n: block=16 halves the
+    rescore gather, but bmax3 is N/block * Qpad * 4 bytes, so grow block until
+    it fits ~4.5 GB. Kept unchanged from the JAX package so that int8 blocks
+    stay comparable when they are ported."""
+    block = 16
+    while block < 256 and (n / block) * qp * 4 > 4.5e9:
+        block *= 2
+    return block
+
+
+def mips_topk(queries, corpus, k: int, *, exact: bool = True, n_valid: int | None = None):
+    """Dispatch to the search strategy for (k, N), as the JAX package does:
+    the naive path while a full [Q, N] top-k is cheap, the block-max pipeline
+    (kernel K1 on a CUDA corpus) for exact k <= 512, and the streaming path
+    for larger k. n_valid masks pre-padded corpus rows."""
+    n = corpus.shape[0]
+    if exact and k > 512 and n > 4096 and n > 4 * k:
+        warnings.warn(
+            f"mips_topk(exact=True, k={k}): exact search supports k<=512; "
+            "falling back to the streaming path. Pass exact=False to silence.",
+            stacklevel=2,
+        )
+    if n <= 4096 or n <= 4 * k:
+        return mips_topk_reference(queries, corpus, min(k, n), n_valid=n_valid)
+    if exact and k <= 512:
+        from proqa_tpu_torch.ops.mips_kernel import mips_topk_v2
+
+        # the block size follows the JAX package's padded query count, so the
+        # two packages reduce over the same blocks
+        q = queries.shape[0]
+        tile_q = min(2048, max(256, 1 << (q - 1).bit_length()))
+        qp = -(-q // tile_q) * tile_q
+        vals, idx = mips_topk_v2(queries, corpus, k, block=envelope_block(n, qp),
+                                 n_valid=n_valid)
+    else:
+        vals, idx = mips_topk_chunked_approx(queries, corpus, k, n_valid=n_valid)
+    if n_valid is not None:
+        vals, idx = sanitize_padding(vals, idx)
+    return vals, idx
+
+
+def pad_queries(queries: torch.Tensor, multiple: int) -> tuple[torch.Tensor, int]:
+    """Pad the query batch with zero rows to a multiple; returns (padded,
+    original count)."""
+    return pad_rows(queries, multiple), queries.shape[0]

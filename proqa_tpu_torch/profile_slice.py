@@ -1,0 +1,261 @@
+"""Where the device time goes in the port's two hot workloads, on one NVIDIA GPU.
+
+    python -m proqa_tpu_torch.profile_slice [--out build/profile_slice.json]
+
+Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
+  search      DenseIndex.search, exact top-80 over a 4,194,304 x 128 bf16
+              corpus, 2,048 queries per batch (kernel K1, then torch select
+              and rescore);
+  search_f32  the same over an f32 index (`--f32`);
+  encode_T*   the BERT-base context tower, bf16, 512 rows of T tokens
+              (build-index's batch; K2 at every layer).
+
+For each workload:
+  - a steady loop, host clock around calls that end synchronised (median,
+    p25, p75), the peak device memory, and nvidia-smi's SM clock and power
+    draw sampled during the loop;
+  - a torch.profiler trace of a few more calls. Only GPU activity counts as
+    device time: trace events of category kernel, gpu_memcpy and gpu_memset.
+    Busy time is the union of their intervals; the idle share is 1 - busy /
+    the host-clock wall of the traced calls. Device time is summed by kernel
+    group, by the aten op that launched the kernel, and by kernel name.
+
+Exits non-zero without a CUDA device: there is no CPU fallback.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+# kernel group: substrings of the kernel name, first match wins
+GROUPS = (
+    ("K1 block_maxima", ("bmax3_kernel",)),
+    ("K2 attention", ("attention_fwd_kernel",)),
+    ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
+    ("topk/sort", ("topk", "radixSort", "Sort", "cub::")),
+    ("gather/index", ("gather", "index_elementwise", "index_kernel")),
+    ("reduction", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_group(name: str, cat: str) -> str:
+    if cat != "kernel":
+        return cat
+    for group, keys in GROUPS:
+        if any(key in name for key in keys):
+            return group
+    return "other"
+
+
+def busy_us(spans: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def trace_breakdown(trace: dict, calls: int, wall_ms: float) -> dict:
+    """Device time per call from a chrome trace exported by torch.profiler."""
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    ops = {e["args"]["External id"]: e["name"] for e in events
+           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    gpu = [e for e in events if e.get("cat") in GPU_CATEGORIES]
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in gpu]
+    busy_ms = busy_us(spans) / 1e3
+    by_group, by_op, by_name = {}, {}, {}
+    for e in gpu:
+        ms = float(e["dur"]) / 1e3 / calls
+        group = kernel_group(e["name"], e["cat"])
+        op = ops.get(e.get("args", {}).get("External id"), "(no aten op)")
+        by_group[group] = by_group.get(group, 0.0) + ms
+        by_op[op] = by_op.get(op, 0.0) + ms
+        name = e["name"][:120]
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + ms)
+
+    def ranked(d: dict) -> dict:
+        return dict(sorted(d.items(), key=lambda kv: -kv[1]))
+
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]
+    return {
+        "traced_calls": calls,
+        "wall_ms_per_call": wall_ms / calls,
+        "device_busy_ms_per_call": busy_ms / calls,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "gpu_events_per_call": len(gpu) / calls,
+        "ms_per_call_by_group": ranked(by_group),
+        "ms_per_call_by_launching_op": ranked(by_op),
+        "top_kernels": [{"name": n, "launches_per_call": c / calls, "ms_per_call": t}
+                        for n, (c, t) in top],
+    }
+
+
+def smi_sampler() -> subprocess.Popen:
+    return subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "200"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+
+
+def smi_summary(proc: subprocess.Popen) -> dict:
+    proc.terminate()
+    out, _ = proc.communicate(timeout=30)
+    clocks, watts = [], []
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        try:
+            clocks.append(float(parts[0]))
+            watts.append(float(parts[1]))
+        except (ValueError, IndexError):
+            continue
+    if not watts:
+        return {"samples": 0}
+    return {"samples": len(watts), "sm_clock_mhz_median": statistics.median(clocks),
+            "power_w_median": statistics.median(watts), "power_w_max": max(watts)}
+
+
+def measure(name: str, fn, *, loop_calls: int, traced_calls: int, trace_dir: str,
+            extra: dict) -> dict:
+    """Steady loop, then a profiled window, of fn() (which must return only
+    after its device work is done)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    fn()
+    torch.cuda.reset_peak_memory_stats()
+    smi = smi_sampler()
+    try:
+        walls = []
+        for _ in range(loop_calls):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        power = smi_summary(smi)
+    q = statistics.quantiles(walls, n=4)
+    loop = {"calls": loop_calls, "wall_ms_median": statistics.median(walls),
+            "wall_ms_p25": q[0], "wall_ms_p75": q[2],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "nvidia_smi": power}
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(traced_calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = os.path.join(trace_dir, f"{name}.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    result = {"workload": name, **extra, "steady_loop": loop,
+              "trace": trace_breakdown(trace, traced_calls, wall_ms)}
+    t = result["trace"]
+    print(f"{name}: steady {loop['wall_ms_median']:.3f} ms per call "
+          f"(p25 {loop['wall_ms_p25']:.3f}, p75 {loop['wall_ms_p75']:.3f}, n={loop_calls}), "
+          f"peak {loop['peak_gib']:.2f} GiB, nvidia-smi {json.dumps(power)}; traced "
+          f"{t['wall_ms_per_call']:.3f} ms wall, {t['device_busy_ms_per_call']:.3f} ms busy, "
+          f"idle share {t['idle_share']:.4f}", flush=True)
+    for group, ms in t["ms_per_call_by_group"].items():
+        print(f"    {group:<16} {ms:10.3f} ms  {ms / t['device_busy_ms_per_call']:6.1%}")
+    return result
+
+
+def search_workload(dtype, trace_dir: str, loop_calls: int) -> dict:
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.ops import mips
+
+    n, q, d, k = 4_194_304, 2048, 128, 80
+    device = torch.device("cuda", 0)
+    g = torch.Generator(device=device).manual_seed(4)
+    corpus = (torch.randn(n, d, device=device, generator=g) / d ** 0.5).to(dtype)
+    queries = torch.randn(q, d, device=device, generator=g) / d ** 0.5
+    index = DenseIndex.from_embeddings(corpus, device=device, dtype=dtype)
+    del corpus
+    block = mips.envelope_block(index.embeddings.shape[0], q)
+    name = "search" if dtype == torch.bfloat16 else "search_f32"
+    result = measure(name, lambda: index.search(queries, k), loop_calls=loop_calls,
+                     traced_calls=3, trace_dir=trace_dir,
+                     extra={"shape": {"n": n, "d": d, "q": q, "k": k, "block": block,
+                                      "dtype": str(dtype)},
+                            "k1_flop_per_call": 2.0 * n * q * d})
+    result["qps"] = q / result["steady_loop"]["wall_ms_median"] * 1e3
+    return result
+
+
+def encode_workload(model, t: int, trace_dir: str, loop_calls: int) -> dict:
+    b, cfg = 512, model.cfg
+    device = torch.device("cuda", 0)
+    g = torch.Generator(device=device).manual_seed(3)
+    ids = torch.randint(5, 68, (b, t), device=device, generator=g)
+    lengths = torch.randint(t // 2, t + 1, (b,), device=device, generator=g)
+    mask = (torch.arange(t, device=device)[None] < lengths[:, None]).to(torch.int32)
+    ids = ids * mask
+    h, layers, inter = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size
+
+    def call():
+        with torch.inference_mode():
+            out = model.encode_context(ids, mask)
+        torch.cuda.synchronize()
+        return out
+
+    result = measure(f"encode_T{t}", call, loop_calls=loop_calls, traced_calls=2,
+                     trace_dir=trace_dir,
+                     extra={"shape": {"batch": b, "seq": t, "hidden": h, "layers": layers,
+                                      "heads": cfg.num_heads, "dtype": str(cfg.dtype)},
+                            "gemm_flop_per_call": 2.0 * b * t * layers * (4 * h * h + 2 * h * inter),
+                            "k2_flop_per_call": 4.0 * b * t * t * h * layers})
+    result["padded_tokens_per_s"] = b * t / result["steady_loop"]["wall_ms_median"] * 1e3
+    return result
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default="build/profile_slice.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_slice: no CUDA device; this measurement needs an NVIDIA GPU",
+              file=sys.stderr)
+        return 1
+
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.ops.dot import pin_f32_precision
+
+    pin_f32_precision()
+    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(gpu, flush=True)
+    report = {"gpu": gpu, "device": torch.cuda.get_device_name(0),
+              "torch": torch.__version__, "cuda": torch.version.cuda, "workloads": []}
+    with tempfile.TemporaryDirectory(prefix="proqa_profile_") as trace_dir:
+        for dtype, calls in ((torch.bfloat16, 100), (torch.float32, 25)):
+            report["workloads"].append(search_workload(dtype, trace_dir, calls))
+            torch.cuda.empty_cache()
+        model = Retriever(BertConfig(flash_attention=True)).reset_parameters(5).to("cuda").eval()
+        for t, calls in ((128, 20), (256, 10), (512, 5)):
+            report["workloads"].append(encode_workload(model, t, trace_dir, calls))
+            torch.cuda.empty_cache()
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(report, f, indent=1)
+    print(f"wrote {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
