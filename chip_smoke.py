@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA GPU
 
-Phases, each of which must pass:
+Phases, each of which must pass. The dense-retrieval slice:
   1. build the hand-written CUDA kernels from proqa_tpu_torch/csrc;
   2. the BERT-base context tower with fused attention (K2) against the
      vanilla attention path;
@@ -18,6 +18,24 @@ Phases, each of which must pass:
   5. K2 against its plain version, checked and timed at the shapes
      build-index gave it (B=512, H=12, Dh=64, T in 128..512, bf16, random key
      padding with one all-padding row).
+The retriever-pretraining slice:
+  6. K4, fused dropout, bit-equal to its plain version at [80, 512, 768]
+     bf16 and [80, 12, 32, 32] f32, rate 0.1, with the keep rate within 5
+     sigma of 0.9 and a backward that applies the forward's mask;
+  7. K2 at dropout rate 0.1 (the same bits as its plain version) and K3, the
+     attention backward, at rates 0 and 0.1, against their plain versions at
+     the train step's shapes (B=80, H=12, Dh=64, T in 128..512, bf16, one
+     all-padding row), timed beside F.scaled_dot_product_attention;
+  8. a full-width train step (BERT-base retriever, bf16, remat, fused
+     attention, dropout 0.1, 80 x (32 + 512) tokens, AdamW lr 1e-4): 20 steps
+     on one batch whose loss must fall, K2/K3/K4 launch counters read, and one
+     dropout-0 step with the kernels against the vanilla attention path
+     (gradient cosine);
+  9. the slice's main path through the CLI: pretrain-retriever (BERT-base,
+     contexts of T=256, so K2/K3 run; queries of T=30 on the vanilla path
+     with K4 on their probabilities), then build-index from its
+     checkpoint_last.pt and retrieve over it (K1), with every counter reset
+     before and read after, and the index checked against the plain encoder.
 
 Prints the GPU's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": ...} last. Exits non-zero,
@@ -28,6 +46,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -40,6 +59,26 @@ ATTN_TOL = 2e-2    # bf16 outputs of magnitude ~1: one bf16 rounding flip is 2^-
 BMAX_TOL = 1e-4    # f32 sums of 128 bf16 products in another order: ~1e-7 here
 TOPK_TOL = 1e-4    # scores within this of the k-th count as ties (ids may swap)
 ENCODER_COS = 0.999  # embeddings with and without K2, 12 bf16 layers apart
+# K3 against its plain version: both round pd and ds to bf16 at the same
+# points, but the kernel recomputes the scores with the key and query roles
+# swapped for dk and dv, and sums in another order; one flipped bf16 rounding
+# of ds or pd before a T-long product moves an output by a few bf16 ulps of
+# values of magnitude ~1 (tests/test_torch_cuda.py holds the same bound)
+BWD_TOL = 6e-2
+GRAD_COS = 0.99   # dropout-0 gradients, K2/K3 against the vanilla path, bf16
+LOSS_DROP = 1.0   # nats the train step's loss must fall over 20 steps on one batch
+
+# H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """The least time (ms) the card could take for this work, and what bounds
+    it: each input read once and each output written once at the HBM rate,
+    or the operations at the bf16 tensor-core rate."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class SmokeFailure(Exception):
@@ -160,6 +199,8 @@ def phase_mips(device) -> dict:
 
     bmax3, gmax = mips_kernel.block_maxima_grouped(qb, corpus, block=block)
     torch.cuda.synchronize()
+    nbytes = (corpus.numel() + qb.numel()) * 2 + (bmax3.numel() + gmax.numel()) * 4
+    bound_ms, bound_by = bound(nbytes, 2.0 * n * q * d)
     ms = cuda_ms(lambda: mips_kernel.block_maxima_grouped(qb, corpus, block=block), reps=3)
     err, plain_ms, chunk = 0.0, 0.0, 128 * rows     # plain version chunked: [Q, N] is 34 GB
     for r0 in range(0, n, chunk):
@@ -197,7 +238,8 @@ def phase_mips(device) -> dict:
     check(bad == 0, f"search: {bad} of {n_check} queries disagree with the exact top-{k}")
     log(f"search top-{k} N={n} Q={q} bf16: {q / wall:.1f} qps ({wall * 1e3:.2f} ms per "
         f"batch, host clock); {n_check} queries agree with the exact reference up to ties")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "qps": q / wall}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "qps": q / wall,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"tok{i}" for i in range(60)] + [
@@ -311,6 +353,306 @@ def phase_cli(device, root: str) -> dict:
     return launches, k1_err, batch
 
 
+def phase_dropout(device) -> dict:
+    """K4 against its plain version: bit-equal outputs, the keep rate, and a
+    backward that applies the forward's mask to the cotangent."""
+    import torch
+    import torch.nn.functional as F
+
+    from proqa_tpu_torch.ops import dropout as drop
+
+    g = torch.Generator(device=device).manual_seed(8)
+    out = {}
+    for shape, dtype in (((80, 512, 768), torch.bfloat16), ((80, 12, 32, 32), torch.float32)):
+        x = torch.randn(*shape, device=device, generator=g).to(dtype)
+        cot = torch.randn(*shape, device=device, generator=g).to(dtype)
+        got = drop.dropout(x, 0.1, seed=2**61 + 5)
+        want = drop.dropout_reference(x, 0.1, seed=2**61 + 5)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K4 {shape}: not bit-equal to its plain version")
+        n = x.numel()
+        kept = (got != 0).double().mean().item()
+        sigma = (0.1 * 0.9 / n) ** 0.5
+        check(abs(kept - 0.9) <= 5 * sigma, f"K4 {shape}: keep rate {kept} beyond 5 sigma")
+        xr = x.clone().requires_grad_(True)
+        drop.dropout(xr, 0.1, seed=2**61 + 5).backward(cot)
+        check(torch.equal(xr.grad, drop.dropout_reference(cot, 0.1, seed=2**61 + 5)),
+              f"K4 {shape}: backward does not apply the forward's mask")
+        ms = cuda_ms(lambda: drop.dropout(x, 0.1, seed=3), reps=20)
+        plain = cuda_ms(lambda: drop.dropout_reference(x, 0.1, seed=3), reps=5)
+        lib = cuda_ms(lambda: F.dropout(x, 0.1, training=True), reps=20)
+        bms, by = bound(2 * n * x.element_size(), 0)
+        log(f"K4 {tuple(shape)} {dtype}: bit-equal, keep rate {kept:.6f} "
+            f"(5 sigma {5 * sigma:.2e}), "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, F.dropout {lib:.4f} ms, bound {bms:.4f} ms")
+        out.setdefault("first", {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                                 "library_ms": lib, "bound_ms": bms, "bound_by": by})
+        del x, cot, got, want, xr
+    return out["first"]
+
+
+def _attention_inputs(device, b, h, t, dh, seed):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, t, dh, device=device, generator=g).bfloat16()
+                   for _ in range(4))
+    lengths = torch.randint(1, t + 1, (b,), device=device, generator=g)
+    lengths[0] = 0  # one all-padding row
+    mask = (torch.arange(t, device=device)[None] < lengths[:, None]).to(torch.int32)
+    return q, k, v, do, mask
+
+
+def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
+    """K2 at rate 0.1 and K3 at rates 0 and 0.1 against their plain versions
+    at the train step's shapes, each timed beside SDPA with a float mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from proqa_tpu_torch.ops import attention
+
+    h, dh, rate, seed = 12, 64, 0.1, 2**50 + 3
+    k2, k3 = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    for t in K2_BUCKETS:
+        q, k, v, do, mask = _attention_inputs(device, b, h, t, dh, seed=t)
+        scale = dh ** -0.5
+        got = attention.fused_attention(q, k, v, mask, sm_scale=scale, dropout_rate=rate, seed=seed)
+        want = attention.fused_attention_reference(q, k, v, mask, sm_scale=scale,
+                                                   dropout_rate=rate, seed=seed)
+        torch.cuda.synchronize()
+        err2 = (got.float() - want.float()).abs().max().item()
+        check(bool(torch.isfinite(got.float()).all()) and err2 <= ATTN_TOL,
+              f"K2 rate {rate} B={b} T={t}: max abs err {err2} > {ATTN_TOL}")
+        k2["max_abs_err"] = max(k2["max_abs_err"], err2)
+        del got, want
+        errs3 = {}
+        for r in (0.0, rate):
+            got = attention._backward_kernel(q, k, v, mask, do, scale, r, seed)
+            want = attention.fused_attention_backward_reference(q, k, v, mask, do, sm_scale=scale,
+                                                                dropout_rate=r, seed=seed)
+            torch.cuda.synchronize()
+            errs3[r] = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+            check(all(bool(torch.isfinite(a.float()).all()) for a in got) and errs3[r] <= BWD_TOL,
+                  f"K3 rate {r} B={b} T={t}: max abs err {errs3[r]} > {BWD_TOL}")
+            del got, want
+        k3["max_abs_err"] = max(k3["max_abs_err"], *errs3.values())
+        bias = torch.where(mask[:, None, None, :] != 0, 0.0, attention.MASK_BIAS).to(q.dtype)
+        fwd = {
+            "ms": cuda_ms(lambda: attention.fused_attention(q, k, v, mask, sm_scale=scale,
+                                                            dropout_rate=rate, seed=seed)),
+            "plain_ms": cuda_ms(lambda: attention.fused_attention_reference(
+                q, k, v, mask, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
+        }
+        qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias)
+        bwd = {
+            "ms": cuda_ms(lambda: attention._backward_kernel(q, k, v, mask, do, scale, rate, seed)),
+            "ms_rate0": cuda_ms(lambda: attention._backward_kernel(q, k, v, mask, do, scale, 0.0,
+                                                                   seed)),
+            "plain_ms": cuda_ms(lambda: attention.fused_attention_backward_reference(
+                q, k, v, mask, do, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3),
+            "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                              retain_graph=True)),
+        }
+        del lib_out, qs, ks, vs, bias
+        n = b * h * t * dh * 2  # bytes of one [B, H, T, Dh] bf16 tensor
+        fwd["bound_ms"], fwd["bound_by"] = bound(4 * n + mask.numel() * 4, 4 * b * h * t * t * dh)
+        bwd["bound_ms"], bwd["bound_by"] = bound(7 * n + mask.numel() * 4, 10 * b * h * t * t * dh)
+        log(f"K2 rate {rate} B={b} H={h} T={t} Dh={dh} bf16: max_abs_err {err2:.3g} (tol "
+            f"{ATTN_TOL}), kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA at rate "
+            f"0 {fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+        log(f"K3 B={b} H={h} T={t} Dh={dh} bf16: max_abs_err rate 0 {errs3[0.0]:.3g}, rate {rate} "
+            f"{errs3[rate]:.3g} (tol {BWD_TOL}); kernel {bwd['ms']:.4f} ms (rate 0 "
+            f"{bwd['ms_rate0']:.4f}), plain {bwd['plain_ms']:.4f} ms, SDPA backward at rate 0 "
+            f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+        if t == 512:
+            k2.update(fwd)
+            k3.update(bwd)
+        del q, k, v, do, mask
+        torch.cuda.empty_cache()
+    return k2, k3
+
+
+def _grads(model, batch, generator):
+    import torch
+
+    from proqa_tpu_torch.train.retriever_trainer import in_batch_loss
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = in_batch_loss(model(batch, generator=generator))
+    loss.backward()
+    grads = {k: p.grad.detach().float().clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return loss.item(), grads
+
+
+def phase_train_step(device) -> dict:
+    """The full-width train step: 20 steps on one fixed batch, the kernels'
+    launch counts, and a dropout-0 step with the kernels against the vanilla
+    attention path."""
+    import dataclasses
+
+    import torch
+
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.ops import attention, dropout
+    from proqa_tpu_torch.train.optim import AdamW, init_train_state
+    from proqa_tpu_torch.train.retriever_trainer import train_step
+
+    b, tq, tc, steps = 80, 32, 512, 20
+    cfg = BertConfig(remat=True, flash_attention=True)  # bf16, dropout 0.1
+    g = torch.Generator(device=device).manual_seed(9)
+    ids_c = torch.randint(5, cfg.vocab_size, (b, tc), device=device, generator=g)
+    lengths = torch.randint(tc // 2, tc + 1, (b,), device=device, generator=g)
+    mask_c = (torch.arange(tc, device=device)[None] < lengths[:, None]).to(torch.int32)
+    ids_c = ids_c * mask_c
+    ids_q = ids_c[:, :tq].clone()  # each question is its paragraph's opening
+    batch = {"input_ids_q": ids_q, "input_mask_q": torch.ones(b, tq, dtype=torch.int32,
+                                                             device=device),
+             "input_ids_c": ids_c, "input_mask_c": mask_c}
+
+    model = Retriever(cfg).reset_parameters(10).to(device)
+    state = init_train_state(dict(model.named_parameters()))
+    tx = AdamW(1e-4)
+    gen = torch.Generator().manual_seed(11)
+    train_step(model, state, tx, batch, gen)  # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.launches = attention.backward_launches = dropout.launches = 0
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = train_step(model, state, tx, batch, gen)
+        losses.append(float(m["loss"]))  # synchronises
+        walls.append(time.perf_counter() - t0)
+    launches = {"K2": attention.launches, "K3": attention.backward_launches,
+                "K4": dropout.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.median(walls) * 1e3
+    log(f"train step BERT-base bf16 remat flash dropout 0.1, {b} x ({tq} + {tc}): losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; {step_ms:.1f} ms per step (median of {steps}, host "
+        f"clock, synchronised), {b * (tq + tc) / step_ms * 1e3:.0f} tokens/s, peak {peak:.2f} GiB; "
+        f"launches in {steps} steps: {json.dumps(launches)}")
+    check(all(math.isfinite(x) for x in losses), f"train step: non-finite loss {losses}")
+    check(losses[-1] < losses[0] - LOSS_DROP,
+          f"train step: loss {losses[0]} -> {losses[-1]} did not fall by {LOSS_DROP}")
+    check(all(n > 0 for n in launches.values()), f"train step: a kernel never ran {launches}")
+
+    # dropout 0: the fused kernels (K2 forward, K3 backward) against the
+    # vanilla attention path, same weights, same batch
+    cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    fused = Retriever(cfg0).to(device)
+    fused.load_state_dict(model.state_dict())
+    del model, state
+    torch.cuda.empty_cache()
+    loss_k, grads_k = _grads(fused, batch, gen)
+    vanilla = Retriever(dataclasses.replace(cfg0, flash_attention=False)).to(device)
+    vanilla.load_state_dict(fused.state_dict())
+    del fused
+    loss_p, grads_p = _grads(vanilla, batch, gen)
+    cos = {}
+    for k, gk in grads_k.items():
+        # the key bias and proj_c's bias get zero gradient in exact arithmetic
+        # (softmax ignores a constant added to a row): only noise, skipped
+        if k.endswith(".k.bias") or k == "proj_c.bias":
+            continue
+        cos[k] = torch.nn.functional.cosine_similarity(gk.flatten(), grads_p[k].flatten(),
+                                                       dim=0).item()
+    worst = min(cos, key=cos.get)
+    log(f"dropout-0 step, kernels vs vanilla attention: loss {loss_k:.6f} vs {loss_p:.6f}, min "
+        f"gradient cosine {cos[worst]:.6f} ({worst}; tol {GRAD_COS}) over {len(cos)} tensors")
+    check(cos[worst] >= GRAD_COS,
+          f"dropout-0 gradients: cosine {cos[worst]} < {GRAD_COS} ({worst})")
+    return {"step_ms": step_ms, "tokens_per_s": b * (tq + tc) / step_ms * 1e3, "peak_gib": peak,
+            "loss_first": losses[0], "loss_last": losses[-1], "min_grad_cos": cos[worst]}
+
+
+def write_pair_world(root: str, n_pairs: int, n_paras: int, seed: int) -> None:
+    """Pretraining pairs whose paragraphs fill the 256-token context (254
+    words and [CLS], [SEP]), 3 questions per paragraph, and a corpus of
+    100..250-word paragraphs, so build-index's buckets 128 and 256 reach K2."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(VOCAB) + "\n")
+    with open(os.path.join(root, "pairs.jsonl"), "w") as f:
+        for i in range(n_pairs):
+            words = rng.integers(0, 60, size=300)
+            para = " ".join(f"tok{w}" for w in words)
+            question = f"what is about tok{words[i % 3]} tok{words[3 + i % 3]}"
+            f.write(json.dumps({"Question": question, "Paragraph": para,
+                                "Answer": f"tok{words[7]}"}) + "\n")
+    with open(os.path.join(root, "corpus.jsonl"), "w") as f:
+        for i in range(n_paras):
+            words = rng.integers(0, 60, size=int(rng.integers(100, 251)))
+            f.write(json.dumps({"text": " ".join(f"tok{w}" for w in words), "id": f"p{i}"}) + "\n")
+
+
+def phase_pretrain_cli(device, root: str) -> dict:
+    """This slice's main path through the CLI, with every launch counter
+    reset just before it and read just after."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.data.datasets import EncodeDataset
+    from proqa_tpu_torch.index.build import encode_corpus
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.convert import load_params
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.ops import attention, dropout, mips_kernel
+    from proqa_tpu_torch.text.wordpiece import BertTokenizer
+
+    n_paras = 4608  # padded index past 4,096 rows: retrieve searches through K1
+    write_pair_world(root, n_pairs=96, n_paras=n_paras, seed=12)
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    seq = ["--vocab", p("vocab.txt"), "--max-seq-length", "286", "--max-query-length", "30",
+           "--device", str(device)]
+    attention.launches = attention.backward_launches = 0
+    dropout.launches = mips_kernel.launches = 0
+    walls = {}
+    trained, walls["pretrain-retriever"] = run_cli([
+        "pretrain-retriever", *seq, "--train-file", p("pairs.jsonl"),
+        "--predict-file", p("pairs.jsonl"), "--output-dir", p("run"), "--train-batch-size", "32",
+        "--predict-batch-size", "32", "--num-train-epochs", "1", "--eval-period", "3",
+        "--save-checkpoints-steps", "100", "--learning-rate", "1e-4"])
+    built, walls["build-index"] = run_cli([
+        "build-index", *seq, "--corpus", p("corpus.jsonl"),
+        "--init-checkpoint", p("run/checkpoint_last.pt"), "--output-dir", p("index"),
+        "--predict-batch-size", "512"])
+    hit, walls["retrieve"] = run_cli([
+        "retrieve", *seq, "--question", "what is about tok3 tok7", "--index", p("index"),
+        "--init-checkpoint", p("run/checkpoint_last.pt"), "--topk", "5"])
+    launches = {"K1": mips_kernel.launches, "K2": attention.launches,
+                "K3": attention.backward_launches, "K4": dropout.launches}
+    log(f"kernel launches during pretrain-retriever -> build-index -> retrieve: "
+        f"{json.dumps(launches)}; wall seconds {json.dumps(walls)}")
+    check(all(n > 0 for n in launches.values()), f"a kernel never ran on the CLI path {launches}")
+    check(0.0 <= trained["best_in_batch_acc"] <= 1.0, f"pretrain-retriever: {trained}")
+    check(built == {"rows": n_paras, "dim": 128, "saved": p("index")}, f"build-index: {built}")
+    check(len(hit["topk"]) == 5, f"retrieve: {hit}")
+    emb = np.load(p("index/embeddings.npy"))
+    check(emb.shape == (n_paras, 128) and np.isfinite(emb).all(), "index: bad embeddings")
+    # the index against the plain encoder (vanilla attention, no K2) on 64 rows
+    model = Retriever(BertConfig(flash_attention=False))
+    model.load_state_dict(load_params(p("run/checkpoint_last.pt")))
+    model = model.to(device).eval()
+    tok = BertTokenizer.from_vocab_file(p("vocab.txt"))
+    ds = EncodeDataset(tok, p("corpus.jsonl"), max_length=286)
+    ds.data = ds.data[:64]
+    plain = encode_corpus(model, ds, batch_size=64)
+    cos = torch.nn.functional.cosine_similarity(torch.from_numpy(plain),
+                                                torch.from_numpy(emb[:64]), dim=1).min().item()
+    log(f"index rows vs the plain encoder from checkpoint_last.pt: min cosine {cos:.6f} "
+        f"(tol {ENCODER_COS})")
+    check(cos >= ENCODER_COS, f"index vs plain encoder: min cosine {cos} < {ENCODER_COS}")
+    return launches
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -335,28 +677,53 @@ def main() -> int:
         lib = _build.build()
         log(f"kernel build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
         _build.library()
-        phase_encoder(device)
-        k1 = phase_mips(device)
-        torch.cuda.empty_cache()
+        phases = {}
+
+        def timed(name, fn, *args):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            phases[name] = round(time.perf_counter() - t0, 1)
+            torch.cuda.empty_cache()
+            return out
+
+        # the dense-retrieval slice
+        timed("encoder", phase_encoder, device)
+        k1 = timed("mips", phase_mips, device)
         with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
-            launches, k1_cli_err, batch = phase_cli(device, root)
-        torch.cuda.empty_cache()
-        k2 = phase_attention(device, batch)
-        check("jax" not in sys.modules, "the port imported jax")
+            retrieval, k1_cli_err, batch = timed("retrieval_cli", phase_cli, device, root)
+        k2_encode = timed("attention_encode", phase_attention, device, batch)
+        # the retriever-pretraining slice
+        k4 = timed("dropout", phase_dropout, device)
+        k2, k3 = timed("attention_train", phase_attention_train, device)
+        timed("train_step", phase_train_step, device)
+        with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
+            pretrain = timed("pretrain_cli", phase_pretrain_cli, device, root)
+        log(f"phase seconds: {json.dumps(phases)}")
+        loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "proqa_tpu"))
+        check(not loaded, f"the port imported {loaded[:5]}")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+
+    def entry(name, source, replaces, launches, result, max_abs_err):
+        return {"name": name, "route": "cuda", "source": f"proqa_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
+                **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")}}
+
+    # launches: both main paths' runs (retrieval CLI, then pretraining CLI)
     kernels = [
-        {"name": "block_maxima_grouped (K1)", "route": "cuda",
-         "source": "proqa_tpu_torch/csrc/block_maxima.cu",
-         "replaces": "proqa_tpu/ops/pallas_mips.py:83", "launches": launches["block_maxima"],
-         "max_abs_err": max(k1["max_abs_err"], k1_cli_err),
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "fused_attention (K2)", "route": "cuda",
-         "source": "proqa_tpu_torch/csrc/attention_fwd.cu",
-         "replaces": "proqa_tpu/ops/pallas_attention.py:65", "launches": launches["attention"],
-         "max_abs_err": k2["max_abs_err"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        entry("block_maxima_grouped (K1)", "block_maxima.cu", "proqa_tpu/ops/pallas_mips.py:83",
+              retrieval["block_maxima"] + pretrain["K1"], k1,
+              max(k1["max_abs_err"], k1_cli_err)),
+        entry("fused_attention (K2)", "attention_fwd.cu", "proqa_tpu/ops/pallas_attention.py:65",
+              retrieval["attention"] + pretrain["K2"], k2,
+              max(k2["max_abs_err"], k2_encode["max_abs_err"])),
+        entry("fused_attention backward (K3)", "attention_bwd.cu",
+              "proqa_tpu/ops/pallas_attention.py:83", pretrain["K3"], k3, k3["max_abs_err"]),
+        entry("dropout (K4)", "dropout.cu", "proqa_tpu/ops/pallas_dropout.py:32", pretrain["K4"],
+              k4, k4["max_abs_err"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

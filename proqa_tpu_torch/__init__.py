@@ -2,13 +2,19 @@
 
 The JAX package `proqa_tpu` stays the reference; this package mirrors its
 module layout, so the counterpart of `proqa_tpu/<path>.py` is
-`proqa_tpu_torch/<path>.py`. Framework-free host code (`proqa_tpu.text`,
-`proqa_tpu.data`) is imported, not copied. This package never imports JAX.
+`proqa_tpu_torch/<path>.py`. It imports neither JAX nor anything of
+`proqa_tpu`: the framework-free host code it needs (`text/`, `data/`,
+`native/`, `train/meta.py`, `utils/logging.py`) is copied here, each copy
+naming the module it was taken from.
 
 Layout:
-  models/   BERT encoder, two-tower retriever, JAX-layout weight conversion
-  ops/      MIPS search and attention; hand-written CUDA kernels in csrc/,
-            each beside its plain PyTorch version
+  models/   BERT encoder (dropout, remat), two-tower retriever, JAX-layout
+            weight conversion
+  ops/      MIPS search, attention, dropout and counter-based random bits;
+            hand-written CUDA kernels in csrc/, each beside its plain
+            PyTorch version
   index/    device-resident dense index, index building, recall@k
+  train/    AdamW with optax's semantics, checkpoints, the retriever trainer
+  text/, data/, native/, utils/   host code
   cli/      the `proqa-torch` entry point
 """

@@ -28,11 +28,19 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U, _L = ctypes.c_uint32, ctypes.c_longlong
+_DROPOUT = [_U, _U, _U, _F]  # k0, k1, threshold, 1/(1-rate) (ops/random.py)
 _SIGNATURES = {
     # queries, corpus, bmax3, gmax, num_q, n, dim, block, group, is_bf16, stream
     "proqa_block_maxima": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, is_bf16, stream
-    "proqa_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, is_bf16,
+    # dropout, k0, k1, threshold, inv_keep, stream
+    "proqa_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
+    # q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads, seq, head_dim,
+    # scale, is_bf16, dropout, k0, k1, threshold, inv_keep, stream
+    "proqa_attention_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
+    # x, y, n, k0, k1, threshold, inv_keep, is_bf16, stream
+    "proqa_dropout": [_P, _P, _L, *_DROPOUT, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -54,7 +62,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libproqa_kernels_{h.hexdigest()[:16]}.so"

@@ -1,17 +1,19 @@
-"""`proqa-torch` CLI: the dense-retrieval commands of the `proqa` CLI
-(proqa_tpu/cli/main.py), run by the PyTorch port.
+"""`proqa-torch` CLI: the retriever-pretraining and dense-retrieval commands
+of the `proqa` CLI (proqa_tpu/cli/main.py), run by the PyTorch port.
 
 Subcommands:
-  build-db         jsonl corpus -> sqlite document store
-  build-index      corpus -> dense index artifacts (embeddings.npy, idx_id.json)
-  encode-queries   questions -> query embedding .npy
-  eval-retrieval   recall@k over the index
-  retrieve         one-shot question -> top-k paragraphs
+  pretrain-retriever   contrastive bi-encoder pretraining
+  build-db             jsonl corpus -> sqlite document store
+  build-index          corpus -> dense index artifacts (embeddings.npy, idx_id.json)
+  encode-queries       questions -> query embedding .npy
+  eval-retrieval       recall@k over the index
+  retrieve             one-shot question -> top-k paragraphs
 
 Flags and final JSON lines are the `proqa` CLI's, plus `--device` (default
-cuda). Checkpoints are `.npz` files in the JAX layout or `.pt` state dicts
-(models/convert.py). Flags for paths not ported yet (--stream-chunk,
---dp-encode, --shard-index, --int8-index) raise NotImplementedError.
+cuda). Checkpoints are `.npz` files in the JAX layout, `.pt` state dicts, or
+the `.pt` train checkpoints pretrain-retriever writes (models/convert.py).
+Flags for paths not ported yet (--stream-chunk, --dp-encode, --shard-index,
+--int8-index) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -32,11 +34,12 @@ def _bert_cfg(args, flash_default: bool = False):
     dtype = torch.float32 if getattr(args, "f32", False) else torch.bfloat16
     cfg = BertConfig.tiny(dtype=dtype) if args.tiny else BertConfig(dtype=dtype)
     flash = getattr(args, "flash_attention", None)
-    return dataclasses.replace(cfg, flash_attention=flash_default if flash is None else flash)
+    return dataclasses.replace(cfg, flash_attention=flash_default if flash is None else flash,
+                               remat=getattr(args, "remat", True))
 
 
 def _tokenizer(args):
-    from proqa_tpu.text.wordpiece import BertTokenizer
+    from proqa_tpu_torch.text.wordpiece import BertTokenizer
 
     return BertTokenizer.from_vocab_file(args.vocab, do_lower_case=not args.cased)
 
@@ -69,15 +72,16 @@ def _add_common(p):
     p.add_argument("--vocab", required=True, help="wordpiece vocab file")
     p.add_argument("--cased", action="store_true")
     p.add_argument("--profile-dir", default="",
-                   help="accepted for flag parity with `proqa`; only training reads it")
+                   help="torch.profiler trace of a few warm train steps into this directory "
+                        "(pretrain-retriever)")
     p.add_argument("--tiny", action="store_true", help="tiny model (smoke tests)")
     p.add_argument("--seed", type=int, default=3)
     p.add_argument("--max-seq-length", type=int, default=512)
     p.add_argument("--max-query-length", type=int, default=30)
     p.add_argument("--flash-attention", action="store_true", default=None,
-                   help="fused attention kernel K2 (default on for these commands)")
+                   help="fused attention kernels K2/K3 (default on for these commands)")
     p.add_argument("--no-remat", dest="remat", action="store_false", default=True,
-                   help="accepted for flag parity with `proqa`; only training reads it")
+                   help="keep every layer's activations for backward (training only)")
     p.add_argument("--f32", action="store_true",
                    help="float32 activations + index scoring (parity runs; "
                         "default bf16 is the production path)")
@@ -91,6 +95,60 @@ def _add_device(p):
 def _shard_index_arg(p):
     p.add_argument("--shard-index", action="store_true", help="not ported yet")
     p.add_argument("--int8-index", action="store_true", help="not ported yet")
+
+
+def cmd_pretrain_retriever(args):
+    import os
+    import random
+
+    from proqa_tpu_torch.data.datasets import (
+        ClusterPairDataset, PairDataset, cluster_batch_order, grouped_shuffle_order,
+    )
+    from proqa_tpu_torch.data.loader import BatchLoader
+    from proqa_tpu_torch.models.convert import load_params
+    from proqa_tpu_torch.train.retriever_trainer import RetrieverTrainer, RetrieverTrainerConfig
+
+    cfg = _bert_cfg(args, flash_default=True)
+    tok = _tokenizer(args)
+    tcfg = RetrieverTrainerConfig(
+        learning_rate=args.learning_rate,
+        weight_decay=args.weight_decay,
+        max_grad_norm=args.max_grad_norm,
+        adam_eps=args.adam_eps,
+        accumulate_gradients=args.accumulate_gradients,
+        num_train_epochs=args.num_train_epochs,
+        eval_period=args.eval_period,
+        save_checkpoints_steps=args.save_checkpoints_steps,
+        wait_step=args.wait_step,
+        warmup_steps=args.warmup_steps,
+        seed=args.seed,
+        output_dir=args.output_dir,
+        profile_dir=args.profile_dir,
+    )
+    params = load_params(args.init_checkpoint) if args.init_checkpoint else None
+    trainer = RetrieverTrainer(cfg, tcfg, params=params, device=args.device)
+    if args.resume:
+        trainer.resume(args.resume)
+
+    is_cluster = os.path.isdir(args.train_file)
+    dataset = ClusterPairDataset if is_cluster else PairDataset
+    train_ds = dataset(tok, args.train_file, args.max_query_length, args.max_seq_length,
+                       args.filter)
+    eval_ds = PairDataset(tok, args.predict_file, args.max_query_length, args.max_seq_length)
+
+    def train_batches(epoch):
+        rng = random.Random(args.seed + epoch)
+        order = (cluster_batch_order(train_ds, args.train_batch_size, rng)
+                 if is_cluster else grouped_shuffle_order(train_ds, rng))
+        return BatchLoader(
+            train_ds.batches(order, args.train_batch_size, drop_last=True), prefetch=4)
+
+    def eval_batches():
+        return BatchLoader(
+            eval_ds.batches(list(range(len(eval_ds))), args.predict_batch_size), prefetch=4)
+
+    best = trainer.train(train_batches, eval_batches)
+    print(json.dumps({"best_in_batch_acc": best}))
 
 
 def cmd_build_index(args):
@@ -107,7 +165,7 @@ def cmd_build_index(args):
 
 
 def cmd_encode_queries(args):
-    from proqa_tpu.data.datasets import EncodeDataset
+    from proqa_tpu_torch.data.datasets import EncodeDataset
     from proqa_tpu_torch.index.build import encode_corpus
 
     _reject_unported(args)
@@ -121,7 +179,7 @@ def cmd_encode_queries(args):
 
 
 def cmd_eval_retrieval(args):
-    from proqa_tpu.data.docdb import DocDB
+    from proqa_tpu_torch.data.docdb import DocDB
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.index.recall import evaluate_retrieval
 
@@ -134,7 +192,7 @@ def cmd_eval_retrieval(args):
         # raw {"question"} jsonl: encode on the fly (needs --vocab/--init-checkpoint)
         if not (args.vocab and args.init_checkpoint):
             raise SystemExit("encoding queries on the fly requires --vocab and --init-checkpoint")
-        from proqa_tpu.data.datasets import EncodeDataset
+        from proqa_tpu_torch.data.datasets import EncodeDataset
         from proqa_tpu_torch.index.build import encode_corpus
 
         cfg = _bert_cfg(args, flash_default=True)
@@ -154,7 +212,7 @@ def cmd_retrieve(args):
     paragraphs."""
     import torch
 
-    from proqa_tpu.data.docdb import DocDB
+    from proqa_tpu_torch.data.docdb import DocDB
     from proqa_tpu_torch.index.dense import DenseIndex
 
     _reject_unported(args)
@@ -183,7 +241,7 @@ def cmd_retrieve(args):
 
 def cmd_build_db(args):
     """{"text", ["id"]} jsonl corpus -> sqlite document store."""
-    from proqa_tpu.data.docdb import DocDB
+    from proqa_tpu_torch.data.docdb import DocDB
 
     def rows():
         with open(args.corpus) as f:
@@ -200,6 +258,30 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="proqa-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    sp = sub.add_parser("pretrain-retriever")
+    _add_common(sp)
+    sp.add_argument("--train-file", required=True, help="pairs jsonl or cluster-shard dir")
+    sp.add_argument("--predict-file", required=True)
+    sp.add_argument("--output-dir", default="logs/retriever")
+    sp.add_argument("--init-checkpoint", default="", help=".npz (JAX layout) or .pt")
+    sp.add_argument("--resume", default="", help="a checkpoint_*.pt of an earlier run")
+    sp.add_argument("--train-batch-size", type=int, default=80)
+    sp.add_argument("--predict-batch-size", type=int, default=100)
+    sp.add_argument("--learning-rate", type=float, default=1e-5)
+    sp.add_argument("--weight-decay", type=float, default=0.0)
+    sp.add_argument("--max-grad-norm", type=float, default=5.0)
+    sp.add_argument("--adam-eps", type=float, default=1e-8)
+    sp.add_argument("--accumulate-gradients", type=int, default=1)
+    sp.add_argument("--num-train-epochs", type=int, default=100)
+    sp.add_argument("--eval-period", type=int, default=2500,
+                    help="steps between dev evals; <=0: epoch end only")
+    sp.add_argument("--save-checkpoints-steps", type=int, default=20000,
+                    help="steps between numbered checkpoints; <=0: none")
+    sp.add_argument("--wait-step", type=int, default=100)
+    sp.add_argument("--warmup-steps", type=int, default=0)
+    sp.add_argument("--filter", action="store_true")
+    sp.set_defaults(fn=cmd_pretrain_retriever)
 
     sp = sub.add_parser("build-index")
     _add_common(sp)

@@ -17,9 +17,9 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from proqa_tpu.data.collate import batch_pad, collate_tokens
-from proqa_tpu.data.datasets import EncodeDataset
-from proqa_tpu.data.loader import BatchLoader
+from proqa_tpu_torch.data.collate import batch_pad, collate_tokens
+from proqa_tpu_torch.data.datasets import EncodeDataset
+from proqa_tpu_torch.data.loader import BatchLoader
 from proqa_tpu_torch.index.dense import DenseIndex
 from proqa_tpu_torch.index.idmap import IdMap
 from proqa_tpu_torch.models.retriever import Retriever

@@ -11,10 +11,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from proqa_tpu.data.docdb import DocDB
-from proqa_tpu.text.matching import para_has_answer
-from proqa_tpu.text.simple import SimpleTokenizer
+from proqa_tpu_torch.data.docdb import DocDB
 from proqa_tpu_torch.index.dense import DenseIndex
+from proqa_tpu_torch.text.matching import para_has_answer
+from proqa_tpu_torch.text.simple import SimpleTokenizer
 
 
 def load_qa_pairs(path: str) -> list[dict]:

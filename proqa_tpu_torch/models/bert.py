@@ -1,4 +1,4 @@
-"""BERT encoder in PyTorch, for inference.
+"""BERT encoder in PyTorch, for inference and training.
 
 Counterpart of proqa_tpu/models/bert.py, with the same numerics policy:
 f32 parameters, activations in `cfg.dtype` (bf16 by default), each dense
@@ -6,9 +6,18 @@ layer a product of bf16 operands accumulated in f32 plus an f32 bias and then
 rounded, LayerNorm in f32 (eps 1e-12), exact GELU in f32, softmax in f32,
 the pooler's tanh in f32, and an additive key mask of -1e30.
 
+Training adds dropout at the sites and in the order of bert.py:247-296: the
+embedding output, the attention probabilities (kernel K2 in the fused path,
+K4 in the vanilla one), the attention output and the MLP output, each with
+its own seed drawn from the caller's torch.Generator (one per site and
+layer; this replaces JAX's key splits, so the bits differ by design). Every
+dropout regenerates its mask from its seed, so rematerialisation
+(torch.utils.checkpoint over a layer or its MLP block) recomputes the same
+masks.
+
 Weights keep the JAX layout: dense kernels are [in, out], so
 models/convert.py maps a JAX parameter tree onto this module by unstacking the
-per-layer leaves. Dropout and rematerialisation belong to the training slice.
+per-layer leaves.
 """
 from __future__ import annotations
 
@@ -17,9 +26,13 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from proqa_tpu_torch.ops.attention import MASK_BIAS, fused_attention
 from proqa_tpu_torch.ops.dot import dot_f32
+from proqa_tpu_torch.ops.dropout import dropout
+
+SEED_RANGE = 1 << 62  # dropout seeds are drawn uniformly below this
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,10 +44,18 @@ class BertConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     layer_norm_eps: float = 1e-12
     initializer_range: float = 0.02
     dtype: torch.dtype = torch.bfloat16  # activation / compute dtype
-    flash_attention: bool = False  # kernel K2 for T % 128 == 0, T <= 1024
+    remat: bool = False  # recompute activations in backward (torch.utils.checkpoint)
+    remat_scope: str = "layer"  # "layer": the whole layer; "mlp": only the MLP block
+    flash_attention: bool = False  # kernels K2/K3 for T % 128 == 0, T <= 1024
+
+    def __post_init__(self):
+        if self.remat_scope not in ("layer", "mlp"):
+            raise ValueError(f"remat_scope={self.remat_scope!r}: must be 'layer' or 'mlp'")
 
     @property
     def head_dim(self) -> int:
@@ -110,7 +131,8 @@ class BertLayer(nn.Module):
         self.mlp_out = Dense(i, h)
         self.mlp_ln = LayerNorm(h, cfg.layer_norm_eps)
 
-    def attention(self, x, mask_bias, key_mask) -> torch.Tensor:
+    def attention(self, x, mask_bias, key_mask, seed) -> torch.Tensor:
+        """Self-attention; `seed` is None in eval (no dropout)."""
         cfg = self.cfg
         b, t, h = x.shape
         nh, hd = cfg.num_heads, cfg.head_dim
@@ -122,18 +144,36 @@ class BertLayer(nn.Module):
         # same rule as bert.py:190: the fused kernel takes block-divisible lengths
         if cfg.flash_attention and t % 128 == 0 and t <= 1024:
             ctx = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), key_mask,
-                                  sm_scale=1.0 / math.sqrt(hd))
+                                  sm_scale=1.0 / math.sqrt(hd),
+                                  dropout_rate=0.0 if seed is None else cfg.attention_dropout,
+                                  seed=seed or 0)
         else:
             scores = dot_f32(q, k.transpose(-1, -2)) / math.sqrt(hd) + mask_bias
-            probs = torch.softmax(scores, dim=-1)
+            probs = _drop(torch.softmax(scores, dim=-1), cfg.attention_dropout, seed)
             ctx = dot_f32(probs.to(x.dtype), v).to(x.dtype)
         return self.attn_out(ctx.transpose(1, 2).reshape(b, t, h))
 
-    def forward(self, x, mask_bias, key_mask) -> torch.Tensor:
-        x = self.attn_ln(x + self.attention(x, mask_bias, key_mask))
+    def mlp(self, x, seed) -> torch.Tensor:
         mlp = self.mlp_in(x)
         mlp = nn.functional.gelu(mlp.float(), approximate="none").to(x.dtype)
-        return self.mlp_ln(x + self.mlp_out(mlp))
+        mlp = _drop(self.mlp_out(mlp), self.cfg.hidden_dropout, seed)
+        return self.mlp_ln(x + mlp)
+
+    def forward(self, x, mask_bias, key_mask, seeds=None) -> torch.Tensor:
+        """seeds: (attention probabilities, attention output, MLP output), or
+        None in eval."""
+        s_probs, s_attn, s_mlp = seeds if seeds is not None else (None, None, None)
+        attn = self.attention(x, mask_bias, key_mask, s_probs)
+        attn = _drop(attn, self.cfg.hidden_dropout, s_attn)
+        x = self.attn_ln(x + attn)
+        if self.cfg.remat and self.cfg.remat_scope == "mlp" and torch.is_grad_enabled():
+            return checkpoint(self.mlp, x, s_mlp, use_reentrant=False)
+        return self.mlp(x, s_mlp)
+
+
+def _drop(x: torch.Tensor, rate: float, seed: int | None) -> torch.Tensor:
+    """Dropout under `seed`, or the identity when seed is None (eval)."""
+    return x if seed is None else dropout(x, rate, seed)
 
 
 class BertEncoder(nn.Module):
@@ -144,19 +184,42 @@ class BertEncoder(nn.Module):
         self.layers = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_layers))
         self.pooler = Dense(cfg.hidden_size, cfg.hidden_size)
 
-    def forward(self, input_ids, attention_mask, token_type_ids=None):
+    def dropout_seeds(self, generator: torch.Generator | None) -> list | None:
+        """One seed per dropout site and layer (embedding output, then
+        (probabilities, attention output, MLP output) per layer), drawn from
+        `generator` in training mode; None in eval or at dropout rate 0."""
+        cfg = self.cfg
+        if not self.training or (cfg.hidden_dropout == 0 and cfg.attention_dropout == 0):
+            return None
+        if generator is None:
+            # a fixed default would replay identical masks every step
+            raise ValueError("training-mode BertEncoder with dropout needs a torch.Generator "
+                             "(call .eval() for inference)")
+        return torch.randint(0, SEED_RANGE, (1 + 3 * cfg.num_layers,),
+                             generator=generator).tolist()
+
+    def forward(self, input_ids, attention_mask, token_type_ids=None, *,
+                generator: torch.Generator | None = None):
         """Returns (sequence_output [B, T, H], pooled_output [B, H]) in
         cfg.dtype; pooled = tanh(W h_CLS + b), the embedding both retriever
-        towers consume."""
+        towers consume. In training mode dropout draws its seeds from
+        `generator`."""
         cfg = self.cfg
+        seeds = self.dropout_seeds(generator)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = self.embeddings(input_ids, token_type_ids, cfg.dtype)
+        x = _drop(x, cfg.hidden_dropout, None if seeds is None else seeds[0])
         mask_bias = torch.where(attention_mask[:, None, None, :] != 0, 0.0, MASK_BIAS)
         mask_bias = mask_bias.to(torch.float32)
         key_mask = attention_mask.to(torch.int32).contiguous()
-        for layer in self.layers:
-            x = layer(x, mask_bias, key_mask)
+        remat_layer = cfg.remat and cfg.remat_scope == "layer" and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            layer_seeds = None if seeds is None else tuple(seeds[1 + 3 * i: 4 + 3 * i])
+            if remat_layer:
+                x = checkpoint(layer, x, mask_bias, key_mask, layer_seeds, use_reentrant=False)
+            else:
+                x = layer(x, mask_bias, key_mask, layer_seeds)
         pooled = torch.tanh(self.pooler(x[:, 0]).float()).to(cfg.dtype)
         return x, pooled
 

@@ -10,7 +10,8 @@ kernel orientation, one module per layer, so the mapping is mechanical:
 
 The port reads no flax msgpack (no JAX on the GPU machine): checkpoints reach
 it as a `.npz` whose keys are the "/"-joined JAX paths, converted where JAX is
-installed, or as a `.pt` state dict the port saved.
+installed, or as a `.pt` file the port saved: a state dict, or a train
+checkpoint (train/checkpoint.py), which is unwrapped to its parameters.
 """
 from __future__ import annotations
 
@@ -91,16 +92,21 @@ def load_npz(path: str) -> dict:
     return tree
 
 
+def _load_pt(path: str) -> dict[str, torch.Tensor]:
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if "params" in state and set(state) <= _TRAIN_STATE:
+        return state["params"]
+    return state
+
+
 def load_params(path: str) -> dict[str, torch.Tensor]:
     """Retriever weights for Retriever.load_state_dict. `path` is a `.npz`
-    (JAX layout) or a `.pt` state dict; a ';'-joined list loads the uniform
-    parameter average of the checkpoints (the JAX CLI's model soup)."""
+    (JAX layout), or a `.pt` state dict or train checkpoint; a ';'-joined list
+    loads the uniform parameter average of the checkpoints (the JAX CLI's
+    model soup)."""
     paths = [p for p in path.split(";") if p]
-    states = [
-        torch.load(p, map_location="cpu", weights_only=True) if p.endswith(".pt")
-        else params_from_jax(load_npz(p))
-        for p in paths
-    ]
+    states = [_load_pt(p) if p.endswith(".pt") else params_from_jax(load_npz(p))
+              for p in paths]
     if len(states) == 1:
         return states[0]
     return {k: torch.stack([s[k].float() for s in states]).mean(0) for k in states[0]}

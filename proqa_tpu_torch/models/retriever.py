@@ -30,20 +30,24 @@ class Retriever(nn.Module):
         init_parameters(self, self.cfg.initializer_range, torch.Generator().manual_seed(seed))
         return self
 
-    def encode_query(self, input_ids, attention_mask) -> torch.Tensor:
+    def encode_query(self, input_ids, attention_mask, *, generator=None) -> torch.Tensor:
         """[B, T] -> [B, embed_dim] f32 query embeddings."""
-        _, pooled = self.bert_q(input_ids, attention_mask)
+        _, pooled = self.bert_q(input_ids, attention_mask, generator=generator)
         return self.proj_q(pooled, torch.float32)
 
-    def encode_context(self, input_ids, attention_mask) -> torch.Tensor:
+    def encode_context(self, input_ids, attention_mask, *, generator=None) -> torch.Tensor:
         """[B, T] -> [B, embed_dim] f32 paragraph embeddings."""
-        _, pooled = self.bert_c(input_ids, attention_mask)
+        _, pooled = self.bert_c(input_ids, attention_mask, generator=generator)
         return self.proj_c(pooled, torch.float32)
 
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict, *, generator: torch.Generator | None = None) -> dict:
         """The JAX package's retriever_forward: both towers on a paired batch,
-        {"q": [B, D], "c": [B, D]}."""
+        {"q": [B, D], "c": [B, D]}. In training mode each tower draws its own
+        dropout seeds from `generator`, the query tower first
+        (retriever.py:80-101); eval is deterministic."""
         return {
-            "q": self.encode_query(batch["input_ids_q"], batch["input_mask_q"]),
-            "c": self.encode_context(batch["input_ids_c"], batch["input_mask_c"]),
+            "q": self.encode_query(batch["input_ids_q"], batch["input_mask_q"],
+                                   generator=generator),
+            "c": self.encode_context(batch["input_ids_c"], batch["input_mask_c"],
+                                     generator=generator),
         }

@@ -1,4 +1,4 @@
-"""Where the device time goes in the port's two hot workloads, on one NVIDIA GPU.
+"""Where the device time goes in the port's hot workloads, on one NVIDIA GPU.
 
     python -m proqa_tpu_torch.profile_slice [--out build/profile_slice.json]
 
@@ -8,7 +8,11 @@ Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
               and rescore);
   search_f32  the same over an f32 index (`--f32`);
   encode_T*   the BERT-base context tower, bf16, 512 rows of T tokens
-              (build-index's batch; K2 at every layer).
+              (build-index's batch; K2 at every layer);
+  train       one retriever train step at bench.py's operating point
+              (bench.py:_bench_train_step): BERT-base, bf16, remat, fused
+              attention, dropout 0.1, 80 pairs of 32-token questions and
+              512-token paragraphs, AdamW (K2, K3 and K4 in every layer).
 
 For each workload:
   - a steady loop, host clock around calls that end synchronised (median,
@@ -41,6 +45,8 @@ GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 GROUPS = (
     ("K1 block_maxima", ("bmax3_kernel",)),
     ("K2 attention", ("attention_fwd_kernel",)),
+    ("K3 attention backward", ("attention_bwd_",)),
+    ("K4 dropout", ("dropout_kernel",)),
     ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
     ("topk/sort", ("topk", "radixSort", "Sort", "cub::")),
     ("gather/index", ("gather", "index_elementwise", "index_kernel")),
@@ -223,6 +229,44 @@ def encode_workload(model, t: int, trace_dir: str, loop_calls: int) -> dict:
     return result
 
 
+def train_workload(trace_dir: str, loop_calls: int) -> dict:
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.train.optim import AdamW, init_train_state
+    from proqa_tpu_torch.train.retriever_trainer import train_step
+
+    b, tq, tc = 80, 32, 512
+    cfg = BertConfig(remat=True, flash_attention=True)
+    device = torch.device("cuda", 0)
+    g = torch.Generator(device=device).manual_seed(2)
+    batch = {"input_ids_q": torch.randint(5, cfg.vocab_size, (b, tq), device=device, generator=g),
+             "input_mask_q": torch.ones(b, tq, dtype=torch.int32, device=device),
+             "input_ids_c": torch.randint(5, cfg.vocab_size, (b, tc), device=device, generator=g),
+             "input_mask_c": torch.ones(b, tc, dtype=torch.int32, device=device)}
+    model = Retriever(cfg).reset_parameters(0).to(device)
+    box = {"state": init_train_state(dict(model.named_parameters()))}
+    tx = AdamW(1e-5, max_grad_norm=2.0)
+    gen = torch.Generator().manual_seed(3)
+
+    def call():
+        box["state"], m = train_step(model, box["state"], tx, batch, gen)
+        return float(m["loss"])  # synchronises
+
+    h, layers, inter = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size
+    tokens = b * (tq + tc)
+    # forward GEMMs of both towers, x3 for backward, +1 forward for remat
+    gemm = 2.0 * tokens * layers * (4 * h * h + 2 * h * inter) * 4
+    result = measure("train", call, loop_calls=loop_calls, traced_calls=2, trace_dir=trace_dir,
+                     extra={"shape": {"batch": b, "q_len": tq, "c_len": tc, "hidden": h,
+                                      "layers": layers, "dtype": str(cfg.dtype), "remat": True,
+                                      "dropout": cfg.hidden_dropout},
+                            "gemm_flop_per_call": gemm,
+                            "k2_flop_per_call": 2 * 4.0 * b * tc * tc * h * layers,
+                            "k3_flop_per_call": 10.0 * b * tc * tc * h * layers})
+    result["tokens_per_s"] = tokens / result["steady_loop"]["wall_ms_median"] * 1e3
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_slice.json")
@@ -250,6 +294,8 @@ def main(argv=None) -> int:
         for t, calls in ((128, 20), (256, 10), (512, 5)):
             report["workloads"].append(encode_workload(model, t, trace_dir, calls))
             torch.cuda.empty_cache()
+        del model
+        report["workloads"].append(train_workload(trace_dir, 10))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -123,3 +123,59 @@ def test_reset_parameters_is_seeded():
     assert all(torch.equal(x, y) for x, y in zip(a.parameters(), b.parameters()))
     std = a.bert_q.layers[0].q.kernel.std().item()
     assert abs(std - tcfg.initializer_range) < 0.005
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_train_mode_at_rate_zero_matches_jax(jax_params, flash):
+    """Training mode with dropout rates 0 is the JAX encoder's
+    deterministic=False path (T=128 reaches the fused kernels' plain versions
+    when flash is on)."""
+    kw = dict(max_position_embeddings=128, flash_attention=flash, hidden_dropout=0.0,
+              attention_dropout=0.0)
+    jcfg = jax_bert.BertConfig.tiny(dtype=jnp.float32, **kw)
+    tcfg = BertConfig.tiny(dtype=torch.float32, remat=True, **kw)
+    ids, mask = _batch(128, seed=8)
+    _, want = jax_bert.bert_encoder(jax_params["bert_c"], jcfg, jnp.asarray(ids),
+                                    jnp.asarray(mask), deterministic=False,
+                                    dropout_rng=jax.random.PRNGKey(0))
+    model = _model(jax_params, tcfg).train()
+    _, got = model.bert_c(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                          generator=torch.Generator())
+    np.testing.assert_allclose(_np(got.detach()), _np(want), atol=TOL["float32"], rtol=0)
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_dropout_sites_and_seeds(monkeypatch, flash):
+    """The sites of bert.py:247-296, in order, each with its own seed: the
+    embedding output; per layer the attention probabilities (the fused kernel
+    when flash reaches T, else K4), the attention output and the MLP output."""
+    from proqa_tpu_torch.models import bert as torch_bert
+
+    calls = []
+    real_dropout, real_attention = torch_bert.dropout, torch_bert.fused_attention
+    monkeypatch.setattr(torch_bert, "dropout", lambda x, rate, seed: (
+        calls.append(("dropout", tuple(x.shape), rate, seed)), real_dropout(x, rate, seed))[1])
+    monkeypatch.setattr(torch_bert, "fused_attention", lambda *a, **kw: (
+        calls.append(("fused", kw["dropout_rate"], kw["seed"])), real_attention(*a, **kw))[1])
+    cfg = BertConfig.tiny(max_position_embeddings=128, flash_attention=flash,
+                          hidden_dropout=0.1, attention_dropout=0.2)
+    model = Retriever(cfg).reset_parameters(0).train()
+    ids, mask = _batch(128, seed=9)
+    model.bert_c(torch.from_numpy(ids).long(), torch.from_numpy(mask),
+                 generator=torch.Generator().manual_seed(3))
+    seeds = [c[-1] for c in calls]
+    assert len(calls) == 1 + 3 * cfg.num_layers and len(set(seeds)) == len(seeds)
+    assert calls[0][1:3] == ((4, 128, 32), 0.1)
+    for i in range(cfg.num_layers):
+        probs, attn_out, mlp_out = calls[1 + 3 * i: 4 + 3 * i]
+        if flash:
+            assert probs[:2] == ("fused", 0.2)
+        else:
+            assert probs[:3] == ("dropout", (4, 2, 128, 128), 0.2)
+        assert attn_out[1:3] == mlp_out[1:3] == ((4, 128, 32), 0.1)
+    # eval: no dropout at all, no generator needed
+    calls.clear()
+    with torch.no_grad():
+        model.eval().bert_c(torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    assert all(c[0] == "fused" and c[1] == 0.0 for c in calls)
+    assert len(calls) == (cfg.num_layers if flash else 0)
