@@ -23,8 +23,9 @@ The retriever-pretraining slice:
      bf16 and [80, 12, 32, 32] f32, rate 0.1, with the keep rate within 5
      sigma of 0.9 and a backward that applies the forward's mask;
   7. K2 at dropout rate 0.1 (the same bits as its plain version) and K3, the
-     attention backward, at rates 0 and 0.1, against their plain versions at
-     the train step's shapes (B=80, H=12, Dh=64, T in 128..512, bf16, one
+     attention backward, at rates 0 and 0.1, against their plain versions
+     (for K3 also against autograd through K2's plain version) at the train
+     step's shapes (B=80, H=12, Dh=64, T in 128..512, bf16, one
      all-padding row), timed beside F.scaled_dot_product_attention;
   8. a full-width train step (BERT-base retriever, bf16, remat, fused
      attention, dropout 0.1, 80 x (32 + 512) tokens, AdamW lr 1e-4): 20 steps
@@ -425,7 +426,7 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
               f"K2 rate {rate} B={b} T={t}: max abs err {err2} > {ATTN_TOL}")
         k2["max_abs_err"] = max(k2["max_abs_err"], err2)
         del got, want
-        errs3 = {}
+        errs3, errs_autograd = {}, {}
         for r in (0.0, rate):
             got = attention._backward_kernel(q, k, v, mask, do, scale, r, seed)
             want = attention.fused_attention_backward_reference(q, k, v, mask, do, sm_scale=scale,
@@ -434,7 +435,17 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
             errs3[r] = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
             check(all(bool(torch.isfinite(a.float()).all()) for a in got) and errs3[r] <= BWD_TOL,
                   f"K3 rate {r} B={b} T={t}: max abs err {errs3[r]} > {BWD_TOL}")
-            del got, want
+            # and against torch autograd through K2's plain version, which
+            # rounds do v^T to bf16 (the backward of the probabilities' cast)
+            # where the TPU kernel's formula keeps it in f32
+            leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            attention.fused_attention_reference(*leaves, mask, sm_scale=scale, dropout_rate=r,
+                                                seed=seed).backward(do)
+            errs_autograd[r] = max((a.float() - x.grad.float()).abs().max().item()
+                                   for a, x in zip(got, leaves))
+            check(errs_autograd[r] <= BWD_TOL, f"K3 rate {r} B={b} T={t} against autograd: max "
+                                               f"abs err {errs_autograd[r]} > {BWD_TOL}")
+            del got, want, leaves
         k3["max_abs_err"] = max(k3["max_abs_err"], *errs3.values())
         bias = torch.where(mask[:, None, None, :] != 0, 0.0, attention.MASK_BIAS).to(q.dtype)
         fwd = {
@@ -463,8 +474,9 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
             f"{ATTN_TOL}), kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA at rate "
             f"0 {fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
         log(f"K3 B={b} H={h} T={t} Dh={dh} bf16: max_abs_err rate 0 {errs3[0.0]:.3g}, rate {rate} "
-            f"{errs3[rate]:.3g} (tol {BWD_TOL}); kernel {bwd['ms']:.4f} ms (rate 0 "
-            f"{bwd['ms_rate0']:.4f}), plain {bwd['plain_ms']:.4f} ms, SDPA backward at rate 0 "
+            f"{errs3[rate]:.3g} (tol {BWD_TOL}); against autograd of the plain forward "
+            f"{errs_autograd[0.0]:.3g}, {errs_autograd[rate]:.3g}; kernel {bwd['ms']:.4f} ms "
+            f"(rate 0 {bwd['ms_rate0']:.4f}), plain {bwd['plain_ms']:.4f} ms, SDPA backward at rate 0 "
             f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
         if t == 512:
             k2.update(fwd)
