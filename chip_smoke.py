@@ -66,6 +66,12 @@ ENCODER_COS = 0.999  # embeddings with and without K2, 12 bf16 layers apart
 # of ds or pd before a T-long product moves an output by a few bf16 ulps of
 # values of magnitude ~1 (tests/test_torch_cuda.py holds the same bound)
 BWD_TOL = 6e-2
+# K3 against torch autograd through K2's plain version: autograd rounds do v^T
+# to bf16 (the backward of the probabilities' cast) where the TPU kernel's
+# formula keeps it in f32, one more rounding before each product; dv and dk
+# reach magnitudes of 8-16 at T = 128, where one bf16 ulp is 0.0625, so this
+# check counts bf16 ulps at each output's largest magnitude (2^-7 of it)
+AUTOGRAD_ULPS = 2.0
 GRAD_COS = 0.99   # dropout-0 gradients, K2/K3 against the vanilla path, bf16
 LOSS_DROP = 1.0   # nats the train step's loss must fall over 20 steps on one batch
 
@@ -435,16 +441,16 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
             errs3[r] = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
             check(all(bool(torch.isfinite(a.float()).all()) for a in got) and errs3[r] <= BWD_TOL,
                   f"K3 rate {r} B={b} T={t}: max abs err {errs3[r]} > {BWD_TOL}")
-            # and against torch autograd through K2's plain version, which
-            # rounds do v^T to bf16 (the backward of the probabilities' cast)
-            # where the TPU kernel's formula keeps it in f32
+            # and against torch autograd through K2's plain version, in bf16
+            # ulps at each output's largest magnitude
             leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
             attention.fused_attention_reference(*leaves, mask, sm_scale=scale, dropout_rate=r,
                                                 seed=seed).backward(do)
-            errs_autograd[r] = max((a.float() - x.grad.float()).abs().max().item()
-                                   for a, x in zip(got, leaves))
-            check(errs_autograd[r] <= BWD_TOL, f"K3 rate {r} B={b} T={t} against autograd: max "
-                                               f"abs err {errs_autograd[r]} > {BWD_TOL}")
+            errs_autograd[r] = max(
+                (a.float() - x.grad.float()).abs().max().item()
+                / (2.0 ** -7 * x.grad.float().abs().max().item()) for a, x in zip(got, leaves))
+            check(errs_autograd[r] <= AUTOGRAD_ULPS, f"K3 rate {r} B={b} T={t} against autograd: "
+                  f"{errs_autograd[r]} bf16 ulps > {AUTOGRAD_ULPS}")
             del got, want, leaves
         k3["max_abs_err"] = max(k3["max_abs_err"], *errs3.values())
         bias = torch.where(mask[:, None, None, :] != 0, 0.0, attention.MASK_BIAS).to(q.dtype)
@@ -475,8 +481,9 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
             f"0 {fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
         log(f"K3 B={b} H={h} T={t} Dh={dh} bf16: max_abs_err rate 0 {errs3[0.0]:.3g}, rate {rate} "
             f"{errs3[rate]:.3g} (tol {BWD_TOL}); against autograd of the plain forward "
-            f"{errs_autograd[0.0]:.3g}, {errs_autograd[rate]:.3g}; kernel {bwd['ms']:.4f} ms "
-            f"(rate 0 {bwd['ms_rate0']:.4f}), plain {bwd['plain_ms']:.4f} ms, SDPA backward at rate 0 "
+            f"{errs_autograd[0.0]:.3g}, {errs_autograd[rate]:.3g} top-magnitude bf16 ulps "
+            f"(tol {AUTOGRAD_ULPS}); kernel {bwd['ms']:.4f} ms (rate 0 {bwd['ms_rate0']:.4f}), "
+            f"plain {bwd['plain_ms']:.4f} ms, SDPA backward at rate 0 "
             f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
         if t == 512:
             k2.update(fwd)
