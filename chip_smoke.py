@@ -37,6 +37,30 @@ The retriever-pretraining slice:
      with K4 on their probabilities), then build-index from its
      checkpoint_last.pt and retrieve over it (K1), with every counter reset
      before and read after, and the index checked against the plain encoder.
+The int8 index and the rest of the search kernels:
+ 10. K5, scaled block maxima over int8 codes, against its plain version at
+     4,194,304 x 128 (block 16, Q = 2,048; codes made on the device), then a
+     DenseIndex(dtype="int8") quantized on the host from an f32 corpus: top-80
+     search qps, and 256 queries against the exact top-80 of the dequantized
+     corpus;
+ 11. K5 at the capacity point, 67,108,864 x 128 int8 (block 128), made on
+     the device: the kernel against its plain version in chunks, mips_topk's
+     qps and peak memory, and 64 queries against a chunked exact reference;
+ 12. K7, per-row scale bounds, at 4.2M: equal to the formula, dominating the
+     true row-scaled block maxima, and mips_topk_v2(row_scales=, kb=16k)
+     returning exact row-scaled scores;
+ 13. K8, block-major maxima, against its plain version at 4.2M bf16, and
+     mips_topk_v1's top-80 against the K1 pipeline's;
+ 14. K6/K9, gathered candidate scoring, on the candidate blocks the K1
+     pipeline selects at 4.2M (Q = 2,048, k = 80), against the plain gather
+     and product, timed beside the `take` path, and the streamed rescore's
+     top-80 against the take rescore's;
+ 15. the int8 CLI path: eval-retrieval and retrieve with --int8-index on the
+     retrieval world of phase 4 (8,192 rows, quant block 16, so K5 runs),
+     with every counter reset before and read after, and a direct int8
+     DenseIndex.search against the exact reference of its own codes.
+Each of phases 12-14 first drives its kernel's public pipeline once with the
+counters at 0 and reads them, then compares and times the kernel.
 
 Prints the GPU's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": ...} last. Exits non-zero,
@@ -187,44 +211,76 @@ def phase_encoder(device) -> None:
         f"(tol {ENCODER_COS}); {ms:.2f} ms per batch = {bsz * t / ms * 1e3:.0f} padded tokens/s")
 
 
+def grouped_against_plain(name, queries, corpus, *, block, chunk_groups=128, reps=3,
+                          **scale_kw) -> dict:
+    """block_maxima_grouped (K1, K5 or K7 by its keywords) against its plain
+    version, which runs chunk_groups groups at a time (the whole [Q, N] f32
+    score matrix would not fit); both timed by CUDA events, the plain one as
+    the sum of its chunks. Scales are sliced with their chunk."""
+    import torch
+
+    from proqa_tpu_torch.ops import mips_kernel
+
+    n, q, rows = corpus.shape[0], queries.shape[0], mips_kernel.GROUP * block
+    run = lambda: mips_kernel.block_maxima_grouped(queries, corpus, block=block,  # noqa: E731
+                                                   **scale_kw)
+    bmax3, gmax = run()
+    torch.cuda.synchronize()
+    scale_bytes = sum(s.numel() * 4 for v in scale_kw.values()
+                      for s in (v if isinstance(v, tuple) else (v,)))
+    nbytes = (corpus.numel() * corpus.element_size() + queries.numel() * queries.element_size()
+              + scale_bytes + (bmax3.numel() + gmax.numel()) * 4)
+    bound_ms, bound_by = bound(nbytes, 2.0 * n * q * corpus.shape[1])
+    ms = cuda_ms(run, reps=reps)
+    err, plain_ms, chunk = 0.0, 0.0, chunk_groups * rows
+    for r0 in range(0, n, chunk):
+        sl = slice(r0 // block, (r0 + chunk) // block)
+        kw = {key: tuple(x[sl] for x in v) if isinstance(v, tuple) else v[sl]
+              for key, v in scale_kw.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rb, rg = mips_kernel.block_maxima_grouped_reference(queries, corpus[r0:r0 + chunk],
+                                                            block=block, **kw)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        g0, g1 = r0 // rows, (r0 + chunk) // rows
+        err = max(err, (bmax3[g0:g1] - rb).abs().max().item(),
+                  (gmax[g0:g1] - rg).abs().max().item())
+        del rb, rg
+    check(err <= BMAX_TOL, f"{name}: max abs err {err} > {BMAX_TOL}")
+    log(f"{name} N={n} Q={q} block={block} {corpus.dtype}: max_abs_err {err:.3g} (tol "
+        f"{BMAX_TOL}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (sum of {-(-n // chunk)} "
+        f"chunks), bound {bound_ms:.3f} ms ({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "out": (bmax3, gmax)}
+
+
+def bf16_corpus(device, n: int = 4_194_304, q: int = 2048, d: int = 128):
+    """phase_mips's corpus and queries, from its seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(4)
+    corpus = (torch.randn(n, d, device=device, generator=g) / d ** 0.5).bfloat16()
+    queries = torch.randn(q, d, device=device, generator=g) / d ** 0.5
+    return corpus, queries
+
+
 def phase_mips(device) -> dict:
     import numpy as np
     import torch
 
     from proqa_tpu_torch.index.dense import DenseIndex
-    from proqa_tpu_torch.ops import mips, mips_kernel
+    from proqa_tpu_torch.ops import mips
     from proqa_tpu_torch.ops.dot import dot_f32
     from proqa_tpu_torch.testing import topk_disagreements
 
-    n, q, d, k = 4_194_304, 2048, 128, 80
+    corpus, queries = bf16_corpus(device)
+    (n, d), q, k = corpus.shape, queries.shape[0], 80
     block = mips.envelope_block(n, q)
-    rows = mips_kernel.GROUP * block
-    g = torch.Generator(device=device).manual_seed(4)
-    corpus = (torch.randn(n, d, device=device, generator=g) / d ** 0.5).bfloat16()
-    queries = torch.randn(q, d, device=device, generator=g) / d ** 0.5
     qb = queries.bfloat16()
-
-    bmax3, gmax = mips_kernel.block_maxima_grouped(qb, corpus, block=block)
-    torch.cuda.synchronize()
-    nbytes = (corpus.numel() + qb.numel()) * 2 + (bmax3.numel() + gmax.numel()) * 4
-    bound_ms, bound_by = bound(nbytes, 2.0 * n * q * d)
-    ms = cuda_ms(lambda: mips_kernel.block_maxima_grouped(qb, corpus, block=block), reps=3)
-    err, plain_ms, chunk = 0.0, 0.0, 128 * rows     # plain version chunked: [Q, N] is 34 GB
-    for r0 in range(0, n, chunk):
-        c = corpus[r0:r0 + chunk]
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        rb, rg = mips_kernel.block_maxima_grouped_reference(qb, c, block=block)
-        end.record()
-        end.synchronize()
-        plain_ms += start.elapsed_time(end)
-        g0, g1 = r0 // rows, (r0 + c.shape[0]) // rows
-        err = max(err, (bmax3[g0:g1] - rb).abs().max().item(),
-                  (gmax[g0:g1] - rg).abs().max().item())
-    check(err <= BMAX_TOL, f"K1: max abs err {err} > {BMAX_TOL}")
-    log(f"K1 N={n} Q={q} D={d} block={block} bf16: max_abs_err {err:.3g} (tol {BMAX_TOL}), "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (sum of {n // chunk} chunks)")
-    del bmax3, gmax
+    k1 = grouped_against_plain("K1", qb, corpus, block=block)
+    del k1["out"]
 
     index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
     vals, idx = index.search(queries, k)
@@ -245,8 +301,7 @@ def phase_mips(device) -> dict:
     check(bad == 0, f"search: {bad} of {n_check} queries disagree with the exact top-{k}")
     log(f"search top-{k} N={n} Q={q} bf16: {q / wall:.1f} qps ({wall * 1e3:.2f} ms per "
         f"batch, host clock); {n_check} queries agree with the exact reference up to ties")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "qps": q / wall,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    return {**k1, "qps": q / wall}
 
 
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"tok{i}" for i in range(60)] + [
@@ -357,7 +412,7 @@ def phase_cli(device, root: str) -> dict:
         f"{tokens / walls['build-index']:.0f} tokens/s (wall: host tokenization, weight "
         f"loading and saving included)")
     log(f"wall seconds per command: {json.dumps(walls)}")
-    return launches, k1_err, batch
+    return launches, k1_err, batch, recall
 
 
 def phase_dropout(device) -> dict:
@@ -672,6 +727,321 @@ def phase_pretrain_cli(device, root: str) -> dict:
     return launches
 
 
+def _search_qps(fn, q: int, reps: int = 3) -> float:
+    """Queries per second of fn(), which ends synchronised (median of reps,
+    host clock, after one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return q / statistics.median(walls)
+
+
+def _exact_top(queries, codes, row_scales, k: int, chunk: int):
+    """The exact top-k of scale * (query . codes) over the whole corpus, a
+    chunk of rows at a time (the global top-k is the top-k of the chunks')."""
+    import torch
+
+    from proqa_tpu_torch.ops import mips
+
+    cand_v, cand_i = [], []
+    for r0 in range(0, codes.shape[0], chunk):
+        v, i = mips.mips_topk_reference(queries, codes[r0:r0 + chunk], k,
+                                        scales=row_scales[r0:r0 + chunk])
+        cand_v.append(v)
+        cand_i.append(i + r0)
+    vals, sel = torch.topk(torch.cat(cand_v, dim=1), k)
+    return vals, torch.gather(torch.cat(cand_i, dim=1), 1, sel)
+
+
+def phase_int8(device) -> dict:
+    """K5 at 4,194,304 x 128: the kernel against its plain version on codes
+    made on the device, then an int8 DenseIndex quantized on the host from an
+    f32 corpus, its top-80 qps and 256 queries against the exact reference."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.ops import mips, quant
+    from proqa_tpu_torch.testing import random_int8_corpus, topk_disagreements
+
+    n, q, d, k = 4_194_304, 2048, 128, 80
+    block = mips.envelope_block(n, q)
+    codes, scales = random_int8_corpus(n, d, block, seed=14, device=device)
+    g = torch.Generator(device=device).manual_seed(15)
+    queries = torch.randn(q, d, device=device, generator=g) / d ** 0.5
+    qb = queries.bfloat16()
+    k5 = grouped_against_plain("K5", qb, codes, block=block, scales=scales)
+    del k5["out"], codes, scales
+
+    host = (torch.randn(n, d, generator=torch.Generator().manual_seed(16)) / d ** 0.5).numpy()
+    t0 = time.perf_counter()
+    index = DenseIndex.from_embeddings(host, device=device, dtype="int8")
+    build_s = time.perf_counter() - t0
+    del host
+    check(index.quant_block == block and index.embeddings.dtype == torch.int8,
+          f"int8 index: quant block {index.quant_block}, dtype {index.embeddings.dtype}")
+    vals, idx = index.search(queries, k)
+    qps = _search_qps(lambda: index.search(queries, k), q)
+    check(vals.shape == (q, k) and np.isfinite(vals).all(), "int8 search: bad values")
+    rows = quant.expand_scales(index.scales, index.quant_block, n)
+    n_check, bad = 256, 0
+    for s in range(0, n_check, 64):
+        rv, ri = mips.mips_topk_reference(qb[s:s + 64], index.embeddings, k, scales=rows)
+        bad += topk_disagreements(vals[s:s + 64], idx[s:s + 64], rv.cpu().numpy(),
+                                  ri.cpu().numpy(), atol=TOPK_TOL)
+    check(bad == 0, f"int8 search: {bad} of {n_check} queries disagree with the exact top-{k} "
+                    "of the dequantized corpus")
+    log(f"int8 index N={n} quant block {index.quant_block}: quantized on the host and placed in "
+        f"{build_s:.1f} s; search top-{k} Q={q}: {qps:.1f} qps (host clock); {n_check} queries "
+        f"agree with the exact top-{k} of the dequantized corpus up to ties")
+    return {**k5, "qps": qps}
+
+
+def phase_int8_capacity(device) -> dict:
+    """K5 at the capacity point the int8 index exists for: 67,108,864 x 128
+    codes (8.6 GB) made on the device, block 128."""
+    import torch
+
+    from proqa_tpu_torch.ops import mips, quant
+    from proqa_tpu_torch.testing import random_int8_corpus, topk_disagreements
+
+    n, q, d, k = 67_108_864, 2048, 128, 80
+    block = mips.envelope_block(n, q)
+    codes, scales = random_int8_corpus(n, d, block, seed=13, device=device)
+    g = torch.Generator(device=device).manual_seed(17)
+    qb = (torch.randn(q, d, device=device, generator=g) / d ** 0.5).bfloat16()
+    # plain chunks of 64 groups: a [2048, 1,048,576] f32 score matrix, 8.6 GB
+    k5 = grouped_against_plain("K5 capacity", qb, codes, block=block, chunk_groups=64, reps=2,
+                               scales=scales)
+    del k5["out"]
+    search = lambda: mips.mips_topk(qb, codes, k, scales=scales, quant_block=block)  # noqa: E731
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    vals, idx = search()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    qps = _search_qps(search, q, reps=2)
+    rows = quant.expand_scales(scales, block, n)
+    rv, ri = _exact_top(qb[:64], codes, rows, k, chunk=1 << 22)
+    bad = topk_disagreements(vals[:64].cpu().numpy(), idx[:64].cpu().numpy(), rv.cpu().numpy(),
+                             ri.cpu().numpy(), atol=TOPK_TOL)
+    check(bad == 0, f"int8 capacity search: {bad} of 64 queries disagree with the exact top-{k}")
+    log(f"int8 capacity point N={n} block={block}: mips_topk top-{k} Q={q} {qps:.1f} qps (host "
+        f"clock), peak device memory {peak:.2f} GiB (index {codes.numel() / 2**30:.2f} GiB); 64 "
+        f"queries agree with the chunked exact reference up to ties")
+    return {**k5, "qps": qps, "peak_gib": peak}
+
+
+def phase_bounded(device) -> tuple[dict, int]:
+    """K7 at 4.2M per-row int8: mips_topk_v2(row_scales=, kb=16k) once with
+    the counters at 0, its values the exact row-scaled scores of its rows;
+    then the bounds against their formula (the plain version) and above the
+    true row-scaled block maxima."""
+    import torch
+
+    from proqa_tpu_torch.ops import mips_kernel
+    from proqa_tpu_torch.ops.dot import dot_f32
+    from proqa_tpu_torch.testing import random_int8_corpus
+
+    n, q, d, k, block = 4_194_304, 2048, 128, 80, 16
+    codes, rs = random_int8_corpus(n, d, 1, seed=18, device=device, norm_range=(0.1, 10.0))
+    g = torch.Generator(device=device).manual_seed(19)
+    qb = (torch.randn(q, d, device=device, generator=g) / d ** 0.5).bfloat16()
+    mips_kernel.bounded_launches = 0
+    vals, idx = mips_kernel.mips_topk_v2(qb, codes, k, block=block, row_scales=rs, kb=16 * k)
+    torch.cuda.synchronize()
+    launches = mips_kernel.bounded_launches
+    check(launches > 0, "K7 was not launched by mips_topk_v2(row_scales=)")
+    rows = codes[idx].bfloat16()                                       # [Q, k, D]
+    exact = dot_f32(rows, qb[:, :, None])[..., 0] * rs[idx]
+    v_err = (vals - exact).abs().max().item()
+    check(v_err <= BMAX_TOL * 10, f"K7 pipeline: values {v_err} from the exact row-scaled scores")
+    del rows, exact, vals, idx
+
+    rsb = rs.view(-1, block)
+    bounds = (rsb.amax(dim=1), rsb.amin(dim=1))
+    k7 = grouped_against_plain("K7", qb, codes, block=block, scale_bounds=bounds)
+    bmax3, _ = k7.pop("out")
+    per_block = bmax3.transpose(1, 2).reshape(-1, q)                   # [NB, Q]
+    worst, chunk = float("inf"), 1 << 20                  # bound minus true maximum
+    for r0 in range(0, n, chunk):
+        s = dot_f32(codes[r0:r0 + chunk].bfloat16(), qb.T) * rs[r0:r0 + chunk, None]
+        true = s.view(-1, block, q).amax(dim=1)                         # [blocks, Q]
+        b0 = r0 // block
+        worst = min(worst, (per_block[b0:b0 + true.shape[0]] - true).min().item())
+        del s, true
+    check(worst >= -BMAX_TOL, f"K7: a bound lies {-worst} under its true row-scaled maximum")
+    log(f"K7 bounds dominate the true row-scaled block maxima (least margin {worst:.3g}); "
+        f"mips_topk_v2(row_scales=, kb={16 * k}) values within {v_err:.3g} of the exact "
+        f"row-scaled scores of its rows")
+    return k7, launches
+
+
+def phase_v1(device) -> tuple[dict, int]:
+    """K8 at 4.2M bf16: mips_topk_v1 once with the counters at 0, its top-80
+    against the K1 pipeline's; then block_maxima against its plain version."""
+    import torch
+
+    from proqa_tpu_torch.ops import mips_kernel
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    corpus, queries = bf16_corpus(device)
+    (n, d), q, k = corpus.shape, queries.shape[0], 80
+    qb = queries.bfloat16()
+    mips_kernel.block_major_launches = 0
+    v1 = mips_kernel.mips_topk_v1(qb, corpus, k)
+    torch.cuda.synchronize()
+    launches = mips_kernel.block_major_launches
+    check(launches > 0, "K8 was not launched by mips_topk_v1")
+    v2 = mips_kernel.mips_topk_v2(qb, corpus, k, block=16)
+    bad = topk_disagreements(*(x.cpu().numpy() for x in (*v1, *v2)), atol=TOPK_TOL)
+    check(bad == 0, f"mips_topk_v1: {bad} of {q} queries disagree with the K1 pipeline")
+    del v1, v2
+
+    block, tile_n = 256, 2048
+    bmax = mips_kernel.block_maxima(qb, corpus, block=block, tile_n=tile_n)
+    torch.cuda.synchronize()
+    bound_ms, bound_by = bound(corpus.numel() * 2 + qb.numel() * 2 + bmax.numel() * 4,
+                               2.0 * n * q * d)
+    ms = cuda_ms(lambda: mips_kernel.block_maxima(qb, corpus, block=block, tile_n=tile_n), reps=3)
+    err, plain_ms, chunk = 0.0, 0.0, 1 << 18
+    for r0 in range(0, n, chunk):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mips_kernel.block_maxima_reference(qb, corpus[r0:r0 + chunk], block=block,
+                                                  tile_n=tile_n)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        err = max(err, (bmax[r0 // block:(r0 + chunk) // block] - want).abs().max().item())
+    check(err <= BMAX_TOL, f"K8: max abs err {err} > {BMAX_TOL}")
+    log(f"K8 N={n} Q={q} block={block} bf16: max_abs_err {err:.3g} (tol {BMAX_TOL}), kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms (sum of {n // chunk} chunks), bound "
+        f"{bound_ms:.3f} ms ({bound_by}); mips_topk_v1 top-{k} agrees with the K1 pipeline's "
+        "up to ties")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}, launches
+
+
+def phase_rescore(device) -> tuple[dict, dict, dict]:
+    """K6 and K9 on the candidate blocks the K1 pipeline selects at 4.2M
+    (Q = 2,048, k = 80): mips_topk_v2(rescore_impl="stream") and gather_score
+    once with the counters at 0; then both against the plain gather and
+    product, timed beside the `take` path (the gather and dot_f32), and the
+    streamed top-80 against the take top-80."""
+    import torch
+
+    from proqa_tpu_torch.ops import mips_kernel, rescore
+    from proqa_tpu_torch.ops.dot import dot_f32
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    corpus, queries = bf16_corpus(device)
+    (n, d), q, k, block = corpus.shape, queries.shape[0], 80, 16
+    qb = queries.bfloat16()
+    blocks = corpus.view(-1, block, d)
+    ids = mips_kernel.select_blocks(qb, corpus, k, block=block)          # [Q, 80]
+    rescore.launches = rescore.score_launches = 0
+    stream = mips_kernel.mips_topk_v2(qb, corpus, k, block=block, rescore_impl="stream")
+    rescore.gather_score(qb, blocks, ids, block=block)
+    torch.cuda.synchronize()
+    launches = {"K6": rescore.launches, "K9": rescore.score_launches}
+    check(all(v > 0 for v in launches.values()), f"K6/K9 not launched: {launches}")
+    take = mips_kernel.mips_topk_v2(qb, corpus, k, block=block)
+    bad = topk_disagreements(*(x.cpu().numpy() for x in (*stream, *take)), atol=TOPK_TOL)
+    check(bad == 0, f"stream rescore: {bad} of {q} queries disagree with the take rescore")
+
+    want = rescore.gather_rescore_reference(qb, blocks, ids, block=block)
+    kb = ids.shape[1]
+
+    def take_path():
+        cand = blocks[ids].view(q, kb * block, d)
+        return dot_f32(cand, qb[:, :, None]).view(q, kb * block)
+
+    results = {}
+    for name, fn in (("K6", rescore.gather_rescore), ("K9", rescore.gather_score)):
+        got = fn(qb, blocks, ids, block=block)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= BMAX_TOL, f"{name}: max abs err {err} > {BMAX_TOL}")
+        results[name] = {"max_abs_err": err,
+                         "ms": cuda_ms(lambda: fn(qb, blocks, ids, block=block), reps=20)}
+    plain_ms = cuda_ms(lambda: rescore.gather_rescore_reference(qb, blocks, ids, block=block))
+    library_ms = cuda_ms(take_path, reps=20)
+    # bytes this data needs: each distinct candidate block read once
+    distinct = torch.unique(ids).numel()
+    nbytes = distinct * block * d * 2 + qb.numel() * 2 + ids.numel() * 8 + want.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 2.0 * q * kb * block * d)
+    for name, r in results.items():
+        r.update(plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"{name} Q={q} kb={kb} block={block} bf16 ({distinct} distinct candidate blocks): "
+            f"max_abs_err {r['max_abs_err']:.3g} (tol {BMAX_TOL}), kernel {r['ms']:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, take path (gather + dot_f32) {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+    log(f"streamed rescore top-{k}: all {q} queries agree with the take rescore up to ties")
+    return results["K6"], results["K9"], launches
+
+
+def phase_int8_cli(device, root: str, recall_bf16: dict) -> tuple[int, float]:
+    """The int8 CLI path on phase_cli's retrieval world, with every counter
+    reset before and read after; then a direct int8 DenseIndex.search
+    against the exact reference of its own codes, and K5 at the shapes that
+    search gave it."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.ops import attention, mips, mips_kernel, quant
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    k = 80
+    attention.launches = 0
+    mips_kernel.launches = mips_kernel.scaled_launches = 0
+    recall, wall_eval = run_cli(["eval-retrieval", p("qa.jsonl"), p("index"), p("q.npy"),
+                                 p("docs.db"), "--topk", str(k), "--int8-index",
+                                 "--device", str(device)])
+    hit, wall_retrieve = run_cli(["retrieve", "--vocab", p("vocab.txt"), "--init-checkpoint",
+                                  p("retriever.npz"), "--device", str(device), "--question",
+                                  "what is about tok3 tok7", "--index", p("index"), "--db",
+                                  p("docs.db"), "--topk", "5", "--int8-index"])
+    launches = {"K5": mips_kernel.scaled_launches, "K1": mips_kernel.launches,
+                "K2": attention.launches}
+    log(f"kernel launches during eval-retrieval and retrieve --int8-index: "
+        f"{json.dumps(launches)}")
+    check(launches["K5"] > 0, "K5 was not launched on the int8 CLI path")
+    check(set(recall) == set(recall_bf16), f"int8 recall keys {recall}")
+    check(len(hit["topk"]) == 5 and all(r["text"] for r in hit["topk"]), "retrieve: bad hits")
+    log(f"recall, bf16 index: {json.dumps(recall_bf16)}")
+    log(f"recall, int8 index: {json.dumps(recall)} (eval {wall_eval:.2f} s, retrieve "
+        f"{wall_retrieve:.2f} s wall)")
+
+    q = np.load(p("q.npy"))
+    index = DenseIndex.load(p("index"), device=device, dtype="int8")
+    vals, idx = index.search(q, k)
+    qt = torch.from_numpy(q).to(device, torch.bfloat16)
+    rows = quant.expand_scales(index.scales, index.quant_block, index.embeddings.shape[0])
+    rv, ri = mips.mips_topk_reference(qt, index.embeddings, k, n_valid=index.n, scales=rows)
+    bad = topk_disagreements(vals, idx, rv.cpu().numpy(), ri.cpu().numpy(), atol=TOPK_TOL)
+    check(bad == 0, f"int8 index search: {bad} of {len(q)} queries disagree with the exact "
+                    "reference of its codes")
+    block = index.quant_block
+    got = mips_kernel.block_maxima_grouped(qt, index.embeddings, block=block, scales=index.scales)
+    want = mips_kernel.block_maxima_grouped_reference(qt, index.embeddings, block=block,
+                                                      scales=index.scales)
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    check(err <= BMAX_TOL, f"K5 at the CLI's shapes: max abs err {err} > {BMAX_TOL}")
+    log(f"int8 index (quant block {block}): all {len(q)} queries agree with the exact reference "
+        f"up to ties; K5 at Q={len(q)} N={index.embeddings.shape[0]}: max_abs_err {err:.3g}")
+    return launches["K5"], err
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -709,7 +1079,8 @@ def main() -> int:
         timed("encoder", phase_encoder, device)
         k1 = timed("mips", phase_mips, device)
         with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
-            retrieval, k1_cli_err, batch = timed("retrieval_cli", phase_cli, device, root)
+            retrieval, k1_cli_err, batch, recall = timed("retrieval_cli", phase_cli, device, root)
+            k5_launches, k5_cli_err = timed("int8_cli", phase_int8_cli, device, root, recall)
         k2_encode = timed("attention_encode", phase_attention, device, batch)
         # the retriever-pretraining slice
         k4 = timed("dropout", phase_dropout, device)
@@ -717,6 +1088,12 @@ def main() -> int:
         timed("train_step", phase_train_step, device)
         with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
             pretrain = timed("pretrain_cli", phase_pretrain_cli, device, root)
+        # the int8 index and the rest of the search kernels
+        k5 = timed("int8", phase_int8, device)
+        k5_cap = timed("int8_capacity", phase_int8_capacity, device)
+        k7, k7_launches = timed("bounded", phase_bounded, device)
+        k8, k8_launches = timed("v1", phase_v1, device)
+        k6, k9, rescore_launches = timed("rescore", phase_rescore, device)
         log(f"phase seconds: {json.dumps(phases)}")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "proqa_tpu"))
@@ -725,7 +1102,9 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
 
-    def entry(name, source, replaces, launches, result, max_abs_err):
+    def entry(name, source, replaces, launches, result, max_abs_err=None):
+        if max_abs_err is None:
+            max_abs_err = result["max_abs_err"]
         return {"name": name, "route": "cuda", "source": f"proqa_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
                 **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
@@ -743,6 +1122,19 @@ def main() -> int:
               "proqa_tpu/ops/pallas_attention.py:83", pretrain["K3"], k3, k3["max_abs_err"]),
         entry("dropout (K4)", "dropout.cu", "proqa_tpu/ops/pallas_dropout.py:32", pretrain["K4"],
               k4, k4["max_abs_err"]),
+        # launches: the int8 CLI path (K5) and each kernel's own pipeline
+        # (K6-K9); times at 4.2M rows (K5 at 67.1M: in the log above)
+        entry("block_maxima_grouped scaled (K5)", "block_maxima.cu",
+              "proqa_tpu/ops/pallas_mips.py:97", k5_launches, k5,
+              max(k5["max_abs_err"], k5_cap["max_abs_err"], k5_cli_err)),
+        entry("gather_rescore (K6)", "gather_rescore.cu", "proqa_tpu/ops/pallas_rescore.py:58",
+              rescore_launches["K6"], k6),
+        entry("block_maxima_grouped bounded (K7)", "block_maxima.cu",
+              "proqa_tpu/ops/pallas_mips.py:111", k7_launches, k7),
+        entry("block_maxima (K8)", "block_maxima.cu", "proqa_tpu/ops/pallas_mips.py:32",
+              k8_launches, k8),
+        entry("gather_score (K9)", "gather_rescore.cu",
+              "proqa_tpu/ops/pallas_gather_score.py:35", rescore_launches["K9"], k9),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 `csrc/*.cu` compile with nvcc into one shared library with a plain C
 interface, `build/proqa_tpu_torch/libproqa_kernels_<hash>.so` at the root of
-the checkout, on first use. The name carries a hash of the sources and flags,
+the checkout, on first use: one nvcc process per source, all started
+together, then one link. The name carries a hash of the sources and flags,
 so an edited source builds anew. The library is loaded with ctypes: every
 pointer and the stream pass as `c_void_p`, and every entry point returns a
 cudaError_t code that `check` turns into an exception.
@@ -24,15 +25,18 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "proqa_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _U, _L = ctypes.c_uint32, ctypes.c_longlong
 _DROPOUT = [_U, _U, _U, _F]  # k0, k1, threshold, 1/(1-rate) (ops/random.py)
 _SIGNATURES = {
-    # queries, corpus, bmax3, gmax, num_q, n, dim, block, group, is_bf16, stream
-    "proqa_block_maxima": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, dim, block, group,
+    # is_bf16, corpus_int8, stream
+    "proqa_block_maxima": [_P] * 6 + [_I] * 7 + [_P],
+    # queries, corpus, ids, out, num_q, nb, kb, block, dim, is_bf16, stream
+    "proqa_gather_score": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, is_bf16,
     # dropout, k0, k1, threshold, inv_keep, stream
     "proqa_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
@@ -68,25 +72,50 @@ def library_path() -> Path:
     return BUILD_DIR / f"libproqa_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], subprocess.CompletedProcess]]:
+    """Runs the commands side by side and waits for all of them."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    done = []
+    for cmd, p in procs:
+        output = p.communicate()[0]  # reads the pipe to its end, then waits
+        done.append((cmd, subprocess.CompletedProcess(cmd, p.returncode, output, "")))
+    return done
+
+
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists. The
-    compiler's report (ptxas register and shared-memory use) is kept beside
-    the library as `<name>.log`. Raises with nvcc's output on failure."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per source in parallel, then one link. The compiler's report (ptxas
+    register and shared-memory use) is kept beside the library as
+    `<name>.log`. Raises with nvcc's output on failure."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    try:
+        steps = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                          for src, obj in zip(sources, objects)])
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a", "-o", str(tmp),
+                *map(str, objects)]
+        if all(proc.returncode == 0 for _, proc in steps):
+            steps += _run_all([link])
+        log = "".join(f"$ {' '.join(cmd)}\n{proc.stdout}" for cmd, proc in steps)
+        failed = [(cmd, proc) for cmd, proc in steps if proc.returncode != 0]
+        if failed:
+            cmd, proc = failed[0]
+            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n  "
+                               f"{' '.join(cmd)}\n{proc.stdout}")
+        out.with_name(out.name + ".log").write_text(log)
+        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n  {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    out.with_name(out.name + ".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

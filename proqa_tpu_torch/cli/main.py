@@ -12,8 +12,9 @@ Subcommands:
 Flags and final JSON lines are the `proqa` CLI's, plus `--device` (default
 cuda). Checkpoints are `.npz` files in the JAX layout, `.pt` state dicts, or
 the `.pt` train checkpoints pretrain-retriever writes (models/convert.py).
-Flags for paths not ported yet (--stream-chunk, --dp-encode, --shard-index,
---int8-index) raise NotImplementedError.
+`--int8-index` (eval-retrieval, retrieve) searches an int8-quantized index
+(kernel K5). Flags for paths not ported yet (--stream-chunk, --dp-encode,
+--shard-index) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ def _load_model(args, cfg):
 
 
 def _reject_unported(args):
-    for flag, item in (("dp_encode", 15), ("shard_index", 15), ("int8_index", 13)):
+    for flag, item in (("dp_encode", 15), ("shard_index", 15)):
         if getattr(args, flag, False):
             raise NotImplementedError(
                 f"--{flag.replace('_', '-')} is not ported to PyTorch yet "
@@ -63,8 +64,11 @@ def _reject_unported(args):
 
 
 def _index_dtype(args):
+    """Index storage dtype: --int8-index wins over the f32/bf16 policy."""
     import torch
 
+    if getattr(args, "int8_index", False):
+        return "int8"
     return torch.float32 if args.f32 else torch.bfloat16
 
 
@@ -94,7 +98,9 @@ def _add_device(p):
 
 def _shard_index_arg(p):
     p.add_argument("--shard-index", action="store_true", help="not ported yet")
-    p.add_argument("--int8-index", action="store_true", help="not ported yet")
+    p.add_argument("--int8-index", action="store_true",
+                   help="store the index block-int8-quantized: half the device memory of "
+                        "bf16, search exact with respect to the quantized scores")
 
 
 def cmd_pretrain_retriever(args):
@@ -226,7 +232,7 @@ def cmd_retrieve(args):
     ids_t = torch.tensor([ids], dtype=torch.int64, device=args.device)
     with torch.inference_mode():
         q = model.encode_query(ids_t, (ids_t != 0).to(torch.int32))
-    vals, rows = index.search(q, args.topk)  # search casts to the index dtype
+    vals, rows = index.search(q, args.topk)  # search casts to the scoring dtype
     results = []
     for score, row in zip(vals[0], rows[0]):
         rec = {"row": int(row), "score": round(float(score), 4)}

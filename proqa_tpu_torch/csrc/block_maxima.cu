@@ -1,36 +1,56 @@
-// K1: fused corpus scoring with block and group maxima, for exact MIPS.
+// K1, K5, K7 and K8: fused corpus scoring with block maxima, for exact MIPS.
 //
-// Replaces proqa_tpu/ops/pallas_mips.py:_bmax3_kernel (launched by
-// block_maxima_grouped, pallas_mips.py:155). For a tile of queries and one
-// group of `group` consecutive corpus blocks of `block` rows each, it scores
-// every row against every query in f32 and keeps only the maximum of each
-// block (bmax3[cg, q, g]) and of the whole group (gmax[cg, 0, q]). The [Q, N]
-// score matrix never reaches device memory.
+// Replaces the four block-max kernels of proqa_tpu/ops/pallas_mips.py:
+//   K1 _bmax3_kernel (:83): for a tile of queries and one group of `group`
+//      consecutive corpus blocks of `block` rows each, score every row
+//      against every query in f32 and keep only the maximum of each block
+//      (bmax3[cg, q, g]) and of the whole group (gmax[cg, 0, q]);
+//   K5 _bmax3_kernel_scaled (:97): the same over an int8 corpus, each block
+//      maximum multiplied by its block's f32 scale after the max-reduce and
+//      before the group maximum (a per-block scale is constant inside the
+//      reduce, so it commutes with the max: every emitted value is still an
+//      achieved quantized score);
+//   K7 _bmax3_kernel_bounded (:111): an int8 corpus with per-row scales; the
+//      epilogue turns each raw block maximum m into the sign-aware bound
+//      m >= 0 ? m * smax[b] : m * smin[b] (a heuristic bound, as in JAX);
+//   K8 _bmax_kernel (:32): block maxima only, written block-major [NB, Q],
+//      with no group level (block_maxima, pallas_mips.py:45).
+// One kernel body serves all four: the corpus storage type is a template
+// argument (int8 codes are widened in shared memory), the epilogue and the
+// output layout are launch arguments. The [Q, N] score matrix never reaches
+// device memory.
 //
 // What bounds it on the H100: at the main path's shapes (Q = 2048, D = 128)
-// each 256-byte bf16 corpus row meets every query, 2 * Q * D = 512K FLOP per
-// row, far above the ~295 FLOP per byte where device memory stops being the
-// limit. So the kernel is bound by arithmetic: by tensor-core throughput in
-// principle, and in this simple version by the shared-memory traffic that
-// feeds wmma and by the score round trip through shared memory. The one large
-// write is bmax3, N / block * Q * 4 bytes.
+// each corpus row (256 bytes in bf16, 128 in int8) meets every query,
+// 2 * Q * D = 512K FLOP per row, far above the ~295 FLOP per byte where device
+// memory stops being the limit. So the kernel is bound by arithmetic: by
+// tensor-core throughput in principle, and in this simple version by the
+// shared-memory traffic that feeds wmma and by the score round trip through
+// shared memory. The one large write is the block maxima, N / block * Q * 4
+// bytes.
 //
 // What the design does about it: one CUDA block per (64-query tile, corpus
 // group). The grid's fast axis is the query tile, so the CUDA blocks that read
 // one group run at about the same time: the group comes from device memory
 // about once and from L2 after that. bf16 inputs go through nvcuda::wmma
 // (16x16x16 tiles, f32 accumulators). f32 inputs go through plain FMA, since
-// the reference pins f32 scoring to full precision. Each 64-row chunk's scores
-// land in shared memory and are reduced in 16-row segments. As block % 16 == 0,
-// no segment straddles two blocks. The segments fold into a per-tile
-// [64, group] block-max table, written out one contiguous row per query.
-// Every emitted maximum is the maximum of its own block's scores, so the
-// exactness argument of pallas_mips.py:295-298 holds unchanged.
+// the reference pins f32 scoring to full precision. int8 codes convert to the
+// query type while they are copied to shared memory: integers of magnitude
+// <= 256 are exact in bf16, so the products and their f32 sums are exact
+// integer arithmetic times the query. Each 64-row chunk's scores land in
+// shared memory and are reduced in 16-row segments. As block % 16 == 0, no
+// segment straddles two blocks. The segments fold into a per-tile
+// [64, group] block-max table, to which the epilogue is applied before it is
+// written out. Every emitted maximum is the maximum of its own block's scores
+// (times its scale), so the exactness argument of pallas_mips.py:295-298
+// holds unchanged.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -53,22 +73,33 @@ template <> struct Layout<__nv_bfloat16> { static constexpr int ld = kDim + 8; }
 // Odd stride: the FMA loop reads columns without bank conflicts.
 template <> struct Layout<float> { static constexpr int ld = kDim + 1; };
 
-// Copies the first `valid` rows of a row-major [*, kDim] array into a shared
-// tile of `rows` rows and zero-fills the rest.
-template <typename T>
-__device__ void load_rows(T* dst, const T* __restrict__ src, int rows, int valid) {
-  constexpr int per_row = kDim * sizeof(T) / 16;   // 16-byte vectors per row
-  constexpr int elems = 16 / sizeof(T);
+// Copies the first `valid` rows of a row-major [*, kDim] array of S into a
+// shared tile of T with `rows` rows, and zero-fills the rest. S is T, or int8
+// codes widened to T.
+template <typename T, typename S>
+__device__ void load_rows(T* dst, const S* __restrict__ src, int rows, int valid) {
+  constexpr int per_row = kDim * sizeof(S) / 16;   // 16-byte vectors per row
+  constexpr int elems = 16 / sizeof(S);            // elements per vector
   constexpr int ld = Layout<T>::ld;
   for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
     const int r = i / per_row, c = (i % per_row) * elems;
     uint4 v = make_uint4(0, 0, 0, 0);
     if (r < valid) v = *reinterpret_cast<const uint4*>(src + (size_t)r * kDim + c);
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-    } else {
+    T* out = dst + r * ld + c;
+    if constexpr (std::is_same<S, T>::value && sizeof(T) == 2) {
+      *reinterpret_cast<uint4*>(out) = v;
+    } else if constexpr (std::is_same<S, T>::value) {
       const float* f = reinterpret_cast<const float*>(&v);
-      for (int j = 0; j < 4; ++j) dst[r * ld + c + j] = f[j];
+      for (int j = 0; j < 4; ++j) out[j] = f[j];
+    } else if constexpr (sizeof(T) == 2) {  // 16 int8 codes -> 16 bf16, exact
+      const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+      __align__(16) __nv_bfloat16 w[16];
+      for (int j = 0; j < 16; ++j) w[j] = __float2bfloat16_rn(static_cast<float>(b[j]));
+      reinterpret_cast<uint4*>(out)[0] = reinterpret_cast<const uint4*>(w)[0];
+      reinterpret_cast<uint4*>(out)[1] = reinterpret_cast<const uint4*>(w)[1];
+    } else {                                // 16 int8 codes -> 16 f32
+      const int8_t* b = reinterpret_cast<const int8_t*>(&v);
+      for (int j = 0; j < 16; ++j) out[j] = static_cast<float>(b[j]);
     }
   }
 }
@@ -119,10 +150,15 @@ size_t smem_bytes(int group) {
          + (size_t)kTileQ * (group + 1) * sizeof(float);          // block-max table
 }
 
-template <typename T>
+// scale_a == nullptr: raw block maxima (K1, K8). scale_a only: times the
+// block's scale (K5). Both: the sign-aware bound with smax = scale_a and
+// smin = scale_b (K7). gmax == nullptr: block-major output [NB, num_q] (K8);
+// otherwise bmax3 [CG, num_q, group] and gmax [CG, 1, num_q].
+template <typename T, typename S>
 __global__ void __launch_bounds__(kThreads)
-bmax3_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,
-             float* __restrict__ bmax3, float* __restrict__ gmax,
+bmax3_kernel(const T* __restrict__ queries, const S* __restrict__ corpus,
+             const float* __restrict__ scale_a, const float* __restrict__ scale_b,
+             float* __restrict__ bmax, float* __restrict__ gmax,
              int num_q, int block, int group) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ld = Layout<T>::ld;
@@ -138,7 +174,7 @@ bmax3_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,
   const int valid_q = min(kTileQ, num_q - q0);
   const size_t cg = blockIdx.y;
   const int rows = group * block;
-  const T* group_rows = corpus + cg * rows * kDim;
+  const S* group_rows = corpus + cg * rows * kDim;
 
   load_rows(qs, queries + (size_t)q0 * kDim, kTileQ, valid_q);
   for (int i = tid; i < kTileQ * bm_ld; i += kThreads) bm[i] = -INFINITY;
@@ -165,9 +201,25 @@ bmax3_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,
     }
   }
   __syncthreads();
+  if (scale_a != nullptr) {  // K5 / K7 epilogue, before the group maximum
+    for (int i = tid; i < valid_q * group; i += kThreads) {
+      const int q = i / group, g = i % group;
+      const size_t b = cg * group + g;
+      const float m = bm[q * bm_ld + g];
+      bm[q * bm_ld + g] = (scale_b == nullptr || m >= 0.0f) ? m * scale_a[b] : m * scale_b[b];
+    }
+    __syncthreads();
+  }
+  if (gmax == nullptr) {     // K8: block-major, consecutive queries side by side
+    for (int i = tid; i < valid_q * group; i += kThreads) {
+      const int g = i / valid_q, q = i % valid_q;
+      bmax[(cg * group + g) * num_q + q0 + q] = bm[q * bm_ld + g];
+    }
+    return;
+  }
   for (int i = tid; i < valid_q * group; i += kThreads) {
     const int q = i / group, g = i % group;
-    bmax3[(cg * num_q + q0 + q) * group + g] = bm[q * bm_ld + g];
+    bmax[(cg * num_q + q0 + q) * group + g] = bm[q * bm_ld + g];
   }
   if (tid < valid_q) {
     float m = -INFINITY;
@@ -176,34 +228,49 @@ bmax3_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* queries, const void* corpus, void* bmax3, void* gmax,
-                   int num_q, int n, int block, int group, cudaStream_t stream) {
+template <typename T, typename S>
+cudaError_t launch(const void* queries, const void* corpus, const void* scale_a,
+                   const void* scale_b, void* bmax, void* gmax, int num_q, int n, int block,
+                   int group, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(group);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      bmax3_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      bmax3_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((num_q + kTileQ - 1) / kTileQ, n / (group * block));
-  bmax3_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(queries), static_cast<const T*>(corpus),
-      static_cast<float*>(bmax3), static_cast<float*>(gmax), num_q, block, group);
+  bmax3_kernel<T, S><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(queries), static_cast<const S*>(corpus),
+      static_cast<const float*>(scale_a), static_cast<const float*>(scale_b),
+      static_cast<float*>(bmax), static_cast<float*>(gmax), num_q, block, group);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// queries [num_q, dim], corpus [n, dim] (both bf16 when is_bf16, else f32,
-// row-major, 16-byte aligned); bmax3 [n / (group * block), num_q, group] and
-// gmax [n / (group * block), 1, num_q], f32. Returns a cudaError_t code.
-extern "C" int proqa_block_maxima(const void* queries, const void* corpus, void* bmax3,
-                                  void* gmax, int num_q, int n, int dim, int block,
-                                  int group, int is_bf16, void* stream) {
+// queries [num_q, dim] (bf16 when is_bf16, else f32) and corpus [n, dim] (int8
+// codes when corpus_int8, else the queries' type), row-major and 16-byte
+// aligned. scale_a, scale_b: null, or f32 [n / block] (see bmax3_kernel).
+// gmax null: bmax is [n / block, num_q]; otherwise bmax is
+// [n / (group * block), num_q, group] and gmax [n / (group * block), 1, num_q].
+// Returns a cudaError_t code.
+extern "C" int proqa_block_maxima(const void* queries, const void* corpus, const void* scale_a,
+                                  const void* scale_b, void* bmax, void* gmax, int num_q, int n,
+                                  int dim, int block, int group, int is_bf16, int corpus_int8,
+                                  void* stream) {
   if (dim != kDim || num_q <= 0 || n <= 0 || block <= 0 || group <= 0 ||
       block % kSeg != 0 || (group * block) % kChunk != 0 || n % (group * block) != 0 ||
-      n / (group * block) > kMaxGrid)
+      n / (group * block) > kMaxGrid || (scale_b != nullptr && scale_a == nullptr))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(queries, corpus, bmax3, gmax, num_q, n, block, group, s)
-                 : launch<float>(queries, corpus, bmax3, gmax, num_q, n, block, group, s);
+  if (is_bf16)
+    return corpus_int8
+        ? launch<__nv_bfloat16, int8_t>(queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n,
+                                        block, group, s)
+        : launch<__nv_bfloat16, __nv_bfloat16>(queries, corpus, scale_a, scale_b, bmax, gmax,
+                                               num_q, n, block, group, s);
+  return corpus_int8
+      ? launch<float, int8_t>(queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, block,
+                              group, s)
+      : launch<float, float>(queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, block,
+                             group, s);
 }

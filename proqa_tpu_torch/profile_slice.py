@@ -7,6 +7,9 @@ Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
               corpus, 2,048 queries per batch (kernel K1, then torch select
               and rescore);
   search_f32  the same over an f32 index (`--f32`);
+  search_int8 the same over an int8 index (`--int8-index`): codes and
+              per-block scales made on the device, quant block 16 (kernel
+              K5, then the select and the scaled rescore);
   encode_T*   the BERT-base context tower, bf16, 512 rows of T tokens
               (build-index's batch; K2 at every layer);
   train       one retriever train step at bench.py's operating point
@@ -43,7 +46,9 @@ GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # kernel group: substrings of the kernel name, first match wins
 GROUPS = (
+    ("K5 block_maxima int8", ("bmax3_kernel<__nv_bfloat16, signed char>",)),
     ("K1 block_maxima", ("bmax3_kernel",)),
+    ("K6/K9 gather_score", ("gather_score_kernel",)),
     ("K2 attention", ("attention_fwd_kernel",)),
     ("K3 attention backward", ("attention_bwd_",)),
     ("K4 dropout", ("dropout_kernel",)),
@@ -203,6 +208,27 @@ def search_workload(dtype, trace_dir: str, loop_calls: int) -> dict:
     return result
 
 
+def search_int8_workload(trace_dir: str, loop_calls: int) -> dict:
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.ops import mips
+    from proqa_tpu_torch.testing import random_int8_corpus
+
+    n, q, d, k = 4_194_304, 2048, 128, 80
+    device = torch.device("cuda", 0)
+    block = mips.envelope_block(n, q)
+    codes, scales = random_int8_corpus(n, d, block, seed=4, device=device)
+    index = DenseIndex._from_quantized(codes, scales, n, block, None)
+    g = torch.Generator(device=device).manual_seed(5)
+    queries = torch.randn(q, d, device=device, generator=g) / d ** 0.5
+    result = measure("search_int8", lambda: index.search(queries, k), loop_calls=loop_calls,
+                     traced_calls=3, trace_dir=trace_dir,
+                     extra={"shape": {"n": n, "d": d, "q": q, "k": k, "block": block,
+                                      "dtype": "int8, bf16 queries"},
+                            "k5_flop_per_call": 2.0 * n * q * d})
+    result["qps"] = q / result["steady_loop"]["wall_ms_median"] * 1e3
+    return result
+
+
 def encode_workload(model, t: int, trace_dir: str, loop_calls: int) -> dict:
     b, cfg = 512, model.cfg
     device = torch.device("cuda", 0)
@@ -290,6 +316,8 @@ def main(argv=None) -> int:
         for dtype, calls in ((torch.bfloat16, 100), (torch.float32, 25)):
             report["workloads"].append(search_workload(dtype, trace_dir, calls))
             torch.cuda.empty_cache()
+        report["workloads"].append(search_int8_workload(trace_dir, 100))
+        torch.cuda.empty_cache()
         model = Retriever(BertConfig(flash_attention=True)).reset_parameters(5).to("cuda").eval()
         for t, calls in ((128, 20), (256, 10), (512, 5)):
             report["workloads"].append(encode_workload(model, t, trace_dir, calls))

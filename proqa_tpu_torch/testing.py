@@ -1,8 +1,9 @@
-"""Helpers that hold one top-k search result against another, for the tests
-and chip_smoke.py."""
+"""Helpers for the tests, chip_smoke.py and profile_slice: holding one top-k
+search result against another, and making an int8 corpus on the device."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def topk_disagreements(va, ia, vb, ib, *, atol: float) -> int:
@@ -24,3 +25,30 @@ def topk_disagreements(va, ia, vb, ib, *, atol: float) -> int:
         if any(abs(score[i] - kth) > atol for i in diff):
             bad += 1
     return bad
+
+
+def random_int8_corpus(n: int, d: int, block: int, *, seed: int, device,
+                       chunk: int = 1 << 21, norm_range: tuple[float, float] | None = None):
+    """A random corpus quantized on the device: (codes int8 [n, d], scales f32
+    [n / block]), the scheme of ops/quant.py (symmetric absmax over blocks of
+    `block` rows) applied to standard-normal rows / sqrt(d), each row scaled
+    by a factor uniform in norm_range when it is given. Made chunk by chunk,
+    so that no f32 copy of the whole corpus exists: at 67M x 128 that copy
+    would be 34 GB. n and chunk must be multiples of block."""
+    if n % block or chunk % block:
+        raise ValueError(f"n={n} and chunk={chunk} must be multiples of block={block}")
+    g = torch.Generator(device=device).manual_seed(seed)
+    codes = torch.empty(n, d, dtype=torch.int8, device=device)
+    scales = torch.empty(n // block, dtype=torch.float32, device=device)
+    for s in range(0, n, chunk):
+        rows = min(chunk, n - s)
+        part = torch.randn(rows, d, device=device, generator=g) / d ** 0.5
+        if norm_range is not None:
+            lo, hi = norm_range
+            part *= torch.empty(rows, 1, device=device).uniform_(lo, hi, generator=g)
+        amax = part.view(rows // block, block * d).abs().amax(dim=1)
+        sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+        q = torch.round(part / sc.repeat_interleave(block)[:, None]).clamp_(-127, 127)
+        codes[s:s + rows] = q.to(torch.int8)
+        scales[s // block:(s + rows) // block] = sc
+    return codes, scales

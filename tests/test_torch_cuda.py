@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 from proqa_tpu_torch.models.bert import BertConfig  # noqa: E402
 from proqa_tpu_torch.models.retriever import Retriever  # noqa: E402
-from proqa_tpu_torch.ops import attention, mips, mips_kernel  # noqa: E402
+from proqa_tpu_torch.ops import attention, mips, mips_kernel, quant, rescore  # noqa: E402
 from proqa_tpu_torch.testing import topk_disagreements  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -100,6 +100,135 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q, k, v, mask = _attention_inputs(128, 2, 2, 48, cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         attention.fused_attention(q, k, v, mask, sm_scale=0.1)
+
+
+# --- the search family: K5, K7, K8 and K6/K9 ---
+
+
+def _int8_inputs(q, n, block, device, qdtype, seed, per_row=False):
+    """Codes and scales of rows of varied norm, and queries of qdtype."""
+    g = torch.Generator().manual_seed(seed)
+    emb = torch.randn(n, 128, generator=g) * torch.empty(n, 1).uniform_(0.25, 4.0, generator=g)
+    codes, sc = quant.quantize_rows(emb.numpy(), block=1 if per_row else block)
+    queries = torch.randn(q, 128, generator=g)
+    return (queries.to(device, qdtype), torch.from_numpy(codes).to(device),
+            torch.from_numpy(sc).to(device))
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["scales", "scale_bounds"])
+@pytest.mark.parametrize("q,block,group", [(300, 16, 128), (64, 32, 8), (2048, 128, 128)])
+def test_int8_block_maxima_kernels_match_plain(cuda, kind, q, block, group, qdtype):
+    """K5 (per-block scales) and K7 (per-row scale bounds) against their
+    plain version, on int8 codes with ragged query counts."""
+    per_row = kind == "scale_bounds"
+    queries, codes, sc = _int8_inputs(q, block * group * 3, block, cuda,
+                                      getattr(torch, qdtype), seed=q + block, per_row=per_row)
+    if per_row:
+        rs = sc.view(-1, block)
+        kw = {"scale_bounds": (rs.amax(dim=1), rs.amin(dim=1))}
+    else:
+        kw = {"scales": sc}
+    counter = "bounded_launches" if per_row else "scaled_launches"
+    before = getattr(mips_kernel, counter)
+    got = mips_kernel.block_maxima_grouped(queries, codes, block=block, group=group, **kw)
+    torch.cuda.synchronize()
+    assert getattr(mips_kernel, counter) == before + 1
+    want = mips_kernel.block_maxima_grouped_reference(queries, codes, block=block, group=group,
+                                                      **kw)
+    # scores of ~100 (norms up to 4 x 127 codes): f32 sums in another order
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=MIPS_ATOL * 100, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,block,tile_n", [(300, 256, 2048), (64, 16, 128)])
+def test_block_major_kernel_matches_plain(cuda, q, block, tile_n, dtype):
+    """K8 against its plain version."""
+    queries, corpus = _mips_inputs(q, tile_n * 3, cuda, getattr(torch, dtype), seed=q)
+    before = mips_kernel.block_major_launches
+    got = mips_kernel.block_maxima(queries, corpus, block=block, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert mips_kernel.block_major_launches == before + 1
+    assert got.shape == (tile_n * 3 // block, q)
+    torch.testing.assert_close(got, mips_kernel.block_maxima_reference(
+        queries, corpus, block=block, tile_n=tile_n), atol=MIPS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q,nb,block,kb", [(300, 512, 16, 80), (7, 40, 64, 3), (64, 100, 1, 33)])
+def test_gather_score_kernel_matches_plain(cuda, q, nb, block, kb, dtype):
+    """K6 and K9 (one kernel, two counters) against their plain version."""
+    g = torch.Generator().manual_seed(nb)
+    corpus = torch.randn(nb, block, 128, generator=g).to(cuda, getattr(torch, dtype))
+    queries = torch.randn(q, 128, generator=g).to(cuda, getattr(torch, dtype))
+    ids = torch.randint(0, nb, (q, kb), generator=g).to(cuda)
+    want = rescore.gather_rescore_reference(queries, corpus, ids, block=block)
+    for fn, counter in ((rescore.gather_rescore, "launches"),
+                        (rescore.gather_score, "score_launches")):
+        before = getattr(rescore, counter)
+        got = fn(queries, corpus, ids, block=block)
+        torch.cuda.synchronize()
+        assert getattr(rescore, counter) == before + 1
+        torch.testing.assert_close(got, want, atol=MIPS_ATOL * 10, rtol=1e-6)
+
+
+def test_int8_and_stream_pipelines_on_gpu(cuda):
+    """mips_topk over int8 codes (K5) and mips_topk_v2 with the streamed
+    rescore (K6), v1 (K8) and per-row bounds (K7) at a ragged N, against
+    their exact references."""
+    queries, codes, sc = _int8_inputs(256, 9000, 16, cuda, torch.bfloat16, seed=7)
+    before = mips_kernel.scaled_launches
+    gv, gi = mips.mips_topk(queries, codes, 80, n_valid=8995, scales=sc, quant_block=16)
+    assert mips_kernel.scaled_launches == before + 1
+    rows = quant.expand_scales(sc, 16, 9000)
+    rv, ri = mips.mips_topk_reference(queries, codes, 80, n_valid=8995, scales=rows)
+    assert topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
+                              ri.cpu().numpy(), atol=MIPS_ATOL * 100) == 0
+
+    queries, corpus = _mips_inputs(256, 9000, cuda, torch.bfloat16, seed=8, negative=True)
+    rv, ri = mips.mips_topk_reference(queries, corpus, 80, n_valid=8995)
+    before = rescore.launches, mips_kernel.block_major_launches
+    for got in (mips_kernel.mips_topk_v2(queries, corpus, 80, block=16, n_valid=8995,
+                                         rescore_impl="stream"),
+                mips_kernel.mips_topk_v1(queries, corpus, 80, n_valid=8995)):
+        assert topk_disagreements(got[0].cpu().numpy(), got[1].cpu().numpy(), rv.cpu().numpy(),
+                                  ri.cpu().numpy(), atol=MIPS_ATOL) == 0
+    assert (rescore.launches, mips_kernel.block_major_launches) == (before[0] + 1, before[1] + 1)
+
+    queries, codes, rs = _int8_inputs(256, 9000, 16, cuda, torch.bfloat16, seed=9, per_row=True)
+    before = mips_kernel.bounded_launches
+    gv, gi = mips_kernel.mips_topk_v2(queries, codes, 20, block=16, row_scales=rs, kb=320)
+    assert mips_kernel.bounded_launches == before + 1
+    exact = torch.gather(mips.dot_f32(queries, codes.bfloat16().T) * rs, 1, gi)
+    torch.testing.assert_close(gv, exact, atol=MIPS_ATOL * 100, rtol=1e-6)
+
+
+def test_search_kernels_reject_what_they_do_not_take(cuda):
+    q, c = _mips_inputs(64, 2048, cuda, torch.bfloat16)
+    codes = torch.zeros(2048, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(TypeError):   # int16 is neither the queries' dtype nor int8
+        mips_kernel.block_maxima_grouped(q, codes.to(torch.int16), block=16)
+    with pytest.raises(ValueError, match="per-block scales"):
+        mips_kernel.block_maxima_grouped(q, codes, block=16, scales=torch.ones(64, device=cuda))
+    with pytest.raises(ValueError, match="not both"):
+        mips_kernel.block_maxima_grouped(q, codes, block=16, scales=torch.ones(128, device=cuda),
+                                         scale_bounds=(torch.ones(128, device=cuda),) * 2)
+    with pytest.raises(ValueError, match="multiple of tile_n"):
+        mips_kernel.block_maxima(q, c[:1000], block=256)
+    with pytest.raises(ValueError, match="D=128"):
+        mips_kernel.block_maxima(q[:, :64].contiguous(), c[:, :64].contiguous(), block=16,
+                                 tile_n=128)
+    ids = torch.zeros(64, 4, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        rescore.gather_rescore(q, c.float().view(128, 16, 128), ids, block=16)
+    with pytest.raises(TypeError):
+        rescore.gather_score(q, c.view(128, 16, 128), ids.float(), block=16)
+    with pytest.raises(ValueError, match="D=128"):
+        rescore.gather_rescore(q[:, :64].contiguous(), c[:, :64].contiguous().view(128, 16, 64),
+                               ids, block=16)
+    with pytest.raises(ValueError, match="corpus_blocked"):
+        rescore.gather_rescore(q, c.view(64, 32, 128), ids, block=16)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

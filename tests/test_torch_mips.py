@@ -141,8 +141,7 @@ def test_dense_index_small_and_unported(tmp_path):
     np.testing.assert_allclose(vals, jv, atol=ATOL)
     np.testing.assert_array_equal(rows, jr)
     for call in (lambda: idx.add(corpus), lambda: idx.remove_rows([0]), idx.compact,
-                 idx.to_ivf, lambda: DenseIndex.from_embeddings(corpus, device="cpu",
-                                                                dtype="int8")):
+                 idx.to_ivf):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

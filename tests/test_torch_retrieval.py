@@ -27,6 +27,7 @@ from proqa_tpu.train.checkpoint import save_checkpoint  # noqa: E402
 from proqa_tpu_torch.cli.main import main as torch_main  # noqa: E402
 from proqa_tpu_torch.index.dense import DenseIndex  # noqa: E402
 from proqa_tpu_torch.models.convert import save_npz  # noqa: E402
+from proqa_tpu_torch.ops import mips_kernel  # noqa: E402
 from proqa_tpu_torch.testing import topk_disagreements  # noqa: E402
 
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"tok{i}" for i in range(60)] + [
@@ -122,3 +123,47 @@ def test_cli_rejects_unported_flags(world):
     for extra in (["--stream-chunk", "8"], ["--dp-encode"]):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             torch_main(base + extra)
+
+
+def test_cli_int8_index_matches_jax(world, capsys, monkeypatch):
+    """eval-retrieval and retrieve with --int8-index: both CLIs quantize one
+    f32 index (built by the JAX CLI) at load and give the same recall JSON
+    and the same top-k; the port searches through K5's pipeline (its plain
+    version here) and scores in bf16 although --f32 is given."""
+    w = str(world)
+    _run(torch_main, ["build-db", "--corpus", f"{w}/corpus.jsonl", "--db", f"{w}/int8.db"],
+         capsys)
+    _run(jax_main, ["build-index", *_common(world, "ckpt.msgpack"), "--corpus",
+                    f"{w}/corpus.jsonl", "--output-dir", f"{w}/int8_idx"], capsys)
+    _run(jax_main, ["encode-queries", *_common(world, "ckpt.msgpack"), "--queries",
+                    f"{w}/qa.jsonl", "--output", f"{w}/int8_q.npy"], capsys)
+    k5_calls = []
+    real = mips_kernel.mips_topk_v2
+
+    def spy(queries, corpus, k, **kw):
+        k5_calls.append((corpus.dtype, kw["block"], kw.get("scales") is not None,
+                         queries.dtype))
+        return real(queries, corpus, k, **kw)
+
+    monkeypatch.setattr(mips_kernel, "mips_topk_v2", spy)
+    evals, hits = {}, {}
+    for name, main, ckpt, extra in (("jax", jax_main, "ckpt.msgpack", []),
+                                    ("torch", torch_main, "ckpt.npz", ["--device", "cpu"])):
+        evals[name] = _run(main, ["eval-retrieval", f"{w}/qa.jsonl", f"{w}/int8_idx",
+                                  f"{w}/int8_q.npy", f"{w}/int8.db", "--topk", "80", "--f32",
+                                  "--int8-index", *extra], capsys)
+        hits[name] = _run(main, ["retrieve", *_common(world, ckpt), *extra, "--question",
+                                 "what is about tok3 tok21", "--index", f"{w}/int8_idx",
+                                 "--db", f"{w}/int8.db", "--topk", "10", "--int8-index"],
+                          capsys)["topk"]
+    assert evals["torch"] == evals["jax"]
+    assert set(evals["torch"]) == {f"recall@{k}" for k in (5, 10, 20, 50, 80)}
+    assert k5_calls == [(torch.int8, 16, True, torch.bfloat16)] * 2  # eval, then retrieve
+    assert topk_disagreements(
+        np.array([[r["score"] for r in hits["torch"]]]), np.array([[r["row"] for r in hits["torch"]]]),
+        np.array([[r["score"] for r in hits["jax"]]]), np.array([[r["row"] for r in hits["jax"]]]),
+        atol=2e-4) == 0
+    assert all(r["text"] for r in hits["torch"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_main(["eval-retrieval", f"{w}/qa.jsonl", f"{w}/int8_idx", f"{w}/int8_q.npy",
+                    f"{w}/int8.db", "--int8-index", "--shard-index", "--device", "cpu"])
