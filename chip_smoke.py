@@ -24,9 +24,10 @@ The retriever-pretraining slice:
      sigma of 0.9 and a backward that applies the forward's mask;
   7. K2 at dropout rate 0.1 (the same bits as its plain version) and K3, the
      attention backward, at rates 0 and 0.1, against their plain versions
-     (for K3 also against autograd through K2's plain version) at the train
-     step's shapes (B=80, H=12, Dh=64, T in 128..512, bf16, one
-     all-padding row), timed beside F.scaled_dot_product_attention;
+     (for K3 also against autograd through K2's plain version, and two
+     launches on the same inputs bit-equal) at the train step's shapes
+     (B=80, H=12, Dh=64, T in 128..512, bf16, one all-padding row), both
+     timed at rates 0.1 and 0 beside F.scaled_dot_product_attention;
   8. a full-width train step (BERT-base retriever, bf16, remat, fused
      attention, dropout 0.1, 80 x (32 + 512) tokens, AdamW lr 1e-4): 20 steps
      on one batch whose loss must fall, K2/K3/K4 launch counters read, and one
@@ -60,7 +61,8 @@ The int8 index and the rest of the search kernels:
      with every counter reset before and read after, and a direct int8
      DenseIndex.search against the exact reference of its own codes.
 Each of phases 12-14 first drives its kernel's public pipeline once with the
-counters at 0 and reads them, then compares and times the kernel.
+counters at 0 and reads them, then compares and times the kernel. Kernel
+times are device times by CUDA events over back-to-back calls (cuda_ms).
 
 Prints the GPU's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": ...} last. Exits non-zero,
@@ -126,19 +128,23 @@ def log(*parts) -> None:
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
-    """Median device time of fn() in ms, by CUDA events, after one warm-up."""
+    """Device time of one fn() call in ms, by CUDA events: the median over
+    reps of a run of back-to-back calls (as many as fill ~2 ms, at most 20)
+    divided by their count, after one warm-up, so the host's per-call
+    overhead hides behind the queued work of a call that takes longer."""
     import torch
 
-    fn()
-    times = []
-    for _ in range(reps):
+    def run(calls: int) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / calls
+
+    calls = max(1, min(20, int(2.0 / max(run(1), 1e-3))))  # the warm-up
+    return statistics.median(run(calls) for _ in range(reps))
 
 
 K2_BUCKETS = (128, 256, 384, 512)  # encode buckets that reach K2 (T % 128 == 0)
@@ -467,7 +473,9 @@ def _attention_inputs(device, b, h, t, dh, seed):
 
 def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
     """K2 at rate 0.1 and K3 at rates 0 and 0.1 against their plain versions
-    at the train step's shapes, each timed beside SDPA with a float mask."""
+    at the train step's shapes, K3's two launches on the same inputs
+    bit-equal; both kernels timed at rates 0.1 and 0 beside SDPA (rate 0)
+    with a float mask."""
     import torch
     import torch.nn.functional as F
 
@@ -490,9 +498,13 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
         errs3, errs_autograd = {}, {}
         for r in (0.0, rate):
             got = attention._backward_kernel(q, k, v, mask, do, scale, r, seed)
+            again = attention._backward_kernel(q, k, v, mask, do, scale, r, seed)
             want = attention.fused_attention_backward_reference(q, k, v, mask, do, sm_scale=scale,
                                                                 dropout_rate=r, seed=seed)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"K3 rate {r} B={b} T={t}: two launches on the same inputs differ")
+            del again
             errs3[r] = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
             check(all(bool(torch.isfinite(a.float()).all()) for a in got) and errs3[r] <= BWD_TOL,
                   f"K3 rate {r} B={b} T={t}: max abs err {errs3[r]} > {BWD_TOL}")
@@ -512,6 +524,7 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
         fwd = {
             "ms": cuda_ms(lambda: attention.fused_attention(q, k, v, mask, sm_scale=scale,
                                                             dropout_rate=rate, seed=seed)),
+            "ms_rate0": cuda_ms(lambda: attention.fused_attention(q, k, v, mask, sm_scale=scale)),
             "plain_ms": cuda_ms(lambda: attention.fused_attention_reference(
                 q, k, v, mask, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3),
             "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
@@ -532,12 +545,14 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
         fwd["bound_ms"], fwd["bound_by"] = bound(4 * n + mask.numel() * 4, 4 * b * h * t * t * dh)
         bwd["bound_ms"], bwd["bound_by"] = bound(7 * n + mask.numel() * 4, 10 * b * h * t * t * dh)
         log(f"K2 rate {rate} B={b} H={h} T={t} Dh={dh} bf16: max_abs_err {err2:.3g} (tol "
-            f"{ATTN_TOL}), kernel {fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, SDPA at rate "
-            f"0 {fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
+            f"{ATTN_TOL}), kernel {fwd['ms']:.4f} ms (rate 0 {fwd['ms_rate0']:.4f}), plain "
+            f"{fwd['plain_ms']:.4f} ms, SDPA at rate 0 {fwd['library_ms']:.4f} ms, bound "
+            f"{fwd['bound_ms']:.4f} ms ({fwd['bound_by']})")
         log(f"K3 B={b} H={h} T={t} Dh={dh} bf16: max_abs_err rate 0 {errs3[0.0]:.3g}, rate {rate} "
             f"{errs3[rate]:.3g} (tol {BWD_TOL}); against autograd of the plain forward "
             f"{errs_autograd[0.0]:.3g}, {errs_autograd[rate]:.3g} top-magnitude bf16 ulps "
-            f"(tol {AUTOGRAD_ULPS}); kernel {bwd['ms']:.4f} ms (rate 0 {bwd['ms_rate0']:.4f}), "
+            f"(tol {AUTOGRAD_ULPS}); two launches bit-equal; kernel {bwd['ms']:.4f} ms (rate 0 "
+            f"{bwd['ms_rate0']:.4f}), "
             f"plain {bwd['plain_ms']:.4f} ms, SDPA backward at rate 0 "
             f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
         if t == 512:

@@ -40,9 +40,9 @@ _SIGNATURES = {
     # q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, is_bf16,
     # dropout, k0, k1, threshold, inv_keep, stream
     "proqa_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
-    # q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads, seq, head_dim,
-    # scale, is_bf16, dropout, k0, k1, threshold, inv_keep, stream
-    "proqa_attention_bwd": [_P] * 9 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
+    # q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads, seq,
+    # head_dim, scale, is_bf16, dropout, k0, k1, threshold, inv_keep, stream
+    "proqa_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
     # x, y, n, k0, k1, threshold, inv_keep, is_bf16, stream
     "proqa_dropout": [_P, _P, _L, *_DROPOUT, _I, _P],
 }

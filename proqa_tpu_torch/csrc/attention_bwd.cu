@@ -13,25 +13,35 @@
 // recomputed and the mask is regenerated from the keys (random.cuh).
 //
 // What bounds it on the H100: per (batch, head) 10 T^2 Dh FLOP for 7 T Dh
-// elements moved (q, k, v, do in; dq, dk, dv out), so it is arithmetic-bound
-// in principle. This simple version recomputes the scores twice (14 T^2 Dh
-// FLOP in all) and is bound by f32 tiles in shared memory and wmma fragment
-// loads from L2, like K2.
+// elements moved (q, k, v, do in; dq, dk, dv out), so at T >= 256 it is
+// operations-bound in principle. The reference's rounding points add work:
+// D = rowsum(p * dp) must be complete, from f32 p and dp, before ds can be
+// rounded, so no row of ds exists before a sweep over all keys; and per
+// score the kernel spends exps, true divisions and, at a dropout rate above
+// 0, the mask hash's integer operations, which compete with the products for
+// issue slots.
 //
-// What the design does about it: the TPU kernel keeps a whole (batch, head)
-// in VMEM; at T = 512 and Dh = 64, q, k, v and do alone exceed a block's
-// 227 KB of shared memory, so the work is split into two passes that need no
-// atomics, and the result is the same from run to run.
-//   Pass 1, one block per 16 query rows: recomputes the f32 score rows and
-//   their softmax exactly as K2 does (max, exp, sum, divide, in K2's order),
-//   computes dpd, dp, D = rowsum(p * dp) and ds, writes dq, and writes each
-//   row's (max, sum, D) to a scratch array.
-//   Pass 2, one block per 16 keys: recomputes the transposed score tile
-//   k q^T and p = exp(x - max) / sum from pass 1's row statistics (the
-//   forward's own arithmetic, not a stored log-sum-exp), regenerates the
-//   mask, and writes dv and dk.
-#include <type_traits>
-
+// What the design does about it (bf16): two kernels with no atomics, each a
+// warpgroup (128 threads) per 64-row tile with wgmma products and f32
+// accumulators in registers. The resident tiles are loaded once into shared
+// memory; the streamed tiles of 64 rows go through a ring of kStages
+// buffers filled by cp.async. The softmax, the mask, dp, ds and the bf16
+// rounding happen in registers on the accumulator fragments; the rounded pd
+// or ds is the register A operand of the next product. No float atomics, so
+// two launches on the same inputs give the same bits.
+//   Row kernel, one block per (batch, head, 64 query rows), q and do
+//   resident, k and v streamed, three sweeps over the keys: (1) q k^T for
+//   each row's maximum and sum, in K2's arithmetic (RowStats); (2) q k^T and
+//   do v^T for D = rowsum(p * dp); (3) both again for ds and dq += ds k.
+//   It writes dq and each row's (max, sum, D) to a scratch array.
+//   Column kernel, one block per (batch, head, 64 keys), k and v resident,
+//   q, do and the rows' statistics streamed: the transposed tiles k q^T and
+//   v do^T give p = exp(x - max) / sum from the row kernel's statistics (the
+//   forward's own arithmetic, not a stored log-sum-exp), the regenerated
+//   mask, pd and ds, then dv += pd^T do and dk += ds^T q.
+//
+// f32 keeps the simple body (attention_tiles.cuh): 16 rows a block, whole
+// f32 score rows in shared memory, plain FMA products, the same two passes.
 #include "attention_tiles.cuh"
 #include "random.cuh"
 
@@ -39,32 +49,425 @@ namespace {
 
 using namespace attn;
 
-template <typename Elem, int DH>
-size_t smem_bytes(int seq) {
+// ---------------------------------------------------------------------------
+// bf16: staged tiles and wgmma
+// ---------------------------------------------------------------------------
+
+// The row statistics scratch, f32 [kStats][batch * heads * seq]: each query
+// row's maximum logit, sum of exp(x - max), its reciprocal, and D.
+constexpr int kStats = 4;
+enum Stat { kMax = 0, kSum = 1, kRcp = 2, kD = 3 };
+
+// warpgroups of 64 rows a block (sharing the streamed tiles), and the blocks
+// an SM should hold, which bounds the registers a thread may use
+constexpr int kRowGroups = 2, kRowBlocksPerSM = 2;
+constexpr int kColGroups = 2, kColBlocksPerSM = 1;
+
+template <int DH, bool DROP>
+size_t rows_smem_bytes(int seq) {
+  // q and do tiles, the ring of (k, v) tiles, the key bias, and with dropout
+  // the keep bits of the block's rows
+  return (2 * kRowGroups + 2 * kStages) * Tile<DH>::kBytes + (size_t)seq * sizeof(float) +
+         (DROP ? (size_t)kRowGroups * seq * sizeof(uint64_t) : 0);
+}
+
+template <int DH>
+__host__ __device__ constexpr uint32_t cols_stage_bytes() {
+  // a q tile, a do tile, the statistics of its 64 rows, and their keep bits
+  // against each warpgroup's 64 keys
+  return 2 * Tile<DH>::kBytes + kStats * kTile * sizeof(float) +
+         kColGroups * kTile * sizeof(uint64_t);
+}
+
+template <int DH>
+size_t cols_smem_bytes() {
+  // k and v tiles, the ring
+  return 2 * kColGroups * Tile<DH>::kBytes + kStages * cols_stage_bytes<DH>();
+}
+
+// The dropout mask as bits, u64 [batch * heads][seq / 64][seq]: word
+// [bh][kt][i] holds the keep flags of query row i against keys 64 kt ..
+// 64 kt + 63, bit o for key 64 kt + o. The row kernel draws them (random.cuh)
+// in its D sweep; its dq sweep and the column kernel read them.
+__device__ __forceinline__ size_t bits_index(size_t bh, int nt, int kt, int seq, int row) {
+  return (bh * nt + kt) * seq + row;
+}
+
+// Is the thread's element i of a 64 x 64 tile (row r = (i / 2) % 2, key
+// 8 (i / 4) + c + i % 2) kept? `words[r]`: its row's keep bits shifted right
+// by c; halves: 0 for keys 0 .. 31, 1 for 32 .. 63.
+__device__ __forceinline__ bool kept(const uint32_t (&words)[2][2], int i) {
+  const int n = i / 4;
+  return (words[(i / 2) % 2][n / 4] >> (8 * (n % 4) + i % 2)) & 1u;
+}
+
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(kRowGroups * kWarpgroup, kRowBlocksPerSM)
+attention_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const int* __restrict__ key_mask, bf16* __restrict__ dq,
+                          float* __restrict__ stats, uint64_t* __restrict__ keep_bits, int heads,
+                          int seq, float scale, DropoutParams drop) {
+  constexpr int NT = kRowGroups * kWarpgroup;
+  constexpr uint32_t kBytes = Tile<DH>::kBytes;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, wg = tid / kWarpgroup, t = tid % kWarpgroup;
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRowGroups * kTile;
+  const size_t bh = (size_t)b * heads + h, slice = bh * seq * DH;
+  // q tiles, do tiles, then the ring: a stage holds two tiles, 128 keys of k
+  // (sweep 0) or 64 keys of k and of v (sweeps 1 and 2)
+  const uint32_t q_tiles = smem_addr(smem), do_tiles = q_tiles + kRowGroups * kBytes;
+  const uint32_t ring = do_tiles + kRowGroups * kBytes;
+  float* bias = reinterpret_cast<float*>(smem + (2 * kRowGroups + 2 * kStages) * kBytes);
+  // with dropout, [kRowGroups][nt][kTile] keep-bit words of the block's rows
+  uint64_t* row_bits = reinterpret_cast<uint64_t*>(bias + seq);
+
+  for (int c = tid; c < seq; c += NT)
+    bias[c] = key_mask[(size_t)b * seq + c] != 0 ? 0.0f : kMaskBias;
+  for (int w = 0; w < kRowGroups; ++w) {
+    const size_t off = slice + (size_t)(row0 + w * kTile) * DH;
+    load_tile<DH, NT>(q_tiles + w * kBytes, q + off, tid);
+    load_tile<DH, NT>(do_tiles + w * kBytes, dout + off, tid);
+  }
+
+  // items 0 .. n0-1: sweep 0, 128 keys each; then nt items of sweep 1 and nt
+  // of sweep 2, 64 keys each
+  const int nt = seq / kTile, n0 = nt / 2, items = n0 + 2 * nt;
+  auto issue = [&](int item) {
+    if (item < items) {
+      const uint32_t stage = ring + (item % kStages) * 2 * kBytes;
+      if (item < n0) {
+        const size_t off = slice + (size_t)item * 2 * kTile * DH;
+        load_tile<DH, NT>(stage, k + off, tid);
+        load_tile<DH, NT>(stage + kBytes, k + off + kTile * DH, tid);
+      } else {
+        const size_t off = slice + (size_t)((item - n0) % nt) * kTile * DH;
+        load_tile<DH, NT>(stage, k + off, tid);
+        load_tile<DH, NT>(stage + kBytes, v + off, tid);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const uint32_t q_tile = q_tiles + wg * kBytes, do_tile = do_tiles + wg * kBytes;
+  const int c = frag_col(t);
+  const int i0 = row0 + wg * kTile + frag_row(t);  // the thread's rows: i0 and i0 + 8
+  const uint64_t counter0 = (bh * seq + i0) * (uint64_t)seq;
+  const int row_word = wg * nt * kTile + frag_row(t);  // + kt * kTile + 8 r: row_bits' index
+
+  // sweep 0: each row's maximum and sum, in K2's arithmetic
+  RowStats st;
+  int item = 0;
+  for (; item < n0; ++item) {
+    stage_ready();
+    issue(item + 1);
+    const uint32_t stage = ring + (item % kStages) * 2 * kBytes;
+    float sa[32], sb[32];
+    wgmma_fence();
+    issue_scores<DH>(sa, q_tile, stage);
+    issue_scores<DH>(sb, q_tile, stage + kBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(sb);
+    add_logits(sa, bias, item * 2 * kTile, c, scale);
+    add_logits(sb, bias, item * 2 * kTile + kTile, c, scale);
+    st.update(sa);
+    st.update(sb);
+  }
+  st.finish();
+
+  // sweeps 1 and 2 share this: the tile's probabilities and do v^T
+  float s[32], dp[32];
+  auto tile = [&](int key0, uint32_t k_tile) {
+    wgmma_fence();
+    issue_scores<DH>(s, q_tile, k_tile);
+    issue_scores<DH>(dp, do_tile, k_tile + kBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    add_logits(s, bias, key0, c, scale);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = st.prob(s[i], (i / 2) % 2);
+  };
+
+  // sweep 1: D = rowsum(p * dp), drawing the mask and keeping it as bits
+  float dsum[2] = {0.0f, 0.0f};
+  for (; item < n0 + nt; ++item) {
+    stage_ready();
+    issue(item + 1);
+    const int kt = item - n0, key0 = kt * kTile;
+    tile(key0, ring + (item % kStages) * 2 * kBytes);
+    if constexpr (DROP) {
+      // offsets 8 n + e from key0 + c, whose bits are clear in it
+      const uint64_t n0c = counter0 + key0 + c;
+      const ProqaKeepRow mask[2] = {ProqaKeepRow(drop.k0, drop.k1, n0c),
+                                    ProqaKeepRow(drop.k0, drop.k1, n0c + 8 * (uint64_t)seq)};
+      uint32_t words[2][2] = {};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2, n = i / 4;
+        const bool keep = mask[r].keep(8 * n + i % 2, drop.threshold);
+        dp[i] = apply_keep(dp[i], keep, drop.inv_keep);
+        if (keep) words[r][n / 4] |= 1u << (8 * (n % 4) + i % 2);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t half[2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {  // the quad's 4 x 16 bits make the row's word
+          half[a] = words[r][a] << c;
+          half[a] |= __shfl_xor_sync(0xffffffffu, half[a], 1);
+          half[a] |= __shfl_xor_sync(0xffffffffu, half[a], 2);
+        }
+        if (c == 0) {
+          const uint64_t word = half[0] | (uint64_t)half[1] << 32;
+          row_bits[row_word + kt * kTile + 8 * r] = word;
+          keep_bits[bits_index(bh, nt, kt, seq, i0 + 8 * r)] = word;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      dsum[r] = __fadd_rn(dsum[r], __fmul_rn(s[i], dp[i]));
+    }
+  }
+  dsum[0] = quad_sum(dsum[0]);
+  dsum[1] = quad_sum(dsum[1]);
+
+  // sweep 2: ds and dq += ds k
+  float acc[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+  for (; item < items; ++item) {
+    stage_ready();
+    issue(item + 1);
+    const int kt = item - n0 - nt;
+    const uint32_t k_tile = ring + (item % kStages) * 2 * kBytes;
+    tile(kt * kTile, k_tile);
+    if constexpr (DROP) {  // the mask sweep 1 drew
+      uint32_t words[2][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint64_t word = row_bits[row_word + kt * kTile + 8 * r] >> c;
+        words[r][0] = static_cast<uint32_t>(word);
+        words[r][1] = static_cast<uint32_t>(word >> 32);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = apply_keep(dp[i], kept(words, i), drop.inv_keep);
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)  // ds
+      s[i] = __fmul_rn(__fmul_rn(s[i], __fsub_rn(dp[i], dsum[(i / 2) % 2])), scale);
+    uint32_t da[4][4];
+    pack_rows(s, da);
+    wgmma_fence();
+    issue_weigh<DH>(acc, da, k_tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+
+  bf16* out = dq + slice;
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 2) {
+    const int row = i0 + 8 * ((i / 2) % 2), col = 8 * (i / 4) + c;
+    *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * DH + col) =
+        __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+  if (c == 0) {
+    const size_t rows_total = (size_t)gridDim.z * heads * seq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t i = bh * seq + i0 + 8 * r;
+      stats[kMax * rows_total + i] = st.max_x[r];
+      stats[kSum * rows_total + i] = st.sum_e[r];
+      stats[kRcp * rows_total + i] = st.rcp[r];
+      stats[kD * rows_total + i] = dsum[r];
+    }
+  }
+}
+
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(kColGroups * kWarpgroup, kColBlocksPerSM)
+attention_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                          const int* __restrict__ key_mask, const float* __restrict__ stats,
+                          const uint64_t* __restrict__ keep_bits, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int heads, int seq, float scale,
+                          DropoutParams drop) {
+  constexpr int NT = kColGroups * kWarpgroup;
+  constexpr uint32_t kBytes = Tile<DH>::kBytes, kStage = cols_stage_bytes<DH>();
+  constexpr uint32_t kRing = 2 * kColGroups * kBytes;  // the ring's offset
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, wg = tid / kWarpgroup, t = tid % kWarpgroup;
+  const int b = blockIdx.z, h = blockIdx.y, key_block = blockIdx.x * kColGroups * kTile;
+  const size_t bh = (size_t)b * heads + h, slice = bh * seq * DH;
+  const size_t rows_total = (size_t)gridDim.z * heads * seq;
+  // k tiles, v tiles, then the ring; stage s: q tile, do tile, statistics
+  const uint32_t base = smem_addr(smem);
+  const uint32_t k_tiles = base, v_tiles = base + kColGroups * kBytes;
+
+  for (int w = 0; w < kColGroups; ++w) {
+    const size_t off = slice + (size_t)(key_block + w * kTile) * DH;
+    load_tile<DH, NT>(k_tiles + w * kBytes, k + off, tid);
+    load_tile<DH, NT>(v_tiles + w * kBytes, v + off, tid);
+  }
+  const int nt = seq / kTile;
+  auto issue = [&](int item) {
+    if (item < nt) {
+      const size_t row = bh * seq + (size_t)item * kTile;
+      const uint32_t stage = base + kRing + (item % kStages) * kStage;
+      load_tile<DH, NT>(stage, q + row * DH, tid);
+      load_tile<DH, NT>(stage + kBytes, dout + row * DH, tid);
+      for (int a = 0; a < kStats; ++a)
+        load_floats<NT>(stage + 2 * kBytes + a * kTile * 4, stats + a * rows_total + row, kTile,
+                        tid);
+      if constexpr (DROP)
+        for (int w = 0; w < kColGroups; ++w)
+          load_floats<NT>(stage + 2 * kBytes + (kStats + 2 * w) * kTile * 4,
+                          reinterpret_cast<const float*>(keep_bits + bits_index(
+                              bh, nt, key_block / kTile + w, seq, item * kTile)),
+                          2 * kTile, tid);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  // accumulator rows are keys (j0 and j0 + 8), columns are queries
+  const uint32_t k_tile = k_tiles + wg * kBytes, v_tile = v_tiles + wg * kBytes;
+  const int c = frag_col(t);
+  const int j0 = key_block + wg * kTile + frag_row(t);
+  const float bias[2] = {key_mask[(size_t)b * seq + j0] != 0 ? 0.0f : kMaskBias,
+                         key_mask[(size_t)b * seq + j0 + 8] != 0 ? 0.0f : kMaskBias};
+  float acc_v[DH / 2], acc_k[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc_v[i] = acc_k[i] = 0.0f;
+
+  for (int item = 0; item < nt; ++item) {
+    stage_ready();
+    issue(item + 1);
+    const uint32_t stage = kRing + (item % kStages) * kStage;
+    const uint32_t q_tile = base + stage, do_tile = q_tile + kBytes;
+    // the statistics of the item's 64 query rows, [kStats][kTile], then
+    // their keep bits against the warpgroup's keys
+    const float* row_stats = reinterpret_cast<const float*>(smem + stage + 2 * kBytes);
+    const uint64_t* bits = reinterpret_cast<const uint64_t*>(row_stats + kStats * kTile) +
+                           wg * kTile;
+
+    float s[32], dp[32];
+    wgmma_fence();
+    issue_scores<DH>(s, k_tile, q_tile);
+    issue_scores<DH>(dp, v_tile, do_tile);
+    wgmma_commit();
+    wgmma_wait<0>();  // these scores, and the previous tile's products
+    fence_regs(s);
+    fence_regs(dp);
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + c;
+      const float2 m = *reinterpret_cast<const float2*>(row_stats + kMax * kTile + col);
+      const float2 l = *reinterpret_cast<const float2*>(row_stats + kSum * kTile + col);
+      const float2 rl = *reinterpret_cast<const float2*>(row_stats + kRcp * kTile + col);
+      const float2 dd = *reinterpret_cast<const float2*>(row_stats + kD * kTile + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e, r = e / 2;
+        const bool odd = e % 2;
+        const float x = logit(s[i], scale, bias[r]);
+        const float p = div_rn(expf(x - (odd ? m.y : m.x)), odd ? l.y : l.x, odd ? rl.y : rl.x);
+        float pd = p, d = dp[i];
+        if constexpr (DROP) {  // bit j0 + 8 r - (the tile's first key) of query row col + odd
+          const bool keep = (bits[col + odd] >> (frag_row(t) + 8 * r)) & 1u;
+          pd = apply_keep(p, keep, drop.inv_keep);
+          d = apply_keep(d, keep, drop.inv_keep);
+        }
+        s[i] = pd;
+        dp[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, odd ? dd.y : dd.x)), scale);  // ds
+      }
+    }
+    uint32_t pa[4][4], da[4][4];
+    pack_rows(s, pa);
+    pack_rows(dp, da);
+    wgmma_fence();
+    issue_weigh<DH>(acc_v, pa, do_tile);  // waited for in the next item, or below
+    issue_weigh<DH>(acc_k, da, q_tile);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc_v);
+  fence_regs(acc_k);
+
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 2) {
+    const size_t at = slice + (size_t)(j0 + 8 * ((i / 2) % 2)) * DH + 8 * (i / 4) + c;
+    *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(acc_k[i], acc_k[i + 1]);
+  }
+}
+
+template <int DH, bool DROP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                         const void* key_mask, void* dq, void* dk, void* dv, void* stats,
+                         void* keep_bits, int batch, int heads, int seq, float scale,
+                         DropoutParams drop, cudaStream_t stream) {
+  const size_t rows_smem = rows_smem_bytes<DH, DROP>(seq), cols_smem = cols_smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_kernel<DH, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)rows_smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_cols_kernel<DH, DROP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cols_smem);
+  if (err != cudaSuccess) return err;
+  const bf16* qe = static_cast<const bf16*>(q);
+  const bf16* ke = static_cast<const bf16*>(k);
+  const bf16* ve = static_cast<const bf16*>(v);
+  const bf16* de = static_cast<const bf16*>(dout);
+  const int* mask = static_cast<const int*>(key_mask);
+  float* st = static_cast<float*>(stats);
+  uint64_t* bits = static_cast<uint64_t*>(keep_bits);
+  attention_bwd_rows_kernel<DH, DROP>
+      <<<dim3(seq / (kRowGroups * kTile), heads, batch), kRowGroups * kWarpgroup, rows_smem,
+         stream>>>(qe, ke, ve, de, mask, static_cast<bf16*>(dq), st, bits, heads, seq, scale,
+                   drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_bwd_cols_kernel<DH, DROP>
+      <<<dim3(seq / (kColGroups * kTile), heads, batch), kColGroups * kWarpgroup, cols_smem,
+         stream>>>(qe, ke, ve, de, mask, st, bits, static_cast<bf16*>(dk),
+                   static_cast<bf16*>(dv), heads, seq, scale, drop);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: the simple body
+// ---------------------------------------------------------------------------
+
+template <int DH>
+size_t simple_smem_bytes(int seq) {
   // two f32 score tiles, the key bias (pass 1) or the row statistics (pass 2),
-  // two output tiles, and either two dtype tiles (bf16) or staged rows (f32)
-  size_t bytes = 2 * (size_t)kRows * (seq + 4) * sizeof(float)
-                 + 3 * (size_t)seq * sizeof(float)
-                 + 2 * (size_t)kRows * (DH + 4) * sizeof(float);
-  if constexpr (std::is_same_v<Elem, bf16>)
-    bytes += 2 * (size_t)kRows * (seq + 8) * sizeof(bf16);
-  else
-    bytes += 2 * (size_t)kRows * DH * sizeof(float);
-  return bytes;
+  // two output tiles, two staged row tiles
+  return (2 * (size_t)kRows * (seq + 4) + 3 * (size_t)seq + 2 * (size_t)kRows * (DH + 4) +
+          2 * (size_t)kRows * DH) * sizeof(float);
 }
 
 struct Tiles {
-  float* s;      // [kRows][s_ld] scores, then p (pass 1) or pd (pass 2, f32)
-  float* dpd;    // [kRows][s_ld] do v^T, then ds (f32)
+  float* s;      // [kRows][s_ld] scores, then p (pass 1) or pd (pass 2)
+  float* dpd;    // [kRows][s_ld] do v^T, then ds
   float* vec;    // [3][seq]: key bias (pass 1) or max, sum, D per query (pass 2)
   float* o1;     // [kRows][o_ld]
   float* o2;     // [kRows][o_ld]
-  unsigned char* rest;
+  float* stage;  // [2][kRows][DH] staged rows
 };
 
 template <int DH>
 __device__ Tiles carve(unsigned char* smem, int seq) {
-  // every region starts on a 128-byte boundary: seq % 128 == 0, DH % 16 == 0
+  // every region starts on a 16-byte boundary: seq % 128 == 0, DH % 16 == 0
   Tiles t;
   const int s_ld = seq + 4, o_ld = DH + 4;
   t.s = reinterpret_cast<float*>(smem);
@@ -72,32 +475,28 @@ __device__ Tiles carve(unsigned char* smem, int seq) {
   t.vec = t.dpd + kRows * s_ld;
   t.o1 = t.vec + 3 * seq;
   t.o2 = t.o1 + kRows * o_ld;
-  t.rest = reinterpret_cast<unsigned char*>(t.o2 + kRows * o_ld);
+  t.stage = t.o2 + kRows * o_ld;
   return t;
 }
 
-// a_tile . b^T for the tile's rows of `a` against every row of `b`, into s.
-template <typename Elem, int DH>
-__device__ void scores(const Elem* a_tile, const Elem* b, float* s, int s_ld, int seq,
-                       Elem* stage) {
-  if constexpr (std::is_same_v<Elem, bf16>) {
-    score_rows<DH>(a_tile, b, s, s_ld, seq);
-  } else {
-    stage_rows<DH>(a_tile, stage);
-    __syncthreads();
-    score_rows<DH>(stage, b, s, s_ld, seq);
-  }
+// a_tile . b^T for the block's rows of `a` against every row of `b`, into s.
+template <int DH>
+__device__ void scores(const float* a_tile, const float* b, float* s, int s_ld, int seq,
+                       float* stage) {
+  stage_rows<DH>(a_tile, stage);
+  __syncthreads();
+  score_rows<DH>(stage, b, s, s_ld, seq);
 }
 
 // Pass 1: one block per (batch, head, 16 query rows); writes dq and the rows'
 // statistics.
-template <typename Elem, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_rows_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                          const Elem* __restrict__ v, const Elem* __restrict__ dout,
-                          const int* __restrict__ key_mask, Elem* __restrict__ dq,
-                          float* __restrict__ stats, int heads, int seq, float scale,
-                          DropoutParams drop) {
+attention_bwd_simple_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ dout,
+                                 const int* __restrict__ key_mask, float* __restrict__ dq,
+                                 float* __restrict__ stats, int heads, int seq, float scale,
+                                 DropoutParams drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
   const size_t bh = (size_t)b * heads + h, slice = bh * seq * DH;
@@ -108,22 +507,12 @@ attention_bwd_rows_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k
   for (int c = threadIdx.x; c < seq; c += kThreads)
     bias[c] = key_mask[(size_t)b * seq + c] != 0 ? 0.0f : kMaskBias;
 
-  Elem* stage = reinterpret_cast<Elem*>(t.rest);   // f32: [kRows][DH] staged rows
-  scores<Elem, DH>(q + slice + (size_t)row0 * DH, k + slice, t.s, s_ld, seq, stage);
+  scores<DH>(q + slice + (size_t)row0 * DH, k + slice, t.s, s_ld, seq, t.stage);
   __syncthreads();
-  scores<Elem, DH>(dout + slice + (size_t)row0 * DH, v + slice, t.dpd, s_ld, seq,
-                   stage + kRows * DH);
+  scores<DH>(dout + slice + (size_t)row0 * DH, v + slice, t.dpd, s_ld, seq,
+             t.stage + kRows * DH);
   __syncthreads();
 
-  Elem* ds;
-  int ds_ld;
-  if constexpr (std::is_same_v<Elem, bf16>) {
-    ds = reinterpret_cast<Elem*>(t.rest);          // [kRows][seq + 8]
-    ds_ld = seq + 8;
-  } else {
-    ds = t.s;                                      // in place of p
-    ds_ld = s_ld;
-  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kRows; r += kWarps) {
     float* srow = t.s + r * s_ld;
@@ -131,7 +520,7 @@ attention_bwd_rows_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k
     // the forward's softmax, step for step (attention_fwd.cu:softmax_rows)
     float m = -INFINITY;
     for (int c = lane; c < seq; c += 32) {
-      const float x = __fadd_rn(__fmul_rn(srow[c], scale), bias[c]);
+      const float x = logit(srow[c], scale, bias[c]);
       srow[c] = x;
       m = fmaxf(m, x);
     }
@@ -156,30 +545,30 @@ attention_bwd_rows_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k
       dsum = __fadd_rn(dsum, __fmul_rn(p, dp));
     }
     const float dsum_row = warp_sum(dsum);
-    Elem* dsrow = ds + r * ds_ld;
-    for (int c = lane; c < seq; c += 32)
-      store(dsrow + c, __fmul_rn(__fmul_rn(srow[c], __fsub_rn(drow[c], dsum_row)), scale));
+    for (int c = lane; c < seq; c += 32)  // ds, in place of p
+      srow[c] = __fmul_rn(__fmul_rn(srow[c], __fsub_rn(drow[c], dsum_row)), scale);
     if (lane == 0) {
       const size_t i = bh * seq + row0 + r;
-      stats[i] = m;
-      stats[rows_total + i] = sum;
-      stats[2 * rows_total + i] = dsum_row;
+      stats[kMax * rows_total + i] = m;
+      stats[kSum * rows_total + i] = sum;
+      stats[kD * rows_total + i] = dsum_row;
     }
   }
   __syncthreads();
-  weigh_values<DH>(ds, ds_ld, k + slice, t.o1, o_ld, seq);
+  weigh_values<DH>(t.s, s_ld, k + slice, t.o1, o_ld, seq);
   __syncthreads();
   write_rows<DH>(t.o1, o_ld, dq + slice + (size_t)row0 * DH);
 }
 
 // Pass 2: one block per (batch, head, 16 keys); writes dv and dk.
-template <typename Elem, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_cols_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                          const Elem* __restrict__ v, const Elem* __restrict__ dout,
-                          const int* __restrict__ key_mask, const float* __restrict__ stats,
-                          Elem* __restrict__ dk, Elem* __restrict__ dv, int heads, int seq,
-                          float scale, DropoutParams drop) {
+attention_bwd_simple_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ dout,
+                                 const int* __restrict__ key_mask,
+                                 const float* __restrict__ stats, float* __restrict__ dk,
+                                 float* __restrict__ dv, int heads, int seq, float scale,
+                                 DropoutParams drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * kRows;
   const size_t bh = (size_t)b * heads + h, slice = bh * seq * DH;
@@ -191,40 +580,26 @@ attention_bwd_cols_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k
   float* row_d = t.vec + 2 * seq;
   for (int c = threadIdx.x; c < seq; c += kThreads) {
     const size_t i = bh * seq + c;
-    row_max[c] = stats[i];
-    row_sum[c] = stats[rows_total + i];
-    row_d[c] = stats[2 * rows_total + i];
+    row_max[c] = stats[kMax * rows_total + i];
+    row_sum[c] = stats[kSum * rows_total + i];
+    row_d[c] = stats[kD * rows_total + i];
   }
 
-  Elem* stage = reinterpret_cast<Elem*>(t.rest);   // f32: [kRows][DH] staged rows
   // transposed tiles: row r is key key0 + r, column c is query c
-  scores<Elem, DH>(k + slice + (size_t)key0 * DH, q + slice, t.s, s_ld, seq, stage);
+  scores<DH>(k + slice + (size_t)key0 * DH, q + slice, t.s, s_ld, seq, t.stage);
   __syncthreads();
-  scores<Elem, DH>(v + slice + (size_t)key0 * DH, dout + slice, t.dpd, s_ld, seq,
-                   stage + kRows * DH);
+  scores<DH>(v + slice + (size_t)key0 * DH, dout + slice, t.dpd, s_ld, seq,
+             t.stage + kRows * DH);
   __syncthreads();
 
-  Elem *pd, *ds;
-  int ld;
-  if constexpr (std::is_same_v<Elem, bf16>) {
-    pd = reinterpret_cast<Elem*>(t.rest);          // [kRows][seq + 8]
-    ds = pd + kRows * (seq + 8);
-    ld = seq + 8;
-  } else {
-    pd = t.s;                                      // in place
-    ds = t.dpd;
-    ld = s_ld;
-  }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kRows; r += kWarps) {
     const int j = key0 + r;
     const float bias = key_mask[(size_t)b * seq + j] != 0 ? 0.0f : kMaskBias;
     float* srow = t.s + r * s_ld;
     float* drow = t.dpd + r * s_ld;
-    Elem* pdrow = pd + r * ld;
-    Elem* dsrow = ds + r * ld;
     for (int c = lane; c < seq; c += 32) {
-      const float x = __fadd_rn(__fmul_rn(srow[c], scale), bias);
+      const float x = logit(srow[c], scale, bias);
       const float p = expf(x - row_max[c]) / row_sum[c];
       float pdv = p, dp = drow[c];
       if (drop.active) {
@@ -233,73 +608,75 @@ attention_bwd_cols_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k
         pdv = keep ? __fmul_rn(p, drop.inv_keep) : 0.0f;
         dp = keep ? __fmul_rn(dp, drop.inv_keep) : 0.0f;
       }
-      const float dsv = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, row_d[c])), scale);
-      store(pdrow + c, pdv);   // f32: in place of s[r][c], read above
-      store(dsrow + c, dsv);   // f32: in place of dpd[r][c], read above
+      srow[c] = pdv;  // pd
+      drow[c] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp, row_d[c])), scale);  // ds
     }
   }
   __syncthreads();
-  weigh_values<DH>(pd, ld, dout + slice, t.o1, o_ld, seq);
-  weigh_values<DH>(ds, ld, q + slice, t.o2, o_ld, seq);
+  weigh_values<DH>(t.s, s_ld, dout + slice, t.o1, o_ld, seq);
+  weigh_values<DH>(t.dpd, s_ld, q + slice, t.o2, o_ld, seq);
   __syncthreads();
   write_rows<DH>(t.o1, o_ld, dv + slice + (size_t)key0 * DH);
   write_rows<DH>(t.o2, o_ld, dk + slice + (size_t)key0 * DH);
 }
 
-template <typename Elem, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
-                   const void* key_mask, void* dq, void* dk, void* dv, void* stats, int batch,
-                   int heads, int seq, float scale, DropoutParams drop, cudaStream_t stream) {
-  const size_t smem = smem_bytes<Elem, DH>(seq);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_kernel<Elem, DH>,
+template <int DH>
+cudaError_t launch_simple(const void* q, const void* k, const void* v, const void* dout,
+                          const void* key_mask, void* dq, void* dk, void* dv, void* stats,
+                          int batch, int heads, int seq, float scale, DropoutParams drop,
+                          cudaStream_t stream) {
+  const size_t smem = simple_smem_bytes<DH>(seq);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_simple_rows_kernel<DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_bwd_cols_kernel<Elem, DH>,
+  err = cudaFuncSetAttribute(attention_bwd_simple_cols_kernel<DH>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(seq / kRows, heads, batch);
-  const Elem* qe = static_cast<const Elem*>(q);
-  const Elem* ke = static_cast<const Elem*>(k);
-  const Elem* ve = static_cast<const Elem*>(v);
-  const Elem* de = static_cast<const Elem*>(dout);
+  const float* qe = static_cast<const float*>(q);
+  const float* ke = static_cast<const float*>(k);
+  const float* ve = static_cast<const float*>(v);
+  const float* de = static_cast<const float*>(dout);
   const int* mask = static_cast<const int*>(key_mask);
   float* st = static_cast<float*>(stats);
-  attention_bwd_rows_kernel<Elem, DH><<<grid, kThreads, smem, stream>>>(
-      qe, ke, ve, de, mask, static_cast<Elem*>(dq), st, heads, seq, scale, drop);
+  attention_bwd_simple_rows_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      qe, ke, ve, de, mask, static_cast<float*>(dq), st, heads, seq, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_cols_kernel<Elem, DH><<<grid, kThreads, smem, stream>>>(
-      qe, ke, ve, de, mask, st, static_cast<Elem*>(dk), static_cast<Elem*>(dv), heads, seq,
+  attention_bwd_simple_cols_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      qe, ke, ve, de, mask, st, static_cast<float*>(dk), static_cast<float*>(dv), heads, seq,
       scale, drop);
   return cudaGetLastError();
 }
 
-template <typename Elem>
-cudaError_t launch_dh(const void* q, const void* k, const void* v, const void* dout,
-                      const void* key_mask, void* dq, void* dk, void* dv, void* stats,
-                      int batch, int heads, int seq, int head_dim, float scale,
-                      DropoutParams drop, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16:
-      return launch<Elem, 16>(q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads, seq,
-                              scale, drop, stream);
-    case 64:
-      return launch<Elem, 64>(q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads, seq,
-                              scale, drop, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* key_mask, void* dq, void* dk, void* dv, void* stats,
+                   void* keep_bits, int batch, int heads, int seq, float scale, int is_bf16,
+                   DropoutParams drop, cudaStream_t stream) {
+  if (!is_bf16)
+    return launch_simple<DH>(q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads, seq,
+                             scale, drop, stream);
+  if (!drop.active)
+    return launch_wgmma<DH, false>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch,
+                                   heads, seq, scale, drop, stream);
+  if (keep_bits == nullptr) return cudaErrorInvalidValue;
+  return launch_wgmma<DH, true>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch,
+                                heads, seq, scale, drop, stream);
 }
 
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv [batch, heads, seq, head_dim] row-major (bf16
 // when is_bf16, else f32; 32-byte aligned); head_dim 16 or 64; key_mask int32
-// [batch, seq], nonzero = attend; stats f32 scratch [3, batch * heads * seq].
-// Dropout as in proqa_attention_fwd. Returns a cudaError_t code.
+// [batch, seq], nonzero = attend; stats f32 scratch [4, batch * heads * seq];
+// keep_bits u64 scratch [batch * heads * seq / 64 * seq], needed by bf16 with
+// dropout (else may be null). Dropout as in proqa_attention_fwd. Returns a
+// cudaError_t code.
 extern "C" int proqa_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, const void* key_mask, void* dq, void* dk,
-                                   void* dv, void* stats, int batch, int heads, int seq,
-                                   int head_dim, float scale, int is_bf16, int dropout,
+                                   void* dv, void* stats, void* keep_bits, int batch, int heads,
+                                   int seq, int head_dim, float scale, int is_bf16, int dropout,
                                    uint32_t k0, uint32_t k1, uint32_t threshold, float inv_keep,
                                    void* stream) {
   if (batch <= 0 || heads <= 0 || batch > kMaxGrid || heads > kMaxGrid || seq <= 0 ||
@@ -307,8 +684,13 @@ extern "C" int proqa_attention_bwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const DropoutParams drop{k0, k1, threshold, inv_keep, dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_dh<bf16>(q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads,
-                                   seq, head_dim, scale, drop, s)
-                 : launch_dh<float>(q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads,
-                                    seq, head_dim, scale, drop, s);
+  switch (head_dim) {
+    case 16:
+      return launch<16>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads, seq,
+                        scale, is_bf16, drop, s);
+    case 64:
+      return launch<64>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads, seq,
+                        scale, is_bf16, drop, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -8,27 +8,37 @@
 // input dtype for p v, f32 accumulation, and the output in the input dtype:
 // the rounding points of pallas_attention.py:73-80.
 //
-// What bounds it on the H100: a (batch, head) slice moves 4 * T * Dh elements
-// (q, k, v, out) for 4 * T^2 * Dh FLOP, about T / 2 FLOP per bf16 byte, so at
-// T >= 256 the slice is arithmetic-bound in principle. This simple version is
-// bound instead by the f32 score rows' round trip through shared memory and by
-// wmma fragment loads of k and v, which come from L2 once per 16 query rows.
+// What bounds it on the H100: a (batch, head) slice moves 4 T Dh elements
+// (q, k, v, out) for 4 T^2 Dh FLOP, T / 2 FLOP per bf16 byte, under the
+// card's 295 FLOP a byte: at Dh = 64 and T <= 1024 the bound is bytes. What
+// the kernel spends instead is issue slots: per score, one exp and one
+// division for the softmax statistics, another exp, a division and, at a
+// dropout rate above 0, the 20-odd integer operations of the mask hash
+// (random.cuh), against 6 Dh tensor-core FLOP.
 //
-// What the design does about it: one CUDA block (4 warps) per (batch, head,
-// 16 query rows). The block keeps the whole f32 score row in shared memory
-// (T <= 1024 keys, at most 64 KB for 16 rows) and takes an exact row softmax
-// there: max, exp, sum, divide, in the order of jax.nn.softmax. Only then is
-// the dropout mask applied and are the probabilities rounded to the input
-// dtype, as the TPU kernel does. There is no online rescaling, so the
-// rounding points match the reference. The scale and the bias are applied
-// with explicit round-to-nearest multiply and add, so the compiler cannot
-// fuse them into one FMA that the reference does not do. The mask bias is
-// -1e30, not -inf: a row whose keys are all padding gets the uniform softmax
-// the reference gives, never NaN. The dropout mask of element (b, h, i, j) is
-// the counter-based hash of its flat index ((b * H + h) * T + i) * T + j
-// (random.cuh), so K3 and the plain version regenerate it exactly.
-#include <type_traits>
-
+// What the design does about it (bf16): one block per (batch, head, 128
+// query rows), two warpgroups of 64 rows each. A warpgroup's q tile is loaded
+// once into shared memory; the slice's k and v tiles of 64 keys stream
+// through a ring of kStages buffers filled by cp.async, shared by both
+// warpgroups, so each k and v tile crosses L2 once per 128 query rows. Every
+// product is a wgmma with f32 accumulators in registers. Sweep 1 computes
+// s = q k^T tile by tile and keeps each row's maximum and the sum of
+// exp(x - max), the sum rescaled by exp(old max - new max) when the maximum
+// grows (RowStats). Sweep 2 recomputes s, forms p = exp(x - max) / sum with a
+// true division, applies the mask and 1/(1-rate), rounds p to bf16 in
+// registers and feeds it as the register A operand of p v, with v from
+// shared memory. So the probabilities are normalised and dropped out in f32
+// before their rounding, as the reference does, never rescaled after the
+// product as an online softmax would: the price is computing q k^T twice,
+// 1.5x the minimal FLOP. The scale and the bias are applied with explicit
+// round-to-nearest multiply and add, never one FMA. The mask bias is -1e30,
+// not -inf: a row whose keys are all padding gets the uniform softmax the
+// reference gives, never NaN. The dropout mask of element (b, h, i, j) is the
+// counter-based hash of its flat index ((b H + h) T + i) T + j (random.cuh),
+// so K3 and the plain version regenerate it exactly.
+//
+// f32 keeps the simple body (attention_tiles.cuh): 16 query rows a block,
+// whole f32 score rows in shared memory, plain FMA products.
 #include "attention_tiles.cuh"
 #include "random.cuh"
 
@@ -36,19 +46,161 @@ namespace {
 
 using namespace attn;
 
-// Row softmax of (s * scale + bias) in f32, then dropout; p receives the
-// probabilities in the input dtype (p may alias s when that dtype is f32).
-// `counter0` is the flat [B, H, T, T] index of the tile's element (0, 0).
-template <typename Elem>
-__device__ void softmax_rows(float* s, int s_ld, const float* bias, float scale,
-                             Elem* p, int p_ld, int seq, DropoutParams drop,
-                             uint64_t counter0) {
+// ---------------------------------------------------------------------------
+// bf16: staged tiles and wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kFwdGroups = 2;  // warpgroups of 64 query rows a block
+
+template <int DH>
+size_t fwd_smem_bytes(int seq) {
+  // q tiles, the ring of two-tile stages, the key bias
+  return (kFwdGroups + 2 * kStages) * Tile<DH>::kBytes + (size_t)seq * sizeof(float);
+}
+
+template <int DH, bool DROP>
+__global__ void __launch_bounds__(kFwdGroups * kWarpgroup, 2)
+attention_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const int* __restrict__ key_mask,
+                           bf16* __restrict__ out, int heads, int seq, float scale,
+                           DropoutParams drop) {
+  constexpr int NT = kFwdGroups * kWarpgroup;
+  constexpr uint32_t kBytes = Tile<DH>::kBytes;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, wg = tid / kWarpgroup, t = tid % kWarpgroup;
+  const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kFwdGroups * kTile;
+  const size_t bh = (size_t)b * heads + h, slice = bh * seq * DH;
+  // q tiles, then the ring: a stage holds two tiles, 128 keys of k (sweep 1)
+  // or 64 keys of k and of v (sweep 2)
+  const uint32_t q_tiles = smem_addr(smem);
+  const uint32_t ring = q_tiles + kFwdGroups * kBytes;
+  float* bias = reinterpret_cast<float*>(smem + (kFwdGroups + 2 * kStages) * kBytes);
+
+  for (int c = tid; c < seq; c += NT)
+    bias[c] = key_mask[(size_t)b * seq + c] != 0 ? 0.0f : kMaskBias;
+  for (int w = 0; w < kFwdGroups; ++w)
+    load_tile<DH, NT>(q_tiles + w * kBytes, q + slice + (size_t)(row0 + w * kTile) * DH, tid);
+
+  // items 0 .. n1-1: sweep 1, 128 keys each; n1 .. n1+n2-1: sweep 2, 64 keys each
+  const int n1 = seq / (2 * kTile), n2 = seq / kTile;
+  auto issue = [&](int item) {
+    if (item < n1 + n2) {
+      const uint32_t stage = ring + (item % kStages) * 2 * kBytes;
+      if (item < n1) {
+        const size_t off = slice + (size_t)item * 2 * kTile * DH;
+        load_tile<DH, NT>(stage, k + off, tid);
+        load_tile<DH, NT>(stage + kBytes, k + off + kTile * DH, tid);
+      } else {
+        const size_t off = slice + (size_t)(item - n1) * kTile * DH;
+        load_tile<DH, NT>(stage, k + off, tid);
+        load_tile<DH, NT>(stage + kBytes, v + off, tid);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const uint32_t q_tile = q_tiles + wg * kBytes;
+  const int c = frag_col(t);
+  const int i0 = row0 + wg * kTile + frag_row(t);  // the thread's rows: i0 and i0 + 8
+  const uint64_t counter0 = (bh * seq + i0) * (uint64_t)seq;  // flat index of (i0, 0)
+  const uint64_t counter1 = counter0 + 8 * (uint64_t)seq;
+
+  RowStats stats;
+  int item = 0;
+  for (; item < n1; ++item) {
+    stage_ready();
+    issue(item + 1);
+    const uint32_t stage = ring + (item % kStages) * 2 * kBytes;
+    float sa[32], sb[32];
+    wgmma_fence();
+    issue_scores<DH>(sa, q_tile, stage);
+    issue_scores<DH>(sb, q_tile, stage + kBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sa);
+    fence_regs(sb);
+    add_logits(sa, bias, item * 2 * kTile, c, scale);
+    add_logits(sb, bias, item * 2 * kTile + kTile, c, scale);
+    stats.update(sa);
+    stats.update(sb);
+  }
+  stats.finish();
+
+  float o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+  for (; item < n1 + n2; ++item) {
+    stage_ready();
+    issue(item + 1);
+    const int key0 = (item - n1) * kTile;
+    const uint32_t k_tile = ring + (item % kStages) * 2 * kBytes;
+    float s[32];
+    wgmma_fence();
+    issue_scores<DH>(s, q_tile, k_tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    add_logits(s, bias, key0, c, scale);
+    // the mask of the thread's elements (row, key0 + 8 n + c + e): offsets
+    // 8 n + e from key0 + c, whose bits are clear in it
+    const ProqaKeepRow mask[2] = {ProqaKeepRow(drop.k0, drop.k1, counter0 + key0 + c),
+                                  ProqaKeepRow(drop.k0, drop.k1, counter1 + key0 + c)};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i / 2) % 2;
+      float p = stats.prob(s[i], r);
+      if constexpr (DROP)
+        p = apply_keep(p, mask[r].keep(8 * (i / 4) + i % 2, drop.threshold), drop.inv_keep);
+      s[i] = p;
+    }
+    uint32_t pa[4][4];
+    pack_rows(s, pa);
+    wgmma_fence();
+    issue_weigh<DH>(o, pa, k_tile + kBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+  }
+
+  bf16* os = out + slice;
+#pragma unroll
+  for (int i = 0; i < DH / 2; i += 2) {
+    const int row = i0 + 8 * ((i / 2) % 2), col = 8 * (i / 4) + c;
+    *reinterpret_cast<__nv_bfloat162*>(os + (size_t)row * DH + col) =
+        __floats2bfloat162_rn(o[i], o[i + 1]);
+  }
+}
+
+template <int DH, bool DROP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* key_mask,
+                         void* out, int batch, int heads, int seq, float scale,
+                         DropoutParams drop, cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<DH>(seq);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_wgmma_kernel<DH, DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(seq / (kFwdGroups * kTile), heads, batch);
+  attention_fwd_wgmma_kernel<DH, DROP><<<grid, kFwdGroups * kWarpgroup, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(key_mask), static_cast<bf16*>(out), heads, seq, scale, drop);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: the simple body
+// ---------------------------------------------------------------------------
+
+// Row softmax of (s * scale + bias) in f32, then dropout, in place.
+// `counter0` is the flat [B, H, T, T] index of the block's element (0, 0).
+__device__ void softmax_rows(float* s, int s_ld, const float* bias, float scale, int seq,
+                             DropoutParams drop, uint64_t counter0) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kRows; r += kWarps) {
     float* row = s + r * s_ld;
     float m = -INFINITY;
     for (int c = lane; c < seq; c += 32) {
-      const float x = __fadd_rn(__fmul_rn(row[c], scale), bias[c]);
+      const float x = logit(row[c], scale, bias[c]);
       row[c] = x;
       m = fmaxf(m, x);
     }
@@ -60,102 +212,77 @@ __device__ void softmax_rows(float* s, int s_ld, const float* bias, float scale,
       sum += e;
     }
     sum = warp_sum(sum);
-    Elem* prow = p + r * p_ld;
     const uint64_t counter = counter0 + (uint64_t)r * seq;
     for (int c = lane; c < seq; c += 32) {
       float pr = row[c] / sum;
       if (drop.active)
         pr = proqa_keep(drop.k0, drop.k1, counter + c, drop.threshold)
                  ? __fmul_rn(pr, drop.inv_keep) : 0.0f;
-      store(prow + c, pr);
+      row[c] = pr;
     }
   }
 }
 
-template <typename Elem, int DH>
-size_t smem_bytes(int seq) {
-  size_t bytes = (size_t)kRows * (seq + 4) * sizeof(float)   // scores
-                 + (size_t)seq * sizeof(float)               // key bias
-                 + (size_t)kRows * (DH + 4) * sizeof(float); // output tile
-  if constexpr (std::is_same_v<Elem, bf16>)
-    bytes += (size_t)kRows * (seq + 8) * sizeof(bf16);       // probabilities
-  else
-    bytes += (size_t)kRows * DH * sizeof(float);             // query rows
-  return bytes;
+template <int DH>
+size_t simple_smem_bytes(int seq) {
+  return ((size_t)kRows * (seq + 4) + seq + (size_t)kRows * (DH + 4) + (size_t)kRows * DH) *
+         sizeof(float);  // scores, key bias, output tile, query rows
 }
 
-template <typename Elem, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                     const Elem* __restrict__ v, const int* __restrict__ key_mask,
-                     Elem* __restrict__ out, int heads, int seq, float scale,
-                     DropoutParams drop) {
+attention_fwd_simple_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const int* __restrict__ key_mask,
+                            float* __restrict__ out, int heads, int seq, float scale,
+                            DropoutParams drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
   const size_t slice = ((size_t)b * heads + h) * seq * DH;
   const int s_ld = seq + 4, o_ld = DH + 4;
-  // every region below starts on a 128-byte boundary: seq % 128 == 0, DH % 16 == 0
-  float* s = reinterpret_cast<float*>(smem);        // [kRows][s_ld]
-  float* bias = s + kRows * s_ld;                    // [seq]
-  float* o = bias + seq;                             // [kRows][o_ld]
-  unsigned char* rest = reinterpret_cast<unsigned char*>(o + kRows * o_ld);
+  float* s = reinterpret_cast<float*>(smem);  // [kRows][s_ld]
+  float* bias = s + kRows * s_ld;             // [seq]
+  float* o = bias + seq;                      // [kRows][o_ld]
+  float* qs = o + kRows * o_ld;               // [kRows][DH]
 
   for (int c = threadIdx.x; c < seq; c += kThreads)
     bias[c] = key_mask[(size_t)b * seq + c] != 0 ? 0.0f : kMaskBias;
-  const Elem* qt = q + slice + (size_t)row0 * DH;
-  const Elem* kt = k + slice;
-  const Elem* vt = v + slice;
-
-  Elem* p;
-  int p_ld;
-  if constexpr (std::is_same_v<Elem, bf16>) {
-    score_rows<DH>(qt, kt, s, s_ld, seq);
-    p = reinterpret_cast<Elem*>(rest);               // [kRows][seq + 8]
-    p_ld = seq + 8;
-  } else {
-    float* qs = reinterpret_cast<float*>(rest);      // [kRows][DH]
-    stage_rows<DH>(qt, qs);
-    __syncthreads();
-    score_rows<DH>(qs, kt, s, s_ld, seq);
-    p = s;                                           // normalised in place
-    p_ld = s_ld;
-  }
+  stage_rows<DH>(q + slice + (size_t)row0 * DH, qs);
+  __syncthreads();
+  score_rows<DH>(qs, k + slice, s, s_ld, seq);
   __syncthreads();
   const uint64_t counter0 = (((uint64_t)b * heads + h) * seq + row0) * (uint64_t)seq;
-  softmax_rows(s, s_ld, bias, scale, p, p_ld, seq, drop, counter0);
+  softmax_rows(s, s_ld, bias, scale, seq, drop, counter0);
   __syncthreads();
-  weigh_values<DH>(p, p_ld, vt, o, o_ld, seq);
+  weigh_values<DH>(s, s_ld, v + slice, o, o_ld, seq);
   __syncthreads();
   write_rows<DH>(o, o_ld, out + slice + (size_t)row0 * DH);
 }
 
-template <typename Elem, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* key_mask,
-                   void* out, int batch, int heads, int seq, float scale,
-                   DropoutParams drop, cudaStream_t stream) {
-  const size_t smem = smem_bytes<Elem, DH>(seq);
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<Elem, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int DH>
+cudaError_t launch_simple(const void* q, const void* k, const void* v, const void* key_mask,
+                          void* out, int batch, int heads, int seq, float scale,
+                          DropoutParams drop, cudaStream_t stream) {
+  const size_t smem = simple_smem_bytes<DH>(seq);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_simple_kernel<DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(seq / kRows, heads, batch);
-  attention_fwd_kernel<Elem, DH><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Elem*>(q), static_cast<const Elem*>(k), static_cast<const Elem*>(v),
-      static_cast<const int*>(key_mask), static_cast<Elem*>(out), heads, seq, scale, drop);
+  attention_fwd_simple_kernel<DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(key_mask), static_cast<float*>(out), heads, seq, scale, drop);
   return cudaGetLastError();
 }
 
-template <typename Elem>
-cudaError_t launch_dh(const void* q, const void* k, const void* v, const void* key_mask,
-                      void* out, int batch, int heads, int seq, int head_dim, float scale,
-                      DropoutParams drop, cudaStream_t stream) {
-  switch (head_dim) {
-    case 16:
-      return launch<Elem, 16>(q, k, v, key_mask, out, batch, heads, seq, scale, drop, stream);
-    case 64:
-      return launch<Elem, 64>(q, k, v, key_mask, out, batch, heads, seq, scale, drop, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* key_mask, void* out,
+                   int batch, int heads, int seq, float scale, int is_bf16, DropoutParams drop,
+                   cudaStream_t stream) {
+  if (!is_bf16)
+    return launch_simple<DH>(q, k, v, key_mask, out, batch, heads, seq, scale, drop, stream);
+  return drop.active
+             ? launch_wgmma<DH, true>(q, k, v, key_mask, out, batch, heads, seq, scale, drop, stream)
+             : launch_wgmma<DH, false>(q, k, v, key_mask, out, batch, heads, seq, scale, drop,
+                                       stream);
 }
 
 }  // namespace
@@ -175,8 +302,9 @@ extern "C" int proqa_attention_fwd(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   const DropoutParams drop{k0, k1, threshold, inv_keep, dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-             ? launch_dh<bf16>(q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, drop, s)
-             : launch_dh<float>(q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, drop,
-                                s);
+  switch (head_dim) {
+    case 16: return launch<16>(q, k, v, key_mask, out, batch, heads, seq, scale, is_bf16, drop, s);
+    case 64: return launch<64>(q, k, v, key_mask, out, batch, heads, seq, scale, is_bf16, drop, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -114,11 +114,17 @@ def _backward_kernel(q, k, v, key_mask, do, sm_scale, rate, seed):
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do), ("key_mask", key_mask)):
         _aligned(name, x, q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    stats = torch.empty(3, bsz * nh * t, dtype=torch.float32, device=q.device)
+    # scratch (attention_bwd.cu): each query row's max logit, sum of exps, its
+    # reciprocal and D; with dropout in bf16, the mask as bits, 1 per score
+    stats = torch.empty(4, bsz * nh * t, dtype=torch.float32, device=q.device)
+    bits = None
+    if rate > 0.0 and q.dtype == torch.bfloat16:
+        bits = torch.empty(bsz * nh * t * t // 64, dtype=torch.int64, device=q.device)
     with torch.cuda.device(q.device):
         code = _build.library().proqa_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), key_mask.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            None if bits is None else bits.data_ptr(),
             bsz, nh, t, dh, float(sm_scale), int(q.dtype == torch.bfloat16),
             *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream,
         )

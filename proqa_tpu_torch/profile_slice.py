@@ -49,8 +49,8 @@ GROUPS = (
     ("K5 block_maxima int8", ("bmax3_kernel<__nv_bfloat16, signed char>",)),
     ("K1 block_maxima", ("bmax3_kernel",)),
     ("K6/K9 gather_score", ("gather_score_kernel",)),
-    ("K2 attention", ("attention_fwd_kernel",)),
-    ("K3 attention backward", ("attention_bwd_",)),
+    ("K2 attention", ("attention_fwd_",)),   # attention_fwd_wgmma_kernel (bf16), _simple_ (f32)
+    ("K3 attention backward", ("attention_bwd_",)),  # attention_bwd_rows_ and _cols_kernel
     ("K4 dropout", ("dropout_kernel",)),
     ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
     ("topk/sort", ("topk", "radixSort", "Sort", "cub::")),

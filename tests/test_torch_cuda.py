@@ -317,6 +317,49 @@ def test_attention_backward_kernel_matches_plain(cuda, t, dh, dtype, rate):
         torch.testing.assert_close(got.float(), w.float(), atol=BWD_TOL[dtype], rtol=0)
 
 
+def _edge_inputs(t, dh, device, dtype):
+    """Padding that starts inside a 64-key tile (row 0 at key 100, row 2 at
+    T - 37, in the last tile) and one all-padding row (row 1)."""
+    g = torch.Generator().manual_seed(3 * t + dh)
+    q, k, v, do = (torch.randn(3, 2, t, dh, generator=g).to(device, dtype) for _ in range(4))
+    mask = torch.ones(3, t, dtype=torch.int32)
+    mask[0, 100:] = 0
+    mask[1] = 0
+    mask[2, t - 37:] = 0
+    return q, k, v, do, mask.to(device)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("t", [128, 384, 640, 1024])
+def test_attention_kernels_at_tile_edges(cuda, t, dh, dtype, rate):
+    """K2 and K3 at sequence lengths that are odd multiples of 64 keys of a
+    128-row block (384, 640) and at both ends of the range."""
+    q, k, v, do, mask = _edge_inputs(t, dh, cuda, getattr(torch, dtype))
+    kw = dict(sm_scale=dh ** -0.5, dropout_rate=rate, seed=2**33 + t)
+    got = attention.fused_attention(q, k, v, mask, **kw)
+    want = attention.fused_attention_reference(q, k, v, mask, **kw)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_TOL[dtype], rtol=0)
+    grads = attention._backward_kernel(q, k, v, mask, do, kw["sm_scale"], rate, kw["seed"])
+    want = attention.fused_attention_backward_reference(q, k, v, mask, do, **kw)
+    for g, w in zip(grads, want):
+        assert torch.isfinite(g.float()).all()
+        torch.testing.assert_close(g.float(), w.float(), atol=BWD_TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_backward_kernel_is_deterministic(cuda, dtype, rate):
+    """K3 uses no atomics: two launches on the same inputs give the same bits."""
+    q, k, v, do, mask = _edge_inputs(384, 64, cuda, getattr(torch, dtype))
+    first = attention._backward_kernel(q, k, v, mask, do, 0.125, rate, 77)
+    second = attention._backward_kernel(q, k, v, mask, do, 0.125, rate, 77)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_dot_f32_gradient_on_cuda(cuda):
     """bf16 x bf16 -> f32 products have no PyTorch derivative; dot_f32 gives
     them JAX's: gradients flow through a BERT layer on the card."""
