@@ -16,32 +16,40 @@
 // elements moved (q, k, v, do in; dq, dk, dv out), so at T >= 256 it is
 // operations-bound in principle. The reference's rounding points add work:
 // D = rowsum(p * dp) must be complete, from f32 p and dp, before ds can be
-// rounded, so no row of ds exists before a sweep over all keys; and per
-// score the kernel spends exps, true divisions and, at a dropout rate above
-// 0, the mask hash's integer operations, which compete with the products for
-// issue slots.
+// rounded, so no row of ds exists before a sweep over all keys, and every
+// score costs exps, a correctly rounded division and, at a dropout rate
+// above 0, the mask hash's integer operations, which compete with the
+// products for issue slots. Measured, the two kernels are bound by the
+// latency of that per-score work: the tensor cores are busy a small part of
+// the time.
 //
 // What the design does about it (bf16): two kernels with no atomics, each a
-// warpgroup (128 threads) per 64-row tile with wgmma products and f32
+// block of two warpgroups (128 threads each) that own a 64-row tile apiece
+// and share the streamed tiles. Every product is a wgmma with f32
 // accumulators in registers. The resident tiles are loaded once into shared
 // memory; the streamed tiles of 64 rows go through a ring of kStages
-// buffers filled by cp.async. The softmax, the mask, dp, ds and the bf16
-// rounding happen in registers on the accumulator fragments; the rounded pd
-// or ds is the register A operand of the next product. No float atomics, so
-// two launches on the same inputs give the same bits.
-//   Row kernel, one block per (batch, head, 64 query rows), q and do
-//   resident, k and v streamed, three sweeps over the keys: (1) q k^T for
-//   each row's maximum and sum, in K2's arithmetic (RowStats); (2) q k^T and
-//   do v^T for D = rowsum(p * dp); (3) both again for ds and dq += ds k.
-//   It writes dq and each row's (max, sum, D) to a scratch array.
-//   Column kernel, one block per (batch, head, 64 keys), k and v resident,
-//   q, do and the rows' statistics streamed: the transposed tiles k q^T and
-//   v do^T give p = exp(x - max) / sum from the row kernel's statistics (the
-//   forward's own arithmetic, not a stored log-sum-exp), the regenerated
-//   mask, pd and ds, then dv += pd^T do and dk += ds^T q.
+// buffers filled by cp.async one item ahead. The softmax, the mask, dp, ds
+// and the bf16 rounding happen in registers on the accumulator fragments;
+// the rounded pd or ds is the register A operand of the next product. No
+// float atomics, so two launches on the same inputs give the same bits.
+//   Row kernel, one block per (batch, head, 128 query rows), q and do
+//   resident, k and v streamed, three sweeps over the keys: (0) q k^T, 128
+//   keys an item, for each row's maximum and sum in K2's arithmetic
+//   (RowStats); (1) q k^T and do v^T for D = rowsum(p * dp), drawing the
+//   dropout mask once (random.cuh) and keeping it as bits, one per score, in
+//   shared memory and in a scratch array; (2) both products again for ds
+//   and dq += ds k, the mask read back from the bits. It writes dq and each
+//   row's (max, sum, 1/sum, D) to a second scratch array.
+//   Column kernel, one block per (batch, head, 128 keys), k and v resident,
+//   q, do, the rows' statistics and their mask bits streamed: the
+//   transposed tiles k q^T and v do^T give p = exp(x - max) / sum from the
+//   row kernel's statistics (the forward's own arithmetic, not a stored
+//   log-sum-exp), pd and ds, then dv += pd^T do and dk += ds^T q, whose wait
+//   runs on into the next item.
 //
 // f32 keeps the simple body (attention_tiles.cuh): 16 rows a block, whole
-// f32 score rows in shared memory, plain FMA products, the same two passes.
+// f32 score rows in shared memory, plain FMA products, the same two passes,
+// the mask regenerated in both.
 #include "attention_tiles.cuh"
 #include "random.cuh"
 

@@ -11,31 +11,32 @@
 // What bounds it on the H100: a (batch, head) slice moves 4 T Dh elements
 // (q, k, v, out) for 4 T^2 Dh FLOP, T / 2 FLOP per bf16 byte, under the
 // card's 295 FLOP a byte: at Dh = 64 and T <= 1024 the bound is bytes. What
-// the kernel spends instead is issue slots: per score, one exp and one
-// division for the softmax statistics, another exp, a division and, at a
-// dropout rate above 0, the 20-odd integer operations of the mask hash
-// (random.cuh), against 6 Dh tensor-core FLOP.
+// the kernel spends instead is issue slots: per score two exps (the sum, then
+// p), a correctly rounded division and, at a dropout rate above 0, the
+// mask hash's integer operations (random.cuh), against 6 Dh tensor-core FLOP.
 //
 // What the design does about it (bf16): one block per (batch, head, 128
 // query rows), two warpgroups of 64 rows each. A warpgroup's q tile is loaded
-// once into shared memory; the slice's k and v tiles of 64 keys stream
-// through a ring of kStages buffers filled by cp.async, shared by both
+// once into shared memory; the slice's k and v tiles stream through a ring
+// of kStages buffers filled by cp.async one item ahead and shared by both
 // warpgroups, so each k and v tile crosses L2 once per 128 query rows. Every
 // product is a wgmma with f32 accumulators in registers. Sweep 1 computes
-// s = q k^T tile by tile and keeps each row's maximum and the sum of
+// s = q k^T, 128 keys an item, and keeps each row's maximum and the sum of
 // exp(x - max), the sum rescaled by exp(old max - new max) when the maximum
-// grows (RowStats). Sweep 2 recomputes s, forms p = exp(x - max) / sum with a
-// true division, applies the mask and 1/(1-rate), rounds p to bf16 in
-// registers and feeds it as the register A operand of p v, with v from
-// shared memory. So the probabilities are normalised and dropped out in f32
-// before their rounding, as the reference does, never rescaled after the
-// product as an online softmax would: the price is computing q k^T twice,
-// 1.5x the minimal FLOP. The scale and the bias are applied with explicit
+// grows (RowStats). Sweep 2 recomputes s 64 keys at a time, forms
+// p = exp(x - max) / sum with a correctly rounded division (div_rn), applies
+// the mask and 1/(1-rate), rounds p to bf16 in registers and feeds it as the
+// register A operand of p v, with v from shared memory. So the
+// probabilities are normalised and dropped out in f32 before their
+// rounding, as the reference does, never rescaled after the product as an
+// online softmax would: the price is computing q k^T twice, 1.5x the
+// minimal FLOP. The scale and the bias are applied with explicit
 // round-to-nearest multiply and add, never one FMA. The mask bias is -1e30,
 // not -inf: a row whose keys are all padding gets the uniform softmax the
 // reference gives, never NaN. The dropout mask of element (b, h, i, j) is the
 // counter-based hash of its flat index ((b H + h) T + i) T + j (random.cuh),
-// so K3 and the plain version regenerate it exactly.
+// so K3 and the plain version draw it exactly; the work a row of a tile
+// shares is done once (ProqaKeepRow).
 //
 // f32 keeps the simple body (attention_tiles.cuh): 16 query rows a block,
 // whole f32 score rows in shared memory, plain FMA products.

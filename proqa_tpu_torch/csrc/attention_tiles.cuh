@@ -1,5 +1,13 @@
-// Tile helpers shared by the attention kernels K2 (attention_fwd.cu) and K3
-// (attention_bwd.cu).
+// Tile helpers shared by the attention kernels K2 (attention_fwd.cu, which
+// replaces proqa_tpu/ops/pallas_attention.py:_fwd_kernel) and K3
+// (attention_bwd.cu, which replaces _bwd_kernel).
+//
+// What bounds them on the H100: not bytes and not the tensor cores, but the
+// per-score softmax work the reference's rounding points demand (exps, a
+// correctly rounded division, the mask hash) and the latency of each
+// streamed tile's round trip: copy, block barrier, wgmma, wait. The TPU
+// kernels kept a whole (batch, head) in VMEM; here a tile of 64 rows per
+// warpgroup is what registers and 227 KB of shared memory allow.
 //
 // bf16, the kernels the train step and the encoder run: a warpgroup (four
 // warps, 128 threads) owns a 64-row tile of one (batch, head) slice and runs

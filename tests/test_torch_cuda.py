@@ -360,6 +360,23 @@ def test_attention_backward_kernel_is_deterministic(cuda, dtype, rate):
         assert torch.equal(a, b)
 
 
+def test_attention_arithmetic_is_exact(cuda, tmp_path):
+    """The attention kernels' branch-free division equals __fdiv_rn for every
+    normal quotient, and their per-row mask shortcut equals proqa_keep
+    (csrc/checks/attention_exactness.cu, billions of cases on the card)."""
+    import subprocess
+
+    from proqa_tpu_torch import _build
+
+    exe = tmp_path / "attention_exactness"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(exe),
+                    str(_build.CSRC / "checks" / "attention_exactness.cu")],
+                   check=True, capture_output=True, timeout=600)
+    run = subprocess.run([str(exe)], capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "0 differ with a normal quotient" in run.stdout and "draws, 0 differ" in run.stdout
+
+
 def test_dot_f32_gradient_on_cuda(cuda):
     """bf16 x bf16 -> f32 products have no PyTorch derivative; dot_f32 gives
     them JAX's: gradients flow through a BERT layer on the card."""
