@@ -62,7 +62,8 @@ The int8 index and the rest of the search kernels:
      DenseIndex.search against the exact reference of its own codes.
 Each of phases 12-14 first drives its kernel's public pipeline once with the
 counters at 0 and reads them, then compares and times the kernel. Kernel
-times are device times by CUDA events over back-to-back calls (cuda_ms).
+times are device times by CUDA events around one call (cuda_ms); phase 7
+also logs K2's, K3's and SDPA's mean over 10 back-to-back calls ("queued").
 
 Prints the GPU's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": ...} last. Exits non-zero,
@@ -127,24 +128,24 @@ def log(*parts) -> None:
     print(*parts, flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Device time of one fn() call in ms, by CUDA events: the median over
-    reps of a run of back-to-back calls (as many as fill ~2 ms, at most 20)
-    divided by their count, after one warm-up, so the host's per-call
-    overhead hides behind the queued work of a call that takes longer."""
+def cuda_ms(fn, reps: int = 5, calls: int = 1) -> float:
+    """Median device time of fn() in ms, by CUDA events, after one warm-up.
+    With calls > 1 the events enclose that many back-to-back calls and the
+    time is their mean, so the host's per-call overhead, which one call
+    between two events includes, hides behind the queued work."""
     import torch
 
-    def run(calls: int) -> float:
+    fn()
+    times = []
+    for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(calls):
             fn()
         end.record()
         end.synchronize()
-        return start.elapsed_time(end) / calls
-
-    calls = max(1, min(20, int(2.0 / max(run(1), 1e-3))))  # the warm-up
-    return statistics.median(run(calls) for _ in range(reps))
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
 
 
 K2_BUCKETS = (128, 256, 384, 512)  # encode buckets that reach K2 (T % 128 == 0)
@@ -475,7 +476,7 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
     """K2 at rate 0.1 and K3 at rates 0 and 0.1 against their plain versions
     at the train step's shapes, K3's two launches on the same inputs
     bit-equal; both kernels timed at rates 0.1 and 0 beside SDPA (rate 0)
-    with a float mask."""
+    with a float mask, by one call and by 10 back-to-back calls."""
     import torch
     import torch.nn.functional as F
 
@@ -521,26 +522,32 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
             del got, want, leaves
         k3["max_abs_err"] = max(k3["max_abs_err"], *errs3.values())
         bias = torch.where(mask[:, None, None, :] != 0, 0.0, attention.MASK_BIAS).to(q.dtype)
-        fwd = {
-            "ms": cuda_ms(lambda: attention.fused_attention(q, k, v, mask, sm_scale=scale,
-                                                            dropout_rate=rate, seed=seed)),
-            "ms_rate0": cuda_ms(lambda: attention.fused_attention(q, k, v, mask, sm_scale=scale)),
-            "plain_ms": cuda_ms(lambda: attention.fused_attention_reference(
-                q, k, v, mask, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias)),
-        }
         qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
         lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias)
-        bwd = {
-            "ms": cuda_ms(lambda: attention._backward_kernel(q, k, v, mask, do, scale, rate, seed)),
-            "ms_rate0": cuda_ms(lambda: attention._backward_kernel(q, k, v, mask, do, scale, 0.0,
-                                                                   seed)),
-            "plain_ms": cuda_ms(lambda: attention.fused_attention_backward_reference(
-                q, k, v, mask, do, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3),
-            "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
-                                                              retain_graph=True)),
+        calls = {  # kernel and SDPA at rate 0.1 and 0, forward and backward
+            "fwd": {
+                "ms": lambda: attention.fused_attention(q, k, v, mask, sm_scale=scale,
+                                                        dropout_rate=rate, seed=seed),
+                "ms_rate0": lambda: attention.fused_attention(q, k, v, mask, sm_scale=scale),
+                "library_ms": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias),
+            },
+            "bwd": {
+                "ms": lambda: attention._backward_kernel(q, k, v, mask, do, scale, rate, seed),
+                "ms_rate0": lambda: attention._backward_kernel(q, k, v, mask, do, scale, 0.0,
+                                                               seed),
+                "library_ms": lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                          retain_graph=True),
+            },
         }
-        del lib_out, qs, ks, vs, bias
+        fwd = {key: cuda_ms(fn) for key, fn in calls["fwd"].items()}
+        fwd["plain_ms"] = cuda_ms(lambda: attention.fused_attention_reference(
+            q, k, v, mask, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3)
+        bwd = {key: cuda_ms(fn) for key, fn in calls["bwd"].items()}
+        bwd["plain_ms"] = cuda_ms(lambda: attention.fused_attention_backward_reference(
+            q, k, v, mask, do, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3)
+        queued = {way: {key: cuda_ms(fn, calls=10) for key, fn in fns.items()}
+                  for way, fns in calls.items()}
+        del calls, lib_out, qs, ks, vs, bias
         n = b * h * t * dh * 2  # bytes of one [B, H, T, Dh] bf16 tensor
         fwd["bound_ms"], fwd["bound_by"] = bound(4 * n + mask.numel() * 4, 4 * b * h * t * t * dh)
         bwd["bound_ms"], bwd["bound_by"] = bound(7 * n + mask.numel() * 4, 10 * b * h * t * t * dh)
@@ -555,6 +562,7 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
             f"{bwd['ms_rate0']:.4f}), "
             f"plain {bwd['plain_ms']:.4f} ms, SDPA backward at rate 0 "
             f"{bwd['library_ms']:.4f} ms, bound {bwd['bound_ms']:.4f} ms ({bwd['bound_by']})")
+        log(f"K2/K3 T={t} queued (mean of 10 back-to-back calls, ms): {json.dumps(queued)}")
         if t == 512:
             k2.update(fwd)
             k3.update(bwd)
