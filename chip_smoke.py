@@ -9,7 +9,8 @@ Phases, each of which must pass. The dense-retrieval slice:
      vanilla attention path;
   3. K1, block maxima: the kernel against its plain version at the
      reference's operating point, a 4,194,304 x 128 bf16 corpus and 2,048
-     queries, then DenseIndex top-80 search against an exact reference;
+     queries, and at 32 queries (a small batch), then DenseIndex top-80
+     search against an exact reference;
   4. the main path through the CLI (build-db, build-index, encode-queries,
      eval-retrieval, retrieve) on a synthetic world of 8,192 paragraphs with
      random BERT-base retriever weights, with both kernels' launch counters
@@ -21,7 +22,8 @@ Phases, each of which must pass. The dense-retrieval slice:
 The retriever-pretraining slice:
   6. K4, fused dropout, bit-equal to its plain version at [80, 512, 768]
      bf16 and [80, 12, 32, 32] f32, rate 0.1, with the keep rate within 5
-     sigma of 0.9 and a backward that applies the forward's mask;
+     sigma of 0.9 and a backward that applies the forward's mask; timed by
+     one call and queued beside F.dropout;
   7. K2 at dropout rate 0.1 (the same bits as its plain version) and K3, the
      attention backward, at rates 0 and 0.1, against their plain versions
      (for K3 also against autograd through K2's plain version, and two
@@ -62,8 +64,9 @@ The int8 index and the rest of the search kernels:
      DenseIndex.search against the exact reference of its own codes.
 Each of phases 12-14 first drives its kernel's public pipeline once with the
 counters at 0 and reads them, then compares and times the kernel. Kernel
-times are device times by CUDA events around one call (cuda_ms); phase 7
-also logs K2's, K3's and SDPA's mean over 10 back-to-back calls ("queued").
+times are device times by CUDA events around one call (cuda_ms); phases 6
+and 7 also log K4's, K2's, K3's, F.dropout's and SDPA's mean over 10
+back-to-back calls ("queued").
 
 Prints the GPU's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": ...} last. Exits non-zero,
@@ -288,6 +291,9 @@ def phase_mips(device) -> dict:
     qb = queries.bfloat16()
     k1 = grouped_against_plain("K1", qb, corpus, block=block)
     del k1["out"]
+    # the small-batch search's shape: one warpgroup a CUDA block, bytes-bound
+    k1_small = grouped_against_plain("K1 Q=32", qb[:32].contiguous(), corpus, block=block)
+    del k1_small["out"]
 
     index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
     vals, idx = index.search(queries, k)
@@ -308,7 +314,7 @@ def phase_mips(device) -> dict:
     check(bad == 0, f"search: {bad} of {n_check} queries disagree with the exact top-{k}")
     log(f"search top-{k} N={n} Q={q} bf16: {q / wall:.1f} qps ({wall * 1e3:.2f} ms per "
         f"batch, host clock); {n_check} queries agree with the exact reference up to ties")
-    return {**k1, "qps": q / wall}
+    return {**k1, "max_abs_err": max(k1["max_abs_err"], k1_small["max_abs_err"]), "qps": q / wall}
 
 
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"tok{i}" for i in range(60)] + [
@@ -447,13 +453,16 @@ def phase_dropout(device) -> dict:
         drop.dropout(xr, 0.1, seed=2**61 + 5).backward(cot)
         check(torch.equal(xr.grad, drop.dropout_reference(cot, 0.1, seed=2**61 + 5)),
               f"K4 {shape}: backward does not apply the forward's mask")
-        ms = cuda_ms(lambda: drop.dropout(x, 0.1, seed=3), reps=20)
+        kernel = lambda: drop.dropout(x, 0.1, seed=3)  # noqa: E731
+        library = lambda: F.dropout(x, 0.1, training=True)  # noqa: E731
+        ms, lib = cuda_ms(kernel, reps=20), cuda_ms(library, reps=20)
+        queued, lib_queued = cuda_ms(kernel, calls=10), cuda_ms(library, calls=10)
         plain = cuda_ms(lambda: drop.dropout_reference(x, 0.1, seed=3), reps=5)
-        lib = cuda_ms(lambda: F.dropout(x, 0.1, training=True), reps=20)
         bms, by = bound(2 * n * x.element_size(), 0)
         log(f"K4 {tuple(shape)} {dtype}: bit-equal, keep rate {kept:.6f} "
-            f"(5 sigma {5 * sigma:.2e}), "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, F.dropout {lib:.4f} ms, bound {bms:.4f} ms")
+            f"(5 sigma {5 * sigma:.2e}), kernel {ms:.4f} ms (queued {queued:.4f}), plain "
+            f"{plain:.4f} ms, F.dropout {lib:.4f} ms (queued {lib_queued:.4f}), bound "
+            f"{bms:.4f} ms")
         out.setdefault("first", {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
                                  "library_ms": lib, "bound_ms": bms, "bound_by": by})
         del x, cot, got, want, xr
@@ -1135,7 +1144,8 @@ def main() -> int:
 
     # launches: both main paths' runs (retrieval CLI, then pretraining CLI)
     kernels = [
-        entry("block_maxima_grouped (K1)", "block_maxima.cu", "proqa_tpu/ops/pallas_mips.py:83",
+        entry("block_maxima_grouped (K1)", "block_maxima_wgmma.cu",
+              "proqa_tpu/ops/pallas_mips.py:83",
               retrieval["block_maxima"] + pretrain["K1"], k1,
               max(k1["max_abs_err"], k1_cli_err)),
         entry("fused_attention (K2)", "attention_fwd.cu", "proqa_tpu/ops/pallas_attention.py:65",

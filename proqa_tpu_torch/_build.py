@@ -29,12 +29,14 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_U, _L = ctypes.c_uint32, ctypes.c_longlong
+_U, _L, _U64 = ctypes.c_uint32, ctypes.c_longlong, ctypes.c_uint64
 _DROPOUT = [_U, _U, _U, _F]  # k0, k1, threshold, 1/(1-rate) (ops/random.py)
 _SIGNATURES = {
     # queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, dim, block, group,
     # is_bf16, corpus_int8, stream
     "proqa_block_maxima": [_P] * 6 + [_I] * 7 + [_P],
+    # queries, corpus, bmax, gmax, num_q, n, dim, block, group, stream
+    "proqa_block_maxima_wgmma": [_P] * 4 + [_I] * 5 + [_P],
     # queries, corpus, ids, out, num_q, nb, kb, block, dim, is_bf16, stream
     "proqa_gather_score": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, is_bf16,
@@ -43,8 +45,8 @@ _SIGNATURES = {
     # q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads, seq,
     # head_dim, scale, is_bf16, dropout, k0, k1, threshold, inv_keep, stream
     "proqa_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
-    # x, y, n, k0, k1, threshold, inv_keep, is_bf16, stream
-    "proqa_dropout": [_P, _P, _L, *_DROPOUT, _I, _P],
+    # x, y, n, seed, threshold, inv_keep, is_bf16, stream
+    "proqa_dropout": [_P, _P, _L, _U64, _U, _F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -140,3 +142,23 @@ def check(code: int, kernel: str) -> None:
     if code != 0:
         msg = library().proqa_error_string(code).decode()
         raise RuntimeError(f"{kernel}: CUDA error {code} ({msg})")
+
+
+def launch(entry: str, device, *args) -> None:
+    """Calls the library's `entry` with args and the raw handle of the
+    current stream on `device` (a CUDA torch.device with its index), on that
+    device, and raises if the launch failed. The host path is kept short:
+    the stream handle is read without building a torch.cuda.Stream, and the
+    current device is switched only when it is another one."""
+    import torch
+
+    fn = getattr(_lib if _lib is not None else library(), entry)
+    index = device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch._C._cuda_getDevice():
+        code = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            code = fn(*args, stream)
+    if code != 0:
+        check(code, entry)

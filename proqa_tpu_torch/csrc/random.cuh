@@ -13,7 +13,7 @@
 #include <cstdint>
 
 // mix32 after its first step, x ^= x >> 16
-__device__ __forceinline__ uint32_t proqa_mix32_tail(uint32_t x) {
+__host__ __device__ __forceinline__ uint32_t proqa_mix32_tail(uint32_t x) {
   x *= 0x7feb352du;
   x ^= x >> 15;
   x *= 0x846ca68bu;
@@ -21,8 +21,15 @@ __device__ __forceinline__ uint32_t proqa_mix32_tail(uint32_t x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t proqa_mix32(uint32_t x) {
+__host__ __device__ __forceinline__ uint32_t proqa_mix32(uint32_t x) {
   return proqa_mix32_tail(x ^ (x >> 16));
+}
+
+// The two key words of a (64-bit seed, stream id) pair: ops/random.py:keys.
+__host__ __device__ __forceinline__ void proqa_keys(uint64_t seed, uint32_t stream, uint32_t* k0,
+                                                    uint32_t* k1) {
+  *k0 = proqa_mix32(static_cast<uint32_t>(seed) ^ proqa_mix32(stream ^ 0x9e3779b9u));
+  *k1 = proqa_mix32(static_cast<uint32_t>(seed >> 32) ^ proqa_mix32(*k0 ^ 0x85ebca6bu));
 }
 
 __device__ __forceinline__ bool proqa_keep(uint32_t k0, uint32_t k1, uint64_t n,

@@ -96,13 +96,9 @@ def _forward_kernel(q, k, v, key_mask, sm_scale, rate, seed):
     for name, x in (("q", q), ("k", k), ("v", v), ("key_mask", key_mask)):
         _aligned(name, x, q.device)
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        code = _build.library().proqa_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_mask.data_ptr(), out.data_ptr(),
-            bsz, nh, t, dh, float(sm_scale), int(q.dtype == torch.bfloat16),
-            *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "attention_fwd")
+    _build.launch("proqa_attention_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  key_mask.data_ptr(), out.data_ptr(), bsz, nh, t, dh, float(sm_scale),
+                  int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed))
     launches += 1
     return out
 
@@ -120,15 +116,10 @@ def _backward_kernel(q, k, v, key_mask, do, sm_scale, rate, seed):
     bits = None
     if rate > 0.0 and q.dtype == torch.bfloat16:
         bits = torch.empty(bsz * nh * t * t // 64, dtype=torch.int64, device=q.device)
-    with torch.cuda.device(q.device):
-        code = _build.library().proqa_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), key_mask.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            None if bits is None else bits.data_ptr(),
-            bsz, nh, t, dh, float(sm_scale), int(q.dtype == torch.bfloat16),
-            *_dropout_args(rate, seed), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "attention_bwd")
+    _build.launch("proqa_attention_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                  do.data_ptr(), key_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  stats.data_ptr(), None if bits is None else bits.data_ptr(), bsz, nh, t, dh,
+                  float(sm_scale), int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed))
     backward_launches += 1
     return dq, dk, dv
 

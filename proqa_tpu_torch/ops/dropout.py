@@ -15,7 +15,7 @@ import torch
 from proqa_tpu_torch import _build
 from proqa_tpu_torch.ops import random
 
-STREAM = 0  # the stream id of dropout masks (ops/random.py:keys)
+STREAM = 0  # the stream id of dropout masks (ops/random.py:keys; csrc/dropout.cu)
 
 # kernel launches since the last reset (the main path's proof of use)
 launches = 0
@@ -28,49 +28,50 @@ def dropout_reference(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     return torch.where(keep, x.float() * inv, 0.0).to(x.dtype)
 
 
-def _dropout_kernel(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def _dropout_kernel(x: torch.Tensor, rate: float, seed: int, threshold: int) -> torch.Tensor:
     global launches
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"dropout kernel takes bf16 or f32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("dropout kernel takes a contiguous tensor")
-    k0, k1 = random.keys(seed, STREAM)
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        code = _build.library().proqa_dropout(
-            x.data_ptr(), y.data_ptr(), x.numel(), k0, k1, random.threshold(rate),
-            1.0 / (1.0 - rate), int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "dropout")
+    # the kernel derives the keys of (seed mod 2^64, STREAM) itself, as
+    # random.keys does; ctypes passes the seed as an unsigned 64-bit word
+    _build.launch("proqa_dropout", x.device, x.data_ptr(), y.data_ptr(), x.numel(), seed,
+                  threshold, 1.0 / (1.0 - rate), int(x.dtype == torch.bfloat16))
     launches += 1
     return y
 
 
-def _apply(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return dropout_reference(x, rate, seed)
-    if x.device.type != "cuda":
+def _apply(x: torch.Tensor, rate: float, seed: int, threshold: int) -> torch.Tensor:
+    if x.device.type == "cuda":
+        return _dropout_kernel(x, rate, seed, threshold)
+    if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
-    return _dropout_kernel(x, rate, seed)
+    return dropout_reference(x, rate, seed)
 
 
 class _Dropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, rate, seed):
-        ctx.rate, ctx.seed = rate, seed
-        return _apply(x, rate, seed)
+    def forward(ctx, x, rate, seed, threshold):
+        ctx.args = rate, seed, threshold
+        return _apply(x, rate, seed, threshold)
 
     @staticmethod
     def backward(ctx, g):
         # same seed => same mask; dropout is linear given its mask
-        return _apply(g.contiguous(), ctx.rate, ctx.seed), None, None
+        return _apply(g.contiguous(), *ctx.args), None, None, None
 
 
 def dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """Inverted dropout of any contiguous bf16 or f32 tensor; the identity at
-    rate 0. `seed` (64-bit) chooses the mask."""
+    rate 0. `seed` (64-bit) chooses the mask. Where no gradient is asked for
+    (grad mode off, or x needs none) the kernel runs without an autograd
+    node: the same launch, less host time."""
     if rate == 0.0:
         return x
-    random.threshold(rate)  # validates the rate
-    return _Dropout.apply(x.contiguous(), rate, seed)
+    threshold = random.threshold(rate)  # validates the rate
+    x = x.contiguous()
+    if x.requires_grad and torch.is_grad_enabled():
+        return _Dropout.apply(x, rate, seed, threshold)
+    return _apply(x, rate, seed, threshold)

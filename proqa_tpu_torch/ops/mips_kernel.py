@@ -15,8 +15,10 @@ mips_topk_v1 (mips_topk_pallas) is the older two-stage pipeline: K8's block
 maxima [NB, Q], the top-kb blocks of each query, the rescore.
 
 Stages 2 and 3 are torch ops, as they are XLA ops in the JAX package. CUDA
-tensors run the kernels of csrc/block_maxima.cu; CPU tensors run their plain
-PyTorch versions (`*_reference`).
+tensors run a hand-written kernel: K1 over bf16 queries and corpus in
+csrc/block_maxima_wgmma.cu, the other cases in csrc/block_maxima.cu
+(`kernel_for` chooses); CPU tensors run their plain PyTorch versions
+(`*_reference`).
 """
 from __future__ import annotations
 
@@ -82,9 +84,26 @@ def block_maxima_grouped_reference(queries, corpus, *, block: int, group: int = 
     return bmax3, bmax3.amax(dim=2)[:, None, :]
 
 
+WGMMA_BLOCKS = (16, 32, 64, 128, 256)  # blocks csrc/block_maxima_wgmma.cu reduces at
+WGMMA_CHUNK = 128  # corpus rows of its chunks: group * block must be a multiple
+
+
+def kernel_for(queries_dtype, corpus_dtype, *, block: int, group: int, grouped: bool,
+               scaled: bool) -> str:
+    """Which CUDA kernel a launch takes, from dtypes and shapes alone:
+    "wgmma" (csrc/block_maxima_wgmma.cu, K1 written for Hopper) for bf16
+    queries and corpus, the grouped output without scales, a block in
+    WGMMA_BLOCKS and group * block a multiple of WGMMA_CHUNK; "simple"
+    (csrc/block_maxima.cu's body: int8, f32, block-major, scaled) else."""
+    if (queries_dtype == torch.bfloat16 and corpus_dtype == torch.bfloat16 and grouped
+            and not scaled and block in WGMMA_BLOCKS and (group * block) % WGMMA_CHUNK == 0):
+        return "wgmma"
+    return "simple"
+
+
 def _launch(queries, corpus, bmax, gmax, *, block: int, group: int, scales=None,
             scale_bounds=None) -> None:
-    """Checks what the kernel takes and launches csrc/block_maxima.cu."""
+    """Checks what the kernels take and launches the one kernel_for picks."""
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     q, d = queries.shape
@@ -107,15 +126,16 @@ def _launch(queries, corpus, bmax, gmax, *, block: int, group: int, scales=None,
                               or x.data_ptr() % 16):
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor "
                              f"on {queries.device}")
+    n = corpus.shape[0]
+    if kernel_for(queries.dtype, corpus.dtype, block=block, group=group,
+                  grouped=gmax is not None, scaled=scale_a is not None) == "wgmma":
+        _build.launch("proqa_block_maxima_wgmma", queries.device, queries.data_ptr(),
+                      corpus.data_ptr(), bmax.data_ptr(), gmax.data_ptr(), q, n, d, block, group)
+        return
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    with torch.cuda.device(queries.device):
-        code = _build.library().proqa_block_maxima(
-            queries.data_ptr(), corpus.data_ptr(), ptr(scale_a), ptr(scale_b), bmax.data_ptr(),
-            ptr(gmax), q, corpus.shape[0], d, block, group,
-            int(queries.dtype == torch.bfloat16), int(corpus.dtype == torch.int8),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "block_maxima")
+    _build.launch("proqa_block_maxima", queries.device, queries.data_ptr(), corpus.data_ptr(),
+                  ptr(scale_a), ptr(scale_b), bmax.data_ptr(), ptr(gmax), q, n, d, block, group,
+                  int(queries.dtype == torch.bfloat16), int(corpus.dtype == torch.int8))
 
 
 def block_maxima_grouped(queries, corpus, *, block: int, group: int = GROUP, scales=None,

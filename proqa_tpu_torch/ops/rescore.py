@@ -63,13 +63,9 @@ def _launch(queries, corpus_blocked, block_ids, block: int):
                              f"on {queries.device}")
     kb = ids.shape[1]
     out = torch.empty(q, kb * block, dtype=torch.float32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        code = _build.library().proqa_gather_score(
-            queries.data_ptr(), corpus_blocked.data_ptr(), ids.data_ptr(), out.data_ptr(),
-            q, corpus_blocked.shape[0], kb, block, d, int(queries.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(code, "gather_score")
+    _build.launch("proqa_gather_score", queries.device, queries.data_ptr(),
+                  corpus_blocked.data_ptr(), ids.data_ptr(), out.data_ptr(), q,
+                  corpus_blocked.shape[0], kb, block, d, int(queries.dtype == torch.bfloat16))
     return out
 
 

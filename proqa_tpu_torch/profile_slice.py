@@ -47,11 +47,11 @@ GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # kernel group: substrings of the kernel name, first match wins
 GROUPS = (
     ("K5 block_maxima int8", ("bmax3_kernel<__nv_bfloat16, signed char>",)),
-    ("K1 block_maxima", ("bmax3_kernel",)),
+    ("K1 block_maxima", ("bmax_wgmma_kernel", "bmax3_kernel")),
     ("K6/K9 gather_score", ("gather_score_kernel",)),
     ("K2 attention", ("attention_fwd_",)),   # attention_fwd_wgmma_kernel (bf16), _simple_ (f32)
     ("K3 attention backward", ("attention_bwd_",)),  # attention_bwd_rows_ and _cols_kernel
-    ("K4 dropout", ("dropout_kernel",)),
+    ("K4 dropout", ("dropout_vec_kernel", "dropout_scalar_kernel")),
     ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
     ("topk/sort", ("topk", "radixSort", "Sort", "cub::")),
     ("gather/index", ("gather", "index_elementwise", "index_kernel")),

@@ -77,6 +77,45 @@ def test_block_maxima_kernel_matches_plain(cuda, q, block, group, dtype):
         torch.testing.assert_close(g, w, atol=MIPS_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("q", [1, 7, 32, 300, 2048])
+@pytest.mark.parametrize("block", mips_kernel.WGMMA_BLOCKS)
+@pytest.mark.parametrize("group", [8, 128])
+def test_wgmma_block_maxima_match_plain(cuda, q, block, group):
+    """K1's Hopper kernel (csrc/block_maxima_wgmma.cu) at every block it
+    takes, one warpgroup (Q <= 64) and two, ragged query tiles; with group 8
+    there are 20 groups, so a persistent block walks several."""
+    assert mips_kernel.kernel_for(torch.bfloat16, torch.bfloat16, block=block, group=group,
+                                  grouped=True, scaled=False) == "wgmma"
+    groups = 20 if group == 8 else 3
+    queries, corpus = _mips_inputs(q, block * group * groups, cuda, torch.bfloat16,
+                                   seed=q + block + group)
+    before = mips_kernel.launches
+    got = mips_kernel.block_maxima_grouped(queries, corpus, block=block, group=group)
+    torch.cuda.synchronize()
+    assert mips_kernel.launches == before + 1
+    want = mips_kernel.block_maxima_grouped_reference(queries, corpus, block=block, group=group)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=MIPS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("block", mips_kernel.WGMMA_BLOCKS)
+def test_wgmma_pipeline_with_n_valid_inside_a_block(cuda, block):
+    """mips_topk_v2 through the Hopper K1 over a corpus whose last real row
+    falls inside a block: the blocks past it are masked, the straddling one
+    patched; every real score is negative, so an unmasked zero padding row
+    would win."""
+    n_valid = 128 * block + 3 * block + block // 2
+    queries, corpus = _mips_inputs(64, n_valid, cuda, torch.bfloat16, seed=block, negative=True)
+    before = mips_kernel.launches
+    gv, gi = mips_kernel.mips_topk_v2(queries, corpus, 80, block=block, n_valid=n_valid)
+    assert mips_kernel.launches == before + 1
+    rv, ri = mips.mips_topk_reference(queries, corpus, 80, n_valid=n_valid)
+    assert topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
+                              ri.cpu().numpy(), atol=MIPS_ATOL) == 0
+    assert (gi < n_valid).all()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_mips_topk_on_gpu_matches_reference(cuda, dtype):
     queries, corpus = _mips_inputs(256, 9000, cuda, getattr(torch, dtype), seed=6,
@@ -281,6 +320,36 @@ def test_dropout_kernel_is_bit_equal_to_plain(cuda, shape, dtype):
     gy = torch.randn(*shape, generator=g).to(cuda, x.dtype)
     drop.dropout(xr, 0.1, seed=2**40 + 7).backward(gy)
     assert torch.equal(xr.grad, drop.dropout_reference(gy, 0.1, seed=2**40 + 7))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(80, 512, 768), (7, 13), "unaligned"])
+def test_dropout_kernel_without_autograd(cuda, shape, dtype):
+    """The launch that skips the autograd node (grad mode off, or an input
+    that needs no gradient) is bit-equal to the plain version; an input that
+    is not 16-byte aligned takes the element-at-a-time kernel."""
+    from proqa_tpu_torch.ops import dropout as drop
+
+    g = torch.Generator().manual_seed(5)
+    if shape == "unaligned":
+        x = torch.randn(1001, generator=g).to(cuda, getattr(torch, dtype))[1:]
+        assert x.data_ptr() % 16
+    else:
+        x = torch.randn(*shape, generator=g).to(cuda, getattr(torch, dtype))
+    want = drop.dropout_reference(x, 0.1, seed=2**33 + 1)
+    xr = x.clone().requires_grad_(True)
+    before = drop.launches
+    with torch.no_grad():
+        got_no_grad = drop.dropout(xr, 0.1, seed=2**33 + 1)
+    got_plain = drop.dropout(x, 0.1, seed=2**33 + 1)
+    torch.cuda.synchronize()
+    assert drop.launches == before + 2
+    assert got_no_grad.grad_fn is None and got_plain.grad_fn is None
+    assert torch.equal(got_no_grad, want) and torch.equal(got_plain, want)
+    # with autograd: the backward applies the forward's mask
+    gy = torch.randn(x.shape, generator=g).to(cuda, x.dtype)
+    drop.dropout(xr, 0.1, seed=2**33 + 1).backward(gy)
+    assert torch.equal(xr.grad, drop.dropout_reference(gy, 0.1, seed=2**33 + 1))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

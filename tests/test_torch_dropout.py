@@ -72,6 +72,25 @@ def test_dropout_forward_and_backward(dtype):
         dropout.dropout(x, 1.0, seed=1)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["no_grad", "inference_mode", "input_needs_no_grad"])
+def test_dropout_without_a_gradient_builds_no_autograd_node(dtype, mode):
+    """Where no gradient is asked for, the wrapper calls the kernel (here its
+    plain version) directly: the same values, no autograd node."""
+    x = torch.randn(5, 7, 16, generator=torch.Generator().manual_seed(2)).to(getattr(torch, dtype))
+    want = dropout.dropout_reference(x, 0.3, seed=9)
+    if mode == "input_needs_no_grad":
+        y = dropout.dropout(x, 0.3, seed=9)
+    else:
+        xr = x.clone().requires_grad_(True)
+        with torch.no_grad() if mode == "no_grad" else torch.inference_mode():
+            y = dropout.dropout(xr, 0.3, seed=9)
+    assert y.grad_fn is None and not y.requires_grad
+    assert torch.equal(y, want)
+    yg = dropout.dropout(x.clone().requires_grad_(True), 0.3, seed=9)
+    assert yg.grad_fn is not None and torch.equal(yg.detach(), want)
+
+
 def test_dropout_counts_no_cpu_launch():
     before = dropout.launches
     dropout.dropout(torch.ones(8, 8), 0.5, seed=3)

@@ -55,3 +55,19 @@ def test_keep_row_matches_the_hash(t, seed):
     want = random.bits(k0, k1, torch.from_numpy(n0[:, None] + offsets[None, :]))
     got = [[_keep_row_bits(k0, k1, int(a), int(o)) for o in offsets] for a in n0]
     assert torch.equal(want, torch.tensor(got, dtype=want.dtype))
+
+
+@pytest.mark.parametrize("vec", [8, 4])  # elements of a 16-byte vector: bf16, f32
+@pytest.mark.parametrize("seed", [3, 2**61 + 5])
+def test_keep_row_matches_the_hash_on_dropout_vectors(vec, seed):
+    """csrc/dropout.cu draws vector i's mask as ProqaKeepRow(k0, k1, vec i)
+    .keep(o) for o < vec: n0 = vec i has the low bits of o clear."""
+    rng = np.random.default_rng(seed % 1000 + vec)
+    k0, k1 = random.keys(seed, 0)
+    vectors = rng.integers(0, 2**40 // vec, size=64, dtype=np.int64)
+    vectors[:4] = (np.arange(1, 5, dtype=np.int64) << 32) // vec - 1  # n0 + o near 2^32
+    n0 = vec * vectors
+    offsets = np.arange(vec, dtype=np.int64)
+    want = random.bits(k0, k1, torch.from_numpy(n0[:, None] + offsets[None, :]))
+    got = [[_keep_row_bits(k0, k1, int(a), int(o)) for o in offsets] for a in n0]
+    assert torch.equal(want, torch.tensor(got, dtype=want.dtype))
