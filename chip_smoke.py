@@ -41,11 +41,13 @@ The retriever-pretraining slice:
      checkpoint_last.pt and retrieve over it (K1), with every counter reset
      before and read after, and the index checked against the plain encoder.
 The int8 index and the rest of the search kernels:
- 10. K5, scaled block maxima over int8 codes, against its plain version at
-     4,194,304 x 128 (block 16, Q = 2,048; codes made on the device), then a
-     DenseIndex(dtype="int8") quantized on the host from an f32 corpus: top-80
-     search qps, and 256 queries against the exact top-80 of the dequantized
-     corpus;
+ 10. K5, scaled block maxima over int8 codes (the Hopper kernel of
+     csrc/block_maxima_wgmma.cu, which widens the codes to bf16 in shared
+     memory), against its plain version at 4,194,304 x 128 (block 16,
+     Q = 2,048, and Q = 32, retrieve's batch, whose bound is the bytes;
+     codes made on the device), then a DenseIndex(dtype="int8") quantized on
+     the host from an f32 corpus: top-80 search qps, and 256 queries against
+     the exact top-80 of the dequantized corpus;
  11. K5 at the capacity point, 67,108,864 x 128 int8 (block 128), made on
      the device: the kernel against its plain version in chunks, mips_topk's
      qps and peak memory, and 64 queries against a chunked exact reference;
@@ -759,6 +761,17 @@ def phase_pretrain_cli(device, root: str) -> dict:
     return launches
 
 
+def check_hopper_route(name, queries, codes, block: int) -> None:
+    """Fails unless the int8 launch of K5 or K7 at these dtypes and block
+    takes the Hopper kernel (csrc/block_maxima_wgmma.cu), not the simple
+    body: the launch counters alone do not tell the two apart."""
+    from proqa_tpu_torch.ops import mips_kernel
+
+    route = mips_kernel.kernel_for(queries.dtype, codes.dtype, block=block,
+                                   group=mips_kernel.GROUP, grouped=True, scaled=True)
+    check(route == "wgmma", f"{name} at block {block} takes the {route} kernel")
+
+
 def _search_qps(fn, q: int, reps: int = 3) -> float:
     """Queries per second of fn(), which ends synchronised (median of reps,
     host clock, after one warm-up)."""
@@ -809,8 +822,13 @@ def phase_int8(device) -> dict:
     g = torch.Generator(device=device).manual_seed(15)
     queries = torch.randn(q, d, device=device, generator=g) / d ** 0.5
     qb = queries.bfloat16()
+    check_hopper_route("K5", qb, codes, block)
     k5 = grouped_against_plain("K5", qb, codes, block=block, scales=scales)
-    del k5["out"], codes, scales
+    del k5["out"]
+    # retrieve's batch: the bytes bound it (the corpus once, 0.54 GB)
+    k5_small = grouped_against_plain("K5 Q=32", qb[:32].contiguous(), codes, block=block,
+                                     scales=scales)
+    del k5_small["out"], codes, scales
 
     host = (torch.randn(n, d, generator=torch.Generator().manual_seed(16)) / d ** 0.5).numpy()
     t0 = time.perf_counter()
@@ -833,7 +851,7 @@ def phase_int8(device) -> dict:
     log(f"int8 index N={n} quant block {index.quant_block}: quantized on the host and placed in "
         f"{build_s:.1f} s; search top-{k} Q={q}: {qps:.1f} qps (host clock); {n_check} queries "
         f"agree with the exact top-{k} of the dequantized corpus up to ties")
-    return {**k5, "qps": qps}
+    return {**k5, "max_abs_err": max(k5["max_abs_err"], k5_small["max_abs_err"]), "qps": qps}
 
 
 def phase_int8_capacity(device) -> dict:
@@ -849,6 +867,7 @@ def phase_int8_capacity(device) -> dict:
     codes, scales = random_int8_corpus(n, d, block, seed=13, device=device)
     g = torch.Generator(device=device).manual_seed(17)
     qb = (torch.randn(q, d, device=device, generator=g) / d ** 0.5).bfloat16()
+    check_hopper_route("K5 capacity", qb, codes, block)
     # plain chunks of 64 groups: a [2048, 1,048,576] f32 score matrix, 8.6 GB
     k5 = grouped_against_plain("K5 capacity", qb, codes, block=block, chunk_groups=64, reps=2,
                                scales=scales)
@@ -899,6 +918,7 @@ def phase_bounded(device) -> tuple[dict, int]:
 
     rsb = rs.view(-1, block)
     bounds = (rsb.amax(dim=1), rsb.amin(dim=1))
+    check_hopper_route("K7", qb, codes, block)
     k7 = grouped_against_plain("K7", qb, codes, block=block, scale_bounds=bounds)
     bmax3, _ = k7.pop("out")
     per_block = bmax3.transpose(1, 2).reshape(-1, q)                   # [NB, Q]
@@ -1064,6 +1084,7 @@ def phase_int8_cli(device, root: str, recall_bf16: dict) -> tuple[int, float]:
     check(bad == 0, f"int8 index search: {bad} of {len(q)} queries disagree with the exact "
                     "reference of its codes")
     block = index.quant_block
+    check_hopper_route("the int8 CLI path's K5", qt, index.embeddings, block)
     got = mips_kernel.block_maxima_grouped(qt, index.embeddings, block=block, scales=index.scales)
     want = mips_kernel.block_maxima_grouped_reference(qt, index.embeddings, block=block,
                                                       scales=index.scales)
@@ -1157,12 +1178,12 @@ def main() -> int:
               k4, k4["max_abs_err"]),
         # launches: the int8 CLI path (K5) and each kernel's own pipeline
         # (K6-K9); times at 4.2M rows (K5 at 67.1M: in the log above)
-        entry("block_maxima_grouped scaled (K5)", "block_maxima.cu",
+        entry("block_maxima_grouped scaled (K5)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:97", k5_launches, k5,
               max(k5["max_abs_err"], k5_cap["max_abs_err"], k5_cli_err)),
         entry("gather_rescore (K6)", "gather_rescore.cu", "proqa_tpu/ops/pallas_rescore.py:58",
               rescore_launches["K6"], k6),
-        entry("block_maxima_grouped bounded (K7)", "block_maxima.cu",
+        entry("block_maxima_grouped bounded (K7)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:111", k7_launches, k7),
         entry("block_maxima (K8)", "block_maxima.cu", "proqa_tpu/ops/pallas_mips.py:32",
               k8_launches, k8),

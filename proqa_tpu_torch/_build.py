@@ -37,6 +37,8 @@ _SIGNATURES = {
     "proqa_block_maxima": [_P] * 6 + [_I] * 7 + [_P],
     # queries, corpus, bmax, gmax, num_q, n, dim, block, group, stream
     "proqa_block_maxima_wgmma": [_P] * 4 + [_I] * 5 + [_P],
+    # queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, dim, block, group, stream
+    "proqa_block_maxima_wgmma_int8": [_P] * 6 + [_I] * 5 + [_P],
     # queries, corpus, ids, out, num_q, nb, kb, block, dim, is_bf16, stream
     "proqa_gather_score": [_P] * 4 + [_I] * 6 + [_P],
     # q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, is_bf16,

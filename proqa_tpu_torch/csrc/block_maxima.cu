@@ -1,4 +1,8 @@
 // K1, K5, K7 and K8: fused corpus scoring with block maxima, for exact MIPS.
+// The search path's cases (bf16 queries, grouped: K1 over bf16, K5 and K7
+// over int8) run block_maxima_wgmma.cu's Hopper kernel; this simple body
+// serves K8, f32 queries and the shapes that kernel does not take
+// (ops/mips_kernel.py:kernel_for).
 //
 // Replaces the four block-max kernels of proqa_tpu/ops/pallas_mips.py:
 //   K1 _bmax3_kernel (:83): for a tile of queries and one group of `group`
@@ -16,9 +20,10 @@
 //   K8 _bmax_kernel (:32): block maxima only, written block-major [NB, Q],
 //      with no group level (block_maxima, pallas_mips.py:45).
 // One kernel body serves all four: the corpus storage type is a template
-// argument (int8 codes are widened in shared memory), the epilogue and the
-// output layout are launch arguments. The [Q, N] score matrix never reaches
-// device memory.
+// argument (int8 codes are widened in shared memory), the epilogue is a
+// launch argument, and the output layout picks one of two kernel names
+// (bmax3_kernel, bmax_block_major_kernel). The [Q, N] score matrix never
+// reaches device memory.
 //
 // What bounds it on the H100: at the main path's shapes (Q = 2048, D = 128)
 // each corpus row (256 bytes in bf16, 128 in int8) meets every query,
@@ -152,14 +157,15 @@ size_t smem_bytes(int group) {
 
 // scale_a == nullptr: raw block maxima (K1, K8). scale_a only: times the
 // block's scale (K5). Both: the sign-aware bound with smax = scale_a and
-// smin = scale_b (K7). gmax == nullptr: block-major output [NB, num_q] (K8);
+// smin = scale_b (K7). kBlockMajor: block-major output [NB, num_q] (K8);
 // otherwise bmax3 [CG, num_q, group] and gmax [CG, 1, num_q].
-template <typename T, typename S>
-__global__ void __launch_bounds__(kThreads)
-bmax3_kernel(const T* __restrict__ queries, const S* __restrict__ corpus,
-             const float* __restrict__ scale_a, const float* __restrict__ scale_b,
-             float* __restrict__ bmax, float* __restrict__ gmax,
-             int num_q, int block, int group) {
+template <typename T, typename S, bool kBlockMajor>
+__device__ __forceinline__ void bmax_body(const T* __restrict__ queries,
+                                          const S* __restrict__ corpus,
+                                          const float* __restrict__ scale_a,
+                                          const float* __restrict__ scale_b,
+                                          float* __restrict__ bmax, float* __restrict__ gmax,
+                                          int num_q, int block, int group) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int ld = Layout<T>::ld;
   T* qs = reinterpret_cast<T*>(smem);
@@ -210,22 +216,41 @@ bmax3_kernel(const T* __restrict__ queries, const S* __restrict__ corpus,
     }
     __syncthreads();
   }
-  if (gmax == nullptr) {     // K8: block-major, consecutive queries side by side
+  if constexpr (kBlockMajor) {  // K8: block-major, consecutive queries side by side
     for (int i = tid; i < valid_q * group; i += kThreads) {
       const int g = i / valid_q, q = i % valid_q;
       bmax[(cg * group + g) * num_q + q0 + q] = bm[q * bm_ld + g];
     }
-    return;
+  } else {
+    for (int i = tid; i < valid_q * group; i += kThreads) {
+      const int q = i / group, g = i % group;
+      bmax[(cg * num_q + q0 + q) * group + g] = bm[q * bm_ld + g];
+    }
+    if (tid < valid_q) {
+      float m = -INFINITY;
+      for (int g = 0; g < group; ++g) m = fmaxf(m, bm[tid * bm_ld + g]);
+      gmax[cg * num_q + q0 + tid] = m;
+    }
   }
-  for (int i = tid; i < valid_q * group; i += kThreads) {
-    const int q = i / group, g = i % group;
-    bmax[(cg * num_q + q0 + q) * group + g] = bm[q * bm_ld + g];
-  }
-  if (tid < valid_q) {
-    float m = -INFINITY;
-    for (int g = 0; g < group; ++g) m = fmaxf(m, bm[tid * bm_ld + g]);
-    gmax[cg * num_q + q0 + tid] = m;
-  }
+}
+
+// The grouped store (K1, K5, K7) and the block-major one (K8) as kernels of
+// their own names, so that a profiler tells them apart.
+template <typename T, typename S>
+__global__ void __launch_bounds__(kThreads)
+bmax3_kernel(const T* __restrict__ queries, const S* __restrict__ corpus,
+             const float* __restrict__ scale_a, const float* __restrict__ scale_b,
+             float* __restrict__ bmax, float* __restrict__ gmax, int num_q, int block,
+             int group) {
+  bmax_body<T, S, false>(queries, corpus, scale_a, scale_b, bmax, gmax, num_q, block, group);
+}
+template <typename T, typename S>
+__global__ void __launch_bounds__(kThreads)
+bmax_block_major_kernel(const T* __restrict__ queries, const S* __restrict__ corpus,
+                        const float* __restrict__ scale_a, const float* __restrict__ scale_b,
+                        float* __restrict__ bmax, float* __restrict__ gmax, int num_q,
+                        int block, int group) {
+  bmax_body<T, S, true>(queries, corpus, scale_a, scale_b, bmax, gmax, num_q, block, group);
 }
 
 template <typename T, typename S>
@@ -234,11 +259,12 @@ cudaError_t launch(const void* queries, const void* corpus, const void* scale_a,
                    int group, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(group);
   if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bmax3_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  auto kernel = gmax == nullptr ? bmax_block_major_kernel<T, S> : bmax3_kernel<T, S>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((num_q + kTileQ - 1) / kTileQ, n / (group * block));
-  bmax3_kernel<T, S><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(queries), static_cast<const S*>(corpus),
       static_cast<const float*>(scale_a), static_cast<const float*>(scale_b),
       static_cast<float*>(bmax), static_cast<float*>(gmax), num_q, block, group);

@@ -1,21 +1,33 @@
-// K1 on Hopper: block maxima of a bf16 corpus against bf16 queries, for
-// exact MIPS, with wgmma products and the maxima taken on the accumulators.
+// K1, K5 and K7 on Hopper: block maxima of a bf16 or int8 corpus against
+// bf16 queries, for exact MIPS, with wgmma products and the maxima taken on
+// the accumulators.
 //
-// Replaces proqa_tpu/ops/pallas_mips.py:_bmax3_kernel (:83; launched by
-// block_maxima_grouped, pallas_call at :228) on the port's search path: bf16
-// queries and corpus, grouped output bmax3 [CG, Q, G] (the maximum of each
-// block of `block` rows, the G blocks of a group contiguous per query) and
-// gmax [CG, 1, Q] (the maximum of each group). The int8 (K5, K7),
-// block-major (K8) and f32 cases keep block_maxima.cu's simple body. Every
-// emitted value is the maximum of its own block's f32 scores, as in
+// Replaces, on the port's search path (bf16 queries, grouped output bmax3
+// [CG, Q, G], the maximum of each block of `block` rows with the G blocks of
+// a group contiguous per query, and gmax [CG, 1, Q], the maximum of each
+// group), three kernels of proqa_tpu/ops/pallas_mips.py, all launched by
+// block_maxima_grouped (pallas_call at :228) through _bmax3_body (:129-149):
+//   K1 _bmax3_kernel (:83): a bf16 corpus, the raw block maxima;
+//   K5 _bmax3_kernel_scaled (:97): int8 codes, each block maximum times its
+//      block's f32 scale after the max-reduce and before the group maximum;
+//   K7 _bmax3_kernel_bounded (:111): int8 codes with per-row scales, each raw
+//      block maximum m turned into the bound m >= 0 ? m * smax : m * smin.
+// The corpus storage type and the epilogue are template arguments
+// (bmax_wgmma_kernel<BLOCK, NWG, S, E>, E one of RawMaxima, BlockScales,
+// RowBounds, so a profiler tells the three apart by name). The block-major
+// (K8) and f32 cases keep block_maxima.cu's simple body. Every emitted value
+// is the epilogue of the maximum of its own block's f32 scores, as in
 // pallas_mips.py:129-149, so the exactness certificate of
 // pallas_mips.py:295-298 holds unchanged.
 //
 // What bounds it on the H100 (SXM, 700 W published peaks): operations,
 // 2 * Q * N * 128 at the bf16 tensor-core rate of 989 TFLOP/s (2.22 ms at
-// Q = 2,048, N = 4,194,304). The bytes it must move, the corpus once (1.07
-// GB) and bmax3 (2.15 GB at block 16), take 0.96 ms at 3.35 TB/s. What the
-// design does about each:
+// Q = 2,048, N = 4,194,304). int8 codes are products at that rate too: the
+// queries are bf16 and the codes are widened to them, exactly, as
+// pallas_mips.py:133-139 does (an s8 product would need quantized queries
+// and change every score). The bytes it must move, the corpus once (1.07 GB
+// bf16, 0.54 GB int8) and bmax3 (2.15 GB at block 16), take 0.96 ms (bf16)
+// at 3.35 TB/s. What the design does about each:
 // - Products: wgmma.m64n128k16, queries on the M side, corpus rows on the N
 //   side. A warpgroup (128 threads) owns 64 queries; it loads their A
 //   fragments once from device memory and keeps them in registers for the
@@ -31,16 +43,47 @@
 //   score touches shared memory. Blocks of 32-128 rows fold across fragments
 //   first, blocks of 256 across two chunks; the group maximum is a running
 //   value in registers.
-// - Streaming: one producer thread, in a warpgroup of its own that hands
-//   its registers to the others (setmaxnreg), copies chunks by TMA into a
-//   ring of 6 stages of 32 KB, each with a full and an empty mbarrier; the
-//   consumer warpgroups wait on a stage's full barrier and hand it back once
-//   their products have read it. No block barrier and no proxy fence in the
-//   loop: TMA writes through the async proxy that wgmma reads, and the
-//   warpgroups run apart. Two accumulator sets: chunk c's products run on
-//   the tensor cores while chunk c - 1's maxima are taken. (Copies by
-//   cp.async from every thread, with a block barrier a chunk, kept the
-//   copies and not the products on the critical path.)
+// - Epilogues on those registers: a lane's run of blocks is consecutive, so
+//   it loads their scales (K5) or their smax and smin (K7) as one vector,
+//   issued before the wait for the products it applies to, and applies them
+//   in f32 to its finished maxima before they fold into the group maximum
+//   and are stored. K7 tests the sign of the raw maximum (-0.0 >= 0 holds).
+// - Streaming, bf16: one producer thread, in a warpgroup of its own that
+//   hands its registers to the others (setmaxnreg 40; the consumers take
+//   232), copies chunks by TMA into a ring of 6 stages of 32 KB, each with a
+//   full and an empty mbarrier; the consumer warpgroups wait on a stage's
+//   full barrier and hand it back once their products have read it. No block
+//   barrier and no proxy fence in the loop: TMA writes through the async
+//   proxy that wgmma reads, and the warpgroups run apart. Two accumulator
+//   sets: chunk c's products run on the tensor cores while chunk c - 1's
+//   maxima are taken.
+// - Streaming, int8: the same consumers. The producer thread copies each
+//   int8 chunk (128 rows x 128 bytes, one TMA box, 128-byte swizzle) into a
+//   raw ring of its own (kRawStages of 16 KB); all 128 producer threads then
+//   widen it into a bf16 stage in exactly the layout TMA gives a bf16 chunk
+//   (widen_chunk), run fence.proxy.async (their stores go through the
+//   generic proxy, wgmma reads through the async one) and arrive on the
+//   stage's full barrier (128 arrivals, no transaction count); the raw stage
+//   goes back to the producer thread through its own empty barrier. So the
+//   conversion stays off the tensor cores' critical path, and the chunk
+//   crosses from L2 to the SM in half the bytes. Shared memory: 6 bf16
+//   stages, as K1's ring, and 2 raw stages, 224 KB of the 227 KB a block
+//   may take; in development runs on the H100 a deeper bf16 ring counted
+//   for more than a deeper raw one (5 + 4 and 4 + 6 stages were slower),
+//   and producer threads loading the codes from device memory into
+//   registers, with no raw ring, were slower still (the load latency showed).
+//   Registers: the widening keeps four 16-byte loads and 16 widened bytes
+//   live, so the producer warpgroup keeps 56 registers and the consumers
+//   take 224 (56 x 128 + 224 x 256 fills the 64K registers the launch gets;
+//   ptxas reports no spill, and 64 / 216 was no faster). What bounds it
+//   now is the shared memory traffic (a chunk is written by TMA, read and
+//   written widened by the producer, and read by both consumer warpgroups:
+//   128 KB against K1's 96 KB) and the conversion's issue slots. The
+//   conversion of a pair of codes is 4 instructions, no int-to-float
+//   conversion (those issue at a quarter of the rate): a byte permute puts
+//   codes b0, b1 in the low bytes of two bf16 whose high bytes are 0x43,
+//   then (b & 0x7F | 0x4300) - (b & 0x80 | 0x4300) in bf16x2 is
+//   (128 + (b & 127)) - (128 or 256) = b, exact for every byte value.
 // - Reuse: two warpgroups, 128 queries a CUDA block (64 when Q <= 64), so a
 //   corpus chunk crosses from L2 to the SMs Q / 128 times, half as often as
 //   in the simple body. The blocks are persistent: the grid is (query tiles,
@@ -64,10 +107,31 @@ using attn::bf16;
 
 constexpr int kDim = 128;                        // embedding width the kernel takes
 constexpr int kChunk = 128;                      // corpus rows a chunk: the wgmma N
-constexpr int kStages = 6;                       // ring of chunks (192 KB)
 constexpr uint32_t kChunkBytes = kChunk * kDim * 2;
-constexpr uint32_t kHalfBytes = kChunkBytes / 2;  // one TMA box: 128 rows x 64 columns
+constexpr uint32_t kHalfBytes = kChunkBytes / 2;  // one bf16 TMA box: 128 rows x 64 columns
+constexpr uint32_t kRawBytes = kChunk * kDim;     // one int8 chunk, one TMA box
 constexpr int kMaxGrid = 65535;
+
+// The rings and the register split of each corpus storage type.
+template <typename S>
+struct Ring;
+template <>
+struct Ring<bf16> {  // TMA writes the chunks straight into the bf16 ring
+  static constexpr int kStages = 6, kRawStages = 0, kProducerRegs = 40, kConsumerRegs = 232;
+  static constexpr uint32_t kFullCount = 1;  // the TMA thread's expect_tx
+};
+template <>
+struct Ring<int8_t> {  // TMA fills the raw ring; the producer warpgroup widens
+  static constexpr int kStages = 6, kRawStages = 2, kProducerRegs = 56, kConsumerRegs = 224;
+  static constexpr uint32_t kFullCount = 128;  // every producer thread, after its stores
+};
+template <typename S>
+constexpr size_t smem_bytes() {
+  return Ring<S>::kStages * kChunkBytes + Ring<S>::kRawStages * kRawBytes + 1024 +
+         16 * (Ring<S>::kStages + Ring<S>::kRawStages);
+}
+static_assert(smem_bytes<bf16>() <= 232448 && smem_bytes<int8_t>() <= 232448,
+              "a block may take 227 KB of shared memory");
 
 // ---------------------------------------------------------------------------
 // TMA and mbarriers
@@ -140,6 +204,83 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
+// ---------------------------------------------------------------------------
+// Widening an int8 chunk into the bf16 ring (the producer warpgroup)
+// ---------------------------------------------------------------------------
+
+// Two codes, bytes `sel` of w, as a bf16x2 pair: the permute gives each
+// code's byte b a high byte 0x43; (b & 0x7F | 0x4300) is 128 + (b & 127) and
+// (b & 0x80 | 0x4300) is 128 or 256, and their bf16 difference is b, exact.
+__device__ __forceinline__ uint32_t widen_pair(uint32_t w, uint32_t sel) {
+  const uint32_t p = __byte_perm(w, 0x43434343u, sel);
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(p & 0xFF7FFF7Fu), "r"(p & 0xFF80FF80u));
+  return d;
+}
+
+// Producer thread p's share of each chunk: in pass i (0..7), rows 16 i + 2
+// (p / 16) + (e >= 4), e = p % 8, and its 16 codes in 16-byte unit v = e % 4
+// + 4 ((e >= 4) ^ (p / 8) % 2) of the row. A quarter warp so reads half of
+// one row and the other half of the next, whose swizzle phases differ in
+// the lowest bit, so its reads from the raw stage and its two stores into
+// the bf16 stage each hit 8 distinct 16-byte bank groups (the layout is
+// mirrored in tests/test_torch_bmax_fragments.py).
+struct WidenShare {
+  uint32_t src;     // byte of the raw stage read in pass 0 (pass i: + 2048 i)
+  uint32_t dst_lo;  // byte of the bf16 stage that takes codes 0-7 (+ 2048 i)
+  uint32_t dst_hi;  // and codes 8-15
+};
+__device__ __forceinline__ WidenShare widen_share(int p) {
+  const int e = p % 8, second = e >= 4;
+  const int row = 2 * (p / 16) + second;           // of pass 0
+  const int v = e % 4 + 4 * (second ^ ((p / 8) % 2));
+  const int sw = row % 8;                          // the row's swizzle phase, every pass
+  // raw stage: TMA's 128-byte swizzle of 128-byte rows
+  const uint32_t src = row * 128 + ((v ^ sw) * 16);
+  // bf16 stage: column 16 v lies in half v / 4, 16-byte units 2 (v % 4) and
+  // the next; row `row` of pass i lies in 8-row atom 2 i + row / 8
+  const uint32_t base = (v / 4) * kHalfBytes + (row / 8) * 1024 + sw * 128;
+  return {src, base + (((2 * (v % 4)) ^ sw) * 16), base + (((2 * (v % 4) + 1) ^ sw) * 16)};
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void sts128(uint32_t addr, uint32_t a, uint32_t b, uint32_t c,
+                                       uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(a), "r"(b), "r"(c),
+               "r"(d)
+               : "memory");
+}
+
+// One producer thread's share of an int8 chunk at raw stage `raw`, widened
+// into the bf16 stage `wide`: four passes' loads are issued together, so
+// their latency is paid twice a chunk.
+__device__ __forceinline__ void widen_chunk(uint32_t raw, uint32_t wide, const WidenShare& sh) {
+#pragma unroll
+  for (int i0 = 0; i0 < 8; i0 += 4) {
+    uint4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = lds128(raw + sh.src + 2048 * (i0 + i));
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t at = wide + 2048 * (i0 + i);
+      sts128(at + sh.dst_lo, widen_pair(x[i].x, 0x4140), widen_pair(x[i].x, 0x4342),
+             widen_pair(x[i].y, 0x4140), widen_pair(x[i].y, 0x4342));
+      sts128(at + sh.dst_hi, widen_pair(x[i].z, 0x4140), widen_pair(x[i].z, 0x4342),
+             widen_pair(x[i].w, 0x4140), widen_pair(x[i].w, 0x4342));
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Block maxima on the accumulators, and their epilogues
+// ---------------------------------------------------------------------------
+
 template <int N>
 __device__ __forceinline__ void store_run(float* p, const float (&u)[N]) {
   if constexpr (N == 4) {
@@ -150,6 +291,49 @@ __device__ __forceinline__ void store_run(float* p, const float (&u)[N]) {
     *p = u[0];
   }
 }
+
+template <int N>
+__device__ __forceinline__ void load_run(const float* __restrict__ p, float (&u)[N]) {
+  if constexpr (N == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    u[0] = v.x, u[1] = v.y, u[2] = v.z, u[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+    u[0] = v.x, u[1] = v.y;
+  } else {
+    u[0] = __ldg(p);
+  }
+}
+
+// The epilogues, each over a lane's run of N consecutive blocks: `load`
+// fetches what it needs for the run that starts at block b (of the whole
+// corpus), `apply` turns the run's raw maxima into the values stored.
+template <int N>
+struct RawMaxima {  // K1
+  __device__ __forceinline__ void load(const float*, const float*, int) {}
+  __device__ __forceinline__ void apply(float (&)[N]) const {}
+};
+template <int N>
+struct BlockScales {  // K5: scale_a [NB]
+  float s[N];
+  __device__ __forceinline__ void load(const float* a, const float*, int b) { load_run(a + b, s); }
+  __device__ __forceinline__ void apply(float (&u)[N]) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) u[k] *= s[k];
+  }
+};
+template <int N>
+struct RowBounds {  // K7: smax = scale_a, smin = scale_b [NB]
+  float hi[N], lo[N];
+  __device__ __forceinline__ void load(const float* a, const float* b_, int b) {
+    load_run(a + b, hi);
+    load_run(b_ + b, lo);
+  }
+  __device__ __forceinline__ void apply(float (&u)[N]) const {
+#pragma unroll
+    for (int k = 0; k < N; ++k) u[k] = u[k] >= 0.0f ? u[k] * hi[k] : u[k] * lo[k];
+  }
+};
 
 // A quad's exchange of halves: a lane whose `bit` is clear keeps values
 // [0, K/2) and sends [K/2, K) to its partner across `bit`, which keeps the
@@ -170,16 +354,23 @@ struct Blocks {
   static constexpr int kPerChunk = BLOCK >= kChunk ? 1 : kChunk / BLOCK;  // blocks a chunk
   static constexpr int kSpan = BLOCK > kChunk ? BLOCK / kChunk : 1;       // chunks a block
   static constexpr int kValues = 2 * kPerChunk;  // (row, block) maxima a thread folds
+  static constexpr int kRun = kValues >= 4 ? kValues / 4 : 1;  // blocks a lane finishes
+  // the first block of lane `lane`'s run in chunk c of its group
+  static __device__ __forceinline__ int first(int c, int lane) {
+    return c / kSpan * kPerChunk + (kValues >= 4 ? (lane >> 1) * kRun : 0);
+  }
 };
 
 // The block maxima of chunk c (of its group) from the accumulators d of a
 // 64-query x 128-row score tile. Lane `lane` of its quad ends with query
-// row frag_row + 8 (lane & 1); its maxima go to `out` (that row of bmax3,
-// or null past the last query), and their maximum into `gm`. `part` carries
-// a 256-row block's maxima from its first chunk to its second.
-template <int BLOCK>
+// row frag_row + 8 (lane & 1) and the run of blocks Blocks::first(c, lane);
+// the epilogue `ep` turns their maxima into the values that go to `out`
+// (that row of bmax3, or null past the last query) and into `gm`. `part`
+// carries a 256-row block's maxima from its first chunk to its second.
+template <int BLOCK, typename E>
 __device__ __forceinline__ void take_maxima(const float (&d)[64], int c, float* out, int lane,
-                                            float (&part)[Blocks<BLOCK>::kValues], float& gm) {
+                                            float (&part)[Blocks<BLOCK>::kValues], float& gm,
+                                            const E& ep) {
   constexpr int kNb = Blocks<BLOCK>::kPerChunk, kK = Blocks<BLOCK>::kValues;
   constexpr int kSpan = Blocks<BLOCK>::kSpan, kJ = 16 / kNb;  // 8-column groups a block
   // v[h * kNb + b]: this thread's maximum of block b in its row h; its
@@ -210,13 +401,15 @@ __device__ __forceinline__ void take_maxima(const float (&d)[64], int c, float* 
     // after the second, blocks (lane >> 1) * kK / 4 + k of that row
     float u[kK / 4];
     exchange_halves<kK / 2>(w, u, lane >> 1, 2);
+    ep.apply(u);
 #pragma unroll
     for (int k = 0; k < kK / 4; ++k) gm = fmaxf(gm, u[k]);
     if (out != nullptr) store_run<kK / 4>(out + c * kNb + (lane >> 1) * (kK / 4), u);
   } else {
-    const float u = fmaxf(w[0], __shfl_xor_sync(0xffffffffu, w[0], 2));
-    gm = fmaxf(gm, u);
-    if (out != nullptr && (lane >> 1) == 0) out[c / kSpan] = u;
+    float u[1] = {fmaxf(w[0], __shfl_xor_sync(0xffffffffu, w[0], 2))};
+    ep.apply(u);
+    gm = fmaxf(gm, u[0]);
+    if (out != nullptr && (lane >> 1) == 0) out[c / kSpan] = u[0];
   }
 }
 
@@ -236,23 +429,34 @@ __device__ __forceinline__ void set_max_registers() {
 
 // Grid (query tiles of 64 NWG, gy); block (x, y) scores its query tile
 // against groups y, y + gy, ... < num_groups, whose `group` blocks of BLOCK
-// rows each are contiguous corpus rows. Warpgroups 0 .. NWG - 1 multiply and
-// take maxima; the first thread of the last warpgroup feeds the ring by TMA.
-template <int BLOCK, int NWG>
+// rows each are contiguous corpus rows of storage type S (bf16, or int8
+// codes). Warpgroups 0 .. NWG - 1 multiply, take maxima and apply the
+// epilogue E; the last warpgroup feeds the ring: its first thread by TMA,
+// and for int8 all its threads widen the raw chunks.
+template <int BLOCK, int NWG, typename S, template <int> class E>
 __global__ void __launch_bounds__(kThreads<NWG>, 1)
 bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __restrict__ queries,
+                  const float* __restrict__ scale_a, const float* __restrict__ scale_b,
                   float* __restrict__ bmax, float* __restrict__ gmax, int num_q, int group,
                   int num_groups) {
+  using R = Ring<S>;
+  constexpr int kStages = R::kStages, kRawStages = R::kRawStages;
   extern __shared__ __align__(1024) unsigned char smem[];
-  // the swizzled boxes want 1024-byte alignment; then a full and an empty
-  // barrier for each stage
+  // the swizzled boxes want 1024-byte alignment: the bf16 ring, the raw
+  // ring, then a full and an empty barrier for each stage of each
   const uint32_t ring = (attn::smem_addr(smem) + 1023) & ~1023u;
-  const uint32_t full = ring + kStages * kChunkBytes, empty = full + 8 * kStages;
+  const uint32_t raw = ring + kStages * kChunkBytes;
+  const uint32_t full = raw + kRawStages * kRawBytes, empty = full + 8 * kStages;
+  const uint32_t raw_full = empty + 8 * kStages, raw_empty = raw_full + 8 * kRawStages;
   const int tid = threadIdx.x, t = tid % 128, lane = t % 4;
   if (tid == 0) {
     for (int i = 0; i < kStages; ++i) {
-      mbar_init(full + 8 * i, 1);
+      mbar_init(full + 8 * i, R::kFullCount);
       mbar_init(empty + 8 * i, NWG * 128);
+    }
+    for (int i = 0; i < kRawStages; ++i) {
+      mbar_init(raw_full + 8 * i, 1);
+      mbar_init(raw_empty + 8 * i, 128);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -261,24 +465,53 @@ bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __rest
   const int total = (num_groups - 1 - (int)blockIdx.y) / (int)gridDim.y * per_group + per_group;
   // chunk s of this block: chunk s % per_group of group y + (s / per_group) gy
   auto group_of = [&](int s) { return (int)blockIdx.y + s / per_group * (int)gridDim.y; };
+  auto row_of = [&](int s) { return (group_of(s) * per_group + s % per_group) * kChunk; };
 
   if (tid >= NWG * 128) {  // the producer: stage s % kStages, once its last reader is done
-    if constexpr (NWG == 2) set_max_registers<false, 40>();
-    if (tid == NWG * 128) {
+    if constexpr (NWG == 2) set_max_registers<false, R::kProducerRegs>();
+    if constexpr (sizeof(S) == 2) {
+      if (tid == NWG * 128) {
+        for (int s = 0; s < total; ++s) {
+          const int stage = s % kStages;
+          mbar_wait(empty + 8 * stage, ((s / kStages) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * stage, kChunkBytes);
+          const int row = row_of(s);
+          const uint32_t dst = ring + stage * kChunkBytes;
+          tma_load(dst, &corpus, 0, row, full + 8 * stage);
+          tma_load(dst + kHalfBytes, &corpus, 64, row, full + 8 * stage);
+        }
+      }
+    } else {
+      // the first thread copies chunk s into raw stage s % kRawStages once
+      // the stage's last reader is done; every thread widens it into bf16
+      // stage s % kStages once that stage's last reader is done
+      const bool copier = tid == NWG * 128;
+      auto copy = [&](int s) {
+        const int stage = s % kRawStages;
+        mbar_expect_tx(raw_full + 8 * stage, kRawBytes);
+        tma_load(raw + stage * kRawBytes, &corpus, 0, row_of(s), raw_full + 8 * stage);
+      };
+      if (copier)
+        for (int s = 0; s < kRawStages && s < total; ++s) copy(s);
+      const WidenShare share = widen_share(t);
       for (int s = 0; s < total; ++s) {
-        const int stage = s % kStages;
+        const int rs = s % kRawStages, stage = s % kStages;
+        mbar_wait(raw_full + 8 * rs, (s / kRawStages) & 1);
         mbar_wait(empty + 8 * stage, ((s / kStages) & 1) ^ 1);
-        mbar_expect_tx(full + 8 * stage, kChunkBytes);
-        const int row = (group_of(s) * per_group + s % per_group) * kChunk;
-        const uint32_t dst = ring + stage * kChunkBytes;
-        tma_load(dst, &corpus, 0, row, full + 8 * stage);
-        tma_load(dst + kHalfBytes, &corpus, 64, row, full + 8 * stage);
+        widen_chunk(raw + rs * kRawBytes, ring + stage * kChunkBytes, share);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(full + 8 * stage);
+        mbar_arrive(raw_empty + 8 * rs);
+        if (copier && s + kRawStages < total) {
+          mbar_wait(raw_empty + 8 * rs, (s / kRawStages) & 1);
+          copy(s + kRawStages);
+        }
       }
     }
     return;
   }
 
-  if constexpr (NWG == 2) set_max_registers<true, 232>();
+  if constexpr (NWG == 2) set_max_registers<true, R::kConsumerRegs>();
   // this warpgroup's 64 queries as wgmma A fragments, k-step ks in a[ks]:
   // register r holds row frag_row + 8 (r % 2), columns 16 ks + 8 (r / 2) +
   // 2 (t % 4) and the next (zero past the last query)
@@ -296,19 +529,27 @@ bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __rest
   const int my_q = row0 + 8 * (lane & 1);  // the query row whose maxima this lane stores
   const bool q_valid = my_q < num_q;
 
+  using Ep = E<Blocks<BLOCK>::kRun>;
   float part[Blocks<BLOCK>::kValues];
   float gm = -INFINITY;
-  auto epilogue = [&](const float (&d)[64], int s) {
+  // the epilogue's operands of chunk s, loaded before the products it
+  // applies to are waited for
+  auto operands = [&](int s) {
+    Ep ep;
+    ep.load(scale_a, scale_b, group_of(s) * group + Blocks<BLOCK>::first(s % per_group, lane));
+    return ep;
+  };
+  auto epilogue = [&](const float (&d)[64], int s, const Ep& ep) {
     const int c = s % per_group;
     const size_t row = (size_t)group_of(s) * num_q + my_q;
-    take_maxima<BLOCK>(d, c, q_valid ? bmax + row * group : nullptr, lane, part, gm);
+    take_maxima<BLOCK>(d, c, q_valid ? bmax + row * group : nullptr, lane, part, gm, ep);
     if (c == per_group - 1) {
       gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 2));
       if (q_valid && (lane >> 1) == 0) gmax[row] = gm;
       gm = -INFINITY;
     }
   };
-  // chunk s's products into `acc` once its copy has landed; issued, not
+  // chunk s's products into `acc` once its stage is full; issued, not
   // waited for
   auto issue = [&](float (&acc)[64], int s) {
     const int stage = s % kStages;
@@ -321,11 +562,11 @@ bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __rest
   };
   // chunk s's maxima from `prev` once all but the last issued products are
   // done; its stage goes back to the producer
-  auto take = [&](float (&prev)[64], int s) {
+  auto take = [&](float (&prev)[64], int s, const Ep& ep) {
     attn::wgmma_wait<1>();
     attn::fence_regs(prev);
     mbar_arrive(empty + 8 * (s % kStages));
-    epilogue(prev, s);
+    epilogue(prev, s, ep);
   };
 
   // Chunk s + 1's products run while chunk s's maxima are taken. The loop
@@ -336,21 +577,26 @@ bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __rest
   issue(acc0, 0);
   int s = 1;
   for (; s + 1 < total; s += 2) {
+    const Ep ep0 = operands(s - 1);
     issue(acc1, s);
-    take(acc0, s - 1);
+    take(acc0, s - 1, ep0);
+    const Ep ep1 = operands(s);
     issue(acc0, s + 1);
-    take(acc1, s);
+    take(acc1, s, ep1);
   }
   if (s < total) {
+    const Ep ep0 = operands(s - 1);
     issue(acc1, s);
-    take(acc0, s - 1);
+    take(acc0, s - 1, ep0);
+    const Ep ep1 = operands(s);
     attn::wgmma_wait<0>();
     attn::fence_regs(acc1);
-    epilogue(acc1, s);
+    epilogue(acc1, s, ep1);
   } else {
+    const Ep ep0 = operands(s - 1);
     attn::wgmma_wait<0>();
     attn::fence_regs(acc0);
-    epilogue(acc0, s - 1);
+    epilogue(acc0, s - 1, ep0);
   }
 }
 
@@ -361,8 +607,10 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// The corpus [n, 128] bf16 as TMA boxes of 128 rows x 64 columns with the
-// 128-byte swizzle that wgmma's B descriptor reads (desc_sw128).
+// The corpus [n, 128] of S as TMA boxes of 128 rows x 128 bytes with the
+// 128-byte swizzle: for bf16, two boxes of 64 columns a chunk, the layout
+// wgmma's B descriptor reads (desc_sw128); for int8, one box a chunk.
+template <typename S>
 cudaError_t corpus_map(CUtensorMap* map, const void* corpus, int n) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
@@ -374,46 +622,66 @@ cudaError_t corpus_map(CUtensorMap* map, const void* corpus, int n) {
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  constexpr bool kInt8 = sizeof(S) == 1;
   const cuuint64_t dims[2] = {kDim, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {kDim * sizeof(bf16)};
-  const cuuint32_t box[2] = {64, kChunk};
+  const cuuint64_t strides[1] = {kDim * sizeof(S)};
+  const cuuint32_t box[2] = {128 / sizeof(S), kChunk};
   const cuuint32_t steps[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(corpus),
-                              dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = encode(
+      map, kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<void*>(corpus), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int BLOCK, int NWG>
-cudaError_t launch(const void* queries, const void* corpus, void* bmax, void* gmax, int num_q,
-                   int n, int group, int num_groups, cudaStream_t stream) {
-  constexpr size_t smem = kStages * kChunkBytes + 1024 + 16 * kStages;
-  auto kernel = bmax_wgmma_kernel<BLOCK, NWG>;
+struct Args {
+  const void *queries, *corpus, *scale_a, *scale_b;
+  void *bmax, *gmax;
+  int num_q, n, group, num_groups;
+  cudaStream_t stream;
+};
+
+template <int BLOCK, int NWG, typename S, template <int> class E>
+cudaError_t launch(const Args& x) {
+  constexpr size_t smem = smem_bytes<S>();
+  auto kernel = bmax_wgmma_kernel<BLOCK, NWG, S, E>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
-  if ((err = corpus_map(&map, corpus, n)) != cudaSuccess) return err;
+  if ((err = corpus_map<S>(&map, x.corpus, x.n)) != cudaSuccess) return err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return err;
-  const int tiles = (num_q + 64 * NWG - 1) / (64 * NWG);
+  const int tiles = (x.num_q + 64 * NWG - 1) / (64 * NWG);
   int gy = sms / tiles;
-  gy = gy < 1 ? 1 : (gy > num_groups ? num_groups : gy);
-  kernel<<<dim3(tiles, gy), kThreads<NWG>, smem, stream>>>(
-      map, static_cast<const bf16*>(queries), static_cast<float*>(bmax),
-      static_cast<float*>(gmax), num_q, group, num_groups);
+  gy = gy < 1 ? 1 : (gy > x.num_groups ? x.num_groups : gy);
+  kernel<<<dim3(tiles, gy), kThreads<NWG>, smem, x.stream>>>(
+      map, static_cast<const bf16*>(x.queries), static_cast<const float*>(x.scale_a),
+      static_cast<const float*>(x.scale_b), static_cast<float*>(x.bmax),
+      static_cast<float*>(x.gmax), x.num_q, x.group, x.num_groups);
   return cudaGetLastError();
 }
 
-template <int BLOCK>
-cudaError_t launch_block(const void* queries, const void* corpus, void* bmax, void* gmax,
-                         int num_q, int n, int group, int num_groups, cudaStream_t stream) {
-  return num_q > 64
-      ? launch<BLOCK, 2>(queries, corpus, bmax, gmax, num_q, n, group, num_groups, stream)
-      : launch<BLOCK, 1>(queries, corpus, bmax, gmax, num_q, n, group, num_groups, stream);
+template <typename S, template <int> class E>
+cudaError_t launch_block(int block, const Args& x) {
+  const bool two = x.num_q > 64;  // two consumer warpgroups
+  switch (block) {
+    case 16: return two ? launch<16, 2, S, E>(x) : launch<16, 1, S, E>(x);
+    case 32: return two ? launch<32, 2, S, E>(x) : launch<32, 1, S, E>(x);
+    case 64: return two ? launch<64, 2, S, E>(x) : launch<64, 1, S, E>(x);
+    case 128: return two ? launch<128, 2, S, E>(x) : launch<128, 1, S, E>(x);
+    case 256: return two ? launch<256, 2, S, E>(x) : launch<256, 1, S, E>(x);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool valid_shape(int num_q, int n, int dim, int block, int group) {
+  return dim == kDim && num_q > 0 && n > 0 && block > 0 && group > 0 &&
+         (group * block) % kChunk == 0 && n % (group * block) == 0 &&
+         n / (group * block) <= kMaxGrid;
 }
 
 }  // namespace
@@ -426,22 +694,24 @@ cudaError_t launch_block(const void* queries, const void* corpus, void* bmax, vo
 extern "C" int proqa_block_maxima_wgmma(const void* queries, const void* corpus, void* bmax,
                                         void* gmax, int num_q, int n, int dim, int block,
                                         int group, void* stream) {
-  if (dim != kDim || num_q <= 0 || n <= 0 || group <= 0 || (group * block) % kChunk != 0 ||
-      n % (group * block) != 0 || n / (group * block) > kMaxGrid)
+  if (!valid_shape(num_q, n, dim, block, group)) return cudaErrorInvalidValue;
+  const Args x{queries, corpus, nullptr, nullptr, bmax, gmax, num_q, n, group,
+               n / (group * block), static_cast<cudaStream_t>(stream)};
+  return launch_block<bf16, RawMaxima>(block, x);
+}
+
+// As proqa_block_maxima_wgmma over int8 codes [n, 128], with the epilogue
+// of K5 (scale_a [n / block] f32, scale_b null: each block maximum times its
+// scale) or of K7 (scale_a = smax and scale_b = smin [n / block] f32: the
+// bound m >= 0 ? m * smax : m * smin); both 16-byte aligned.
+extern "C" int proqa_block_maxima_wgmma_int8(const void* queries, const void* corpus,
+                                             const void* scale_a, const void* scale_b,
+                                             void* bmax, void* gmax, int num_q, int n, int dim,
+                                             int block, int group, void* stream) {
+  if (!valid_shape(num_q, n, dim, block, group) || scale_a == nullptr)
     return cudaErrorInvalidValue;
-  const int num_groups = n / (group * block);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (block) {
-    case 16:
-      return launch_block<16>(queries, corpus, bmax, gmax, num_q, n, group, num_groups, s);
-    case 32:
-      return launch_block<32>(queries, corpus, bmax, gmax, num_q, n, group, num_groups, s);
-    case 64:
-      return launch_block<64>(queries, corpus, bmax, gmax, num_q, n, group, num_groups, s);
-    case 128:
-      return launch_block<128>(queries, corpus, bmax, gmax, num_q, n, group, num_groups, s);
-    case 256:
-      return launch_block<256>(queries, corpus, bmax, gmax, num_q, n, group, num_groups, s);
-    default: return cudaErrorInvalidValue;
-  }
+  const Args x{queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, group,
+               n / (group * block), static_cast<cudaStream_t>(stream)};
+  return scale_b == nullptr ? launch_block<int8_t, BlockScales>(block, x)
+                            : launch_block<int8_t, RowBounds>(block, x);
 }

@@ -1,5 +1,5 @@
-"""Times kernels K1 and K4 of a checkout of the port on one NVIDIA GPU, and
-the host path of one K4 call piece by piece.
+"""Times kernels K1, K5, K7 and K4 of a checkout of the port on one NVIDIA
+GPU, and the host path of one K4 call piece by piece.
 
     python proqa_tpu_torch/kernel_times.py [--root DIR] [--out FILE]
 
@@ -14,6 +14,10 @@ back-to-back calls divided by 10 ("queued": the device time alone), medians
 of repeated rounds:
   K1  block_maxima_grouped, bf16, 4,194,304 x 128 corpus, block 16, group
       128, at Q = 2,048 and Q = 32;
+  K5  the same over 4,194,304 x 128 int8 codes with per-block scales, at
+      Q = 2,048 and Q = 32;
+  K7  the same codes with the bounds (smax, smin) of per-row scales, at
+      Q = 2,048;
   K4  dropout at [80, 512, 768] bf16, rate 0.1, beside F.dropout.
 Host pieces of K4 (time.perf_counter_ns, mean over 1,000 calls, median of
 5 rounds, on a [80, 768] bf16 tensor so that the card keeps up): each step
@@ -145,7 +149,20 @@ def main(argv=None) -> int:
         fn = lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16)  # noqa: E731
         out[f"K1 Q={q} one call ms"] = _events_ms(fn, 1, 5)
         out[f"K1 Q={q} queued ms"] = _events_ms(fn, 10, 3)
-    del corpus, queries
+    del corpus
+    # int8 codes and scales made on the device (uniform codes in [-127, 127])
+    codes = torch.randint(-127, 128, (4_194_304, 128), device=dev, generator=g,
+                          dtype=torch.int8)
+    scales = torch.rand(4_194_304 // 16, device=dev, generator=g) * 0.02 + 1e-3
+    rows = (torch.rand(4_194_304, device=dev, generator=g) * 0.02 + 1e-3).view(-1, 16)
+    bounds = (rows.amax(dim=1), rows.amin(dim=1))
+    for name, q, kw in (("K5", 2048, {"scales": scales}), ("K5", 32, {"scales": scales}),
+                        ("K7", 2048, {"scale_bounds": bounds})):
+        qs = queries[:q].contiguous()
+        fn = lambda: mips_kernel.block_maxima_grouped(qs, codes, block=16, **kw)  # noqa: E731
+        out[f"{name} Q={q} one call ms"] = _events_ms(fn, 1, 5)
+        out[f"{name} Q={q} queued ms"] = _events_ms(fn, 10, 3)
+    del codes, scales, rows, bounds, queries
     x = torch.randn(80, 512, 768, device=dev, generator=g).bfloat16()
     for name, fn in (("K4", lambda: dropout.dropout(x, 0.1, seed=3)),
                      ("F.dropout", lambda: F.dropout(x, 0.1, training=True))):

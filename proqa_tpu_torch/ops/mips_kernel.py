@@ -15,8 +15,9 @@ mips_topk_v1 (mips_topk_pallas) is the older two-stage pipeline: K8's block
 maxima [NB, Q], the top-kb blocks of each query, the rescore.
 
 Stages 2 and 3 are torch ops, as they are XLA ops in the JAX package. CUDA
-tensors run a hand-written kernel: K1 over bf16 queries and corpus in
-csrc/block_maxima_wgmma.cu, the other cases in csrc/block_maxima.cu
+tensors run a hand-written kernel: K1 over a bf16 corpus, and K5 and K7 over
+int8 codes, with bf16 queries in csrc/block_maxima_wgmma.cu; K8, f32 queries
+and the shapes that kernel does not take in csrc/block_maxima.cu
 (`kernel_for` chooses); CPU tensors run their plain PyTorch versions
 (`*_reference`).
 """
@@ -91,12 +92,15 @@ WGMMA_CHUNK = 128  # corpus rows of its chunks: group * block must be a multiple
 def kernel_for(queries_dtype, corpus_dtype, *, block: int, group: int, grouped: bool,
                scaled: bool) -> str:
     """Which CUDA kernel a launch takes, from dtypes and shapes alone:
-    "wgmma" (csrc/block_maxima_wgmma.cu, K1 written for Hopper) for bf16
-    queries and corpus, the grouped output without scales, a block in
-    WGMMA_BLOCKS and group * block a multiple of WGMMA_CHUNK; "simple"
-    (csrc/block_maxima.cu's body: int8, f32, block-major, scaled) else."""
-    if (queries_dtype == torch.bfloat16 and corpus_dtype == torch.bfloat16 and grouped
-            and not scaled and block in WGMMA_BLOCKS and (group * block) % WGMMA_CHUNK == 0):
+    "wgmma" (csrc/block_maxima_wgmma.cu, written for Hopper) for bf16
+    queries, the grouped output, a block in WGMMA_BLOCKS, group * block a
+    multiple of WGMMA_CHUNK, and either a bf16 corpus without scales (K1) or
+    int8 codes with scales or scale bounds (K5, K7); "simple"
+    (csrc/block_maxima.cu's body: f32 queries, block-major, other shapes)
+    else."""
+    if (queries_dtype == torch.bfloat16 and grouped and block in WGMMA_BLOCKS
+            and (group * block) % WGMMA_CHUNK == 0
+            and (corpus_dtype, scaled) in ((torch.bfloat16, False), (torch.int8, True))):
         return "wgmma"
     return "simple"
 
@@ -129,8 +133,15 @@ def _launch(queries, corpus, bmax, gmax, *, block: int, group: int, scales=None,
     n = corpus.shape[0]
     if kernel_for(queries.dtype, corpus.dtype, block=block, group=group,
                   grouped=gmax is not None, scaled=scale_a is not None) == "wgmma":
-        _build.launch("proqa_block_maxima_wgmma", queries.device, queries.data_ptr(),
-                      corpus.data_ptr(), bmax.data_ptr(), gmax.data_ptr(), q, n, d, block, group)
+        if corpus.dtype == torch.bfloat16:
+            _build.launch("proqa_block_maxima_wgmma", queries.device, queries.data_ptr(),
+                          corpus.data_ptr(), bmax.data_ptr(), gmax.data_ptr(), q, n, d, block,
+                          group)
+        else:
+            _build.launch("proqa_block_maxima_wgmma_int8", queries.device, queries.data_ptr(),
+                          corpus.data_ptr(), scale_a.data_ptr(),
+                          None if scale_b is None else scale_b.data_ptr(), bmax.data_ptr(),
+                          gmax.data_ptr(), q, n, d, block, group)
         return
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     _build.launch("proqa_block_maxima", queries.device, queries.data_ptr(), corpus.data_ptr(),

@@ -44,9 +44,15 @@ import torch
 
 GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
-# kernel group: substrings of the kernel name, first match wins
+# kernel group: substrings of the kernel name, first match wins. The Hopper
+# block-maxima kernel names its epilogue (bmax_wgmma_kernel<block, warpgroups,
+# corpus type, epilogue>); the simple body names its output layout.
 GROUPS = (
-    ("K5 block_maxima int8", ("bmax3_kernel<__nv_bfloat16, signed char>",)),
+    ("K5 block_maxima int8", ("BlockScales",)),
+    ("K7 block_maxima int8 bound", ("RowBounds",)),
+    ("K8 block_maxima block-major", ("bmax_block_major_kernel",)),
+    ("K5/K7 simple body", ("bmax3_kernel<float, signed char>",
+                           "bmax3_kernel<__nv_bfloat16, signed char>")),
     ("K1 block_maxima", ("bmax_wgmma_kernel", "bmax3_kernel")),
     ("K6/K9 gather_score", ("gather_score_kernel",)),
     ("K2 attention", ("attention_fwd_",)),   # attention_fwd_wgmma_kernel (bf16), _simple_ (f32)

@@ -1,16 +1,23 @@
-"""The register-level block maxima of csrc/block_maxima_wgmma.cu (K1 on
-Hopper), mirrored in numpy and held against the plain block maxima.
+"""The register-level block maxima of csrc/block_maxima_wgmma.cu (K1, K5
+and K7 on Hopper) and its widening of int8 codes, mirrored in numpy and held
+against the plain block maxima and the layout wgmma reads.
 
 The kernel never stores a score: each thread folds its own accumulator
 columns of a block, then the four threads of a quad exchange halves twice
-(`exchange_halves`), and each lane stores the maxima it is left with at an
-address computed from its lane. That index arithmetic cannot run on a CPU
-as CUDA, so this file repeats it step for step, thread by thread, over the
-wgmma accumulator layout (thread t holds d[i] of a 64 x N tile at row
+(`exchange_halves`), each lane applies the epilogue (K5's block scales, K7's
+sign-aware bounds) to the run of blocks it is left with, loading their
+scales at an index computed from its lane, and stores the run at an address
+computed from its lane. That index arithmetic cannot run on a CPU as CUDA,
+so this file repeats it step for step, thread by thread, over the wgmma
+accumulator layout (thread t holds d[i] of a 64 x N tile at row
 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4)
-+ i % 2), and checks that every block's maximum lands where bmax3 wants it,
-for every block size the kernel takes. The GPU tests hold the kernel itself
-to its plain version (tests/test_torch_cuda.py).
++ i % 2), and checks that every block's value lands where bmax3 wants it,
+for every block size the kernel takes. For int8 codes, the producer
+warpgroup's widening (`widen_share`, `widen_chunk`, `widen_pair`) is
+mirrored byte by byte: every code of a chunk must land, as the bf16 of its
+value, at the byte that wgmma's B descriptor (`desc_sw128`) reads for it.
+The GPU tests hold the kernel itself to its plain version
+(tests/test_torch_cuda.py).
 """
 import numpy as np
 import pytest
@@ -18,8 +25,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from proqa_tpu_torch.ops import mips_kernel  # noqa: E402
+from proqa_tpu_torch.ops.dot import dot_f32  # noqa: E402
 
 CHUNK = 128  # corpus rows a chunk (the wgmma N)
+HALF = 16384  # bytes of one 64-column half of a bf16 chunk (one bf16 TMA box)
 
 
 def _fragments(tile: np.ndarray) -> np.ndarray:
@@ -52,10 +61,25 @@ def _chunk_maxima(d: np.ndarray, block: int) -> np.ndarray:
     return v
 
 
-def _kernel_group(scores: np.ndarray, block: int):
-    """One group of one warpgroup's query tile: scores [64, rows] -> the
-    bmax3 rows [64, rows / block] and gmax [64] as the lanes store them."""
+def _epilogue(u: np.ndarray, first: np.ndarray, scale_a, scale_b) -> np.ndarray:
+    """RawMaxima, BlockScales or RowBounds over each thread's run u [128, N]
+    of blocks first [128] + 0 .. N - 1 (of the whole corpus), in f32."""
+    if scale_a is None:
+        return u
+    idx = first[:, None] + np.arange(u.shape[1])
+    if scale_b is None:
+        return u * scale_a[idx]
+    return np.where(u >= 0, u * scale_a[idx], u * scale_b[idx])
+
+
+def _kernel_group(scores: np.ndarray, block: int, g: int = 0, group: int | None = None,
+                  scale_a=None, scale_b=None):
+    """Group g (of `group` blocks) of one warpgroup's query tile: scores
+    [64, rows] -> the bmax3 rows [64, rows / block] and gmax [64] as the
+    lanes store them, after the epilogue of scale_a and scale_b (f32 [NB]
+    of the whole corpus, or None)."""
     rows = scores.shape[1]
+    group = rows // block if group is None else group
     nb, span = max(1, CHUNK // block), max(1, block // CHUNK)
     out = np.full((64, rows // block), np.nan, dtype=scores.dtype)
     gm = np.full(128, -np.inf, dtype=scores.dtype)
@@ -74,12 +98,17 @@ def _kernel_group(scores: np.ndarray, block: int):
         k = v.shape[1]
         if k >= 4:
             u = _exchange(w, 2)
+            # Blocks::first: the lane's run starts at block c nb + (lane >> 1) k / 4
+            first = g * group + c * nb + (lane >> 1) * (k // 4)
+            u = _epilogue(u, first, scale_a, scale_b)
             gm = np.maximum(gm, u.max(1))
             for th in range(128):
                 g0 = c * nb + (lane[th] >> 1) * (k // 4)
                 out[my_q[th], g0:g0 + k // 4] = u[th]
         else:
             u = np.maximum(w[:, 0], w[t ^ 2, 0])
+            first = np.full(128, g * group + c // span)
+            u = _epilogue(u[:, None], first, scale_a, scale_b)[:, 0]
             gm = np.maximum(gm, u)
             for th in np.flatnonzero((lane >> 1) == 0):
                 out[my_q[th], c // span] = u[th]
@@ -104,6 +133,147 @@ def test_register_maxima_land_where_bmax3_wants_them(block, group):
     np.testing.assert_array_equal(gmax, want.max(1))
 
 
+@pytest.mark.parametrize("block", mips_kernel.WGMMA_BLOCKS)
+@pytest.mark.parametrize("kind", ["scales", "scale_bounds"])
+def test_register_epilogues_land_where_bmax3_wants_them(block, kind):
+    """K5's and K7's epilogues in the mirror: each lane's scale index, the
+    multiply after the max and before the group maximum, K7's sign branch
+    (a third of the blocks score below zero, one block is all zero codes),
+    and block 256's fold across two chunks, held bit for bit against the
+    plain version on the same f32 scores, for group 1 of 2."""
+    group, groups = 8, 2
+    n = group * block * groups
+    assert mips_kernel.kernel_for(torch.bfloat16, torch.int8, block=block, group=group,
+                                  grouped=True, scaled=True) == "wgmma"
+    rng = np.random.default_rng(block + len(kind))
+    queries = torch.from_numpy(np.abs(rng.standard_normal((64, 128))).astype(np.float32) / 11.3)
+    queries = queries.bfloat16()
+    codes = rng.integers(-127, 128, (n // block, block, 128))
+    codes[::3] = -np.abs(codes[::3])      # these blocks score <= 0 against |queries|
+    codes[1] = 0                          # an all-zero block
+    codes = torch.from_numpy(codes.reshape(n, 128).astype(np.int8))
+    if kind == "scales":
+        sa, sb = rng.uniform(1e-3, 5e-2, n // block).astype(np.float32), None
+        sa[1] = 1.0
+        kw = {"scales": torch.from_numpy(sa)}
+    else:
+        rs = rng.uniform(1e-3, 5e-2, (n // block, block)).astype(np.float32)
+        sa, sb = rs.max(1), rs.min(1)
+        kw = {"scale_bounds": (torch.from_numpy(sa), torch.from_numpy(sb))}
+    bmax3, gmax = mips_kernel.block_maxima_grouped_reference(queries, codes, block=block,
+                                                             group=group, **kw)
+    scores = dot_f32(codes.to(torch.bfloat16), queries.T).T.numpy()  # [64, N], as the plain one
+    assert (scores.reshape(64, -1, block).max(2) < 0).any()
+    g = 1
+    rows = slice(g * group * block, (g + 1) * group * block)
+    out, gm = _kernel_group(scores[:, rows], block, g=g, group=group, scale_a=sa, scale_b=sb)
+    np.testing.assert_array_equal(out, bmax3[g].numpy())
+    np.testing.assert_array_equal(gm, gmax[g, 0].numpy())
+
+
+# --- the producer warpgroup's widening of an int8 chunk into the bf16 ring ---
+
+
+def _sw128(row, byte):
+    """TMA's 128-byte swizzle: byte `byte` of row `row` of a box of 128-byte
+    rows, in a stage aligned to 1024 bytes; the 16-byte unit index is XORed
+    with row % 8."""
+    off = np.asarray(row) * 128 + np.asarray(byte)
+    return off ^ (((off >> 7) & 7) << 4)
+
+
+def _desc_sw128_byte(n, k):
+    """The byte of a bf16 stage that wgmma reads for corpus row n, column k
+    through desc_sw128(stage, ks = k / 16): the k-step starts at
+    (ks / 4) HALF + (ks % 4) 32, 8-row groups lie 1024 bytes apart (its
+    stride), rows of an 8-row atom 128 bytes apart, and the 128-byte swizzle
+    XORs address bits 4-6 with bits 7-9."""
+    ks = k // 16
+    off = (ks % 4) * 32 + (k % 16) * 2 + (n % 8) * 128 + (n // 8) * 1024
+    return (ks // 4) * HALF + (off ^ (((off >> 7) & 7) << 4))
+
+
+def _bf16_value(bits):
+    return (np.asarray(bits, dtype=np.uint32) << 16).view(np.float32)
+
+
+def _widen_pair(w, sel: int):
+    """widen_pair on uint32 words w: __byte_perm(w, 0x43434343, sel), then
+    the bf16x2 difference of its two masks, rounded to nearest (each
+    difference must be exact)."""
+    w = np.asarray(w, dtype=np.uint64)
+    src = [(w >> (8 * j)) & 0xFF for j in range(4)] + [np.full_like(w, 0x43)] * 4
+    p = sum(src[(sel >> (4 * j)) & 7] << (8 * j) for j in range(4)).astype(np.uint32)
+    a, b = p & np.uint32(0xFF7FFF7F), p & np.uint32(0xFF80FF80)
+    halves = []
+    for shift in (0, 16):
+        d = _bf16_value((a >> shift) & 0xFFFF) - _bf16_value((b >> shift) & 0xFFFF)
+        bits = d.view(np.uint32) >> 16
+        assert np.array_equal(_bf16_value(bits), d), "a difference is not a bf16 value"
+        halves.append(bits)
+    return halves[0] | (halves[1] << 16)
+
+
+def test_widen_pair_is_exact_for_every_byte():
+    codes = np.arange(-128, 128, dtype=np.int8)
+    words = np.ascontiguousarray(codes.reshape(-1, 4)).view(np.uint32)[:, 0]
+    got = np.stack([_widen_pair(words, 0x4140), _widen_pair(words, 0x4342)], 1).reshape(-1)
+    values = _bf16_value(np.stack([got & 0xFFFF, got >> 16], 1).reshape(-1))
+    np.testing.assert_array_equal(values, codes.astype(np.float32))
+
+
+def _widen_share(p: int):
+    """widen_share(p): (src, dst_lo, dst_hi) bytes of pass 0, as the kernel
+    computes them."""
+    e = p % 8
+    second = int(e >= 4)
+    row = 2 * (p // 16) + second
+    v = e % 4 + 4 * (second ^ ((p // 8) % 2))
+    sw = row % 8
+    base = (v // 4) * HALF + (row // 8) * 1024 + sw * 128
+    return (row * 128 + (v ^ sw) * 16, base + ((2 * (v % 4)) ^ sw) * 16,
+            base + ((2 * (v % 4) + 1) ^ sw) * 16)
+
+
+def test_widened_chunk_lands_where_wgmma_reads_it():
+    """The 128 producer threads' 8 passes over a raw int8 stage (laid out by
+    TMA with the 128-byte swizzle) write every byte of the bf16 stage once,
+    each code as the bf16 of its value at the byte desc_sw128 reads for its
+    (row, column); that byte is also where TMA puts a bf16 chunk, K1's
+    layout. Each quarter warp's load and its two stores of a pass hit 8
+    distinct 16-byte bank groups."""
+    rng = np.random.default_rng(6)
+    codes = rng.integers(-128, 128, (CHUNK, 128)).astype(np.int8)
+    n, k = np.meshgrid(np.arange(CHUNK), np.arange(128), indexing="ij")
+    raw = np.zeros(CHUNK * 128, np.uint8)
+    raw[_sw128(n, k)] = codes.view(np.uint8)
+    wide = np.zeros(2 * HALF, np.uint8)
+    writes = np.zeros(2 * HALF, np.int64)
+    shares = [_widen_share(p) for p in range(128)]
+    for i in range(8):
+        for quarter in range(16):
+            units = {"load": [], "lo": [], "hi": []}
+            for p in range(8 * quarter, 8 * quarter + 8):
+                src, lo, hi = (x + 2048 * i for x in shares[p])
+                words = raw[src:src + 16].view(np.uint32)
+                out = np.stack([_widen_pair(words, 0x4140), _widen_pair(words, 0x4342)], 1)
+                out = out.reshape(-1).astype(np.uint32).view(np.uint8)
+                for dst, part in ((lo, out[:16]), (hi, out[16:])):
+                    wide[dst:dst + 16] = part
+                    writes[dst:dst + 16] += 1
+                units["load"].append(src // 16 % 8)
+                units["lo"].append(lo // 16 % 8)
+                units["hi"].append(hi // 16 % 8)
+            for name, banks in units.items():
+                assert len(set(banks)) == 8, f"pass {i} quarter {quarter}: {name} conflicts"
+    assert (writes == 1).all()
+    at = _desc_sw128_byte(n, k)
+    # K1's layout: TMA's two boxes of 64 bf16 columns put (n, k) at that byte
+    np.testing.assert_array_equal(at, (k // 64) * HALF + _sw128(n, (k % 64) * 2))
+    got = _bf16_value(wide[at] | (wide[at + 1].astype(np.uint32) << 8))
+    np.testing.assert_array_equal(got, codes.astype(np.float32))
+
+
 @pytest.mark.parametrize("queries,corpus,block,group,grouped,scaled,want", [
     (torch.bfloat16, torch.bfloat16, 16, 128, True, False, "wgmma"),
     (torch.bfloat16, torch.bfloat16, 256, 128, True, False, "wgmma"),
@@ -111,9 +281,16 @@ def test_register_maxima_land_where_bmax3_wants_them(block, group):
     (torch.bfloat16, torch.bfloat16, 16, 4, True, False, "simple"),    # 64-row groups
     (torch.bfloat16, torch.bfloat16, 48, 128, True, False, "simple"),  # not a power of 2
     (torch.bfloat16, torch.bfloat16, 256, 8, False, False, "simple"),  # block-major (K8)
-    (torch.bfloat16, torch.int8, 16, 128, True, True, "simple"),       # K5
+    (torch.bfloat16, torch.int8, 16, 128, True, True, "wgmma"),        # K5 and K7
     (torch.bfloat16, torch.int8, 16, 128, True, False, "simple"),
     (torch.float32, torch.float32, 16, 128, True, False, "simple"),
+    (torch.bfloat16, torch.int8, 128, 128, True, True, "wgmma"),       # the capacity point
+    (torch.bfloat16, torch.int8, 256, 8, True, True, "wgmma"),
+    (torch.float32, torch.int8, 16, 128, True, True, "simple"),        # f32 queries
+    (torch.bfloat16, torch.int8, 48, 128, True, True, "simple"),       # not in WGMMA_BLOCKS
+    (torch.bfloat16, torch.int8, 16, 4, True, True, "simple"),         # 64-row groups
+    (torch.bfloat16, torch.int8, 256, 8, False, True, "simple"),       # block-major
+    (torch.bfloat16, torch.bfloat16, 16, 128, True, True, "simple"),   # scaled bf16 corpus
 ])
 def test_kernel_choice_is_a_function_of_dtypes_and_shapes(queries, corpus, block, group, grouped,
                                                           scaled, want):

@@ -180,6 +180,112 @@ def test_int8_block_maxima_kernels_match_plain(cuda, kind, q, block, group, qdty
         torch.testing.assert_close(g, w, atol=MIPS_ATOL * 100, rtol=1e-6)
 
 
+def _int8_kwargs(kind, sc, block):
+    """The keywords of K5 (per-block scales) or K7 (bounds of per-row scales)."""
+    if kind == "scales":
+        return {"scales": sc}, "scaled_launches"
+    rs = sc.view(-1, block)
+    return {"scale_bounds": (rs.amax(dim=1), rs.amin(dim=1))}, "bounded_launches"
+
+
+@pytest.mark.parametrize("kind", ["scales", "scale_bounds"])
+@pytest.mark.parametrize("q", [1, 7, 32, 300, 2048])
+@pytest.mark.parametrize("block", mips_kernel.WGMMA_BLOCKS)
+@pytest.mark.parametrize("group", [8, 128])
+def test_wgmma_int8_block_maxima_match_plain(cuda, q, block, group, kind):
+    """K5 and K7 on the Hopper kernel (csrc/block_maxima_wgmma.cu: int8
+    codes widened to bf16 by the producer warpgroup, the epilogue on the
+    accumulators) at every block it takes, one warpgroup and two, ragged
+    query tiles; with group 8 a persistent block walks several groups. The
+    tolerance is test_int8_block_maxima_kernels_match_plain's."""
+    assert mips_kernel.kernel_for(torch.bfloat16, torch.int8, block=block, group=group,
+                                  grouped=True, scaled=True) == "wgmma"
+    groups = 20 if group == 8 else 3
+    queries, codes, sc = _int8_inputs(q, block * group * groups, block, cuda, torch.bfloat16,
+                                      seed=q + block + group, per_row=kind == "scale_bounds")
+    kw, counter = _int8_kwargs(kind, sc, block)
+    before = getattr(mips_kernel, counter)
+    got = mips_kernel.block_maxima_grouped(queries, codes, block=block, group=group, **kw)
+    torch.cuda.synchronize()
+    assert getattr(mips_kernel, counter) == before + 1
+    want = mips_kernel.block_maxima_grouped_reference(queries, codes, block=block, group=group,
+                                                      **kw)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=MIPS_ATOL * 100, rtol=1e-6)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    print(f"K{5 if kind == 'scales' else 7} q={q} block={block} group={group}: "
+          f"max abs err {err:.3g}")
+
+
+@pytest.mark.parametrize("kind", ["scales", "scale_bounds"])
+@pytest.mark.parametrize("block", mips_kernel.WGMMA_BLOCKS)
+def test_wgmma_int8_edge_inputs(cuda, block, kind):
+    """Codes at +-127 (the widening's extremes, and -128), all-zero blocks
+    with scale 1, and blocks whose every score is below zero (K7's smin
+    branch), for 300 queries of one sign."""
+    group = 8
+    n = block * group * 4
+    nb = n // block
+    g = torch.Generator().manual_seed(block)
+    codes = torch.randint(-127, 128, (nb, block, 128), generator=g, dtype=torch.int8)
+    codes[0::4] = 127 * torch.sign(torch.randn(codes[0::4].shape, generator=g)).to(torch.int8)
+    codes[1::4] = 0
+    codes[2::4] = -codes[2::4].abs()           # scores <= 0 against positive queries
+    codes[3, 0] = -128
+    codes = codes.view(n, 128).to(cuda)
+    queries = (torch.rand(300, 128, generator=g) / 128 ** 0.5).to(cuda, torch.bfloat16)
+    if kind == "scales":
+        sc = torch.rand(nb, generator=g) * 0.05 + 1e-3
+        sc[1::4] = 1.0
+    else:
+        sc = torch.rand(n, generator=g) * 0.05 + 1e-3
+        sc.view(nb, block)[1::4] = 1.0
+    kw, counter = _int8_kwargs(kind, sc.to(cuda), block)
+    before = getattr(mips_kernel, counter)
+    got = mips_kernel.block_maxima_grouped(queries, codes, block=block, group=group, **kw)
+    torch.cuda.synchronize()
+    assert getattr(mips_kernel, counter) == before + 1
+    want = mips_kernel.block_maxima_grouped_reference(queries, codes, block=block, group=group,
+                                                      **kw)
+    assert (want[0] < 0).any() and (want[0] == 0).any()
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=MIPS_ATOL * 100, rtol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["scales", "row_scales"])
+@pytest.mark.parametrize("block", mips_kernel.WGMMA_BLOCKS)
+def test_wgmma_int8_pipeline_with_n_valid_inside_a_block(cuda, block, kind):
+    """mips_topk_v2 over int8 codes through the Hopper K5 / K7, the last
+    real row inside a block: every real score is negative, so an unmasked
+    zero padding row would win. K5's top-80 is the exact top-80 of the
+    scaled codes; K7's values are the exact row-scaled scores of its rows."""
+    n_valid = 128 * block + 3 * block + block // 2
+    g = torch.Generator().manual_seed(block + 1)
+    codes = -torch.randint(1, 128, (n_valid, 128), generator=g, dtype=torch.int8)
+    queries = (torch.rand(64, 128, generator=g) / 128 ** 0.5).to(cuda, torch.bfloat16)
+    codes = codes.to(cuda)
+    if kind == "scales":
+        sc = (torch.rand(-(-n_valid // block), generator=g) * 0.05 + 1e-3).to(cuda)
+        before = mips_kernel.scaled_launches
+        gv, gi = mips_kernel.mips_topk_v2(queries, codes, 80, block=block, n_valid=n_valid,
+                                          scales=sc)
+        assert mips_kernel.scaled_launches == before + 1
+        rows = quant.expand_scales(sc, block, n_valid)
+        rv, ri = mips.mips_topk_reference(queries, codes, 80, n_valid=n_valid, scales=rows)
+        assert topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
+                                  ri.cpu().numpy(), atol=MIPS_ATOL * 100) == 0
+    else:
+        rs = (torch.rand(n_valid, generator=g) * 0.05 + 1e-3).to(cuda)
+        before = mips_kernel.bounded_launches
+        gv, gi = mips_kernel.mips_topk_v2(queries, codes, 20, block=block, n_valid=n_valid,
+                                          row_scales=rs, kb=320)
+        assert mips_kernel.bounded_launches == before + 1
+        exact = torch.gather(mips.dot_f32(queries, codes.bfloat16().T) * rs, 1, gi)
+        torch.testing.assert_close(gv, exact, atol=MIPS_ATOL * 100, rtol=1e-6)
+    assert (gi < n_valid).all()
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("q,block,tile_n", [(300, 256, 2048), (64, 16, 128)])
 def test_block_major_kernel_matches_plain(cuda, q, block, tile_n, dtype):
