@@ -54,8 +54,9 @@ The int8 index and the rest of the search kernels:
  12. K7, per-row scale bounds, at 4.2M: equal to the formula, dominating the
      true row-scaled block maxima, and mips_topk_v2(row_scales=, kb=16k)
      returning exact row-scaled scores;
- 13. K8, block-major maxima, against its plain version at 4.2M bf16, and
-     mips_topk_v1's top-80 against the K1 pipeline's;
+ 13. K8, block-major maxima (the Hopper kernel of csrc/block_maxima_wgmma.cu
+     with its block-major store), against its plain version at 4.2M bf16,
+     and mips_topk_v1's top-80 against the K1 pipeline's;
  14. K6/K9, gathered candidate scoring, on the candidate blocks the K1
      pipeline selects at 4.2M (Q = 2,048, k = 80), against the plain gather
      and product, timed beside the `take` path, and the streamed rescore's
@@ -64,6 +65,14 @@ The int8 index and the rest of the search kernels:
      retrieval world of phase 4 (8,192 rows, quant block 16, so K5 runs),
      with every counter reset before and read after, and a direct int8
      DenseIndex.search against the exact reference of its own codes.
+The f32 (parity) path:
+ 16. K1 over f32 (csrc/block_maxima_f32.cu, full-f32 FMA products) against
+     its plain version at 4,194,304 x 128 f32, Q = 2,048 and 32, block 16,
+     its bound at the f32 FMA rate; then a DenseIndex(dtype=float32): top-80
+     search qps, and 256 queries against the exact f32 top-80;
+ 17. the f32 CLI path: eval-retrieval and retrieve with --f32 on the
+     retrieval world of phase 4, the f32 kernel's counter reset before and
+     read after, and the recall JSON checked.
 Each of phases 12-14 first drives its kernel's public pipeline once with the
 counters at 0 and reads them, then compares and times the kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -107,16 +116,19 @@ AUTOGRAD_ULPS = 2.0
 GRAD_COS = 0.99   # dropout-0 gradients, K2/K3 against the vanilla path, bf16
 LOSS_DROP = 1.0   # nats the train step's loss must fall over 20 steps on one batch
 
-# H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, HBM rate
+# H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, f32
+# rate outside the tensor cores (the FMA pipe), HBM rate
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take for this work, and what bounds
     it: each input read once and each output written once at the HBM rate,
-    or the operations at the bf16 tensor-core rate."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    or the operations at `peak` FLOP/s (the bf16 tensor-core rate, or the
+    f32 FMA rate for work the reference pins to full f32)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -224,11 +236,12 @@ def phase_encoder(device) -> None:
 
 
 def grouped_against_plain(name, queries, corpus, *, block, chunk_groups=128, reps=3,
-                          **scale_kw) -> dict:
+                          peak=PEAK_BF16_FLOPS, **scale_kw) -> dict:
     """block_maxima_grouped (K1, K5 or K7 by its keywords) against its plain
     version, which runs chunk_groups groups at a time (the whole [Q, N] f32
     score matrix would not fit); both timed by CUDA events, the plain one as
-    the sum of its chunks. Scales are sliced with their chunk."""
+    the sum of its chunks. Scales are sliced with their chunk. The bound's
+    operations run at `peak` FLOP/s."""
     import torch
 
     from proqa_tpu_torch.ops import mips_kernel
@@ -242,7 +255,7 @@ def grouped_against_plain(name, queries, corpus, *, block, chunk_groups=128, rep
                       for s in (v if isinstance(v, tuple) else (v,)))
     nbytes = (corpus.numel() * corpus.element_size() + queries.numel() * queries.element_size()
               + scale_bytes + (bmax3.numel() + gmax.numel()) * 4)
-    bound_ms, bound_by = bound(nbytes, 2.0 * n * q * corpus.shape[1])
+    bound_ms, bound_by = bound(nbytes, 2.0 * n * q * corpus.shape[1], peak)
     ms = cuda_ms(run, reps=reps)
     err, plain_ms, chunk = 0.0, 0.0, chunk_groups * rows
     for r0 in range(0, n, chunk):
@@ -947,8 +960,12 @@ def phase_v1(device) -> tuple[dict, int]:
     corpus, queries = bf16_corpus(device)
     (n, d), q, k = corpus.shape, queries.shape[0], 80
     qb = queries.bfloat16()
+    block, tile_n = 256, 2048   # mips_topk_v1's defaults
+    route = mips_kernel.kernel_for(qb.dtype, corpus.dtype, block=block, group=tile_n // block,
+                                   grouped=False, scaled=False)
+    check(route == "wgmma", f"K8 at block {block} takes the {route} kernel")
     mips_kernel.block_major_launches = 0
-    v1 = mips_kernel.mips_topk_v1(qb, corpus, k)
+    v1 = mips_kernel.mips_topk_v1(qb, corpus, k, block=block, tile_n=tile_n)
     torch.cuda.synchronize()
     launches = mips_kernel.block_major_launches
     check(launches > 0, "K8 was not launched by mips_topk_v1")
@@ -957,7 +974,6 @@ def phase_v1(device) -> tuple[dict, int]:
     check(bad == 0, f"mips_topk_v1: {bad} of {q} queries disagree with the K1 pipeline")
     del v1, v2
 
-    block, tile_n = 256, 2048
     bmax = mips_kernel.block_maxima(qb, corpus, block=block, tile_n=tile_n)
     torch.cuda.synchronize()
     bound_ms, bound_by = bound(corpus.numel() * 2 + qb.numel() * 2 + bmax.numel() * 4,
@@ -1095,6 +1111,80 @@ def phase_int8_cli(device, root: str, recall_bf16: dict) -> tuple[int, float]:
     return launches["K5"], err
 
 
+def phase_f32(device) -> dict:
+    """K1 over f32 at 4,194,304 x 128 (csrc/block_maxima_f32.cu), Q = 2,048
+    and 32, against its plain version, its bound at the f32 FMA rate; then a
+    DenseIndex(dtype=float32): top-80 qps and 256 queries against the exact
+    f32 top-80."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.ops import mips, mips_kernel
+    from proqa_tpu_torch.ops.dot import dot_f32
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    n, q, d, k = 4_194_304, 2048, 128, 80
+    g = torch.Generator(device=device).manual_seed(20)
+    corpus = torch.randn(n, d, device=device, generator=g) / d ** 0.5
+    queries = torch.randn(q, d, device=device, generator=g) / d ** 0.5
+    block = mips.envelope_block(n, q)
+    route = mips_kernel.kernel_for(queries.dtype, corpus.dtype, block=block,
+                                   group=mips_kernel.GROUP, grouped=True, scaled=False)
+    check(route == "f32", f"K1 over f32 at block {block} takes the {route} kernel")
+    k1 = grouped_against_plain("K1 f32", queries, corpus, block=block, peak=PEAK_F32_FLOPS)
+    del k1["out"]
+    k1_small = grouped_against_plain("K1 f32 Q=32", queries[:32].contiguous(), corpus,
+                                     block=block, peak=PEAK_F32_FLOPS)
+    del k1_small["out"]
+
+    index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.float32)
+    vals, idx = index.search(queries, k)
+    qps = _search_qps(lambda: index.search(queries, k), q)  # ends in a device-to-host copy
+    check(vals.shape == (q, k) and np.isfinite(vals).all(), "f32 search: bad values")
+    n_check, bad = 256, 0
+    for s in range(0, n_check, 64):
+        ref = torch.topk(dot_f32(queries[s:s + 64], corpus.T), k)
+        bad += topk_disagreements(vals[s:s + 64], idx[s:s + 64], ref.values.cpu().numpy(),
+                                  ref.indices.cpu().numpy(), atol=TOPK_TOL)
+    check(bad == 0, f"f32 search: {bad} of {n_check} queries disagree with the exact top-{k}")
+    log(f"f32 search top-{k} N={n} Q={q}: {qps:.1f} qps (host clock); {n_check} queries agree "
+        f"with the exact f32 top-{k} up to ties")
+    return {**k1, "max_abs_err": max(k1["max_abs_err"], k1_small["max_abs_err"]), "qps": qps}
+
+
+def phase_f32_cli(device, root: str, recall_bf16: dict) -> int:
+    """The f32 CLI path on phase_cli's retrieval world: eval-retrieval and
+    retrieve with --f32, the f32 kernel's counter reset before and read
+    after."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.ops import mips, mips_kernel
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    rows = np.load(p("index/embeddings.npy"), mmap_mode="r").shape[0]
+    route = mips_kernel.kernel_for(torch.float32, torch.float32, block=mips.envelope_block(rows),
+                                   group=mips_kernel.GROUP, grouped=True, scaled=False)
+    check(route == "f32", f"the f32 CLI path's K1 takes the {route} kernel")
+    mips_kernel.f32_launches = 0
+    recall, wall_eval = run_cli(["eval-retrieval", p("qa.jsonl"), p("index"), p("q.npy"),
+                                 p("docs.db"), "--topk", "80", "--f32", "--device", str(device)])
+    hit, wall_retrieve = run_cli(["retrieve", "--vocab", p("vocab.txt"), "--init-checkpoint",
+                                  p("retriever.npz"), "--device", str(device), "--question",
+                                  "what is about tok3 tok7", "--index", p("index"), "--db",
+                                  p("docs.db"), "--topk", "5", "--f32"])
+    launches = mips_kernel.f32_launches
+    log(f"K1 f32 launches during eval-retrieval and retrieve --f32 ({rows} rows): {launches}")
+    check(launches > 0, "K1's f32 kernel was not launched on the f32 CLI path")
+    check(set(recall) == set(recall_bf16) and all(0.0 <= v <= 1.0 for v in recall.values()),
+          f"f32 recall {recall}")
+    check(len(hit["topk"]) == 5 and all(r["text"] for r in hit["topk"]), "retrieve --f32: bad hits")
+    log(f"recall, f32 index: {json.dumps(recall)} (eval {wall_eval:.2f} s, retrieve "
+        f"{wall_retrieve:.2f} s wall)")
+    return launches
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1134,6 +1224,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
             retrieval, k1_cli_err, batch, recall = timed("retrieval_cli", phase_cli, device, root)
             k5_launches, k5_cli_err = timed("int8_cli", phase_int8_cli, device, root, recall)
+            f32_launches = timed("f32_cli", phase_f32_cli, device, root, recall)
         k2_encode = timed("attention_encode", phase_attention, device, batch)
         # the retriever-pretraining slice
         k4 = timed("dropout", phase_dropout, device)
@@ -1147,6 +1238,8 @@ def main() -> int:
         k7, k7_launches = timed("bounded", phase_bounded, device)
         k8, k8_launches = timed("v1", phase_v1, device)
         k6, k9, rescore_launches = timed("rescore", phase_rescore, device)
+        # the f32 parity path
+        k1_f32 = timed("f32", phase_f32, device)
         log(f"phase seconds: {json.dumps(phases)}")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "proqa_tpu"))
@@ -1185,10 +1278,13 @@ def main() -> int:
               rescore_launches["K6"], k6),
         entry("block_maxima_grouped bounded (K7)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:111", k7_launches, k7),
-        entry("block_maxima (K8)", "block_maxima.cu", "proqa_tpu/ops/pallas_mips.py:32",
+        entry("block_maxima (K8)", "block_maxima_wgmma.cu", "proqa_tpu/ops/pallas_mips.py:32",
               k8_launches, k8),
         entry("gather_score (K9)", "gather_rescore.cu",
               "proqa_tpu/ops/pallas_gather_score.py:35", rescore_launches["K9"], k9),
+        # launches: the f32 CLI path (eval-retrieval and retrieve --f32)
+        entry("block_maxima_grouped f32 (K1)", "block_maxima_f32.cu",
+              "proqa_tpu/ops/pallas_mips.py:83", f32_launches, k1_f32),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -37,6 +37,10 @@ _SIGNATURES = {
     "proqa_block_maxima": [_P] * 6 + [_I] * 7 + [_P],
     # queries, corpus, bmax, gmax, num_q, n, dim, block, group, stream
     "proqa_block_maxima_wgmma": [_P] * 4 + [_I] * 5 + [_P],
+    # queries, corpus, bmax, num_q, n, dim, block, group (= tile_n / block), stream
+    "proqa_block_maxima_wgmma_block_major": [_P] * 3 + [_I] * 5 + [_P],
+    # queries, corpus, bmax, gmax, num_q, n, dim, block, group, stream
+    "proqa_block_maxima_f32": [_P] * 4 + [_I] * 5 + [_P],
     # queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, dim, block, group, stream
     "proqa_block_maxima_wgmma_int8": [_P] * 6 + [_I] * 5 + [_P],
     # queries, corpus, ids, out, num_q, nb, kb, block, dim, is_bf16, stream
@@ -111,9 +115,8 @@ def build() -> Path:
         log = "".join(f"$ {' '.join(cmd)}\n{proc.stdout}" for cmd, proc in steps)
         failed = [(cmd, proc) for cmd, proc in steps if proc.returncode != 0]
         if failed:
-            cmd, proc = failed[0]
-            raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n  "
-                               f"{' '.join(cmd)}\n{proc.stdout}")
+            raise RuntimeError("".join(f"nvcc failed with exit code {proc.returncode}:\n  "
+                                       f"{' '.join(cmd)}\n{proc.stdout}" for cmd, proc in failed))
         out.with_name(out.name + ".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     finally:

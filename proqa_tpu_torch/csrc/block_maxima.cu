@@ -1,8 +1,10 @@
 // K1, K5, K7 and K8: fused corpus scoring with block maxima, for exact MIPS.
-// The search path's cases (bf16 queries, grouped: K1 over bf16, K5 and K7
-// over int8) run block_maxima_wgmma.cu's Hopper kernel; this simple body
-// serves K8, f32 queries and the shapes that kernel does not take
-// (ops/mips_kernel.py:kernel_for).
+// Every search path runs a Hopper kernel (ops/mips_kernel.py:kernel_for):
+// block_maxima_wgmma.cu for bf16 queries (K1 over bf16, K5 and K7 over
+// int8, K8 block-major over bf16) and block_maxima_f32.cu for K1 over f32.
+// This simple body serves only what neither takes: K8 over f32, f32 queries
+// over int8 codes, and blocks outside 16-256 or groups of group * block not
+// a multiple of 128 rows (for K8, tile_n not a multiple of 128).
 //
 // Replaces the four block-max kernels of proqa_tpu/ops/pallas_mips.py:
 //   K1 _bmax3_kernel (:83): for a tile of queries and one group of `group`

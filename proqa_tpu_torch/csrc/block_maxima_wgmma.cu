@@ -1,24 +1,32 @@
-// K1, K5 and K7 on Hopper: block maxima of a bf16 or int8 corpus against
+// K1, K5, K7 and K8 on Hopper: block maxima of a bf16 or int8 corpus against
 // bf16 queries, for exact MIPS, with wgmma products and the maxima taken on
 // the accumulators.
 //
-// Replaces, on the port's search path (bf16 queries, grouped output bmax3
-// [CG, Q, G], the maximum of each block of `block` rows with the G blocks of
-// a group contiguous per query, and gmax [CG, 1, Q], the maximum of each
-// group), three kernels of proqa_tpu/ops/pallas_mips.py, all launched by
-// block_maxima_grouped (pallas_call at :228) through _bmax3_body (:129-149):
+// Replaces, on the port's search paths (bf16 queries), four kernels of
+// proqa_tpu/ops/pallas_mips.py. Three are launched by block_maxima_grouped
+// (pallas_call at :228) through _bmax3_body (:129-149) and store the grouped
+// output, bmax3 [CG, Q, G] (the maximum of each block of `block` rows, the G
+// blocks of a group contiguous per query) and gmax [CG, 1, Q] (the maximum
+// of each group):
 //   K1 _bmax3_kernel (:83): a bf16 corpus, the raw block maxima;
 //   K5 _bmax3_kernel_scaled (:97): int8 codes, each block maximum times its
 //      block's f32 scale after the max-reduce and before the group maximum;
 //   K7 _bmax3_kernel_bounded (:111): int8 codes with per-row scales, each raw
 //      block maximum m turned into the bound m >= 0 ? m * smax : m * smin.
-// The corpus storage type and the epilogue are template arguments
-// (bmax_wgmma_kernel<BLOCK, NWG, S, E>, E one of RawMaxima, BlockScales,
-// RowBounds, so a profiler tells the three apart by name). The block-major
-// (K8) and f32 cases keep block_maxima.cu's simple body. Every emitted value
-// is the epilogue of the maximum of its own block's f32 scores, as in
-// pallas_mips.py:129-149, so the exactness certificate of
-// pallas_mips.py:295-298 holds unchanged.
+// The fourth, launched by block_maxima (pallas_call at :64) for the v1
+// pipeline, stores block-major:
+//   K8 _bmax_kernel (:32): a bf16 corpus, the raw block maxima as bmax
+//      [N / block, Q], with no group level; tile_n keeps its meaning, the
+//      corpus rows of one unit of the persistent walk (group = tile_n /
+//      block).
+// The corpus storage type, the epilogue and the output layout are template
+// arguments (bmax_wgmma_kernel<BLOCK, NWG, S, E, L>, E one of RawMaxima,
+// BlockScales, RowBounds, L one of Grouped, BlockMajor, so a profiler tells
+// the four apart by name). f32 K1 runs block_maxima_f32.cu; f32 K8, f32
+// queries over int8 codes and other shapes keep block_maxima.cu's simple
+// body. Every emitted value is the epilogue of the maximum of its own
+// block's f32 scores, as in pallas_mips.py:129-149, so the exactness
+// certificate of pallas_mips.py:295-298 holds unchanged.
 //
 // What bounds it on the H100 (SXM, 700 W published peaks): operations,
 // 2 * Q * N * 128 at the bf16 tensor-core rate of 989 TFLOP/s (2.22 ms at
@@ -92,18 +100,26 @@
 //   are resident together and march through the groups in step.
 // - Output: each lane stores its maxima from registers in runs of
 //   consecutive blocks (16 bytes at block 16) while the next chunk's
-//   products run.
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is found at run time)
+//   products run. Block-major (K8), block b of a lane's query lies num_q
+//   floats after block b - 1, so a run is num_q-strided scalar stores; the
+//   16 lanes of a warp that hold one block store 16 consecutive queries
+//   side by side (64 bytes), and at K8's block 256 a lane stores one value
+//   every two chunks (bmax is 16x smaller than K1's bmax3 at block 16), so
+//   the strided store costs no staging through shared memory.
+// The TMA and mbarrier helpers, the tensor map and the exchange of halves
+// are shared with block_maxima_f32.cu (block_maxima_common.cuh).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_tiles.cuh"
+#include "block_maxima_common.cuh"
 
 namespace {
 
 using attn::bf16;
+using namespace bmax;
 
 constexpr int kDim = 128;                        // embedding width the kernel takes
 constexpr int kChunk = 128;                      // corpus rows a chunk: the wgmma N
@@ -132,43 +148,6 @@ constexpr size_t smem_bytes() {
 }
 static_assert(smem_bytes<bf16>() <= 232448 && smem_bytes<int8_t>() <= 232448,
               "a block may take 227 KB of shared memory");
-
-// ---------------------------------------------------------------------------
-// TMA and mbarriers
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Arrives and announces `bytes` that TMA copies will complete on the barrier.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-// Waits for the completion of the barrier's phase of parity `parity`.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-// One box of the corpus's tensor map, element (x, y) at its corner, into
-// shared memory; completes `bytes` on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
 
 // The B descriptor of k-step ks (columns 16 ks ..) of a chunk as TMA lays it
 // out with the 128-byte swizzle: two boxes of 64 columns, each 128 rows of
@@ -282,17 +261,6 @@ __device__ __forceinline__ void widen_chunk(uint32_t raw, uint32_t wide, const W
 // ---------------------------------------------------------------------------
 
 template <int N>
-__device__ __forceinline__ void store_run(float* p, const float (&u)[N]) {
-  if constexpr (N == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(u[0], u[1], u[2], u[3]);
-  } else if constexpr (N == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(u[0], u[1]);
-  } else {
-    *p = u[0];
-  }
-}
-
-template <int N>
 __device__ __forceinline__ void load_run(const float* __restrict__ p, float (&u)[N]) {
   if constexpr (N == 4) {
     const float4 v = __ldg(reinterpret_cast<const float4*>(p));
@@ -335,20 +303,6 @@ struct RowBounds {  // K7: smax = scale_a, smin = scale_b [NB]
   }
 };
 
-// A quad's exchange of halves: a lane whose `bit` is clear keeps values
-// [0, K/2) and sends [K/2, K) to its partner across `bit`, which keeps the
-// upper half; each kept value becomes the maximum over both lanes.
-template <int K>
-__device__ __forceinline__ void exchange_halves(const float (&v)[K], float (&w)[K / 2], bool upper,
-                                                int bit) {
-#pragma unroll
-  for (int k = 0; k < K / 2; ++k) {
-    const float send = upper ? v[k] : v[k + K / 2];
-    const float keep = upper ? v[k + K / 2] : v[k];
-    w[k] = fmaxf(keep, __shfl_xor_sync(0xffffffffu, send, bit));
-  }
-}
-
 template <int BLOCK>
 struct Blocks {
   static constexpr int kPerChunk = BLOCK >= kChunk ? 1 : kChunk / BLOCK;  // blocks a chunk
@@ -361,16 +315,40 @@ struct Blocks {
   }
 };
 
+// The two output layouts, a template argument of the kernel and so part of
+// its name. Grouped: bmax3 [CG, Q, G] and gmax [CG, 1, Q] (K1, K5, K7); a
+// lane's run of blocks is one vector store. BlockMajor: bmax [NB, Q] with no
+// group level (K8); block b of a lane's query lies num_q floats after block
+// b - 1, so a lane's run is num_q-strided scalar stores (16 lanes of a warp
+// store 16 consecutive queries of one block side by side).
+struct Grouped {
+  static constexpr bool kBlockMajor = false;
+};
+struct BlockMajor {
+  static constexpr bool kBlockMajor = true;
+};
+
+// Block-major, a lane's finished run u of N blocks, the first b blocks
+// after `out` (its query's column of bmax at the group's first block).
+template <int N>
+__device__ __forceinline__ void store_strided(float* out, int b, const float (&u)[N],
+                                              int num_q) {
+#pragma unroll
+  for (int k = 0; k < N; ++k) out[(size_t)(b + k) * num_q] = u[k];
+}
+
 // The block maxima of chunk c (of its group) from the accumulators d of a
 // 64-query x 128-row score tile. Lane `lane` of its quad ends with query
 // row frag_row + 8 (lane & 1) and the run of blocks Blocks::first(c, lane);
 // the epilogue `ep` turns their maxima into the values that go to `out`
-// (that row of bmax3, or null past the last query) and into `gm`. `part`
-// carries a 256-row block's maxima from its first chunk to its second.
-template <int BLOCK, typename E>
-__device__ __forceinline__ void take_maxima(const float (&d)[64], int c, float* out, int lane,
-                                            float (&part)[Blocks<BLOCK>::kValues], float& gm,
-                                            const E& ep) {
+// (the query's row of bmax3 for its group, or for BlockMajor its column of
+// bmax at the group's first block; null past the last query) and into `gm`.
+// `part` carries a 256-row block's maxima from its first chunk to its
+// second.
+template <int BLOCK, typename L, typename E>
+__device__ __forceinline__ void take_maxima(const float (&d)[64], int c, float* out, int num_q,
+                                            int lane, float (&part)[Blocks<BLOCK>::kValues],
+                                            float& gm, const E& ep) {
   constexpr int kNb = Blocks<BLOCK>::kPerChunk, kK = Blocks<BLOCK>::kValues;
   constexpr int kSpan = Blocks<BLOCK>::kSpan, kJ = 16 / kNb;  // 8-column groups a block
   // v[h * kNb + b]: this thread's maximum of block b in its row h; its
@@ -404,12 +382,20 @@ __device__ __forceinline__ void take_maxima(const float (&d)[64], int c, float* 
     ep.apply(u);
 #pragma unroll
     for (int k = 0; k < kK / 4; ++k) gm = fmaxf(gm, u[k]);
-    if (out != nullptr) store_run<kK / 4>(out + c * kNb + (lane >> 1) * (kK / 4), u);
+    if constexpr (L::kBlockMajor) {
+      if (out != nullptr) store_strided(out, c * kNb + (lane >> 1) * (kK / 4), u, num_q);
+    } else {
+      if (out != nullptr) store_run<kK / 4>(out + c * kNb + (lane >> 1) * (kK / 4), u);
+    }
   } else {
     float u[1] = {fmaxf(w[0], __shfl_xor_sync(0xffffffffu, w[0], 2))};
     ep.apply(u);
     gm = fmaxf(gm, u[0]);
-    if (out != nullptr && (lane >> 1) == 0) out[c / kSpan] = u[0];
+    if constexpr (L::kBlockMajor) {
+      if (out != nullptr && (lane >> 1) == 0) store_strided(out, c / kSpan, u, num_q);
+    } else {
+      if (out != nullptr && (lane >> 1) == 0) out[c / kSpan] = u[0];
+    }
   }
 }
 
@@ -419,21 +405,15 @@ __device__ __forceinline__ void take_maxima(const float (&d)[64], int c, float* 
 // and its queries' fragments (~190 registers) without spilling.
 template <int NWG>
 constexpr int kThreads = (NWG + 1) * 128;
-template <bool kInc, int kRegs>
-__device__ __forceinline__ void set_max_registers() {
-  if constexpr (kInc)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-  else
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
 
 // Grid (query tiles of 64 NWG, gy); block (x, y) scores its query tile
 // against groups y, y + gy, ... < num_groups, whose `group` blocks of BLOCK
 // rows each are contiguous corpus rows of storage type S (bf16, or int8
-// codes). Warpgroups 0 .. NWG - 1 multiply, take maxima and apply the
-// epilogue E; the last warpgroup feeds the ring: its first thread by TMA,
-// and for int8 all its threads widen the raw chunks.
-template <int BLOCK, int NWG, typename S, template <int> class E>
+// codes). Warpgroups 0 .. NWG - 1 multiply, take maxima, apply the epilogue
+// E and store in layout L (gmax is not read for BlockMajor); the last
+// warpgroup feeds the ring: its first thread by TMA, and for int8 all its
+// threads widen the raw chunks.
+template <int BLOCK, int NWG, typename S, template <int> class E, typename L>
 __global__ void __launch_bounds__(kThreads<NWG>, 1)
 bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __restrict__ queries,
                   const float* __restrict__ scale_a, const float* __restrict__ scale_b,
@@ -541,12 +521,18 @@ bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __rest
   };
   auto epilogue = [&](const float (&d)[64], int s, const Ep& ep) {
     const int c = s % per_group;
-    const size_t row = (size_t)group_of(s) * num_q + my_q;
-    take_maxima<BLOCK>(d, c, q_valid ? bmax + row * group : nullptr, lane, part, gm, ep);
-    if (c == per_group - 1) {
-      gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 2));
-      if (q_valid && (lane >> 1) == 0) gmax[row] = gm;
-      gm = -INFINITY;
+    if constexpr (L::kBlockMajor) {
+      const size_t col = (size_t)group_of(s) * group * num_q + my_q;
+      take_maxima<BLOCK, L>(d, c, q_valid ? bmax + col : nullptr, num_q, lane, part, gm, ep);
+    } else {
+      const size_t row = (size_t)group_of(s) * num_q + my_q;
+      take_maxima<BLOCK, L>(d, c, q_valid ? bmax + row * group : nullptr, num_q, lane, part, gm,
+                            ep);
+      if (c == per_group - 1) {
+        gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 2));
+        if (q_valid && (lane >> 1) == 0) gmax[row] = gm;
+        gm = -INFINITY;
+      }
     }
   };
   // chunk s's products into `acc` once its stage is full; issued, not
@@ -600,41 +586,6 @@ bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __rest
   }
 }
 
-// cuTensorMapEncodeTiled, found through the runtime so that nothing links
-// against the driver library
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// The corpus [n, 128] of S as TMA boxes of 128 rows x 128 bytes with the
-// 128-byte swizzle: for bf16, two boxes of 64 columns a chunk, the layout
-// wgmma's B descriptor reads (desc_sw128); for int8, one box a chunk.
-template <typename S>
-cudaError_t corpus_map(CUtensorMap* map, const void* corpus, int n) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                                    cudaEnableDefault, &found);
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
-  constexpr bool kInt8 = sizeof(S) == 1;
-  const cuuint64_t dims[2] = {kDim, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {kDim * sizeof(S)};
-  const cuuint32_t box[2] = {128 / sizeof(S), kChunk};
-  const cuuint32_t steps[2] = {1, 1};
-  const CUresult res = encode(
-      map, kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-      const_cast<void*>(corpus), dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 struct Args {
   const void *queries, *corpus, *scale_a, *scale_b;
   void *bmax, *gmax;
@@ -642,19 +593,19 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int BLOCK, int NWG, typename S, template <int> class E>
+template <int BLOCK, int NWG, typename S, template <int> class E, typename L>
 cudaError_t launch(const Args& x) {
   constexpr size_t smem = smem_bytes<S>();
-  auto kernel = bmax_wgmma_kernel<BLOCK, NWG, S, E>;
+  auto kernel = bmax_wgmma_kernel<BLOCK, NWG, S, E, L>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   CUtensorMap map;
-  if ((err = corpus_map<S>(&map, x.corpus, x.n)) != cudaSuccess) return err;
-  int device = 0, sms = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
-    return err;
+  err = sizeof(S) == 1 ? corpus_map(&map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x.corpus, x.n)
+                       : corpus_map(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x.corpus, x.n);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = multiprocessors(&sms)) != cudaSuccess) return err;
   const int tiles = (x.num_q + 64 * NWG - 1) / (64 * NWG);
   int gy = sms / tiles;
   gy = gy < 1 ? 1 : (gy > x.num_groups ? x.num_groups : gy);
@@ -665,15 +616,15 @@ cudaError_t launch(const Args& x) {
   return cudaGetLastError();
 }
 
-template <typename S, template <int> class E>
+template <typename S, template <int> class E, typename L = Grouped>
 cudaError_t launch_block(int block, const Args& x) {
   const bool two = x.num_q > 64;  // two consumer warpgroups
   switch (block) {
-    case 16: return two ? launch<16, 2, S, E>(x) : launch<16, 1, S, E>(x);
-    case 32: return two ? launch<32, 2, S, E>(x) : launch<32, 1, S, E>(x);
-    case 64: return two ? launch<64, 2, S, E>(x) : launch<64, 1, S, E>(x);
-    case 128: return two ? launch<128, 2, S, E>(x) : launch<128, 1, S, E>(x);
-    case 256: return two ? launch<256, 2, S, E>(x) : launch<256, 1, S, E>(x);
+    case 16: return two ? launch<16, 2, S, E, L>(x) : launch<16, 1, S, E, L>(x);
+    case 32: return two ? launch<32, 2, S, E, L>(x) : launch<32, 1, S, E, L>(x);
+    case 64: return two ? launch<64, 2, S, E, L>(x) : launch<64, 1, S, E, L>(x);
+    case 128: return two ? launch<128, 2, S, E, L>(x) : launch<128, 1, S, E, L>(x);
+    case 256: return two ? launch<256, 2, S, E, L>(x) : launch<256, 1, S, E, L>(x);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -698,6 +649,18 @@ extern "C" int proqa_block_maxima_wgmma(const void* queries, const void* corpus,
   const Args x{queries, corpus, nullptr, nullptr, bmax, gmax, num_q, n, group,
                n / (group * block), static_cast<cudaStream_t>(stream)};
   return launch_block<bf16, RawMaxima>(block, x);
+}
+
+// K8: as proqa_block_maxima_wgmma, the block maxima stored block-major,
+// bmax [n / block, num_q] f32, with no group level. group = tile_n / block,
+// the blocks of one unit of the persistent walk.
+extern "C" int proqa_block_maxima_wgmma_block_major(const void* queries, const void* corpus,
+                                                    void* bmax, int num_q, int n, int dim,
+                                                    int block, int group, void* stream) {
+  if (!valid_shape(num_q, n, dim, block, group)) return cudaErrorInvalidValue;
+  const Args x{queries, corpus, nullptr, nullptr, bmax, nullptr, num_q, n, group,
+               n / (group * block), static_cast<cudaStream_t>(stream)};
+  return launch_block<bf16, RawMaxima, BlockMajor>(block, x);
 }
 
 // As proqa_block_maxima_wgmma over int8 codes [n, 128], with the epilogue

@@ -1,5 +1,5 @@
-"""Times kernels K1, K5, K7 and K4 of a checkout of the port on one NVIDIA
-GPU, and the host path of one K4 call piece by piece.
+"""Times kernels K1, K5, K7, K8 and K4 of a checkout of the port on one
+NVIDIA GPU, and the host path of one K4 call piece by piece.
 
     python proqa_tpu_torch/kernel_times.py [--root DIR] [--out FILE]
 
@@ -14,6 +14,10 @@ back-to-back calls divided by 10 ("queued": the device time alone), medians
 of repeated rounds:
   K1  block_maxima_grouped, bf16, 4,194,304 x 128 corpus, block 16, group
       128, at Q = 2,048 and Q = 32;
+  K8  block_maxima (block-major), the same corpus, Q = 2,048, block 256,
+      tile_n 2,048;
+  K1 f32  block_maxima_grouped over a 4,194,304 x 128 f32 corpus and f32
+      queries, block 16, group 128, at Q = 2,048 and Q = 32;
   K5  the same over 4,194,304 x 128 int8 codes with per-block scales, at
       Q = 2,048 and Q = 32;
   K7  the same codes with the bounds (smax, smin) of per-row scales, at
@@ -26,8 +30,10 @@ twice, keys in Python, a device switch, a torch.cuda.Stream), and the whole
 call of this checkout's wrapper with and without autograd, beside
 F.dropout's whole call.
 
-Prints one JSON object, with the card's name and power limit; exits non-zero
-without a CUDA device.
+Each kernel's CUDA kernel names are read from a torch.profiler trace of one
+more call ("kernels"), so the record shows which body ran. Prints one JSON
+object, with the card's name and power limit; exits non-zero without a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -54,6 +60,26 @@ def _events_ms(fn, calls: int, rounds: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def _kernel_names(fn) -> list[str]:
+    """The names of the GPU kernels one call of fn launches."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
 
 
 def _host_us(fn, calls: int = 1000, rounds: int = 5) -> float:
@@ -143,13 +169,26 @@ def main(argv=None) -> int:
     g = torch.Generator(device=dev).manual_seed(4)
     corpus = (torch.randn(4_194_304, 128, device=dev, generator=g) / 128 ** 0.5).bfloat16()
     queries = (torch.randn(2048, 128, device=dev, generator=g) / 128 ** 0.5).bfloat16()
-    out = {"gpu": gpu, "root": os.path.abspath(args.root)}
+    out = {"gpu": gpu, "root": os.path.abspath(args.root), "kernels": {}}
+
+    def time_kernel(name, fn, rounds=5, queued_rounds=3):
+        out[f"{name} one call ms"] = _events_ms(fn, 1, rounds)
+        out[f"{name} queued ms"] = _events_ms(fn, 10, queued_rounds)
+        out["kernels"][name] = _kernel_names(fn)
+
     for q in (2048, 32):
         qs = queries[:q].contiguous()
-        fn = lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16)  # noqa: E731
-        out[f"K1 Q={q} one call ms"] = _events_ms(fn, 1, 5)
-        out[f"K1 Q={q} queued ms"] = _events_ms(fn, 10, 3)
+        time_kernel(f"K1 Q={q}", lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
+    time_kernel("K8 Q=2048", lambda: mips_kernel.block_maxima(queries, corpus, block=256,
+                                                              tile_n=2048))
     del corpus
+    corpus = torch.randn(4_194_304, 128, device=dev, generator=g) / 128 ** 0.5
+    queries_f32 = torch.randn(2048, 128, device=dev, generator=g) / 128 ** 0.5
+    for q in (2048, 32):
+        qs = queries_f32[:q].contiguous()
+        time_kernel(f"K1 f32 Q={q}",
+                    lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
+    del corpus, queries_f32
     # int8 codes and scales made on the device (uniform codes in [-127, 127])
     codes = torch.randint(-127, 128, (4_194_304, 128), device=dev, generator=g,
                           dtype=torch.int8)
@@ -159,15 +198,13 @@ def main(argv=None) -> int:
     for name, q, kw in (("K5", 2048, {"scales": scales}), ("K5", 32, {"scales": scales}),
                         ("K7", 2048, {"scale_bounds": bounds})):
         qs = queries[:q].contiguous()
-        fn = lambda: mips_kernel.block_maxima_grouped(qs, codes, block=16, **kw)  # noqa: E731
-        out[f"{name} Q={q} one call ms"] = _events_ms(fn, 1, 5)
-        out[f"{name} Q={q} queued ms"] = _events_ms(fn, 10, 3)
+        time_kernel(f"{name} Q={q}",
+                    lambda: mips_kernel.block_maxima_grouped(qs, codes, block=16, **kw))
     del codes, scales, rows, bounds, queries
     x = torch.randn(80, 512, 768, device=dev, generator=g).bfloat16()
     for name, fn in (("K4", lambda: dropout.dropout(x, 0.1, seed=3)),
                      ("F.dropout", lambda: F.dropout(x, 0.1, training=True))):
-        out[f"{name} one call ms"] = _events_ms(fn, 1, 20)
-        out[f"{name} queued ms"] = _events_ms(fn, 10, 5)
+        time_kernel(name, fn, rounds=20, queued_rounds=5)
     out["K4 host pieces us"] = host_pieces(
         torch.randn(80, 768, device=dev, generator=g).bfloat16())
     line = json.dumps(out)

@@ -15,10 +15,11 @@ mips_topk_v1 (mips_topk_pallas) is the older two-stage pipeline: K8's block
 maxima [NB, Q], the top-kb blocks of each query, the rescore.
 
 Stages 2 and 3 are torch ops, as they are XLA ops in the JAX package. CUDA
-tensors run a hand-written kernel: K1 over a bf16 corpus, and K5 and K7 over
-int8 codes, with bf16 queries in csrc/block_maxima_wgmma.cu; K8, f32 queries
-and the shapes that kernel does not take in csrc/block_maxima.cu
-(`kernel_for` chooses); CPU tensors run their plain PyTorch versions
+tensors run a hand-written kernel (`kernel_for` chooses): K1 over a bf16
+corpus, K5 and K7 over int8 codes, all with bf16 queries, and K8 over bf16 in
+csrc/block_maxima_wgmma.cu; K1 over f32 in csrc/block_maxima_f32.cu; f32 K8,
+f32 queries over int8 codes and the shapes neither takes in
+csrc/block_maxima.cu. CPU tensors run their plain PyTorch versions
 (`*_reference`).
 """
 from __future__ import annotations
@@ -36,7 +37,8 @@ KERNEL_DIM = 128  # the embedding width the CUDA kernel takes
 
 # kernel launches since the last reset (the main path's proof of use), one
 # count for each TPU kernel this module replaces
-launches = 0              # K1: block_maxima_grouped
+launches = 0              # K1: block_maxima_grouped, bf16 (and the simple body)
+f32_launches = 0          # K1: block_maxima_grouped, f32, csrc/block_maxima_f32.cu
 scaled_launches = 0       # K5: block_maxima_grouped(scales=)
 bounded_launches = 0      # K7: block_maxima_grouped(scale_bounds=)
 block_major_launches = 0  # K8: block_maxima
@@ -85,29 +87,39 @@ def block_maxima_grouped_reference(queries, corpus, *, block: int, group: int = 
     return bmax3, bmax3.amax(dim=2)[:, None, :]
 
 
-WGMMA_BLOCKS = (16, 32, 64, 128, 256)  # blocks csrc/block_maxima_wgmma.cu reduces at
-WGMMA_CHUNK = 128  # corpus rows of its chunks: group * block must be a multiple
+WGMMA_BLOCKS = (16, 32, 64, 128, 256)  # blocks the Hopper kernels reduce at
+WGMMA_CHUNK = 128  # corpus rows of their chunks: group * block must be a multiple
 
 
 def kernel_for(queries_dtype, corpus_dtype, *, block: int, group: int, grouped: bool,
                scaled: bool) -> str:
-    """Which CUDA kernel a launch takes, from dtypes and shapes alone:
-    "wgmma" (csrc/block_maxima_wgmma.cu, written for Hopper) for bf16
-    queries, the grouped output, a block in WGMMA_BLOCKS, group * block a
-    multiple of WGMMA_CHUNK, and either a bf16 corpus without scales (K1) or
-    int8 codes with scales or scale bounds (K5, K7); "simple"
-    (csrc/block_maxima.cu's body: f32 queries, block-major, other shapes)
-    else."""
-    if (queries_dtype == torch.bfloat16 and grouped and block in WGMMA_BLOCKS
-            and (group * block) % WGMMA_CHUNK == 0
-            and (corpus_dtype, scaled) in ((torch.bfloat16, False), (torch.int8, True))):
-        return "wgmma"
+    """Which CUDA kernel a launch takes, from dtypes and shapes alone. Both
+    Hopper kernels take a block in WGMMA_BLOCKS and group * block a multiple
+    of WGMMA_CHUNK (for K8, group = tile_n / block). Then "wgmma"
+    (csrc/block_maxima_wgmma.cu) for bf16 queries and either the grouped
+    output over a bf16 corpus without scales (K1) or over int8 codes with
+    scales or scale bounds (K5, K7), or the block-major output over a bf16
+    corpus (K8); "f32" (csrc/block_maxima_f32.cu) for f32 queries, an f32
+    corpus and the grouped output without scales (K1); "simple"
+    (csrc/block_maxima.cu's body: f32 K8, f32 queries over int8, other
+    shapes) else."""
+    if block not in WGMMA_BLOCKS or (group * block) % WGMMA_CHUNK:
+        return "simple"
+    if queries_dtype == torch.bfloat16:
+        if grouped and (corpus_dtype, scaled) in ((torch.bfloat16, False), (torch.int8, True)):
+            return "wgmma"
+        if not grouped and corpus_dtype == torch.bfloat16 and not scaled:
+            return "wgmma"
+    if (queries_dtype == torch.float32 and corpus_dtype == torch.float32 and grouped
+            and not scaled):
+        return "f32"
     return "simple"
 
 
 def _launch(queries, corpus, bmax, gmax, *, block: int, group: int, scales=None,
-            scale_bounds=None) -> None:
-    """Checks what the kernels take and launches the one kernel_for picks."""
+            scale_bounds=None) -> str:
+    """Checks what the kernels take, launches the one kernel_for picks and
+    returns its name. gmax None: the block-major output (K8)."""
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     q, d = queries.shape
@@ -131,22 +143,28 @@ def _launch(queries, corpus, bmax, gmax, *, block: int, group: int, scales=None,
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor "
                              f"on {queries.device}")
     n = corpus.shape[0]
-    if kernel_for(queries.dtype, corpus.dtype, block=block, group=group,
-                  grouped=gmax is not None, scaled=scale_a is not None) == "wgmma":
-        if corpus.dtype == torch.bfloat16:
-            _build.launch("proqa_block_maxima_wgmma", queries.device, queries.data_ptr(),
-                          corpus.data_ptr(), bmax.data_ptr(), gmax.data_ptr(), q, n, d, block,
-                          group)
-        else:
-            _build.launch("proqa_block_maxima_wgmma_int8", queries.device, queries.data_ptr(),
-                          corpus.data_ptr(), scale_a.data_ptr(),
-                          None if scale_b is None else scale_b.data_ptr(), bmax.data_ptr(),
-                          gmax.data_ptr(), q, n, d, block, group)
-        return
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    _build.launch("proqa_block_maxima", queries.device, queries.data_ptr(), corpus.data_ptr(),
-                  ptr(scale_a), ptr(scale_b), bmax.data_ptr(), ptr(gmax), q, n, d, block, group,
-                  int(queries.dtype == torch.bfloat16), int(corpus.dtype == torch.int8))
+    route = kernel_for(queries.dtype, corpus.dtype, block=block, group=group,
+                       grouped=gmax is not None, scaled=scale_a is not None)
+    if route == "wgmma" and gmax is None:
+        _build.launch("proqa_block_maxima_wgmma_block_major", queries.device, queries.data_ptr(),
+                      corpus.data_ptr(), bmax.data_ptr(), q, n, d, block, group)
+    elif route == "wgmma" and corpus.dtype == torch.bfloat16:
+        _build.launch("proqa_block_maxima_wgmma", queries.device, queries.data_ptr(),
+                      corpus.data_ptr(), bmax.data_ptr(), gmax.data_ptr(), q, n, d, block, group)
+    elif route == "wgmma":
+        _build.launch("proqa_block_maxima_wgmma_int8", queries.device, queries.data_ptr(),
+                      corpus.data_ptr(), scale_a.data_ptr(), ptr(scale_b), bmax.data_ptr(),
+                      gmax.data_ptr(), q, n, d, block, group)
+    elif route == "f32":
+        _build.launch("proqa_block_maxima_f32", queries.device, queries.data_ptr(),
+                      corpus.data_ptr(), bmax.data_ptr(), gmax.data_ptr(), q, n, d, block, group)
+    else:
+        _build.launch("proqa_block_maxima", queries.device, queries.data_ptr(),
+                      corpus.data_ptr(), ptr(scale_a), ptr(scale_b), bmax.data_ptr(), ptr(gmax),
+                      q, n, d, block, group, int(queries.dtype == torch.bfloat16),
+                      int(corpus.dtype == torch.int8))
+    return route
 
 
 def block_maxima_grouped(queries, corpus, *, block: int, group: int = GROUP, scales=None,
@@ -160,7 +178,7 @@ def block_maxima_grouped(queries, corpus, *, block: int, group: int = GROUP, sca
     block's scale (K5). scale_bounds (smax, smin), each [N / block]: the
     bound m * smax if m >= 0 else m * smin of a per-row-scaled corpus (K7).
     Without either, K1."""
-    global launches, scaled_launches, bounded_launches
+    global launches, f32_launches, scaled_launches, bounded_launches
     cg = _check_shapes(queries, corpus, block, group, scales, scale_bounds)
     if queries.device.type == "cpu":
         return block_maxima_grouped_reference(queries, corpus, block=block, group=group,
@@ -168,12 +186,14 @@ def block_maxima_grouped(queries, corpus, *, block: int, group: int = GROUP, sca
     q = queries.shape[0]
     bmax3 = torch.empty(cg, q, group, dtype=torch.float32, device=queries.device)
     gmax = torch.empty(cg, 1, q, dtype=torch.float32, device=queries.device)
-    _launch(queries, corpus, bmax3, gmax, block=block, group=group, scales=scales,
-            scale_bounds=scale_bounds)
+    route = _launch(queries, corpus, bmax3, gmax, block=block, group=group, scales=scales,
+                    scale_bounds=scale_bounds)
     if scales is not None:
         scaled_launches += 1
     elif scale_bounds is not None:
         bounded_launches += 1
+    elif route == "f32":
+        f32_launches += 1
     else:
         launches += 1
     return bmax3, gmax

@@ -6,7 +6,8 @@ Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
   search      DenseIndex.search, exact top-80 over a 4,194,304 x 128 bf16
               corpus, 2,048 queries per batch (kernel K1, then torch select
               and rescore);
-  search_f32  the same over an f32 index (`--f32`);
+  search_f32  the same over an f32 index (`--f32`; kernel K1's f32 body,
+              csrc/block_maxima_f32.cu);
   search_int8 the same over an int8 index (`--int8-index`): codes and
               per-block scales made on the device, quant block 16 (kernel
               K5, then the select and the scaled rescore);
@@ -45,12 +46,16 @@ import torch
 GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 # kernel group: substrings of the kernel name, first match wins. The Hopper
-# block-maxima kernel names its epilogue (bmax_wgmma_kernel<block, warpgroups,
-# corpus type, epilogue>); the simple body names its output layout.
+# block-maxima kernel names its epilogue and output layout
+# (bmax_wgmma_kernel<block, warpgroups, corpus type, epilogue, layout>), the
+# f32 one is bmax_f32_kernel<block, queries a thread>; the simple body names
+# its output layout.
 GROUPS = (
     ("K5 block_maxima int8", ("BlockScales",)),
     ("K7 block_maxima int8 bound", ("RowBounds",)),
-    ("K8 block_maxima block-major", ("bmax_block_major_kernel",)),
+    ("K8 block_maxima block-major", ("BlockMajor",)),
+    ("K8 simple body", ("bmax_block_major_kernel",)),
+    ("K1 f32", ("bmax_f32_kernel",)),
     ("K5/K7 simple body", ("bmax3_kernel<float, signed char>",
                            "bmax3_kernel<__nv_bfloat16, signed char>")),
     ("K1 block_maxima", ("bmax_wgmma_kernel", "bmax3_kernel")),

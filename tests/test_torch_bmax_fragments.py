@@ -72,20 +72,26 @@ def _epilogue(u: np.ndarray, first: np.ndarray, scale_a, scale_b) -> np.ndarray:
     return np.where(u >= 0, u * scale_a[idx], u * scale_b[idx])
 
 
-def _kernel_group(scores: np.ndarray, block: int, g: int = 0, group: int | None = None,
-                  scale_a=None, scale_b=None):
-    """Group g (of `group` blocks) of one warpgroup's query tile: scores
-    [64, rows] -> the bmax3 rows [64, rows / block] and gmax [64] as the
-    lanes store them, after the epilogue of scale_a and scale_b (f32 [NB]
-    of the whole corpus, or None)."""
+def _my_q() -> np.ndarray:
+    """The query row (of its warpgroup's 64) whose maxima each thread stores."""
+    t = np.arange(128)
+    return 16 * (t // 32) + (t % 32) // 4 + 8 * (t % 4 & 1)
+
+
+def _lane_runs(scores: np.ndarray, block: int, g: int = 0, group: int | None = None,
+               scale_a=None, scale_b=None):
+    """take_maxima over group g (of `group` blocks) of one warpgroup's query
+    tile, scores [64, rows]: (runs, gm), runs the (thread, first block of
+    its run within the group, values) of every store a lane makes, after the
+    epilogue of scale_a and scale_b (f32 [NB] of the whole corpus, or None),
+    and gm [128] each thread's group maximum before the final exchange."""
     rows = scores.shape[1]
     group = rows // block if group is None else group
     nb, span = max(1, CHUNK // block), max(1, block // CHUNK)
-    out = np.full((64, rows // block), np.nan, dtype=scores.dtype)
+    runs = []
     gm = np.full(128, -np.inf, dtype=scores.dtype)
     t = np.arange(128)
     lane = t % 4
-    my_q = 16 * (t // 32) + (t % 32) // 4 + 8 * (lane & 1)
     part = None
     for c in range(rows // CHUNK):
         v = _chunk_maxima(_fragments(scores[:, c * CHUNK:(c + 1) * CHUNK]), block)
@@ -103,15 +109,30 @@ def _kernel_group(scores: np.ndarray, block: int, g: int = 0, group: int | None 
             u = _epilogue(u, first, scale_a, scale_b)
             gm = np.maximum(gm, u.max(1))
             for th in range(128):
-                g0 = c * nb + (lane[th] >> 1) * (k // 4)
-                out[my_q[th], g0:g0 + k // 4] = u[th]
+                runs.append((th, c * nb + (lane[th] >> 1) * (k // 4), u[th]))
         else:
             u = np.maximum(w[:, 0], w[t ^ 2, 0])
             first = np.full(128, g * group + c // span)
             u = _epilogue(u[:, None], first, scale_a, scale_b)[:, 0]
             gm = np.maximum(gm, u)
             for th in np.flatnonzero((lane >> 1) == 0):
-                out[my_q[th], c // span] = u[th]
+                runs.append((th, c // span, u[th:th + 1]))
+    return runs, gm
+
+
+def _kernel_group(scores: np.ndarray, block: int, g: int = 0, group: int | None = None,
+                  scale_a=None, scale_b=None):
+    """Group g (of `group` blocks) of one warpgroup's query tile: scores
+    [64, rows] -> the bmax3 rows [64, rows / block] and gmax [64] as the
+    lanes store them (the Grouped layout), after the epilogue of scale_a and
+    scale_b (f32 [NB] of the whole corpus, or None)."""
+    runs, gm = _lane_runs(scores, block, g, group, scale_a, scale_b)
+    out = np.full((64, scores.shape[1] // block), np.nan, dtype=scores.dtype)
+    my_q = _my_q()
+    for th, b0, u in runs:
+        out[my_q[th], b0:b0 + len(u)] = u
+    t = np.arange(128)
+    lane = t % 4
     gm = np.maximum(gm, gm[t ^ 2])
     gmax = np.full(64, np.nan, dtype=scores.dtype)
     sel = (lane >> 1) == 0
@@ -169,6 +190,207 @@ def test_register_epilogues_land_where_bmax3_wants_them(block, kind):
     out, gm = _kernel_group(scores[:, rows], block, g=g, group=group, scale_a=sa, scale_b=sb)
     np.testing.assert_array_equal(out, bmax3[g].numpy())
     np.testing.assert_array_equal(gm, gmax[g, 0].numpy())
+
+
+def _tile_n_cases():
+    return [(block, tile_n) for block in mips_kernel.WGMMA_BLOCKS
+            for tile_n in (128, 256, 512, 1024, 2048) if tile_n >= block]
+
+
+@pytest.mark.parametrize("num_q", [65, 200])
+@pytest.mark.parametrize("block,tile_n", _tile_n_cases())
+def test_block_major_stores_land_once_on_their_maxima(block, tile_n, num_q):
+    """K8 on the Hopper kernel: every lane's run of finished maxima goes to
+    bmax[(group * tile + block) * num_q + query], block by block num_q
+    floats apart (store_blocks<BlockMajor>). Over a whole launch (two
+    warpgroups of 64 queries a CUDA block, ragged query tiles, three tiles
+    of tile_n rows) each (block, query) of bmax [NB, num_q] is written
+    exactly once, with its maximum, and nothing lands past it."""
+    group = tile_n // block
+    assert mips_kernel.kernel_for(torch.bfloat16, torch.bfloat16, block=block, group=group,
+                                  grouped=False, scaled=False) == "wgmma"
+    tiles, nwg = 3, 2 if num_q > 64 else 1
+    q_pad = -(-num_q // (64 * nwg)) * 64 * nwg
+    rng = np.random.default_rng(block + tile_n + num_q)
+    scores = rng.standard_normal((q_pad, tiles * tile_n)).astype(np.float32)
+    nb = tiles * tile_n // block
+    mem = np.full(nb * num_q + 4096, np.nan, dtype=np.float32)
+    writes = np.zeros(mem.shape, dtype=np.int64)
+    my_q = _my_q()
+    for q_base in range(0, q_pad, 64):              # warpgroups of all query tiles
+        for g in range(tiles):
+            runs, _ = _lane_runs(scores[q_base:q_base + 64, g * tile_n:(g + 1) * tile_n],
+                                 block, g=g, group=group)
+            for th, b0, u in runs:
+                q = q_base + my_q[th]
+                if q >= num_q:                      # the kernel's out == nullptr
+                    continue
+                at = (g * group + b0 + np.arange(len(u))) * num_q + q
+                mem[at] = u
+                writes[at] += 1
+    assert (writes[:nb * num_q] == 1).all()
+    assert not writes[nb * num_q:].any()
+    want = scores[:num_q].reshape(num_q, nb, block).max(2).T        # [NB, Q]
+    np.testing.assert_array_equal(mem[:nb * num_q].reshape(nb, num_q), want)
+
+
+# --- K1 over f32: csrc/block_maxima_f32.cu ---
+
+F32_BOX = 16384  # bytes of one corpus stage: a TMA box of 128 rows x 32 f32 columns
+F32_TILES = [8, 16]  # queries a thread (QT): tiles of 128 queries (Q <= 128) or 256
+
+
+def _f32_threads():
+    """(qg, rg) of the 256 FMA threads: lane l of warp w is (2 w + l / 16, l % 16)."""
+    t = np.arange(256)
+    return 2 * (t // 32) + (t % 32) // 16, t % 16
+
+
+def _f32_lane_query(rg, qt: int):
+    """lane_query<QT>: the query (of its thread tile) a lane stores."""
+    j = 4 * (rg & 1) + 2 * (rg >> 1 & 1) + (rg >> 2 & 1)
+    return 2 * j + (rg >> 3 & 1) if qt == 16 else j
+
+
+def _f32_exchange(v: np.ndarray, bit: int) -> np.ndarray:
+    """exchange_halves over the 256 FMA threads: v [256, K] -> [256, K / 2]."""
+    k = v.shape[1] // 2
+    t = np.arange(256)
+    upper = ((t & bit) != 0)[:, None]
+    send = np.where(upper, v[:, :k], v[:, k:])
+    keep = np.where(upper, v[:, k:], v[:, :k])
+    return np.maximum(keep, send[t ^ bit])
+
+
+def _f32_kernel_group(scores: np.ndarray, block: int, qt: int, num_q: int):
+    """One group of one CUDA block of bmax_f32_kernel<block, qt>: scores
+    [16 qt queries, rows] -> (bmax3 rows [16 qt, rows / block], gmax, and the
+    count of stores at each (query, block) and each gmax slot), as the lanes
+    store them (nan where no lane stores: queries past num_q)."""
+    rows, nq = scores.shape[1], 16 * qt
+    qg, rg = _f32_threads()
+    t = np.arange(256)
+    fold = 8 if block >= CHUNK else block // 16
+    nb, span = 8 // fold, max(1, block // CHUNK)
+    run = nb if qt == 16 else (nb // 2 if nb >= 2 else 1)
+    my_q = qg + 16 * _f32_lane_query(rg, qt)
+    out = np.full((nq, rows // block), np.nan, dtype=scores.dtype)
+    writes = np.zeros(out.shape, dtype=np.int64)
+    gm = np.full(256, -np.inf, dtype=scores.dtype)
+    part = None
+    j, i = np.arange(qt), np.arange(8)
+    for c in range(rows // CHUNK):
+        chunk = scores[:, c * CHUNK:(c + 1) * CHUNK]
+        # products: acc[th, j, i] = score of query qg + 16 j, chunk row rg + 16 i
+        acc = chunk[qg[:, None, None] + 16 * j[None, :, None],
+                    rg[:, None, None] + 16 * i[None, None, :]]
+        # the fold: v[th, j * nb + b] = max over the thread's rows of block b
+        v = acc.reshape(256, qt, nb, fold).max(3).reshape(256, qt * nb)
+        if span > 1:
+            part = v if c % span == 0 else np.maximum(part, v)
+            if c % span != span - 1:
+                continue
+            v = part
+        w = _f32_exchange(_f32_exchange(_f32_exchange(v, 1), 2), 4)
+        u = _f32_exchange(w, 8) if qt == 16 or nb >= 2 else np.maximum(w, w[t ^ 8])
+        gm = np.maximum(gm, u.max(1))
+        for th in range(256):
+            if my_q[th] >= num_q:
+                continue
+            if qt == 16:
+                b0 = c // span * nb
+            elif nb >= 2:
+                b0 = c * nb + (nb // 2 if rg[th] & 8 else 0)
+            elif rg[th] & 8 == 0:
+                b0 = c // span
+            else:
+                continue
+            out[my_q[th], b0:b0 + run] = u[th]
+            writes[my_q[th], b0:b0 + run] += 1
+    if qt == 8:
+        gm = np.maximum(gm, gm[t ^ 8])
+    gmax = np.full(nq, np.nan, dtype=scores.dtype)
+    gmax_writes = np.zeros(nq, dtype=np.int64)
+    sel = (my_q < num_q) & ((rg & 8) == 0 if qt == 8 else True)
+    gmax[my_q[sel]] = gm[sel]
+    np.add.at(gmax_writes, my_q[sel], 1)
+    return out, gmax, writes, gmax_writes
+
+
+@pytest.mark.parametrize("qt", F32_TILES)
+def test_f32_thread_tiles_cover_the_step_once(qt):
+    """The 256 FMA threads' qt x 8 tiles (queries qg + 16 j, rows rg + 16 i)
+    cover the 16 qt x 128 step exactly once, and the 16 lanes of a half warp
+    share their queries and hold every row of the chunk between them."""
+    qg, rg = _f32_threads()
+    cover = np.zeros((16 * qt, 128), dtype=np.int64)
+    for th in range(256):
+        np.add.at(cover, (qg[th] + 16 * np.arange(qt)[:, None], rg[th] + 16 * np.arange(8)), 1)
+    assert (cover == 1).all()
+    halves = np.arange(256) // 16
+    for h in range(16):
+        assert len(set(qg[halves == h])) == 1
+        assert sorted(rg[halves == h]) == list(range(16))
+
+
+@pytest.mark.parametrize("qt,num_q", [(8, 128), (8, 100), (16, 256), (16, 200)])
+@pytest.mark.parametrize("block", mips_kernel.WGMMA_BLOCKS)
+def test_f32_register_maxima_land_where_bmax3_wants_them(block, qt, num_q):
+    """bmax_f32_kernel's fold, exchanges of halves, runs and group maximum,
+    thread by thread, for both query tiles: every (query, block) of a group
+    of 8 blocks (block 256: across two chunks) is stored once with its
+    maximum, gmax once with the group's, and nothing past num_q."""
+    group = 8
+    assert mips_kernel.kernel_for(torch.float32, torch.float32, block=block, group=group,
+                                  grouped=True, scaled=False) == "f32"
+    rng = np.random.default_rng(block + num_q)
+    scores = rng.standard_normal((16 * qt, group * block)).astype(np.float32)
+    out, gmax, writes, gmax_writes = _f32_kernel_group(scores, block, qt, num_q)
+    want = scores.reshape(16 * qt, group, block).max(2)
+    np.testing.assert_array_equal(out[:num_q], want[:num_q])
+    np.testing.assert_array_equal(gmax[:num_q], want[:num_q].max(1))
+    assert (writes[:num_q] == 1).all() and not writes[num_q:].any()
+    assert (gmax_writes[:num_q] == 1).all() and not gmax_writes[num_q:].any()
+
+
+@pytest.mark.parametrize("qt", F32_TILES)
+def test_f32_shared_loads_and_stores_are_conflict_free(qt):
+    """The f32 kernel's shared-memory addresses: the query tile's stores
+    (load_queries) and every float4 load of products(), unit u of a box,
+    computed as the kernel computes them ((row * 128 + phase * 16) ^ 16 u +
+    2048 k), lie where TMA's 128-byte swizzle puts that row's columns 4 u ..
+    4 u + 3 of the box. Each quarter warp's distinct addresses hit distinct
+    16-byte bank groups, and a warp's load takes the fewest 128-byte passes
+    its distinct bytes allow: 2 for the corpus (16 rows), 1 for the queries
+    (2 rows)."""
+    qg, rg = _f32_threads()
+    query_box = 16 * qt * 128
+
+    # the query tile's stores: thread t's units e = t + 256 k
+    written = np.zeros(4 * query_box // 16, dtype=np.int64)
+    for k in range(16 * qt * 32 // 256):
+        e = np.arange(256) + 256 * k
+        r, col = e // 32, e % 32
+        at = (col // 8) * query_box + _sw128(r, (col % 8) * 16)
+        np.add.at(written, at // 16, 1)
+        for quarter in range(32):
+            assert len(set(at[8 * quarter:8 * quarter + 8] // 16 % 8)) == 8
+    assert (written == 1).all()
+
+    for name, who, rows, n_rows in (("queries", qg, qt, 2), ("corpus", rg, 8, 16)):
+        base = who * 128 + (who % 8) * 16                   # swizzled(row, 0)
+        for u in range(8):
+            for k in range(rows):
+                at = ((base ^ (16 * u)) + 2048 * k).astype(np.int64)
+                np.testing.assert_array_equal(at, _sw128(who + 16 * k, 16 * u))
+                for w in range(8):                          # warps
+                    lanes = at[32 * w:32 * w + 32]
+                    for quarter in range(4):
+                        q_at = np.unique(lanes[8 * quarter:8 * quarter + 8])
+                        assert len(set(q_at // 16 % 8)) == len(q_at), (name, u, k)
+                    uniq = np.unique(lanes)
+                    worst = np.bincount(uniq // 16 % 8, minlength=8).max()
+                    assert len(uniq) == n_rows and worst == -(-len(uniq) // 8), (name, u, k)
 
 
 # --- the producer warpgroup's widening of an int8 chunk into the bf16 ring ---
@@ -280,10 +502,10 @@ def test_widened_chunk_lands_where_wgmma_reads_it():
     (torch.bfloat16, torch.bfloat16, 16, 8, True, False, "wgmma"),
     (torch.bfloat16, torch.bfloat16, 16, 4, True, False, "simple"),    # 64-row groups
     (torch.bfloat16, torch.bfloat16, 48, 128, True, False, "simple"),  # not a power of 2
-    (torch.bfloat16, torch.bfloat16, 256, 8, False, False, "simple"),  # block-major (K8)
+    (torch.float32, torch.float32, 256, 8, False, False, "simple"),    # f32 K8
     (torch.bfloat16, torch.int8, 16, 128, True, True, "wgmma"),        # K5 and K7
     (torch.bfloat16, torch.int8, 16, 128, True, False, "simple"),
-    (torch.float32, torch.float32, 16, 128, True, False, "simple"),
+    (torch.float32, torch.int8, 16, 128, True, False, "simple"),      # f32 over int8
     (torch.bfloat16, torch.int8, 128, 128, True, True, "wgmma"),       # the capacity point
     (torch.bfloat16, torch.int8, 256, 8, True, True, "wgmma"),
     (torch.float32, torch.int8, 16, 128, True, True, "simple"),        # f32 queries
@@ -291,6 +513,15 @@ def test_widened_chunk_lands_where_wgmma_reads_it():
     (torch.bfloat16, torch.int8, 16, 4, True, True, "simple"),         # 64-row groups
     (torch.bfloat16, torch.int8, 256, 8, False, True, "simple"),       # block-major
     (torch.bfloat16, torch.bfloat16, 16, 128, True, True, "simple"),   # scaled bf16 corpus
+    (torch.bfloat16, torch.bfloat16, 256, 8, False, False, "wgmma"),   # K8, block-major
+    (torch.bfloat16, torch.bfloat16, 16, 8, False, False, "wgmma"),    # K8 at tile_n 128
+    (torch.bfloat16, torch.bfloat16, 16, 4, False, False, "simple"),   # K8 at tile_n 64
+    (torch.bfloat16, torch.bfloat16, 48, 8, False, False, "simple"),   # K8, odd block
+    (torch.float32, torch.float32, 16, 128, True, False, "f32"),       # K1 over f32
+    (torch.float32, torch.float32, 256, 8, True, False, "f32"),
+    (torch.float32, torch.float32, 16, 4, True, False, "simple"),      # 64-row groups
+    (torch.float32, torch.float32, 48, 128, True, False, "simple"),    # not in WGMMA_BLOCKS
+    (torch.float32, torch.float32, 16, 128, True, True, "simple"),     # scaled f32 corpus
 ])
 def test_kernel_choice_is_a_function_of_dtypes_and_shapes(queries, corpus, block, group, grouped,
                                                           scaled, want):

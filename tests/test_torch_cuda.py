@@ -64,14 +64,19 @@ def _mips_inputs(q, n, device, dtype, seed=0, negative=False):
     return queries.to(device, dtype), corpus.to(device, dtype)
 
 
+def _k1_counter(dtype: str) -> str:
+    """K1's launch counter: f32 runs csrc/block_maxima_f32.cu, bf16 the rest."""
+    return "f32_launches" if dtype == "float32" else "launches"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("q,block,group", [(300, 16, 128), (64, 32, 8), (2048, 16, 128)])
 def test_block_maxima_kernel_matches_plain(cuda, q, block, group, dtype):
     queries, corpus = _mips_inputs(q, block * group * 3, cuda, getattr(torch, dtype), seed=q)
-    before = mips_kernel.launches
+    before = getattr(mips_kernel, _k1_counter(dtype))
     got = mips_kernel.block_maxima_grouped(queries, corpus, block=block, group=group)
     torch.cuda.synchronize()
-    assert mips_kernel.launches == before + 1
+    assert getattr(mips_kernel, _k1_counter(dtype)) == before + 1
     want = mips_kernel.block_maxima_grouped_reference(queries, corpus, block=block, group=group)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=MIPS_ATOL, rtol=0)
@@ -120,9 +125,9 @@ def test_wgmma_pipeline_with_n_valid_inside_a_block(cuda, block):
 def test_mips_topk_on_gpu_matches_reference(cuda, dtype):
     queries, corpus = _mips_inputs(256, 9000, cuda, getattr(torch, dtype), seed=6,
                                    negative=True)
-    before = mips_kernel.launches
+    before = getattr(mips_kernel, _k1_counter(dtype))
     gv, gi = mips.mips_topk(queries, corpus, 80, n_valid=8995)
-    assert mips_kernel.launches == before + 1
+    assert getattr(mips_kernel, _k1_counter(dtype)) == before + 1
     rv, ri = mips.mips_topk_reference(queries, corpus, 80, n_valid=8995)
     assert topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
                               ri.cpu().numpy(), atol=MIPS_ATOL) == 0
@@ -139,6 +144,102 @@ def test_kernels_reject_what_they_do_not_take(cuda):
     q, k, v, mask = _attention_inputs(128, 2, 2, 48, cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         attention.fused_attention(q, k, v, mask, sm_scale=0.1)
+
+
+# --- K1 over f32 (csrc/block_maxima_f32.cu) and K8 on the Hopper kernel ---
+
+# f32 sums of 128 f32 products in another order than the plain version's
+F32_BMAX_TOL = 1e-5
+
+
+@pytest.mark.parametrize("q", [1, 64, 65, 200])
+@pytest.mark.parametrize("block", [16, 32, 128, 256])
+def test_f32_block_maxima_match_plain(cuda, block, q):
+    """K1's f32 kernel at blocks 16-256 (256 spans two chunks), ragged query
+    tiles, 20 groups of 8 blocks, so a persistent block walks several."""
+    assert mips_kernel.kernel_for(torch.float32, torch.float32, block=block, group=8,
+                                  grouped=True, scaled=False) == "f32"
+    queries, corpus = _mips_inputs(q, block * 8 * 20, cuda, torch.float32, seed=q + block)
+    before = mips_kernel.f32_launches
+    got = mips_kernel.block_maxima_grouped(queries, corpus, block=block, group=8)
+    torch.cuda.synchronize()
+    assert mips_kernel.f32_launches == before + 1
+    want = mips_kernel.block_maxima_grouped_reference(queries, corpus, block=block, group=8)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, atol=F32_BMAX_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("block", [16, 256])
+def test_f32_pipeline_with_n_valid_inside_a_block(cuda, block):
+    """mips_topk_v2 over f32 through K1's f32 kernel, the last real row
+    inside a block: every real score is negative, so an unmasked zero
+    padding row would win."""
+    n_valid = 128 * block + 3 * block + block // 2
+    queries, corpus = _mips_inputs(64, n_valid, cuda, torch.float32, seed=block, negative=True)
+    before = mips_kernel.f32_launches
+    gv, gi = mips_kernel.mips_topk_v2(queries, corpus, 80, block=block, n_valid=n_valid)
+    assert mips_kernel.f32_launches == before + 1
+    rv, ri = mips.mips_topk_reference(queries, corpus, 80, n_valid=n_valid)
+    assert topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
+                              ri.cpu().numpy(), atol=F32_BMAX_TOL) == 0
+    assert (gi < n_valid).all()
+
+
+@pytest.mark.parametrize("q", [1, 64, 65, 200])
+@pytest.mark.parametrize("block,tile_n", [(16, 128), (16, 2048), (64, 128), (64, 2048),
+                                          (256, 2048)])
+def test_wgmma_block_major_matches_plain(cuda, block, tile_n, q):
+    """K8 on the Hopper kernel (the block-major store), one warpgroup and
+    two, ragged query tiles; 40 tiles of 128 rows or 5 of 2,048, so a
+    persistent block walks several. The tolerance is MIPS_ATOL (f32 sums of
+    128 bf16 products in another order)."""
+    assert mips_kernel.kernel_for(torch.bfloat16, torch.bfloat16, block=block,
+                                  group=tile_n // block, grouped=False, scaled=False) == "wgmma"
+    tiles = 40 if tile_n == 128 else 5
+    queries, corpus = _mips_inputs(q, tile_n * tiles, cuda, torch.bfloat16, seed=q + block)
+    before = mips_kernel.block_major_launches
+    got = mips_kernel.block_maxima(queries, corpus, block=block, tile_n=tile_n)
+    torch.cuda.synchronize()
+    assert mips_kernel.block_major_launches == before + 1
+    assert got.shape == (tile_n * tiles // block, q)
+    torch.testing.assert_close(got, mips_kernel.block_maxima_reference(
+        queries, corpus, block=block, tile_n=tile_n), atol=MIPS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("block,tile_n", [(256, 2048), (16, 128)])
+def test_v1_topk_matches_exact(cuda, block, tile_n):
+    """mips_topk_v1 through K8's Hopper kernel at a ragged N of negative
+    scores (the padding must never win) against the exact top-80."""
+    queries, corpus = _mips_inputs(200, 9000, cuda, torch.bfloat16, seed=block, negative=True)
+    before = mips_kernel.block_major_launches
+    gv, gi = mips_kernel.mips_topk_v1(queries, corpus, 80, block=block, tile_n=tile_n,
+                                      n_valid=8995)
+    assert mips_kernel.block_major_launches == before + 1
+    rv, ri = mips.mips_topk_reference(queries, corpus, 80, n_valid=8995)
+    assert topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
+                              ri.cpu().numpy(), atol=MIPS_ATOL) == 0
+    assert (gi < 8995).all()
+
+
+@pytest.mark.parametrize("entry", ["proqa_block_maxima_f32",
+                                   "proqa_block_maxima_wgmma_block_major"])
+def test_hopper_block_maxima_entry_points_reject_what_they_do_not_take(cuda, entry):
+    """The two entry points' own checks: a block outside 16-256, a group of
+    64 rows, N not a multiple of a group, D other than 128; each launch is
+    refused with an error, never run."""
+    from proqa_tpu_torch import _build
+
+    dtype = torch.float32 if entry.endswith("f32") else torch.bfloat16
+    q, c = _mips_inputs(64, 4096, cuda, dtype)
+    out = torch.empty(4096 * 64, device=cuda)
+    extra = (out.data_ptr(),) if entry.endswith("f32") else ()  # gmax
+    for n, dim, block, group in ((4096, 128, 8, 16), (4096, 128, 16, 4), (4000, 128, 16, 8),
+                                 (4096, 64, 16, 8)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.launch(entry, q.device, q.data_ptr(), c.data_ptr(), out.data_ptr(), *extra,
+                          64, n, dim, block, group)
+    torch.cuda.synchronize()
 
 
 # --- the search family: K5, K7, K8 and K6/K9 ---
