@@ -10,12 +10,13 @@ Phases, each of which must pass. The dense-retrieval slice:
   3. K1, block maxima: the kernel against its plain version at the
      reference's operating point, a 4,194,304 x 128 bf16 corpus and 2,048
      queries, and at 32 queries (a small batch), then DenseIndex top-80
-     search against an exact reference;
+     search against an exact reference, K6's counter (its rescore) reset
+     before the search and read after;
   4. the main path through the CLI (build-db, build-index, encode-queries,
      eval-retrieval, retrieve) on a synthetic world of 8,192 paragraphs with
-     random BERT-base retriever weights, with both kernels' launch counters
-     reset before and read after, the eval's top-80 checked, and K1 held
-     against its plain version at the shapes this search gave it;
+     random BERT-base retriever weights, with the kernels' launch counters
+     (K1, K2, K6) reset before and read after, the eval's top-80 checked, and
+     K1 held against its plain version at the shapes this search gave it;
   5. K2 against its plain version, checked and timed at the shapes
      build-index gave it (B=512, H=12, Dh=64, T in 128..512, bf16, random key
      padding with one all-padding row).
@@ -38,8 +39,9 @@ The retriever-pretraining slice:
   9. the slice's main path through the CLI: pretrain-retriever (BERT-base,
      contexts of T=256, so K2/K3 run; queries of T=30 on the vanilla path
      with K4 on their probabilities), then build-index from its
-     checkpoint_last.pt and retrieve over it (K1), with every counter reset
-     before and read after, and the index checked against the plain encoder.
+     checkpoint_last.pt and retrieve over it (K1, K6), with every counter
+     reset before and read after, and the index checked against the plain
+     encoder.
 The int8 index and the rest of the search kernels:
  10. K5, scaled block maxima over int8 codes (the Hopper kernel of
      csrc/block_maxima_wgmma.cu, which widens the codes to bf16 in shared
@@ -57,10 +59,13 @@ The int8 index and the rest of the search kernels:
  13. K8, block-major maxima (the Hopper kernel of csrc/block_maxima_wgmma.cu
      with its block-major store), against its plain version at 4.2M bf16,
      and mips_topk_v1's top-80 against the K1 pipeline's;
- 14. K6/K9, gathered candidate scoring, on the candidate blocks the K1
-     pipeline selects at 4.2M (Q = 2,048, k = 80), against the plain gather
-     and product, timed beside the `take` path, and the streamed rescore's
-     top-80 against the take rescore's;
+ 14. K6/K9, gathered candidate scoring (csrc/gather_rescore.cu), on the
+     candidate blocks the K1 pipeline selects at 4.2M (Q = 2,048, k = kb =
+     80, block 16) and on those mips_topk_v1 rescores (its first chunk of
+     256 queries, kb = 128, block 256), over the bf16 corpus and over the
+     same corpus in f32, each against the plain gather and product, timed
+     beside the `take` path and its bound (each distinct candidate block read
+     once), and the streamed rescore's top-80 against the take rescore's;
  15. the int8 CLI path: eval-retrieval and retrieve with --int8-index on the
      retrieval world of phase 4 (8,192 rows, quant block 16, so K5 runs),
      with every counter reset before and read after, and a direct int8
@@ -69,10 +74,11 @@ The f32 (parity) path:
  16. K1 over f32 (csrc/block_maxima_f32.cu, full-f32 FMA products) against
      its plain version at 4,194,304 x 128 f32, Q = 2,048 and 32, block 16,
      its bound at the f32 FMA rate; then a DenseIndex(dtype=float32): top-80
-     search qps, and 256 queries against the exact f32 top-80;
+     search qps, and 256 queries against the exact f32 top-80, K6's counter
+     read around the search;
  17. the f32 CLI path: eval-retrieval and retrieve with --f32 on the
-     retrieval world of phase 4, the f32 kernel's counter reset before and
-     read after, and the recall JSON checked.
+     retrieval world of phase 4, the counters of the f32 kernel and of K6
+     reset before and read after, and the recall JSON checked.
 Each of phases 12-14 first drives its kernel's public pipeline once with the
 counters at 0 and reads them, then compares and times the kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -296,7 +302,7 @@ def phase_mips(device) -> dict:
     import torch
 
     from proqa_tpu_torch.index.dense import DenseIndex
-    from proqa_tpu_torch.ops import mips
+    from proqa_tpu_torch.ops import mips, rescore
     from proqa_tpu_torch.ops.dot import dot_f32
     from proqa_tpu_torch.testing import topk_disagreements
 
@@ -311,7 +317,9 @@ def phase_mips(device) -> dict:
     del k1_small["out"]
 
     index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
+    rescore.launches = 0
     vals, idx = index.search(queries, k)
+    check(rescore.launches > 0, "search: K6 was not launched by the bf16 DenseIndex.search")
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -328,7 +336,8 @@ def phase_mips(device) -> dict:
                                   atol=TOPK_TOL)
     check(bad == 0, f"search: {bad} of {n_check} queries disagree with the exact top-{k}")
     log(f"search top-{k} N={n} Q={q} bf16: {q / wall:.1f} qps ({wall * 1e3:.2f} ms per "
-        f"batch, host clock); {n_check} queries agree with the exact reference up to ties")
+        f"batch, host clock); {n_check} queries agree with the exact reference up to ties; "
+        f"its rescore launched K6")
     return {**k1, "max_abs_err": max(k1["max_abs_err"], k1_small["max_abs_err"]), "qps": q / wall}
 
 
@@ -384,7 +393,7 @@ def phase_cli(device, root: str) -> dict:
     from proqa_tpu_torch.models.bert import BertConfig
     from proqa_tpu_torch.models.convert import params_to_jax, save_npz
     from proqa_tpu_torch.models.retriever import Retriever
-    from proqa_tpu_torch.ops import attention, mips, mips_kernel
+    from proqa_tpu_torch.ops import attention, mips, mips_kernel, rescore
     from proqa_tpu_torch.testing import topk_disagreements
 
     n_paras, n_q, k, batch = 8192, 256, 80, 512
@@ -395,7 +404,7 @@ def phase_cli(device, root: str) -> dict:
     common = ["--vocab", p("vocab.txt"), "--init-checkpoint", ckpt, "--device", str(device)]
 
     attention.launches = 0
-    mips_kernel.launches = 0
+    mips_kernel.launches = rescore.launches = 0
     walls = {}
     _, walls["build-db"] = run_cli(["build-db", "--corpus", p("corpus.jsonl"), "--db", p("docs.db")])
     built, walls["build-index"] = run_cli(["build-index", *common, "--max-seq-length", "512",
@@ -408,10 +417,12 @@ def phase_cli(device, root: str) -> dict:
                                                "--device", str(device)])
     hit, walls["retrieve"] = run_cli(["retrieve", *common, "--question", "what is about tok3 tok7",
                                       "--index", p("index"), "--db", p("docs.db"), "--topk", "5"])
-    launches = {"attention": attention.launches, "block_maxima": mips_kernel.launches}
+    launches = {"attention": attention.launches, "block_maxima": mips_kernel.launches,
+                "rescore": rescore.launches}
     log(f"kernel launches during the CLI run: {json.dumps(launches)}")
     check(launches["attention"] > 0, "K2 was not launched on the main path")
     check(launches["block_maxima"] > 0, "K1 was not launched on the main path")
+    check(launches["rescore"] > 0, "K6 was not launched on the main path")
 
     check(built == {"rows": n_paras, "dim": 128, "saved": p("index")}, f"build-index: {built}")
     emb = np.load(p("index/embeddings.npy"))
@@ -725,7 +736,7 @@ def phase_pretrain_cli(device, root: str) -> dict:
     from proqa_tpu_torch.models.bert import BertConfig
     from proqa_tpu_torch.models.convert import load_params
     from proqa_tpu_torch.models.retriever import Retriever
-    from proqa_tpu_torch.ops import attention, dropout, mips_kernel
+    from proqa_tpu_torch.ops import attention, dropout, mips_kernel, rescore
     from proqa_tpu_torch.text.wordpiece import BertTokenizer
 
     n_paras = 4608  # padded index past 4,096 rows: retrieve searches through K1
@@ -734,7 +745,7 @@ def phase_pretrain_cli(device, root: str) -> dict:
     seq = ["--vocab", p("vocab.txt"), "--max-seq-length", "286", "--max-query-length", "30",
            "--device", str(device)]
     attention.launches = attention.backward_launches = 0
-    dropout.launches = mips_kernel.launches = 0
+    dropout.launches = mips_kernel.launches = rescore.launches = 0
     walls = {}
     trained, walls["pretrain-retriever"] = run_cli([
         "pretrain-retriever", *seq, "--train-file", p("pairs.jsonl"),
@@ -749,7 +760,8 @@ def phase_pretrain_cli(device, root: str) -> dict:
         "retrieve", *seq, "--question", "what is about tok3 tok7", "--index", p("index"),
         "--init-checkpoint", p("run/checkpoint_last.pt"), "--topk", "5"])
     launches = {"K1": mips_kernel.launches, "K2": attention.launches,
-                "K3": attention.backward_launches, "K4": dropout.launches}
+                "K3": attention.backward_launches, "K4": dropout.launches,
+                "K6": rescore.launches}
     log(f"kernel launches during pretrain-retriever -> build-index -> retrieve: "
         f"{json.dumps(launches)}; wall seconds {json.dumps(walls)}")
     check(all(n > 0 for n in launches.values()), f"a kernel never ran on the CLI path {launches}")
@@ -999,11 +1011,14 @@ def phase_v1(device) -> tuple[dict, int]:
 
 
 def phase_rescore(device) -> tuple[dict, dict, dict]:
-    """K6 and K9 on the candidate blocks the K1 pipeline selects at 4.2M
-    (Q = 2,048, k = 80): mips_topk_v2(rescore_impl="stream") and gather_score
-    once with the counters at 0; then both against the plain gather and
-    product, timed beside the `take` path (the gather and dot_f32), and the
-    streamed top-80 against the take top-80."""
+    """K6 and K9 (csrc/gather_rescore.cu) on the candidate blocks the K1
+    pipeline selects at 4.2M (Q = 2,048, k = kb = 80, block 16) and on those
+    mips_topk_v1 rescores (its first chunk: 256 queries, kb = 128, block
+    256): mips_topk_v2(rescore_impl="stream") and gather_score once with the
+    counters at 0; then both kernels over the bf16 corpus and over the same
+    corpus in f32 against the plain gather and product, timed beside the
+    `take` path (the gather and dot_f32) and the bound, and the streamed
+    top-80 against the take top-80. The kernels line keeps block 16 bf16."""
     import torch
 
     from proqa_tpu_torch.ops import mips_kernel, rescore
@@ -1011,49 +1026,72 @@ def phase_rescore(device) -> tuple[dict, dict, dict]:
     from proqa_tpu_torch.testing import topk_disagreements
 
     corpus, queries = bf16_corpus(device)
-    (n, d), q, k, block = corpus.shape, queries.shape[0], 80, 16
+    (n, d), q, k = corpus.shape, queries.shape[0], 80
     qb = queries.bfloat16()
-    blocks = corpus.view(-1, block, d)
-    ids = mips_kernel.select_blocks(qb, corpus, k, block=block)          # [Q, 80]
+    ids16 = mips_kernel.select_blocks(qb, corpus, k, block=16)           # [Q, 80]
     rescore.launches = rescore.score_launches = 0
-    stream = mips_kernel.mips_topk_v2(qb, corpus, k, block=block, rescore_impl="stream")
-    rescore.gather_score(qb, blocks, ids, block=block)
+    stream = mips_kernel.mips_topk_v2(qb, corpus, k, block=16, rescore_impl="stream")
+    rescore.gather_score(qb, corpus.view(-1, 16, d), ids16, block=16)
     torch.cuda.synchronize()
     launches = {"K6": rescore.launches, "K9": rescore.score_launches}
     check(all(v > 0 for v in launches.values()), f"K6/K9 not launched: {launches}")
-    take = mips_kernel.mips_topk_v2(qb, corpus, k, block=block)
+    take = mips_kernel.mips_topk_v2(qb, corpus, k, block=16, rescore_impl="take")
     bad = topk_disagreements(*(x.cpu().numpy() for x in (*stream, *take)), atol=TOPK_TOL)
     check(bad == 0, f"stream rescore: {bad} of {q} queries disagree with the take rescore")
+    del stream, take
+    # mips_topk_v1's first rescore: the top-128 blocks of 256 rows of its
+    # first 256 queries by K8's maxima
+    q256 = qb[:256].contiguous()
+    ids256 = torch.topk(mips_kernel.block_maxima(q256, corpus, block=256, tile_n=2048).T,
+                        128).indices
+    corpus_f32 = corpus.float()
 
-    want = rescore.gather_rescore_reference(qb, blocks, ids, block=block)
-    kb = ids.shape[1]
-
-    def take_path():
-        cand = blocks[ids].view(q, kb * block, d)
-        return dot_f32(cand, qb[:, :, None]).view(q, kb * block)
-
-    results = {}
-    for name, fn in (("K6", rescore.gather_rescore), ("K9", rescore.gather_score)):
-        got = fn(qb, blocks, ids, block=block)
+    def run(name, fn, qs, flat, ids, block):
+        blocks = flat.view(-1, block, d)
+        kb, nq = ids.shape[1], qs.shape[0]
+        want = rescore.gather_rescore_reference(qs, blocks, ids, block=block)
+        got = fn(qs, blocks, ids, block=block)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         check(err <= BMAX_TOL, f"{name}: max abs err {err} > {BMAX_TOL}")
-        results[name] = {"max_abs_err": err,
-                         "ms": cuda_ms(lambda: fn(qb, blocks, ids, block=block), reps=20)}
-    plain_ms = cuda_ms(lambda: rescore.gather_rescore_reference(qb, blocks, ids, block=block))
-    library_ms = cuda_ms(take_path, reps=20)
-    # bytes this data needs: each distinct candidate block read once
-    distinct = torch.unique(ids).numel()
-    nbytes = distinct * block * d * 2 + qb.numel() * 2 + ids.numel() * 8 + want.numel() * 4
-    bound_ms, bound_by = bound(nbytes, 2.0 * q * kb * block * d)
-    for name, r in results.items():
-        r.update(plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        log(f"{name} Q={q} kb={kb} block={block} bf16 ({distinct} distinct candidate blocks): "
-            f"max_abs_err {r['max_abs_err']:.3g} (tol {BMAX_TOL}), kernel {r['ms']:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, take path (gather + dot_f32) {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
+        del got, want
+
+        def take_path():
+            cand = blocks[ids].view(nq, kb * block, d)
+            return dot_f32(cand, qs[:, :, None]).view(nq, kb * block)
+
+        ms = cuda_ms(lambda: fn(qs, blocks, ids, block=block), reps=20)
+        queued = cuda_ms(lambda: fn(qs, blocks, ids, block=block), calls=10)
+        plain_ms = cuda_ms(lambda: rescore.gather_rescore_reference(qs, blocks, ids,
+                                                                    block=block), reps=3)
+        library_ms = cuda_ms(take_path, reps=10)
+        # bytes this data needs: each distinct candidate block read once
+        distinct = torch.unique(ids).numel()
+        elt = flat.element_size()
+        nbytes = (distinct * block * d * elt + qs.numel() * elt + ids.numel() * 8
+                  + nq * kb * block * 4)
+        bound_ms, bound_by = bound(nbytes, 2.0 * nq * kb * block * d)
+        log(f"{name} Q={nq} kb={kb} block={block} {flat.dtype} ({distinct} distinct candidate "
+            f"blocks of {ids.numel()}): max_abs_err {err:.3g} (tol {BMAX_TOL}), kernel {ms:.4f} "
+            f"ms (queued {queued:.4f}), plain {plain_ms:.4f} ms, take path (gather + dot_f32) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        return {"max_abs_err": err, "ms": ms, "queued_ms": queued, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+    results = {}
+    for label, flat, qs16, qs256 in (("bf16", corpus, qb, q256),
+                                     ("f32", corpus_f32, queries, q256.float())):
+        for name, fn in (("K6", rescore.gather_rescore), ("K9", rescore.gather_score)):
+            results[name, label, 16] = run(name, fn, qs16, flat, ids16, 16)
+            results[name, label, 256] = run(name, fn, qs256, flat, ids256, 256)
+    del corpus_f32
     log(f"streamed rescore top-{k}: all {q} queries agree with the take rescore up to ties")
-    return results["K6"], results["K9"], launches
+    out = {}
+    for name in ("K6", "K9"):
+        out[name] = {**results[name, "bf16", 16],
+                     "max_abs_err": max(r["max_abs_err"] for key, r in results.items()
+                                        if key[0] == name)}
+    return out["K6"], out["K9"], launches
 
 
 def phase_int8_cli(device, root: str, recall_bf16: dict) -> tuple[int, float]:
@@ -1120,7 +1158,7 @@ def phase_f32(device) -> dict:
     import torch
 
     from proqa_tpu_torch.index.dense import DenseIndex
-    from proqa_tpu_torch.ops import mips, mips_kernel
+    from proqa_tpu_torch.ops import mips, mips_kernel, rescore
     from proqa_tpu_torch.ops.dot import dot_f32
     from proqa_tpu_torch.testing import topk_disagreements
 
@@ -1139,7 +1177,9 @@ def phase_f32(device) -> dict:
     del k1_small["out"]
 
     index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.float32)
+    rescore.launches = 0
     vals, idx = index.search(queries, k)
+    check(rescore.launches > 0, "f32 search: K6 was not launched by the f32 DenseIndex.search")
     qps = _search_qps(lambda: index.search(queries, k), q)  # ends in a device-to-host copy
     check(vals.shape == (q, k) and np.isfinite(vals).all(), "f32 search: bad values")
     n_check, bad = 256, 0
@@ -1149,40 +1189,42 @@ def phase_f32(device) -> dict:
                                   ref.indices.cpu().numpy(), atol=TOPK_TOL)
     check(bad == 0, f"f32 search: {bad} of {n_check} queries disagree with the exact top-{k}")
     log(f"f32 search top-{k} N={n} Q={q}: {qps:.1f} qps (host clock); {n_check} queries agree "
-        f"with the exact f32 top-{k} up to ties")
+        f"with the exact f32 top-{k} up to ties; its rescore launched K6")
     return {**k1, "max_abs_err": max(k1["max_abs_err"], k1_small["max_abs_err"]), "qps": qps}
 
 
 def phase_f32_cli(device, root: str, recall_bf16: dict) -> int:
     """The f32 CLI path on phase_cli's retrieval world: eval-retrieval and
-    retrieve with --f32, the f32 kernel's counter reset before and read
-    after."""
+    retrieve with --f32, the counters of the f32 kernel and of K6 reset
+    before and read after."""
     import numpy as np
     import torch
 
-    from proqa_tpu_torch.ops import mips, mips_kernel
+    from proqa_tpu_torch.ops import mips, mips_kernel, rescore
 
     p = lambda name: os.path.join(root, name)  # noqa: E731
     rows = np.load(p("index/embeddings.npy"), mmap_mode="r").shape[0]
     route = mips_kernel.kernel_for(torch.float32, torch.float32, block=mips.envelope_block(rows),
                                    group=mips_kernel.GROUP, grouped=True, scaled=False)
     check(route == "f32", f"the f32 CLI path's K1 takes the {route} kernel")
-    mips_kernel.f32_launches = 0
+    mips_kernel.f32_launches = rescore.launches = 0
     recall, wall_eval = run_cli(["eval-retrieval", p("qa.jsonl"), p("index"), p("q.npy"),
                                  p("docs.db"), "--topk", "80", "--f32", "--device", str(device)])
     hit, wall_retrieve = run_cli(["retrieve", "--vocab", p("vocab.txt"), "--init-checkpoint",
                                   p("retriever.npz"), "--device", str(device), "--question",
                                   "what is about tok3 tok7", "--index", p("index"), "--db",
                                   p("docs.db"), "--topk", "5", "--f32"])
-    launches = mips_kernel.f32_launches
-    log(f"K1 f32 launches during eval-retrieval and retrieve --f32 ({rows} rows): {launches}")
+    launches, k6 = mips_kernel.f32_launches, rescore.launches
+    log(f"K1 f32 launches during eval-retrieval and retrieve --f32 ({rows} rows): {launches}; "
+        f"K6: {k6}")
     check(launches > 0, "K1's f32 kernel was not launched on the f32 CLI path")
+    check(k6 > 0, "K6 was not launched on the f32 CLI path")
     check(set(recall) == set(recall_bf16) and all(0.0 <= v <= 1.0 for v in recall.values()),
           f"f32 recall {recall}")
     check(len(hit["topk"]) == 5 and all(r["text"] for r in hit["topk"]), "retrieve --f32: bad hits")
     log(f"recall, f32 index: {json.dumps(recall)} (eval {wall_eval:.2f} s, retrieve "
         f"{wall_retrieve:.2f} s wall)")
-    return launches
+    return launches, k6
 
 
 def gpu_line() -> str:
@@ -1224,7 +1266,7 @@ def main() -> int:
         with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
             retrieval, k1_cli_err, batch, recall = timed("retrieval_cli", phase_cli, device, root)
             k5_launches, k5_cli_err = timed("int8_cli", phase_int8_cli, device, root, recall)
-            f32_launches = timed("f32_cli", phase_f32_cli, device, root, recall)
+            f32_launches, k6_f32_cli = timed("f32_cli", phase_f32_cli, device, root, recall)
         k2_encode = timed("attention_encode", phase_attention, device, batch)
         # the retriever-pretraining slice
         k4 = timed("dropout", phase_dropout, device)
@@ -1270,12 +1312,14 @@ def main() -> int:
         entry("dropout (K4)", "dropout.cu", "proqa_tpu/ops/pallas_dropout.py:32", pretrain["K4"],
               k4, k4["max_abs_err"]),
         # launches: the int8 CLI path (K5) and each kernel's own pipeline
-        # (K6-K9); times at 4.2M rows (K5 at 67.1M: in the log above)
+        # (K7-K9); times at 4.2M rows (K5 at 67.1M: in the log above)
         entry("block_maxima_grouped scaled (K5)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:97", k5_launches, k5,
               max(k5["max_abs_err"], k5_cap["max_abs_err"], k5_cli_err)),
+        # launches: the retrieval, pretraining and f32 CLI paths (K6 is the
+        # rescore of every bf16 and f32 search); K9: its own pipeline's run
         entry("gather_rescore (K6)", "gather_rescore.cu", "proqa_tpu/ops/pallas_rescore.py:58",
-              rescore_launches["K6"], k6),
+              retrieval["rescore"] + pretrain["K6"] + k6_f32_cli, k6),
         entry("block_maxima_grouped bounded (K7)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:111", k7_launches, k7),
         entry("block_maxima (K8)", "block_maxima_wgmma.cu", "proqa_tpu/ops/pallas_mips.py:32",

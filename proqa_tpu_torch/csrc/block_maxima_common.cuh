@@ -3,6 +3,8 @@
 // block_maxima_f32.cu (K1 over f32). Both stream corpus chunks by TMA into a
 // ring of shared-memory stages guarded by mbarriers, and both take the block
 // maxima on registers, finishing them with exchanges of halves between lanes.
+// gather_rescore.cu (K6/K9) feeds its ring with the 1D bulk copy and the same
+// mbarriers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is found at run time)
@@ -46,6 +48,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, as one 1D bulk copy (no tensor map); completes `bytes` on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -1,7 +1,7 @@
-"""Times kernels K1, K5, K7, K8 and K4 of a checkout of the port on one
+"""Times kernels K1, K5, K6, K7, K8 and K4 of a checkout of the port on one
 NVIDIA GPU, and the host path of one K4 call piece by piece.
 
-    python proqa_tpu_torch/kernel_times.py [--root DIR] [--out FILE]
+    python proqa_tpu_torch/kernel_times.py [--root DIR] [--out FILE] [--only K6,K1]
 
 --root is the checkout whose `proqa_tpu_torch` is imported (default: the one
 this file lies in), so that one command can time an older checkout with the
@@ -16,6 +16,11 @@ of repeated rounds:
       128, at Q = 2,048 and Q = 32;
   K8  block_maxima (block-major), the same corpus, Q = 2,048, block 256,
       tile_n 2,048;
+  K6  gather_rescore (K9 runs the same kernel): the same corpus's candidate
+      blocks that the K1 pipeline selects, Q = 2,048, k = kb = 80, block 16,
+      and at mips_topk_v1's shape, its top-128 blocks of 256 rows for the
+      first 256 queries (its query chunk); then the block-16 candidates over
+      an f32 corpus;
   K1 f32  block_maxima_grouped over a 4,194,304 x 128 f32 corpus and f32
       queries, block 16, group 128, at Q = 2,048 and Q = 32;
   K5  the same over 4,194,304 x 128 int8 codes with per-block scales, at
@@ -31,9 +36,10 @@ call of this checkout's wrapper with and without autograd, beside
 F.dropout's whole call.
 
 Each kernel's CUDA kernel names are read from a torch.profiler trace of one
-more call ("kernels"), so the record shows which body ran. Prints one JSON
-object, with the card's name and power limit; exits non-zero without a CUDA
-device.
+more call ("kernels"), so the record shows which body ran. --only times the
+kernels whose names start with one of the given prefixes (and skips K4's
+host pieces unless K4 is among them). Prints one JSON object, with the
+card's name and power limit; exits non-zero without a CUDA device.
 """
 from __future__ import annotations
 
@@ -153,7 +159,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--out", default=None, help="also write the JSON object here")
+    ap.add_argument("--only", default="", help="comma-separated kernel name prefixes")
     args = ap.parse_args(argv)
+    only = tuple(p for p in args.only.split(",") if p)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
     import torch.nn.functional as F
@@ -161,7 +169,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
-    from proqa_tpu_torch.ops import dropout, mips_kernel
+    from proqa_tpu_torch.ops import dropout, mips_kernel, rescore
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
@@ -172,6 +180,8 @@ def main(argv=None) -> int:
     out = {"gpu": gpu, "root": os.path.abspath(args.root), "kernels": {}}
 
     def time_kernel(name, fn, rounds=5, queued_rounds=3):
+        if only and not name.startswith(only):
+            return
         out[f"{name} one call ms"] = _events_ms(fn, 1, rounds)
         out[f"{name} queued ms"] = _events_ms(fn, 10, queued_rounds)
         out["kernels"][name] = _kernel_names(fn)
@@ -181,14 +191,27 @@ def main(argv=None) -> int:
         time_kernel(f"K1 Q={q}", lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
     time_kernel("K8 Q=2048", lambda: mips_kernel.block_maxima(queries, corpus, block=256,
                                                               tile_n=2048))
-    del corpus
+    ids = mips_kernel.select_blocks(queries, corpus, 80, block=16)
+    blocks = corpus.view(-1, 16, 128)
+    time_kernel("K6 Q=2048 kb=80 block=16",
+                lambda: rescore.gather_rescore(queries, blocks, ids, block=16), rounds=20)
+    q256 = queries[:256].contiguous()
+    ids256 = torch.topk(mips_kernel.block_maxima(q256, corpus, block=256, tile_n=2048).T,
+                        128).indices
+    blocks256 = corpus.view(-1, 256, 128)
+    time_kernel("K6 Q=256 kb=128 block=256",
+                lambda: rescore.gather_rescore(q256, blocks256, ids256, block=256), rounds=20)
+    del corpus, blocks, blocks256
     corpus = torch.randn(4_194_304, 128, device=dev, generator=g) / 128 ** 0.5
     queries_f32 = torch.randn(2048, 128, device=dev, generator=g) / 128 ** 0.5
     for q in (2048, 32):
         qs = queries_f32[:q].contiguous()
         time_kernel(f"K1 f32 Q={q}",
                     lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
-    del corpus, queries_f32
+    blocks = corpus.view(-1, 16, 128)
+    time_kernel("K6 f32 Q=2048 kb=80 block=16",
+                lambda: rescore.gather_rescore(queries_f32, blocks, ids, block=16), rounds=20)
+    del corpus, queries_f32, blocks, ids
     # int8 codes and scales made on the device (uniform codes in [-127, 127])
     codes = torch.randint(-127, 128, (4_194_304, 128), device=dev, generator=g,
                           dtype=torch.int8)
@@ -205,8 +228,9 @@ def main(argv=None) -> int:
     for name, fn in (("K4", lambda: dropout.dropout(x, 0.1, seed=3)),
                      ("F.dropout", lambda: F.dropout(x, 0.1, training=True))):
         time_kernel(name, fn, rounds=20, queued_rounds=5)
-    out["K4 host pieces us"] = host_pieces(
-        torch.randn(80, 768, device=dev, generator=g).bfloat16())
+    if not only or "K4".startswith(only):
+        out["K4 host pieces us"] = host_pieces(
+            torch.randn(80, 768, device=dev, generator=g).bfloat16())
     line = json.dumps(out)
     print(line)
     if args.out:

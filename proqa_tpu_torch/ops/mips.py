@@ -5,7 +5,8 @@ matrix on the device, or int8 codes with f32 scales (ops/quant.py), the
 scores then being scale * (query . codes). Exact top-k with k <= 512 over a
 corpus too large for a full [Q, N] top-k runs the three-stage block-max
 pipeline of ops/mips_kernel.py, whose first stage is kernel K1 (K5 over int8
-codes) on a CUDA corpus.
+codes) on a CUDA corpus, and whose rescore is kernel K6 over a CUDA bf16 or
+f32 corpus (rescore_impl_for).
 
 Exactness of the block-max selection (unchanged from the JAX package): if row
 r is among the true top-k, its block's max >= score(r) >= v_k; any block
@@ -25,7 +26,7 @@ import torch
 
 from proqa_tpu_torch.ops.dot import dot_f32
 from proqa_tpu_torch.ops.quant import expand_scales
-from proqa_tpu_torch.ops.rescore import gather_rescore
+from proqa_tpu_torch.ops.rescore import KERNEL_DIM, gather_rescore
 
 NEG_INF = float(np.float32(-3.0e38))  # finite in bf16 too; the f32 value exactly
 
@@ -65,8 +66,23 @@ def exact_topk(scores: torch.Tensor, k: int):
     return torch.topk(scores, k, dim=-1)
 
 
+def rescore_impl_for(device, queries_dtype, corpus_dtype, dim: int, scaled: bool) -> str:
+    """The rescore a search takes by default, from its arguments alone,
+    before any launch: "stream" (kernel K6, ops/rescore.py) for CUDA tensors
+    whose queries and corpus share a dtype of bf16 or f32, with no int8
+    scales, at D = 128; "take" everywhere else (the CPU, int8 corpora, other
+    widths). The JAX package defaults to "take" everywhere, since its stream
+    kernel lost on a v5e (proqa_tpu/ops/pallas_rescore.py:3-11); on the H100
+    K6 is the faster of the two (PERF.md section 6)."""
+    if (torch.device(device).type == "cuda" and not scaled and dim == KERNEL_DIM
+            and corpus_dtype == queries_dtype
+            and queries_dtype in (torch.bfloat16, torch.float32)):
+        return "stream"
+    return "take"
+
+
 def rescore_block_candidates(q_emb, blocks_ids, corpus_blocks, *, k: int, block: int,
-                             n_valid: int, impl: str = "take", block_scales=None,
+                             n_valid: int, impl: str | None = None, block_scales=None,
                              row_scales=None):
     """Exact top-k among each query's candidate blocks: the rescore stage
     shared by every block-max path.
@@ -76,7 +92,8 @@ def rescore_block_candidates(q_emb, blocks_ids, corpus_blocks, *, k: int, block:
 
     impl: "take" gathers the candidate rows ([QC, kb, block, D]) and scores
     them with one batched product; "stream" scores them where they lie,
-    kernel K6 (ops/rescore.py), and takes no int8 scales.
+    kernel K6 (ops/rescore.py), and takes no int8 scales; None picks by
+    rescore_impl_for.
     block_scales: per-block f32 [NB] of an int8 corpus; row_scales: per-row
     f32 [NB * block] (the row-scored paths). Candidate scores are multiplied
     by them before the selection."""
@@ -84,10 +101,13 @@ def rescore_block_candidates(q_emb, blocks_ids, corpus_blocks, *, k: int, block:
     d = q_emb.shape[1]
     if block_scales is not None and row_scales is not None:
         raise ValueError("pass block_scales or row_scales, not both")
+    if impl is None:
+        impl = rescore_impl_for(q_emb.device, q_emb.dtype, corpus_blocks.dtype, d,
+                                block_scales is not None or row_scales is not None)
     if impl == "stream":
         if block_scales is not None or row_scales is not None:
             raise ValueError("stream rescore does not support int8")
-        s = gather_rescore(q_emb, corpus_blocks, blocks_ids, block=block)
+        s = gather_rescore(q_emb.contiguous(), corpus_blocks, blocks_ids, block=block)
     elif impl == "take":
         cand = corpus_blocks[blocks_ids].to(q_emb.dtype).view(qc, kb * block, d)
         s = dot_f32(cand, q_emb[:, :, None]).view(qc, kb * block)

@@ -8,19 +8,20 @@ block_maxima (K8), and the two search pipelines around them. mips_topk_v2
   1. K1/K5/K7: block maxima bmax3 [CG, Q, G] and group maxima gmax [CG, 1, Q];
   2. select: the top-k groups from gmax, then the top-k blocks among the
      k * G block maxima of those groups;
-  3. rescore: score those k blocks' rows and take the exact top-k (the
-     `take` gather, or kernel K6 with rescore_impl="stream").
+  3. rescore: score those k blocks' rows and take the exact top-k (kernel
+     K6 on CUDA over bf16 or f32, else the `take` gather:
+     ops/mips.py:rescore_impl_for).
 
 mips_topk_v1 (mips_topk_pallas) is the older two-stage pipeline: K8's block
 maxima [NB, Q], the top-kb blocks of each query, the rescore.
 
-Stages 2 and 3 are torch ops, as they are XLA ops in the JAX package. CUDA
-tensors run a hand-written kernel (`kernel_for` chooses): K1 over a bf16
-corpus, K5 and K7 over int8 codes, all with bf16 queries, and K8 over bf16 in
-csrc/block_maxima_wgmma.cu; K1 over f32 in csrc/block_maxima_f32.cu; f32 K8,
-f32 queries over int8 codes and the shapes neither takes in
-csrc/block_maxima.cu. CPU tensors run their plain PyTorch versions
-(`*_reference`).
+Stage 2 and stage 3's selection are torch ops, as they are XLA ops in the
+JAX package. CUDA tensors run a hand-written block-maxima kernel
+(`kernel_for` chooses): K1 over a bf16 corpus, K5 and K7 over int8 codes,
+all with bf16 queries, and K8 over bf16 in csrc/block_maxima_wgmma.cu; K1
+over f32 in csrc/block_maxima_f32.cu; f32 K8, f32 queries over int8 codes
+and the shapes neither takes in csrc/block_maxima.cu. CPU tensors run their
+plain PyTorch versions (`*_reference`).
 """
 from __future__ import annotations
 
@@ -285,7 +286,7 @@ def select_blocks(queries, corpus, k: int, *, block: int, group: int = GROUP,
 
 def mips_topk_v2(queries, corpus, k: int, *, block: int, group: int = GROUP,
                  kb: int | None = None, n_valid: int | None = None, scales=None,
-                 row_scales=None, rescore_impl: str = "take"):
+                 row_scales=None, rescore_impl: str | None = None):
     """Exact MIPS top-k through the three stages above; returns (values
     [Q, k] f32, row indices [Q, k] int64). Rows at or past n_valid are
     padding and never returned with a real score. Stage 2 keeps kb (default
@@ -297,7 +298,9 @@ def mips_topk_v2(queries, corpus, k: int, *, block: int, group: int = GROUP,
     per-row f32 [N]; stages 1-2 select blocks by a per-block upper bound (K7)
     and stage 3 rescores with the exact row scales. Selection by a bound is a
     heuristic, as in the JAX package: widen kb (16 * k) to recover recall.
-    rescore_impl: "take" or "stream" (kernel K6, no int8 scales)."""
+    rescore_impl: "take", "stream" (kernel K6, no int8 scales) or None, the
+    choice of ops/mips.py:rescore_impl_for ("stream" on CUDA over bf16 or
+    f32)."""
     d = queries.shape[1]
     if n_valid is None:
         n_valid = corpus.shape[0]
@@ -323,7 +326,8 @@ def mips_topk_v1(queries, corpus, k: int, *, block: int = 256, kb: int = 128,
                  q_chunk: int = 256, tile_n: int = 2048, n_valid: int | None = None):
     """Exact MIPS top-k through K8's block maxima and a rescore of each
     query's top-kb blocks, q_chunk queries at a time (mips_topk_pallas, the
-    JAX package's first pipeline). Returns (values [Q, k] f32, row indices
+    JAX package's first pipeline), the rescore chosen by
+    ops/mips.py:rescore_impl_for. Returns (values [Q, k] f32, row indices
     [Q, k] int64)."""
     q, d = queries.shape
     if n_valid is None:

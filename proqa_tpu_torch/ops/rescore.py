@@ -9,9 +9,17 @@ proqa_tpu/ops/pallas_gather_score.py:gather_score (K9). Both return
 
 They are the same function (the two TPU kernels differ only in how Mosaic
 fetched the slabs), so both wrappers launch the one CUDA kernel of
-csrc/gather_rescore.cu, each with its own launch counter. The TPU's layout
-limits (128 % block == 0, Q % 8 == 0, per-call query chunks) do not apply.
-CPU tensors run `gather_rescore_reference`, the plain version.
+csrc/gather_rescore.cu, each with its own launch counter. The kernel walks
+a persistent grid over work items (a query and a run of at most 32 of its
+candidate blocks): a producer warp loads the run's ids once and copies each
+candidate block's rows by one bulk copy into a ring of shared-memory
+stages, and consumer warps score them against the query in f32 and store
+the scores coalesced. It is the rescore of every CUDA search over a bf16 or
+f32 corpus (ops/mips.py:rescore_impl_for): DenseIndex.search, the
+eval-retrieval and retrieve commands with and without --f32, and
+mips_topk_v1; int8 corpora keep the `take` rescore. The TPU's layout limits
+(128 % block == 0, Q % 8 == 0, per-call query chunks) do not apply. CPU
+tensors run `gather_rescore_reference`, the plain version.
 """
 from __future__ import annotations
 

@@ -1,16 +1,17 @@
 """Where the device time goes in the port's hot workloads, on one NVIDIA GPU.
 
     python -m proqa_tpu_torch.profile_slice [--out build/profile_slice.json]
+        [--only search,search_f32]
 
 Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
   search      DenseIndex.search, exact top-80 over a 4,194,304 x 128 bf16
-              corpus, 2,048 queries per batch (kernel K1, then torch select
-              and rescore);
+              corpus, 2,048 queries per batch (kernel K1, torch select,
+              then kernel K6's rescore);
   search_f32  the same over an f32 index (`--f32`; kernel K1's f32 body,
-              csrc/block_maxima_f32.cu);
+              csrc/block_maxima_f32.cu, and K6 over f32 rows);
   search_int8 the same over an int8 index (`--int8-index`): codes and
               per-block scales made on the device, quant block 16 (kernel
-              K5, then the select and the scaled rescore);
+              K5, then the select and the scaled `take` rescore);
   encode_T*   the BERT-base context tower, bf16, 512 rows of T tokens
               (build-index's batch; K2 at every layer);
   train       one retriever train step at bench.py's operating point
@@ -28,7 +29,9 @@ For each workload:
     the host-clock wall of the traced calls. Device time is summed by kernel
     group, by the aten op that launched the kernel, and by kernel name.
 
-Exits non-zero without a CUDA device: there is no CPU fallback.
+--only runs the named workloads alone (the encode workloads are named
+encode_T128, encode_T256, encode_T512). Exits non-zero without a CUDA
+device: there is no CPU fallback.
 """
 from __future__ import annotations
 
@@ -49,7 +52,8 @@ GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # block-maxima kernel names its epilogue and output layout
 # (bmax_wgmma_kernel<block, warpgroups, corpus type, epilogue, layout>), the
 # f32 one is bmax_f32_kernel<block, queries a thread>; the simple body names
-# its output layout.
+# its output layout. K6/K9 is gather_score_ring_kernel<T> (in older
+# checkouts gather_score_kernel<T>), grouped before "gather" can claim it.
 GROUPS = (
     ("K5 block_maxima int8", ("BlockScales",)),
     ("K7 block_maxima int8 bound", ("RowBounds",)),
@@ -59,7 +63,7 @@ GROUPS = (
     ("K5/K7 simple body", ("bmax3_kernel<float, signed char>",
                            "bmax3_kernel<__nv_bfloat16, signed char>")),
     ("K1 block_maxima", ("bmax_wgmma_kernel", "bmax3_kernel")),
-    ("K6/K9 gather_score", ("gather_score_kernel",)),
+    ("K6/K9 gather_score", ("gather_score_ring_kernel", "gather_score_kernel")),
     ("K2 attention", ("attention_fwd_",)),   # attention_fwd_wgmma_kernel (bf16), _simple_ (f32)
     ("K3 attention backward", ("attention_bwd_",)),  # attention_bwd_rows_ and _cols_kernel
     ("K4 dropout", ("dropout_vec_kernel", "dropout_scalar_kernel")),
@@ -307,7 +311,10 @@ def train_workload(trace_dir: str, loop_calls: int) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_slice.json")
+    ap.add_argument("--only", default="", help="comma-separated workload names")
     args = ap.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
+    wanted = lambda name: not only or name in only  # noqa: E731
     if not torch.cuda.is_available():
         print("profile_slice: no CUDA device; this measurement needs an NVIDIA GPU",
               file=sys.stderr)
@@ -324,17 +331,25 @@ def main(argv=None) -> int:
     report = {"gpu": gpu, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda, "workloads": []}
     with tempfile.TemporaryDirectory(prefix="proqa_profile_") as trace_dir:
-        for dtype, calls in ((torch.bfloat16, 100), (torch.float32, 25)):
-            report["workloads"].append(search_workload(dtype, trace_dir, calls))
+        for name, dtype, calls in (("search", torch.bfloat16, 100),
+                                   ("search_f32", torch.float32, 25)):
+            if wanted(name):
+                report["workloads"].append(search_workload(dtype, trace_dir, calls))
+                torch.cuda.empty_cache()
+        if wanted("search_int8"):
+            report["workloads"].append(search_int8_workload(trace_dir, 100))
             torch.cuda.empty_cache()
-        report["workloads"].append(search_int8_workload(trace_dir, 100))
-        torch.cuda.empty_cache()
-        model = Retriever(BertConfig(flash_attention=True)).reset_parameters(5).to("cuda").eval()
-        for t, calls in ((128, 20), (256, 10), (512, 5)):
-            report["workloads"].append(encode_workload(model, t, trace_dir, calls))
-            torch.cuda.empty_cache()
-        del model
-        report["workloads"].append(train_workload(trace_dir, 10))
+        buckets = [(t, calls) for t, calls in ((128, 20), (256, 10), (512, 5))
+                   if wanted(f"encode_T{t}")]
+        if buckets:
+            model = Retriever(BertConfig(flash_attention=True)).reset_parameters(5).to("cuda")
+            model = model.eval()
+            for t, calls in buckets:
+                report["workloads"].append(encode_workload(model, t, trace_dir, calls))
+                torch.cuda.empty_cache()
+            del model
+        if wanted("train"):
+            report["workloads"].append(train_workload(trace_dir, 10))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

@@ -419,6 +419,87 @@ def test_gather_score_kernel_matches_plain(cuda, q, nb, block, kb, dtype):
         torch.testing.assert_close(got, want, atol=MIPS_ATOL * 10, rtol=1e-6)
 
 
+# K6/K9 on the ring kernel against the plain gather and product: f32 sums of
+# 128 exact products of unit-scale rows in another order (~1e-7 apart)
+BMAX_TOL = 1e-4
+
+
+def _rescore_inputs(q, nb, block, kb, device, dtype, seed):
+    """Unit-scale rows and queries; ids with the last block NB - 1 and a
+    repeat in every query, and query 1 asking for query 0's blocks."""
+    g = torch.Generator().manual_seed(seed)
+    corpus = (torch.randn(nb, block, 128, generator=g) / 128 ** 0.5).to(device, dtype)
+    queries = (torch.randn(q, 128, generator=g) / 128 ** 0.5).to(device, dtype)
+    ids = torch.randint(0, nb, (q, kb), generator=g)
+    ids[:, 0] = nb - 1
+    if kb > 1:
+        ids[:, -1] = ids[:, 0]
+    if q > 1:
+        ids[1] = ids[0]
+    return queries, corpus, ids.to(device)
+
+
+def _rescore_reference(queries, corpus, ids, block, chunk=64):
+    """The plain version, a chunk of queries at a time (its [Q, kb, block,
+    D] f32 gather would not fit at Q = 2,048, block 256)."""
+    return torch.cat([rescore.gather_rescore_reference(queries[s:s + chunk], corpus,
+                                                       ids[s:s + chunk], block=block)
+                      for s in range(0, queries.shape[0], chunk)])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kb", [1, 3, 80])
+@pytest.mark.parametrize("block", [16, 64, 256])
+@pytest.mark.parametrize("q", [1, 5, 256, 2048])
+def test_gather_rescore_ring_matches_plain(cuda, q, block, kb, dtype):
+    queries, corpus, ids = _rescore_inputs(q, 2 * kb + 37, block, kb, cuda,
+                                           getattr(torch, dtype), seed=q + block + kb)
+    want = _rescore_reference(queries, corpus, ids, block)
+    for fn, counter in ((rescore.gather_rescore, "launches"),
+                        (rescore.gather_score, "score_launches")):
+        before = getattr(rescore, counter)
+        got = fn(queries, corpus, ids, block=block)
+        torch.cuda.synchronize()
+        assert getattr(rescore, counter) == before + 1
+        assert got.shape == (q, kb * block) and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=BMAX_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rescore_ring_on_a_row_offset_view(cuda, dtype):
+    """A corpus that starts 3 rows and 8 elements into its storage (16-byte
+    aligned, not row aligned) and ends before the storage does."""
+    queries, corpus, ids = _rescore_inputs(300, 90, 16, 80, cuda, getattr(torch, dtype), seed=3)
+    offset = 3 * 128 + 8
+    storage = torch.zeros((90 * 16 + 8) * 128, device=cuda, dtype=corpus.dtype)
+    storage[offset:offset + corpus.numel()] = corpus.flatten()
+    view = storage[offset:offset + corpus.numel()].view(90, 16, 128)
+    row_bytes = 128 * corpus.element_size()
+    assert view.data_ptr() % 16 == 0 and (view.data_ptr() - storage.data_ptr()) % row_bytes
+    want = _rescore_reference(queries, corpus, ids, 16)
+    for fn in (rescore.gather_rescore, rescore.gather_score):
+        torch.testing.assert_close(fn(queries, view, ids, block=16), want, atol=BMAX_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dense_index_search_rescores_through_k6(cuda, dtype):
+    """A bf16 and an f32 DenseIndex.search on CUDA launch K6 once, and their
+    top-80 equals the take rescore's up to equal-score ties."""
+    from proqa_tpu_torch.index.dense import DenseIndex
+
+    queries, corpus = _mips_inputs(200, 9000, cuda, getattr(torch, dtype), seed=11)
+    index = DenseIndex.from_embeddings(corpus, device=cuda, dtype=getattr(torch, dtype))
+    before = rescore.launches
+    gv, gi = index.search(queries, 80)
+    assert rescore.launches == before + 1
+    padded, _ = mips.pad_queries(queries, 256)
+    tv, ti = mips_kernel.mips_topk_v2(padded, index.embeddings, 80, block=16, n_valid=index.n,
+                                      rescore_impl="take")
+    assert rescore.launches == before + 1
+    assert topk_disagreements(gv, gi, tv[:200].cpu().numpy(), ti[:200].cpu().numpy(),
+                              atol=MIPS_ATOL) == 0
+
+
 def test_int8_and_stream_pipelines_on_gpu(cuda):
     """mips_topk over int8 codes (K5) and mips_topk_v2 with the streamed
     rescore (K6), v1 (K8) and per-row bounds (K7) at a ragged N, against
@@ -440,7 +521,8 @@ def test_int8_and_stream_pipelines_on_gpu(cuda):
                 mips_kernel.mips_topk_v1(queries, corpus, 80, n_valid=8995)):
         assert topk_disagreements(got[0].cpu().numpy(), got[1].cpu().numpy(), rv.cpu().numpy(),
                                   ri.cpu().numpy(), atol=MIPS_ATOL) == 0
-    assert (rescore.launches, mips_kernel.block_major_launches) == (before[0] + 1, before[1] + 1)
+    # v1 rescores through K6 too (its default rescore on CUDA over bf16)
+    assert (rescore.launches, mips_kernel.block_major_launches) == (before[0] + 2, before[1] + 1)
 
     queries, codes, rs = _int8_inputs(256, 9000, 16, cuda, torch.bfloat16, seed=9, per_row=True)
     before = mips_kernel.bounded_launches
