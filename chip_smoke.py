@@ -79,6 +79,22 @@ The f32 (parity) path:
  17. the f32 CLI path: eval-retrieval and retrieve with --f32 on the
      retrieval world of phase 4, the counters of the f32 kernel and of K6
      reset before and read after, and the recall JSON checked.
+The QA answering path:
+ 18. on the retrieval world of phase 4 with a BERT-base reader of random
+     seeded weights (one QA .npz): eval-qa (T = 512, eval_k 5, 8 questions
+     a group, 256 questions, --save-pred), answer and answer --int8-index,
+     with the counters of K1, K2, K5 and K6 reset before each run and read
+     after (K1, K2, K6 by eval-qa, K5 by the int8 answer); the EM JSON, the
+     256 prediction rows and the answer rows' keys checked; the sampler's
+     retrieved rows over the bf16 and the int8 index against the exact
+     search of each up to ties (answer's one question padded to 8, then the
+     32 groups); K1 and K5 (Q = 8 over the 8,192 rows) and K2 (B = 40,
+     T = 512) at this path's shapes against their plain versions; four
+     reader batches with K2 against the vanilla path (span logits within
+     READER_REL of the batch's largest, beside an e4m3 control; equal
+     decoded spans wherever the best span leads by more than
+     SPAN_MARGIN_ERRS times the batch's error); questions/s and reader
+     tokens/s logged.
 Each of phases 12-14 first drives its kernel's public pipeline once with the
 counters at 0 and reads them, then compares and times the kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -121,6 +137,18 @@ BWD_TOL = 6e-2
 AUTOGRAD_ULPS = 2.0
 GRAD_COS = 0.99   # dropout-0 gradients, K2/K3 against the vanilla path, bf16
 LOSS_DROP = 1.0   # nats the train step's loss must fall over 20 steps on one batch
+# the reader's f32 span logits with K2 against the vanilla path, 12 bf16
+# layers apart, as a share of the largest in-paragraph logit of the batch:
+# both paths round at the same points but sum in other orders, and each
+# flipped bf16 rounding drifts through the 12 layers. On an H100 this phase
+# read 0.0174 over its four batches, and the lower-precision control beside
+# it (one more rounding of the vanilla logits to float8 e4m3) 0.0386
+READER_REL = 0.025
+# a span's score is a start plus an end logit, each within the batch's
+# measured error, so the lead of the best span over the runner-up moves by
+# at most 4 times it: past that lead the decoded span cannot change
+SPAN_MARGIN_ERRS = 4
+READER_BATCHES = 4  # reader batches held against the vanilla path (32 questions)
 
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, f32
 # rate outside the tensor cores (the FMA pipe), HBM rate
@@ -1227,6 +1255,239 @@ def phase_f32_cli(device, root: str, recall_bf16: dict) -> int:
     return launches, k6
 
 
+def _span_margin(start, end, max_answer_len: int = 10):
+    """Per paragraph, the best band span's score minus the runner-up's."""
+    import torch
+
+    from proqa_tpu_torch.models.reader import NEG
+
+    l = start.shape[-1]
+    scores = start[..., :, None] + end[..., None, :]
+    i = torch.arange(l, device=start.device)
+    band = (i[None, :] >= i[:, None]) & (i[None, :] <= i[:, None] + max_answer_len)
+    top2 = torch.where(band, scores, NEG).flatten(-2).topk(2).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def phase_qa(device, root: str) -> dict:
+    """The QA answering path on phase_cli's retrieval world (8,192
+    paragraphs, its BERT-base retriever and index) with a BERT-base reader of
+    random seeded weights saved as one QA .npz: eval-qa over the 256
+    questions (T = 512, eval_k 5, 8 questions a group), answer, and answer
+    --int8-index, the counters of K1, K2, K5 and K6 reset before each run and
+    read after; then the sampler's retrieved rows against the exact search,
+    K1 and K2 at the shapes this path gives them against their plain
+    versions, and one reader batch with K2 against the vanilla path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.cli.main import _qa_setup, build_parser
+    from proqa_tpu_torch.data.collate import pad_to
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.convert import load_params, params_to_jax, save_npz
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel, decode_spans
+    from proqa_tpu_torch.ops import attention, mips, mips_kernel, quant, rescore
+    from proqa_tpu_torch.qa.sampler import OnlineSampler
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    n_q, k, qpb, t, tq = 256, 5, 8, 512, 30
+    model = QAModel(BertConfig(), QAConfig()).reset_parameters(9)
+    model.retriever.load_state_dict(load_params(p("retriever.npz")))
+    save_npz(p("qa.npz"), params_to_jax(model.state_dict()))
+    del model
+    # 256 distinct questions (qa.jsonl repeats some pairs, and predict keeps
+    # one row a question), each with a dozen one-word gold answers
+    rng = np.random.default_rng(11)
+    with open(p("qa_eval.jsonl"), "w") as f:
+        for pair in rng.choice(60 * 60, n_q, replace=False):
+            gold = [f"tok{w}" for w in rng.choice(60, 12, replace=False)]
+            f.write(json.dumps({"question": f"what is about tok{pair // 60} tok{pair % 60}",
+                                "answer": gold}) + "\n")
+    qa_args = ["--vocab", p("vocab.txt"), "--db", p("docs.db"), "--index", p("index"),
+               "--init-checkpoint", p("qa.npz"), "--device", str(device), "--max-seq-length",
+               str(t), "--eval-k", str(k), "--questions-per-batch", str(qpb),
+               "--output-dir", p("qa_run")]
+    question = ["--question", "what is about tok3 tok7"]
+
+    def counted(argv):
+        attention.launches = mips_kernel.launches = mips_kernel.scaled_launches = 0
+        rescore.launches = 0
+        out, wall = run_cli(argv)
+        return out, wall, {"K1": mips_kernel.launches, "K2": attention.launches,
+                           "K5": mips_kernel.scaled_launches, "K6": rescore.launches}
+
+    em, wall_eval, launches_eval = counted(["eval-qa", *qa_args, "--predict-file",
+                                            p("qa_eval.jsonl"), "--save-pred", p("pred.jsonl")])
+    ans, wall_answer, launches_answer = counted(["answer", *qa_args, *question])
+    ans8, wall_int8, launches_int8 = counted(["answer", *qa_args, *question, "--int8-index"])
+    launches = {"eval-qa": launches_eval, "answer": launches_answer,
+                "answer --int8-index": launches_int8}
+    log(f"kernel launches on the QA path: {json.dumps(launches)}")
+    for name in ("K1", "K2", "K6"):
+        check(launches_eval[name] > 0, f"{name} was not launched by eval-qa")
+    check(launches_int8["K5"] > 0, "K5 was not launched by answer --int8-index")
+    check(set(em) == {"em"} and 0.0 <= em["em"] <= 1.0, f"eval-qa: {em}")
+    with open(p("pred.jsonl")) as f:
+        preds = [json.loads(line) for line in f if line.strip()]
+    check(len(preds) == n_q, f"eval-qa --save-pred: {len(preds)} rows, not {n_q}")
+    check(all(set(r) == {"question", "para", "answer", "rank_score", "span_score", "gold",
+                         "alpha", "em"} for r in preds), "eval-qa --save-pred: bad row keys")
+    cand_keys = {"answer", "score", "span_score", "rank_score", "passage"}
+    for name, row in (("answer", ans), ("answer --int8-index", ans8)):
+        check(set(row) == {"question", "answer", "alpha", "candidates"} and
+              len(row["candidates"]) == 3 and
+              all(set(c) == cand_keys and math.isfinite(c["score"]) for c in row["candidates"]),
+              f"{name}: bad row {str(row)[:300]}")
+    log(f"eval-qa: {json.dumps(em)} over {n_q} questions ({wall_eval:.2f} s wall, weights "
+        f"and index loading included); answer {wall_answer:.2f} s, --int8-index "
+        f"{wall_int8:.2f} s; answer: {ans['answer']!r}")
+
+    # the same objects the CLI builds, driven piece by piece; the int8 index
+    # as answer --int8-index loads it
+    trainer, make_sampler = _qa_setup(build_parser().parse_args(
+        ["eval-qa", *qa_args, "--predict-file", p("qa_eval.jsonl")]))
+    sampler = make_sampler(p("qa_eval.jsonl"))
+    enc, index = trainer.query_encoder(), sampler.index
+    index8 = DenseIndex.load(p("index"), device=device, dtype="int8")
+    sampler8 = OnlineSampler(sampler.qa_data, sampler.tokenizer, sampler.db, index8, sampler.cfg)
+    row_scales = quant.expand_scales(index8.scales, index8.quant_block, index8.embeddings.shape[0])
+    questions = [qa["question"] for qa in sampler.qa_data]
+    # answer's one question (padded to the group of 8 by the search), then
+    # eval-qa's 32 groups of 8
+    groups = [[question[1]]] + [questions[s:s + qpb] for s in range(0, n_q, qpb)]
+
+    def encode(group):
+        """The group's query embeddings as _retrieve makes them: the group
+        padded to qpb rows (pad rows attend [CLS] only), encoded, cut back
+        (the query tower's bf16 sums depend on the row count)."""
+        ids = pad_to([sampler.tokenizer.encode(q, max_length=tq) for q in group], tq)
+        nq = ids.shape[0]
+        ids = np.concatenate([ids, np.zeros((qpb - nq, tq), ids.dtype)])
+        mask = (ids != 0).astype(np.int32)
+        mask[nq:, 0] = 1
+        return enc(ids, mask)[:nq]
+
+    bad, bad8, k1_err, k5_err = 0, 0, 0.0, 0.0
+    for gi, group in enumerate(groups):
+        emb = encode(group)
+        qt = emb.to(torch.bfloat16)
+        for name, idx, smp in (("bf16", index, sampler), ("int8", index8, sampler8)):
+            vals, rows = idx.search(emb, k, q_pad=qpb)
+            _, srows, _ = smp._retrieve(group, enc, candidates=k, pad_rows=qpb)
+            check(np.array_equal(srows, rows), f"{name} sampler group {gi}: rows differ from "
+                                               "its search")
+            scales = row_scales if idx is index8 else None
+            rv, ri = mips.mips_topk_reference(qt, idx.embeddings, k, n_valid=idx.n,
+                                              scales=scales)
+            n_bad = topk_disagreements(vals, srows, rv.cpu().numpy(), ri.cpu().numpy(),
+                                       atol=TOPK_TOL)
+            if idx is index8:
+                bad8 += n_bad
+            else:
+                bad += n_bad
+        if gi <= 1:  # K1 and K5 at the shapes these searches gave them
+            q8 = mips.pad_rows(qt, qpb)
+            block = mips.envelope_block(index.embeddings.shape[0], 256)
+            corpus = mips.pad_rows(index.embeddings, mips_kernel.GROUP * block)
+            got = mips_kernel.block_maxima_grouped(q8, corpus, block=block)
+            want = mips_kernel.block_maxima_grouped_reference(q8, corpus, block=block)
+            k1_err = max([k1_err] + [(a - b).abs().max().item() for a, b in zip(got, want)])
+            check_hopper_route("the QA path's K5", q8, index8.embeddings, index8.quant_block)
+            got = mips_kernel.block_maxima_grouped(q8, index8.embeddings,
+                                                   block=index8.quant_block, scales=index8.scales)
+            want = mips_kernel.block_maxima_grouped_reference(
+                q8, index8.embeddings, block=index8.quant_block, scales=index8.scales)
+            k5_err = max([k5_err] + [(a - b).abs().max().item() for a, b in zip(got, want)])
+    n_checked = n_q + 1
+    check(bad == 0, f"sampler: {bad} of {n_checked} questions' top-{k} disagree with the exact "
+                    "search")
+    check(bad8 == 0, f"int8 sampler: {bad8} of {n_checked} questions' top-{k} disagree with the "
+                     "exact search of its codes")
+    check(k1_err <= BMAX_TOL, f"K1 at the QA search's shapes: max abs err {k1_err} > {BMAX_TOL}")
+    check(k5_err <= BMAX_TOL, f"K5 at the int8 QA search's shapes: max abs err {k5_err} > "
+                              f"{BMAX_TOL}")
+    qb8 = index8.quant_block
+    del index8, sampler8
+
+    # K2 at the reader's shapes, on one batch
+    batches = iter(sampler.eval_load(enc, k, qpb))
+    dev = trainer._device_batch(next(batches)["net_input"])
+    cfg = trainer.cfg
+    rows_mask = dev["input_mask"].reshape(-1, t).to(torch.int32)
+    g = torch.Generator(device=device).manual_seed(10)
+    q, kk, v = (torch.randn(rows_mask.shape[0], cfg.num_heads, t, cfg.head_dim, device=device,
+                            generator=g).bfloat16() for _ in range(3))
+    got = attention.fused_attention(q, kk, v, rows_mask, sm_scale=cfg.head_dim ** -0.5)
+    want = attention.fused_attention_reference(q, kk, v, rows_mask, sm_scale=cfg.head_dim ** -0.5)
+    k2_err = (got.float() - want.float()).abs().max().item()
+    check(k2_err <= ATTN_TOL, f"K2 at the reader's shapes: max abs err {k2_err} > {ATTN_TOL}")
+    del q, kk, v, got, want
+    with torch.inference_mode():
+        reader_ms = cuda_ms(lambda: trainer.model(dev), reps=3)
+
+    # the reader with K2 against the vanilla path over READER_BATCHES batches
+    # (8 questions, 40 paragraphs each); beside it a lower-precision control,
+    # the vanilla logits through one more rounding to float8 e4m3
+    vanilla = QAModel(dataclasses.replace(cfg, flash_attention=False), trainer.qcfg)
+    vanilla.load_state_dict(trainer.model.state_dict())
+    vanilla = vanilla.to(device).eval()
+    rel_err, rel_ctrl, n_clear, n_same, n_paras = 0.0, float("inf"), 0, 0, 0
+    for bi in range(READER_BATCHES):
+        if bi:
+            dev = trainer._device_batch(next(batches)["net_input"])
+        with torch.inference_mode():
+            out_k2, out_v = trainer.model(dev), vanilla(dev)
+        in_para = dev["paragraph_mask"] == 1
+        keys = ("start_logits", "end_logits")
+        scale = max(out_v[key][in_para].abs().max().item() for key in keys)
+        err = max((out_k2[key] - out_v[key])[in_para].abs().max().item() for key in keys)
+        ctrl = max((out_v[key][in_para].to(torch.float8_e4m3fn).float() -
+                    out_v[key][in_para]).abs().max().item() for key in keys)
+        rel_err, rel_ctrl = max(rel_err, err / scale), min(rel_ctrl, ctrl / scale)
+        check(err <= READER_REL * scale, f"reader with K2 vs vanilla, batch {bi}: span logits "
+                                         f"differ by {err} > {READER_REL} x {scale}")
+        s_k2, e_k2, _ = decode_spans(out_k2["start_logits"], out_k2["end_logits"])
+        s_v, e_v, _ = decode_spans(out_v["start_logits"], out_v["end_logits"])
+        margin = SPAN_MARGIN_ERRS * err
+        clear = _span_margin(out_v["start_logits"], out_v["end_logits"]) > margin
+        same = (s_k2 == s_v) & (e_k2 == e_v)
+        check(bool(same[clear].all()), f"reader with K2 vs vanilla, batch {bi}: "
+                                       f"{int((~same & clear).sum())} decoded spans differ where "
+                                       f"the best leads by > {margin}")
+        n_clear, n_same, n_paras = (n_clear + int(clear.sum()), n_same + int(same.sum()),
+                                    n_paras + clear.numel())
+    del vanilla
+    check(rel_ctrl > READER_REL, f"the e4m3 control ({rel_ctrl}) passes the reader's tolerance "
+                                 f"{READER_REL}: the check would not see one coarser rounding")
+
+    # rates: the whole predict (retrieve, read, decode, text) on a warm trainer
+    t0 = time.perf_counter()
+    em_again = trainer.predict(make_sampler(p("qa_eval.jsonl")))
+    wall = time.perf_counter() - t0
+    check(em_again == em["em"], f"predict on a warm trainer: EM {em_again} != {em['em']}")
+    tokens = n_q * k * t
+    log(f"QA sampler: all {n_checked} questions' top-{k} agree with the exact search up to "
+        f"ties, over the bf16 and the int8 index; K1 at Q={qpb} N={index.embeddings.shape[0]}: "
+        f"max_abs_err {k1_err:.3g}; K5 at Q={qpb} N={index.embeddings.shape[0]} (block "
+        f"{qb8}): max_abs_err {k5_err:.3g}; K2 at B="
+        f"{rows_mask.shape[0]} T={t}: max_abs_err {k2_err:.3g}")
+    log(f"reader with K2 vs vanilla over {READER_BATCHES} batches: span logits max abs err "
+        f"{rel_err:.4g} of the batch's largest logit (tol {READER_REL}; control, one e4m3 "
+        f"rounding of the vanilla logits: {rel_ctrl:.4g}); decoded spans equal on all {n_clear} "
+        f"of {n_paras} paragraphs whose best span leads by > {SPAN_MARGIN_ERRS} x the batch's "
+        f"error ({n_same} equal in all)")
+    log(f"{gpu_line()}: eval-qa predict {n_q} questions in {wall:.3f} s = {n_q / wall:.2f} "
+        f"questions/s, {tokens / wall:.0f} reader tokens/s (host clock, padded, retrieval and "
+        f"host text work included); one reader batch [{qpb}, {k}, {t}] {reader_ms:.3f} ms = "
+        f"{qpb * k * t / reader_ms * 1e3:.0f} reader tokens/s (device, CUDA events)")
+    return {"launches": launches, "k1_err": k1_err, "k2_err": k2_err, "k5_err": k5_err,
+            "questions_per_s": n_q / wall, "reader_tokens_per_s": tokens / wall}
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1267,6 +1528,8 @@ def main() -> int:
             retrieval, k1_cli_err, batch, recall = timed("retrieval_cli", phase_cli, device, root)
             k5_launches, k5_cli_err = timed("int8_cli", phase_int8_cli, device, root, recall)
             f32_launches, k6_f32_cli = timed("f32_cli", phase_f32_cli, device, root, recall)
+            # the QA answering slice, on the same retrieval world
+            qa = timed("qa_cli", phase_qa, device, root)
         k2_encode = timed("attention_encode", phase_attention, device, batch)
         # the retriever-pretraining slice
         k4 = timed("dropout", phase_dropout, device)
@@ -1298,28 +1561,31 @@ def main() -> int:
                 **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")}}
 
-    # launches: both main paths' runs (retrieval CLI, then pretraining CLI)
+    qa_runs = qa["launches"].values()
+    qa_launches = {name: sum(run[name] for run in qa_runs) for name in ("K1", "K2", "K5", "K6")}
+    # launches: the main paths' runs (retrieval CLI, pretraining CLI, QA CLI)
     kernels = [
         entry("block_maxima_grouped (K1)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:83",
-              retrieval["block_maxima"] + pretrain["K1"], k1,
-              max(k1["max_abs_err"], k1_cli_err)),
+              retrieval["block_maxima"] + pretrain["K1"] + qa_launches["K1"], k1,
+              max(k1["max_abs_err"], k1_cli_err, qa["k1_err"])),
         entry("fused_attention (K2)", "attention_fwd.cu", "proqa_tpu/ops/pallas_attention.py:65",
-              retrieval["attention"] + pretrain["K2"], k2,
-              max(k2["max_abs_err"], k2_encode["max_abs_err"])),
+              retrieval["attention"] + pretrain["K2"] + qa_launches["K2"], k2,
+              max(k2["max_abs_err"], k2_encode["max_abs_err"], qa["k2_err"])),
         entry("fused_attention backward (K3)", "attention_bwd.cu",
               "proqa_tpu/ops/pallas_attention.py:83", pretrain["K3"], k3, k3["max_abs_err"]),
         entry("dropout (K4)", "dropout.cu", "proqa_tpu/ops/pallas_dropout.py:32", pretrain["K4"],
               k4, k4["max_abs_err"]),
-        # launches: the int8 CLI path (K5) and each kernel's own pipeline
-        # (K7-K9); times at 4.2M rows (K5 at 67.1M: in the log above)
+        # launches: the int8 CLI paths (K5: retrieval and answer) and each
+        # kernel's own pipeline (K7-K9); times at 4.2M rows (K5 at 67.1M: in
+        # the log above)
         entry("block_maxima_grouped scaled (K5)", "block_maxima_wgmma.cu",
-              "proqa_tpu/ops/pallas_mips.py:97", k5_launches, k5,
-              max(k5["max_abs_err"], k5_cap["max_abs_err"], k5_cli_err)),
-        # launches: the retrieval, pretraining and f32 CLI paths (K6 is the
-        # rescore of every bf16 and f32 search); K9: its own pipeline's run
+              "proqa_tpu/ops/pallas_mips.py:97", k5_launches + qa_launches["K5"], k5,
+              max(k5["max_abs_err"], k5_cap["max_abs_err"], k5_cli_err, qa["k5_err"])),
+        # launches: the retrieval, pretraining, f32 and QA CLI paths (K6 is
+        # the rescore of every bf16 and f32 search); K9: its own pipeline's run
         entry("gather_rescore (K6)", "gather_rescore.cu", "proqa_tpu/ops/pallas_rescore.py:58",
-              retrieval["rescore"] + pretrain["K6"] + k6_f32_cli, k6),
+              retrieval["rescore"] + pretrain["K6"] + k6_f32_cli + qa_launches["K6"], k6),
         entry("block_maxima_grouped bounded (K7)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:111", k7_launches, k7),
         entry("block_maxima (K8)", "block_maxima_wgmma.cu", "proqa_tpu/ops/pallas_mips.py:32",

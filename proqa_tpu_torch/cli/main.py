@@ -8,13 +8,17 @@ Subcommands:
   encode-queries       questions -> query embedding .npy
   eval-retrieval       recall@k over the index
   retrieve             one-shot question -> top-k paragraphs
+  match-paras          weak-supervision gold-paragraph matching
+  eval-qa              retrieve, read and decode: EM with the rank/span alpha sweep
+  answer               inference-only QA: question(s) -> answer spans
 
 Flags and final JSON lines are the `proqa` CLI's, plus `--device` (default
 cuda). Checkpoints are `.npz` files in the JAX layout, `.pt` state dicts, or
 the `.pt` train checkpoints pretrain-retriever writes (models/convert.py).
-`--int8-index` (eval-retrieval, retrieve) searches an int8-quantized index
-(kernel K5). Flags for paths not ported yet (--stream-chunk, --dp-encode,
---shard-index) raise NotImplementedError.
+`--int8-index` (eval-retrieval, retrieve, eval-qa, answer) searches an
+int8-quantized index (kernel K5). Commands and flags not ported yet
+(finetune-qa, serve, --stream-chunk, --dp-encode, --shard-index, --use-ivf)
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -245,6 +249,140 @@ def cmd_retrieve(args):
     print(json.dumps({"question": args.question, "topk": results}, ensure_ascii=False))
 
 
+def cmd_match_paras(args):
+    from proqa_tpu_torch.qa.prepro import process_ground_paras
+
+    coverage = process_ground_paras(
+        args.retrieved, args.raw_data, args.output, args.db,
+        k=args.topk, match="regex" if args.regex else "string",
+        num_workers=args.num_workers,
+    )
+    print(json.dumps({"topk_gold_coverage": coverage}))
+
+
+def _qa_setup(args):
+    """The QA model, index and sampler factory of eval-qa and answer, on one
+    device (the JAX CLI's _qa_setup, proqa_tpu/cli/main.py:394-483, without
+    the mesh). Weights: random from --seed, then --retriever-path into the
+    retriever, --reader-path into the reader BERT, --init-checkpoint into the
+    whole model (each a .npz in the JAX layout or a .pt; ';' averages)."""
+    from proqa_tpu_torch.data.docdb import DocDB
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models.convert import load_params
+    from proqa_tpu_torch.models.reader import QAConfig
+    from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
+    from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
+
+    _reject_unported(args)
+    if args.use_ivf:
+        raise NotImplementedError(
+            "--use-ivf is not ported to PyTorch yet (ROADMAP Queue 1, item 14)")
+    cfg = _bert_cfg(args, flash_default=True)
+    tok = _tokenizer(args)
+    qcfg = QAConfig(
+        shared_norm=args.shared_norm, separate=args.separate,
+        add_select=args.add_select, drop_early=args.drop_early, qa_drop=args.qa_drop,
+    )
+    tcfg = QATrainerConfig(
+        learning_rate=args.learning_rate,
+        accumulate_gradients=args.accumulate_gradients,
+        prefetch_batches=args.prefetch,
+        num_train_epochs=args.num_train_epochs,
+        eval_period=args.eval_period,
+        wait_step=args.wait_step,
+        eval_k=args.eval_k,
+        train_k=args.train_batch_size,
+        questions_per_batch=args.questions_per_batch,
+        fix_para_encoder=args.fix_para_encoder,
+        freeze_retriever=args.fix_retriever,
+        regex=args.regex,
+        seed=args.seed,
+        output_dir=args.output_dir,
+        do_lower_case=not args.cased,
+        weight_decay=args.weight_decay,
+        max_grad_norm=args.max_grad_norm,
+        adam_eps=args.adam_eps,
+        max_answer_len=args.max_answer_len,
+        profile_dir=args.profile_dir,
+    )
+    trainer = QATrainer(cfg, qcfg, tcfg, device=args.device)  # random weights from --seed
+    if args.retriever_path:
+        trainer.model.retriever.load_state_dict(load_params(args.retriever_path))
+    if args.reader_path:
+        # a pretrained reader tower (e.g. a converted SpanBERT; pair with --cased)
+        trainer.model.bert.load_state_dict(load_params(args.reader_path))
+    if args.init_checkpoint:
+        trainer.model.load_state_dict(load_params(args.init_checkpoint))
+
+    db = DocDB(args.db)
+    index = DenseIndex.load(args.index, device=args.device, dtype=_index_dtype(args))
+    scfg = OnlineSamplerConfig(
+        max_query_length=args.max_query_length,
+        max_length=args.max_seq_length,
+        candidates=args.candidates,
+        regex=args.regex,
+        question_batch=args.questions_per_batch,
+        retrieval_batch=args.retrieval_batch,
+        exact_search=not args.approx_search,
+    )
+
+    def make_sampler(raw, matched=""):
+        return OnlineSampler(raw, tok, db, index, scfg, matched_para_path=matched)
+
+    return trainer, make_sampler
+
+
+def cmd_finetune_qa(args):
+    raise NotImplementedError(
+        "finetune-qa is not ported to PyTorch yet (ROADMAP Queue 1, item 11: QA training)")
+
+
+def cmd_serve(args):
+    raise NotImplementedError(
+        "serve is not ported to PyTorch yet (ROADMAP Queue 1, item 12: serving)")
+
+
+def cmd_eval_qa(args):
+    trainer, make_sampler = _qa_setup(args)
+    em = trainer.predict(
+        make_sampler(args.predict_file),
+        save_path=args.save_pred or None,
+        save_all_prefix=args.save_all or None,
+    )
+    print(json.dumps({"em": em}))
+
+
+def cmd_answer(args):
+    """Open-domain QA inference: retrieve the top paragraphs, read, extract
+    the best answer span per question; one JSON line per question."""
+    if not (args.question or args.predict_file or args.stdin):
+        raise SystemExit("answer: provide --question (repeatable), --predict-file, or --stdin")
+    trainer, make_sampler = _qa_setup(args)
+    if args.stdin:
+        # warm loop: one JSON line out per question line in; the model and
+        # the index stay on the device across questions
+        for line in sys.stdin:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                q = json.loads(line)["question"] if line.startswith("{") else line
+                if not isinstance(q, str) or not q.strip():
+                    raise ValueError("question must be a non-empty string")
+            except (ValueError, KeyError) as e:
+                # one bad producer line must not end the warm loop
+                print(json.dumps({"error": f"{type(e).__name__}: {e}",
+                                  "input": line[:200]}), flush=True)
+                continue
+            sampler = make_sampler([{"question": q}])
+            for row in trainer.answer(sampler, alpha=args.alpha, topn=args.topn):
+                print(json.dumps(row, ensure_ascii=False), flush=True)
+        return
+    data = [{"question": q} for q in args.question] if args.question else args.predict_file
+    for row in trainer.answer(make_sampler(data), alpha=args.alpha, topn=args.topn):
+        print(json.dumps(row, ensure_ascii=False))
+
+
 def cmd_build_db(args):
     """{"text", ["id"]} jsonl corpus -> sqlite document store."""
     from proqa_tpu_torch.data.docdb import DocDB
@@ -336,11 +474,110 @@ def build_parser() -> argparse.ArgumentParser:
     _shard_index_arg(sp)
     sp.set_defaults(fn=cmd_retrieve)
 
+    sp = sub.add_parser("match-paras")
+    sp.add_argument("--retrieved", required=True)
+    sp.add_argument("--raw-data", required=True)
+    sp.add_argument("--output", required=True)
+    sp.add_argument("--db", required=True)
+    sp.add_argument("--topk", type=int, default=10000)
+    sp.add_argument("--regex", action="store_true")
+    sp.add_argument("--num-workers", type=int, default=0)
+    sp.set_defaults(fn=cmd_match_paras)
+
+    _add_qa_commands(sub)
+
     sp = sub.add_parser("build-db")
     sp.add_argument("--corpus", required=True, help='{"text", ["id"]} jsonl')
     sp.add_argument("--db", required=True, help="output sqlite path")
     sp.set_defaults(fn=cmd_build_db)
     return p
+
+
+def _add_qa_commands(sub) -> None:
+    """finetune-qa, eval-qa, answer and serve with the JAX parser's flags
+    (proqa_tpu/cli/main.py:747-850); finetune-qa and serve raise until
+    ported."""
+    helps = {
+        "finetune-qa": "not ported yet (ROADMAP Queue 1, item 11)",
+        "answer": "question(s) -> extracted answer spans (inference only)",
+        "serve": "not ported yet (ROADMAP Queue 1, item 12)",
+    }
+    for name, fn in (("finetune-qa", cmd_finetune_qa), ("eval-qa", cmd_eval_qa),
+                     ("answer", cmd_answer), ("serve", cmd_serve)):
+        sp = sub.add_parser(name, help=helps.get(name))
+        _add_common(sp)
+        sp.add_argument("--train-file", default="")
+        sp.add_argument("--predict-file", required=name not in ("answer", "serve"), default="",
+                        help="jsonl of {question[, answer]}" if name == "answer" else None)
+        sp.add_argument("--db", required=True)
+        sp.add_argument("--index", required=True)
+        sp.add_argument("--matched-para-path", default="")
+        sp.add_argument("--output-dir", default="logs/qa")
+        sp.add_argument("--init-checkpoint", default="",
+                        help="the whole QA model: .npz (JAX layout) or .pt")
+        sp.add_argument("--retriever-path", default="", help="retriever weights: .npz or .pt")
+        sp.add_argument("--reader-path", default="",
+                        help="pretrained reader BERT (e.g. converted SpanBERT; use with --cased)")
+        sp.add_argument("--train-batch-size", type=int, default=5, help="k paras/question")
+        sp.add_argument("--questions-per-batch", type=int, default=1)
+        sp.add_argument("--candidates", type=int, default=5000)
+        sp.add_argument("--retrieval-batch", type=int, default=0,
+                        help="questions retrieved per device call during training "
+                             "(0 = questions-per-batch)")
+        sp.add_argument("--eval-k", type=int, default=5)
+        sp.add_argument("--learning-rate", type=float, default=1e-5)
+        sp.add_argument("--weight-decay", type=float, default=0.0)
+        sp.add_argument("--max-grad-norm", type=float, default=5.0)
+        sp.add_argument("--adam-eps", type=float, default=1e-8)
+        sp.add_argument("--max-answer-len", type=int, default=10,
+                        help="max answer span in wordpieces at decode; the reference "
+                             "hardcodes 10 despite its flag's default 20 "
+                             "(train_retrieve_qa.py:301)")
+        sp.add_argument("--accumulate-gradients", type=int, default=1,
+                        help="grad-accum microbatches per optimizer step")
+        sp.add_argument("--prefetch", type=int, default=0,
+                        help="sampler batches built ahead of the device by a thread "
+                             "(0: off, the default; the JAX CLI's is 2)")
+        sp.add_argument("--num-train-epochs", type=int, default=20)
+        sp.add_argument("--eval-period", type=int, default=-1)
+        sp.add_argument("--wait-step", type=int, default=100)
+        sp.add_argument("--shared-norm", action="store_true")
+        sp.add_argument("--separate", action="store_true")
+        sp.add_argument("--add-select", action="store_true")
+        sp.add_argument("--drop-early", action="store_true")
+        sp.add_argument("--qa-drop", type=float, default=0.0)
+        sp.add_argument("--fix-para-encoder", action="store_true")
+        sp.add_argument("--fix-retriever", action="store_true",
+                        help="freeze the whole retriever submodule")
+        sp.add_argument("--regex", action="store_true")
+        sp.add_argument("--approx-search", action="store_true")
+        sp.add_argument("--use-ivf", action="store_true", help="not ported yet")
+        sp.add_argument("--ivf-nlist", type=int, default=100)
+        sp.add_argument("--ivf-nprobe", type=int, default=20)
+        _shard_index_arg(sp)
+        sp.add_argument("--save-pred", default="", help="write best-alpha predictions jsonl")
+        sp.add_argument("--save-all", default="", metavar="PREFIX",
+                        help="dump all candidate predictions + ground truths + "
+                             "per-alpha top-1 files under PREFIX (reference --save-all)")
+        if name in ("answer", "serve"):
+            sp.add_argument("--alpha", type=float, default=0.8,
+                            help="span-vs-rank score mix for candidate ranking")
+            sp.add_argument("--topn", type=int, default=3,
+                            help="candidate answers to include per question")
+        if name == "answer":
+            sp.add_argument("--question", action="append", default=[],
+                            help="question text (repeatable; alternative to --predict-file)")
+            sp.add_argument("--stdin", action="store_true",
+                            help="serve a question per stdin line (text or "
+                                 "{\"question\": ...} json), model kept warm")
+        if name == "finetune-qa":
+            sp.add_argument("--resume", default="")
+        if name == "serve":
+            sp.add_argument("--host", default="127.0.0.1")
+            sp.add_argument("--port", type=int, default=8080)
+            sp.add_argument("--warmup", default="")
+            sp.add_argument("--max-batch", type=int, default=16)
+        sp.set_defaults(fn=fn)
 
 
 def main(argv=None):

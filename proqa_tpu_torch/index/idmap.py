@@ -25,6 +25,21 @@ class IdMap:
     def rows_to_ids(self, rows: Iterable[int]) -> list[str]:
         return [self._ids[int(r)] for r in rows]
 
+    def ids_to_rows(self, doc_ids: Iterable[str]) -> list[int]:
+        """ALL row indices of the given doc ids (unknown ids skipped; a
+        duplicated doc id maps to every row carrying it). The inverse is built
+        on first use and cached: the QA sampler turns each question's gold
+        paragraph ids into a row set once, then labels candidates by isin."""
+        inv = getattr(self, "_inv", None)
+        if inv is None:
+            inv = self._inv = {}
+            for i, d in enumerate(self._ids):
+                inv.setdefault(d, []).append(i)
+        out: list[int] = []
+        for d in doc_ids:
+            out.extend(inv.get(d, ()))
+        return out
+
     @classmethod
     def from_doc_ids(cls, doc_ids: Iterable[str]) -> "IdMap":
         return cls(list(doc_ids))

@@ -17,7 +17,17 @@ Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
   train       one retriever train step at bench.py's operating point
               (bench.py:_bench_train_step): BERT-base, bf16, remat, fused
               attention, dropout 0.1, 80 pairs of 32-token questions and
-              512-token paragraphs, AdamW (K2, K3 and K4 in every layer).
+              512-token paragraphs, AdamW (K2, K3 and K4 in every layer);
+  qa          one warm eval-qa question group (QATrainer's retrieve, read
+              and decode over 8 questions): the BERT-base query tower (T =
+              30), the exact top-5 search of an 8,192 x 128 bf16 index (K1,
+              K6), sqlite and tokenization of 40 paragraphs of 100-510 words,
+              the BERT-base reader over 8 x 5 rows of T = 512 (K2 in every
+              layer), the span decode, and the text projection; beside it the
+              sampler alone, the reader step alone, and the whole predict
+              over 256 questions with and without the prefetch thread
+              (three pairs, alternating which runs first, after a warm-up
+              of each).
 
 For each workload:
   - a steady loop, host clock around calls that end synchronised (median,
@@ -36,6 +46,7 @@ device: there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -75,6 +86,12 @@ GROUPS = (
 )
 
 
+# GPU work launched inside these torch.profiler.record_function ranges is
+# grouped by the range's name, before the kernel-name groups
+# (QATrainer._eval_step wraps the span decode in one)
+ANNOTATED_GROUPS = ("decode",)
+
+
 def kernel_group(name: str, cat: str) -> str:
     if cat != "kernel":
         return cat
@@ -98,16 +115,27 @@ def busy_us(spans: list[tuple[float, float]]) -> float:
 def trace_breakdown(trace: dict, calls: int, wall_ms: float) -> dict:
     """Device time per call from a chrome trace exported by torch.profiler."""
     events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
-    ops = {e["args"]["External id"]: e["name"] for e in events
-           if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    cpu_ops = {e["args"]["External id"]: e for e in events
+               if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
+    # an annotated range claims the kernels launched inside it by its own
+    # thread (another thread, such as the QA prefetch thread, may launch
+    # meanwhile)
+    ranges = [(e["name"], e.get("tid"), float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+              for e in events
+              if e.get("cat") == "user_annotation" and e["name"] in ANNOTATED_GROUPS]
     gpu = [e for e in events if e.get("cat") in GPU_CATEGORIES]
     spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in gpu]
     busy_ms = busy_us(spans) / 1e3
     by_group, by_op, by_name = {}, {}, {}
     for e in gpu:
         ms = float(e["dur"]) / 1e3 / calls
+        launcher = cpu_ops.get(e.get("args", {}).get("External id"))
         group = kernel_group(e["name"], e["cat"])
-        op = ops.get(e.get("args", {}).get("External id"), "(no aten op)")
+        if launcher is not None:
+            ts = float(launcher["ts"])
+            group = next((name for name, tid, s, end in ranges
+                          if tid == launcher.get("tid") and s <= ts < end), group)
+        op = launcher["name"] if launcher is not None else "(no aten op)"
         by_group[group] = by_group.get(group, 0.0) + ms
         by_op[op] = by_op.get(op, 0.0) + ms
         name = e["name"][:120]
@@ -308,6 +336,107 @@ def train_workload(trace_dir: str, loop_calls: int) -> dict:
     return result
 
 
+VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"tok{i}" for i in range(60)] + [
+    "what", "is", "about",
+]
+
+
+def qa_workload(trace_dir: str, loop_calls: int) -> dict:
+    import numpy as np
+
+    from proqa_tpu_torch.data.docdb import DocDB
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.index.idmap import IdMap
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.reader import QAConfig
+    from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
+    from proqa_tpu_torch.text.wordpiece import BertTokenizer
+    from proqa_tpu_torch.train import qa_trainer
+
+    n, qpb, k, t, tq = 8192, 8, 5, 512, 30
+    device = torch.device("cuda", 0)
+    rng = np.random.default_rng(12)
+    root = tempfile.mkdtemp(prefix="proqa_profile_qa_", dir=trace_dir)
+    with open(os.path.join(root, "vocab.txt"), "w") as f:
+        f.write("\n".join(VOCAB) + "\n")
+    paras = [(f"p{i}", " ".join(f"tok{w}" for w in rng.integers(0, 60, int(rng.integers(100, 511)))))
+             for i in range(n)]
+    db = DocDB.create(os.path.join(root, "docs.db"), paras)
+    g = torch.Generator(device=device).manual_seed(13)
+    emb = torch.randn(n, 128, device=device, generator=g) / 128 ** 0.5
+    index = DenseIndex.from_embeddings(emb, IdMap([pid for pid, _ in paras]), device=device)
+    questions = [{"question": f"what is about tok{a} tok{b}", "answer": [f"tok{b}"]}
+                 for a, b in rng.integers(0, 60, (qpb, 2))]
+    cfg = BertConfig(flash_attention=True)
+    trainer = qa_trainer.QATrainer(cfg, QAConfig(), qa_trainer.QATrainerConfig(
+        eval_k=k, questions_per_batch=qpb, output_dir=os.path.join(root, "run")), device=device)
+    sampler = OnlineSampler(questions, BertTokenizer.from_vocab_file(os.path.join(root, "vocab.txt")),
+                            db, index, OnlineSamplerConfig(max_query_length=tq, max_length=t,
+                                                           question_batch=qpb, exact_search=True))
+
+    def group():
+        return list(trainer._iter_candidate_predictions(sampler, qpb))  # ends on the host
+
+    enc = trainer.query_encoder()
+    batch = next(iter(sampler.eval_load(enc, k, qpb)))
+
+    def host_clock(fn, calls=5):
+        fn()
+        walls = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    parts = {"sampler_eval_load_ms": host_clock(lambda: list(sampler.eval_load(enc, k, qpb))),
+             "reader_step_ms": host_clock(lambda: trainer._eval_step(batch["net_input"]))}
+    h, layers, inter = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size
+    rows = qpb * k
+    result = measure("qa", group, loop_calls=loop_calls, traced_calls=3, trace_dir=trace_dir,
+                     extra={"shape": {"questions": qpb, "eval_k": k, "reader_rows": rows,
+                                      "seq": t, "query_len": tq, "index_rows": n,
+                                      "dtype": str(cfg.dtype)},
+                            "host_clock_parts": parts,
+                            "reader_gemm_flop_per_call":
+                                2.0 * rows * t * layers * (4 * h * h + 2 * h * inter),
+                            "k2_flop_per_call": 4.0 * rows * t * t * h * layers})
+    # the whole eval-qa predict over 256 distinct questions (32 groups), with
+    # the sampler of the next group built ahead in the prefetch thread
+    # (--prefetch 2) and without it (--prefetch 0): one warm-up of each, then
+    # three pairs, each order first in turn; then --prefetch 2 with Python's
+    # thread switch interval cut from 5 ms to 0.5 ms, twice (a diagnostic:
+    # the main thread waits for the GIL after each op it launches while the
+    # prefetch thread runs Python)
+    many = [{"question": f"what is about tok{pair // 60} tok{pair % 60}", "answer": ["tok1"]}
+            for pair in rng.choice(60 * 60, 256, replace=False)]
+
+    def predict(prefetch):
+        trainer.tcfg = dataclasses.replace(trainer.tcfg, prefetch_batches=prefetch)
+        t0 = time.perf_counter()
+        trainer.predict(OnlineSampler(many, sampler.tokenizer, db, index, sampler.cfg))
+        return time.perf_counter() - t0
+
+    predict(2), predict(0)
+    predict_s = {"prefetch_2": [], "prefetch_0": [], "prefetch_2_switch_0.5ms": []}
+    for prefetch in (2, 0, 0, 2, 2, 0):
+        predict_s[f"prefetch_{prefetch}"].append(predict(prefetch))
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    try:
+        predict_s["prefetch_2_switch_0.5ms"] = [predict(2), predict(2)]
+    finally:
+        sys.setswitchinterval(switch)
+    result["predict_256_questions_s"] = predict_s
+    wall = result["steady_loop"]["wall_ms_median"]
+    result["questions_per_s"] = qpb / wall * 1e3
+    result["reader_tokens_per_s"] = qpb * k * t / wall * 1e3
+    print(f"qa: {result['questions_per_s']:.2f} questions/s, {result['reader_tokens_per_s']:.0f} "
+          f"reader tokens/s; host clock parts {json.dumps(parts)}; predict over 256 questions "
+          f"(s) {json.dumps(predict_s)}", flush=True)
+    return result
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile_slice.json")
@@ -350,6 +479,9 @@ def main(argv=None) -> int:
             del model
         if wanted("train"):
             report["workloads"].append(train_workload(trace_dir, 10))
+            torch.cuda.empty_cache()
+        if wanted("qa"):
+            report["workloads"].append(qa_workload(trace_dir, 10))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

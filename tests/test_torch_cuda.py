@@ -801,3 +801,116 @@ def test_train_step_on_gpu_matches_cpu(cuda, flash):
         torch.testing.assert_close(grads_g[k], gc, atol=1e-4 * gc.abs().max().item() + 1e-9,
                                    rtol=0)
         torch.testing.assert_close(params_g[k], params_c[k], atol=2 * lr, rtol=0)
+
+
+# --- the QA answering slice: the reader on K2, the sampler's search on the card ---
+
+# reader outputs, K2 against the vanilla attention path over two layers: f32
+# noise in f32 (absolute); in bf16 a share of each output's largest magnitude
+# (the span logits inside the paragraph), the limit tests/test_torch_reader.py
+# measures for the port against JAX, where one more rounding to float8 e4m3
+# (the lower-precision control, checked to fail it) reads 1.38-5.33%
+READER_F32_ATOL, READER_BF16_REL = 1e-4, 1.1e-2
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reader_with_k2_matches_vanilla_at_512(cuda, dtype):
+    """QAModel at BERT-base width (two layers) over [2, 3, 512] reader rows,
+    one of them all padding (a batch_pad row K2 must take): the fused path
+    launches K2 once a layer and gives the vanilla path's logits."""
+    import dataclasses
+
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel, decode_spans
+
+    cfg = BertConfig(num_layers=2, vocab_size=128, flash_attention=True,
+                     dtype=getattr(torch, dtype))
+    k2 = QAModel(cfg, QAConfig(add_select=True)).reset_parameters(0).to(cuda).eval()
+    plain = QAModel(dataclasses.replace(cfg, flash_attention=False), QAConfig(add_select=True))
+    plain.load_state_dict(k2.state_dict())
+    plain = plain.to(cuda).eval()
+    g = torch.Generator().manual_seed(2)
+    b, k, t, tq = 2, 3, 512, 30
+    ids = torch.randint(5, 128, (b, k, t), generator=g)
+    lengths = torch.tensor([[512, 300, 40], [129, 0, 511]])
+    mask = (torch.arange(t) < lengths[..., None]).int()
+    batch = {"input_ids": ids * mask, "input_mask": mask,
+             "segment_ids": ((torch.arange(t) >= 12) & (mask == 1)).long(),
+             "paragraph_mask": ((torch.arange(t) >= 12) & (torch.arange(t) < lengths[..., None] - 1)).int(),
+             "input_ids_q": torch.randint(5, 128, (b, tq), generator=g),
+             "input_mask_q": torch.ones(b, tq, dtype=torch.int32),
+             "para_embed": torch.randn(b, 7, 128, generator=g)}
+    batch = {key: v.to(cuda) for key, v in batch.items()}
+    with torch.inference_mode():
+        before = attention.launches
+        got = k2(batch)
+        torch.cuda.synchronize()
+        assert attention.launches - before == cfg.num_layers  # the reader; queries are T=30
+        want = plain(batch)
+    in_para = batch["paragraph_mask"] == 1
+    for key in ("start_logits", "end_logits", "select_logits", "rank_logits", "q_embed"):
+        assert torch.isfinite(got[key]).all(), key
+        g, w = got[key], want[key]
+        if key in ("start_logits", "end_logits"):
+            torch.testing.assert_close(g[~in_para], w[~in_para], atol=0, rtol=0)
+            g, w = g[in_para], w[in_para]
+        if dtype == "float32":
+            torch.testing.assert_close(g, w, atol=READER_F32_ATOL, rtol=0)
+            continue
+        atol = READER_BF16_REL * w.abs().max().item()
+        torch.testing.assert_close(g, w, atol=atol, rtol=0)
+        control = g.to(torch.float8_e4m3fn).float()
+        assert (control - w).abs().max().item() > atol, key
+    if dtype == "float32":
+        for a, w in zip(decode_spans(got["start_logits"], got["end_logits"]),
+                        decode_spans(want["start_logits"], want["end_logits"])):
+            torch.testing.assert_close(a, w, atol=READER_F32_ATOL, rtol=0)
+
+
+def test_eval_load_on_gpu_matches_cpu(cuda, tmp_path):
+    """One eval_load pass of the online sampler with the index and the query
+    tower on the card (an f32 index of 4,500 rows: K1's f32 kernel, then K6)
+    against the same pass on the CPU (their plain versions): the same
+    paragraphs in the same order, the same rank-head rows."""
+    import json
+
+    import numpy as np
+
+    from proqa_tpu_torch.data.docdb import DocDB
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.index.idmap import IdMap
+    from proqa_tpu_torch.models.reader import QAConfig
+    from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
+    from proqa_tpu_torch.text.wordpiece import BertTokenizer
+    from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
+
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"tok{i}" for i in range(60)] + [
+        "what", "is", "about"]
+    (tmp_path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    rng = np.random.default_rng(0)
+    paras = [(f"p{i}", " ".join(f"tok{t}" for t in rng.integers(0, 60, size=rng.integers(1, 40))))
+             for i in range(4500)]
+    db = DocDB.create(str(tmp_path / "docs.db"), paras)
+    emb = rng.standard_normal((4500, 128)).astype(np.float32) / np.sqrt(128)
+    qa = [{"question": f"what is about tok{a} tok{b}", "answer": [f"tok{a}"]}
+          for a, b in rng.integers(0, 60, size=(12, 2))]
+    tok = BertTokenizer.from_vocab_file(str(tmp_path / "vocab.txt"))
+    cfg = BertConfig.tiny(dtype=torch.float32, initializer_range=0.3)
+    scfg = OnlineSamplerConfig(max_query_length=12, max_length=64, question_batch=8,
+                               exact_search=True)
+    batches = []
+    for device in ("cpu", cuda):
+        trainer = QATrainer(cfg, QAConfig(), QATrainerConfig(output_dir=str(tmp_path / "run")),
+                            device=device)
+        index = DenseIndex.from_embeddings(emb, IdMap([p for p, _ in paras]), device=device,
+                                           dtype=torch.float32)
+        sampler = OnlineSampler(qa, tok, db, index, scfg)
+        k1, k6 = mips_kernel.f32_launches, rescore.launches
+        batches.append(list(sampler.eval_load(trainer.query_encoder(), k=5)))
+        if device != "cpu":
+            assert mips_kernel.f32_launches > k1 and rescore.launches > k6
+    cpu_batches, gpu_batches = batches
+    assert [len(b["id"]) for b in gpu_batches] == [8, 4]
+    for want, got in zip(cpu_batches, gpu_batches):
+        for key, value in want["net_input"].items():
+            np.testing.assert_array_equal(got["net_input"][key], value, err_msg=key)
+        assert json.dumps(got["doc_tokens"]) == json.dumps(want["doc_tokens"])
