@@ -95,6 +95,28 @@ The QA answering path:
      decoded spans wherever the best span leads by more than
      SPAN_MARGIN_ERRS times the batch's error); questions/s and reader
      tokens/s logged.
+QA finetuning, k-means and cluster-batched pretraining:
+ 19. the QA train step at full width on the retrieval world of phase 4: a
+     BERT-base reader and retriever in bf16 (remat, fused attention,
+     dropout 0.1, qa_drop 0.1), 4 questions x 5 paragraphs at T = 512,
+     queries at T = 30, 5,000 candidates a question gathered from the device
+     index; 20 steps on one batch (the loss must fall, K2/K3/K4 counted),
+     step ms and peak memory; a dropout-0 step with the kernels against the
+     vanilla attention path (gradient cosine); K2, K3 and K4 at these shapes
+     against their plain versions, timed beside SDPA / F.dropout and the
+     bound;
+ 20. finetune-qa through the CLI on that world (random BERT-base weights,
+     the retriever of phase 9's checkpoint_last.pt, 16 questions, evals
+     every 2 steps), the counters of K1, K2, K3, K4 and K6 reset before and
+     read after; --resume from checkpoint_last.pt for a second epoch; eval-qa
+     from the best-model.pt it wrote must give training's best EM;
+ 21. k-means at the reference's settings (10,000 centroids, 1,000 points a
+     centroid) over 2,097,152 x 128 f32 rows made on the card, KMEANS_NITER
+     iterations: seconds per Lloyd iteration beside the f32 FMA bound, and
+     8,192 sampled assignments against the CPU's;
+ 22. on the pretraining world of phase 9: build-index over the pairs'
+     paragraphs, cluster-corpus into 3 shards, and pretrain-retriever reading
+     the shards (K2, K3, K4 counted).
 Each of phases 12-14 first drives its kernel's public pipeline once with the
 counters at 0 and reads them, then compares and times the kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -149,6 +171,7 @@ READER_REL = 0.025
 # at most 4 times it: past that lead the decoded span cannot change
 SPAN_MARGIN_ERRS = 4
 READER_BATCHES = 4  # reader batches held against the vanilla path (32 questions)
+KMEANS_NITER = 250  # Lloyd iterations of the k-means phase, the reference's
 
 # H100 SXM peaks (NVIDIA's data sheet): dense bf16 tensor-core rate, f32
 # rate outside the tensor cores (the FMA pipe), HBM rate
@@ -1488,6 +1511,387 @@ def phase_qa(device, root: str) -> dict:
             "questions_per_s": n_q / wall, "reader_tokens_per_s": tokens / wall}
 
 
+# --- QA finetuning (finetune-qa) ---------------------------------------------
+
+# k-means: near ties between the card's f32 scores and the CPU's may pick
+# other centroids; a differing assignment must be one whose two scores lie
+# within this of each other (f32 sums of 128 products of magnitude ~1)
+KMEANS_TIE = 1e-4
+
+
+def write_qa_train_files(root: str, name: str, n_q: int, seed: int) -> tuple[str, str]:
+    """n_q distinct questions whose gold answers are every one-word token
+    (so a one-word span scores EM 1 and a random reader's EM is above 0),
+    and a matched-paragraph file naming every 7th paragraph of the 8,192 gold.
+    Returns (questions path, matched path)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    gold = [f"tok{w}" for w in range(60)]
+    questions = [f"what is about tok{pair // 60} tok{pair % 60}"
+                 for pair in rng.choice(60 * 60, n_q, replace=False)]
+    qa_path, matched = os.path.join(root, f"{name}.jsonl"), os.path.join(root, f"{name}_gold.jsonl")
+    with open(qa_path, "w") as f:
+        f.writelines(json.dumps({"question": q, "answer": gold}) + "\n" for q in questions)
+    with open(matched, "w") as f:
+        for q in questions:
+            f.write(json.dumps({"question": q, "matched_paras": {
+                f"p{i}": "tok1" for i in range(0, 8192, 7)}}) + "\n")
+    return qa_path, matched
+
+
+def _qa_kernel_checks(device, key_mask, tq: int, qpb: int) -> dict:
+    """K2, K3 and K4 at the QA train step's shapes against their plain
+    versions, each timed by one call beside its library call and its bound:
+    K2/K3 over [B*k, 12, T, 64] bf16 with the batch's key mask at rate 0.1
+    (SDPA and its backward at rate 0), K4 at the reader's [B*k, T, 768] bf16
+    sites and the query tower's [B, 12, Tq, Tq] f32 probabilities."""
+    import torch
+    import torch.nn.functional as F
+
+    from proqa_tpu_torch.ops import attention
+    from proqa_tpu_torch.ops import dropout as drop
+
+    b, t = key_mask.shape
+    h, dh, rate, seed, scale = 12, 64, 0.1, 2**51 + 7, 64 ** -0.5
+    g = torch.Generator(device=device).manual_seed(21)
+    q, k, v, do = (torch.randn(b, h, t, dh, device=device, generator=g).bfloat16()
+                   for _ in range(4))
+    out = {}
+    got = attention.fused_attention(q, k, v, key_mask, sm_scale=scale, dropout_rate=rate,
+                                    seed=seed)
+    want = attention.fused_attention_reference(q, k, v, key_mask, sm_scale=scale,
+                                               dropout_rate=rate, seed=seed)
+    err2 = (got.float() - want.float()).abs().max().item()
+    check(bool(torch.isfinite(got.float()).all()) and err2 <= ATTN_TOL,
+          f"K2 at the QA step's shapes: max abs err {err2} > {ATTN_TOL}")
+    got = attention._backward_kernel(q, k, v, key_mask, do, scale, rate, seed)
+    want = attention.fused_attention_backward_reference(q, k, v, key_mask, do, sm_scale=scale,
+                                                        dropout_rate=rate, seed=seed)
+    err3 = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+    check(all(bool(torch.isfinite(a.float()).all()) for a in got) and err3 <= BWD_TOL,
+          f"K3 at the QA step's shapes: max abs err {err3} > {BWD_TOL}")
+    del got, want
+    bias = torch.where(key_mask[:, None, None, :] != 0, 0.0, attention.MASK_BIAS).to(q.dtype)
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias)
+    n = b * h * t * dh * 2
+    out["K2"] = {"max_abs_err": err2, "shape": [b, h, t, dh],
+                 "ms": cuda_ms(lambda: attention.fused_attention(
+                     q, k, v, key_mask, sm_scale=scale, dropout_rate=rate, seed=seed)),
+                 "plain_ms": cuda_ms(lambda: attention.fused_attention_reference(
+                     q, k, v, key_mask, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3),
+                 "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=bias))}
+    out["K2"]["bound_ms"], out["K2"]["bound_by"] = bound(4 * n + key_mask.numel() * 4,
+                                                         4 * b * h * t * t * dh)
+    out["K3"] = {"max_abs_err": err3, "shape": [b, h, t, dh],
+                 "ms": cuda_ms(lambda: attention._backward_kernel(q, k, v, key_mask, do, scale,
+                                                                  rate, seed)),
+                 "plain_ms": cuda_ms(lambda: attention.fused_attention_backward_reference(
+                     q, k, v, key_mask, do, sm_scale=scale, dropout_rate=rate, seed=seed), reps=3),
+                 "library_ms": cuda_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                                   retain_graph=True))}
+    out["K3"]["bound_ms"], out["K3"]["bound_by"] = bound(7 * n + key_mask.numel() * 4,
+                                                         10 * b * h * t * t * dh)
+    del q, k, v, do, qs, ks, vs, lib_out, bias
+    for name, shape, dtype in (("K4", (b, t, 768), torch.bfloat16),
+                               ("K4 query probabilities", (qpb, h, tq, tq), torch.float32)):
+        x = torch.randn(*shape, device=device, generator=g).to(dtype)
+        got = drop.dropout(x, rate, seed=seed)
+        check(torch.equal(got, drop.dropout_reference(x, rate, seed=seed)),
+              f"{name} {shape}: not bit-equal to its plain version")
+        res = {"max_abs_err": 0.0, "shape": list(shape),
+               "ms": cuda_ms(lambda: drop.dropout(x, rate, seed=seed), reps=20),
+               "plain_ms": cuda_ms(lambda: drop.dropout_reference(x, rate, seed=seed)),
+               "library_ms": cuda_ms(lambda: F.dropout(x, rate, training=True), reps=20)}
+        res["bound_ms"], res["bound_by"] = bound(2 * x.numel() * x.element_size(), 0)
+        out[name] = res
+        del x, got
+    for name, res in out.items():
+        log(f"{name} at the QA step's shape {res['shape']}: max_abs_err {res['max_abs_err']:.3g}, "
+            f"kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, library "
+            f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return out
+
+
+def phase_qa_train(device, root: str) -> dict:
+    """The QA train step at full width on phase_cli's retrieval world: a
+    BERT-base reader and retriever (phase_cli's weights, the index's) in
+    bf16 with remat, fused attention, dropout 0.1 and qa_drop 0.1, one batch
+    of 4 questions x 5 paragraphs at T = 512 (queries T = 30) and 5,000
+    candidates a question gathered from the device index (para_rows), made
+    by the online sampler's train load. 20 steps on it: the loss must fall,
+    and K2, K3 and K4 must launch; then a dropout-0 step with the kernels
+    against the vanilla attention path (gradient cosine), and K2, K3, K4 at
+    these shapes against their plain versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.data.collate import batch_pad
+    from proqa_tpu_torch.data.docdb import DocDB
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.convert import load_params
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel, qa_loss
+    from proqa_tpu_torch.ops import attention, dropout
+    from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
+    from proqa_tpu_torch.text.wordpiece import BertTokenizer
+    from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    qpb, k, t, tq, m, steps = 4, 5, 512, 30, 5000, 20
+    cfg = BertConfig(remat=True, flash_attention=True)  # bf16, dropout 0.1
+    trainer = QATrainer(cfg, QAConfig(qa_drop=0.1), QATrainerConfig(
+        questions_per_batch=qpb, train_k=k, learning_rate=1e-4, seed=13,
+        output_dir=p("qa_train_run")), device=device)
+    trainer.model.retriever.load_state_dict(load_params(p("retriever.npz")))
+    qa_path, matched = write_qa_train_files(root, "qa_train", qpb, seed=14)
+    index = DenseIndex.load(p("index"), device=device)
+    sampler = OnlineSampler(qa_path, BertTokenizer.from_vocab_file(p("vocab.txt")),
+                            DocDB(p("docs.db")), index,
+                            OnlineSamplerConfig(max_query_length=tq, max_length=t, candidates=m,
+                                                question_batch=qpb, exact_search=True), matched)
+    batch = next(iter(sampler.load(trainer.query_encoder(), k, qpb)))
+    net, rows = batch_pad(batch["net_input"], qpb)
+    net["question_mask"] = (np.arange(qpb) < rows).astype(np.int32)
+    check(net["input_ids"].shape == (qpb, k, t) and net["para_rows"].shape == (qpb, m),
+          f"QA train batch: {net['input_ids'].shape}, {net['para_rows'].shape}")
+    check(int(net["top5000_labels"].sum()) > 0, "QA train batch: no gold among the candidates")
+    trainer.set_corpus(index)
+    trainer._train_step(dict(net))  # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.launches = attention.backward_launches = dropout.launches = 0
+    losses, walls = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        comp = trainer._train_step(dict(net))
+        losses.append(float(comp["loss"]))  # synchronises
+        walls.append(time.perf_counter() - t0)
+    launches = {"K2": attention.launches, "K3": attention.backward_launches,
+                "K4": dropout.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = statistics.median(walls) * 1e3
+    tokens = qpb * k * t
+    log(f"{gpu_line()}: QA train step BERT-base reader + retriever bf16 remat flash dropout 0.1 "
+        f"qa_drop 0.1, {qpb} x {k} x {t} reader tokens, queries {qpb} x {tq}, {m} candidates a "
+        f"question: losses {losses[0]:.4f} -> {losses[-1]:.4f}; {step_ms:.1f} ms per step "
+        f"(median of {steps}, p25 {np.percentile(walls, 25) * 1e3:.1f}, p75 "
+        f"{np.percentile(walls, 75) * 1e3:.1f}; host clock, synchronised), "
+        f"{tokens / step_ms * 1e3:.0f} reader tokens/s, peak {peak:.2f} GiB; launches in "
+        f"{steps} steps: {json.dumps(launches)}")
+    check(all(math.isfinite(x) for x in losses), f"QA train step: non-finite loss {losses}")
+    check(losses[-1] < losses[0] - LOSS_DROP,
+          f"QA train step: loss {losses[0]} -> {losses[-1]} did not fall by {LOSS_DROP}")
+    check(all(n > 0 for n in launches.values()), f"QA train step: a kernel never ran {launches}")
+
+    # dropout 0: K2/K3 against the vanilla attention path, same weights, the
+    # batch's first two questions, candidates gathered as the step gathers them
+    dev = trainer._device_batch({key: v[:2] for key, v in net.items()})
+    dev["para_embed"] = index.gather(dev.pop("para_rows"))
+    key_mask = dev["input_mask"].reshape(-1, t).to(torch.int32)
+    state = trainer.model.state_dict()
+    del trainer, sampler
+    torch.cuda.empty_cache()
+    cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    grads = []
+    for flash in (True, False):
+        model = QAModel(dataclasses.replace(cfg0, flash_attention=flash), QAConfig())
+        model.load_state_dict(state)
+        model = model.to(device).train()
+        loss = qa_loss(model(dev), dev, model.qcfg)["loss"]
+        loss.backward()
+        grads.append((loss.item(), {name: q.grad.float() for name, q in model.named_parameters()
+                                    if q.grad is not None}))
+        del model, loss
+    (loss_k, grads_k), (loss_v, grads_v) = grads
+    # zero gradient in exact arithmetic, so only rounding noise: the key bias
+    # (softmax ignores a constant added to a row), and the span head's bias
+    # and the reader's last LayerNorm bias (each shifts every logit of a
+    # paragraph's softmax alike)
+    exact_zero = (f"bert.layers.{cfg.num_layers - 1}.mlp_ln.bias", "qa_outputs.bias")
+    cos, norms = {}, {}
+    for name, gk in grads_k.items():
+        if name.endswith(".k.bias") or name in exact_zero:
+            continue
+        a, b = gk.double().flatten(), grads_v[name].double().flatten()
+        # no eps: torch's cosine_similarity clamps the product of the norms
+        # at 1e-8, which reads tensors of tiny gradient as unrelated
+        cos[name] = (a @ b / (a.norm() * b.norm())).item()
+        norms[name] = (b.norm().item(), (a - b).norm().item())
+    worst = sorted(cos, key=cos.get)[:5]
+    log(f"QA dropout-0 step, kernels vs vanilla attention: loss {loss_k:.6f} vs {loss_v:.6f}; "
+        f"lowest gradient cosines (|vanilla grad|, |difference|) over {len(cos)} tensors: "
+        + ", ".join(f"{n} {cos[n]:.6f} ({norms[n][0]:.3g}, {norms[n][1]:.3g})" for n in worst)
+        + f"; tol {GRAD_COS}")
+    worst = worst[0]
+    check(cos[worst] >= GRAD_COS,
+          f"QA dropout-0 gradients: cosine {cos[worst]} < {GRAD_COS} ({worst})")
+    del grads, grads_k, grads_v, dev
+    torch.cuda.empty_cache()
+    kernels = _qa_kernel_checks(device, key_mask.repeat(2, 1), tq, qpb)
+    return {"step_ms": step_ms, "peak_gib": peak, "launches": launches, "losses": losses,
+            "min_grad_cos": cos[worst], "kernels": kernels}
+
+
+def phase_finetune_cli(device, root: str, pretrain_root: str) -> dict:
+    """finetune-qa through the CLI on phase_cli's retrieval world: random
+    BERT-base weights with the retriever of phase_pretrain_cli's
+    checkpoint_last.pt, 16 questions, 4 a step, 5 paragraphs at T = 512,
+    5,000 candidates, evals every 2 steps and at the epoch end, the counters
+    reset before and read after; then --resume from checkpoint_last.pt for a
+    second epoch, and eval-qa from the best-model.pt training wrote."""
+    import torch
+
+    from proqa_tpu_torch.ops import attention, dropout, mips_kernel, rescore
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    qa_path, matched = write_qa_train_files(root, "qa_ft", 16, seed=15)
+    run = p("ft_run")
+    common = ["--vocab", p("vocab.txt"), "--db", p("docs.db"), "--index", p("index"),
+              "--device", str(device), "--max-seq-length", "512", "--eval-k", "5",
+              "--questions-per-batch", "4", "--output-dir", run, "--predict-file", qa_path]
+    args = ["finetune-qa", *common, "--train-file", qa_path, "--matched-para-path", matched,
+            "--retriever-path", os.path.join(pretrain_root, "run", "checkpoint_last.pt"),
+            "--train-batch-size", "5", "--candidates", "5000", "--eval-period", "2",
+            "--learning-rate", "1e-5", "--qa-drop", "0.1", "--seed", "16"]
+    attention.launches = attention.backward_launches = dropout.launches = 0
+    mips_kernel.launches = rescore.launches = 0
+    walls = {}
+    trained, walls["finetune-qa"] = run_cli([*args, "--num-train-epochs", "1"])
+    launches = {"K1": mips_kernel.launches, "K2": attention.launches,
+                "K3": attention.backward_launches, "K4": dropout.launches,
+                "K6": rescore.launches}
+    log(f"kernel launches during finetune-qa: {json.dumps(launches)}")
+    check(all(n > 0 for n in launches.values()), f"a kernel never ran on finetune-qa {launches}")
+    check(set(trained) == {"best_em"} and 0.0 <= trained["best_em"] <= 1.0,
+          f"finetune-qa: {trained}")
+    with open(os.path.join(run, "trainer_meta.json")) as f:
+        meta = json.load(f)
+    step1 = torch.load(os.path.join(run, "checkpoint_last.pt"), map_location="cpu",
+                       weights_only=True)["step"]
+    check(meta["epoch"] == 1 and step1 == 4, f"finetune-qa: meta {meta}, step {step1}")
+    resumed, walls["finetune-qa --resume"] = run_cli(
+        [*args, "--num-train-epochs", "2", "--resume", os.path.join(run, "checkpoint_last.pt")])
+    with open(os.path.join(run, "trainer_meta.json")) as f:
+        meta = json.load(f)
+    step2 = torch.load(os.path.join(run, "checkpoint_last.pt"), map_location="cpu",
+                       weights_only=True)["step"]
+    check(meta["epoch"] == 2 and step2 == 2 * step1 and resumed["best_em"] >= trained["best_em"],
+          f"finetune-qa --resume: {resumed}, meta {meta}, step {step2}")
+    best = os.path.join(run, "best-model.pt")
+    check(os.path.exists(best), "finetune-qa wrote no best-model.pt")
+    em, walls["eval-qa"] = run_cli(["eval-qa", *common, "--init-checkpoint", best])
+    check(em == {"em": resumed["best_em"]},
+          f"eval-qa from best-model.pt: {em}, training's best {resumed['best_em']}")
+    log(f"finetune-qa: {json.dumps(trained)} after {step1} steps, --resume {json.dumps(resumed)} "
+        f"after {step2}; eval-qa from best-model.pt {json.dumps(em)}; wall seconds "
+        f"{json.dumps(walls)}")
+    return launches
+
+
+def phase_kmeans(device) -> dict:
+    """k-means at the reference's settings (10,000 centroids,
+    max_points_per_centroid 1,000; retrieval/group_paras.py:57-59) over
+    2,097,152 x 128 f32 embeddings made on the card from a seed, KMEANS_NITER
+    Lloyd iterations; seconds per Lloyd iteration beside the f32 FMA bound, and
+    the assignments of 8,192 sampled rows against assign_clusters run on the
+    CPU (its plain version)."""
+    import torch
+
+    from proqa_tpu_torch.ops import kmeans
+
+    n, d, k, niter = 2_097_152, 128, 10_000, KMEANS_NITER
+    log(f"k-means: niter {niter}, the reference's 250 (no cut)")
+    g = torch.Generator(device=device).manual_seed(17)
+    centers = torch.randn(4 * k, d, device=device, generator=g)
+    data = centers[torch.randint(0, 4 * k, (n,), device=device, generator=g)]
+    data += 0.5 * torch.randn(n, d, device=device, generator=g)
+    del centers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = kmeans.kmeans(torch.Generator().manual_seed(18), data, k, niter=niter,
+                        max_points_per_centroid=1000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunk = min(1 << 16, max(1024, (1 << 26) // k))
+    iter_ms = cuda_ms(lambda: kmeans._lloyd_iter(data, res.centroids, k=k, spherical=False,
+                                                 chunk=chunk), reps=3)
+    bms, by = bound(n * d * 4 + 2 * k * d * 4, 2.0 * n * k * d, PEAK_F32_FLOPS)
+    check(res.assignments.shape == (n,) and bool(torch.isfinite(res.centroids).all()),
+          "k-means: bad result")
+    used = int(torch.bincount(res.assignments.long(), minlength=k).gt(0).sum())
+    sample = torch.randperm(n, generator=torch.Generator().manual_seed(19))[:8192]
+    want, _ = kmeans.assign_clusters(data[sample.to(device)].cpu(), res.centroids.cpu())
+    got = res.assignments[sample.to(device)].cpu()
+    differ = (got != want).nonzero().flatten()
+    gap = 0.0
+    if len(differ):
+        x = data[sample[differ].to(device)].cpu().double()
+        sc = kmeans._chunk_scores(x, res.centroids.cpu().double(), False)
+        gap = (sc.gather(1, want[differ, None].long()) -
+               sc.gather(1, got[differ, None].long())).abs().max().item()
+    check(gap <= KMEANS_TIE, f"k-means: {len(differ)} of 8,192 sampled assignments differ from "
+                             f"the CPU's by {gap} > {KMEANS_TIE}")
+    log(f"{gpu_line()}: k-means {n} x {d} f32, k={k}, max_points_per_centroid 1000, niter "
+        f"{niter}: {wall:.2f} s in all ({used} clusters used, objective "
+        f"{float(res.objective):.4f}), one Lloyd iteration {iter_ms / 1e3:.4f} s (CUDA events) "
+        f"against a bound of {bms / 1e3:.4f} s ({by}, f32 FMA rate), peak {peak:.2f} GiB; "
+        f"8,192 sampled assignments against the CPU's: {len(differ)} differ, all within "
+        f"{KMEANS_TIE} (largest score gap {gap:.3g})")
+    return {"seconds": wall, "iter_ms": iter_ms, "bound_ms": bms, "peak_gib": peak,
+            "differ": len(differ)}
+
+
+def phase_cluster_cli(device, root: str) -> dict:
+    """On phase_pretrain_cli's world: build-index over the pairs' paragraphs
+    from its checkpoint_last.pt, cluster-corpus into 3 shards, and
+    pretrain-retriever reading those shards (contexts of T = 256: K2, K3,
+    K4), the counters reset before and read after."""
+    from proqa_tpu_torch.ops import attention, dropout
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    seq = ["--vocab", p("vocab.txt"), "--max-seq-length", "286", "--max-query-length", "30",
+           "--device", str(device)]
+    attention.launches = attention.backward_launches = dropout.launches = 0
+    walls = {}
+    built, walls["build-index"] = run_cli([
+        "build-index", *seq, "--corpus", p("pairs.jsonl"),
+        "--init-checkpoint", p("run/checkpoint_last.pt"), "--output-dir", p("pair_index"),
+        "--predict-batch-size", "96"])
+    clustered, walls["cluster-corpus"] = run_cli([
+        "cluster-corpus", "--embeddings", p("pair_index/embeddings.npy"), "--pairs",
+        p("pairs.jsonl"), "--output-dir", p("pair_splits"), "--ncentroids", "3", "--niter", "5",
+        "--device", str(device)])
+    trained, walls["pretrain-retriever"] = run_cli([
+        "pretrain-retriever", *seq, "--train-file", p("pair_splits"),
+        "--predict-file", p("pairs.jsonl"), "--output-dir", p("run_phase2"),
+        "--train-batch-size", "8", "--predict-batch-size", "32", "--num-train-epochs", "1",
+        "--eval-period", "1000", "--learning-rate", "1e-4",
+        "--init-checkpoint", p("run/checkpoint_last.pt")])
+    launches = {"K2": attention.launches, "K3": attention.backward_launches,
+                "K4": dropout.launches}
+    shards = sorted(os.listdir(p("pair_splits")))
+    lines = 0
+    for name in shards:
+        with open(os.path.join(p("pair_splits"), name)) as f:
+            lines += sum(1 for _ in f)
+    log(f"build-index over the pairs -> cluster-corpus -> pretrain-retriever on its shards: "
+        f"{json.dumps(clustered)}; {len(shards)} shards, {lines} pairs; launches "
+        f"{json.dumps(launches)}; wall seconds {json.dumps(walls)}")
+    check(built["rows"] == 96 and clustered["shards"] == len(shards) >= 2 and lines == 96,
+          f"cluster-corpus: {clustered}, {len(shards)} shards of {lines} pairs")
+    check(0.0 <= trained["best_in_batch_acc"] <= 1.0, f"pretrain-retriever on shards: {trained}")
+    check(all(n > 0 for n in launches.values()), f"a kernel never ran on the shards' "
+                                                 f"pretraining {launches}")
+    return launches
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1524,19 +1928,25 @@ def main() -> int:
         # the dense-retrieval slice
         timed("encoder", phase_encoder, device)
         k1 = timed("mips", phase_mips, device)
-        with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
+        with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root, \
+                tempfile.TemporaryDirectory(prefix="proqa_smoke_") as pretrain_root:
             retrieval, k1_cli_err, batch, recall = timed("retrieval_cli", phase_cli, device, root)
             k5_launches, k5_cli_err = timed("int8_cli", phase_int8_cli, device, root, recall)
             f32_launches, k6_f32_cli = timed("f32_cli", phase_f32_cli, device, root, recall)
             # the QA answering slice, on the same retrieval world
             qa = timed("qa_cli", phase_qa, device, root)
-        k2_encode = timed("attention_encode", phase_attention, device, batch)
-        # the retriever-pretraining slice
-        k4 = timed("dropout", phase_dropout, device)
-        k2, k3 = timed("attention_train", phase_attention_train, device)
-        timed("train_step", phase_train_step, device)
-        with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
-            pretrain = timed("pretrain_cli", phase_pretrain_cli, device, root)
+            k2_encode = timed("attention_encode", phase_attention, device, batch)
+            # the retriever-pretraining slice
+            k4 = timed("dropout", phase_dropout, device)
+            k2, k3 = timed("attention_train", phase_attention_train, device)
+            timed("train_step", phase_train_step, device)
+            pretrain = timed("pretrain_cli", phase_pretrain_cli, device, pretrain_root)
+            # QA finetuning, on the retrieval world with the pretrained retriever
+            qa_train = timed("qa_train", phase_qa_train, device, root)
+            finetune = timed("finetune_cli", phase_finetune_cli, device, root, pretrain_root)
+            # k-means, then cluster-batched pretraining on the pretraining world
+            timed("kmeans", phase_kmeans, device)
+            cluster = timed("cluster_cli", phase_cluster_cli, device, pretrain_root)
         # the int8 index and the rest of the search kernels
         k5 = timed("int8", phase_int8, device)
         k5_cap = timed("int8_capacity", phase_int8_capacity, device)
@@ -1563,19 +1973,25 @@ def main() -> int:
 
     qa_runs = qa["launches"].values()
     qa_launches = {name: sum(run[name] for run in qa_runs) for name in ("K1", "K2", "K5", "K6")}
-    # launches: the main paths' runs (retrieval CLI, pretraining CLI, QA CLI)
+    at_qa_train = qa_train["kernels"]
+    # launches: the main paths' runs (retrieval CLI, pretraining CLI, QA CLI,
+    # finetune-qa, and pretraining on cluster shards)
     kernels = [
         entry("block_maxima_grouped (K1)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:83",
-              retrieval["block_maxima"] + pretrain["K1"] + qa_launches["K1"], k1,
+              retrieval["block_maxima"] + pretrain["K1"] + qa_launches["K1"] + finetune["K1"], k1,
               max(k1["max_abs_err"], k1_cli_err, qa["k1_err"])),
         entry("fused_attention (K2)", "attention_fwd.cu", "proqa_tpu/ops/pallas_attention.py:65",
-              retrieval["attention"] + pretrain["K2"] + qa_launches["K2"], k2,
-              max(k2["max_abs_err"], k2_encode["max_abs_err"], qa["k2_err"])),
+              retrieval["attention"] + pretrain["K2"] + qa_launches["K2"] + finetune["K2"]
+              + cluster["K2"], k2,
+              max(k2["max_abs_err"], k2_encode["max_abs_err"], qa["k2_err"],
+                  at_qa_train["K2"]["max_abs_err"])),
         entry("fused_attention backward (K3)", "attention_bwd.cu",
-              "proqa_tpu/ops/pallas_attention.py:83", pretrain["K3"], k3, k3["max_abs_err"]),
-        entry("dropout (K4)", "dropout.cu", "proqa_tpu/ops/pallas_dropout.py:32", pretrain["K4"],
-              k4, k4["max_abs_err"]),
+              "proqa_tpu/ops/pallas_attention.py:83",
+              pretrain["K3"] + finetune["K3"] + cluster["K3"], k3,
+              max(k3["max_abs_err"], at_qa_train["K3"]["max_abs_err"])),
+        entry("dropout (K4)", "dropout.cu", "proqa_tpu/ops/pallas_dropout.py:32",
+              pretrain["K4"] + finetune["K4"] + cluster["K4"], k4, k4["max_abs_err"]),
         # launches: the int8 CLI paths (K5: retrieval and answer) and each
         # kernel's own pipeline (K7-K9); times at 4.2M rows (K5 at 67.1M: in
         # the log above)
@@ -1585,7 +2001,8 @@ def main() -> int:
         # launches: the retrieval, pretraining, f32 and QA CLI paths (K6 is
         # the rescore of every bf16 and f32 search); K9: its own pipeline's run
         entry("gather_rescore (K6)", "gather_rescore.cu", "proqa_tpu/ops/pallas_rescore.py:58",
-              retrieval["rescore"] + pretrain["K6"] + k6_f32_cli + qa_launches["K6"], k6),
+              retrieval["rescore"] + pretrain["K6"] + k6_f32_cli + qa_launches["K6"]
+              + finetune["K6"], k6),
         entry("block_maxima_grouped bounded (K7)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:111", k7_launches, k7),
         entry("block_maxima (K8)", "block_maxima_wgmma.cu", "proqa_tpu/ops/pallas_mips.py:32",

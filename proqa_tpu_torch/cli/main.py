@@ -8,17 +8,19 @@ Subcommands:
   encode-queries       questions -> query embedding .npy
   eval-retrieval       recall@k over the index
   retrieve             one-shot question -> top-k paragraphs
+  cluster-corpus       k-means + per-cluster pretraining shards (group_paras)
   match-paras          weak-supervision gold-paragraph matching
+  finetune-qa          joint retriever + reader QA training with online retrieval
   eval-qa              retrieve, read and decode: EM with the rank/span alpha sweep
   answer               inference-only QA: question(s) -> answer spans
 
 Flags and final JSON lines are the `proqa` CLI's, plus `--device` (default
 cuda). Checkpoints are `.npz` files in the JAX layout, `.pt` state dicts, or
 the `.pt` train checkpoints pretrain-retriever writes (models/convert.py).
-`--int8-index` (eval-retrieval, retrieve, eval-qa, answer) searches an
-int8-quantized index (kernel K5). Commands and flags not ported yet
-(finetune-qa, serve, --stream-chunk, --dp-encode, --shard-index, --use-ivf)
-raise NotImplementedError.
+`--int8-index` (eval-retrieval, retrieve, finetune-qa, eval-qa, answer)
+searches an int8-quantized index (kernel K5). Commands and flags not ported
+yet (serve, --stream-chunk, --dp-encode, --shard-index, --use-ivf) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -249,6 +251,32 @@ def cmd_retrieve(args):
     print(json.dumps({"question": args.question, "topk": results}, ensure_ascii=False))
 
 
+def cmd_cluster_corpus(args):
+    from proqa_tpu_torch.index.cluster import cluster_corpus_embeddings, write_cluster_shards
+
+    emb = np.load(args.embeddings)
+    assignments = cluster_corpus_embeddings(
+        emb, args.ncentroids, niter=args.niter,
+        max_points_per_centroid=args.max_points_per_centroid,
+        spherical=args.spherical, seed=args.seed, device=args.device,
+    )
+    n = write_cluster_shards(args.pairs, assignments, args.output_dir)
+    # shard-size histogram: a handful of giant clusters would starve the
+    # cluster-pure batch sampler of negatives
+    sizes = np.bincount(assignments, minlength=args.ncentroids)
+    nonzero = np.sort(sizes[sizes > 0])
+    print(json.dumps({
+        "shards": n, "ncentroids": args.ncentroids,
+        "shard_sizes": {
+            "min": int(nonzero[0]) if n else 0,
+            "p50": int(np.median(nonzero)) if n else 0,
+            "p99": int(np.percentile(nonzero, 99)) if n else 0,
+            "max": int(nonzero[-1]) if n else 0,
+            "empty": int((sizes == 0).sum()),
+        },
+    }))
+
+
 def cmd_match_paras(args):
     from proqa_tpu_torch.qa.prepro import process_ground_paras
 
@@ -261,11 +289,12 @@ def cmd_match_paras(args):
 
 
 def _qa_setup(args):
-    """The QA model, index and sampler factory of eval-qa and answer, on one
-    device (the JAX CLI's _qa_setup, proqa_tpu/cli/main.py:394-483, without
-    the mesh). Weights: random from --seed, then --retriever-path into the
-    retriever, --reader-path into the reader BERT, --init-checkpoint into the
-    whole model (each a .npz in the JAX layout or a .pt; ';' averages)."""
+    """The QA model, index and sampler factory of finetune-qa, eval-qa and
+    answer, on one device (the JAX CLI's _qa_setup,
+    proqa_tpu/cli/main.py:394-483, without the mesh). Weights: random from
+    --seed, then --retriever-path into the retriever, --reader-path into the
+    reader BERT, --init-checkpoint into the whole model (each a .npz in the
+    JAX layout or a .pt; ';' averages)."""
     from proqa_tpu_torch.data.docdb import DocDB
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.models.convert import load_params
@@ -283,6 +312,15 @@ def _qa_setup(args):
         shared_norm=args.shared_norm, separate=args.separate,
         add_select=args.add_select, drop_early=args.drop_early, qa_drop=args.qa_drop,
     )
+    # the question batch splits into grad-accum microbatches: round it up to
+    # a multiple of their count (one device: the JAX CLI's multiple of
+    # devices x microbatches)
+    mult = max(1, args.accumulate_gradients)
+    qpb = -(-args.questions_per_batch // mult) * mult
+    if qpb != args.questions_per_batch:
+        print(f"questions-per-batch {args.questions_per_batch} -> {qpb} "
+              f"(multiple of 1 devices x {mult} microbatches)")
+    args.questions_per_batch = qpb
     tcfg = QATrainerConfig(
         learning_rate=args.learning_rate,
         accumulate_gradients=args.accumulate_gradients,
@@ -333,8 +371,13 @@ def _qa_setup(args):
 
 
 def cmd_finetune_qa(args):
-    raise NotImplementedError(
-        "finetune-qa is not ported to PyTorch yet (ROADMAP Queue 1, item 11: QA training)")
+    trainer, make_sampler = _qa_setup(args)
+    if args.resume:
+        trainer.resume(args.resume)
+    train_sampler = make_sampler(args.train_file, args.matched_para_path)
+    eval_sampler = make_sampler(args.predict_file)
+    best = trainer.train(train_sampler, eval_sampler)
+    print(json.dumps({"best_em": best}))
 
 
 def cmd_serve(args):
@@ -474,6 +517,18 @@ def build_parser() -> argparse.ArgumentParser:
     _shard_index_arg(sp)
     sp.set_defaults(fn=cmd_retrieve)
 
+    sp = sub.add_parser("cluster-corpus")
+    sp.add_argument("--embeddings", required=True, help="pair-paragraph embeds .npy")
+    sp.add_argument("--pairs", required=True, help="pretraining pairs jsonl")
+    sp.add_argument("--output-dir", required=True)
+    sp.add_argument("--ncentroids", type=int, default=10000)
+    sp.add_argument("--niter", type=int, default=250)
+    sp.add_argument("--max-points-per-centroid", type=int, default=1000)
+    sp.add_argument("--spherical", action="store_true")
+    sp.add_argument("--seed", type=int, default=0)
+    _add_device(sp)
+    sp.set_defaults(fn=cmd_cluster_corpus)
+
     sp = sub.add_parser("match-paras")
     sp.add_argument("--retrieved", required=True)
     sp.add_argument("--raw-data", required=True)
@@ -495,10 +550,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _add_qa_commands(sub) -> None:
     """finetune-qa, eval-qa, answer and serve with the JAX parser's flags
-    (proqa_tpu/cli/main.py:747-850); finetune-qa and serve raise until
-    ported."""
+    (proqa_tpu/cli/main.py:747-850); serve raises until ported."""
     helps = {
-        "finetune-qa": "not ported yet (ROADMAP Queue 1, item 11)",
+        "finetune-qa": "joint retriever + reader QA training with online retrieval",
         "answer": "question(s) -> extracted answer spans (inference only)",
         "serve": "not ported yet (ROADMAP Queue 1, item 12)",
     }
@@ -571,7 +625,7 @@ def _add_qa_commands(sub) -> None:
                             help="serve a question per stdin line (text or "
                                  "{\"question\": ...} json), model kept warm")
         if name == "finetune-qa":
-            sp.add_argument("--resume", default="")
+            sp.add_argument("--resume", default="", help="a checkpoint_last.pt of an earlier run")
         if name == "serve":
             sp.add_argument("--host", default="127.0.0.1")
             sp.add_argument("--port", type=int, default=8080)

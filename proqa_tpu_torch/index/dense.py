@@ -152,16 +152,20 @@ class DenseIndex:
         vals, idx = self.search(queries, k, **kw)
         return vals, idx, [self.id_map.rows_to_ids(row) for row in idx]
 
-    def take(self, rows) -> np.ndarray:
-        """Embedding rows as f32 numpy, int8 rows dequantized. Indices are
-        clipped to the padded row range, so -1 (an under-filled retrieval
-        slot) gathers row 0, as the JAX package's mode="clip" does."""
-        r = torch.as_tensor(np.asarray(rows), device=self.embeddings.device).long()
-        r = r.clamp(0, self.embeddings.shape[0] - 1)
+    def gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """Embedding rows [..., D] as f32 on the index's device, int8 rows
+        dequantized. Indices are clipped to the padded row range, so -1 (an
+        under-filled retrieval slot) gathers row 0, as the JAX package's
+        mode="clip" does."""
+        r = rows.to(self.embeddings.device).long().clamp(0, self.embeddings.shape[0] - 1)
         out = self.embeddings[r].float()
         if self.scales is not None:
             out = out * self.scales[r // self.quant_block][..., None]
-        return out.cpu().numpy()
+        return out
+
+    def take(self, rows) -> np.ndarray:
+        """`gather` of host row ids, as f32 numpy."""
+        return self.gather(torch.as_tensor(np.asarray(rows))).cpu().numpy()
 
     # ---------------- persistence ----------------
 

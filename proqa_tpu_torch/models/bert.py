@@ -184,12 +184,15 @@ class BertEncoder(nn.Module):
         self.layers = nn.ModuleList(BertLayer(cfg) for _ in range(cfg.num_layers))
         self.pooler = Dense(cfg.hidden_size, cfg.hidden_size)
 
-    def dropout_seeds(self, generator: torch.Generator | None) -> list | None:
+    def dropout_seeds(self, generator: torch.Generator | None,
+                      deterministic: bool = False) -> list | None:
         """One seed per dropout site and layer (embedding output, then
         (probabilities, attention output, MLP output) per layer), drawn from
-        `generator` in training mode; None in eval or at dropout rate 0."""
+        `generator` in training mode; None in eval, when `deterministic`, or
+        at dropout rate 0."""
         cfg = self.cfg
-        if not self.training or (cfg.hidden_dropout == 0 and cfg.attention_dropout == 0):
+        if (deterministic or not self.training
+                or (cfg.hidden_dropout == 0 and cfg.attention_dropout == 0)):
             return None
         if generator is None:
             # a fixed default would replay identical masks every step
@@ -199,13 +202,15 @@ class BertEncoder(nn.Module):
                              generator=generator).tolist()
 
     def forward(self, input_ids, attention_mask, token_type_ids=None, *,
-                generator: torch.Generator | None = None):
+                generator: torch.Generator | None = None, deterministic: bool = False):
         """Returns (sequence_output [B, T, H], pooled_output [B, H]) in
         cfg.dtype; pooled = tanh(W h_CLS + b), the embedding both retriever
         towers consume. In training mode dropout draws its seeds from
-        `generator`."""
+        `generator`; `deterministic` turns dropout off whatever the mode (JAX's
+        `deterministic=True`), for a caller that may run while another thread
+        trains the module."""
         cfg = self.cfg
-        seeds = self.dropout_seeds(generator)
+        seeds = self.dropout_seeds(generator, deterministic)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
         x = self.embeddings(input_ids, token_type_ids, cfg.dtype)

@@ -30,9 +30,12 @@ class Retriever(nn.Module):
         init_parameters(self, self.cfg.initializer_range, torch.Generator().manual_seed(seed))
         return self
 
-    def encode_query(self, input_ids, attention_mask, *, generator=None) -> torch.Tensor:
-        """[B, T] -> [B, embed_dim] f32 query embeddings."""
-        _, pooled = self.bert_q(input_ids, attention_mask, generator=generator)
+    def encode_query(self, input_ids, attention_mask, *, generator=None,
+                     deterministic: bool = False) -> torch.Tensor:
+        """[B, T] -> [B, embed_dim] f32 query embeddings (no dropout when
+        `deterministic`, whatever the module's mode)."""
+        _, pooled = self.bert_q(input_ids, attention_mask, generator=generator,
+                                deterministic=deterministic)
         return self.proj_q(pooled, torch.float32)
 
     def encode_context(self, input_ids, attention_mask, *, generator=None) -> torch.Tensor:

@@ -27,7 +27,14 @@ Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
               sampler alone, the reader step alone, and the whole predict
               over 256 questions with and without the prefetch thread
               (three pairs, alternating which runs first, after a warm-up
-              of each).
+              of each);
+  qa_train    one QA train step (QATrainer._train_step) on a fixed batch of
+              the online sampler's train load: 4 questions x 5 paragraphs
+              at T = 512, queries at T = 30, 5,000 candidates gathered from
+              an 8,192-row index, BERT-base reader and retriever, bf16,
+              remat, fused attention, dropout 0.1, qa_drop 0.1 (K2, K3 and
+              K4 in every reader layer); the sampler's load of the batch
+              timed apart on the host clock.
 
 For each workload:
   - a steady loop, host clock around calls that end synchronised (median,
@@ -341,21 +348,16 @@ VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + [f"tok{i}" for i in ran
 ]
 
 
-def qa_workload(trace_dir: str, loop_calls: int) -> dict:
-    import numpy as np
-
+def _qa_world(trace_dir: str, rng, n: int = 8192):
+    """The QA workloads' world: n paragraphs of 100-510 words in sqlite, a
+    random n x 128 bf16 index on the card, the vocabulary. Returns (root,
+    db, index, tokenizer)."""
     from proqa_tpu_torch.data.docdb import DocDB
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.index.idmap import IdMap
-    from proqa_tpu_torch.models.bert import BertConfig
-    from proqa_tpu_torch.models.reader import QAConfig
-    from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
     from proqa_tpu_torch.text.wordpiece import BertTokenizer
-    from proqa_tpu_torch.train import qa_trainer
 
-    n, qpb, k, t, tq = 8192, 8, 5, 512, 30
     device = torch.device("cuda", 0)
-    rng = np.random.default_rng(12)
     root = tempfile.mkdtemp(prefix="proqa_profile_qa_", dir=trace_dir)
     with open(os.path.join(root, "vocab.txt"), "w") as f:
         f.write("\n".join(VOCAB) + "\n")
@@ -365,32 +367,48 @@ def qa_workload(trace_dir: str, loop_calls: int) -> dict:
     g = torch.Generator(device=device).manual_seed(13)
     emb = torch.randn(n, 128, device=device, generator=g) / 128 ** 0.5
     index = DenseIndex.from_embeddings(emb, IdMap([pid for pid, _ in paras]), device=device)
+    return root, db, index, BertTokenizer.from_vocab_file(os.path.join(root, "vocab.txt"))
+
+
+def _host_clock(fn, calls=5) -> float:
+    """Median host ms of fn() after one warm-up call (fn ends on the host)."""
+    fn()
+    walls = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def qa_workload(trace_dir: str, loop_calls: int) -> dict:
+    import numpy as np
+
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.reader import QAConfig
+    from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
+    from proqa_tpu_torch.train import qa_trainer
+
+    n, qpb, k, t, tq = 8192, 8, 5, 512, 30
+    device = torch.device("cuda", 0)
+    rng = np.random.default_rng(12)
+    root, db, index, tok = _qa_world(trace_dir, rng, n)
     questions = [{"question": f"what is about tok{a} tok{b}", "answer": [f"tok{b}"]}
                  for a, b in rng.integers(0, 60, (qpb, 2))]
     cfg = BertConfig(flash_attention=True)
     trainer = qa_trainer.QATrainer(cfg, QAConfig(), qa_trainer.QATrainerConfig(
         eval_k=k, questions_per_batch=qpb, output_dir=os.path.join(root, "run")), device=device)
-    sampler = OnlineSampler(questions, BertTokenizer.from_vocab_file(os.path.join(root, "vocab.txt")),
-                            db, index, OnlineSamplerConfig(max_query_length=tq, max_length=t,
-                                                           question_batch=qpb, exact_search=True))
+    sampler = OnlineSampler(questions, tok, db, index,
+                            OnlineSamplerConfig(max_query_length=tq, max_length=t,
+                                                question_batch=qpb, exact_search=True))
 
     def group():
         return list(trainer._iter_candidate_predictions(sampler, qpb))  # ends on the host
 
     enc = trainer.query_encoder()
     batch = next(iter(sampler.eval_load(enc, k, qpb)))
-
-    def host_clock(fn, calls=5):
-        fn()
-        walls = []
-        for _ in range(calls):
-            t0 = time.perf_counter()
-            fn()
-            walls.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(walls)
-
-    parts = {"sampler_eval_load_ms": host_clock(lambda: list(sampler.eval_load(enc, k, qpb))),
-             "reader_step_ms": host_clock(lambda: trainer._eval_step(batch["net_input"]))}
+    parts = {"sampler_eval_load_ms": _host_clock(lambda: list(sampler.eval_load(enc, k, qpb))),
+             "reader_step_ms": _host_clock(lambda: trainer._eval_step(batch["net_input"]))}
     h, layers, inter = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size
     rows = qpb * k
     result = measure("qa", group, loop_calls=loop_calls, traced_calls=3, trace_dir=trace_dir,
@@ -434,6 +452,70 @@ def qa_workload(trace_dir: str, loop_calls: int) -> dict:
     print(f"qa: {result['questions_per_s']:.2f} questions/s, {result['reader_tokens_per_s']:.0f} "
           f"reader tokens/s; host clock parts {json.dumps(parts)}; predict over 256 questions "
           f"(s) {json.dumps(predict_s)}", flush=True)
+    return result
+
+
+def qa_train_workload(trace_dir: str, loop_calls: int) -> dict:
+    """One QATrainer train step on a fixed batch of the online sampler's
+    train load: 4 questions x 5 paragraphs at T = 512, queries at T = 30,
+    5,000 candidates a question gathered from an 8,192-row index, BERT-base
+    reader and retriever in bf16 with remat, fused attention, dropout 0.1
+    and qa_drop 0.1, AdamW over the reader and the query tower. The
+    sampler's load of that batch (query tower, search, sqlite, span
+    matching, tensorizing) is timed apart on the host clock."""
+    import numpy as np
+
+    from proqa_tpu_torch.data.collate import batch_pad
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.reader import QAConfig
+    from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
+    from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
+
+    n, qpb, k, t, tq, m = 8192, 4, 5, 512, 30, 5000
+    device = torch.device("cuda", 0)
+    rng = np.random.default_rng(14)
+    root, db, index, tok = _qa_world(trace_dir, rng, n)
+    questions = [{"question": f"what is about tok{a} tok{b}", "answer": [f"tok{w}" for w in range(60)]}
+                 for a, b in rng.integers(0, 60, (qpb, 2))]
+    matched = os.path.join(root, "matched.jsonl")
+    with open(matched, "w") as f:
+        for qa in questions:
+            f.write(json.dumps({"question": qa["question"], "matched_paras": {
+                f"p{i}": "tok1" for i in range(0, n, 7)}}) + "\n")
+    cfg = BertConfig(remat=True, flash_attention=True)
+    trainer = QATrainer(cfg, QAConfig(qa_drop=0.1), QATrainerConfig(
+        questions_per_batch=qpb, train_k=k, learning_rate=1e-5,
+        output_dir=os.path.join(root, "run")), device=device)
+    sampler = OnlineSampler(questions, tok, db, index, OnlineSamplerConfig(
+        max_query_length=tq, max_length=t, candidates=m, question_batch=qpb, exact_search=True),
+        matched)
+    enc = trainer.query_encoder()
+    load = lambda: next(iter(sampler.load(enc, k, qpb)))  # noqa: E731
+    net, rows = batch_pad(load()["net_input"], qpb)
+    net["question_mask"] = (np.arange(qpb) < rows).astype(np.int32)
+    trainer.set_corpus(index)
+
+    def step():
+        return float(trainer._train_step(dict(net))["loss"])  # synchronises
+
+    parts = {"sampler_load_ms": _host_clock(load)}
+    h, layers, inter = cfg.hidden_size, cfg.num_layers, cfg.intermediate_size
+    rows_r = qpb * k
+    # forward GEMMs of the reader and the query tower, x3 for backward, +1
+    # forward for remat
+    gemm = 2.0 * (rows_r * t + qpb * tq) * layers * (4 * h * h + 2 * h * inter) * 4
+    result = measure("qa_train", step, loop_calls=loop_calls, traced_calls=2,
+                     trace_dir=trace_dir,
+                     extra={"shape": {"questions": qpb, "train_k": k, "reader_rows": rows_r,
+                                      "seq": t, "query_len": tq, "candidates": m,
+                                      "index_rows": n, "dtype": str(cfg.dtype), "remat": True,
+                                      "dropout": cfg.hidden_dropout, "qa_drop": 0.1},
+                            "host_clock_parts": parts, "gemm_flop_per_call": gemm,
+                            "k2_flop_per_call": 2 * 4.0 * rows_r * t * t * h * layers,
+                            "k3_flop_per_call": 10.0 * rows_r * t * t * h * layers})
+    result["reader_tokens_per_s"] = rows_r * t / result["steady_loop"]["wall_ms_median"] * 1e3
+    print(f"qa_train: {result['reader_tokens_per_s']:.0f} reader tokens/s; host clock parts "
+          f"{json.dumps(parts)}", flush=True)
     return result
 
 
@@ -482,6 +564,9 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if wanted("qa"):
             report["workloads"].append(qa_workload(trace_dir, 10))
+            torch.cuda.empty_cache()
+        if wanted("qa_train"):
+            report["workloads"].append(qa_train_workload(trace_dir, 10))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(report, f, indent=1)

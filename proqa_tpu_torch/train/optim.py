@@ -14,6 +14,10 @@ operation for operation:
   - update * -lr(t) with t the step count before this update, then added to
     the parameters in place (the port updates the model's tensors in place
     to keep one copy of the weights).
+Frozen parameters (the JAX package's optax.multi_transform with set_to_zero,
+optim.py:89-94) have no moments: the train state holds moments only for the
+trainable ones, and the chain runs over those alone, so a frozen parameter
+does not move, gets no weight decay, and stays out of the clip's global norm.
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ def _linear(init: float, end: float, steps: int, count: int) -> float:
 
 @dataclasses.dataclass
 class TrainState:
-    """step, parameters by name, and Adam's moments ({"mu": {...}, "nu": {...}})."""
+    """step, parameters by name, and Adam's moments ({"mu": {...}, "nu": {...}})
+    of the trainable parameters."""
     step: int
     params: dict[str, torch.Tensor]
     opt_state: dict[str, dict[str, torch.Tensor]]
@@ -66,22 +71,28 @@ def decays(name: str) -> bool:
     return not any(key in _NO_DECAY_KEYS for key in name.split("."))
 
 
-def init_train_state(params: dict[str, torch.Tensor]) -> TrainState:
-    zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
-                     for k, p in params.items()}
+def init_train_state(params: dict[str, torch.Tensor],
+                     frozen: dict[str, bool] | None = None) -> TrainState:
+    """Zero moments for every parameter not marked True in `frozen`."""
+    trainable = [k for k in params if not (frozen and frozen[k])]
+    zeros = lambda: {k: torch.zeros_like(params[k], dtype=torch.float32)  # noqa: E731
+                     for k in trainable}
     return TrainState(step=0, params=params, opt_state={"mu": zeros(), "nu": zeros()})
 
 
 @torch.no_grad()
 def apply_gradients(state: TrainState, grads: dict[str, torch.Tensor], tx: AdamW) -> TrainState:
-    """One optimizer step: updates the parameters and moments in place and
-    returns the state with its step advanced."""
-    norm = torch.sqrt(torch.stack([g.float().square().sum() for g in grads.values()]).sum())
+    """One optimizer step over the trainable parameters (those with moments):
+    updates them and their moments in place and returns the state with its
+    step advanced. Gradients of frozen parameters are ignored."""
+    trainable = state.opt_state["mu"]
+    norm = torch.sqrt(torch.stack([grads[k].float().square().sum() for k in trainable]).sum())
     clip = norm < tx.max_grad_norm
     count = state.step + 1
     correct1, correct2 = 1 - tx.b1 ** count, 1 - tx.b2 ** count
     lr = tx.lr(state.step)
-    for name, p in state.params.items():
+    for name in trainable:
+        p = state.params[name]
         g = grads[name].float()
         g = torch.where(clip, g, (g / norm) * tx.max_grad_norm)
         mu, nu = state.opt_state["mu"][name], state.opt_state["nu"][name]

@@ -1,19 +1,29 @@
-"""Dense QA: retrieve, read and decode, and the α-sweep EM evaluation.
+"""Dense QA finetuning and evaluation: the joint train step, the α-sweep EM
+evaluation, and the outer loop with online retrieval.
 
 Counterpart of proqa_tpu/train/qa_trainer.py (upstream
-qa/train_retrieve_qa.py:280-401), the inference half: the online sampler
-feeds static-shape [B, k, L] batches, the reader's forward and the span
-decode run on the device, and only the text projection and the rank/span
-score sweep (reference :366-394) stay on the host. One device, no mesh.
+qa/train_retrieve_qa.py:170-401), on one device: the online sampler feeds
+static-shape [B, k, L] batches, the reader's forward, the loss zoo and the
+span decode run on the device, and only the text projection and the
+rank/span score sweep (reference :366-394) stay on the host.
 
-Training (`train`, `resume`, `save`) is ROADMAP Queue 1 item 11 and raises
-NotImplementedError until it is ported.
+Training: the model runs in training mode (dropout seeds from the trainer's
+torch.Generator: kernels K2/K3 in the reader's attention at T % 128 == 0, K4
+at every other dropout site and on `qa_drop`), the question batch splits into
+`accumulate_gradients` microbatches whose gradients and loss components are
+summed and divided by their count, as the JAX step's scan does, and AdamW
+(train/optim.py) keeps the frozen groups of `qa_frozen_mask` out of its
+chain. Rank-head candidates travel as `para_rows` and are gathered on the
+device from the registered index (`set_corpus`), per microbatch. Not ported:
+`_pack_batch`, the JAX trainer's one-transfer packing of a batch for a
+remote TPU (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import json
+import threading
 from typing import Callable
 
 import numpy as np
@@ -21,14 +31,20 @@ import torch
 
 from proqa_tpu_torch.data.collate import batch_pad, pad_bucket
 from proqa_tpu_torch.data.loader import BatchLoader
-from proqa_tpu_torch.models.bert import BertConfig
-from proqa_tpu_torch.models.reader import QAConfig, QAModel, decode_spans
+from proqa_tpu_torch.models.bert import BertConfig, init_parameters
+from proqa_tpu_torch.models.reader import (
+    QAConfig, QAModel, decode_spans, qa_frozen_mask, qa_loss,
+)
 from proqa_tpu_torch.ops.dot import pin_f32_precision
 from proqa_tpu_torch.text.metrics import (
     exact_match_score, metric_max_over_ground_truths, regex_match_score,
 )
 from proqa_tpu_torch.text.squad import get_final_text, wordpieces_to_text
-from proqa_tpu_torch.utils.logging import setup_logger
+from proqa_tpu_torch.train import checkpoint as ckpt
+from proqa_tpu_torch.train.meta import read_trainer_meta, write_trainer_meta
+from proqa_tpu_torch.train.optim import AdamW, TrainState, apply_gradients, init_train_state
+from proqa_tpu_torch.utils.logging import AverageMeter, MetricLogger, setup_logger
+from proqa_tpu_torch.utils.profiling import StepTimer, TraceWindow
 
 ALPHA_GRID = (0, 0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.5, 0.55, 0.6, 0.7, 0.8, 0.9, 1)
 
@@ -62,43 +78,76 @@ class QATrainerConfig:
     # and the reader's per-op launches contend for the interpreter lock, and
     # an eval-qa predict on an H100 ran 1.2-1.5x slower with it
     prefetch_batches: int = 0
-    profile_dir: str = ""
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP Queue 1, item 11: QA training)")
+    profile_dir: str = ""      # torch.profiler trace of a few warm train steps here
+    profile_steps: int = 3
 
 
 class QATrainer:
     def __init__(self, bert_cfg: BertConfig, qa_cfg: QAConfig, tcfg: QATrainerConfig, *,
                  params: dict | None = None, device: str | torch.device = "cuda"):
         """params: a state dict of the whole QAModel (strict), or None for
-        random weights from tcfg.seed. The model stays in eval mode."""
+        random weights from tcfg.seed. The model stays in eval mode outside
+        the train step."""
         pin_f32_precision()
+        accum = max(1, tcfg.accumulate_gradients)
+        if tcfg.questions_per_batch % accum:
+            raise ValueError(f"questions_per_batch={tcfg.questions_per_batch} must divide "
+                             f"over {accum} microbatches")
         self.cfg, self.qcfg, self.tcfg = bert_cfg, qa_cfg, tcfg
         self.device = torch.device(device)
         self.logger = setup_logger("proqa_torch.qa", f"{tcfg.output_dir}/log.txt")
+        self.metrics = MetricLogger(f"{tcfg.output_dir}/metrics.jsonl")
+        # one generator: initial weights first, then every dropout seed
+        self.generator = torch.Generator().manual_seed(tcfg.seed)
         self.model = QAModel(bert_cfg, qa_cfg)
         if params is None:
-            self.model.reset_parameters(tcfg.seed)
+            init_parameters(self.model, bert_cfg.initializer_range, self.generator)
         else:
             self.model.load_state_dict(params)
         self.model.to(self.device).eval()
+        self.frozen = qa_frozen_mask(
+            dict(self.model.named_parameters()), freeze_c_encoder=tcfg.fix_para_encoder,
+            freeze_retriever=tcfg.freeze_retriever)
+        # frozen parameters get no gradient: optax's set_to_zero discards it
+        for name, p in self.model.named_parameters():
+            p.requires_grad_(not self.frozen[name])
+        self.tx = AdamW(learning_rate=tcfg.learning_rate, weight_decay=tcfg.weight_decay,
+                        max_grad_norm=tcfg.max_grad_norm, adam_eps=tcfg.adam_eps)
+        self._state: TrainState | None = None  # made at the first train step or resume
+        self._resume_meta: dict = {}
+        self._corpus_index = None
+        # the train step updates the weights in place; the query encoder,
+        # which a prefetch thread may run, reads them under the same lock
+        self._lock = threading.Lock()
+
+    @property
+    def state(self) -> TrainState:
+        """The train state over the model's own tensors (moments for the
+        trainable ones), made on first use: eval-qa and answer never need it."""
+        if self._state is None:
+            self._state = init_train_state(dict(self.model.named_parameters()), self.frozen)
+        return self._state
 
     # -------------------- plumbing --------------------
 
+    def set_corpus(self, index) -> None:
+        """Register the dense index the train step gathers the rank-head
+        candidates of `para_rows` batches from (train() calls it)."""
+        self._corpus_index = index
+
     def query_encoder(self) -> Callable:
         """(ids [n, Tq], mask) numpy -> [n, D] f32 query embeddings on the
-        device. Grad mode is thread-local, and the sampler calls this from the
-        prefetch thread: the call enters inference mode itself."""
-        retriever, device = self.model.retriever, self.device
+        device, from the live retriever weights, with no dropout whatever the
+        model's mode (JAX's encoder is deterministic, qa_trainer.py:214). Grad
+        mode is thread-local, and the sampler calls this from the prefetch
+        thread: the call enters inference mode itself."""
+        retriever, device, lock = self.model.retriever, self.device, self._lock
 
         def encode(ids, mask):
-            with torch.inference_mode():
+            with torch.inference_mode(), lock:
                 ids_t = torch.from_numpy(np.asarray(ids)).to(device, torch.int64)
                 mask_t = torch.from_numpy(np.asarray(mask)).to(device, torch.int32)
-                return retriever.encode_query(ids_t, mask_t)
+                return retriever.encode_query(ids_t, mask_t, deterministic=True)
 
         return encode
 
@@ -129,14 +178,67 @@ class QATrainer:
             res = {"start": start, "end": end, "span_score": score, "rank_score": rank}
             return {k: v.cpu().numpy() for k, v in res.items()}
 
-    def train(self, train_sampler, eval_sampler) -> float:
-        _not_ported("QATrainer.train")
+    def _train_step(self, net: dict) -> dict:
+        """One optimizer step on a host batch (numpy [B, ...] arrays, B a
+        multiple of accumulate_gradients); returns the loss components
+        averaged over the microbatches, as device scalars
+        (qa_trainer.py:133-183)."""
+        accum = max(1, self.tcfg.accumulate_gradients)
+        batch = self._device_batch(net)
+        rows = batch.pop("para_rows", None)
+        if rows is not None and self._corpus_index is None:
+            raise ValueError("batch uses para_rows but no corpus is registered: call "
+                             "trainer.set_corpus(sampler.index) (train() does this)")
+        micro = batch["input_ids"].shape[0] // accum
+        with self._lock:
+            self.model.train()
+            try:
+                csum: dict = {}
+                for i in range(accum):
+                    mb = {key: v[i * micro:(i + 1) * micro] for key, v in batch.items()}
+                    if rows is not None:
+                        mb["para_embed"] = self._corpus_index.gather(rows[i * micro:(i + 1) * micro])
+                    comp = qa_loss(self.model(mb, generator=self.generator), mb, self.qcfg)
+                    comp["loss"].backward()
+                    for key, value in comp.items():
+                        csum[key] = csum.get(key, 0.0) + value.detach()
+            finally:
+                self.model.eval()
+            params = self.state.params
+            grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p)) / accum
+                     for name, p in params.items() if not self.frozen[name]}
+            apply_gradients(self.state, grads, self.tx)
+            for p in params.values():
+                p.grad = None
+        return {key: value / accum for key, value in csum.items()}
 
-    def resume(self, path: str):
-        _not_ported("QATrainer.resume")
+    def save(self, name: str) -> None:
+        ckpt.save_checkpoint(f"{self.tcfg.output_dir}/{name}{ckpt.SUFFIX}", self.state)
 
-    def save(self, name: str):
-        _not_ported("QATrainer.save")
+    def _write_meta(self, best_em: float, wait: int, epoch: int) -> None:
+        """Loop progress beside the checkpoints, so resume() continues the
+        best-model race, early stopping and the epoch position (train/meta.py)."""
+        write_trainer_meta(self.tcfg.output_dir, "best_em", best_em, wait, epoch)
+
+    @torch.no_grad()
+    def resume(self, path: str) -> None:
+        """Restore a checkpoint_*.pt of this trainer: step, parameters (frozen
+        ones included) and the trainable parameters' moments."""
+        loaded = ckpt.load_checkpoint(path)
+        state = self.state
+        for name, p in state.params.items():
+            p.copy_(loaded.params[name])
+        for moment in ("mu", "nu"):
+            if set(loaded.opt_state[moment]) != set(state.opt_state[moment]):
+                raise ValueError(f"{path}: its optimizer state holds other parameter groups "
+                                 "(--fix-para-encoder / --fix-retriever differ)")
+            for name, m in state.opt_state[moment].items():
+                m.copy_(loaded.opt_state[moment][name])
+        state.step = loaded.step
+        self._resume_meta = read_trainer_meta(path)
+        self.logger.info(f"resumed from {path} at step {state.step}"
+                         + (f" with loop progress {self._resume_meta}" if self._resume_meta
+                            else ""))
 
     # -------------------- evaluation --------------------
 
@@ -291,3 +393,81 @@ class QATrainer:
                 for row in best_rows:
                     f.write(json.dumps(row) + "\n")
         return max(best_em, 0.0)
+
+    # -------------------- training --------------------
+
+    def train(self, train_sampler, eval_sampler) -> float:
+        """The outer loop (qa_trainer.py:610-701): a shuffle per epoch, padded
+        batches with a question_mask, evals every eval_period steps and at
+        each epoch end (both count towards wait_step), best-model and
+        checkpoint_last saves, and the trainer_meta.json pairing. Returns the
+        best EM."""
+        t = self.tcfg
+        if getattr(train_sampler, "index", None) is not None:
+            self.set_corpus(train_sampler.index)
+        best_em = float(self._resume_meta.get("best_em", 0.0))
+        wait = int(self._resume_meta.get("wait", 0))
+        start_epoch = int(self._resume_meta.get("epoch", 0))
+        stop = False
+        meter = AverageMeter()
+        timer = StepTimer(device=self.device)
+        tracer = TraceWindow(t.profile_dir, steps=t.profile_steps, logger=self.logger)
+        for epoch in range(start_epoch, t.num_train_epochs):
+            train_sampler.shuffle(seed=t.seed + epoch)
+            for batch in self._prefetched(train_sampler.load(
+                    self.query_encoder(), t.train_k, t.questions_per_batch)):
+                tracer.tick()
+                net, rows = batch_pad(batch["net_input"], t.questions_per_batch)
+                net["question_mask"] = (np.arange(t.questions_per_batch) < rows).astype(np.int32)
+                with timer:
+                    comp = self._train_step(net)
+                    loss = float(comp["loss"])
+                step = self.state.step
+                meter.update(loss)
+                self.metrics.scalar("train_loss", loss, step)
+
+                if t.eval_period != -1 and step % t.eval_period == 0:
+                    em = self.predict(eval_sampler)
+                    self.metrics.scalar("dev_em", em * 100, step)
+                    self.logger.info(f"Step {step} loss {meter.avg:.3f} EM {em*100:.2f} "
+                                     f"epoch={epoch}")
+                    if em > best_em:
+                        self.save("best-model")
+                        best_em, wait = em, 0
+                    else:
+                        wait += 1
+                        # >= not ==: a resume can restore wait already at wait_step
+                        if wait >= t.wait_step:
+                            stop = True
+                    self._write_meta(best_em, wait, epoch)
+                    if stop:
+                        break
+
+            self.logger.info(
+                f"Failed retrieval: {train_sampler.failed_retrieval}/{len(train_sampler)}")
+            # an early-stop break still reaches the epoch-end eval, as the
+            # reference does (train_retrieve_qa.py:243-255); the epoch
+            # pointer is paired with the checkpoint before that eval
+            self.save("checkpoint_last")
+            self._write_meta(best_em, wait, epoch + 1)
+            em = self.predict(eval_sampler)
+            self.metrics.scalar("dev_em", em * 100, self.state.step)
+            if em > best_em:
+                self.save("best-model")
+                best_em, wait = em, 0
+            else:
+                # epoch-end evals count towards wait_step too (the reference's
+                # never do, so its early stopping is dead at eval_period -1)
+                wait += 1
+                if wait >= t.wait_step:
+                    stop = True
+            self._write_meta(best_em, wait, epoch + 1)
+            if stop:
+                break
+        tracer.close()
+        ts = timer.summary()
+        if ts:
+            self.metrics.scalar("step_p50_ms", ts["p50_s"] * 1e3, self.state.step)
+            self.metrics.scalar("steps_per_s", ts["steps_per_s"], self.state.step)
+        self.logger.info("Training finished!")
+        return best_em

@@ -914,3 +914,102 @@ def test_eval_load_on_gpu_matches_cpu(cuda, tmp_path):
         for key, value in want["net_input"].items():
             np.testing.assert_array_equal(got["net_input"][key], value, err_msg=key)
         assert json.dumps(got["doc_tokens"]) == json.dumps(want["doc_tokens"])
+
+
+# --- QA finetuning and k-means ---
+
+
+def _qa_train_batch(b=4, k=2, t=128, tq=8, m=12, n_rows=40, vocab=128):
+    """A host batch as the sampler makes it for QATrainer._train_step:
+    paragraphs after a 6-token question, span targets, rank candidates as
+    index rows (-1 for an under-filled slot), the last question a padded
+    copy of the first (question_mask 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(5)
+    ids = rng.integers(5, vocab, size=(b, k, t)).astype(np.int32)
+    ids[..., 0], ids[..., 6] = 2, 3
+    lengths = rng.integers(40, t + 1, size=(b, k))
+    live = np.arange(t)[None, None] < lengths[..., None]
+    ids = np.where(live, ids, 0)
+    seg = (np.arange(t)[None, None] >= 7) & live
+    sp = rng.integers(7, 38, size=(b, k, 3))
+    sp[rng.random((b, k, 3)) < 0.5] = -1
+    rows = rng.integers(0, n_rows, size=(b, m)).astype(np.int32)
+    rows[:, -1] = -1
+    q = rng.integers(5, vocab, size=(b, tq)).astype(np.int32)
+    q[:, 0], q[:, 5:] = 2, 0
+    net = {"input_ids": ids, "input_mask": (ids != 0).astype(np.int32),
+           "segment_ids": seg.astype(np.int32),
+           "paragraph_mask": (seg & (np.arange(t) < lengths[..., None] - 1)).astype(np.int32),
+           "input_ids_q": q, "input_mask_q": (q != 0).astype(np.int32), "para_rows": rows,
+           "start_positions": sp.astype(np.int32),
+           "end_positions": np.where(sp >= 0, sp + 1, -1).astype(np.int32),
+           "para_targets": (sp >= 0).any(-1).astype(np.int32),
+           "top5000_labels": (rng.random((b, m)) < 0.2).astype(np.int32)}
+    net = {key: np.concatenate([v[:b - 1], v[:1]]) for key, v in net.items()}
+    net["question_mask"] = (np.arange(b) < b - 1).astype(np.int32)
+    return net, rng.standard_normal((n_rows, 128)).astype(np.float32)
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_qa_train_step_on_gpu_matches_cpu(cuda, tmp_path, flash):
+    """One f32 QATrainer train step at dropout 0 on the card (the reader's
+    attention through K2/K3 when flash, candidates gathered from a device
+    index) against the same step on the CPU: the loss components, then the
+    parameters after AdamW (held to 2 * lr, as the retriever's step)."""
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel
+    from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
+
+    cfg = BertConfig.tiny(dtype=torch.float32, max_position_embeddings=128, flash_attention=flash,
+                          hidden_dropout=0.0, attention_dropout=0.0, remat=True,
+                          initializer_range=0.1)
+    qcfg = QAConfig(shared_norm=True)
+    params = QAModel(cfg, qcfg).reset_parameters(1).state_dict()
+    net, emb = _qa_train_batch()
+    lr, results = 1e-3, []
+    for device in ("cpu", cuda):
+        trainer = QATrainer(cfg, qcfg, QATrainerConfig(
+            questions_per_batch=4, accumulate_gradients=2, learning_rate=lr,
+            output_dir=str(tmp_path / str(device))), params=params, device=device)
+        trainer.set_corpus(DenseIndex.from_embeddings(emb, device=device, dtype=torch.float32))
+        before = attention.backward_launches
+        comp = trainer._train_step(dict(net))
+        if device != "cpu" and flash:
+            assert attention.backward_launches - before == 2 * cfg.num_layers  # 2 microbatches
+        results.append(({key: float(v) for key, v in comp.items()},
+                        {key: p.detach().cpu() for key, p in trainer.state.params.items()}))
+    (comp_c, params_c), (comp_g, params_g) = results
+    assert set(comp_g) == set(comp_c)
+    for key in comp_c:
+        assert abs(comp_g[key] - comp_c[key]) < 1e-5 * max(1.0, abs(comp_c[key])), key
+    for key, p in params_c.items():
+        torch.testing.assert_close(params_g[key], p, atol=2 * lr, rtol=0)
+
+
+def test_kmeans_on_gpu_matches_cpu(cuda):
+    """k-means on the card (f32 scores with TF32 off, cluster sums by
+    index_add_) against the same run on the CPU from the same draws: equal
+    assignments wherever the best centroid leads by more than the f32 noise,
+    and centroids within it."""
+    from proqa_tpu_torch.ops import kmeans
+
+    g = torch.Generator().manual_seed(3)
+    centers = torch.randn(64, 128, generator=g)
+    data = centers[torch.randint(0, 64, (20000,), generator=g)] + \
+        0.3 * torch.randn(20000, 128, generator=g)
+    res = {}
+    for device in ("cpu", cuda):
+        res[str(device)] = kmeans.kmeans(torch.Generator().manual_seed(4), data.to(device), 64,
+                                         niter=5, init="random", chunk=4096)
+    cpu, gpu = res["cpu"], res[str(cuda)]
+    torch.testing.assert_close(gpu.centroids.cpu(), cpu.centroids, atol=1e-4, rtol=0)
+    differ = (gpu.assignments.cpu() != cpu.assignments).nonzero().flatten()
+    if len(differ):
+        scores = kmeans._chunk_scores(data[differ].double(), cpu.centroids.double(), False)
+        gap = (scores.gather(1, cpu.assignments[differ, None].long())
+               - scores.gather(1, gpu.assignments.cpu()[differ, None].long())).abs()
+        assert gap.max().item() < 1e-3, gap.max().item()
+    a, _ = kmeans.assign_clusters(data.to(cuda), cpu.centroids.to(cuda))
+    assert (a.cpu() != cpu.assignments).float().mean().item() < 1e-3

@@ -329,8 +329,31 @@ def test_cli_qa_commands_match_jax(world, capsys):
         (world / "jax_matched.jsonl").read_bytes()
 
 
+def test_cli_finetune_qa_matches_jax(world, capsys):
+    """finetune-qa through both CLIs at learning rate 0 from one checkpoint
+    (one epoch, evals every 2 steps and at the epoch end): the same best_em
+    JSON and trainer_meta.json, and the port's best-model.pt loads into
+    eval-qa, which gives that EM again."""
+    w = str(world)
+    outs = {}
+    for name, main, ckpt, extra in (("jax", jax_main, "qa.msgpack", []),
+                                    ("torch", torch_main, "qa.npz", ["--device", "cpu"])):
+        outs[name] = _run(main, ["finetune-qa", *_qa_args(world, ckpt, f"{name}_ft"), *extra,
+                                 "--train-file", f"{w}/qa.jsonl", "--predict-file",
+                                 f"{w}/qa.jsonl", "--matched-para-path", _gold_file(world),
+                                 "--train-batch-size", "2", "--candidates", "16",
+                                 "--learning-rate", "0", "--num-train-epochs", "1",
+                                 "--eval-period", "2", "--prefetch", "0"], capsys)[-1]
+    assert set(outs["torch"]) == {"best_em"}
+    assert outs["torch"] == outs["jax"] and 0.0 < outs["torch"]["best_em"] < 1.0
+    assert (world / "torch_ft" / "trainer_meta.json").read_text() == \
+        (world / "jax_ft" / "trainer_meta.json").read_text()
+    em = _run(torch_main, ["eval-qa", *_qa_args(world, "torch_ft/best-model.pt", "torch_ft_eval"),
+                           "--device", "cpu", "--predict-file", f"{w}/qa.jsonl"], capsys)[-1]
+    assert em == {"em": outs["torch"]["best_em"]}
+
+
 @pytest.mark.parametrize("command,extra,item", [
-    ("finetune-qa", ["--predict-file", "x.jsonl", "--train-file", "x.jsonl"], 11),
     ("serve", [], 12),
     ("eval-qa", ["--predict-file", "x.jsonl", "--use-ivf"], 14),
     ("eval-qa", ["--predict-file", "x.jsonl", "--shard-index"], 15),
