@@ -117,7 +117,8 @@ QA finetuning, k-means and cluster-batched pretraining:
  22. on the pretraining world of phase 9: build-index over the pairs'
      paragraphs, cluster-corpus into 3 shards, and pretrain-retriever reading
      the shards (K2, K3, K4 counted).
-Each of phases 12-14 first drives its kernel's public pipeline once with the
+Phases 23-25 run after phase 18, phase 26 after phase 22. Each of phases
+12-14 first drives its kernel's public pipeline once with the
 counters at 0 and reads them, then compares and times the kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
 and 7 also log K4's, K2's, K3's, F.dropout's and SDPA's mean over 10
@@ -132,6 +133,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import logging
 import math
 import os
 import statistics
@@ -1892,6 +1894,577 @@ def phase_cluster_cli(device, root: str) -> dict:
     return launches
 
 
+# --- serving: the streaming index writer, live index updates, serve, IVF -----
+
+STREAM_CHUNK = 3000  # rows a streamed chunk over the 8,192-row world: a ragged last chunk
+# the streamed build's rows against the in-memory build's (f32 embeddings of
+# a BERT-base bf16 encoder with random weights, entries of magnitude ~0.5): a
+# row meets other rows in its batch, padded to another bucket length, and
+# bf16 sums follow the batch's shape. An H100 read 0.0125 (about 6 bf16 ulps
+# at 0.5), and the in-memory encode of one chunk alone differed from the
+# whole build as much
+STREAM_TOL = 0.025
+SERVE_QUESTIONS = 16  # lone /answer requests; also the burst size and --max-batch
+SERVE_BURSTS = 4
+
+
+def phase_stream_cli(device, root: str, recall: dict) -> dict:
+    """build-index --stream-chunk on phase_cli's world, K2's launches
+    counted: the same idx_id.json as the in-memory build; the ragged last
+    chunk's rows bit-equal to an in-memory encode of those rows alone (the
+    same batches: the streamed writer moves rows, never changes them), and
+    the first chunk's too; every row within STREAM_TOL of the in-memory
+    build of the whole corpus (bf16 sums differ with the batch shapes around
+    a row); both recall JSONs printed (the random-weight embeddings crowd, so
+    that error reorders their near-tied scores); rows/s and the growth of
+    the host's peak RSS."""
+    import resource
+
+    import numpy as np
+
+    from proqa_tpu_torch.cli.main import _bert_cfg, _load_model, _tokenizer, build_parser
+    from proqa_tpu_torch.data.datasets import EncodeDataset
+    from proqa_tpu_torch.index.build import encode_corpus
+    from proqa_tpu_torch.ops import attention
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    argv = ["build-index", "--vocab", p("vocab.txt"), "--init-checkpoint", p("retriever.npz"),
+            "--device", str(device), "--predict-batch-size", "512", "--corpus",
+            p("corpus.jsonl"), "--output-dir", p("index_stream"), "--stream-chunk",
+            str(STREAM_CHUNK)]
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    attention.launches = 0
+    built, wall = run_cli(argv)
+    k2 = attention.launches
+    rss1 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    check(k2 > 0, "K2 was not launched by the streamed build-index")
+    mem = np.load(p("index/embeddings.npy"))
+    streamed = np.load(p("index_stream/embeddings.npy"))
+    n = mem.shape[0]
+    check(built == {"rows": n, "dim": 128, "saved": p("index_stream")}, f"stream build: {built}")
+    with open(p("index/idx_id.json"), "rb") as a, open(p("index_stream/idx_id.json"), "rb") as b:
+        check(a.read() == b.read(), "stream build: idx_id.json differs from the in-memory build's")
+    # the first chunk and the ragged last one, each encoded in memory on its
+    # own: the same batches as the streamed build's, so the same bits
+    args = build_parser().parse_args(argv)
+    model = _load_model(args, _bert_cfg(args, flash_default=True))
+    last = (n - 1) // STREAM_CHUNK * STREAM_CHUNK
+    with open(p("corpus.jsonl")) as f:
+        lines = f.readlines()
+    batching = 0.0
+    for lo, hi in ((0, STREAM_CHUNK), (last, n)):
+        with open(p("chunk.jsonl"), "w") as out:
+            out.writelines(lines[lo:hi])
+        chunk = encode_corpus(model, EncodeDataset(_tokenizer(args), p("chunk.jsonl"),
+                                                   max_length=args.max_seq_length),
+                              batch_size=args.predict_batch_size)
+        check(np.array_equal(chunk, streamed[lo:hi]), f"stream build: rows {lo}-{hi - 1} "
+                                                       "differ from an in-memory encode of them")
+        # the same rows, encoded in memory in other batches, differ as much
+        batching = max(batching, float(np.abs(chunk - mem[lo:hi]).max()))
+    del model, lines
+    err = float(np.abs(streamed - mem).max())
+    unequal = int((streamed != mem).any(axis=1).sum())
+    check(np.isfinite(streamed).all() and err <= STREAM_TOL,
+          f"stream build: rows differ from the in-memory build's by {err} > {STREAM_TOL}")
+    got, _ = run_cli(["eval-retrieval", p("qa.jsonl"), p("index_stream"), p("q.npy"),
+                      p("docs.db"), "--topk", "80", "--device", str(device)])
+    log(f"build-index --stream-chunk {STREAM_CHUNK}: {n} rows in {wall:.2f} s = "
+        f"{n / wall:.1f} rows/s (wall, weights and saving included); the first chunk and the "
+        f"last (rows {last}-{n - 1}) bit-equal to their in-memory encodes, which differ from "
+        f"the in-memory build of the whole corpus by up to {batching:.3g} (batches of other "
+        f"rows); the streamed rows against that build: max abs err {err:.3g} (tol "
+        f"{STREAM_TOL}), {unequal} of {n} rows not bit-equal; recall {json.dumps(got)} (in-memory "
+        f"{json.dumps(recall)}: the random-weight scores lie closer than that error); host "
+        f"peak RSS grew by {(rss1 - rss0) / 1024:.1f} MiB (to {rss1 / 1024:.1f} MiB); K2 "
+        f"launched {k2} times")
+    return {"K2": k2, "rows_per_s": n / wall, "max_abs_err": err}
+
+
+def _sync_ms(fn):
+    """(fn(), host ms around it), synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _own_exact(index, queries, k: int):
+    """The exact top-k of the index's own rows (int8: codes times block
+    scales) with the tombstoned rows excluded: what a search must return."""
+    from proqa_tpu_torch.ops import mips, quant
+
+    nd = index.n_deleted
+    row_scales = (None if index.scales is None else
+                  quant.expand_scales(index.scales, index.quant_block, index.embeddings.shape[0]))
+    v, i = mips.mips_topk_reference(queries.to(index._query_dtype), index.embeddings, k + nd,
+                                    n_valid=index.n, scales=row_scales)
+    v, i = v.cpu().numpy(), i.cpu().numpy()
+    return index._filter_deleted(v, i, k) if nd else (v[:, :k], i[:, :k])
+
+
+def _tombstone_search(index, queries, k: int, label: str, times: dict) -> None:
+    """index.search at Q = 8 and at all the queries, timed (host ms), held to
+    the exact search of the index's own rows (Q = 8 and the first 256) up to
+    ties; then compact(), timed (s). A bf16 index's search must also equal
+    the compacted index's (rows mapped back through the survivors); an int8
+    compaction requantizes the survivors in new blocks, so its scores differ
+    by up to a quantization step and only its row count is held."""
+    import numpy as np
+
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    k_fetch = min(index.n, 1 << (k + index.n_deleted - 1).bit_length())
+    live = {}
+    for nq in (8, queries.shape[0]):
+        live[nq], times[f"{label}: search Q={nq} ms"] = _sync_ms(
+            lambda: index.search(queries[:nq], k))
+        vals, rows = live[nq]
+        check(not np.isin(rows, index._deleted).any(), f"{label}: a tombstoned row came back")
+        m = min(nq, 256)
+        bad = topk_disagreements(vals[:m], rows[:m], *_own_exact(index, queries[:m], k),
+                                 atol=TOPK_TOL)
+        check(bad == 0, f"{label} (k_fetch {k_fetch}): {bad} of {m} queries disagree with the "
+                        "exact search of the index's own rows")
+    comp, ms = _sync_ms(index.compact)
+    times[f"{label}: compact s"] = ms / 1e3
+    check(len(comp) == comp.n == len(index), f"{label}: compact() kept {comp.n} rows")
+    if index.scales is None:
+        keep = np.setdiff1d(np.arange(index.n), index._deleted)
+        for nq, (vals, rows) in live.items():
+            cv, ci = comp.search(queries[:nq], k)
+            bad = topk_disagreements(vals, rows, cv, keep[ci], atol=TOPK_TOL)
+            check(bad == 0, f"{label} (k_fetch {k_fetch}): {bad} of {nq} queries disagree "
+                            "with the compacted index's search")
+    log(f"{label}: {index.n_deleted} tombstones, k_fetch {k_fetch}: the top-{k} at Q=8 and "
+        f"Q={queries.shape[0]} equal the exact search of the index's own rows up to ties"
+        + (" and the compacted index's" if index.scales is None else ""))
+
+
+def phase_index_updates(device) -> dict:
+    """Live updates on phase_mips's corpus, bf16 then int8: an index of all
+    but 1,000 rows (its capacity the full corpus), 256 rows added within the
+    capacity, 1,024 more that grow it by 1.5x, the exact top-80 over the
+    grown index's own rows at Q = 256; then 600 tombstones (k_fetch 1,024)
+    and 400 more (1,000: k_fetch 2,048), each searched at Q = 8 and 2,048
+    against that exact search and, for bf16, compact()'s search. Times, peak
+    memory, the K1/K5/K6 counters, and K5's Hopper route after growth."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.ops import mips, mips_kernel, rescore
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    corpus, queries = bf16_corpus(device)
+    n, spare, k = corpus.shape[0], 1000, 80
+    n0 = n - spare
+    host = corpus.float().cpu().numpy()  # the int8 build quantizes on the host
+    del corpus
+    fresh = (np.random.default_rng(32).standard_normal((1024 - (spare - 256), 128))
+             / 128 ** 0.5).astype(np.float32)
+    adds = (host[n0:n0 + 256], np.concatenate([host[n0 + 256:], fresh]))
+    out = {}
+    for label, dtype in (("bf16", torch.bfloat16), ("int8", "int8")):
+        times = {}
+        index, ms = _sync_ms(lambda: DenseIndex.from_embeddings(host[:n0], device=device,
+                                                                 dtype=dtype))
+        times["build s"] = ms / 1e3
+        cap0 = index.embeddings.shape[0]
+        mips_kernel.launches = mips_kernel.scaled_launches = rescore.launches = 0
+        _, times["add 256 ms"] = _sync_ms(lambda: index.add(adds[0]))
+        check(index.embeddings.shape[0] == cap0 == n, f"{label}: the first add grew the index")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, times["add 1024 (growth) ms"] = _sync_ms(lambda: index.add(adds[1]))
+        peak = torch.cuda.max_memory_allocated()
+        cap = index.embeddings.shape[0]
+        check(cap == cap0 + cap0 // 2 and index.n == n + 280 and index.version == 2,
+              f"{label}: capacity {cap0} -> {cap}, n {index.n}, version {index.version}")
+        check(not index.embeddings[index.n:].any(), f"{label}: the capacity tail is not zero")
+        if index.scales is not None:
+            check(index.quant_block == mips.envelope_block(n0 + (-n0) % 1024),
+                  f"int8: quant block {index.quant_block} changed")
+            check_hopper_route("K5 after growth", queries[:8].bfloat16(), index.embeddings,
+                               index.quant_block)
+        # the grown index against the exact search of its own rows
+        for nq in (8, queries.shape[0]):
+            (vals, rows), times[f"search Q={nq} ms"] = _sync_ms(
+                lambda: index.search(queries[:nq], k))
+        bad = topk_disagreements(vals[:256], rows[:256], *_own_exact(index, queries[:256], k),
+                                 atol=TOPK_TOL)
+        check(bad == 0, f"{label}: {bad} of 256 queries disagree with the exact top-{k} "
+                        "after the adds")
+        rng = np.random.default_rng(33)
+        first = rng.choice(index.n, 600, replace=False)
+        _, times["remove 600 ms"] = _sync_ms(lambda: index.remove_rows(first))
+        _tombstone_search(index, queries, k, f"{label}, 600 removed", times)
+        more = rng.choice(np.setdiff1d(np.arange(index.n), index._deleted), 400, replace=False)
+        _, times["remove 400 more ms"] = _sync_ms(lambda: index.remove_rows(more))
+        _tombstone_search(index, queries, k, f"{label}, 1,000 removed", times)
+        launches = {"K1": mips_kernel.launches, "K5": mips_kernel.scaled_launches,
+                    "K6": rescore.launches}
+        for name in (("K5",) if label == "int8" else ("K1", "K6")):
+            check(launches[name] > 0, f"{label} index updates: {name} was not launched")
+        log(f"{gpu_line()}: index updates, {label}, {n0} + 256 + 1,024 rows x 128 (capacity "
+            f"{cap0} -> {cap}): {json.dumps({key: round(v, 3) for key, v in times.items()})}; "
+            f"peak device memory during the growing add {peak / 2**30:.2f} GiB "
+            f"({(peak - base) / 2**30:.2f} GiB above the {base / 2**30:.2f} GiB before it); "
+            f"launches {json.dumps(launches)}")
+        out[label] = {"times": times, "peak_gib": peak / 2**30, "launches": launches}
+        del index
+        torch.cuda.empty_cache()
+    return out
+
+
+def _http(base: str, path: str, payload=None, timeout: float = 600):
+    """(status, json body, host ms) of one request to the local server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, method="GET" if data is None else "POST",
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def _pct(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values), q))
+
+
+def _serve_kernel_errors(device, server, queries_f32, label: str) -> dict:
+    """K1 (K5 over an int8 index) and K6 (bf16) at the shapes the serving
+    search gives them, Q = 1 and 16 (a lone request and a full drain), and
+    K2 at the reader's [16 x 5, T = 512] and /add's [16, 512], each against
+    its plain version, on the idle server's index and trainer."""
+    import torch
+
+    from proqa_tpu_torch.ops import attention, mips, mips_kernel, rescore
+
+    index, trainer = server.updater.index, server.updater.trainer
+    errs = {"K1": 0.0, "K5": 0.0, "K6": 0.0, "K2": 0.0}
+    scaled = index.scales is not None
+    block = index.quant_block if scaled else mips.envelope_block(index.embeddings.shape[0], 256)
+    corpus = mips.pad_rows(index.embeddings, mips_kernel.GROUP * block)
+    scales = None if not scaled else mips.pad_ones(index.scales, corpus.shape[0] // block)
+    if scaled:
+        check_hopper_route(f"{label} K5", queries_f32.bfloat16(), corpus, block)
+    for nq in (1, SERVE_QUESTIONS):
+        qt = queries_f32[:nq].to(torch.bfloat16).contiguous()
+        got = mips_kernel.block_maxima_grouped(qt, corpus, block=block, scales=scales)
+        want = mips_kernel.block_maxima_grouped_reference(qt, corpus, block=block, scales=scales)
+        name = "K5" if scaled else "K1"
+        errs[name] = max([errs[name]] + [(a - b).abs().max().item() for a, b in zip(got, want)])
+        if not scaled:
+            ids = mips_kernel.select_blocks(qt, corpus, 80, block=block)
+            blocks = corpus.view(-1, block, corpus.shape[1])
+            got = rescore.gather_rescore(qt, blocks, ids, block=block)
+            want = rescore.gather_rescore_reference(qt, blocks, ids, block=block)
+            errs["K6"] = max(errs["K6"], (got - want).abs().max().item())
+    cfg = trainer.cfg
+    batch = next(iter(server.make_sampler(
+        [{"question": f"what is about tok{i} tok{i + 1}"} for i in range(SERVE_QUESTIONS)]
+    ).eval_load(trainer.query_encoder(), trainer.tcfg.eval_k, SERVE_QUESTIONS)))
+    reader_mask = torch.from_numpy(batch["net_input"]["input_mask"]).to(device)
+    add_mask = torch.ones(SERVE_QUESTIONS, reader_mask.shape[-1], dtype=torch.int32,
+                          device=device)
+    add_mask[:, 152:] = 0  # /add's paragraphs: 150 words, [CLS] and [SEP]
+    g = torch.Generator(device=device).manual_seed(34)
+    for mask in (reader_mask.reshape(-1, reader_mask.shape[-1]).to(torch.int32), add_mask):
+        q, kk, v = (torch.randn(mask.shape[0], cfg.num_heads, mask.shape[1], cfg.head_dim,
+                                device=device, generator=g).bfloat16() for _ in range(3))
+        got = attention.fused_attention(q, kk, v, mask, sm_scale=cfg.head_dim ** -0.5)
+        want = attention.fused_attention_reference(q, kk, v, mask, sm_scale=cfg.head_dim ** -0.5)
+        errs["K2"] = max(errs["K2"], (got.float() - want.float()).abs().max().item())
+    for name, tol in (("K1", BMAX_TOL), ("K5", BMAX_TOL), ("K6", BMAX_TOL), ("K2", ATTN_TOL)):
+        check(errs[name] <= tol, f"{label}: {name} at the serving shapes: max abs err "
+                                 f"{errs[name]} > {tol}")
+    return errs
+
+
+def _serve_run(device, root: str, label: str, flags: list) -> dict:
+    """One `serve` setup (_serve_setup, port 0, in this process) over
+    phase_cli's world with phase_qa's qa.npz and --max-batch 16: /healthz,
+    16 lone /answer requests one after another, SERVE_BURSTS bursts of 16
+    concurrent ones, every served row against trainer.answer through a
+    sampler of its drain's bucket, /add of 16 paragraphs, /remove of them,
+    and the kernels at the serving shapes. The launches counted are the
+    serving traffic's alone, in three runs, each with the counters set to 0
+    just before it and read just after, the server idle: setup with --warmup
+    and every /answer up to /stats; /add; then /answer, /remove and 32
+    questions in one /answer. The checks between them (a drain answered
+    again, a fresh encode, a rebuilt index's search, the kernels against
+    their plain versions) launch outside those runs."""
+    import shutil
+    import threading
+    import urllib.parse
+
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.cli.main import _serve_setup, build_parser
+    from proqa_tpu_torch.data.collate import pad_bucket
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.index.idmap import IdMap
+    from proqa_tpu_torch.ops import attention, mips_kernel, rescore
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    shutil.copy(p("docs.db"), p(f"serve_{label}.db"))  # /add and /remove write to it
+    args = build_parser().parse_args([
+        "serve", "--vocab", p("vocab.txt"), "--db", p(f"serve_{label}.db"), "--index",
+        p("index"), "--init-checkpoint", p("qa.npz"), "--device", str(device), "--eval-k", "5",
+        "--max-batch", str(SERVE_QUESTIONS), "--host", "127.0.0.1", "--port", "0",
+        "--warmup", "what is about tok1 tok2", "--output-dir", p(f"serve_{label}_run"),
+        *flags])
+    def zero():
+        attention.launches = mips_kernel.launches = mips_kernel.scaled_launches = 0
+        rescore.launches = 0
+
+    def read():
+        return {"K1": mips_kernel.launches, "K2": attention.launches,
+                "K5": mips_kernel.scaled_launches, "K6": rescore.launches}
+
+    search = ("K5",) if "--int8-index" in flags else ("K1", "K6")
+    served_runs = {}
+    zero()
+    server, setup_ms = _sync_ms(lambda: _serve_setup(args))
+    trainer, updater, index = server.updater.trainer, server.updater, server.updater.index
+    level = trainer.logger.level
+    trainer.logger.setLevel(logging.WARNING)  # one log line a request otherwise
+    n0 = len(index)
+    answer, drains = trainer.answer, []
+
+    def recording(sampler, alpha, topn):
+        t0 = time.perf_counter()
+        rows = answer(sampler, alpha=alpha, topn=topn)
+        drains.append(([qa["question"] for qa in sampler.qa_data], alpha, topn, rows,
+                       (time.perf_counter() - t0) * 1e3))
+        return rows
+
+    trainer.answer = recording
+    host, port = server.server_address[:2]
+    base = f"http://{host}:{port}"
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    rng = np.random.default_rng(35 if label == "bf16" else 36)
+    pairs = rng.choice(60 * 60, SERVE_QUESTIONS * (1 + SERVE_BURSTS) + 32, replace=False)
+    questions = [f"what is about tok{a // 60} tok{a % 60}" for a in pairs]
+    served = {}
+    try:
+        status, body, _ = _http(base, "/healthz")
+        check((status, body) == (200, {"status": "ok"}), f"{label} /healthz: {status} {body}")
+        lone = []
+        for q in questions[:SERVE_QUESTIONS]:
+            status, row, ms = _http(base, "/answer?q=" + urllib.parse.quote_plus(q))
+            check(status == 200 and row["question"] == q, f"{label} /answer: {status} {row}")
+            served[q] = row
+            lone.append(ms)
+        burst_ms, burst_lat = [], []
+        for b in range(SERVE_BURSTS):
+            group = questions[SERVE_QUESTIONS * (b + 1):SERVE_QUESTIONS * (b + 2)]
+            results = [None] * len(group)
+
+            def ask(i, q):
+                results[i] = _http(base, "/answer", {"question": q})
+
+            threads = [threading.Thread(target=ask, args=(i, q)) for i, q in enumerate(group)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            burst_ms.append((time.perf_counter() - t0) * 1e3)
+            for q, res in zip(group, results):
+                check(res is not None and res[0] == 200 and res[1]["question"] == q,
+                      f"{label} burst {b}: {str(res)[:300]}")
+                served[q] = res[1]
+                burst_lat.append(res[2])
+        status, stats, _ = _http(base, "/stats")
+        check(status == 200 and stats["items"] == SERVE_QUESTIONS * (1 + SERVE_BURSTS)
+              and stats["max_batch_seen"] >= 2, f"{label} /stats: {stats}")
+        served_runs["answer"] = read()
+        # every served row against a fresh answer of its drain, the same
+        # questions through a sampler of the same bucket (the server is idle)
+        trainer.answer = answer
+        burst_drains = [(len(d[0]), round(d[4], 1)) for d in drains[SERVE_QUESTIONS:]]
+        replay_ms = {}
+        for qs, alpha, topn, rows, _ in drains[:]:
+            again, ms = _sync_ms(lambda: answer(
+                server.make_sampler([{"question": q} for q in qs]), alpha=alpha, topn=topn))
+            replay_ms.setdefault(pad_bucket(len(qs), SERVE_QUESTIONS), []).append(ms)
+            check(again == rows, f"{label}: a drain of {len(qs)} answered differently again")
+            for q, row in zip(qs, rows):
+                if q in served:
+                    check(served.pop(q) == row, f"{label}: the served row of {q!r} differs "
+                                                "from its drain's")
+        check(not served, f"{label}: {len(served)} served rows in no drain")
+        replay_median = {b: round(statistics.median(v), 2) for b, v in sorted(replay_ms.items())}
+        n_drains = len(drains)
+
+        # /add 16 paragraphs, then /remove them
+        texts = [" ".join(f"tok{w}" for w in rng.integers(0, 60, size=150)) for _ in range(16)]
+        ids = [f"{label}-live{i}" for i in range(16)]
+        zero()
+        status, out, add_ms = _http(base, "/add", {"paras": [{"id": i, "text": t}
+                                                             for i, t in zip(ids, texts)]})
+        served_runs["add"] = read()
+        check(status == 200 and out == {"added": 16, "index_rows": n0 + 16},
+              f"{label} /add: {status} {out}")
+        rows_new = index.live_rows(ids)
+        check(len(rows_new) == 16, f"{label}: {len(rows_new)} live rows for the 16 added ids")
+        fresh = updater._encode_texts(texts)
+        stored = index.take(rows_new)
+        fresh_t = torch.from_numpy(fresh).to(device)
+        if index.scales is None:
+            check(np.array_equal(stored, fresh_t.to(index.embeddings.dtype).float().cpu().numpy()),
+                  f"{label}: the added rows differ from a fresh encode")
+            rebuilt = DenseIndex.from_embeddings(index.embeddings[:index.n],
+                                                 IdMap(index.id_map.rows_to_ids(range(index.n))),
+                                                 device=device, dtype=index.embeddings.dtype)
+            lv, li = index.search(fresh, 80)
+            rv, ri = rebuilt.search(fresh, 80)
+            del rebuilt
+        else:
+            step = np.repeat(index.scales.cpu().numpy(), index.quant_block)[rows_new]
+            check(bool((np.abs(stored - fresh).max(axis=1) <= 0.51 * step).all()),
+                  f"{label}: an added row is more than half a quantization step from its encode")
+            lv, li = index.search(fresh, 80)
+            rv, ri = _own_exact(index, fresh_t, 80)
+        # bf16: the same K1 and K6 over the same rows, so equal values;
+        # int8: the take rescore against the reference's product, other sums
+        bad = topk_disagreements(lv, li, rv, ri, atol=0.0 if index.scales is None else TOPK_TOL)
+        check(bad == 0, f"{label}: the live search after /add differs from "
+                        + ("a rebuilt index's" if index.scales is None else "the exact search "
+                           "of its codes") + f" for {bad} of 16 queries")
+        # every added row is retrievable: a search at full depth returns it
+        _, full = index.search(fresh[:1], len(index))
+        check(np.isin(rows_new, full).all(), f"{label}: an added row is missing at full depth")
+        zero()
+        status, row, _ = _http(base, "/answer?q=" + urllib.parse.quote_plus(questions[0]))
+        check(status == 200 and row["candidates"], f"{label} /answer after /add: {status}")
+        status, out, remove_ms = _http(base, "/remove", {"ids": ids})
+        check(status == 200 and out == {"removed": 16, "index_rows": n0},
+              f"{label} /remove: {status} {out}")
+        status, rows_after, _ = _http(base, "/answer", {"questions": questions[-32:]})
+        served_runs["answer_remove"] = read()
+        check(status == 200 and len(rows_after) == 32, f"{label} /answer x32: {status}")
+        _, full = index.search(fresh[:1], index.n)
+        check(not np.isin(full[:, :len(index)], rows_new).any(),
+              f"{label}: a removed row is still retrieved")
+        gone = {" ".join(t.split()) for t in texts}
+        check(not any(c["passage"] in gone for r in rows_after for c in r["candidates"]),
+              f"{label}: a removed paragraph is still a candidate")
+        errs = _serve_kernel_errors(device, server, fresh_t, label)
+    finally:
+        trainer.answer = answer
+        trainer.logger.setLevel(level)
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), f"{label}: the server thread did not stop")
+    # the query tower and reader (K2) and the search (K1 + K6, or K5) in
+    # every run that answers; the context tower (K2) in /add's
+    for run, names in (("answer", ("K2", *search)), ("add", ("K2",)),
+                       ("answer_remove", ("K2", *search))):
+        for name in names:
+            check(served_runs[run][name] > 0, f"serve {label}: {name} was not launched by the "
+                                              f"{run} run")
+    launches = {k: sum(run[k] for run in served_runs.values()) for k in read()}
+    n_burst = SERVE_QUESTIONS * SERVE_BURSTS
+    log(f"{gpu_line()}: serve {label} (BERT-base reader T=512, eval_k 5, --max-batch "
+        f"{SERVE_QUESTIONS}, {n0} paragraphs): setup {setup_ms / 1e3:.2f} s (weights, index, "
+        f"--warmup); lone /answer x{SERVE_QUESTIONS}: p50 {_pct(lone, 50):.2f} ms, p99 "
+        f"{_pct(lone, 99):.2f} ms; {SERVE_BURSTS} bursts of {SERVE_QUESTIONS} concurrent: p50 "
+        f"{_pct(burst_lat, 50):.2f} ms, p99 {_pct(burst_lat, 99):.2f} ms, "
+        f"{n_burst / (sum(burst_ms) / 1e3):.2f} questions/s; max_batch_seen "
+        f"{stats['max_batch_seen']} over {n_drains} drains, every served row equal to a fresh "
+        f"answer of its drain; burst walls {[round(v, 1) for v in burst_ms]} ms, their drains "
+        f"(questions, ms) {burst_drains}; a drain answered again on the idle server, median "
+        f"ms by bucket {json.dumps(replay_median)}; "
+        f"/add 16 {add_ms:.2f} ms, /remove 16 {remove_ms:.2f} ms (host clock, HTTP included); "
+        f"launches by the serving traffic {json.dumps(launches)} (by run "
+        f"{json.dumps(served_runs)}); kernels at the serving shapes, max abs err "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")
+    return {"launches": launches, "errs": errs, "lone_p50_ms": _pct(lone, 50),
+            "lone_p99_ms": _pct(lone, 99), "burst_qps": n_burst / (sum(burst_ms) / 1e3)}
+
+
+def phase_serve(device, root: str) -> dict:
+    """`serve` on phase_cli's world: the bf16 index, then --int8-index."""
+    bf16 = _serve_run(device, root, "bf16", [])
+    int8 = _serve_run(device, root, "int8", ["--int8-index"])
+    launches = {k: bf16["launches"][k] + int8["launches"][k] for k in bf16["launches"]}
+    errs = {k: max(bf16["errs"][k], int8["errs"][k]) for k in bf16["errs"]}
+    return {"launches": launches, "errs": errs, "bf16": bf16, "int8": int8}
+
+
+def phase_ivf(device, root: str) -> dict:
+    """to_ivf(nlist=100, nprobe=20) over phase_mips's corpus (the
+    reference's online-QA setting): the build time; at nprobe = nlist the
+    search equals the exact search up to ties; at nprobe 20, recall@80 over
+    256 queries against the exact search, and search ms at Q = 1 and 8
+    beside the exact search at the same Q; then `answer --use-ivf` on
+    phase_cli's world."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    corpus, queries = bf16_corpus(device)
+    n, k = corpus.shape[0], 80
+    index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
+    del corpus
+    view, build_ms = _sync_ms(lambda: index.to_ivf(nlist=100, nprobe=20))
+    ivf = view.ivf
+    q8 = queries[:8]
+    ivf.nprobe = ivf.nlist
+    fv, fi = view.search(q8, k)
+    ev, ei = index.search(q8, k)
+    bad = topk_disagreements(fv, fi, ev, ei, atol=TOPK_TOL)
+    check(bad == 0, f"IVF at full probe: {bad} of 8 queries disagree with the exact search")
+    ivf.nprobe = 20
+    iv, ii = view.search(queries[:256], k)
+    _, ei = index.search(queries[:256], k)
+    recall = float(np.mean([len(set(a) & set(b)) / k for a, b in zip(ii, ei)]))
+    check(recall > ivf.nprobe / ivf.nlist, f"IVF recall@{k} {recall} is no better than "
+                                           "probing clusters at random")
+    times = {}
+    for nq in (1, 8):
+        for name, fn in (("ivf", lambda: view.search(queries[:nq], k)),
+                         ("exact", lambda: index.search(queries[:nq], k))):
+            fn()
+            walls = [_sync_ms(fn)[1] for _ in range(5)]
+            times[f"{name} Q={nq}"] = statistics.median(walls)
+    log(f"{gpu_line()}: IVF over {n} x 128 bf16, nlist {ivf.nlist}, capacity {ivf.capacity}, "
+        f"overflow {int((ivf.overflow_rows >= 0).sum())} rows: built in {build_ms / 1e3:.2f} s; "
+        f"full probe equals the exact top-{k} at Q=8 up to ties; nprobe 20: recall@{k} "
+        f"{recall:.4f} over 256 queries against the exact search; search ms (host clock, "
+        f"median of 5): {json.dumps({key: round(v, 3) for key, v in times.items()})}")
+    del view, index, ivf
+    torch.cuda.empty_cache()
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    row, wall = run_cli(["answer", "--vocab", p("vocab.txt"), "--db", p("docs.db"), "--index",
+                         p("index"), "--init-checkpoint", p("qa.npz"), "--device", str(device),
+                         "--eval-k", "5", "--output-dir", p("ivf_run"), "--use-ivf",
+                         "--question", "what is about tok3 tok7"])
+    check(set(row) == {"question", "answer", "alpha", "candidates"} and row["candidates"],
+          f"answer --use-ivf: {str(row)[:300]}")
+    return {"recall": recall, "build_s": build_ms / 1e3, "times": times}
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -1935,6 +2508,10 @@ def main() -> int:
             f32_launches, k6_f32_cli = timed("f32_cli", phase_f32_cli, device, root, recall)
             # the QA answering slice, on the same retrieval world
             qa = timed("qa_cli", phase_qa, device, root)
+            # serving: the streaming index writer, serve with live updates, IVF
+            stream = timed("stream_cli", phase_stream_cli, device, root, recall)
+            serve = timed("serve", phase_serve, device, root)
+            ivf = timed("ivf", phase_ivf, device, root)
             k2_encode = timed("attention_encode", phase_attention, device, batch)
             # the retriever-pretraining slice
             k4 = timed("dropout", phase_dropout, device)
@@ -1947,6 +2524,7 @@ def main() -> int:
             # k-means, then cluster-batched pretraining on the pretraining world
             timed("kmeans", phase_kmeans, device)
             cluster = timed("cluster_cli", phase_cluster_cli, device, pretrain_root)
+        timed("index_updates", phase_index_updates, device)
         # the int8 index and the rest of the search kernels
         k5 = timed("int8", phase_int8, device)
         k5_cap = timed("int8_capacity", phase_int8_capacity, device)
@@ -1971,21 +2549,23 @@ def main() -> int:
                 **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms")}}
 
-    qa_runs = qa["launches"].values()
+    qa_runs = [*qa["launches"].values(), serve["launches"]]
     qa_launches = {name: sum(run[name] for run in qa_runs) for name in ("K1", "K2", "K5", "K6")}
+    at_serve = serve["errs"]
     at_qa_train = qa_train["kernels"]
     # launches: the main paths' runs (retrieval CLI, pretraining CLI, QA CLI,
-    # finetune-qa, and pretraining on cluster shards)
+    # serve with /add and /remove, bf16 and int8, finetune-qa, pretraining on
+    # cluster shards, and the streamed build-index)
     kernels = [
         entry("block_maxima_grouped (K1)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:83",
               retrieval["block_maxima"] + pretrain["K1"] + qa_launches["K1"] + finetune["K1"], k1,
-              max(k1["max_abs_err"], k1_cli_err, qa["k1_err"])),
+              max(k1["max_abs_err"], k1_cli_err, qa["k1_err"], at_serve["K1"])),
         entry("fused_attention (K2)", "attention_fwd.cu", "proqa_tpu/ops/pallas_attention.py:65",
               retrieval["attention"] + pretrain["K2"] + qa_launches["K2"] + finetune["K2"]
-              + cluster["K2"], k2,
+              + cluster["K2"] + stream["K2"], k2,
               max(k2["max_abs_err"], k2_encode["max_abs_err"], qa["k2_err"],
-                  at_qa_train["K2"]["max_abs_err"])),
+                  at_qa_train["K2"]["max_abs_err"], at_serve["K2"])),
         entry("fused_attention backward (K3)", "attention_bwd.cu",
               "proqa_tpu/ops/pallas_attention.py:83",
               pretrain["K3"] + finetune["K3"] + cluster["K3"], k3,
@@ -1997,12 +2577,13 @@ def main() -> int:
         # the log above)
         entry("block_maxima_grouped scaled (K5)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:97", k5_launches + qa_launches["K5"], k5,
-              max(k5["max_abs_err"], k5_cap["max_abs_err"], k5_cli_err, qa["k5_err"])),
-        # launches: the retrieval, pretraining, f32 and QA CLI paths (K6 is
-        # the rescore of every bf16 and f32 search); K9: its own pipeline's run
+              max(k5["max_abs_err"], k5_cap["max_abs_err"], k5_cli_err, qa["k5_err"],
+                  at_serve["K5"])),
+        # launches: the retrieval, pretraining, f32, QA CLI and serve paths (K6
+        # is the rescore of every bf16 and f32 search); K9: its own pipeline's run
         entry("gather_rescore (K6)", "gather_rescore.cu", "proqa_tpu/ops/pallas_rescore.py:58",
               retrieval["rescore"] + pretrain["K6"] + k6_f32_cli + qa_launches["K6"]
-              + finetune["K6"], k6),
+              + finetune["K6"], k6, max(k6["max_abs_err"], at_serve["K6"])),
         entry("block_maxima_grouped bounded (K7)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:111", k7_launches, k7),
         entry("block_maxima (K8)", "block_maxima_wgmma.cu", "proqa_tpu/ops/pallas_mips.py:32",

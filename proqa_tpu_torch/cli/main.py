@@ -13,13 +13,15 @@ Subcommands:
   finetune-qa          joint retriever + reader QA training with online retrieval
   eval-qa              retrieve, read and decode: EM with the rank/span alpha sweep
   answer               inference-only QA: question(s) -> answer spans
+  serve                HTTP QA server (/answer, /add, /remove) over a warm model
 
 Flags and final JSON lines are the `proqa` CLI's, plus `--device` (default
 cuda). Checkpoints are `.npz` files in the JAX layout, `.pt` state dicts, or
 the `.pt` train checkpoints pretrain-retriever writes (models/convert.py).
-`--int8-index` (eval-retrieval, retrieve, finetune-qa, eval-qa, answer)
-searches an int8-quantized index (kernel K5). Commands and flags not ported
-yet (serve, --stream-chunk, --dp-encode, --shard-index, --use-ivf) raise
+`--int8-index` (eval-retrieval, retrieve and the QA commands) searches an
+int8-quantized index (kernel K5); `--use-ivf` (the QA commands) an IVF view
+of the index; `build-index --stream-chunk N` keeps host memory bounded by N
+rows. Flags not ported yet (--dp-encode, --shard-index) raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -303,9 +305,6 @@ def _qa_setup(args):
     from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
 
     _reject_unported(args)
-    if args.use_ivf:
-        raise NotImplementedError(
-            "--use-ivf is not ported to PyTorch yet (ROADMAP Queue 1, item 14)")
     cfg = _bert_cfg(args, flash_default=True)
     tok = _tokenizer(args)
     qcfg = QAConfig(
@@ -354,6 +353,9 @@ def _qa_setup(args):
 
     db = DocDB(args.db)
     index = DenseIndex.load(args.index, device=args.device, dtype=_index_dtype(args))
+    if args.use_ivf:
+        # the reference's online-QA retrieval (IVF, nlist 100, nprobe 20)
+        index = index.to_ivf(nlist=args.ivf_nlist, nprobe=args.ivf_nprobe)
     scfg = OnlineSamplerConfig(
         max_query_length=args.max_query_length,
         max_length=args.max_seq_length,
@@ -361,7 +363,9 @@ def _qa_setup(args):
         regex=args.regex,
         question_batch=args.questions_per_batch,
         retrieval_batch=args.retrieval_batch,
-        exact_search=not args.approx_search,
+        # IVF is approximate by construction: an exact search would bypass
+        # the quantizer and make --use-ivf a no-op
+        exact_search=not (args.approx_search or args.use_ivf),
     )
 
     def make_sampler(raw, matched=""):
@@ -380,9 +384,51 @@ def cmd_finetune_qa(args):
     print(json.dumps({"best_em": best}))
 
 
+def _serve_setup(args):
+    """The `serve` command's server, built and not started (port 0 gives a
+    free port): the QA stack of _qa_setup, a serving sampler whose groups
+    are the MicroBatcher's drains (up to --max-batch questions, padded to
+    power-of-two buckets), --warmup's answers at every bucket, and the
+    IndexUpdater behind /add and /remove. The sampler and the updater hold
+    the index, never its buffer: an add that grows it replaces
+    `index.embeddings`."""
+    import dataclasses
+
+    from proqa_tpu_torch.qa.sampler import OnlineSampler
+    from proqa_tpu_torch.serving import IndexUpdater, make_qa_server, warmup_buckets
+
+    trainer, make_sampler = _qa_setup(args)
+    probe = make_sampler([])
+    serve_cfg = dataclasses.replace(probe.cfg, question_batch=max(args.max_batch, 1),
+                                    pad_buckets=True)
+
+    def make_serve_sampler(raw):
+        return OnlineSampler(raw, probe.tokenizer, probe.db, probe.index, serve_cfg)
+
+    if args.warmup:
+        for b in warmup_buckets(serve_cfg.question_batch):
+            trainer.answer(make_serve_sampler([{"question": args.warmup}] * b),
+                           alpha=args.alpha, topn=args.topn)
+    updater = IndexUpdater(trainer, probe.tokenizer, probe.db, probe.index,
+                           max_seq_length=args.max_seq_length)
+    return make_qa_server(trainer, make_serve_sampler, host=args.host, port=args.port,
+                          alpha=args.alpha, topn=args.topn, logger=trainer.logger,
+                          updater=updater, max_batch=args.max_batch)
+
+
 def cmd_serve(args):
-    raise NotImplementedError(
-        "serve is not ported to PyTorch yet (ROADMAP Queue 1, item 12: serving)")
+    """HTTP QA serving (serving.py): the model and the device index stay warm
+    across requests; prints {"serving": url}, then serves until interrupted."""
+    server = _serve_setup(args)
+    host, port = server.server_address[:2]
+    print(json.dumps({"serving": f"http://{host}:{port}/answer"}), flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.batcher.close()
+        server.server_close()
 
 
 def cmd_eval_qa(args):
@@ -476,7 +522,9 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--init-checkpoint", required=True, help=".npz (JAX layout) or .pt")
     sp.add_argument("--output-dir", required=True)
     sp.add_argument("--predict-batch-size", type=int, default=512)
-    sp.add_argument("--stream-chunk", type=int, default=0, help="not ported yet (must be 0)")
+    sp.add_argument("--stream-chunk", type=int, default=0,
+                    help="rows per streamed chunk: bounded host memory, the rows written "
+                         "into <output-dir>/embeddings.npy as they are encoded (0: in memory)")
     sp.add_argument("--dp-encode", action="store_true", help="not ported yet")
     sp.set_defaults(fn=cmd_build_index)
 
@@ -550,11 +598,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _add_qa_commands(sub) -> None:
     """finetune-qa, eval-qa, answer and serve with the JAX parser's flags
-    (proqa_tpu/cli/main.py:747-850); serve raises until ported."""
+    (proqa_tpu/cli/main.py:747-850)."""
     helps = {
         "finetune-qa": "joint retriever + reader QA training with online retrieval",
         "answer": "question(s) -> extracted answer spans (inference only)",
-        "serve": "not ported yet (ROADMAP Queue 1, item 12)",
+        "serve": "HTTP QA serving with live index updates (/answer, /add, /remove)",
     }
     for name, fn in (("finetune-qa", cmd_finetune_qa), ("eval-qa", cmd_eval_qa),
                      ("answer", cmd_answer), ("serve", cmd_serve)):
@@ -605,7 +653,9 @@ def _add_qa_commands(sub) -> None:
                         help="freeze the whole retriever submodule")
         sp.add_argument("--regex", action="store_true")
         sp.add_argument("--approx-search", action="store_true")
-        sp.add_argument("--use-ivf", action="store_true", help="not ported yet")
+        sp.add_argument("--use-ivf", action="store_true",
+                        help="search an IVF view of the index (approximate; "
+                             "reference online-QA setting)")
         sp.add_argument("--ivf-nlist", type=int, default=100)
         sp.add_argument("--ivf-nprobe", type=int, default=20)
         _shard_index_arg(sp)

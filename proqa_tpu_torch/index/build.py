@@ -7,11 +7,14 @@ batches are padded to the batch size by repeating row 0 (`batch_pad`), and the
 outputs return to the original row order. Buckets of 128, 256, 384 and 512
 tokens reach kernel K2 when the config turns flash attention on.
 
-The bounded-memory streaming build (`--stream-chunk`) is not ported yet
-(ROADMAP Queue 1, item 5).
+The streaming build (`--stream-chunk`, `encode_corpus_streaming`) keeps host
+memory bounded by the chunk: it reads the jsonl twice, and writes each
+chunk's rows straight into the `.npy` memmap the index then loads from.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Iterable
 
 import numpy as np
@@ -31,6 +34,40 @@ def _device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def _encoder(model: Retriever, is_query: bool):
+    """A batch of host ids and mask -> [B, D] f32 host embeddings."""
+    encode = model.encode_query if is_query else model.encode_context
+    device = _device(model)
+
+    def run(batch) -> np.ndarray:
+        ids = torch.from_numpy(batch["input_ids"]).to(device, torch.int64)
+        mask = torch.from_numpy(batch["input_mask"]).to(device)
+        return encode(ids, mask).float().cpu().numpy()
+
+    return run
+
+
+def _fit_buckets(buckets: tuple, max_len: int) -> tuple:
+    """The buckets up to max_len, ending at max_len."""
+    buckets = tuple(b for b in buckets if b <= max_len)
+    if not buckets or buckets[-1] < max_len:
+        buckets = buckets + (max_len,)
+    return buckets
+
+
+def _bucketed_batches(seqs: list, batch_size: int, buckets: tuple):
+    """(rows of `seqs`, padded batch, real row count) for each batch of the
+    token lists sorted by length (stable), each padded to the smallest
+    fitting bucket and to `batch_size` rows."""
+    order = np.argsort([len(x) for x in seqs], kind="stable")
+    for start in range(0, len(seqs), batch_size):
+        sel = order[start:start + batch_size]
+        ids = collate_tokens([seqs[i] for i in sel], buckets=buckets)
+        batch, rows = batch_pad(
+            {"input_ids": ids, "input_mask": (ids != 0).astype(np.int32)}, batch_size)
+        yield sel, batch, rows
+
+
 @torch.inference_mode()
 def encode_corpus(model: Retriever, dataset: EncodeDataset, *, batch_size: int = 512,
                   is_query: bool = False, prefetch: int = 4, progress: bool = False,
@@ -38,14 +75,8 @@ def encode_corpus(model: Retriever, dataset: EncodeDataset, *, batch_size: int =
     """Encode every row of the dataset with the question (is_query) or
     context tower; returns an [N, D] f32 host array in row order. Without
     `buckets`, every batch pads to the dataset's max length in file order."""
-    encode = model.encode_query if is_query else model.encode_context
-    device = _device(model)
+    run = _encoder(model, is_query)
     n = len(dataset)
-
-    def run(batch) -> np.ndarray:
-        ids = torch.from_numpy(batch["input_ids"]).to(device, torch.int64)
-        mask = torch.from_numpy(batch["input_mask"]).to(device)
-        return encode(ids, mask).float().cpu().numpy()
 
     if buckets is None:
         out = []
@@ -53,23 +84,11 @@ def encode_corpus(model: Retriever, dataset: EncodeDataset, *, batch_size: int =
             out.append(run(batch)[: batch["__rows__"]])
         return np.concatenate(out, axis=0)
 
-    buckets = tuple(b for b in buckets if b <= dataset.max_len)
-    if not buckets or buckets[-1] < dataset.max_len:
-        buckets = buckets + (dataset.max_len,)
     ids_all = [dataset[i] for i in range(n)]  # host tokenization
-    order = np.argsort([len(x) for x in ids_all], kind="stable")
-
-    def gen():
-        for start in range(0, n, batch_size):
-            sel = order[start:start + batch_size]
-            ids = collate_tokens([ids_all[i] for i in sel], buckets=buckets)
-            batch, rows = batch_pad(
-                {"input_ids": ids, "input_mask": (ids != 0).astype(np.int32)}, batch_size)
-            yield sel, batch, rows
-
+    batches = _bucketed_batches(ids_all, batch_size, _fit_buckets(buckets, dataset.max_len))
     out_arr = None
     done = 0
-    for sel, batch, rows in BatchLoader(gen(), prefetch=prefetch):
+    for sel, batch, rows in BatchLoader(batches, prefetch=prefetch):
         emb = run(batch)[:rows]
         if out_arr is None:
             out_arr = np.empty((n, emb.shape[1]), np.float32)
@@ -80,17 +99,87 @@ def encode_corpus(model: Retriever, dataset: EncodeDataset, *, batch_size: int =
     return out_arr if out_arr is not None else np.empty((0, 0), np.float32)
 
 
+@torch.inference_mode()
+def encode_corpus_streaming(model: Retriever, corpus_jsonl: str, tokenizer, out_path: str, *,
+                            max_length: int = 512, batch_size: int = 512,
+                            chunk_rows: int = 65536, buckets: tuple = DEFAULT_BUCKETS,
+                            prefetch: int = 4, progress: bool = False
+                            ) -> tuple[np.ndarray, list[str]]:
+    """The context-tower encode of a {"text" or "Paragraph", ["id"]} jsonl
+    with host memory bounded by `chunk_rows` (proqa_tpu/index/build.py:122).
+    Pass 1 reads only the doc ids and the row count; pass 2 tokenizes,
+    length-buckets and encodes chunks of `chunk_rows` rows, each batch's
+    rows written straight into the [N, D] f32 `.npy` memmap at `out_path`.
+    Returns (that memmap, the doc ids)."""
+    doc_ids: list[str] = []
+    with open(corpus_jsonl) as f:
+        for line in f:
+            if line.strip():
+                doc_ids.append(str(json.loads(line).get("id", len(doc_ids))))
+    n = len(doc_ids)
+    dim = model.proj_c.bias.shape[0]
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    out = np.lib.format.open_memmap(out_path, mode="w+", dtype=np.float32, shape=(n, dim))
+    run = _encoder(model, is_query=False)
+    buckets = _fit_buckets(buckets, max_length)
+
+    def chunk_texts():
+        texts, base = [], 0
+        with open(corpus_jsonl) as f:
+            for line in f:
+                if not line.strip():
+                    continue
+                row = json.loads(line)
+                # pair rows encode their Paragraph, as EncodeDataset does
+                text = row.get("text", row.get("Paragraph"))
+                if text is None:
+                    raise KeyError(f"corpus row has neither 'text' nor 'Paragraph': "
+                                   f"{list(row)[:6]}")
+                texts.append(text)
+                if len(texts) == chunk_rows:
+                    yield base, texts
+                    base += len(texts)
+                    texts = []
+        if texts:
+            yield base, texts
+
+    def batches():
+        for base, texts in chunk_texts():
+            ids_chunk = [tokenizer.encode(t, max_length=max_length) for t in texts]
+            for sel, batch, rows in _bucketed_batches(ids_chunk, batch_size, buckets):
+                yield base + sel, batch, rows
+
+    done = 0
+    for rows_out, batch, rows in BatchLoader(batches(), prefetch=prefetch):
+        out[rows_out] = run(batch)[:rows]
+        done += rows
+        if progress and done % (50 * batch_size) < batch_size:
+            print(f"encoded {done} / {n}", flush=True)
+    out.flush()
+    return out, doc_ids
+
+
 def build_index(model: Retriever, corpus_jsonl: str, *, doc_ids: Iterable[str] | None = None,
                 tokenizer=None, max_length: int = 512, batch_size: int = 512,
                 dtype=torch.bfloat16, save_path: str | None = None,
                 stream_chunk: int = 0) -> DenseIndex:
     """Encode a {"text", ["id"]} jsonl corpus into a DenseIndex on the
-    model's device (and save it when save_path is given)."""
+    model's device (and save it when save_path is given).
+
+    stream_chunk > 0 takes the bounded-memory path, which needs save_path:
+    the rows go into `<save_path>/embeddings.npy` as they are encoded, and
+    the index loads from that memmap a million rows at a time."""
     if stream_chunk > 0:
-        raise NotImplementedError(
-            "the streaming build (--stream-chunk) is not ported to PyTorch yet "
-            "(ROADMAP Queue 1, item 5)"
-        )
+        if not save_path:
+            raise ValueError("the streaming build writes into save_path: give one")
+        os.makedirs(save_path, exist_ok=True)
+        embeds, ids = encode_corpus_streaming(
+            model, corpus_jsonl, tokenizer, os.path.join(save_path, "embeddings.npy"),
+            max_length=max_length, batch_size=batch_size, chunk_rows=stream_chunk,
+            progress=True)
+        id_map = IdMap.from_doc_ids(doc_ids if doc_ids is not None else ids)
+        id_map.save(os.path.join(save_path, "idx_id.json"))
+        return DenseIndex.from_embeddings(embeds, id_map, device=_device(model), dtype=dtype)
     dataset = EncodeDataset(tokenizer, corpus_jsonl, max_length=max_length, is_query=False)
     if doc_ids is None:
         # string ids, as the JAX package and build-db store them

@@ -40,6 +40,13 @@ class IdMap:
             out.extend(inv.get(d, ()))
         return out
 
+    def extend(self, doc_ids: Iterable[str]) -> None:
+        """Append the ids of rows added to the index (DenseIndex.add); drops
+        the cached inverse so that ids_to_rows sees the new rows."""
+        self._ids.extend(doc_ids)
+        if hasattr(self, "_inv"):
+            del self._inv
+
     @classmethod
     def from_doc_ids(cls, doc_ids: Iterable[str]) -> "IdMap":
         return cls(list(doc_ids))

@@ -38,9 +38,12 @@ class Retriever(nn.Module):
                                 deterministic=deterministic)
         return self.proj_q(pooled, torch.float32)
 
-    def encode_context(self, input_ids, attention_mask, *, generator=None) -> torch.Tensor:
-        """[B, T] -> [B, embed_dim] f32 paragraph embeddings."""
-        _, pooled = self.bert_c(input_ids, attention_mask, generator=generator)
+    def encode_context(self, input_ids, attention_mask, *, generator=None,
+                       deterministic: bool = False) -> torch.Tensor:
+        """[B, T] -> [B, embed_dim] f32 paragraph embeddings (no dropout when
+        `deterministic`, whatever the module's mode)."""
+        _, pooled = self.bert_c(input_ids, attention_mask, generator=generator,
+                                deterministic=deterministic)
         return self.proj_c(pooled, torch.float32)
 
     def forward(self, batch: dict, *, generator: torch.Generator | None = None) -> dict:

@@ -8,12 +8,22 @@ f32 accumulator instead of rounding it to bf16 first. Those calls have no
 derivative in PyTorch, so `_DotF32` gives them the one JAX's transpose rule
 gives a DEFAULT-precision dot: the f32 cotangent is rounded to the operand
 dtype, multiplied by the other operand with f32 accumulation, and the result
-rounded to the operand dtype. f32 operands run in full f32: TF32 is off
-(`pin_f32_precision`).
+rounded to the operand dtype. f32 operands run in full f32: the product
+runs inside `full_f32`, which turns TF32 off for that call only, as the JAX
+package passes HIGHEST precision to each f32 product
+(proqa_tpu/ops/mips.py:40-44).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+
+# full_f32 saves, sets and restores process-wide switches: two threads inside
+# it at once could have one's restore turn TF32 back on under the other's
+# product, so the whole block holds this lock (reentrant: blocks may nest)
+_F32_LOCK = threading.RLock()
 
 
 def pin_f32_precision() -> None:
@@ -23,6 +33,25 @@ def pin_f32_precision() -> None:
     precision, so both switches are set explicitly."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Run the enclosed f32 products in full f32 (TF32 off for cuBLAS and
+    cuDNN), then restore the caller's settings, whatever they were. The
+    switches are the process's: the products this pins are launched on the
+    host inside the block, which is when cuBLAS reads them. One thread at a
+    time runs a block (`_F32_LOCK`); an f32 product launched outside any
+    block while another thread is inside one may still run without TF32."""
+    with _F32_LOCK:
+        matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+            torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -60,7 +89,8 @@ class _DotF32(torch.autograd.Function):
 def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b as f32. b is [K, N], or batched like a ([..., K, N])."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
-        return torch.matmul(a, b)
+        with full_f32():
+            return torch.matmul(a, b)
     if a.device.type != "cuda":
         return torch.matmul(a.float(), b.float())
     return _DotF32.apply(a, b)

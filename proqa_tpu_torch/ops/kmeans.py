@@ -4,10 +4,11 @@ Counterpart of proqa_tpu/ops/kmeans.py (which replaces faiss.Clustering,
 upstream retrieval/group_paras.py:20-53): spherical (inner-product) or L2
 geometry, `max_points_per_centroid` subsampling, k-means++ or random
 initialisation, and empty clusters keeping their previous centroid. Each
-chunk of rows is scored against every centroid by one f32 product with TF32
-off (`ops/dot.py:pin_f32_precision`; the JAX package pins HIGHEST precision
-so that near ties do not flip with the backend), so the [N, k] score matrix
-never exists whole. No TPU kernel is involved: the JAX package scores with
+chunk of rows is scored against every centroid by one f32 product in full
+f32 (`ops/dot.py:full_f32` turns TF32 off for that product and restores the
+caller's setting; the JAX package pins HIGHEST precision so that near ties
+do not flip with the backend), so the [N, k] score matrix never exists
+whole. No TPU kernel is involved: the JAX package scores with
 an XLA product too. Where JAX sums each cluster's rows by a one-hot product,
 the port adds them with `index_add_`: the same sums in another order.
 
@@ -22,6 +23,8 @@ from typing import NamedTuple
 
 import torch
 
+from proqa_tpu_torch.ops.dot import full_f32
+
 
 class KMeansResult(NamedTuple):
     centroids: torch.Tensor    # [k, D] f32
@@ -34,7 +37,8 @@ class KMeansResult(NamedTuple):
 def _chunk_scores(x: torch.Tensor, centroids: torch.Tensor, spherical: bool) -> torch.Tensor:
     """[n, D] x [k, D] -> [n, k] f32, higher is better: L2's argmin is the
     argmax of x.c - |c|^2 / 2."""
-    ip = x @ centroids.T
+    with full_f32():
+        ip = torch.matmul(x, centroids.T)
     if spherical:
         return ip
     return ip - 0.5 * centroids.square().sum(-1)[None, :]

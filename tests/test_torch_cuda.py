@@ -1013,3 +1013,104 @@ def test_kmeans_on_gpu_matches_cpu(cuda):
         assert gap.max().item() < 1e-3, gap.max().item()
     a, _ = kmeans.assign_clusters(data.to(cuda), cpu.centroids.to(cuda))
     assert (a.cpu() != cpu.assignments).float().mean().item() < 1e-3
+
+
+# --- live index updates, the over-fetch, IVF and the f32 pin on the card ------------------
+
+def _rows(n, seed):
+    import numpy as np
+
+    return (np.random.default_rng(seed).standard_normal((n, 128)) / 128 ** 0.5).astype("float32")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_index_growth_on_the_card(cuda, dtype):
+    """Adds within the capacity (int8: starting inside a quantization block)
+    and past it (1.5x growth) give the CPU index's buffer and scales, and
+    searches through K1 (K5 over int8, still on the Hopper kernel after
+    growth) that agree with the CPU's up to ties."""
+    from proqa_tpu_torch.index.dense import DenseIndex
+
+    dt = torch.bfloat16 if dtype == "bfloat16" else "int8"
+    gpu = DenseIndex.from_embeddings(_rows(5000, 20), device=cuda, dtype=dt)
+    cpu = DenseIndex.from_embeddings(_rows(5000, 20), device="cpu", dtype=dt)
+    cap0 = gpu.embeddings.shape[0]
+    for m, seed in ((64, 21), (3000, 22)):
+        gpu.add(_rows(m, seed))
+        cpu.add(_rows(m, seed))
+    assert gpu.embeddings.shape[0] > cap0 and gpu.n == 8064 and gpu.version == 2
+    assert torch.equal(gpu.embeddings.cpu(), cpu.embeddings)
+    if dtype == "int8":
+        assert gpu.quant_block == cpu.quant_block
+        assert torch.equal(gpu.scales.cpu(), cpu.scales)
+        assert mips_kernel.kernel_for(torch.bfloat16, torch.int8, block=gpu.quant_block,
+                                      group=mips_kernel.GROUP, grouped=True,
+                                      scaled=True) == "wgmma"
+    before = (mips_kernel.launches, mips_kernel.scaled_launches)
+    q = _rows(64, 23)
+    gv, gi = gpu.search(q, 80)
+    torch.cuda.synchronize()
+    after = (mips_kernel.launches, mips_kernel.scaled_launches)
+    assert after[dtype == "int8"] > before[dtype == "int8"]
+    cv, ci = cpu.search(q, 80)
+    assert topk_disagreements(gv, gi, cv, ci, atol=MIPS_ATOL) == 0
+
+
+def test_overfetch_past_512_equals_compact_on_the_card(cuda):
+    """600 tombstones push the over-fetch to k = 1,024 over 5,000 rows: the
+    chunked path (exact k > 512); its filtered top-80 equals the top-80 of
+    compact(), which searches through K1, up to ties."""
+    import numpy as np
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+
+    index = DenseIndex.from_embeddings(_rows(5000, 24), device=cuda, dtype=torch.bfloat16)
+    dead = np.random.default_rng(25).choice(5000, 600, replace=False)
+    index.remove_rows(dead)
+    q = _rows(32, 26)
+    with pytest.warns(UserWarning, match="k=1024"):
+        vals, rows = index.search(q, 80)
+    before = mips_kernel.launches
+    cv, ci = index.compact().search(q, 80)
+    assert mips_kernel.launches > before
+    keep = np.setdiff1d(np.arange(5000), dead)
+    assert not np.isin(rows, dead).any()
+    assert topk_disagreements(vals, rows, cv, keep[ci], atol=MIPS_ATOL) == 0
+
+
+def test_ivf_full_probe_equals_exact_on_the_card(cuda):
+    """An IVF view at nprobe = nlist scans every row: its bf16 top-80 equals
+    the exact search's (K1 and K6) up to ties, at Q = 1 and 8."""
+    from proqa_tpu_torch.index.dense import DenseIndex
+
+    index = DenseIndex.from_embeddings(_rows(8192, 27), device=cuda, dtype=torch.bfloat16)
+    view = index.to_ivf(nlist=16, nprobe=16, niter=5)
+    assert view.ivf.slabs.device.type == "cuda" and view.ivf.slabs.dtype == torch.bfloat16
+    for nq in (1, 8):
+        q = _rows(nq, 28)
+        v, i = view.search(q, 80)
+        ev, ei = index.search(q, 80)
+        assert topk_disagreements(v, i, ev, ei, atol=MIPS_ATOL) == 0
+
+
+def test_kmeans_assignments_with_tf32_set_equal_the_cpu(cuda):
+    """With TF32 switched on by the caller, assign_clusters still scores in
+    full f32 on the card (ops/dot.py:full_f32): its assignments equal the
+    CPU's, except where a row's two best scores lie within 1e-5 (f32 sums in
+    another order); the caller's switch is restored."""
+    from proqa_tpu_torch.ops import kmeans
+
+    x = torch.from_numpy(_rows(4096, 29))
+    c = torch.from_numpy(_rows(1000, 30))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        ga, _ = kmeans.assign_clusters(x.to(cuda), c.to(cuda))
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    ca, _ = kmeans.assign_clusters(x, c)
+    ga = ga.cpu()
+    differ = (ga != ca).nonzero().flatten()
+    scores = x.double() @ c.double().T
+    gap = (scores[differ, ga[differ].long()] - scores[differ, ca[differ].long()]).abs()
+    assert bool((gap <= 1e-5).all()), gap.max()

@@ -170,3 +170,93 @@ def test_cluster_corpus_cli_matches_jax(tmp_path, monkeypatch, capsys):
     assert len(ds) == 90 and len(ds.index_clusters) == outs["torch"]["shards"]
     order = cluster_batch_order(ds, 4, random.Random(0))
     assert order and set(order) <= set(range(90))
+
+
+@pytest.mark.parametrize("call", ["assign_clusters", "mips_scores"])
+def test_f32_products_pin_tf32_off_per_call(monkeypatch, call):
+    """Every f32 product of k-means and of the f32 search runs with TF32 off,
+    whatever the caller set (the JAX package passes HIGHEST precision to each
+    one), and the caller's settings come back after: a spy inside
+    torch.matmul records both switches, set on before the call."""
+    from proqa_tpu_torch.ops import mips
+
+    seen = []
+    real = torch.matmul
+
+    def spy(*args, **kw):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return real(*args, **kw)
+
+    x = torch.from_numpy(_blobs(n=64))
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        monkeypatch.setattr(torch, "matmul", spy)
+        if call == "assign_clusters":
+            kmeans.assign_clusters(x, x[:4], chunk=16)
+        else:
+            mips._scores(x[:3], x)
+        monkeypatch.undo()
+        assert seen and set(seen) == {(False, False)}
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == \
+            (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def test_f32_pin_holds_across_threads(monkeypatch):
+    """Two threads in f32 products at once: the first one's restore of the
+    caller's TF32 switches must not land inside the second one's product.
+    The first thread's spy waits (half a second at most) for the second to
+    be inside its product, then returns; the second's spy records the
+    switches once the first has finished. Pinned per block under one lock,
+    the second product starts only after the first restored, so it still
+    runs with TF32 off; without the lock it would read them turned on."""
+    import threading
+
+    from proqa_tpu_torch.ops.dot import dot_f32
+
+    real = torch.matmul
+    first_in, second_in, first_done = threading.Event(), threading.Event(), threading.Event()
+    seen = {}
+
+    def spy(*args, **kw):
+        if not first_in.is_set():
+            first_in.set()
+            second_in.wait(timeout=0.5)
+            seen["first"] = (torch.backends.cuda.matmul.allow_tf32,
+                             torch.backends.cudnn.allow_tf32)
+        else:
+            second_in.set()
+            first_done.wait(timeout=5)
+            seen["second"] = (torch.backends.cuda.matmul.allow_tf32,
+                              torch.backends.cudnn.allow_tf32)
+        return real(*args, **kw)
+
+    def first():
+        dot_f32(x, x.T)
+        first_done.set()
+
+    def second():
+        first_in.wait(timeout=5)
+        dot_f32(x, x.T)
+
+    x = torch.from_numpy(_blobs(n=16))
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        monkeypatch.setattr(torch, "matmul", spy)
+        threads = [threading.Thread(target=first), threading.Thread(target=second)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=10)
+        monkeypatch.undo()
+        assert not any(t.is_alive() for t in threads)
+        assert seen == {"first": (False, False), "second": (False, False)}
+        assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == \
+            (True, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before

@@ -118,11 +118,16 @@ def test_cli_slice_matches_jax(world, capsys):
 
 
 def test_cli_rejects_unported_flags(world):
-    base = ["build-index", *_common(world, "ckpt.npz"), "--device", "cpu", "--corpus",
-            str(world / "corpus.jsonl"), "--output-dir", str(world / "never")]
-    for extra in (["--stream-chunk", "8"], ["--dp-encode"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            torch_main(base + extra)
+    """--dp-encode (ROADMAP Queue 1, item 15) raises on both encoding
+    commands; --stream-chunk, once here, is ported
+    (tests/test_torch_stream_build.py)."""
+    common = [*_common(world, "ckpt.npz"), "--device", "cpu", "--dp-encode"]
+    for argv in (["build-index", "--corpus", str(world / "corpus.jsonl"), "--output-dir",
+                  str(world / "never")],
+                 ["encode-queries", "--queries", str(world / "qa.jsonl"), "--output",
+                  str(world / "never.npy")]):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 15"):
+            torch_main(argv[:1] + common + argv[1:])
 
 
 def test_cli_int8_index_matches_jax(world, capsys, monkeypatch):
