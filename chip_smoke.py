@@ -117,7 +117,24 @@ QA finetuning, k-means and cluster-batched pretraining:
  22. on the pretraining world of phase 9: build-index over the pairs'
      paragraphs, cluster-corpus into 3 shards, and pretrain-retriever reading
      the shards (K2, K3, K4 counted).
-Phases 23-25 run after phase 18, phase 26 after phase 22. Each of phases
+Multi-device and the remaining commands:
+ 27. pretrain-retriever on phase 9's world (3 steps) under
+     `python -m torch.distributed.run --nproc-per-node 1` (NCCL, one rank)
+     and without the launcher, each in a child process that counts its own
+     launches (`--cli-worker`): the same losses step by step within 1e-3,
+     the backend nccl, K2/K3/K4 launched, the step ms of both;
+ 28. convert-hf of a numpy-seeded BERT-base reference retriever state dict
+     (HF key layout, `module.` prefix) into the port's .pt, then
+     encode-queries and build-index --dp-encode through it on phase 4's
+     world: rows bit-equal to the same weights through the .npz route, one
+     recall JSON, K2 counted;
+ 29. phase 3's corpus row-sharded over [cuda:0] * 4 (Q = 2,048, k = 80),
+     bf16 then int8: one K1 (K5) and K6 launch a shard, ids equal to the
+     unsharded index's up to ties (int8 also to the exact top-k of its own
+     codes), the degenerate contract with n_valid inside the first shard,
+     search ms and peak memory; eval-retrieval --shard-index and an
+     in-process evaluation over the four shards with phase 4's recall JSON.
+Phases 23-25 run after phase 18, phase 26 after phase 22, 27-29 after 20. Each of phases
 12-14 first drives its kernel's public pipeline once with the
 counters at 0 and reads them, then compares and times the kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -2464,6 +2481,367 @@ def phase_ivf(device, root: str) -> dict:
           f"answer --use-ivf: {str(row)[:300]}")
     return {"recall": recall, "build_s": build_ms / 1e3, "times": times}
 
+# --- multi-device and the remaining commands: convert-hf, sharding, DDP ---
+
+def _hf_retriever_state(seed: int, cfg) -> tuple[dict, dict]:
+    """Random BERT-base retriever weights from a numpy seed, twice: a JAX
+    layout tree (per-layer leaves stacked, kernels [in, out]) and the same
+    numbers as a reference `BertForRetriever` state dict in HF key layout
+    (torch Linear weights [out, in]) under DistributedDataParallel's
+    `module.` prefix."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    h, inter, n_l = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+
+    def w(*shape):
+        return (rng.standard_normal(shape, np.float32) * cfg.initializer_range).astype(np.float32)
+
+    def ln(*shape):
+        return 1.0 + w(*shape)
+
+    tree, state = {}, {}
+    dense = {"q": ("attention.self.query", h, h), "k": ("attention.self.key", h, h),
+             "v": ("attention.self.value", h, h), "attn_out": ("attention.output.dense", h, h),
+             "mlp_in": ("intermediate.dense", h, inter), "mlp_out": ("output.dense", inter, h)}
+    norms = {"attn_ln": "attention.output.LayerNorm", "mlp_ln": "output.LayerNorm"}
+    for tower in ("bert_q", "bert_c"):
+        emb = {"word": w(cfg.vocab_size, h), "position": w(cfg.max_position_embeddings, h),
+               "token_type": w(cfg.type_vocab_size, h), "ln": {"scale": ln(h), "bias": w(h)}}
+        layers = {name: {"kernel": w(n_l, d_in, d_out), "bias": w(n_l, d_out)}
+                  for name, (_, d_in, d_out) in dense.items()}
+        layers.update({name: {"scale": ln(n_l, h), "bias": w(n_l, h)} for name in norms})
+        tree[tower] = {"embeddings": emb, "layers": layers,
+                       "pooler": {"kernel": w(h, h), "bias": w(h)}}
+        hf = {"embeddings.word_embeddings.weight": emb["word"],
+              "embeddings.position_embeddings.weight": emb["position"],
+              "embeddings.token_type_embeddings.weight": emb["token_type"],
+              "embeddings.LayerNorm.weight": emb["ln"]["scale"],
+              "embeddings.LayerNorm.bias": emb["ln"]["bias"],
+              "pooler.dense.weight": tree[tower]["pooler"]["kernel"].T,
+              "pooler.dense.bias": tree[tower]["pooler"]["bias"]}
+        for i in range(n_l):
+            base = f"encoder.layer.{i}."
+            for name, (hf_name, _, _) in dense.items():
+                hf[base + hf_name + ".weight"] = layers[name]["kernel"][i].T
+                hf[base + hf_name + ".bias"] = layers[name]["bias"][i]
+            for name, hf_name in norms.items():
+                hf[base + hf_name + ".weight"] = layers[name]["scale"][i]
+                hf[base + hf_name + ".bias"] = layers[name]["bias"][i]
+        state.update({f"module.{tower}.{k}": v for k, v in hf.items()})
+    for tower in ("proj_q", "proj_c"):
+        tree[tower] = {"kernel": w(h, 128), "bias": w(128)}
+        state[f"module.{tower}.weight"] = tree[tower]["kernel"].T
+        state[f"module.{tower}.bias"] = tree[tower]["bias"]
+    return tree, {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in state.items()}
+
+
+def phase_convert(device, root: str) -> dict:
+    """convert-hf on phase_cli's retrieval world: a BERT-base reference
+    retriever state dict (HF key layout, `module.` prefix, numpy-seeded) into
+    the port's .pt, then encode-queries and build-index through it with
+    --dp-encode (one replica a local card), against the same weights loaded
+    through the .npz route without it: bit-equal rows, and eval-retrieval
+    gives one recall JSON over both indexes. K2's counter reset before the
+    converted path and read after."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.convert import save_npz
+    from proqa_tpu_torch.ops import attention
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    tree, state = _hf_retriever_state(21, BertConfig())
+    save_npz(p("hf_route.npz"), tree)
+    torch.save(state, p("hf_retriever.pt"))
+    del tree, state
+    base = ["--vocab", p("vocab.txt"), "--device", str(device)]
+    walls, out = {}, {}
+    attention.launches = 0
+    conv, walls["convert-hf"] = run_cli(["convert-hf", *base, "--torch-checkpoint",
+                                         p("hf_retriever.pt"), "--kind", "retriever",
+                                         "--output", p("hf_converted.pt")])
+    check(conv == {"saved": p("hf_converted.pt"), "kind": "retriever"}, f"convert-hf: {conv}")
+    for route, ckpt, dp in (("pt", "hf_converted.pt", ["--dp-encode"]),
+                            ("npz", "hf_route.npz", [])):
+        common = [*base, "--init-checkpoint", p(ckpt), *dp]
+        _, walls[f"encode-queries {route}"] = run_cli(
+            ["encode-queries", *common, "--queries", p("qa.jsonl"), "--output", p(f"q_{route}.npy")])
+        _, walls[f"build-index {route}"] = run_cli(
+            ["build-index", *common, "--max-seq-length", "512", "--predict-batch-size", "512",
+             "--corpus", p("corpus.jsonl"), "--output-dir", p(f"index_{route}")])
+        if route == "pt":
+            k2 = attention.launches
+        out[route], _ = run_cli(["eval-retrieval", p("qa.jsonl"), p(f"index_{route}"),
+                                 p(f"q_{route}.npy"), p("docs.db"), "--topk", "80",
+                                 "--device", str(device)])
+    check(k2 > 0, "K2 was not launched through the converted checkpoint")
+    for name in ("q_{}.npy", "index_{}/embeddings.npy"):
+        a, b = np.load(p(name.format("pt"))), np.load(p(name.format("npz")))
+        check(a.shape == b.shape and np.isfinite(a).all() and np.array_equal(a, b),
+              f"{name.format('*')}: the converted checkpoint's rows differ from the .npz route's")
+    check(out["pt"] == out["npz"], f"recall through convert-hf {out['pt']} != {out['npz']}")
+    log(f"convert-hf -> encode-queries and build-index --dp-encode: rows bit-equal to the .npz "
+        f"route, recall {json.dumps(out['pt'])}; K2 launched {k2} times; wall seconds "
+        f"{json.dumps(walls)}")
+    return {"K2": k2}
+
+
+def phase_sharded(device, root: str, recall: dict) -> dict:
+    """phase_mips's 4,194,304 x 128 bf16 corpus row-sharded over
+    [cuda:0] * 4 (1,048,576 rows a shard), Q = 2,048, k = 80: ids equal to
+    the unsharded index's up to ties, values within rtol 1e-6, K1 and K6
+    launched once a shard; the same as int8 with K5, held to the exact top-k
+    of its own codes; the degenerate contract with n_valid inside the first
+    shard; the sharded and unsharded search ms (host clock, synchronised)
+    and peak memory. Then eval-retrieval --shard-index on phase_cli's world
+    (every local card) and its index over [cuda:0] * 4 in-process, each with
+    phase_cli's recall JSON."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.data.docdb import DocDB
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.index.recall import evaluate_retrieval
+    from proqa_tpu_torch.ops import mips, mips_kernel, quant, rescore
+    from proqa_tpu_torch.parallel import make_mesh, sharded_mips_topk
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    n_shards, k = 4, 80
+    mesh = make_mesh(devices=[device] * n_shards)
+    corpus, queries = bf16_corpus(device)
+    q = queries.shape[0]
+    launches = {"K1": 0, "K5": 0, "K6": 0}
+    result = {}
+    for kind in (torch.bfloat16, "int8"):
+        label = "bf16" if kind is torch.bfloat16 else "int8"
+        src = corpus if kind is torch.bfloat16 else corpus.float().cpu().numpy()
+        whole = DenseIndex.from_embeddings(src, device=device, dtype=kind)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        sharded = DenseIndex.from_embeddings(src, mesh=mesh, dtype=kind)
+        del src
+        check(sharded.quant_block == whole.quant_block,
+              f"{label}: quant block {sharded.quant_block} per shard, {whole.quant_block} whole")
+        counter = "launches" if kind is torch.bfloat16 else "scaled_launches"
+        setattr(mips_kernel, counter, 0)
+        rescore.launches = 0
+        vals, idx = sharded.search(queries, k)
+        got = {"K1" if kind is torch.bfloat16 else "K5": getattr(mips_kernel, counter),
+               "K6": rescore.launches}
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        for name, n in got.items():
+            launches[name] += n
+        want_k6 = n_shards if kind is torch.bfloat16 else 0
+        check(list(got.values()) == [n_shards, want_k6],
+              f"{label} sharded search: launches {got}, want one K1/K5 and K6 a shard")
+        wv, wi = whole.search(queries, k)
+        bad = topk_disagreements(vals, idx, wv, wi, atol=TOPK_TOL)
+        check(bad == 0 and np.allclose(vals, wv, rtol=1e-6, atol=0),
+              f"{label} sharded search: {bad} of {q} queries differ from the unsharded index's")
+        if kind == "int8":
+            codes, scales = torch.cat(sharded.embeddings), torch.cat(sharded.scales)
+            rows = quant.expand_scales(scales, sharded.quant_block, codes.shape[0])
+            qb, bad = queries.bfloat16(), 0
+            for s in range(0, 256, 64):
+                rv, ri = mips.mips_topk_reference(qb[s:s + 64], codes, k, n_valid=sharded.n,
+                                                  scales=rows)
+                bad += topk_disagreements(vals[s:s + 64], idx[s:s + 64], rv.cpu().numpy(),
+                                          ri.cpu().numpy(), atol=TOPK_TOL)
+            del codes, scales, rows
+            check(bad == 0, f"int8 sharded search: {bad} of 256 queries differ from the exact "
+                            f"top-{k} of its own codes")
+        ms = {}
+        for name, index in (("sharded", sharded), ("unsharded", whole)):
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                index.search(queries, k)  # ends in a copy to the host: synchronised
+                walls.append(time.perf_counter() - t0)
+            ms[name] = statistics.median(walls) * 1e3
+        result[label] = {**ms, "peak_gib": peak}
+        log(f"{label} search over {n_shards} shards of one card, Q={q} k={k}: {ms['sharded']:.2f} "
+            f"ms a batch against {ms['unsharded']:.2f} ms unsharded (host clock, synchronised); "
+            f"the sharded index and its search peaked {peak:.2f} GiB over the corpus; launches "
+            f"{json.dumps(got)}; ids equal the unsharded index's up to ties")
+        del sharded, whole
+        torch.cuda.empty_cache()
+
+    # the degenerate contract: 50 valid rows, all in the first shard
+    n_valid = 50
+    shards = [corpus[i * (corpus.shape[0] // n_shards):(i + 1) * (corpus.shape[0] // n_shards)]
+              for i in range(n_shards)]
+    mips_kernel.launches = 0
+    sv, si = sharded_mips_topk(queries.bfloat16(), shards, k, mesh, n_valid=n_valid)
+    check(mips_kernel.launches == n_shards, f"n_valid search: K1 launched {mips_kernel.launches}")
+    launches["K1"] += mips_kernel.launches
+    rv, ri = mips.mips_topk_reference(queries.bfloat16(), corpus[:n_valid], n_valid)
+    sv, si, rv, ri = (t.cpu().numpy() for t in (sv, si, rv, ri))
+    check(topk_disagreements(sv[:, :n_valid], si[:, :n_valid], rv, ri, atol=TOPK_TOL) == 0
+          and (sv[:, n_valid:] <= mips.NEG_INF).all() and (si[:, n_valid:] == 0).all()
+          and (si < n_valid).all(),
+          "n_valid inside the first shard: the merged lists break the (NEG_INF, row 0) contract")
+    del corpus, queries, shards
+
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    cli_recall, _ = run_cli(["eval-retrieval", p("qa.jsonl"), p("index"), p("q.npy"),
+                             p("docs.db"), "--topk", str(k), "--shard-index",
+                             "--device", str(device)])
+    index = DenseIndex.load(p("index"), mesh=mesh)
+    four = evaluate_retrieval(p("qa.jsonl"), index, np.load(p("q.npy")), DocDB(p("docs.db")),
+                              topk=k)
+    check(cli_recall == recall and {f"recall@{r}": v for r, v in four.items()} == recall,
+          f"sharded recall {cli_recall} / {four} != unsharded {recall}")
+    log(f"eval-retrieval --shard-index ({torch.cuda.device_count()} local card) and over "
+        f"[{device}] * {n_shards}: the unsharded recall JSON; n_valid={n_valid} inside the first "
+        f"shard keeps the (NEG_INF, row 0) contract")
+    return {"launches": launches, **result}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli_worker(counts_path: str, argv: list[str]) -> int:
+    """`chip_smoke.py --cli-worker COUNTS_JSON CMD ...`: one proqa-torch
+    command in this process, every kernel's launch counter reset before it
+    and written with the process group's backend to COUNTS_JSON after (the
+    ddp phase runs it alone and under the torch.distributed launcher)."""
+    import torch.distributed as dist
+
+    from proqa_tpu_torch.cli.main import main as cli
+    from proqa_tpu_torch.ops import attention, dropout, mips_kernel, rescore
+
+    attention.launches = attention.backward_launches = dropout.launches = 0
+    mips_kernel.launches = rescore.launches = 0
+    cli(argv)
+    counts = {"K1": mips_kernel.launches, "K2": attention.launches,
+              "K3": attention.backward_launches, "K4": dropout.launches,
+              "K6": rescore.launches,
+              "backend": dist.get_backend() if dist.is_initialized() else None}
+    with open(counts_path, "w") as f:
+        json.dump(counts, f)
+    return 0
+
+
+def phase_ddp(device, root: str) -> dict:
+    """pretrain-retriever on phase_pretrain_cli's world (BERT-base, contexts
+    of T = 256, 3 steps of 32 pairs) under `python -m torch.distributed.run
+    --nproc-per-node 1`, NCCL on the card, and the same command without the
+    launcher: the losses equal step by step within 1e-3 (rank 0 draws the
+    dropout seeds one process draws), the backend is nccl, and K2, K3 and K4
+    launch in the data-parallel run. Each run is a child process that counts
+    its own launches; step ms of both from their metrics.jsonl."""
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    me = os.path.abspath(__file__)
+    runs = {}
+    for name, launcher in (("ddp", [sys.executable, "-m", "torch.distributed.run",
+                                    "--nnodes", "1", "--nproc-per-node", "1",
+                                    "--master-addr", "127.0.0.1",
+                                    "--master-port", str(_free_port())]),
+                           ("plain", [sys.executable])):
+        out = p(f"{name}_run")
+        argv = ["pretrain-retriever", "--vocab", p("vocab.txt"), "--max-seq-length", "286",
+                "--max-query-length", "30", "--device", "cuda", "--train-file", p("pairs.jsonl"),
+                "--predict-file", p("pairs.jsonl"), "--output-dir", out,
+                "--train-batch-size", "32", "--predict-batch-size", "32",
+                "--num-train-epochs", "1", "--eval-period", "3",
+                "--save-checkpoints-steps", "100", "--learning-rate", "1e-4"]
+        counts = p(f"{name}_counts.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run([*launcher, me, "--cli-worker", counts, *argv],
+                              capture_output=True, text=True, timeout=600,
+                              env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                                  [os.path.dirname(me), os.environ.get("PYTHONPATH", "")])})
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"{name} pretrain-retriever exited {proc.returncode}: "
+                                    f"{proc.stderr[-3000:]}")
+        with open(counts) as f:
+            launched = json.load(f)
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            metrics = [json.loads(line) for line in f]
+        losses = [m["value"] for m in metrics if m["tag"] == "train_loss"]
+        step_ms = [m["value"] for m in metrics if m["tag"] == "step_p50_ms"]
+        with open(os.path.join(out, "log.txt")) as f:
+            log_text = f.read()
+        runs[name] = {"launches": launched, "losses": losses, "step_p50_ms": step_ms[-1],
+                      "wall_s": wall, "log": log_text}
+    ddp, plain = runs["ddp"], runs["plain"]
+    check(ddp["launches"]["backend"] == "nccl" and "data parallel: backend nccl" in ddp["log"],
+          f"the launched run's backend is {ddp['launches']['backend']}, not nccl")
+    check(plain["launches"]["backend"] is None, "the plain run joined a process group")
+    check(len(ddp["losses"]) == len(plain["losses"]) == 3
+          and all(abs(a - b) <= 1e-3 for a, b in zip(ddp["losses"], plain["losses"])),
+          f"losses: data parallel {ddp['losses']} against one process {plain['losses']}")
+    k = {name: ddp["launches"][name] for name in ("K2", "K3", "K4")}
+    check(all(n > 0 for n in k.values()), f"a kernel never ran in the NCCL run {k}")
+    log(f"pretrain-retriever under torch.distributed.run (nccl, world 1) against one process: "
+        f"losses {ddp['losses']} vs {plain['losses']}; step p50 {ddp['step_p50_ms']:.1f} ms vs "
+        f"{plain['step_p50_ms']:.1f} ms; wall {ddp['wall_s']:.1f} s vs {plain['wall_s']:.1f} s "
+        f"(process start, model init and the kernels' load included); launches {json.dumps(k)}")
+    _dp_step_at_full_width(root)
+    return k
+
+
+def _dp_step_at_full_width(root: str, steps: int = 8) -> None:
+    """The retriever train step at phase 8's shape, 80 x (32 + 512), in this
+    process: a trainer in an NCCL group of one (tcp on localhost) and one
+    with no group, the same weights and batch, their steps taken in turns
+    (plain, group, group, plain, ...): the same losses within 1e-3, and
+    each one's median step ms (host clock; the loss read synchronises)."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.train.retriever_trainer import RetrieverTrainer, RetrieverTrainerConfig
+
+    b, tq, tc = 80, 32, 512
+    rng = np.random.default_rng(9)
+    ids_c = rng.integers(5, 30522, size=(b, tc))
+    ids_c *= np.arange(tc)[None] < rng.integers(tc // 2, tc + 1, size=(b, 1))
+    batch = {"input_ids_q": ids_c[:, :tq].copy(), "input_mask_q": np.ones((b, tq), np.int32),
+             "input_ids_c": ids_c, "input_mask_c": (ids_c != 0).astype(np.int32)}
+    cfg = BertConfig(remat=True, flash_attention=True)  # bf16, dropout 0.1
+
+    def trainer(name):
+        tcfg = RetrieverTrainerConfig(learning_rate=1e-4, seed=10,
+                                      output_dir=os.path.join(root, name))
+        return RetrieverTrainer(cfg, tcfg, device="cuda")
+
+    plain = trainer("step_plain")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        grouped = trainer("step_nccl")
+        check(grouped.dp.backend == "nccl", f"in-process group backend {grouped.dp.backend}")
+        runs = {"plain": ([], []), "nccl": ([], [])}
+        for i in range(steps + 1):  # the first pair warms up
+            order = ("plain", "nccl") if i % 2 == 0 else ("nccl", "plain")
+            for name in order:
+                t0 = time.perf_counter()
+                loss = float((plain if name == "plain" else grouped).step(dict(batch))["loss"])
+                if i:
+                    runs[name][0].append(loss)
+                    runs[name][1].append(time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    (l_p, w_p), (l_d, w_d) = runs["plain"], runs["nccl"]
+    check(all(abs(a - c) <= 1e-3 for a, c in zip(l_d, l_p)),
+          f"80 x (32 + 512): the NCCL group's losses {l_d} against one process's {l_p}")
+    ms_p, ms_d = (statistics.median(w) * 1e3 for w in (w_p, w_d))
+    log(f"retriever train step {b} x ({tq} + {tc}) in turns, {steps} each: NCCL group of one "
+        f"{ms_d:.1f} ms (p25-p75 {np.percentile(w_d, 25) * 1e3:.1f}-"
+        f"{np.percentile(w_d, 75) * 1e3:.1f}) against no group {ms_p:.1f} ms "
+        f"({np.percentile(w_p, 25) * 1e3:.1f}-{np.percentile(w_p, 75) * 1e3:.1f}); losses equal "
+        f"within 1e-3 ({l_d[-1]:.4f} vs {l_p[-1]:.4f})")
+
 
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2521,6 +2899,10 @@ def main() -> int:
             # QA finetuning, on the retrieval world with the pretrained retriever
             qa_train = timed("qa_train", phase_qa_train, device, root)
             finetune = timed("finetune_cli", phase_finetune_cli, device, root, pretrain_root)
+            # multi-device and the remaining commands
+            ddp = timed("ddp", phase_ddp, device, pretrain_root)
+            convert = timed("convert", phase_convert, device, root)
+            sharded = timed("sharded", phase_sharded, device, root, recall)
             # k-means, then cluster-batched pretraining on the pretraining world
             timed("kmeans", phase_kmeans, device)
             cluster = timed("cluster_cli", phase_cluster_cli, device, pretrain_root)
@@ -2550,6 +2932,7 @@ def main() -> int:
                                                 "library_ms")}}
 
     qa_runs = [*qa["launches"].values(), serve["launches"]]
+    at_shards = sharded["launches"]
     qa_launches = {name: sum(run[name] for run in qa_runs) for name in ("K1", "K2", "K5", "K6")}
     at_serve = serve["errs"]
     at_qa_train = qa_train["kernels"]
@@ -2559,31 +2942,33 @@ def main() -> int:
     kernels = [
         entry("block_maxima_grouped (K1)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:83",
-              retrieval["block_maxima"] + pretrain["K1"] + qa_launches["K1"] + finetune["K1"], k1,
+              retrieval["block_maxima"] + pretrain["K1"] + qa_launches["K1"] + finetune["K1"]
+              + at_shards["K1"], k1,
               max(k1["max_abs_err"], k1_cli_err, qa["k1_err"], at_serve["K1"])),
         entry("fused_attention (K2)", "attention_fwd.cu", "proqa_tpu/ops/pallas_attention.py:65",
               retrieval["attention"] + pretrain["K2"] + qa_launches["K2"] + finetune["K2"]
-              + cluster["K2"] + stream["K2"], k2,
+              + cluster["K2"] + stream["K2"] + convert["K2"] + ddp["K2"], k2,
               max(k2["max_abs_err"], k2_encode["max_abs_err"], qa["k2_err"],
                   at_qa_train["K2"]["max_abs_err"], at_serve["K2"])),
         entry("fused_attention backward (K3)", "attention_bwd.cu",
               "proqa_tpu/ops/pallas_attention.py:83",
-              pretrain["K3"] + finetune["K3"] + cluster["K3"], k3,
+              pretrain["K3"] + finetune["K3"] + cluster["K3"] + ddp["K3"], k3,
               max(k3["max_abs_err"], at_qa_train["K3"]["max_abs_err"])),
         entry("dropout (K4)", "dropout.cu", "proqa_tpu/ops/pallas_dropout.py:32",
-              pretrain["K4"] + finetune["K4"] + cluster["K4"], k4, k4["max_abs_err"]),
+              pretrain["K4"] + finetune["K4"] + cluster["K4"] + ddp["K4"], k4, k4["max_abs_err"]),
         # launches: the int8 CLI paths (K5: retrieval and answer) and each
         # kernel's own pipeline (K7-K9); times at 4.2M rows (K5 at 67.1M: in
         # the log above)
         entry("block_maxima_grouped scaled (K5)", "block_maxima_wgmma.cu",
-              "proqa_tpu/ops/pallas_mips.py:97", k5_launches + qa_launches["K5"], k5,
+              "proqa_tpu/ops/pallas_mips.py:97", k5_launches + qa_launches["K5"] + at_shards["K5"],
+              k5,
               max(k5["max_abs_err"], k5_cap["max_abs_err"], k5_cli_err, qa["k5_err"],
                   at_serve["K5"])),
         # launches: the retrieval, pretraining, f32, QA CLI and serve paths (K6
         # is the rescore of every bf16 and f32 search); K9: its own pipeline's run
         entry("gather_rescore (K6)", "gather_rescore.cu", "proqa_tpu/ops/pallas_rescore.py:58",
               retrieval["rescore"] + pretrain["K6"] + k6_f32_cli + qa_launches["K6"]
-              + finetune["K6"], k6, max(k6["max_abs_err"], at_serve["K6"])),
+              + finetune["K6"] + at_shards["K6"], k6, max(k6["max_abs_err"], at_serve["K6"])),
         entry("block_maxima_grouped bounded (K7)", "block_maxima_wgmma.cu",
               "proqa_tpu/ops/pallas_mips.py:111", k7_launches, k7),
         entry("block_maxima (K8)", "block_maxima_wgmma.cu", "proqa_tpu/ops/pallas_mips.py:32",
@@ -2602,4 +2987,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--cli-worker":
+        sys.exit(cli_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""`proqa-torch` CLI: the retriever-pretraining and dense-retrieval commands
-of the `proqa` CLI (proqa_tpu/cli/main.py), run by the PyTorch port.
+"""`proqa-torch` CLI: every command of the `proqa` CLI
+(proqa_tpu/cli/main.py), run by the PyTorch port.
 
 Subcommands:
   pretrain-retriever   contrastive bi-encoder pretraining
@@ -14,6 +14,8 @@ Subcommands:
   eval-qa              retrieve, read and decode: EM with the rank/span alpha sweep
   answer               inference-only QA: question(s) -> answer spans
   serve                HTTP QA server (/answer, /add, /remove) over a warm model
+  convert-hf           HF / reference torch BERT or retriever checkpoint -> the port's .pt
+  convert-trec / convert-msmarco   dataset converters
 
 Flags and final JSON lines are the `proqa` CLI's, plus `--device` (default
 cuda). Checkpoints are `.npz` files in the JAX layout, `.pt` state dicts, or
@@ -21,8 +23,11 @@ the `.pt` train checkpoints pretrain-retriever writes (models/convert.py).
 `--int8-index` (eval-retrieval, retrieve and the QA commands) searches an
 int8-quantized index (kernel K5); `--use-ivf` (the QA commands) an IVF view
 of the index; `build-index --stream-chunk N` keeps host memory bounded by N
-rows. Flags not ported yet (--dp-encode, --shard-index) raise
-NotImplementedError.
+rows. `--shard-index` row-shards the index over every local CUDA device (the
+--device itself on the CPU), and `--dp-encode` encodes data-parallel over
+them. pretrain-retriever, finetune-qa and eval-qa run data-parallel when
+launched by torchrun, one rank a card (`torchrun --nproc-per-node N -m
+proqa_tpu_torch.cli.main ...`); rank 0 prints the final JSON line.
 """
 from __future__ import annotations
 
@@ -62,13 +67,44 @@ def _load_model(args, cfg):
     return model.to(args.device).eval()
 
 
-def _reject_unported(args):
-    for flag, item in (("dp_encode", 15), ("shard_index", 15)):
-        if getattr(args, flag, False):
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to PyTorch yet "
-                f"(ROADMAP Queue 1, item {item})"
-            )
+def _local_mesh(args) -> list:
+    """Every local CUDA device for a CUDA --device, else the device alone."""
+    import torch
+
+    from proqa_tpu_torch.parallel import make_mesh
+
+    if torch.device(args.device).type == "cuda":
+        return make_mesh()
+    return make_mesh(devices=[args.device])
+
+
+def _dp_encode_mesh(args):
+    """The mesh and batch size of --dp-encode (proqa_tpu/cli/main.py:99-115):
+    encode batches split over every local device, the batch size rounded up
+    to a multiple of their count."""
+    if not getattr(args, "dp_encode", False):
+        return None, args.predict_batch_size
+    mesh = _local_mesh(args)
+    n_dev = len(mesh)
+    bsz = -(-args.predict_batch_size // n_dev) * n_dev
+    if bsz != args.predict_batch_size:
+        print(f"predict-batch-size {args.predict_batch_size} -> {bsz} "
+              f"(multiple of {n_dev} devices)")
+    return mesh, bsz
+
+
+def _index_place(args, device, world: int = 1) -> dict:
+    """DenseIndex.load's placement: --shard-index shards the rows over every
+    local device, else the index sits on --device. A data-parallel run
+    (world > 1) holds the whole index on each rank and refuses to shard it:
+    that would need a search that is a collective across the processes."""
+    if not getattr(args, "shard_index", False):
+        return {"device": device}
+    if world > 1:
+        raise ValueError("--shard-index shards one process's index over its local devices; "
+                         f"under data parallelism ({world} ranks) each rank holds the whole "
+                         "index: drop --shard-index")
+    return {"mesh": _local_mesh(args)}
 
 
 def _index_dtype(args):
@@ -105,7 +141,9 @@ def _add_device(p):
 
 
 def _shard_index_arg(p):
-    p.add_argument("--shard-index", action="store_true", help="not ported yet")
+    p.add_argument("--shard-index", action="store_true",
+                   help="shard the index rows over every local CUDA device (the --device "
+                        "itself on the CPU); the candidates merge on the first")
     p.add_argument("--int8-index", action="store_true",
                    help="store the index block-int8-quantized: half the device memory of "
                         "bf16, search exact with respect to the quantized scores")
@@ -162,18 +200,19 @@ def cmd_pretrain_retriever(args):
             eval_ds.batches(list(range(len(eval_ds))), args.predict_batch_size), prefetch=4)
 
     best = trainer.train(train_batches, eval_batches)
-    print(json.dumps({"best_in_batch_acc": best}))
+    if trainer.dp.main:
+        print(json.dumps({"best_in_batch_acc": best}))
 
 
 def cmd_build_index(args):
     from proqa_tpu_torch.index.build import build_index
 
-    _reject_unported(args)
     cfg = _bert_cfg(args, flash_default=True)
+    mesh, batch_size = _dp_encode_mesh(args)
     index = build_index(
         _load_model(args, cfg), args.corpus, tokenizer=_tokenizer(args),
-        max_length=args.max_seq_length, batch_size=args.predict_batch_size,
-        save_path=args.output_dir, dtype=cfg.dtype, stream_chunk=args.stream_chunk,
+        max_length=args.max_seq_length, batch_size=batch_size,
+        save_path=args.output_dir, dtype=cfg.dtype, stream_chunk=args.stream_chunk, mesh=mesh,
     )
     print(json.dumps({"rows": len(index), "dim": index.dim, "saved": args.output_dir}))
 
@@ -182,12 +221,12 @@ def cmd_encode_queries(args):
     from proqa_tpu_torch.data.datasets import EncodeDataset
     from proqa_tpu_torch.index.build import encode_corpus
 
-    _reject_unported(args)
     cfg = _bert_cfg(args, flash_default=True)
     ds = EncodeDataset(_tokenizer(args), args.queries,
                        max_query_length=args.max_query_length, is_query=True)
-    emb = encode_corpus(_load_model(args, cfg), ds, batch_size=args.predict_batch_size,
-                        is_query=True)
+    mesh, batch_size = _dp_encode_mesh(args)
+    emb = encode_corpus(_load_model(args, cfg), ds, batch_size=batch_size, is_query=True,
+                        mesh=mesh)
     np.save(args.output, emb)
     print(json.dumps({"queries": int(emb.shape[0]), "saved": args.output}))
 
@@ -197,8 +236,8 @@ def cmd_eval_retrieval(args):
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.index.recall import evaluate_retrieval
 
-    _reject_unported(args)
-    index = DenseIndex.load(args.index, device=args.device, dtype=_index_dtype(args))
+    index = DenseIndex.load(args.index, dtype=_index_dtype(args),
+                            **_index_place(args, args.device))
     db = DocDB(args.db)
     if args.query_embed.endswith(".npy"):
         q = np.load(args.query_embed)
@@ -229,10 +268,10 @@ def cmd_retrieve(args):
     from proqa_tpu_torch.data.docdb import DocDB
     from proqa_tpu_torch.index.dense import DenseIndex
 
-    _reject_unported(args)
     cfg = _bert_cfg(args, flash_default=True)
     model = _load_model(args, cfg)
-    index = DenseIndex.load(args.index, device=args.device, dtype=_index_dtype(args))
+    index = DenseIndex.load(args.index, dtype=_index_dtype(args),
+                            **_index_place(args, args.device))
     db = DocDB(args.db) if args.db else None
 
     ids = _tokenizer(args).encode(args.question, max_length=args.max_query_length)
@@ -290,13 +329,30 @@ def cmd_match_paras(args):
     print(json.dumps({"topk_gold_coverage": coverage}))
 
 
-def _qa_setup(args):
-    """The QA model, index and sampler factory of finetune-qa, eval-qa and
-    answer, on one device (the JAX CLI's _qa_setup,
-    proqa_tpu/cli/main.py:394-483, without the mesh). Weights: random from
-    --seed, then --retriever-path into the retriever, --reader-path into the
-    reader BERT, --init-checkpoint into the whole model (each a .npz in the
-    JAX layout or a .pt; ';' averages)."""
+def _launched_world() -> int:
+    """Ranks of the process group this process runs in or is launched into
+    (torchrun's WORLD_SIZE), 1 without one."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", 1))
+
+
+def _qa_setup(args, data_parallel: bool = True):
+    """The QA model, index and sampler factory of finetune-qa, eval-qa,
+    answer and serve (the JAX CLI's _qa_setup, proqa_tpu/cli/main.py:394-483).
+    Weights: random from --seed, then --retriever-path into the retriever,
+    --reader-path into the reader BERT, --init-checkpoint into the whole model
+    (each a .npz in the JAX layout or a .pt; ';' averages).
+
+    Launched by torchrun, each rank holds the whole index and its sampler
+    reads the rank's share of the questions (rank r the r-th of every W);
+    --questions-per-batch rounds to a multiple of ranks x microbatches and
+    each rank's batch is its W-th. answer and serve pass
+    data_parallel=False: they run in one process."""
     from proqa_tpu_torch.data.docdb import DocDB
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.models.convert import load_params
@@ -304,21 +360,24 @@ def _qa_setup(args):
     from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
     from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
 
-    _reject_unported(args)
     cfg = _bert_cfg(args, flash_default=True)
     tok = _tokenizer(args)
     qcfg = QAConfig(
         shared_norm=args.shared_norm, separate=args.separate,
         add_select=args.add_select, drop_early=args.drop_early, qa_drop=args.qa_drop,
     )
-    # the question batch splits into grad-accum microbatches: round it up to
-    # a multiple of their count (one device: the JAX CLI's multiple of
-    # devices x microbatches)
-    mult = max(1, args.accumulate_gradients)
+    world = _launched_world()
+    if world > 1 and not data_parallel:
+        raise ValueError(f"{args.cmd} runs in one process, not in {world} ranks")
+    _index_place(args, args.device, world)  # refuses --shard-index before any model is built
+    # the question batch shards over the ranks and splits into grad-accum
+    # microbatches: round it up to a multiple of both
+    accum = max(1, args.accumulate_gradients)
+    mult = world * accum
     qpb = -(-args.questions_per_batch // mult) * mult
     if qpb != args.questions_per_batch:
         print(f"questions-per-batch {args.questions_per_batch} -> {qpb} "
-              f"(multiple of 1 devices x {mult} microbatches)")
+              f"(multiple of {world} devices x {accum} microbatches)")
     args.questions_per_batch = qpb
     tcfg = QATrainerConfig(
         learning_rate=args.learning_rate,
@@ -342,6 +401,7 @@ def _qa_setup(args):
         max_answer_len=args.max_answer_len,
         profile_dir=args.profile_dir,
     )
+    tcfg.questions_per_batch //= world  # this rank's share of each batch
     trainer = QATrainer(cfg, qcfg, tcfg, device=args.device)  # random weights from --seed
     if args.retriever_path:
         trainer.model.retriever.load_state_dict(load_params(args.retriever_path))
@@ -352,7 +412,8 @@ def _qa_setup(args):
         trainer.model.load_state_dict(load_params(args.init_checkpoint))
 
     db = DocDB(args.db)
-    index = DenseIndex.load(args.index, device=args.device, dtype=_index_dtype(args))
+    index = DenseIndex.load(args.index, dtype=_index_dtype(args),
+                            **_index_place(args, trainer.device, world))
     if args.use_ivf:
         # the reference's online-QA retrieval (IVF, nlist 100, nprobe 20)
         index = index.to_ivf(nlist=args.ivf_nlist, nprobe=args.ivf_nprobe)
@@ -361,7 +422,7 @@ def _qa_setup(args):
         max_length=args.max_seq_length,
         candidates=args.candidates,
         regex=args.regex,
-        question_batch=args.questions_per_batch,
+        question_batch=tcfg.questions_per_batch,
         retrieval_batch=args.retrieval_batch,
         # IVF is approximate by construction: an exact search would bypass
         # the quantizer and make --use-ivf a no-op
@@ -369,6 +430,11 @@ def _qa_setup(args):
     )
 
     def make_sampler(raw, matched=""):
+        if world > 1:  # this rank's questions: the r-th of every W
+            if isinstance(raw, str):
+                with open(raw) as f:
+                    raw = [json.loads(line) for line in f if line.strip()]
+            raw = raw[trainer.dp.rank::world]
         return OnlineSampler(raw, tok, db, index, scfg, matched_para_path=matched)
 
     return trainer, make_sampler
@@ -381,7 +447,8 @@ def cmd_finetune_qa(args):
     train_sampler = make_sampler(args.train_file, args.matched_para_path)
     eval_sampler = make_sampler(args.predict_file)
     best = trainer.train(train_sampler, eval_sampler)
-    print(json.dumps({"best_em": best}))
+    if trainer.dp.main:
+        print(json.dumps({"best_em": best}))
 
 
 def _serve_setup(args):
@@ -397,7 +464,12 @@ def _serve_setup(args):
     from proqa_tpu_torch.qa.sampler import OnlineSampler
     from proqa_tpu_torch.serving import IndexUpdater, make_qa_server, warmup_buckets
 
-    trainer, make_sampler = _qa_setup(args)
+    if args.shard_index:
+        # /add and /remove mutate the index, which a sharded one refuses (the
+        # JAX CLI's updater needs the unsharded index too, proqa_tpu/cli/main.py:581)
+        raise ValueError("serve keeps live updates and takes the unsharded index: "
+                         "drop --shard-index")
+    trainer, make_sampler = _qa_setup(args, data_parallel=False)
     probe = make_sampler([])
     serve_cfg = dataclasses.replace(probe.cfg, question_batch=max(args.max_batch, 1),
                                     pad_buckets=True)
@@ -438,7 +510,8 @@ def cmd_eval_qa(args):
         save_path=args.save_pred or None,
         save_all_prefix=args.save_all or None,
     )
-    print(json.dumps({"em": em}))
+    if trainer.dp.main:
+        print(json.dumps({"em": em}))
 
 
 def cmd_answer(args):
@@ -446,7 +519,7 @@ def cmd_answer(args):
     the best answer span per question; one JSON line per question."""
     if not (args.question or args.predict_file or args.stdin):
         raise SystemExit("answer: provide --question (repeatable), --predict-file, or --stdin")
-    trainer, make_sampler = _qa_setup(args)
+    trainer, make_sampler = _qa_setup(args, data_parallel=False)
     if args.stdin:
         # warm loop: one JSON line out per question line in; the model and
         # the index stay on the device across questions
@@ -470,6 +543,48 @@ def cmd_answer(args):
     data = [{"question": q} for q in args.question] if args.question else args.predict_file
     for row in trainer.answer(make_sampler(data), alpha=args.alpha, topn=args.topn):
         print(json.dumps(row, ensure_ascii=False))
+
+
+def cmd_convert_hf(args):
+    """A HF `BertModel` or reference `BertForRetriever` torch state dict ->
+    the port's `.pt` state dict (of BertEncoder or Retriever), which
+    --init-checkpoint, --retriever-path and --reader-path read."""
+    import torch
+
+    from proqa_tpu_torch.models.hf_convert import (
+        bert_params_from_state_dict, load_torch_checkpoint,
+        retriever_params_from_state_dict, strip_ddp_prefix,
+    )
+
+    if not args.output.endswith(".pt"):
+        raise SystemExit(f"convert-hf writes a torch state dict: give --output a .pt path, "
+                         f"not {args.output!r}")
+    cfg = _bert_cfg(args)
+    state = load_torch_checkpoint(args.torch_checkpoint, allow_pickle=args.allow_pickle)
+    if args.kind == "retriever":
+        params = retriever_params_from_state_dict(state, cfg)
+    else:
+        params = bert_params_from_state_dict(strip_ddp_prefix(state), cfg)
+    torch.save(params, args.output)
+    print(json.dumps({"saved": args.output, "kind": args.kind}))
+
+
+def cmd_convert_trec(args):
+    from proqa_tpu_torch.data.converters import trec_extract_labels, trec_prepare_corpus
+
+    if args.collection:
+        n = trec_prepare_corpus(args.collection, args.corpus_out)
+        print(json.dumps({"corpus_rows": n}))
+    if args.qrels:
+        n = trec_extract_labels(args.qrels, args.queries, args.labels_out)
+        print(json.dumps({"labeled_queries": n}))
+
+
+def cmd_convert_msmarco(args):
+    from proqa_tpu_torch.data.converters import msmarco_extract_qa
+
+    n = msmarco_extract_qa(args.input, args.output)
+    print(json.dumps({"qa_pairs": n}))
 
 
 def cmd_build_db(args):
@@ -525,7 +640,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--stream-chunk", type=int, default=0,
                     help="rows per streamed chunk: bounded host memory, the rows written "
                          "into <output-dir>/embeddings.npy as they are encoded (0: in memory)")
-    sp.add_argument("--dp-encode", action="store_true", help="not ported yet")
+    sp.add_argument("--dp-encode", action="store_true",
+                    help="split encode batches over every local CUDA device")
     sp.set_defaults(fn=cmd_build_index)
 
     sp = sub.add_parser("encode-queries")
@@ -534,7 +650,8 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--init-checkpoint", required=True, help=".npz (JAX layout) or .pt")
     sp.add_argument("--output", required=True, help=".npy path")
     sp.add_argument("--predict-batch-size", type=int, default=512)
-    sp.add_argument("--dp-encode", action="store_true", help="not ported yet")
+    sp.add_argument("--dp-encode", action="store_true",
+                    help="split encode batches over every local CUDA device")
     sp.set_defaults(fn=cmd_encode_queries)
 
     sp = sub.add_parser("eval-retrieval")
@@ -588,6 +705,29 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_match_paras)
 
     _add_qa_commands(sub)
+
+    sp = sub.add_parser("convert-hf")
+    _add_common(sp)
+    sp.add_argument("--torch-checkpoint", required=True)
+    sp.add_argument("--kind", choices=["bert", "retriever"], default="retriever")
+    sp.add_argument("--output", required=True, help=".pt path")
+    sp.add_argument("--allow-pickle", action="store_true",
+                    help="permit full unpickling for legacy checkpoints that fail the safe "
+                         "weights-only load (trusted files only)")
+    sp.set_defaults(fn=cmd_convert_hf)
+
+    sp = sub.add_parser("convert-trec")
+    sp.add_argument("--collection", default="")
+    sp.add_argument("--corpus-out", default="trec_corpus.jsonl")
+    sp.add_argument("--qrels", default="")
+    sp.add_argument("--queries", default="")
+    sp.add_argument("--labels-out", default="trec_labels.jsonl")
+    sp.set_defaults(fn=cmd_convert_trec)
+
+    sp = sub.add_parser("convert-msmarco")
+    sp.add_argument("--input", required=True)
+    sp.add_argument("--output", required=True)
+    sp.set_defaults(fn=cmd_convert_msmarco)
 
     sp = sub.add_parser("build-db")
     sp.add_argument("--corpus", required=True, help='{"text", ["id"]} jsonl')

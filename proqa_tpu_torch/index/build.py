@@ -10,9 +10,16 @@ tokens reach kernel K2 when the config turns flash attention on.
 The streaming build (`--stream-chunk`, `encode_corpus_streaming`) keeps host
 memory bounded by the chunk: it reads the jsonl twice, and writes each
 chunk's rows straight into the `.npy` memmap the index then loads from.
+
+`mesh=` (a device list of parallel/mesh.py; the CLI's `--dp-encode`) encodes
+data-parallel, as the JAX package's `_encode_jit_mesh` does: one replica of
+the retriever per device, each batch split into len(mesh) equal row ranges,
+one range a device, the rows gathered back in dataset order. The batch size
+must be a multiple of the mesh size; a ragged tail is padded as any batch.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 from typing import Iterable
@@ -34,17 +41,36 @@ def _device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
-def _encoder(model: Retriever, is_query: bool):
-    """A batch of host ids and mask -> [B, D] f32 host embeddings."""
-    encode = model.encode_query if is_query else model.encode_context
-    device = _device(model)
+def _encoder(model: Retriever, is_query: bool, mesh: list | None = None):
+    """A batch of host ids and mask -> [B, D] f32 host embeddings. With a
+    mesh, each device's replica encodes its equal share of the rows."""
+    mesh = [_device(model)] if mesh is None else mesh
+    replicas: dict = {_device(model): model}
+    for dev in mesh:
+        if dev not in replicas:
+            replicas[dev] = copy.deepcopy(model).to(dev)
+    encoders = [replicas[dev].encode_query if is_query else replicas[dev].encode_context
+                for dev in mesh]
 
     def run(batch) -> np.ndarray:
-        ids = torch.from_numpy(batch["input_ids"]).to(device, torch.int64)
-        mask = torch.from_numpy(batch["input_mask"]).to(device)
-        return encode(ids, mask).float().cpu().numpy()
+        rows = batch["input_ids"].shape[0]
+        if rows % len(mesh):
+            raise ValueError(f"a batch of {rows} rows does not split over {len(mesh)} devices")
+        share = rows // len(mesh)
+        ids_all = torch.from_numpy(batch["input_ids"])
+        mask_all = torch.from_numpy(batch["input_mask"])
+        # every device's share is launched before any result is read back
+        outs = [encode(ids_all[i * share:(i + 1) * share].to(dev, torch.int64),
+                       mask_all[i * share:(i + 1) * share].to(dev))
+                for i, (encode, dev) in enumerate(zip(encoders, mesh))]
+        return torch.cat([o.float().cpu() for o in outs]).numpy()
 
     return run
+
+
+def _place(model: Retriever, mesh: list | None) -> dict:
+    """from_embeddings' placement: the mesh, else the model's device."""
+    return {"device": _device(model)} if mesh is None else {"mesh": mesh}
 
 
 def _fit_buckets(buckets: tuple, max_len: int) -> tuple:
@@ -71,11 +97,13 @@ def _bucketed_batches(seqs: list, batch_size: int, buckets: tuple):
 @torch.inference_mode()
 def encode_corpus(model: Retriever, dataset: EncodeDataset, *, batch_size: int = 512,
                   is_query: bool = False, prefetch: int = 4, progress: bool = False,
-                  buckets: tuple | None = DEFAULT_BUCKETS) -> np.ndarray:
+                  buckets: tuple | None = DEFAULT_BUCKETS,
+                  mesh: list | None = None) -> np.ndarray:
     """Encode every row of the dataset with the question (is_query) or
     context tower; returns an [N, D] f32 host array in row order. Without
-    `buckets`, every batch pads to the dataset's max length in file order."""
-    run = _encoder(model, is_query)
+    `buckets`, every batch pads to the dataset's max length in file order.
+    mesh: encode data-parallel over these devices."""
+    run = _encoder(model, is_query, mesh)
     n = len(dataset)
 
     if buckets is None:
@@ -103,14 +131,15 @@ def encode_corpus(model: Retriever, dataset: EncodeDataset, *, batch_size: int =
 def encode_corpus_streaming(model: Retriever, corpus_jsonl: str, tokenizer, out_path: str, *,
                             max_length: int = 512, batch_size: int = 512,
                             chunk_rows: int = 65536, buckets: tuple = DEFAULT_BUCKETS,
-                            prefetch: int = 4, progress: bool = False
-                            ) -> tuple[np.ndarray, list[str]]:
+                            prefetch: int = 4, progress: bool = False,
+                            mesh: list | None = None) -> tuple[np.ndarray, list[str]]:
     """The context-tower encode of a {"text" or "Paragraph", ["id"]} jsonl
     with host memory bounded by `chunk_rows` (proqa_tpu/index/build.py:122).
     Pass 1 reads only the doc ids and the row count; pass 2 tokenizes,
     length-buckets and encodes chunks of `chunk_rows` rows, each batch's
     rows written straight into the [N, D] f32 `.npy` memmap at `out_path`.
-    Returns (that memmap, the doc ids)."""
+    Returns (that memmap, the doc ids). mesh: encode data-parallel over
+    these devices."""
     doc_ids: list[str] = []
     with open(corpus_jsonl) as f:
         for line in f:
@@ -120,7 +149,7 @@ def encode_corpus_streaming(model: Retriever, corpus_jsonl: str, tokenizer, out_
     dim = model.proj_c.bias.shape[0]
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
     out = np.lib.format.open_memmap(out_path, mode="w+", dtype=np.float32, shape=(n, dim))
-    run = _encoder(model, is_query=False)
+    run = _encoder(model, is_query=False, mesh=mesh)
     buckets = _fit_buckets(buckets, max_length)
 
     def chunk_texts():
@@ -162,9 +191,10 @@ def encode_corpus_streaming(model: Retriever, corpus_jsonl: str, tokenizer, out_
 def build_index(model: Retriever, corpus_jsonl: str, *, doc_ids: Iterable[str] | None = None,
                 tokenizer=None, max_length: int = 512, batch_size: int = 512,
                 dtype=torch.bfloat16, save_path: str | None = None,
-                stream_chunk: int = 0) -> DenseIndex:
+                stream_chunk: int = 0, mesh: list | None = None) -> DenseIndex:
     """Encode a {"text", ["id"]} jsonl corpus into a DenseIndex on the
-    model's device (and save it when save_path is given).
+    model's device (and save it when save_path is given). With a mesh the
+    encode is data-parallel over it and the index row-sharded over it.
 
     stream_chunk > 0 takes the bounded-memory path, which needs save_path:
     the rows go into `<save_path>/embeddings.npy` as they are encoded, and
@@ -176,17 +206,17 @@ def build_index(model: Retriever, corpus_jsonl: str, *, doc_ids: Iterable[str] |
         embeds, ids = encode_corpus_streaming(
             model, corpus_jsonl, tokenizer, os.path.join(save_path, "embeddings.npy"),
             max_length=max_length, batch_size=batch_size, chunk_rows=stream_chunk,
-            progress=True)
+            progress=True, mesh=mesh)
         id_map = IdMap.from_doc_ids(doc_ids if doc_ids is not None else ids)
         id_map.save(os.path.join(save_path, "idx_id.json"))
-        return DenseIndex.from_embeddings(embeds, id_map, device=_device(model), dtype=dtype)
+        return DenseIndex.from_embeddings(embeds, id_map, dtype=dtype, **_place(model, mesh))
     dataset = EncodeDataset(tokenizer, corpus_jsonl, max_length=max_length, is_query=False)
     if doc_ids is None:
         # string ids, as the JAX package and build-db store them
         doc_ids = [str(row.get("id", i)) for i, row in enumerate(dataset.data)]
-    embeds = encode_corpus(model, dataset, batch_size=batch_size, progress=True)
-    index = DenseIndex.from_embeddings(embeds, IdMap.from_doc_ids(doc_ids),
-                                       device=_device(model), dtype=dtype)
+    embeds = encode_corpus(model, dataset, batch_size=batch_size, progress=True, mesh=mesh)
+    index = DenseIndex.from_embeddings(embeds, IdMap.from_doc_ids(doc_ids), dtype=dtype,
+                                       **_place(model, mesh))
     if save_path:
         index.save(save_path)
     return index

@@ -1,7 +1,7 @@
 """DenseIndex: the device-resident corpus embedding matrix with exact MIPS
 search, live updates, and an IVF view.
 
-Counterpart of proqa_tpu/index/dense.py for one device. The on-disk format
+Counterpart of proqa_tpu/index/dense.py. The on-disk format
 is the JAX package's, and the reference's: an f32 `embeddings.npy` plus
 `idx_id.json`, so an index built by either package loads in the other. Rows
 are padded to a multiple of 1024 with zero vectors, which are never returned.
@@ -25,11 +25,21 @@ semantics:
 * every mutation bumps `version`.
 
 `to_ivf` builds an IVF view (`IVFDenseIndex`, index/ivf.py) that searches
-through a coarse quantizer and refuses mutation. Not ported: row sharding
-over several devices (ROADMAP Queue 1, item 15).
+through a coarse quantizer and refuses mutation.
+
+Row sharding (`mesh=`, a device list of parallel/mesh.py): the padded rows
+split into one contiguous slab per mesh entry, `embeddings` (and an int8
+index's `scales`) then being the list of slabs, and every search goes
+through parallel/search.py:sharded_mips_topk. The padding is a multiple of
+lcm(1024, mesh size), and an int8 index picks its quantization block per
+shard. `gather`, `take`, `save`, `compact` and `to_ivf` read across the
+shards (`save` writes the unsharded artifact); `add` and the removals raise,
+as the JAX package's do: a sharded index is rebuilt, not mutated.
 """
 from __future__ import annotations
 
+import functools
+import math
 import os
 from dataclasses import dataclass, field
 
@@ -39,6 +49,7 @@ import torch
 from proqa_tpu_torch.index.idmap import IdMap
 from proqa_tpu_torch.ops.mips import envelope_block, mips_topk, pad_queries
 from proqa_tpu_torch.ops.quant import quantize_rows
+from proqa_tpu_torch.parallel.search import sharded_mips_topk
 
 _LOAD_CHUNK = 1 << 20  # rows copied to the device per step when loading
 _PAD_MULTIPLE = 1024   # rows: the padding of a built index and of a grown one
@@ -48,19 +59,64 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+def _device_rows(src, lo: int, hi: int, n: int, dtype, device) -> torch.Tensor:
+    """Rows [lo, hi) of `src` ([n, D], numpy, memmap or tensor) padded with
+    zero rows past n, as `dtype` on `device`; numpy rows are copied a chunk
+    at a time (bounded host memory for memmaps)."""
+    out = torch.zeros(hi - lo, src.shape[1], dtype=dtype, device=device)
+    top = min(hi, n)
+    if isinstance(src, torch.Tensor):
+        if top > lo:
+            out[:top - lo] = src[lo:top]
+        return out
+    host = np.int8 if dtype == torch.int8 else np.float32
+    for s in range(lo, top, _LOAD_CHUNK):
+        e = min(s + _LOAD_CHUNK, top)
+        out[s - lo:e - lo] = torch.from_numpy(np.array(src[s:e], host))
+    return out
+
+
+def _gather_rows(rows: torch.Tensor, scales, quant_block: int, r: torch.Tensor) -> torch.Tensor:
+    """f32 rows r of one row tensor, int8 codes dequantized by their block's
+    scale."""
+    out = rows[r].float()
+    if scales is not None:
+        out = out * scales[r // quant_block][..., None]
+    return out
+
+
 @dataclass
 class DenseIndex:
-    embeddings: torch.Tensor   # [N_padded, D], bf16, f32 or int8 codes, on the device
+    # [N_padded, D], bf16, f32 or int8 codes, on the device; sharded: a list
+    # of [N_padded / len(mesh), D] slabs, one on each mesh device
+    embeddings: torch.Tensor | list
     n: int                     # true row count (<= N_padded)
     id_map: IdMap | None = None
-    scales: torch.Tensor | None = None  # [N_padded / quant_block] f32 (int8 only)
+    scales: torch.Tensor | list | None = None  # [N_padded / quant_block] f32 (int8 only),
+                                               # split like the rows when sharded
     quant_block: int = 1                # rows per quantization scale (int8 only)
     version: int = 0                    # bumped by every add and removal
+    mesh: list | None = None            # the devices of the shards (parallel/mesh.py)
     _deleted: np.ndarray | None = field(default=None, repr=False)  # sorted tombstoned rows
 
     @property
+    def _first(self) -> torch.Tensor:
+        """The row tensor, or the first shard's."""
+        return self.embeddings if self.mesh is None else self.embeddings[0]
+
+    @property
+    def device(self) -> torch.device:
+        """Where searches return and gathers land: the first shard's device."""
+        return self._first.device
+
+    @property
+    def capacity(self) -> int:
+        """Padded rows over every shard."""
+        return self._first.shape[0] * (1 if self.mesh is None else len(self.mesh))
+
+    @property
     def dim(self) -> int:
-        return self.embeddings.shape[1]
+        return self._first.shape[1]
 
     @property
     def is_quantized(self) -> bool:
@@ -70,7 +126,7 @@ class DenseIndex:
     def _query_dtype(self) -> torch.dtype:
         """Scoring dtype of the queries: an int8 corpus scores in bf16 (its
         codes convert exactly), also where the index was loaded for f32."""
-        d = self.embeddings.dtype
+        d = self._first.dtype
         return torch.bfloat16 if d == torch.int8 else d
 
     def __len__(self) -> int:
@@ -84,42 +140,56 @@ class DenseIndex:
     def check_mutable(self) -> None:
         """Raise ValueError where add and remove_rows would: callers that
         write elsewhere first (the DocDB) check before any write."""
+        if self.mesh is not None:
+            raise ValueError("incremental add on a mesh-sharded index is not supported — "
+                             "rebuild with DenseIndex.from_embeddings(..., mesh=mesh)")
 
     @classmethod
     def from_embeddings(cls, embeddings, id_map: IdMap | None = None, *,
-                        device: str | torch.device, dtype=torch.bfloat16,
-                        pad_multiple: int = _PAD_MULTIPLE) -> "DenseIndex":
-        """Build from an [N, D] array (numpy, possibly a memmap, or a tensor).
-        Rows are cast to `dtype` on the device and padded with zero rows to
-        a multiple of pad_multiple.
+                        device: str | torch.device | None = None, dtype=torch.bfloat16,
+                        pad_multiple: int = _PAD_MULTIPLE,
+                        mesh: list | None = None) -> "DenseIndex":
+        """Build from an [N, D] array (numpy, possibly a memmap, or a tensor)
+        on `device`, or row-sharded over `mesh`. Rows are cast to `dtype` on
+        the device and padded with zero rows to a multiple of pad_multiple
+        (and of the mesh size).
 
         dtype "int8" (or torch.int8) quantizes the rows on the host with the
-        block envelope_block(N padded), halved until it divides the padded
-        rows; the padding rows get zero codes and their blocks scale 1.0."""
+        block envelope_block(rows per shard), halved until it divides the
+        shard, so each shard's search runs kernel K5; the padding rows get
+        zero codes and their blocks scale 1.0."""
+        if (device is None) == (mesh is None):
+            raise ValueError("give a device or a mesh")
+        devices = [torch.device(device)] if mesh is None else list(mesh)
         n, d = embeddings.shape
+        n_total = n + (-n) % math.lcm(pad_multiple, len(devices))
+        local = n_total // len(devices)
+        src, scales = embeddings, None
         if dtype in ("int8", torch.int8):
-            n_total = n + (-n) % pad_multiple
-            qb = envelope_block(n_total)
-            while qb > 16 and n_total % qb:
+            qb = envelope_block(local)
+            while qb > 16 and local % qb:
                 qb //= 2
-            if n_total % qb:
-                raise ValueError(f"cannot pick an int8 quantization block for {n_total} rows")
+            if local % qb:
+                raise ValueError(f"cannot pick an int8 quantization block for {local} rows "
+                                 "per shard")
             if isinstance(embeddings, torch.Tensor):
                 embeddings = embeddings.detach().float().cpu().numpy()
-            q8, sc = quantize_rows(embeddings, block=qb)  # chunked: memmap-friendly
-            codes = torch.zeros(n_total, d, dtype=torch.int8, device=device)
-            codes[:n] = torch.from_numpy(q8)
-            scales = torch.ones(n_total // qb, dtype=torch.float32, device=device)
+            src, sc = quantize_rows(embeddings, block=qb)  # chunked: memmap-friendly
+            scales = torch.ones(n_total // qb, dtype=torch.float32)
             scales[:sc.shape[0]] = torch.from_numpy(sc)
-            return cls._from_quantized(codes, scales, n, qb, id_map)
-        arr = torch.zeros(n + (-n) % pad_multiple, d, dtype=dtype, device=device)
-        if isinstance(embeddings, torch.Tensor):
-            arr[:n] = embeddings
-        else:
-            for s in range(0, n, _LOAD_CHUNK):  # bounded host memory for memmaps
-                e = min(s + _LOAD_CHUNK, n)
-                arr[s:e] = torch.from_numpy(np.array(embeddings[s:e], np.float32))
-        return cls(embeddings=arr, n=n, id_map=id_map)
+            dtype = torch.int8
+        parts = [_device_rows(src, i * local, (i + 1) * local, n, dtype, dev)
+                 for i, dev in enumerate(devices)]
+        if scales is not None:
+            nb = local // qb
+            scale_parts = [scales[i * nb:(i + 1) * nb].to(dev) for i, dev in enumerate(devices)]
+            if mesh is None:
+                return cls._from_quantized(parts[0], scale_parts[0], n, qb, id_map)
+            return cls(embeddings=parts, n=n, id_map=id_map, scales=scale_parts,
+                       quant_block=qb, mesh=devices)
+        if mesh is None:
+            return cls(embeddings=parts[0], n=n, id_map=id_map)
+        return cls(embeddings=parts, n=n, id_map=id_map, mesh=devices)
 
     @classmethod
     def _from_quantized(cls, codes: torch.Tensor, scales: torch.Tensor, n: int, qb: int,
@@ -144,6 +214,7 @@ class DenseIndex:
         requantizes that block's rows with the new ones; only blocks that
         hold a real row get written scales, and `quant_block` stays what
         construction chose."""
+        self.check_mutable()
         if isinstance(embeddings, torch.Tensor):
             embeddings = embeddings.detach().float().cpu().numpy()
         new = np.asarray(embeddings, np.float32)
@@ -209,6 +280,8 @@ class DenseIndex:
         """Tombstone index rows; returns the number newly deleted. Searches
         over-fetch and filter them, so exact results equal a rebuilt
         index's; compact() reclaims the space."""
+        if self.mesh is not None:
+            raise ValueError("incremental removal on a mesh-sharded index is not supported")
         rows = np.unique(np.asarray(rows, np.int64))
         if rows.size and (rows[0] < 0 or rows[-1] >= self.n):
             raise ValueError(f"row out of range [0, {self.n})")
@@ -246,12 +319,14 @@ class DenseIndex:
         if self.n_deleted:
             keep = np.setdiff1d(keep, self._deleted)
         id_map = None if self.id_map is None else IdMap(self.id_map.rows_to_ids(keep))
-        device = self.embeddings.device
-        if self.scales is not None:
-            return DenseIndex.from_embeddings(self.take(keep), id_map, device=device,
-                                              dtype="int8")
-        rows = self.embeddings[torch.from_numpy(keep).to(device)]
-        return DenseIndex.from_embeddings(rows, id_map, device=device,
+        if self.mesh is not None or self.scales is not None:
+            # f32 rows: exact for bf16 and f32, dequantized for int8
+            place = ({"device": self.device} if self.mesh is None else {"mesh": self.mesh})
+            return DenseIndex.from_embeddings(
+                self.take(keep), id_map, **place,
+                dtype="int8" if self.scales is not None else self._first.dtype)
+        rows = self.embeddings[torch.from_numpy(keep).to(self.device)]
+        return DenseIndex.from_embeddings(rows, id_map, device=self.device,
                                           dtype=self.embeddings.dtype)
 
     def _filter_deleted(self, vals: np.ndarray, idx: np.ndarray, k: int):
@@ -279,12 +354,13 @@ class DenseIndex:
         if self.n_deleted:
             raise ValueError("index has tombstoned rows: compact() before to_ivf(), so the "
                              "slabs cannot serve removed paragraphs")
-        rows = self.gather(torch.arange(self.n, device=self.embeddings.device))
+        rows = self.gather(torch.arange(self.n, device=self.device))
         ivf = build_ivf(rows, nlist=nlist, nprobe=nprobe, niter=niter, seed=seed,
                         dtype=self._query_dtype, **kw)
         del rows
         return IVFDenseIndex(embeddings=self.embeddings, n=self.n, id_map=self.id_map,
-                             scales=self.scales, quant_block=self.quant_block, ivf=ivf)
+                             scales=self.scales, quant_block=self.quant_block,
+                             mesh=self.mesh, ivf=ivf)
 
     # ---------------- search ----------------
 
@@ -303,11 +379,13 @@ class DenseIndex:
             vals, idx = self.search(queries, k_fetch, exact=exact, q_pad=q_pad,
                                     _skip_tombstones=True)
             return self._filter_deleted(vals, idx, k)
-        q = torch.as_tensor(queries).to(self.embeddings.device, self._query_dtype)
+        q = torch.as_tensor(queries).to(self.device, self._query_dtype)
         q, q_n = pad_queries(q, q_pad)
         k_eff = min(k, self.n)
-        vals, idx = mips_topk(q, self.embeddings, k_eff, exact=exact, n_valid=self.n,
-                              scales=self.scales, quant_block=self.quant_block)
+        search = (mips_topk if self.mesh is None
+                  else functools.partial(sharded_mips_topk, mesh=self.mesh))
+        vals, idx = search(q, self.embeddings, k_eff, exact=exact, n_valid=self.n,
+                           scales=self.scales, quant_block=self.quant_block)
         vals = vals[:q_n].float().cpu().numpy()
         idx = idx[:q_n].to(torch.int32).cpu().numpy()
         if k_eff < k:  # degenerate tiny-corpus case
@@ -325,11 +403,18 @@ class DenseIndex:
         """Embedding rows [..., D] as f32 on the index's device, int8 rows
         dequantized. Indices are clipped to the padded row range, so -1 (an
         under-filled retrieval slot) gathers row 0, as the JAX package's
-        mode="clip" does."""
-        r = rows.to(self.embeddings.device).long().clamp(0, self.embeddings.shape[0] - 1)
-        out = self.embeddings[r].float()
-        if self.scales is not None:
-            out = out * self.scales[r // self.quant_block][..., None]
+        mode="clip" does. A sharded index gathers each row from its shard."""
+        r = rows.to(self.device).long().clamp(0, self.capacity - 1)
+        if self.mesh is None:
+            return _gather_rows(self.embeddings, self.scales, self.quant_block, r)
+        local = self._first.shape[0]
+        shard = r // local
+        out = torch.empty(*r.shape, self.dim, dtype=torch.float32, device=self.device)
+        for s, (rows_s, dev) in enumerate(zip(self.embeddings, self.mesh)):
+            at = shard == s
+            scales = None if self.scales is None else self.scales[s]
+            out[at] = _gather_rows(rows_s, scales, self.quant_block,
+                                   (r[at] - s * local).to(dev)).to(self.device)
         return out
 
     def take(self, rows) -> np.ndarray:
@@ -351,10 +436,11 @@ class DenseIndex:
             self.id_map.save(os.path.join(path, "idx_id.json"))
 
     @classmethod
-    def load(cls, path: str, *, device: str | torch.device,
-             dtype=torch.bfloat16) -> "DenseIndex":
+    def load(cls, path: str, *, device: str | torch.device | None = None,
+             dtype=torch.bfloat16, mesh: list | None = None) -> "DenseIndex":
         """`path` is a directory (embeddings.npy [+ idx_id.json]) or a bare
-        .npy file. dtype="int8" quantizes at load."""
+        .npy file, loaded onto `device` or row-sharded over `mesh`.
+        dtype="int8" quantizes at load."""
         if os.path.isdir(path):
             emb_path = os.path.join(path, "embeddings.npy")
             map_path = os.path.join(path, "idx_id.json")
@@ -362,7 +448,7 @@ class DenseIndex:
         else:
             emb_path, id_map = path, None
         emb = np.load(emb_path, mmap_mode="r")
-        return cls.from_embeddings(emb, id_map, device=device, dtype=dtype)
+        return cls.from_embeddings(emb, id_map, device=device, dtype=dtype, mesh=mesh)
 
 
 @dataclass
@@ -393,7 +479,7 @@ class IVFDenseIndex(DenseIndex):
         if exact:
             return super().search(queries, k, exact=True,
                                   q_pad=q_pad if q_pad is not None else 256)
-        q = torch.as_tensor(queries).to(self.embeddings.device, self._query_dtype)
+        q = torch.as_tensor(queries).to(self.device, self._query_dtype)
         if q_pad is None:
             q_pad = min(_next_pow2(q.shape[0]), 256)
         q, q_n = pad_queries(q, q_pad)

@@ -148,6 +148,14 @@ def _gold_ce(logits: torch.Tensor, gold: torch.Tensor) -> torch.Tensor:
     return torch.where(gold.any(-1), torch.logsumexp(logits, -1) - gold_lse, 0.0)
 
 
+def qa_loss_keys(qcfg: QAConfig) -> tuple[str, ...]:
+    """The keys of qa_loss's result under this configuration, in order."""
+    if qcfg.separate:
+        return ("span_loss", "early_loss", *(("select_loss",) if qcfg.add_select else ()),
+                "loss")
+    return ("joint_loss", "early_loss", "loss")
+
+
 def qa_loss(out: dict, batch: dict, qcfg: QAConfig) -> dict:
     """Total loss (mean over questions) and its components, as the JAX
     package's qa_loss.

@@ -2,7 +2,8 @@
 evaluation, and the outer loop with online retrieval.
 
 Counterpart of proqa_tpu/train/qa_trainer.py (upstream
-qa/train_retrieve_qa.py:170-401), on one device: the online sampler feeds
+qa/train_retrieve_qa.py:170-401), on one device or data-parallel over
+torch.distributed ranks (parallel/dist.py): the online sampler feeds
 static-shape [B, k, L] batches, the reader's forward, the loss zoo and the
 span decode run on the device, and only the text projection and the
 rank/span score sweep (reference :366-394) stay on the host.
@@ -17,6 +18,19 @@ chain. Rank-head candidates travel as `para_rows` and are gathered on the
 device from the registered index (`set_corpus`), per microbatch. Not ported:
 `_pack_batch`, the JAX trainer's one-transfer packing of a batch for a
 remote TPU (ROADMAP Queue 3).
+
+Data parallel (the JAX trainer's `data` mesh): each rank holds the whole
+index and runs its own sampler over its share of the questions
+(cli/main.py:_qa_setup deals them out), so a train batch is this rank's
+share of each global microbatch. The ranks first sum each microbatch's
+question count, and each rank scales its masked loss sum by W / that global
+count, so the average over the ranks is the one-process loss of the global
+microbatch. The gradients of the trainable parameters, with the loss
+components riding along, are averaged in one all-reduce after the last
+microbatch, before the clip. A rank whose sampler has run dry takes part in
+the step with nothing to add until every rank's has. Predictions are
+gathered on rank 0, which sweeps α and writes the files; its EM is sent to
+every rank. Rank 0 alone writes logs, metrics and checkpoints.
 """
 from __future__ import annotations
 
@@ -33,9 +47,10 @@ from proqa_tpu_torch.data.collate import batch_pad, pad_bucket
 from proqa_tpu_torch.data.loader import BatchLoader
 from proqa_tpu_torch.models.bert import BertConfig, init_parameters
 from proqa_tpu_torch.models.reader import (
-    QAConfig, QAModel, decode_spans, qa_frozen_mask, qa_loss,
+    QAConfig, QAModel, decode_spans, qa_frozen_mask, qa_loss, qa_loss_keys,
 )
 from proqa_tpu_torch.ops.dot import pin_f32_precision
+from proqa_tpu_torch.parallel.dist import data_parallel, rank_seed
 from proqa_tpu_torch.text.metrics import (
     exact_match_score, metric_max_over_ground_truths, regex_match_score,
 )
@@ -87,16 +102,21 @@ class QATrainer:
                  params: dict | None = None, device: str | torch.device = "cuda"):
         """params: a state dict of the whole QAModel (strict), or None for
         random weights from tcfg.seed. The model stays in eval mode outside
-        the train step."""
+        the train step. Under data parallelism (parallel/dist.py) `device`
+        names the device type, and questions_per_batch is this rank's."""
         pin_f32_precision()
         accum = max(1, tcfg.accumulate_gradients)
         if tcfg.questions_per_batch % accum:
             raise ValueError(f"questions_per_batch={tcfg.questions_per_batch} must divide "
                              f"over {accum} microbatches")
         self.cfg, self.qcfg, self.tcfg = bert_cfg, qa_cfg, tcfg
-        self.device = torch.device(device)
-        self.logger = setup_logger("proqa_torch.qa", f"{tcfg.output_dir}/log.txt")
-        self.metrics = MetricLogger(f"{tcfg.output_dir}/metrics.jsonl")
+        self.dp, self.device = data_parallel(device)
+        main = self.dp.main
+        self.logger = setup_logger("proqa_torch.qa", f"{tcfg.output_dir}/log.txt" if main else None)
+        self.metrics = MetricLogger(f"{tcfg.output_dir}/metrics.jsonl" if main else None)
+        if self.dp.grouped:
+            self.logger.info(f"data parallel: backend {self.dp.backend}, world {self.dp.world}, "
+                             f"rank {self.dp.rank}, device {self.device}")
         # one generator: initial weights first, then every dropout seed
         self.generator = torch.Generator().manual_seed(tcfg.seed)
         self.model = QAModel(bert_cfg, qa_cfg)
@@ -104,6 +124,9 @@ class QATrainer:
             init_parameters(self.model, bert_cfg.initializer_range, self.generator)
         else:
             self.model.load_state_dict(params)
+        if self.dp.rank:
+            # the same weights on every rank, dropout seeds of each rank's own
+            self.generator = torch.Generator().manual_seed(rank_seed(tcfg.seed, self.dp.rank))
         self.model.to(self.device).eval()
         self.frozen = qa_frozen_mask(
             dict(self.model.named_parameters()), freeze_c_encoder=tcfg.fix_para_encoder,
@@ -178,47 +201,64 @@ class QATrainer:
             res = {"start": start, "end": end, "span_score": score, "rank_score": rank}
             return {k: v.cpu().numpy() for k, v in res.items()}
 
-    def _train_step(self, net: dict) -> dict:
+    def _train_step(self, net: dict | None) -> dict:
         """One optimizer step on a host batch (numpy [B, ...] arrays, B a
-        multiple of accumulate_gradients); returns the loss components
-        averaged over the microbatches, as device scalars
-        (qa_trainer.py:133-183)."""
+        multiple of accumulate_gradients; under data parallelism this rank's
+        share, or None for a rank with no batch left); returns the loss
+        components averaged over the microbatches (and the ranks), as device
+        scalars (qa_trainer.py:133-183)."""
         accum = max(1, self.tcfg.accumulate_gradients)
-        batch = self._device_batch(net)
+        dp = self.dp
+        batch = {} if net is None else self._device_batch(net)
         rows = batch.pop("para_rows", None)
         if rows is not None and self._corpus_index is None:
             raise ValueError("batch uses para_rows but no corpus is registered: call "
                              "trainer.set_corpus(sampler.index) (train() does this)")
-        micro = batch["input_ids"].shape[0] // accum
+        micro = 0 if net is None else batch["input_ids"].shape[0] // accum
+        scales = [1.0] * accum
+        if dp.grouped and (net is None or "question_mask" in net):
+            # the loss is a mean over the global microbatch's questions: each
+            # rank's masked sum over that global count, times W for the mean
+            qmask = (np.zeros(accum * micro) if net is None
+                     else np.asarray(net["question_mask"], np.float64))
+            local = qmask.reshape(accum, micro).sum(axis=1) if micro else np.zeros(accum)
+            total = dp.sum(local)
+            scales = [dp.world * max(n, 1.0) / max(t, 1.0) for n, t in zip(local, total)]
         with self._lock:
-            self.model.train()
-            try:
-                csum: dict = {}
-                for i in range(accum):
-                    mb = {key: v[i * micro:(i + 1) * micro] for key, v in batch.items()}
-                    if rows is not None:
-                        mb["para_embed"] = self._corpus_index.gather(rows[i * micro:(i + 1) * micro])
-                    comp = qa_loss(self.model(mb, generator=self.generator), mb, self.qcfg)
-                    comp["loss"].backward()
-                    for key, value in comp.items():
-                        csum[key] = csum.get(key, 0.0) + value.detach()
-            finally:
-                self.model.eval()
+            csum = {key: torch.zeros((), device=self.device) for key in qa_loss_keys(self.qcfg)}
+            if net is not None:
+                self.model.train()
+                try:
+                    for i in range(accum):
+                        mb = {key: v[i * micro:(i + 1) * micro] for key, v in batch.items()}
+                        if rows is not None:
+                            mb["para_embed"] = self._corpus_index.gather(
+                                rows[i * micro:(i + 1) * micro])
+                        comp = qa_loss(self.model(mb, generator=self.generator), mb, self.qcfg)
+                        (comp["loss"] * scales[i]).backward()
+                        for key, value in comp.items():
+                            csum[key] = csum[key] + value.detach() * scales[i]
+                finally:
+                    self.model.eval()
             params = self.state.params
             grads = {name: (p.grad if p.grad is not None else torch.zeros_like(p)) / accum
                      for name, p in params.items() if not self.frozen[name]}
+            comps = {key: value / accum for key, value in csum.items()}
+            dp.all_reduce_mean([*grads.values(), *comps.values()])
             apply_gradients(self.state, grads, self.tx)
             for p in params.values():
                 p.grad = None
-        return {key: value / accum for key, value in csum.items()}
+        return comps
 
     def save(self, name: str) -> None:
-        ckpt.save_checkpoint(f"{self.tcfg.output_dir}/{name}{ckpt.SUFFIX}", self.state)
+        if self.dp.main:
+            ckpt.save_checkpoint(f"{self.tcfg.output_dir}/{name}{ckpt.SUFFIX}", self.state)
 
     def _write_meta(self, best_em: float, wait: int, epoch: int) -> None:
         """Loop progress beside the checkpoints, so resume() continues the
         best-model race, early stopping and the epoch position (train/meta.py)."""
-        write_trainer_meta(self.tcfg.output_dir, "best_em", best_em, wait, epoch)
+        if self.dp.main:
+            write_trainer_meta(self.tcfg.output_dir, "best_em", best_em, wait, epoch)
 
     @torch.no_grad()
     def resume(self, path: str) -> None:
@@ -342,15 +382,28 @@ class QATrainer:
         (train_retrieve_qa.py:359-364,391-394): `{prefix}_all.json` (every
         candidate prediction per question), `{prefix}_ground.json` (ground
         truths), and `{prefix}_{alpha}.json` per-alpha top-1 jsonl.
+
+        Under data parallelism each rank reads its share of the questions
+        (rank r the r-th of every W), rank 0 gathers them back in the
+        one-process order, sweeps and writes, and every rank returns rank 0's EM.
         """
         t = self.tcfg
         qid2results: dict[str, list[Prediction]] = collections.defaultdict(list)
         qid2ground: dict[str, list] = {}
         B = sampler.cfg.question_batch
 
-        for qid, _q, true_answers, preds in self._iter_candidate_predictions(sampler, B):
-            qid2ground[qid] = true_answers
-            qid2results[qid].extend(preds)
+        items = [(qid, true_answers, preds) for qid, _q, true_answers, preds
+                 in self._iter_candidate_predictions(sampler, B)]
+        shares = self.dp.gather_objects(items)
+        if shares is None:  # not the main rank
+            return self.dp.broadcast(0.0)
+        longest = max(len(share) for share in shares)
+        for i in range(longest):  # round robin: the order the questions were dealt in
+            for share in shares:
+                if i < len(share):
+                    qid, true_answers, preds = share[i]
+                    qid2ground[qid] = true_answers
+                    qid2results[qid].extend(preds)
 
         if save_all_prefix:
             with open(f"{save_all_prefix}_all.json", "w") as f:
@@ -392,7 +445,7 @@ class QATrainer:
             with open(save_path, "w") as f:
                 for row in best_rows:
                     f.write(json.dumps(row) + "\n")
-        return max(best_em, 0.0)
+        return self.dp.broadcast(max(best_em, 0.0))
 
     # -------------------- training --------------------
 
@@ -411,14 +464,26 @@ class QATrainer:
         stop = False
         meter = AverageMeter()
         timer = StepTimer(device=self.device)
-        tracer = TraceWindow(t.profile_dir, steps=t.profile_steps, logger=self.logger)
+        tracer = TraceWindow(t.profile_dir if self.dp.main else "", steps=t.profile_steps,
+                             logger=self.logger)
         for epoch in range(start_epoch, t.num_train_epochs):
             train_sampler.shuffle(seed=t.seed + epoch)
-            for batch in self._prefetched(train_sampler.load(
-                    self.query_encoder(), t.train_k, t.questions_per_batch)):
+            batches = iter(self._prefetched(train_sampler.load(
+                self.query_encoder(), t.train_k, t.questions_per_batch)))
+            while True:
+                batch = next(batches, None)
+                alive = batch is not None
+                if self.dp.grouped:
+                    # ranks step together until every rank's sampler has run dry
+                    alive = self.dp.sum([alive])[0] > 0
+                if not alive:
+                    break
                 tracer.tick()
-                net, rows = batch_pad(batch["net_input"], t.questions_per_batch)
-                net["question_mask"] = (np.arange(t.questions_per_batch) < rows).astype(np.int32)
+                net = None
+                if batch is not None:
+                    net, rows = batch_pad(batch["net_input"], t.questions_per_batch)
+                    net["question_mask"] = (np.arange(t.questions_per_batch)
+                                            < rows).astype(np.int32)
                 with timer:
                     comp = self._train_step(net)
                     loss = float(comp["loss"])

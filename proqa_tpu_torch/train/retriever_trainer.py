@@ -1,7 +1,8 @@
 """Retriever contrastive pretraining: the train and eval steps and the outer
 loop (eval period, early stopping, checkpoints, resume).
 
-Counterpart of proqa_tpu/train/retriever_trainer.py, on one device:
+Counterpart of proqa_tpu/train/retriever_trainer.py, on one device or
+data-parallel over torch.distributed ranks (parallel/dist.py):
 * a train step: both towers in training mode (dropout seeds drawn from the
   trainer's torch.Generator), in-batch-negative cross entropy over f32
   q c^T with target = the diagonal, backward, AdamW (train/optim.py);
@@ -12,6 +13,16 @@ Counterpart of proqa_tpu/train/retriever_trainer.py, on one device:
 * RetrieverTrainer with the JAX trainer's eval, early-stop (wait >=
   wait_step), checkpoint (best / last / every N steps) and resume
   bookkeeping, including the trainer_meta.json pairing of train/meta.py.
+Data parallel, the JAX trainer's `data` mesh: every rank takes its W-th of
+each global microbatch, all-gathers the microbatch's q and c with their
+gradient so the loss is the one-process step's over the global microbatch
+(negatives span the ranks), and averages the gradients over the ranks in one
+all-reduce after the last microbatch, before AdamW's global-norm clip. Every
+rank computes the same loss; the all-gather's backward sums its W identical
+copies of each row's gradient, and the average divides them out again. The
+ranks start from the same weights (the same generator) and draw their
+dropout seeds apart (rank 0 the one-process stream); eval batches are dealt
+out over the ranks and their counts summed; rank 0 alone writes files.
 f32 matrix products stay in full f32 (pin_f32_precision): from-scratch
 contrastive training collapsed under lowered f32 precision on the TPU.
 """
@@ -25,6 +36,7 @@ import torch
 from proqa_tpu_torch.models.bert import BertConfig, init_parameters
 from proqa_tpu_torch.models.retriever import Retriever
 from proqa_tpu_torch.ops.dot import pin_f32_precision
+from proqa_tpu_torch.parallel.dist import DataParallel, data_parallel, rank_seed
 from proqa_tpu_torch.train import checkpoint as ckpt
 from proqa_tpu_torch.train.meta import read_trainer_meta, write_trainer_meta
 from proqa_tpu_torch.train.optim import AdamW, TrainState, apply_gradients, init_train_state
@@ -43,10 +55,12 @@ def in_batch_loss(out: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def train_step(model: Retriever, state: TrainState, tx: AdamW, batch: dict,
-               generator: torch.Generator, accum_steps: int = 1):
+               generator: torch.Generator, accum_steps: int = 1,
+               dp: DataParallel = DataParallel()):
     """One optimizer step on `batch` (tensors on the model's device, leading
-    dim accum_steps * micro); returns (state, {"loss", "acc"}) with device
-    scalars."""
+    dim accum_steps * micro: under data parallelism this rank's share of
+    each microbatch, DataParallel.share); returns (state, {"loss", "acc"})
+    with device scalars, the loss and accuracy of the global microbatches."""
     model.train()
     for p in state.params.values():
         p.grad = None
@@ -54,11 +68,13 @@ def train_step(model: Retriever, state: TrainState, tx: AdamW, batch: dict,
     lsum = asum = 0.0
     for i in range(accum_steps):
         mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-        loss, acc = in_batch_loss(model(mb, generator=generator))
+        out = model(mb, generator=generator)
+        loss, acc = in_batch_loss({key: dp.gather_rows(v) for key, v in out.items()})
         loss.backward()
         lsum, asum = lsum + loss.detach(), asum + acc
     grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)) / accum_steps
              for k, p in state.params.items()}
+    dp.all_reduce_mean(list(grads.values()))
     state = apply_gradients(state, grads, tx)
     for p in state.params.values():
         p.grad = None
@@ -95,16 +111,23 @@ class RetrieverTrainerConfig:
 
 class RetrieverTrainer:
     """Outer training loop with eval-driven early stopping and checkpoints
-    (best / last / periodic, full-state resume), on one device."""
+    (best / last / periodic, full-state resume), on one device or one rank of
+    a process group (parallel/dist.py:data_parallel: under torchrun, or in a
+    group the caller initialised)."""
 
     def __init__(self, bert_cfg: BertConfig, tcfg: RetrieverTrainerConfig, *,
                  params: dict | None = None, device: str | torch.device = "cuda"):
         pin_f32_precision()
         self.cfg = bert_cfg
         self.tcfg = tcfg
-        self.device = torch.device(device)
-        self.logger = setup_logger("proqa_torch.retriever", f"{tcfg.output_dir}/log.txt")
-        self.metrics = MetricLogger(f"{tcfg.output_dir}/metrics.jsonl")
+        self.dp, self.device = data_parallel(device)
+        main = self.dp.main
+        self.logger = setup_logger("proqa_torch.retriever",
+                                   f"{tcfg.output_dir}/log.txt" if main else None)
+        self.metrics = MetricLogger(f"{tcfg.output_dir}/metrics.jsonl" if main else None)
+        if self.dp.grouped:
+            self.logger.info(f"data parallel: backend {self.dp.backend}, world {self.dp.world}, "
+                             f"rank {self.dp.rank}, device {self.device}")
         # one generator: initial weights first, then every dropout seed
         self.generator = torch.Generator().manual_seed(tcfg.seed)
         self.model = Retriever(bert_cfg)
@@ -112,6 +135,9 @@ class RetrieverTrainer:
             init_parameters(self.model, bert_cfg.initializer_range, self.generator)
         else:
             self.model.load_state_dict(params)
+        if self.dp.rank:
+            # the same weights on every rank, dropout seeds of each rank's own
+            self.generator = torch.Generator().manual_seed(rank_seed(tcfg.seed, self.dp.rank))
         self.model.to(self.device)
         self.tx = AdamW(
             learning_rate=tcfg.learning_rate, weight_decay=tcfg.weight_decay,
@@ -124,10 +150,12 @@ class RetrieverTrainer:
     # ------------- checkpoint plumbing -------------
 
     def save(self, name: str) -> None:
-        ckpt.save_checkpoint(f"{self.tcfg.output_dir}/{name}{ckpt.SUFFIX}", self.state)
+        if self.dp.main:
+            ckpt.save_checkpoint(f"{self.tcfg.output_dir}/{name}{ckpt.SUFFIX}", self.state)
 
     def _write_meta(self, best_acc: float, wait: int, epoch: int) -> None:
-        write_trainer_meta(self.tcfg.output_dir, "best_acc", best_acc, wait, epoch)
+        if self.dp.main:
+            write_trainer_meta(self.tcfg.output_dir, "best_acc", best_acc, wait, epoch)
 
     @torch.no_grad()
     def resume(self, path: str) -> None:
@@ -157,21 +185,28 @@ class RetrieverTrainer:
         return out
 
     def step(self, batch: dict) -> dict:
-        """One train step on a numpy batch; returns {"loss", "acc"} as device
-        scalars."""
-        self.state, m = train_step(self.model, self.state, self.tx, self.device_batch(batch),
-                                   self.generator, self.tcfg.accumulate_gradients)
+        """One train step on a numpy batch (the global batch under data
+        parallelism); returns {"loss", "acc"} as device scalars."""
+        accum = self.tcfg.accumulate_gradients
+        self.state, m = train_step(self.model, self.state, self.tx,
+                                   self.device_batch(self.dp.share(batch, accum)),
+                                   self.generator, accum, self.dp)
         return m
 
     def evaluate(self, eval_batches) -> float:
+        """In-batch accuracy over the eval batches; under data parallelism
+        rank r evaluates batches r, r + W, ... and the counts are summed."""
         correct = total = 0
-        for batch in eval_batches:
+        for i, batch in enumerate(eval_batches):
+            if i % self.dp.world != self.dp.rank:
+                continue
             rows = batch.pop("__rows__", None)
             res = eval_step(self.model, self.device_batch(batch)).cpu().numpy()
             if rows is not None:
                 res = res[:rows]
             correct += int(res.sum())
             total += len(res)
+        correct, total = self.dp.sum([correct, total])
         return correct / max(total, 1)
 
     # ------------- loop -------------
@@ -187,7 +222,8 @@ class RetrieverTrainer:
         stop = False
         meter = AverageMeter()
         timer = StepTimer(device=self.device)
-        tracer = TraceWindow(t.profile_dir, steps=t.profile_steps, logger=self.logger)
+        tracer = TraceWindow(t.profile_dir if self.dp.main else "", steps=t.profile_steps,
+                             logger=self.logger)
         last_saved_step = -1  # state.step at the latest checkpoint_last write
 
         def run_eval(epoch: int) -> None:

@@ -1114,3 +1114,73 @@ def test_kmeans_assignments_with_tf32_set_equal_the_cpu(cuda):
     scores = x.double() @ c.double().T
     gap = (scores[differ, ga[differ].long()] - scores[differ, ca[differ].long()]).abs()
     assert bool((gap <= 1e-5).all()), gap.max()
+
+
+# --- multi-device: the sharded search over one card, data parallel over NCCL ---
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_sharded_search_on_the_card(cuda, dtype):
+    """A DenseIndex row-sharded over [cuda:0] * 4 (16,384 rows a shard, so
+    each shard's search runs the block-max pipeline) against the unsharded
+    index: equal top-k up to ties, and one launch of K1 (bf16; K5 over int8)
+    and, over bf16, of K6 on every shard."""
+    import numpy as np
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.parallel import make_mesh
+
+    emb = (torch.randn(4 * 16384, 128, generator=torch.Generator().manual_seed(2))
+           / 128 ** 0.5).numpy()
+    queries = (torch.randn(64, 128, generator=torch.Generator().manual_seed(3))
+               / 128 ** 0.5).numpy()
+    kind = torch.bfloat16 if dtype == "bfloat16" else "int8"
+    sharded = DenseIndex.from_embeddings(emb, mesh=make_mesh(devices=["cuda:0"] * 4), dtype=kind)
+    whole = DenseIndex.from_embeddings(emb, device=cuda, dtype=kind)
+    assert sharded.quant_block == whole.quant_block
+    counter = "launches" if dtype == "bfloat16" else "scaled_launches"
+    before_k1, before_k6 = getattr(mips_kernel, counter), rescore.launches
+    vals, idx = sharded.search(queries, 16)
+    assert getattr(mips_kernel, counter) - before_k1 == 4
+    assert rescore.launches - before_k6 == (4 if dtype == "bfloat16" else 0)
+    wv, wi = whole.search(queries, 16)
+    assert np.isfinite(vals).all()
+    assert topk_disagreements(vals, idx, wv, wi, atol=MIPS_ATOL) == 0
+
+
+def test_world_one_nccl_retriever_step_matches_plain(cuda, tmp_path):
+    """A retriever trainer in an NCCL group of one (its q and c all-gathered,
+    its gradients all-reduced) against the trainer with no group: the same
+    losses over 3 f32 steps at dropout 0, accumulation 2, and the same
+    parameters."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from proqa_tpu_torch.train.retriever_trainer import RetrieverTrainer, RetrieverTrainerConfig
+
+    cfg = BertConfig.tiny(dtype=torch.float32, hidden_dropout=0.0, attention_dropout=0.0)
+    g = np.random.default_rng(0)
+    batches = []
+    for _ in range(3):
+        q = g.integers(5, 128, size=(8, 6)).astype(np.int32)
+        c = g.integers(5, 128, size=(8, 12)).astype(np.int32)
+        batches.append({"input_ids_q": q, "input_mask_q": np.ones_like(q),
+                        "input_ids_c": c, "input_mask_c": np.ones_like(c)})
+    runs = []
+    for grouped in (True, False):
+        tcfg = RetrieverTrainerConfig(learning_rate=1e-3, accumulate_gradients=2, seed=1,
+                                      output_dir=str(tmp_path / f"run{grouped}"))
+        if grouped:
+            dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous",
+                                    rank=0, world_size=1)
+        try:
+            trainer = RetrieverTrainer(cfg, tcfg, device="cuda")
+            assert trainer.dp.backend == ("nccl" if grouped else None)
+            losses = [float(trainer.step(b)["loss"]) for b in batches]
+            runs.append((losses, {k: p.detach().cpu() for k, p in trainer.state.params.items()}))
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+    (l_dp, p_dp), (l_one, p_one) = runs
+    np.testing.assert_allclose(l_dp, l_one, rtol=0, atol=1e-6)
+    for k, p in p_one.items():
+        torch.testing.assert_close(p_dp[k], p, rtol=0, atol=1e-5)

@@ -358,12 +358,18 @@ def test_cli_finetune_qa_matches_jax(world, capsys):
     ("eval-qa", ["--predict-file", "x.jsonl", "--use-ivf", "--shard-index"], 15),
     ("eval-qa", ["--predict-file", "x.jsonl", "--shard-index"], 15),
 ])
-def test_cli_unported_qa_paths_raise(world, command, extra, item):
-    """serve and --use-ivf are ported (tests/test_torch_serving.py); what is
-    left unported on the QA commands is --shard-index, refused before any
-    model or index is built, also beside --use-ivf and by serve."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1, item {item}"):
+def test_cli_unported_qa_paths_raise(world, command, extra, item, monkeypatch):
+    """--shard-index (ROADMAP Queue 1, item 15, once refused here as
+    unported) now shards the QA commands' index, with two refusals left, both
+    before any model or index is built: serve keeps live updates, so it takes
+    the unsharded index; and under data parallelism each rank holds the
+    whole index, beside --use-ivf too (ROADMAP Queue 3)."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    match = ("takes the unsharded index" if command == "serve"
+             else "each rank holds the whole index")
+    with pytest.raises(ValueError, match=match):
         torch_main([command, *_qa_args(world, "qa.npz", "never"), "--device", "cpu", *extra])
+    assert not (world / "never").exists() and item == 15
 
 
 def test_qa_setup_loads_each_weight_source(world):

@@ -98,6 +98,8 @@ def test_qa_loss_matches_jax(flags):
         want, want_g = _jax_loss_and_grads(out, batch, jax_reader.QAConfig(**kw))
         got, got_g = _torch_loss_and_grads(out, batch, QAConfig(**kw))
         assert set(got) == set(want)
+        # the keys a data-parallel step that has no batch left reduces
+        assert tuple(got) == reader.qa_loss_keys(QAConfig(**kw))
         for key in want:
             assert got[key] == pytest.approx(want[key], rel=LOSS_RTOL, abs=1e-6), key
         for key in want_g:

@@ -117,17 +117,30 @@ def test_cli_slice_matches_jax(world, capsys):
     assert topk_disagreements(tv, ti, jv, ji, atol=2e-4) == 0
 
 
-def test_cli_rejects_unported_flags(world):
-    """--dp-encode (ROADMAP Queue 1, item 15) raises on both encoding
-    commands; --stream-chunk, once here, is ported
-    (tests/test_torch_stream_build.py)."""
-    common = [*_common(world, "ckpt.npz"), "--device", "cpu", "--dp-encode"]
-    for argv in (["build-index", "--corpus", str(world / "corpus.jsonl"), "--output-dir",
-                  str(world / "never")],
-                 ["encode-queries", "--queries", str(world / "qa.jsonl"), "--output",
-                  str(world / "never.npy")]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 15"):
-            torch_main(argv[:1] + common + argv[1:])
+def test_cli_rejects_unported_flags(world, capsys, monkeypatch):
+    """--dp-encode (ROADMAP Queue 1, item 15, once refused here as unported)
+    runs on both encoding commands: over a mesh of 3 CPU entries the batch
+    size rounds up to a multiple of 3 with the JAX CLI's note, and the
+    embeddings equal the one-device encode's (f32) in dataset order."""
+    from proqa_tpu_torch.cli import main as cli
+
+    monkeypatch.setattr(cli, "_local_mesh", lambda args: [torch.device("cpu")] * 3)
+    common = [*_common(world, "ckpt.npz"), "--device", "cpu", "--predict-batch-size", "8"]
+    w = str(world)
+    for dp in ([], ["--dp-encode"]):
+        tag = "dp" if dp else "one"
+        torch_main(["build-index", *common, *dp, "--corpus", f"{w}/corpus.jsonl",
+                    "--output-dir", f"{w}/{tag}_idx"])
+        torch_main(["encode-queries", *common, *dp, "--queries", f"{w}/qa.jsonl",
+                    "--output", f"{w}/{tag}_q.npy"])
+        out = capsys.readouterr().out
+        assert out.count("predict-batch-size 8 -> 9 (multiple of 3 devices)") == (2 if dp else 0)
+    np.testing.assert_allclose(np.load(f"{w}/dp_idx/embeddings.npy"),
+                               np.load(f"{w}/one_idx/embeddings.npy"), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(np.load(f"{w}/dp_q.npy"), np.load(f"{w}/one_q.npy"),
+                               rtol=0, atol=1e-5)
+    assert (world / "dp_idx" / "idx_id.json").read_bytes() == \
+        (world / "one_idx" / "idx_id.json").read_bytes()
 
 
 def test_cli_int8_index_matches_jax(world, capsys, monkeypatch):
@@ -169,6 +182,12 @@ def test_cli_int8_index_matches_jax(world, capsys, monkeypatch):
         np.array([[r["score"] for r in hits["jax"]]]), np.array([[r["row"] for r in hits["jax"]]]),
         atol=2e-4) == 0
     assert all(r["text"] for r in hits["torch"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_main(["eval-retrieval", f"{w}/qa.jsonl", f"{w}/int8_idx", f"{w}/int8_q.npy",
-                    f"{w}/int8.db", "--int8-index", "--shard-index", "--device", "cpu"])
+    # --shard-index (once refused here as unported) over a mesh of 4 CPU
+    # entries: an int8 index quantized per shard, the same recall JSON
+    from proqa_tpu_torch.cli import main as cli
+
+    monkeypatch.setattr(cli, "_local_mesh", lambda args: [torch.device("cpu")] * 4)
+    sharded = _run(torch_main, ["eval-retrieval", f"{w}/qa.jsonl", f"{w}/int8_idx",
+                                f"{w}/int8_q.npy", f"{w}/int8.db", "--topk", "80", "--int8-index",
+                                "--shard-index", "--device", "cpu"], capsys)
+    assert sharded == evals["jax"]
