@@ -53,6 +53,10 @@ _SIGNATURES = {
     "proqa_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
     # x, y, n, seed, threshold, inv_keep, is_bf16, stream
     "proqa_dropout": [_P, _P, _L, _U64, _U, _F, _I, _P],
+    # y, bias, out, rows, cols, out_bf16, gelu, stream
+    "proqa_dense_epilogue": [_P, _P, _P, _L, _I, _I, _I, _P],
+    # x, residual (None for none), scale, bias, out, rows, h, eps, is_bf16, stream
+    "proqa_add_layer_norm": [_P] * 5 + [_L, _I, _F, _I, _P],
 }
 
 _lib: ctypes.CDLL | None = None

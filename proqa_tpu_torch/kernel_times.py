@@ -1,5 +1,5 @@
-"""Times kernels K1, K5, K6, K7, K8 and K4 of a checkout of the port on one
-NVIDIA GPU, and the host path of one K4 call piece by piece.
+"""Times kernels K1, K5, K6, K7, K8, K4, F1 and F2 of a checkout of the port
+on one NVIDIA GPU, and the host path of one K4 call piece by piece.
 
     python proqa_tpu_torch/kernel_times.py [--root DIR] [--out FILE] [--only K6,K1]
 
@@ -27,7 +27,13 @@ of repeated rounds:
       Q = 2,048 and Q = 32;
   K7  the same codes with the bounds (smax, smin) of per-row scales, at
       Q = 2,048;
-  K4  dropout at [80, 512, 768] bf16, rate 0.1, beside F.dropout.
+  K4  dropout at [80, 512, 768] bf16, rate 0.1, beside F.dropout;
+  F1  the dense epilogue at the encode's shapes (build-index's 512 rows of
+      T = 512: 262,144 rows), an f32 product of [262,144, 768] to bf16 and
+      of [262,144, 3,072] with GELU to bf16;
+  F2  residual add + LayerNorm at [262,144, 768] bf16, with and without the
+      residual, beside F.layer_norm on the same rows (checkouts without
+      ops/fused_bert.py skip F1 and F2).
 Host pieces of K4 (time.perf_counter_ns, mean over 1,000 calls, median of
 5 rounds, on a [80, 768] bf16 tensor so that the card keeps up): each step
 the earlier dropout wrapper took (an autograd node always, the rate checked
@@ -44,6 +50,7 @@ card's name and power limit; exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -231,6 +238,25 @@ def main(argv=None) -> int:
     if not only or "K4".startswith(only):
         out["K4 host pieces us"] = host_pieces(
             torch.randn(80, 768, device=dev, generator=g).bfloat16())
+    del x
+    if importlib.util.find_spec("proqa_tpu_torch.ops.fused_bert") is not None:
+        from proqa_tpu_torch.ops import fused_bert
+
+        n, h = 512 * 512, 768
+        for cols, gelu in ((h, False), (4 * h, True)):
+            y = torch.randn(n, cols, device=dev, generator=g) * 2.0
+            b = torch.randn(cols, device=dev, generator=g) * 0.1
+            time_kernel(f"F1 [{n}, {cols}]{' GELU' if gelu else ''} bf16",
+                        lambda: fused_bert.dense_epilogue(y, b, torch.bfloat16, gelu))
+            del y
+        x, r = (torch.randn(n, h, device=dev, generator=g).bfloat16() for _ in range(2))
+        scale, bias = torch.ones(h, device=dev), torch.zeros(h, device=dev)
+        for res, label in ((r, " + residual"), (None, "")):
+            time_kernel(f"F2 [{n}, {h}] bf16{label}",
+                        lambda: fused_bert.add_layer_norm(x, res, scale, bias, 1e-12))
+        scale16, bias16 = scale.bfloat16(), bias.bfloat16()
+        time_kernel(f"F.layer_norm [{n}, {h}] bf16",
+                    lambda: torch.nn.functional.layer_norm(x, (h,), scale16, bias16, 1e-12))
     line = json.dumps(out)
     print(line)
     if args.out:

@@ -6,6 +6,13 @@ layer a product of bf16 operands accumulated in f32 plus an f32 bias and then
 rounded, LayerNorm in f32 (eps 1e-12), exact GELU in f32, softmax in f32,
 the pooler's tanh in f32, and an additive key mask of -1e30.
 
+Where no autograd graph is recorded (grad mode off, or nothing involved
+requires a gradient: every encode, search-time query tower, reader and
+eval), each dense epilogue runs kernel F1 and each residual add with its
+LayerNorm kernel F2 (ops/fused_bert.py). Where one is recorded, the same
+arithmetic runs as the differentiable chain of PyTorch ops below, which the
+kernels match (F1 bit for bit, F2 within one ulp).
+
 Training adds dropout at the sites and in the order of bert.py:247-296: the
 embedding output, the attention probabilities (kernel K2 in the fused path,
 K4 in the vanilla one), the attention output and the MLP output, each with
@@ -31,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from proqa_tpu_torch.ops.attention import MASK_BIAS, fused_attention
 from proqa_tpu_torch.ops.dot import dot_f32
 from proqa_tpu_torch.ops.dropout import dropout
+from proqa_tpu_torch.ops.fused_bert import add_layer_norm, dense_epilogue
 
 SEED_RANGE = 1 << 62  # dropout seeds are drawn uniformly below this
 
@@ -71,23 +79,37 @@ class BertConfig:
         return cls(**base)
 
 
+def _records_grad(*tensors) -> bool:
+    """Whether autograd records an op on these tensors (None ones skipped)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 class Dense(nn.Module):
     """y = x @ kernel + bias with kernel [in, out]. The product takes the
     kernel in x's dtype and accumulates in f32; the f32 bias is added before
-    the result is rounded to `out_dtype` (x's dtype unless given)."""
+    the result is rounded to `out_dtype` (x's dtype unless given). With
+    `gelu`, exact GELU in f32 on the rounded result, rounded again."""
 
     def __init__(self, d_in: int, d_out: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(d_in, d_out))
         self.bias = nn.Parameter(torch.zeros(d_out))
 
-    def forward(self, x: torch.Tensor, out_dtype: torch.dtype | None = None) -> torch.Tensor:
-        y = dot_f32(x, self.kernel.to(x.dtype)) + self.bias
-        return y.to(out_dtype or x.dtype)
+    def forward(self, x: torch.Tensor, out_dtype: torch.dtype | None = None, *,
+                gelu: bool = False) -> torch.Tensor:
+        out_dtype = out_dtype or x.dtype
+        y = dot_f32(x, self.kernel.to(x.dtype))
+        if not _records_grad(y, self.bias):
+            return dense_epilogue(y, self.bias, out_dtype, gelu)
+        y = (y + self.bias).to(out_dtype)
+        if gelu:
+            y = nn.functional.gelu(y.float(), approximate="none").to(out_dtype)
+        return y
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm in f32 whatever the activation dtype; returns x's dtype."""
+    """LayerNorm(x + residual) in f32 whatever the activation dtype; returns
+    x's dtype. The residual sum is rounded to x's dtype first."""
 
     def __init__(self, width: int, eps: float):
         super().__init__()
@@ -95,7 +117,11 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(width))
         self.eps = eps
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
+        if not _records_grad(x, residual, self.scale, self.bias):
+            return add_layer_norm(x, residual, self.scale, self.bias, self.eps)
+        if residual is not None:
+            x = x + residual
         x32 = x.float()
         mean = x32.mean(dim=-1, keepdim=True)
         var = (x32 - mean).square().mean(dim=-1, keepdim=True)
@@ -154,10 +180,9 @@ class BertLayer(nn.Module):
         return self.attn_out(ctx.transpose(1, 2).reshape(b, t, h))
 
     def mlp(self, x, seed) -> torch.Tensor:
-        mlp = self.mlp_in(x)
-        mlp = nn.functional.gelu(mlp.float(), approximate="none").to(x.dtype)
+        mlp = self.mlp_in(x, gelu=True)
         mlp = _drop(self.mlp_out(mlp), self.cfg.hidden_dropout, seed)
-        return self.mlp_ln(x + mlp)
+        return self.mlp_ln(x, mlp)
 
     def forward(self, x, mask_bias, key_mask, seeds=None) -> torch.Tensor:
         """seeds: (attention probabilities, attention output, MLP output), or
@@ -165,7 +190,7 @@ class BertLayer(nn.Module):
         s_probs, s_attn, s_mlp = seeds if seeds is not None else (None, None, None)
         attn = self.attention(x, mask_bias, key_mask, s_probs)
         attn = _drop(attn, self.cfg.hidden_dropout, s_attn)
-        x = self.attn_ln(x + attn)
+        x = self.attn_ln(x, attn)
         if self.cfg.remat and self.cfg.remat_scope == "mlp" and torch.is_grad_enabled():
             return checkpoint(self.mlp, x, s_mlp, use_reentrant=False)
         return self.mlp(x, s_mlp)

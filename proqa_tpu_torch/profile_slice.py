@@ -13,7 +13,7 @@ Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
               per-block scales made on the device, quant block 16 (kernel
               K5, then the select and the scaled `take` rescore);
   encode_T*   the BERT-base context tower, bf16, 512 rows of T tokens
-              (build-index's batch; K2 at every layer);
+              (build-index's batch; K2, F1 and F2 at every layer);
   train       one retriever train step at bench.py's operating point
               (bench.py:_bench_train_step): BERT-base, bf16, remat, fused
               attention, dropout 0.1, 80 pairs of 32-token questions and
@@ -22,12 +22,12 @@ Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
               and decode over 8 questions): the BERT-base query tower (T =
               30), the exact top-5 search of an 8,192 x 128 bf16 index (K1,
               K6), sqlite and tokenization of 40 paragraphs of 100-510 words,
-              the BERT-base reader over 8 x 5 rows of T = 512 (K2 in every
-              layer), the span decode, and the text projection; beside it the
-              sampler alone, the reader step alone, and the whole predict
-              over 256 questions with and without the prefetch thread
-              (three pairs, alternating which runs first, after a warm-up
-              of each);
+              the BERT-base reader over 8 x 5 rows of T = 512 (K2, F1 and F2
+              in every layer), the span decode, and the text projection;
+              beside it the sampler alone, the reader step alone, and the
+              whole predict over 256 questions with and without the
+              prefetch thread (three pairs, alternating which runs first,
+              after a warm-up of each);
   qa_train    one QA train step (QATrainer._train_step) on a fixed batch of
               the online sampler's train load: 4 questions x 5 paragraphs
               at T = 512, queries at T = 30, 5,000 candidates gathered from
@@ -85,6 +85,8 @@ GROUPS = (
     ("K2 attention", ("attention_fwd_",)),   # attention_fwd_wgmma_kernel (bf16), _simple_ (f32)
     ("K3 attention backward", ("attention_bwd_",)),  # attention_bwd_rows_ and _cols_kernel
     ("K4 dropout", ("dropout_vec_kernel", "dropout_scalar_kernel")),
+    ("F1 dense epilogue", ("dense_epilogue_",)),    # dense_epilogue_vec_kernel, _scalar_
+    ("F2 add+LayerNorm", ("add_layer_norm_",)),     # add_layer_norm_vec_kernel, _scalar_
     ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
     ("topk/sort", ("topk", "radixSort", "Sort", "cub::")),
     ("gather/index", ("gather", "index_elementwise", "index_kernel")),

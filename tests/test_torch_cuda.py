@@ -13,7 +13,9 @@ torch = pytest.importorskip("torch")
 
 from proqa_tpu_torch.models.bert import BertConfig  # noqa: E402
 from proqa_tpu_torch.models.retriever import Retriever  # noqa: E402
-from proqa_tpu_torch.ops import attention, mips, mips_kernel, quant, rescore  # noqa: E402
+from proqa_tpu_torch.ops import (  # noqa: E402
+    attention, fused_bert, mips, mips_kernel, quant, rescore,
+)
 from proqa_tpu_torch.testing import topk_disagreements  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -1184,3 +1186,145 @@ def test_world_one_nccl_retriever_step_matches_plain(cuda, tmp_path):
     np.testing.assert_allclose(l_dp, l_one, rtol=0, atol=1e-6)
     for k, p in p_one.items():
         torch.testing.assert_close(p_dp[k], p, rtol=0, atol=1e-5)
+
+
+# --- the BERT layer's fused epilogues: F1 (dense epilogue) and F2 (add + LayerNorm) ---
+
+# F2 in f32: the two row sums run in another order than ATen's, so the mean
+# and variance differ by a few f32 ulps of the row's scale
+LN_F32_TOL = 1e-5
+# F2 in bf16: one bf16 ulp at the larger magnitude of the two outputs, or of
+# 2^-8 below it, where an output that cancels to near zero in y * scale + bias
+# moves by the f32 difference of its O(1) terms (chip_smoke.py:LN_ULP_FLOOR)
+LN_ULP_FLOOR = 2.0 ** -8
+
+
+def _bf16_ulps(got, want, floor: float = LN_ULP_FLOOR) -> float:
+    """The largest |got - want| in bf16 ulps at the larger magnitude of the
+    two, or of `floor` below it."""
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(floor)
+    return ((got - want).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max().item()
+
+
+def _epilogue_inputs(shape, device, seed):
+    g = torch.Generator().manual_seed(seed)
+    y = torch.randn(*shape, generator=g) * 2.0
+    return y.to(device), (torch.randn(shape[-1], generator=g) * 0.1).to(device)
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(1, 768), (37, 768), (513, 3072), (4, 33, 768), (37, 2),
+                                   (5, 1), (9, 40), (7, 12)])
+def test_dense_epilogue_kernel_equals_plain(cuda, shape, out_dtype, gelu):
+    """F1 bit-equal to its plain version: one f32 add, round-to-nearest-even,
+    ATen's exact-GELU expression; odd row counts, widths that take the
+    vector body (multiples of 8) and the element body (2, 1, 12)."""
+    y, b = _epilogue_inputs(shape, cuda, seed=sum(shape))
+    dt = getattr(torch, out_dtype)
+    before = fused_bert.dense_launches
+    got = fused_bert.dense_epilogue(y, b, dt, gelu)
+    torch.cuda.synchronize()
+    assert fused_bert.dense_launches == before + 1
+    want = fused_bert.dense_epilogue_reference(y, b, dt, gelu)
+    assert got.dtype == dt and got.shape == y.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+def test_dense_epilogue_kernel_unaligned(cuda, gelu):
+    """A product 4 bytes past a 16-byte boundary takes the element body."""
+    y, b = _epilogue_inputs((37, 768), cuda, seed=3)
+    shifted = torch.empty(y.numel() + 1, device=cuda)[1:].view_as(y)
+    shifted.copy_(y)
+    got = fused_bert.dense_epilogue(shifted, b, torch.bfloat16, gelu)
+    assert torch.equal(got, fused_bert.dense_epilogue_reference(y, b, torch.bfloat16, gelu))
+
+
+def _ln_inputs(rows, h, device, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(rows, h, generator=g)
+    r = torch.randn(rows, h, generator=g) * 0.5 + 0.25
+    scale = 1.0 + 0.1 * torch.randn(h, generator=g)
+    bias = 0.1 * torch.randn(h, generator=g)
+    return (x.to(device, dtype), r.to(device, dtype), scale.to(device), bias.to(device))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("rows,h", [(1, 768), (37, 768), (513, 768), (9, 32), (7, 1024),
+                                    (5, 100), (3, 1), (11, 40), (6, 36)])
+def test_add_layer_norm_kernel_matches_plain(cuda, rows, h, residual, dtype):
+    """F2 within one bf16 ulp of its plain version (at magnitudes of at least
+    LN_ULP_FLOOR; LN_F32_TOL in f32): the same rounding points, the row sums
+    in another order; odd row counts,
+    widths that take the vector body and the element body (100, 1, 36)."""
+    x, r, scale, bias = _ln_inputs(rows, h, cuda, getattr(torch, dtype), seed=rows * h)
+    r = r if residual else None
+    before = fused_bert.layer_norm_launches
+    got = fused_bert.add_layer_norm(x, r, scale, bias, 1e-12)
+    torch.cuda.synchronize()
+    assert fused_bert.layer_norm_launches == before + 1
+    want = fused_bert.add_layer_norm_reference(x, r, scale, bias, 1e-12)
+    assert got.dtype == x.dtype and got.shape == x.shape and torch.isfinite(got).all()
+    if dtype == "bfloat16":
+        assert _bf16_ulps(got, want) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, atol=LN_F32_TOL, rtol=LN_F32_TOL)
+
+
+def test_add_layer_norm_kernel_unaligned(cuda):
+    """Rows 2 bytes past a 16-byte boundary take the element body."""
+    x, r, scale, bias = _ln_inputs(37, 768, cuda, torch.bfloat16, seed=8)
+    shifted = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)[1:].view_as(x)
+    shifted.copy_(x)
+    got = fused_bert.add_layer_norm(shifted, r, scale, bias, 1e-12)
+    assert _bf16_ulps(got, fused_bert.add_layer_norm_reference(x, r, scale, bias, 1e-12)) <= 1.0
+
+
+def test_fused_epilogues_reject_what_they_do_not_take(cuda):
+    y, b = _epilogue_inputs((4, 12_289), cuda, seed=1)
+    with pytest.raises(ValueError, match="columns"):
+        fused_bert.dense_epilogue(y, b, torch.bfloat16)
+    with pytest.raises(TypeError):
+        fused_bert.dense_epilogue(y[:, :8].bfloat16(), b[:8], torch.bfloat16)
+    x, r, scale, bias = _ln_inputs(4, 1025, cuda, torch.bfloat16, seed=2)
+    with pytest.raises(ValueError, match="widths"):
+        fused_bert.add_layer_norm(x, r, scale, bias, 1e-12)
+    with pytest.raises(TypeError):
+        fused_bert.add_layer_norm(x[:, :8].half(), None, scale[:8], bias[:8], 1e-12)
+    with pytest.raises(ValueError, match="residual"):
+        fused_bert.add_layer_norm(x[:, :8], r[:, :8].float(), scale[:8], bias[:8], 1e-12)
+    leaf = b[:8].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_bert.dense_epilogue(y[:, :8].contiguous(), leaf, torch.bfloat16)
+    with torch.no_grad():
+        fused_bert.dense_epilogue(y[:, :8].contiguous(), leaf, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encoder_with_fused_epilogues_matches_autograd_route(cuda, dtype):
+    """A BERT-base-width context tower (two layers, T = 128): inference mode
+    (F1 and F2 on every dense layer and LayerNorm) against the same weights
+    and inputs with grad on (the differentiable ops) on the card, within the
+    encoder tolerances; F1 and F2 launch 6 L + 2 and 2 L + 1 times."""
+    cfg = BertConfig(num_layers=2, vocab_size=128, flash_attention=True,
+                     dtype=getattr(torch, dtype))
+    model = Retriever(cfg).reset_parameters(1).to(cuda).eval()
+    g = torch.Generator().manual_seed(5)
+    ids = torch.randint(5, 128, (6, 128), generator=g)
+    mask = (torch.arange(128) < torch.tensor([128, 100, 64, 7, 1, 128])[:, None]).int()
+    ids, mask = (ids * mask).to(cuda), mask.to(cuda)
+    launches = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    with torch.inference_mode():
+        fused = model.encode_context(ids, mask)
+    torch.cuda.synchronize()
+    assert (fused_bert.dense_launches - launches[0],
+            fused_bert.layer_norm_launches - launches[1]) == (6 * 2 + 2, 2 * 2 + 1)
+    launches = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    plain = model.encode_context(ids, mask)
+    assert plain.requires_grad
+    assert (fused_bert.dense_launches, fused_bert.layer_norm_launches) == launches
+    assert torch.isfinite(fused).all()
+    torch.testing.assert_close(fused, plain.detach(), atol=ENCODER_TOL[dtype], rtol=0)
