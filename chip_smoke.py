@@ -7,9 +7,10 @@ Phases, each of which must pass. The dense-retrieval slice:
   1. build the hand-written CUDA kernels from proqa_tpu_torch/csrc;
   2. the BERT-base context tower (B = 64, T = 512) with fused attention
      (K2) against the vanilla attention path, and with the fused epilogues
-     (F1, F2: inference mode) against the same weights and inputs through
-     the differentiable route (grad on); the encode's throughput with every
-     kernel;
+     (F1, F2: inference mode) bit-equal to the training route (grad on, the
+     same kernels saving what their backward reads) and against the plain
+     epilogue chain under autograd (fused_bert._eager_chain); the encode's
+     throughput with every kernel;
   3. K1, block maxima: the kernel against its plain version at the
      reference's operating point, a 4,194,304 x 128 bf16 corpus and 2,048
      queries, and at 32 queries (a small batch), then DenseIndex top-80
@@ -36,8 +37,9 @@ The retriever-pretraining slice:
      timed at rates 0.1 and 0 beside F.scaled_dot_product_attention;
   8. a full-width train step (BERT-base retriever, bf16, remat, fused
      attention, dropout 0.1, 80 x (32 + 512) tokens, AdamW lr 1e-4): 20 steps
-     on one batch whose loss must fall, K2/K3/K4 launch counters read, and one
-     dropout-0 step with the kernels against the vanilla attention path
+     on one batch whose loss must fall, K2/K3/K4 and F1/F2 (forward and
+     backward) launch counters read, and one dropout-0 step with the kernels
+     against the vanilla attention path and against the plain epilogue chain
      (gradient cosine);
   9. the slice's main path through the CLI: pretrain-retriever (BERT-base,
      contexts of T=256, so K2/K3 run; queries of T=30 on the vanilla path
@@ -104,9 +106,10 @@ QA finetuning, k-means and cluster-batched pretraining:
      BERT-base reader and retriever in bf16 (remat, fused attention,
      dropout 0.1, qa_drop 0.1), 4 questions x 5 paragraphs at T = 512,
      queries at T = 30, 5,000 candidates a question gathered from the device
-     index; 20 steps on one batch (the loss must fall, K2/K3/K4 counted),
-     step ms and peak memory; a dropout-0 step with the kernels against the
-     vanilla attention path (gradient cosine; where it falls below
+     index; 20 steps on one batch (the loss must fall, K2/K3/K4 and F1/F2
+     forward and backward counted), step ms and peak memory; a dropout-0
+     step with the kernels against the vanilla attention path and against
+     the plain epilogue chain (gradient cosine; where it falls below
      GRAD_COS, each route's distance from the vanilla f32 gradient); K2, K3
      and K4 at these shapes against their plain versions, timed beside
      SDPA / F.dropout and the bound;
@@ -148,10 +151,22 @@ The BERT layer's fused epilogues:
      of elements that differ logged; f32 within LN_F32_TOL); each timed
      beside its plain version, its bound and the nearest library call
      (torch.add into a bf16 output; F.layer_norm). Their launches are
-     counted on the retrieval CLI (phase 4), the QA CLI (phase 18) and
-     serve (phase 24).
+     counted on the retrieval CLI (phase 4), the QA CLI (phase 18), serve
+     (phase 24), and the training paths: pretrain-retriever (phase 9),
+     finetune-qa (20), pretraining on cluster shards (22) and DDP (27);
+ 31. their backward kernels at the training steps' shapes (the retriever
+     step's 40,960 and the QA step's 10,240 rows, bf16): F1's with GELU at
+     [N, 3,072] (dz bit-equal to the plain chain's aten::gelu_backward, the
+     bias column sum within COLSUM_REL of its terms), without at [N, 768]
+     (the column sum alone), F2's with a residual at [N, 768] (dx within
+     BWD_ULPS bf16 ulps at magnitudes of at least LN_ULP_FLOOR of the plain
+     formula and of autograd through the plain chain; dscale, dbias within
+     COLSUM_REL), two launches of each bit-equal; each timed beside its plain
+     version, its bound and one library call (aten::gelu_backward,
+     torch.sum(dim=0), aten::native_layer_norm_backward). Their launches are
+     counted on the training paths of phases 8, 9, 19, 20, 22 and 27.
 Phases 23-25 run after phase 18, phase 26 after phase 22, 27-29 after 20,
-30 after 2. Each of phases 12-14 first drives its kernel's public pipeline
+30 and 31 after 2. Each of phases 12-14 first drives its kernel's public pipeline
 once with the counters at 0 and reads them, then compares and times the
 kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -349,22 +364,33 @@ def phase_encoder(device) -> None:
     check(bool(torch.isfinite(fused).all()) and fused.shape == (bsz, 128),
           "encoder: bad embeddings")
     check(cos >= ENCODER_COS, f"encoder with K2 vs vanilla: min cosine {cos} < {ENCODER_COS}")
-    # grad on and the parameters requiring it: the differentiable ops, no F1/F2
+    # grad on and the parameters requiring it: the training route, the same
+    # F1/F2 kernels saving what their backward reads, so the same bits
     f1, f2 = fused_bert.dense_launches, fused_bert.layer_norm_launches
     routed = model.encode_context(ids, mask)
-    check(routed.requires_grad and (fused_bert.dense_launches, fused_bert.layer_norm_launches)
-          == (f1, f2), "encoder with grad on: not the differentiable route")
-    routed = routed.detach()
-    route_cos = torch.nn.functional.cosine_similarity(fused, routed, dim=1).min().item()
-    route_err = (fused - routed).abs().max().item()
+    check(routed.requires_grad and fused_bert.dense_launches > f1
+          and fused_bert.layer_norm_launches > f2, "encoder with grad on: F1/F2 not launched")
+    check(torch.equal(routed.detach(), fused), "encoder with grad on: not the inference bits")
+    del routed
     route_ms = cuda_ms(lambda: model.encode_context(ids, mask), reps=3)
-    check(route_cos >= ENCODER_COS, f"encoder with F1/F2 vs the differentiable route: min "
+    # the plain chain under autograd, the yardstick of the kernels
+    f1, f2 = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    with fused_bert._eager_chain():
+        plain_out = model.encode_context(ids, mask).detach()
+        plain_ms = cuda_ms(lambda: model.encode_context(ids, mask), reps=3)
+    check((fused_bert.dense_launches, fused_bert.layer_norm_launches) == (f1, f2),
+          "encoder under _eager_chain: F1/F2 launched")
+    route_cos = torch.nn.functional.cosine_similarity(fused, plain_out, dim=1).min().item()
+    route_err = (fused - plain_out).abs().max().item()
+    del plain_out
+    check(route_cos >= ENCODER_COS, f"encoder with F1/F2 vs the plain chain: min "
                                     f"cosine {route_cos} < {ENCODER_COS}")
     log(f"encoder BERT-base bf16 B={bsz} T={t}: K2 vs vanilla min cosine {cos:.6f} "
-        f"(tol {ENCODER_COS}); F1/F2 (inference mode) vs the differentiable route (grad on) "
-        f"min cosine {route_cos:.6f} (tol {ENCODER_COS}), max abs err {route_err:.3g}; with "
-        f"every kernel {ms:.2f} ms per batch = {bsz * t / ms * 1e3:.0f} padded tokens/s "
-        f"(the differentiable route, autograd recording included: {route_ms:.2f} ms)")
+        f"(tol {ENCODER_COS}); F1/F2 (inference mode) bit-equal to the training route (grad "
+        f"on), and against the plain chain under autograd min cosine {route_cos:.6f} (tol "
+        f"{ENCODER_COS}), max abs err {route_err:.3g}; with every kernel {ms:.2f} ms per "
+        f"batch = {bsz * t / ms * 1e3:.0f} padded tokens/s (grad on, autograd recording "
+        f"included: the training route {route_ms:.2f} ms, the plain chain {plain_ms:.2f} ms)")
 
 
 def _bf16_ulps(got, want, floor: float = 2.0 ** -126) -> float:
@@ -459,6 +485,137 @@ def phase_fused_bert(device) -> tuple[dict, dict]:
     f2["max_abs_err"] = max(v for k, v in worst.items() if "bfloat16" in k)
     f1["max_abs_err"] = max(v["max_abs_err"] for k, v in runs.items() if k.startswith("F1"))
     return f1, f2
+
+
+# the training steps' rows of BERT-base activations: the retriever step's
+# context tower (80 x 512) and the QA step's reader (4 x 5 x 512)
+TRAIN_ROWS = {"retriever": 80 * 512, "qa": 4 * 5 * 512}
+BWD_ULPS = 2.0      # F2's dx against its plain versions, bf16 ulps at >= LN_ULP_FLOOR
+COLSUM_REL = 1e-5   # column sums: this share of the sum of the column's |terms|
+
+
+def _colsum_err(got, want, terms) -> float:
+    """The largest |got - want| of column sums as a share of the sum of the
+    column's |terms| (terms [rows, cols])."""
+    import torch
+
+    scale = terms.double().abs().sum(0).clamp_min(1e-30)
+    return ((got.double() - want.double()).abs() / scale).max().item()
+
+
+def phase_fused_bert_backward(device) -> tuple[dict, dict]:
+    """F1's and F2's backward kernels at the training steps' shapes
+    (TRAIN_ROWS rows of BERT-base widths, bf16): F1 with GELU at [N, 3,072]
+    (dz bit-equal to the plain chain's aten::gelu_backward, the bias column
+    sum within COLSUM_REL), F1 without at [N, 768] (the column sum alone), F2
+    with a residual at [N, 768] (dx within BWD_ULPS bf16 ulps at magnitudes
+    of at least LN_ULP_FLOOR of the plain formula and of autograd through
+    the plain chain, the share of differing elements logged; dscale and dbias
+    within COLSUM_REL); two launches of each bit-equal. Each timed by one call
+    beside its plain version, its bound and one library call
+    (aten::gelu_backward, torch.sum(dim=0), aten::native_layer_norm_backward).
+    The kernels line takes the retriever step's F1 GELU and F2 entries, with
+    max_abs_err the largest error of dz (F1) or dx (F2) over the runs and
+    colsum_rel_err the largest of the column sums'."""
+    import torch
+
+    from proqa_tpu_torch.ops import fused_bert
+
+    h, inter, eps = 768, 3072, 1e-12
+    g = torch.Generator(device=device).manual_seed(31)
+    runs = {}
+    for step, n in TRAIN_ROWS.items():
+        for cols, gelu in ((inter, True), (h, False)):
+            dout = torch.randn(n, cols, device=device, generator=g).bfloat16()
+            z = (torch.randn(n, cols, device=device, generator=g) * 2.0).bfloat16()
+            zz = z if gelu else None
+            got = fused_bert._dense_epilogue_backward_kernel(dout, zz, gelu, True, True)
+            again = fused_bert._dense_epilogue_backward_kernel(dout, zz, gelu, True, True)
+            want = fused_bert.dense_epilogue_backward_reference(dout, zz, gelu)
+            torch.cuda.synchronize()
+            label = f"F1 backward [{n}, {cols}]{' GELU' if gelu else ''} bf16 ({step} step)"
+            check(torch.equal(got[0], want[0]), f"{label}: dz not bit-equal to the plain chain's")
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{label}: two launches differ")
+            sum_err = _colsum_err(got[1], want[1], want[0].float())
+            check(sum_err <= COLSUM_REL, f"{label}: bias column sum off by {sum_err} of its "
+                                         f"terms (tol {COLSUM_REL})")
+            err = (got[0].float() - want[0].float()).abs().max().item()  # dz's
+            del got, again, want
+            if gelu:
+                library = cuda_ms(lambda: torch.ops.aten.gelu_backward(dout, z,
+                                                                       approximate="none"))
+                # read dout and z, write dz, write the f32 bias gradient; erff,
+                # expf and ~10 more operations an element at the f32 rate
+                bound_ms, by = bound(n * cols * 6 + cols * 4, n * cols * 35, PEAK_F32_FLOPS)
+            else:
+                library = cuda_ms(lambda: torch.sum(dout, dim=0, dtype=torch.float32))
+                bound_ms, by = bound(n * cols * 2 + cols * 4, n * cols, PEAK_F32_FLOPS)
+            runs[label] = {
+                "max_abs_err": err, "colsum_rel_err": sum_err, "bound_ms": bound_ms,
+                "bound_by": by, "library_ms": library,
+                "ms": cuda_ms(lambda: fused_bert._dense_epilogue_backward_kernel(
+                    dout, zz, gelu, True, True)),
+                "plain_ms": cuda_ms(lambda: fused_bert.dense_epilogue_backward_reference(
+                    dout, zz, gelu))}
+            log(f"{label}: dz bit-equal, two launches bit-equal; {json.dumps(runs[label])}")
+            del dout, z, zz
+        x = torch.randn(n, h, device=device, generator=g).bfloat16()
+        r = (torch.randn(n, h, device=device, generator=g) * 0.5 + 0.25).bfloat16()
+        dy = torch.randn(n, h, device=device, generator=g).bfloat16()
+        scale = 1.0 + 0.1 * torch.randn(h, device=device, generator=g)
+        bias = 0.1 * torch.randn(h, device=device, generator=g)
+        _, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, eps, save_stats=True)
+        got = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, True)
+        again = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True,
+                                                           True)
+        want = fused_bert.add_layer_norm_backward_reference(dy, x, r, mean, rstd, scale)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (x, scale, bias)]
+        fused_bert.add_layer_norm_reference(leaves[0], r, leaves[1], leaves[2], eps).backward(dy)
+        torch.cuda.synchronize()
+        label = f"F2 backward [{n}, {h}] bf16 + residual ({step} step)"
+        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: two launches differ")
+        ulps = {name: _bf16_ulps(got[0], w, LN_ULP_FLOOR)
+                for name, w in (("plain", want[0]), ("autograd", leaves[0].grad))}
+        differ = {name: (got[0] != w).float().mean().item()
+                  for name, w in (("plain", want[0]), ("autograd", leaves[0].grad))}
+        check(max(ulps.values()) <= BWD_ULPS,
+              f"{label}: dx {ulps} bf16 ulps (at magnitudes of at least {LN_ULP_FLOOR}) from "
+              f"its plain versions (tol {BWD_ULPS})")
+        s32 = (x + r).float()
+        xh = (s32 - mean[:, None]) * rstd[:, None]
+        sum_err = max(_colsum_err(got[1], want[1], dy.float() * xh),
+                      _colsum_err(got[2], want[2], dy.float()))
+        check(sum_err <= COLSUM_REL, f"{label}: dscale/dbias off by {sum_err} of their terms "
+                                     f"(tol {COLSUM_REL})")
+        err = (got[0].float() - want[0].float()).abs().max().item()  # dx's
+        del got, again, want, leaves, s32, xh
+        # the library call: ATen's LayerNorm backward of the rounded sum, with
+        # its own mean and rstd (no residual, parameters in bf16)
+        s = x + r
+        sc, bi = scale.bfloat16(), bias.bfloat16()
+        _, a_mean, a_rstd = torch.ops.aten.native_layer_norm(s, [h], sc, bi, eps)
+        bound_ms, by = bound(n * h * 2 * 4 + n * 8 + h * 4 + 2 * h * 4, n * h * 12,
+                             PEAK_F32_FLOPS)
+        runs[label] = {
+            "max_abs_err": err, "bf16_ulps": ulps, "differ_share": differ,
+            "colsum_rel_err": sum_err, "bound_ms": bound_ms, "bound_by": by,
+            "ms": cuda_ms(lambda: fused_bert._add_layer_norm_backward_kernel(
+                dy, x, r, mean, rstd, scale, True, True)),
+            "plain_ms": cuda_ms(lambda: fused_bert.add_layer_norm_backward_reference(
+                dy, x, r, mean, rstd, scale)),
+            "library_ms": cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+                dy, s, [h], a_mean, a_rstd, sc, bi, [True, True, True]))}
+        log(f"{label}: {json.dumps(runs[label])}")
+        del x, r, dy, s, mean, rstd, a_mean, a_rstd
+        torch.cuda.empty_cache()
+    n = TRAIN_ROWS["retriever"]
+    f1b = dict(runs[f"F1 backward [{n}, {inter}] GELU bf16 (retriever step)"])
+    f2b = dict(runs[f"F2 backward [{n}, {h}] bf16 + residual (retriever step)"])
+    for out, kernel in ((f1b, "F1"), (f2b, "F2")):
+        for key in ("max_abs_err", "colsum_rel_err"):
+            out[key] = max(v[key] for k, v in runs.items() if k.startswith(kernel))
+    return f1b, f2b
 
 
 def grouped_against_plain(name, queries, corpus, *, block, chunk_groups=128, reps=3,
@@ -830,6 +987,30 @@ def phase_attention_train(device, b: int = 80) -> tuple[dict, dict]:
     return k2, k3
 
 
+def _fused_counts() -> dict:
+    """F1's and F2's launch counters, forward and backward."""
+    from proqa_tpu_torch.ops import fused_bert
+
+    return {"F1": fused_bert.dense_launches, "F2": fused_bert.layer_norm_launches,
+            "F1 backward": fused_bert.dense_backward_launches,
+            "F2 backward": fused_bert.layer_norm_backward_launches}
+
+
+def _reset_fused_counts() -> None:
+    from proqa_tpu_torch.ops import fused_bert
+
+    fused_bert.dense_launches = fused_bert.layer_norm_launches = 0
+    fused_bert.dense_backward_launches = fused_bert.layer_norm_backward_launches = 0
+
+
+def _cosines(grads_a: dict, grads_b: dict, skip=()) -> dict:
+    import torch
+
+    return {k: torch.nn.functional.cosine_similarity(g.flatten(), grads_b[k].flatten(),
+                                                     dim=0).item()
+            for k, g in grads_a.items() if k not in skip and not k.endswith(".k.bias")}
+
+
 def _grads(model, batch, generator):
     import torch
 
@@ -855,7 +1036,7 @@ def phase_train_step(device) -> dict:
 
     from proqa_tpu_torch.models.bert import BertConfig
     from proqa_tpu_torch.models.retriever import Retriever
-    from proqa_tpu_torch.ops import attention, dropout
+    from proqa_tpu_torch.ops import attention, dropout, fused_bert
     from proqa_tpu_torch.train.optim import AdamW, init_train_state
     from proqa_tpu_torch.train.retriever_trainer import train_step
 
@@ -879,6 +1060,7 @@ def phase_train_step(device) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attention.launches = attention.backward_launches = dropout.launches = 0
+    _reset_fused_counts()
     losses, walls = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -886,7 +1068,7 @@ def phase_train_step(device) -> dict:
         losses.append(float(m["loss"]))  # synchronises
         walls.append(time.perf_counter() - t0)
     launches = {"K2": attention.launches, "K3": attention.backward_launches,
-                "K4": dropout.launches}
+                "K4": dropout.launches, **_fused_counts()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = statistics.median(walls) * 1e3
     log(f"train step BERT-base bf16 remat flash dropout 0.1, {b} x ({tq} + {tc}): losses "
@@ -898,33 +1080,44 @@ def phase_train_step(device) -> dict:
           f"train step: loss {losses[0]} -> {losses[-1]} did not fall by {LOSS_DROP}")
     check(all(n > 0 for n in launches.values()), f"train step: a kernel never ran {launches}")
 
-    # dropout 0: the fused kernels (K2 forward, K3 backward) against the
-    # vanilla attention path, same weights, same batch
+    # dropout 0: the fused kernels (K2 forward, K3 backward; F1, F2 and their
+    # backward kernels) against the vanilla attention path, and against the
+    # plain epilogue chain under autograd (fused_bert._eager_chain), same
+    # weights, same batch
     cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0, attention_dropout=0.0)
     fused = Retriever(cfg0).to(device)
     fused.load_state_dict(model.state_dict())
     del model, state
     torch.cuda.empty_cache()
+    _reset_fused_counts()
     loss_k, grads_k = _grads(fused, batch, gen)
+    routed = _fused_counts()
+    with fused_bert._eager_chain():
+        loss_e, grads_e = _grads(fused, batch, gen)
+    check(_fused_counts() == routed, "dropout-0 step under _eager_chain: F1/F2 launched")
     vanilla = Retriever(dataclasses.replace(cfg0, flash_attention=False)).to(device)
     vanilla.load_state_dict(fused.state_dict())
     del fused
     loss_p, grads_p = _grads(vanilla, batch, gen)
-    cos = {}
-    for k, gk in grads_k.items():
-        # the key bias and proj_c's bias get zero gradient in exact arithmetic
-        # (softmax ignores a constant added to a row): only noise, skipped
-        if k.endswith(".k.bias") or k == "proj_c.bias":
-            continue
-        cos[k] = torch.nn.functional.cosine_similarity(gk.flatten(), grads_p[k].flatten(),
-                                                       dim=0).item()
-    worst = min(cos, key=cos.get)
+    # the key bias and proj_c's bias get zero gradient in exact arithmetic
+    # (softmax ignores a constant added to a row): only noise, skipped
+    cos = _cosines(grads_k, grads_p, skip=("proj_c.bias",))
+    cos_e = _cosines(grads_k, grads_e, skip=("proj_c.bias",))
+    del grads_e
+    worst, worst_e = min(cos, key=cos.get), min(cos_e, key=cos_e.get)
     log(f"dropout-0 step, kernels vs vanilla attention: loss {loss_k:.6f} vs {loss_p:.6f}, min "
-        f"gradient cosine {cos[worst]:.6f} ({worst}; tol {GRAD_COS}) over {len(cos)} tensors")
+        f"gradient cosine {cos[worst]:.6f} ({worst}; tol {GRAD_COS}) over {len(cos)} tensors; "
+        f"F1/F2 and their backward kernels ({json.dumps(routed)} launches) vs the plain chain: "
+        f"loss {loss_k:.6f} vs {loss_e:.6f}, min gradient cosine {cos_e[worst_e]:.6f} "
+        f"({worst_e}; tol {GRAD_COS})")
+    check(all(n > 0 for n in routed.values()), f"dropout-0 step: F1/F2 not launched {routed}")
     check(cos[worst] >= GRAD_COS,
           f"dropout-0 gradients: cosine {cos[worst]} < {GRAD_COS} ({worst})")
+    check(cos_e[worst_e] >= GRAD_COS, f"dropout-0 gradients, kernels vs the plain chain: cosine "
+                                      f"{cos_e[worst_e]} < {GRAD_COS} ({worst_e})")
     return {"step_ms": step_ms, "tokens_per_s": b * (tq + tc) / step_ms * 1e3, "peak_gib": peak,
-            "loss_first": losses[0], "loss_last": losses[-1], "min_grad_cos": cos[worst]}
+            "loss_first": losses[0], "loss_last": losses[-1], "min_grad_cos": cos[worst],
+            "min_grad_cos_plain_chain": cos_e[worst_e], "launches": launches}
 
 
 def write_pair_world(root: str, n_pairs: int, n_paras: int, seed: int) -> None:
@@ -970,6 +1163,7 @@ def phase_pretrain_cli(device, root: str) -> dict:
            "--device", str(device)]
     attention.launches = attention.backward_launches = 0
     dropout.launches = mips_kernel.launches = rescore.launches = 0
+    _reset_fused_counts()
     walls = {}
     trained, walls["pretrain-retriever"] = run_cli([
         "pretrain-retriever", *seq, "--train-file", p("pairs.jsonl"),
@@ -985,7 +1179,7 @@ def phase_pretrain_cli(device, root: str) -> dict:
         "--init-checkpoint", p("run/checkpoint_last.pt"), "--topk", "5"])
     launches = {"K1": mips_kernel.launches, "K2": attention.launches,
                 "K3": attention.backward_launches, "K4": dropout.launches,
-                "K6": rescore.launches}
+                "K6": rescore.launches, **_fused_counts()}
     log(f"kernel launches during pretrain-retriever -> build-index -> retrieve: "
         f"{json.dumps(launches)}; wall seconds {json.dumps(walls)}")
     check(all(n > 0 for n in launches.values()), f"a kernel never ran on the CLI path {launches}")
@@ -1814,7 +2008,7 @@ def phase_qa_train(device, root: str) -> dict:
     from proqa_tpu_torch.models.bert import BertConfig
     from proqa_tpu_torch.models.convert import load_params
     from proqa_tpu_torch.models.reader import QAConfig, QAModel, qa_loss
-    from proqa_tpu_torch.ops import attention, dropout
+    from proqa_tpu_torch.ops import attention, dropout, fused_bert
     from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
     from proqa_tpu_torch.text.wordpiece import BertTokenizer
     from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
@@ -1843,6 +2037,7 @@ def phase_qa_train(device, root: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attention.launches = attention.backward_launches = dropout.launches = 0
+    _reset_fused_counts()
     losses, walls = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -1850,7 +2045,7 @@ def phase_qa_train(device, root: str) -> dict:
         losses.append(float(comp["loss"]))  # synchronises
         walls.append(time.perf_counter() - t0)
     launches = {"K2": attention.launches, "K3": attention.backward_launches,
-                "K4": dropout.launches}
+                "K4": dropout.launches, **_fused_counts()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     step_ms = statistics.median(walls) * 1e3
     tokens = qpb * k * t
@@ -1875,18 +2070,26 @@ def phase_qa_train(device, root: str) -> dict:
     del trainer, sampler
     torch.cuda.empty_cache()
     cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0, attention_dropout=0.0)
-    # the kernels' route and the vanilla one in bf16, and the vanilla one in
-    # f32 on the same weights: the bf16 routes' distance from it is the
+    # the kernels' route and the vanilla one in bf16, the kernels' attention
+    # with the plain epilogue chain under autograd (no F1/F2), and the vanilla
+    # one in f32 on the same weights: the bf16 routes' distance from it is the
     # rounding noise each carries
     routes = {"kernels": dict(flash_attention=True), "vanilla": dict(flash_attention=False),
+              "plain chain": dict(flash_attention=True),
               "f32": dict(flash_attention=False, dtype=torch.float32)}
     losses0, grads = {}, {}
+    _reset_fused_counts()
     for route, kw in routes.items():
         model = QAModel(dataclasses.replace(cfg0, **kw), QAConfig())
         model.load_state_dict(state)
         model = model.to(device).train()
-        loss = qa_loss(model(dev), dev, model.qcfg)["loss"]
-        loss.backward()
+        counts = _fused_counts()
+        chain = fused_bert._eager_chain() if route == "plain chain" else contextlib.nullcontext()
+        with chain:
+            loss = qa_loss(model(dev), dev, model.qcfg)["loss"]
+            loss.backward()
+        if route == "plain chain":
+            check(_fused_counts() == counts, "QA dropout-0 step under _eager_chain: F1/F2 ran")
         losses0[route] = loss.item()
         grads[route] = {name: q.grad.float() for name, q in model.named_parameters()
                         if q.grad is not None}
@@ -1903,18 +2106,31 @@ def phase_qa_train(device, root: str) -> dict:
     # and the reader's last LayerNorm bias (each shifts every logit of a
     # paragraph's softmax alike)
     exact_zero = (f"bert.layers.{cfg.num_layers - 1}.mlp_ln.bias", "qa_outputs.bias")
-    cos, stats = {}, {}
+    cos, stats, cos_e, ratio_e = {}, {}, {}, {}
     for name, gk in grads["kernels"].items():
         if name.endswith(".k.bias") or name in exact_zero:
             continue
-        gv, g32 = grads["vanilla"][name], grads["f32"][name]
+        gv, ge, g32 = grads["vanilla"][name], grads["plain chain"][name], grads["f32"][name]
         cos[name] = cosine(gk, gv)
         stats[name] = {"cos_k32": cosine(gk, g32), "cos_v32": cosine(gv, g32),
                        "norm": g32.norm().item(), "err_k": (gk - g32).double().norm().item(),
                        "err_v": (gv - g32).double().norm().item()}
+        cos_e[name] = cosine(gk, ge)
+        ratio_e[name] = stats[name]["err_k"] / (ge - g32).double().norm().item()
     ratio = {n: st["err_k"] / st["err_v"] for n, st in stats.items()}
     # where the two bf16 gradients part below GRAD_COS, the f32 one decides
     bad = [n for n in cos if cos[n] < GRAD_COS and not ratio[n] <= GRAD_NOISE]
+    bad_e = [n for n in cos_e if cos_e[n] < GRAD_COS and not ratio_e[n] <= GRAD_NOISE]
+    worst_e = sorted(cos_e, key=cos_e.get)[:3]
+    log(f"QA dropout-0 step, F1/F2 and their backward kernels vs the plain chain (both with "
+        f"K2/K3; F1/F2 launches {json.dumps(_fused_counts())}): loss {losses0['kernels']:.6f} "
+        f"vs {losses0['plain chain']:.6f}; lowest gradient cosines (|kernels - f32| / "
+        f"|plain chain - f32|): "
+        + ", ".join(f"{n} {cos_e[n]:.6f} ({ratio_e[n]:.3f})" for n in worst_e)
+        + f"; tol: cosine {GRAD_COS}, else error ratio {GRAD_NOISE}")
+    check(not bad_e, f"QA dropout-0 gradients, kernels vs the plain chain: {len(bad_e)} tensors "
+                     f"under cosine {GRAD_COS} with the kernels' error from the f32 gradient "
+                     f"over {GRAD_NOISE}x the plain chain's, e.g. {bad_e[:3]}")
     worst = sorted(cos, key=cos.get)[:5]
     far = max(ratio, key=ratio.get)
     log(f"QA dropout-0 step, kernels vs vanilla attention vs vanilla f32: loss "
@@ -1934,7 +2150,8 @@ def phase_qa_train(device, root: str) -> dict:
     torch.cuda.empty_cache()
     kernels = _qa_kernel_checks(device, key_mask.repeat(2, 1), tq, qpb)
     return {"step_ms": step_ms, "peak_gib": peak, "launches": launches, "losses": losses,
-            "min_grad_cos": cos[worst], "kernels": kernels}
+            "min_grad_cos": cos[worst], "min_grad_cos_plain_chain": cos_e[worst_e[0]],
+            "kernels": kernels}
 
 
 def phase_finetune_cli(device, root: str, pretrain_root: str) -> dict:
@@ -1960,11 +2177,12 @@ def phase_finetune_cli(device, root: str, pretrain_root: str) -> dict:
             "--learning-rate", "1e-5", "--qa-drop", "0.1", "--seed", "16"]
     attention.launches = attention.backward_launches = dropout.launches = 0
     mips_kernel.launches = rescore.launches = 0
+    _reset_fused_counts()
     walls = {}
     trained, walls["finetune-qa"] = run_cli([*args, "--num-train-epochs", "1"])
     launches = {"K1": mips_kernel.launches, "K2": attention.launches,
                 "K3": attention.backward_launches, "K4": dropout.launches,
-                "K6": rescore.launches}
+                "K6": rescore.launches, **_fused_counts()}
     log(f"kernel launches during finetune-qa: {json.dumps(launches)}")
     check(all(n > 0 for n in launches.values()), f"a kernel never ran on finetune-qa {launches}")
     check(set(trained) == {"best_em"} and 0.0 <= trained["best_em"] <= 1.0,
@@ -2059,6 +2277,7 @@ def phase_cluster_cli(device, root: str) -> dict:
     seq = ["--vocab", p("vocab.txt"), "--max-seq-length", "286", "--max-query-length", "30",
            "--device", str(device)]
     attention.launches = attention.backward_launches = dropout.launches = 0
+    _reset_fused_counts()
     walls = {}
     built, walls["build-index"] = run_cli([
         "build-index", *seq, "--corpus", p("pairs.jsonl"),
@@ -2075,7 +2294,7 @@ def phase_cluster_cli(device, root: str) -> dict:
         "--eval-period", "1000", "--learning-rate", "1e-4",
         "--init-checkpoint", p("run/checkpoint_last.pt")])
     launches = {"K2": attention.launches, "K3": attention.backward_launches,
-                "K4": dropout.launches}
+                "K4": dropout.launches, **_fused_counts()}
     shards = sorted(os.listdir(p("pair_splits")))
     lines = 0
     for name in shards:
@@ -2904,10 +3123,11 @@ def cli_worker(counts_path: str, argv: list[str]) -> int:
 
     attention.launches = attention.backward_launches = dropout.launches = 0
     mips_kernel.launches = rescore.launches = 0
+    _reset_fused_counts()
     cli(argv)
     counts = {"K1": mips_kernel.launches, "K2": attention.launches,
               "K3": attention.backward_launches, "K4": dropout.launches,
-              "K6": rescore.launches,
+              "K6": rescore.launches, **_fused_counts(),
               "backend": dist.get_backend() if dist.is_initialized() else None}
     with open(counts_path, "w") as f:
         json.dump(counts, f)
@@ -2963,7 +3183,8 @@ def phase_ddp(device, root: str) -> dict:
     check(len(ddp["losses"]) == len(plain["losses"]) == 3
           and all(abs(a - b) <= 1e-3 for a, b in zip(ddp["losses"], plain["losses"])),
           f"losses: data parallel {ddp['losses']} against one process {plain['losses']}")
-    k = {name: ddp["launches"][name] for name in ("K2", "K3", "K4")}
+    k = {name: ddp["launches"][name]
+         for name in ("K2", "K3", "K4", "F1", "F2", "F1 backward", "F2 backward")}
     check(all(n > 0 for n in k.values()), f"a kernel never ran in the NCCL run {k}")
     log(f"pretrain-retriever under torch.distributed.run (nccl, world 1) against one process: "
         f"losses {ddp['losses']} vs {plain['losses']}; step p50 {ddp['step_p50_ms']:.1f} ms vs "
@@ -3062,6 +3283,7 @@ def main() -> int:
         # the dense-retrieval slice
         timed("encoder", phase_encoder, device)
         f1, f2 = timed("fused_bert", phase_fused_bert, device)
+        f1b, f2b = timed("fused_bert_backward", phase_fused_bert_backward, device)
         k1 = timed("mips", phase_mips, device)
         with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root, \
                 tempfile.TemporaryDirectory(prefix="proqa_smoke_") as pretrain_root:
@@ -3113,7 +3335,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": f"proqa_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
                 **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms")}}
+                                                "library_ms", "colsum_rel_err") if key in result}}
 
     qa_runs = [*qa["launches"].values(), serve["launches"]]
     at_shards = sharded["launches"]
@@ -3121,6 +3343,8 @@ def main() -> int:
                    for name in ("K1", "K2", "K5", "K6", "F1", "F2")}
     at_serve = serve["errs"]
     at_qa_train = qa_train["kernels"]
+    trained = {name: pretrain[name] + finetune[name] + cluster[name] + ddp[name]
+               for name in ("F1", "F2", "F1 backward", "F2 backward")}
     # launches: the main paths' runs (retrieval CLI, pretraining CLI, QA CLI,
     # serve with /add and /remove, bf16 and int8, finetune-qa, pretraining on
     # cluster shards, and the streamed build-index)
@@ -3164,11 +3388,17 @@ def main() -> int:
         entry("block_maxima_grouped f32 (K1)", "block_maxima_f32.cu",
               "proqa_tpu/ops/pallas_mips.py:83", f32_launches, k1_f32),
         # the XLA fusions around the BERT layer's products; launches: the
-        # retrieval CLI, the QA CLI and serve
+        # retrieval CLI, the QA CLI and serve (no graph recorded), and the
+        # pretraining, finetune-qa, cluster-shard and DDP paths (training)
         entry("dense_epilogue (F1)", "dense_epilogue.cu", "proqa_tpu/models/bert.py:147",
-              retrieval["F1"] + qa_launches["F1"], f1),
+              retrieval["F1"] + qa_launches["F1"] + trained["F1"], f1),
         entry("add_layer_norm (F2)", "layer_norm.cu", "proqa_tpu/models/bert.py:137",
-              retrieval["F2"] + qa_launches["F2"], f2),
+              retrieval["F2"] + qa_launches["F2"] + trained["F2"], f2),
+        # their backward kernels: the transposes of the same fusions
+        entry("dense_epilogue backward (F1)", "dense_epilogue.cu",
+              "proqa_tpu/models/bert.py:147", trained["F1 backward"], f1b),
+        entry("add_layer_norm backward (F2)", "layer_norm.cu", "proqa_tpu/models/bert.py:137",
+              trained["F2 backward"], f2b),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,10 @@ interface, `build/proqa_tpu_torch/libproqa_kernels_<hash>.so` at the root of
 the checkout, on first use: one nvcc process per source, all started
 together, then one link. The name carries a hash of the sources and flags,
 so an edited source builds anew. The library is loaded with ctypes: every
-pointer and the stream pass as `c_void_p`, and every entry point returns a
-cudaError_t code that `check` turns into an exception.
+pointer and the stream pass as `c_void_p`, and every entry point that
+launches returns a cudaError_t code that `check` turns into an exception; the
+backward kernels' size queries (`*_bwd_slabs`, `*_bwd_blocks`, see `query`)
+return the number of per-block partials the kernel writes.
 
 Nothing here runs at import: the package imports on machines without nvcc or
 a GPU, where only the kernels' plain PyTorch versions run.
@@ -53,10 +55,20 @@ _SIGNATURES = {
     "proqa_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
     # x, y, n, seed, threshold, inv_keep, is_bf16, stream
     "proqa_dropout": [_P, _P, _L, _U64, _U, _F, _I, _P],
-    # y, bias, out, rows, cols, out_bf16, gelu, stream
-    "proqa_dense_epilogue": [_P, _P, _P, _L, _I, _I, _I, _P],
-    # x, residual (None for none), scale, bias, out, rows, h, eps, is_bf16, stream
-    "proqa_add_layer_norm": [_P] * 5 + [_L, _I, _F, _I, _P],
+    # y, bias, out, z (None for none), rows, cols, out_bf16, gelu, stream
+    "proqa_dense_epilogue": [_P] * 4 + [_L, _I, _I, _I, _P],
+    # dout, z, dz, partials, dbias (None for none), rows, cols, is_bf16, gelu, stream
+    "proqa_dense_epilogue_bwd": [_P] * 5 + [_L, _I, _I, _I, _P],
+    # rows, cols, device: the slabs of the backward's partials
+    "proqa_dense_epilogue_bwd_slabs": [_L, _I, _I],
+    # x, residual (None for none), scale, bias, out, mean, rstd (None for none), rows, h,
+    # eps, is_bf16, stream
+    "proqa_add_layer_norm": [_P] * 7 + [_L, _I, _F, _I, _P],
+    # dy, x, residual, mean, rstd, scale, dx, partials, dparams (None for none), rows, h,
+    # is_bf16, stream
+    "proqa_add_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _P],
+    # rows, device: the blocks of the backward's partials
+    "proqa_add_layer_norm_bwd_blocks": [_L, _I],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -151,6 +163,12 @@ def check(code: int, kernel: str) -> None:
     if code != 0:
         msg = library().proqa_error_string(code).decode()
         raise RuntimeError(f"{kernel}: CUDA error {code} ({msg})")
+
+
+def query(entry: str, *args) -> int:
+    """Calls the library's size query `entry`: the kernel's source decides
+    how many blocks write partials, and the caller sizes their scratch by it."""
+    return getattr(_lib if _lib is not None else library(), entry)(*args)
 
 
 def launch(entry: str, device, *args) -> None:

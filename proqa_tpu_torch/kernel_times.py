@@ -1,5 +1,6 @@
-"""Times kernels K1, K5, K6, K7, K8, K4, F1 and F2 of a checkout of the port
-on one NVIDIA GPU, and the host path of one K4 call piece by piece.
+"""Times kernels K1, K5, K6, K7, K8, K4, F1 and F2 (and their backward) of a
+checkout of the port on one NVIDIA GPU, and the host path of one K4 call
+piece by piece.
 
     python proqa_tpu_torch/kernel_times.py [--root DIR] [--out FILE] [--only K6,K1]
 
@@ -33,7 +34,13 @@ of repeated rounds:
       of [262,144, 3,072] with GELU to bf16;
   F2  residual add + LayerNorm at [262,144, 768] bf16, with and without the
       residual, beside F.layer_norm on the same rows (checkouts without
-      ops/fused_bert.py skip F1 and F2).
+      ops/fused_bert.py skip F1 and F2);
+  F1, F2 backward  at the retriever train step's 40,960 context rows, bf16:
+      F1's with GELU at [40,960, 3,072] beside aten::gelu_backward, F1's
+      bias column sum alone at [40,960, 768] beside torch.sum(dim=0), F2's
+      with a residual at [40,960, 768] beside
+      aten::native_layer_norm_backward (checkouts without the backward
+      kernels skip them).
 Host pieces of K4 (time.perf_counter_ns, mean over 1,000 calls, median of
 5 rounds, on a [80, 768] bf16 tensor so that the card keeps up): each step
 the earlier dropout wrapper took (an autograd node always, the rate checked
@@ -162,6 +169,38 @@ def host_pieces(x) -> dict:
     return {name: _host_us(fn) for name, fn in pieces.items()}
 
 
+def backward_times(time_kernel, fused_bert, dev, g) -> None:
+    """F1's and F2's backward kernels at the retriever train step's context
+    rows (80 x 512), bf16, beside one library call each."""
+    import torch
+
+    n, h = 80 * 512, 768
+    for cols, gelu in ((4 * h, True), (h, False)):
+        dout = torch.randn(n, cols, device=dev, generator=g).bfloat16()
+        z = (torch.randn(n, cols, device=dev, generator=g) * 2.0).bfloat16() if gelu else None
+        time_kernel(f"F1 backward [{n}, {cols}]{' GELU' if gelu else ''} bf16",
+                    lambda: fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True,
+                                                                       True))
+        if gelu:
+            time_kernel(f"aten::gelu_backward [{n}, {cols}] bf16",
+                        lambda: torch.ops.aten.gelu_backward(dout, z, approximate="none"))
+        else:
+            time_kernel(f"torch.sum(dim=0) [{n}, {cols}] bf16",
+                        lambda: torch.sum(dout, dim=0, dtype=torch.float32))
+        del dout, z
+    x, r, dy = (torch.randn(n, h, device=dev, generator=g).bfloat16() for _ in range(3))
+    scale, bias = torch.ones(h, device=dev), torch.zeros(h, device=dev)
+    _, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12, save_stats=True)
+    time_kernel(f"F2 backward [{n}, {h}] bf16 + residual",
+                lambda: fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale,
+                                                                   True, True))
+    s, sc, bi = x + r, scale.bfloat16(), bias.bfloat16()
+    _, a_mean, a_rstd = torch.ops.aten.native_layer_norm(s, [h], sc, bi, 1e-12)
+    time_kernel(f"aten::native_layer_norm_backward [{n}, {h}] bf16",
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, s, [h], a_mean, a_rstd, sc, bi, [True, True, True]))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -257,6 +296,9 @@ def main(argv=None) -> int:
         scale16, bias16 = scale.bfloat16(), bias.bfloat16()
         time_kernel(f"F.layer_norm [{n}, {h}] bf16",
                     lambda: torch.nn.functional.layer_norm(x, (h,), scale16, bias16, 1e-12))
+        del x, r
+        if hasattr(fused_bert, "_dense_epilogue_backward_kernel"):
+            backward_times(time_kernel, fused_bert, dev, g)
     line = json.dumps(out)
     print(line)
     if args.out:

@@ -6,12 +6,15 @@ layer a product of bf16 operands accumulated in f32 plus an f32 bias and then
 rounded, LayerNorm in f32 (eps 1e-12), exact GELU in f32, softmax in f32,
 the pooler's tanh in f32, and an additive key mask of -1e30.
 
-Where no autograd graph is recorded (grad mode off, or nothing involved
-requires a gradient: every encode, search-time query tower, reader and
-eval), each dense epilogue runs kernel F1 and each residual add with its
-LayerNorm kernel F2 (ops/fused_bert.py). Where one is recorded, the same
-arithmetic runs as the differentiable chain of PyTorch ops below, which the
-kernels match (F1 bit for bit, F2 within one ulp).
+Each dense epilogue runs kernel F1 and each residual add with its LayerNorm
+kernel F2 (ops/fused_bert.py). Where no autograd graph is recorded (grad mode
+off, or nothing involved requires a gradient: every encode, search-time
+query tower, reader and eval) they save nothing. Where one is recorded (every
+training forward, rematerialised or not), a dense layer is one autograd
+Function (the product, F1, and in backward F1's backward kernel and the two
+products) and LayerNorm another (F2, and F2's backward kernel), which keep
+what their backward kernels read. On the CPU both routes run the kernels'
+plain versions, and the Functions explicit formulas of the gradients.
 
 Training adds dropout at the sites and in the order of bert.py:247-296: the
 embedding output, the attention probabilities (kernel K2 in the fused path,
@@ -38,7 +41,9 @@ from torch.utils.checkpoint import checkpoint
 from proqa_tpu_torch.ops.attention import MASK_BIAS, fused_attention
 from proqa_tpu_torch.ops.dot import dot_f32
 from proqa_tpu_torch.ops.dropout import dropout
-from proqa_tpu_torch.ops.fused_bert import add_layer_norm, dense_epilogue
+from proqa_tpu_torch.ops.fused_bert import (
+    add_layer_norm, add_layer_norm_grad, dense, dense_epilogue,
+)
 
 SEED_RANGE = 1 << 62  # dropout seeds are drawn uniformly below this
 
@@ -80,7 +85,8 @@ class BertConfig:
 
 
 def _records_grad(*tensors) -> bool:
-    """Whether autograd records an op on these tensors (None ones skipped)."""
+    """Whether autograd records an op on these tensors (None ones skipped):
+    whether the fused ops save what their backward reads."""
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
 
@@ -98,13 +104,10 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor, out_dtype: torch.dtype | None = None, *,
                 gelu: bool = False) -> torch.Tensor:
         out_dtype = out_dtype or x.dtype
-        y = dot_f32(x, self.kernel.to(x.dtype))
-        if not _records_grad(y, self.bias):
-            return dense_epilogue(y, self.bias, out_dtype, gelu)
-        y = (y + self.bias).to(out_dtype)
-        if gelu:
-            y = nn.functional.gelu(y.float(), approximate="none").to(out_dtype)
-        return y
+        kernel = self.kernel.to(x.dtype)
+        if _records_grad(x, kernel, self.bias):
+            return dense(x, kernel, self.bias, out_dtype, gelu)
+        return dense_epilogue(dot_f32(x, kernel), self.bias, out_dtype, gelu)
 
 
 class LayerNorm(nn.Module):
@@ -118,15 +121,9 @@ class LayerNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor | None = None) -> torch.Tensor:
-        if not _records_grad(x, residual, self.scale, self.bias):
-            return add_layer_norm(x, residual, self.scale, self.bias, self.eps)
-        if residual is not None:
-            x = x + residual
-        x32 = x.float()
-        mean = x32.mean(dim=-1, keepdim=True)
-        var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-        y = (x32 - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.scale + self.bias).to(x.dtype)
+        if _records_grad(x, residual, self.scale, self.bias):
+            return add_layer_norm_grad(x, residual, self.scale, self.bias, self.eps)
+        return add_layer_norm(x, residual, self.scale, self.bias, self.eps)
 
 
 class Embeddings(nn.Module):

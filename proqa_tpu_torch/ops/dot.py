@@ -64,6 +64,57 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.view(*a.shape[:-1], b.shape[-1])
 
 
+def dot_f32_backward(a: torch.Tensor, b: torch.Tensor, g: torch.Tensor, need_a: bool = True,
+                     need_b: bool = True) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+    """The gradients of dot_f32(a, b) for the cotangent g of its f32 result
+    (g may come in a narrower dtype that holds its values exactly), None
+    where not needed. On the GPU with bf16 operands, JAX's transpose rule as
+    above; f32 operands in full f32; on the CPU the f32 products of the
+    up-cast operands, rounded to each operand's dtype (what autograd gives
+    the up-cast product there)."""
+    da = db = None
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        g = g.float()
+        with full_f32():
+            if need_a:
+                da = torch.matmul(g, b.transpose(-1, -2))
+            if need_b:
+                db = _weight_grad(a, g, b.dim() > 2)
+        return da, db
+    if a.device.type != "cuda":
+        g = g.float()
+        if need_a:
+            da = torch.matmul(g, b.float().transpose(-1, -2)).to(a.dtype)
+        if need_b:
+            db = _weight_grad(a.float(), g, b.dim() > 2).to(b.dtype)
+        return da, db
+    return _rounded_backward(a, b, g, need_a, need_b)
+
+
+def _rounded_backward(a, b, g, need_a, need_b):
+    """JAX's transpose rule for a DEFAULT-precision dot (module docstring),
+    the products by _mm_f32."""
+    da = db = None
+    if need_a:
+        da = _mm_f32(g.to(a.dtype), b.transpose(-1, -2).to(a.dtype)).to(a.dtype)
+    if need_b:
+        gb = g.to(b.dtype)
+        if b.dim() == 2:
+            a2 = a.reshape(-1, a.shape[-1])
+            db = _mm_f32(a2.t().to(b.dtype), gb.reshape(-1, gb.shape[-1])).to(b.dtype)
+        else:
+            db = _mm_f32(a.transpose(-1, -2).to(b.dtype), gb).to(b.dtype)
+    return da, db
+
+
+def _weight_grad(a: torch.Tensor, g: torch.Tensor, batched: bool) -> torch.Tensor:
+    """a^T g for a [..., K] and g [..., N]: summed over every leading dim (the
+    gradient of a [K, N] operand), or batch by batch (of a batched one)."""
+    if batched:
+        return torch.matmul(a.transpose(-1, -2), g)
+    return a.reshape(-1, a.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+
+
 class _DotF32(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
@@ -73,24 +124,23 @@ class _DotF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         a, b = ctx.saved_tensors
-        da = db = None
-        if ctx.needs_input_grad[0]:
-            da = _mm_f32(g.to(a.dtype), b.transpose(-1, -2).to(a.dtype)).to(a.dtype)
-        if ctx.needs_input_grad[1]:
-            gb = g.to(b.dtype)
-            if b.dim() == 2:
-                a2 = a.reshape(-1, a.shape[-1])
-                db = _mm_f32(a2.t().to(b.dtype), gb.reshape(-1, gb.shape[-1])).to(b.dtype)
-            else:
-                db = _mm_f32(a.transpose(-1, -2).to(b.dtype), gb).to(b.dtype)
-        return da, db
+        return _rounded_backward(a, b, g, *ctx.needs_input_grad)
 
 
-def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b as f32. b is [K, N], or batched like a ([..., K, N])."""
+def product_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """dot_f32's product; on the GPU with bf16 operands without a derivative
+    (for a caller that forms the gradient itself: ops/fused_bert.py's dense
+    layer, dot_f32_backward)."""
     if a.dtype == torch.float32 and b.dtype == torch.float32:
         with full_f32():
             return torch.matmul(a, b)
     if a.device.type != "cuda":
         return torch.matmul(a.float(), b.float())
-    return _DotF32.apply(a, b)
+    return _mm_f32(a, b)
+
+
+def dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as f32. b is [K, N], or batched like a ([..., K, N])."""
+    if a.device.type == "cuda" and not (a.dtype == b.dtype == torch.float32):
+        return _DotF32.apply(a, b)
+    return product_f32(a, b)

@@ -1,67 +1,152 @@
 """The BERT layer's fused epilogues: F1, the dense epilogue, and F2, the
-residual add with LayerNorm.
+residual add with LayerNorm, with their backward kernels.
 
 On the TPU, XLA fuses the work around each product of a BERT layer into the
-product's output; there is no Pallas kernel for it. In eager PyTorch each of
-these ops is a pass over f32 activations. Two hand-written kernels take
-their place on the forwards that record no autograd graph:
+product's output, in the forward and in the backward; there is no Pallas
+kernel for it. In eager PyTorch each of these ops is a pass over f32
+activations. Hand-written kernels take their place:
 
 - F1, `dense_epilogue` (csrc/dense_epilogue.cu): the f32 product plus the
   f32 bias, rounded once to the output dtype (proqa_tpu/models/bert.py:147-150);
   with `gelu`, exact GELU in f32 on that rounded value, rounded again
-  (:273-274). Bound by bytes: 6 B an element in bf16.
+  (:273-274). Bound by bytes: 6 B an element in bf16. Its backward gives the
+  pre-activation's gradient dz (with GELU: ATen's exact-GELU backward on the
+  saved pre-activation, rounded once) and the bias gradient, a column sum.
 - F2, `add_layer_norm` (csrc/layer_norm.cu): x + residual rounded to the
   activation dtype, then LayerNorm in f32 with a two-pass variance, scale and
   bias in f32, and one rounding (:137-144 with the residuals at :277, :286;
   the embedding LayerNorm at :241 has none). Bound by bytes: 6 B an element
-  with a residual, 4 B without.
+  with a residual, 4 B without. Its backward gives the one gradient of x and
+  the residual and the scale and bias gradients, column sums.
 
-CUDA tensors run the kernels and raise where a kernel cannot take them, or
-where a gradient is asked for (the kernels have no backward yet: the model
-runs its differentiable ops there, models/bert.py). CPU tensors run
-`dense_epilogue_reference` and `add_layer_norm_reference`, the plain PyTorch
-chains the model ran before the kernels existed.
+Two routes, which the model picks (models/bert.py): where no autograd graph
+is recorded, `dense_epilogue` and `add_layer_norm` run the forward kernels
+and save nothing; where one is, `dense` (the product, bias and GELU of a
+dense layer in one autograd Function) and `add_layer_norm_grad` run the same
+kernels, keep what their backward kernels read, and run those in backward.
+The column sums are deterministic (per-block partials, then one reduce in a
+fixed order), so a rematerialised forward and backward give the same bits.
+
+CUDA tensors run the kernels and raise where a kernel cannot take them;
+`dense_epilogue` and `add_layer_norm` raise where a gradient is asked for.
+CPU tensors run the plain PyTorch versions: the chains the model ran before
+the kernels existed, and explicit formulas of their gradients. No wrapper
+drops to a plain version on the card; only `_eager_chain()`, a yardstick for
+the checks on the card (chip_smoke.py, tests/test_torch_cuda.py), makes the
+training route run the plain chain there, under autograd.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
 from proqa_tpu_torch import _build
+from proqa_tpu_torch.ops.dot import dot_f32, dot_f32_backward, product_f32
 
 MAX_DENSE_COLS = 12_288  # F1 stages the bias row in 48 KB of shared memory
 MAX_LN_WIDTH = 1_024     # F2 holds a row in a warp's registers, 32 floats a lane
 _DTYPES = (torch.bfloat16, torch.float32)
 
-# kernel launches since the last reset (the main path's proof of use)
+# kernel launches since the last reset (the main path's proof of use): the
+# forward kernels on both routes, and the backward kernels
 dense_launches = 0
 layer_norm_launches = 0
+dense_backward_launches = 0
+layer_norm_backward_launches = 0
+
+_EAGER = False  # _eager_chain(): the training route runs the plain chain
+
+
+@contextlib.contextmanager
+def _eager_chain():
+    """Inside, `dense` and `add_layer_norm_grad` run the plain PyTorch chain
+    under autograd on any device: the yardstick the kernels' training route
+    is held to on the card. No entry point enters it."""
+    global _EAGER
+    before, _EAGER = _EAGER, True
+    try:
+        yield
+    finally:
+        _EAGER = before
+
+
+# --- plain versions ---
+
+def _dense_epilogue_plain(y, bias, out_dtype, gelu):
+    z = (y + bias).to(out_dtype)
+    out = torch.nn.functional.gelu(z.float(), approximate="none").to(out_dtype) if gelu else z
+    return out, z
 
 
 def dense_epilogue_reference(y: torch.Tensor, bias: torch.Tensor, out_dtype: torch.dtype,
                              gelu: bool = False) -> torch.Tensor:
     """Plain PyTorch version of F1."""
-    out = (y + bias).to(out_dtype)
+    return _dense_epilogue_plain(y, bias, out_dtype, gelu)[0]
+
+
+def dense_epilogue_backward_reference(dout: torch.Tensor, z: torch.Tensor | None, gelu: bool,
+                                      need_dbias: bool = True):
+    """Plain PyTorch version of F1's backward: (dz, dbias). With gelu,
+    dz = round(aten::gelu_backward(f32(dout), f32(z))) in dout's dtype, the
+    gradient the plain chain's autograd gives; without, dz is dout. dbias is
+    the f32 column sum of dz, None unless needed."""
+    dz = dout
     if gelu:
-        out = torch.nn.functional.gelu(out.float(), approximate="none").to(out_dtype)
-    return out
+        dz = torch.ops.aten.gelu_backward(dout.float(), z.float(),
+                                          approximate="none").to(dout.dtype)
+    dbias = dz.float().reshape(-1, dz.shape[-1]).sum(0) if need_dbias else None
+    return dz, dbias
+
+
+def _layer_norm_plain(x, residual, scale, bias, eps):
+    if residual is not None:
+        x = x + residual
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    y = (x32 - mean) * rstd
+    return (y * scale + bias).to(x.dtype), mean.squeeze(-1), rstd.squeeze(-1)
 
 
 def add_layer_norm_reference(x: torch.Tensor, residual: torch.Tensor | None,
                              scale: torch.Tensor, bias: torch.Tensor,
                              eps: float) -> torch.Tensor:
     """Plain PyTorch version of F2."""
-    if residual is not None:
-        x = x + residual
-    x32 = x.float()
-    mean = x32.mean(dim=-1, keepdim=True)
-    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
-    y = (x32 - mean) * torch.rsqrt(var + eps)
-    return (y * scale + bias).to(x.dtype)
+    return _layer_norm_plain(x, residual, scale, bias, eps)[0]
 
+
+def add_layer_norm_backward_reference(dy, x, residual, mean, rstd, scale,
+                                      need_params: bool = True):
+    """Plain PyTorch version of F2's backward: (dx, dscale, dbias), the
+    gradient of LayerNorm(round(x + residual)) as one formula over the
+    forward's f32 mean and rstd (shape x.shape[:-1]): with
+    x^ = (s - mean) * rstd and g = f32(dy) * scale,
+    dx = round(rstd * (g - mean(g) - x^ * mean(g x^))) in x's dtype (the
+    gradient of x and of the residual alike), dscale = the column sum of
+    dy x^, dbias = that of dy (None unless need_params)."""
+    s = x if residual is None else x + residual
+    xh = (s.float() - mean[..., None]) * rstd[..., None]
+    dy32 = dy.float()
+    g = dy32 * scale
+    dx = rstd[..., None] * (g - g.mean(dim=-1, keepdim=True)
+                            - xh * (g * xh).mean(dim=-1, keepdim=True))
+    dscale = dbias = None
+    if need_params:
+        h = x.shape[-1]
+        dscale = (dy32 * xh).reshape(-1, h).sum(0)
+        dbias = dy32.reshape(-1, h).sum(0)
+    return dx.to(x.dtype), dscale, dbias
+
+
+# --- the kernels ---
 
 def _no_gradient(name: str, *tensors) -> None:
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no backward: call it where no autograd graph is recorded")
+        raise RuntimeError(f"{name} has no backward: call it where no autograd graph is "
+                           f"recorded (a recorded graph takes fused_bert.dense or "
+                           f"add_layer_norm_grad)")
 
 
 def _check_params(name: str, width: int, device, *params) -> None:
@@ -71,9 +156,19 @@ def _check_params(name: str, width: int, device, *params) -> None:
                              f"{p.dtype} {tuple(p.shape)} on {p.device}")
 
 
-def _dense_epilogue_kernel(y, bias, out_dtype, gelu):
+def _check_like(name: str, what: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.dtype != like.dtype or t.shape != like.shape or t.device != like.device:
+        raise ValueError(f"{name}: {what} {t.dtype} {tuple(t.shape)} on {t.device} does not "
+                         f"match {like.dtype} {tuple(like.shape)} on {like.device}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _dense_epilogue_kernel(y, bias, out_dtype, gelu, save_z=False):
+    """F1; with save_z (gelu only) also the rounded pre-activation z."""
     global dense_launches
-    _no_gradient("dense_epilogue", y, bias)
     if y.dtype != torch.float32 or out_dtype not in _DTYPES:
         raise TypeError(f"dense_epilogue kernel takes an f32 product to bf16 or f32, got "
                         f"{y.dtype} to {out_dtype}")
@@ -83,17 +178,46 @@ def _dense_epilogue_kernel(y, bias, out_dtype, gelu):
     _check_params("dense_epilogue", cols, y.device, bias)
     y, bias = y.contiguous(), bias.contiguous()
     out = torch.empty(y.shape, dtype=out_dtype, device=y.device)
+    z = torch.empty_like(out) if save_z and gelu else None
     if out.numel():
         _build.launch("proqa_dense_epilogue", y.device, y.data_ptr(), bias.data_ptr(),
-                      out.data_ptr(), y.numel() // cols, cols, int(out_dtype == torch.bfloat16),
-                      int(gelu))
+                      out.data_ptr(), _ptr(z), y.numel() // cols, cols,
+                      int(out_dtype == torch.bfloat16), int(gelu))
         dense_launches += 1
-    return out
+    return out, z
 
 
-def _add_layer_norm_kernel(x, residual, scale, bias, eps):
+def _dense_epilogue_backward_kernel(dout, z, gelu, need_dz, need_dbias):
+    """F1's backward on the card: (dz, dbias) as dense_epilogue_backward_reference."""
+    global dense_backward_launches
+    if dout.dtype not in _DTYPES:
+        raise TypeError(f"dense_epilogue backward takes bf16 or f32, got {dout.dtype}")
+    cols = dout.shape[-1]
+    dout = dout.contiguous()
+    if gelu:
+        _check_like("dense_epilogue backward", "z", z, dout)
+    dz = torch.empty_like(dout) if gelu and need_dz else (dout if need_dz else None)
+    if not (gelu and need_dz) and not need_dbias:
+        return dz, None
+    rows = dout.numel() // cols
+    dbias = partials = None
+    if need_dbias:
+        # the kernel picks its slabs of rows (from the rows, the width and
+        # the card, which fixes the sum's order); each writes a row of partials
+        slabs = _build.query("proqa_dense_epilogue_bwd_slabs", rows, cols, dout.device.index)
+        dbias = torch.empty(cols, dtype=torch.float32, device=dout.device)
+        partials = torch.empty(slabs, cols, dtype=torch.float32, device=dout.device)
+    _build.launch("proqa_dense_epilogue_bwd", dout.device, dout.data_ptr(),
+                  _ptr(z.contiguous()) if gelu else None,
+                  _ptr(dz) if gelu and need_dz else None, _ptr(partials), _ptr(dbias), rows, cols,
+                  int(dout.dtype == torch.bfloat16), int(gelu))
+    dense_backward_launches += 1
+    return dz, dbias
+
+
+def _add_layer_norm_kernel(x, residual, scale, bias, eps, save_stats=False):
+    """F2; with save_stats also each row's f32 mean and rstd [x.shape[:-1]]."""
     global layer_norm_launches
-    _no_gradient("add_layer_norm", x, residual, scale, bias)
     if x.dtype not in _DTYPES:
         raise TypeError(f"add_layer_norm kernel takes bf16 or f32, got {x.dtype}")
     if residual is not None and (residual.dtype != x.dtype or residual.shape != x.shape
@@ -107,13 +231,42 @@ def _add_layer_norm_kernel(x, residual, scale, bias, eps):
     x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
     residual = None if residual is None else residual.contiguous()
     out = torch.empty_like(x)
+    mean = rstd = None
+    if save_stats:
+        mean = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+        rstd = torch.empty_like(mean)
     if out.numel():
-        _build.launch("proqa_add_layer_norm", x.device, x.data_ptr(),
-                      None if residual is None else residual.data_ptr(), scale.data_ptr(),
-                      bias.data_ptr(), out.data_ptr(), x.numel() // h, h, eps,
-                      int(x.dtype == torch.bfloat16))
+        _build.launch("proqa_add_layer_norm", x.device, x.data_ptr(), _ptr(residual),
+                      scale.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(mean), _ptr(rstd),
+                      x.numel() // h, h, eps, int(x.dtype == torch.bfloat16))
         layer_norm_launches += 1
-    return out
+    return out, mean, rstd
+
+
+def _add_layer_norm_backward_kernel(dy, x, residual, mean, rstd, scale, need_dx, need_params):
+    """F2's backward on the card: (dx, dscale, dbias) as
+    add_layer_norm_backward_reference, None where not needed."""
+    global layer_norm_backward_launches
+    h = x.shape[-1]
+    dy = dy.contiguous()
+    _check_like("add_layer_norm backward", "dy", dy, x)
+    _check_params("add_layer_norm backward", h, x.device, scale)
+    if not (need_dx or need_params):
+        return None, None, None
+    dx = torch.empty_like(x) if need_dx else None
+    rows = x.numel() // h
+    dparams = partials = None
+    if need_params:
+        blocks = _build.query("proqa_add_layer_norm_bwd_blocks", rows, x.device.index)
+        dparams = torch.empty(2, h, dtype=torch.float32, device=x.device)
+        partials = torch.empty(blocks, 2, h, dtype=torch.float32, device=x.device)
+    _build.launch("proqa_add_layer_norm_bwd", x.device, dy.data_ptr(), x.data_ptr(),
+                  _ptr(residual), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), _ptr(dx),
+                  _ptr(partials), _ptr(dparams), rows, h, int(x.dtype == torch.bfloat16))
+    layer_norm_backward_launches += 1
+    if dparams is None:
+        return dx, None, None
+    return dx, dparams[0], dparams[1]
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -124,13 +277,16 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return True
 
 
+# --- the routes where no graph is recorded ---
+
 def dense_epilogue(y: torch.Tensor, bias: torch.Tensor, out_dtype: torch.dtype,
                    gelu: bool = False) -> torch.Tensor:
     """round(y + bias) in out_dtype for an f32 product y [..., N] and an f32
     bias [N]; with gelu, round(gelu(that)) after it (exact GELU in f32)."""
     if _on_cpu(y):
         return dense_epilogue_reference(y, bias, out_dtype, gelu)
-    return _dense_epilogue_kernel(y, bias, out_dtype, gelu)
+    _no_gradient("dense_epilogue", y, bias)
+    return _dense_epilogue_kernel(y, bias, out_dtype, gelu)[0]
 
 
 def add_layer_norm(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.Tensor,
@@ -139,4 +295,88 @@ def add_layer_norm(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.
     dtype; the sum is rounded to x's dtype first. residual may be None."""
     if _on_cpu(x):
         return add_layer_norm_reference(x, residual, scale, bias, eps)
-    return _add_layer_norm_kernel(x, residual, scale, bias, eps)
+    _no_gradient("add_layer_norm", x, residual, scale, bias)
+    return _add_layer_norm_kernel(x, residual, scale, bias, eps)[0]
+
+
+# --- the routes where a graph is recorded ---
+
+class _Dense(torch.autograd.Function):
+    """dot_f32(x, kernel), then F1. Saves x, the kernel and (with GELU) the
+    rounded pre-activation z; backward runs F1's backward kernel and then the
+    two products as dot_f32's backward forms them (ops/dot.py)."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, out_dtype, gelu):
+        y = product_f32(x, kernel)
+        if _on_cpu(y):
+            out, z = _dense_epilogue_plain(y, bias, out_dtype, gelu)
+        else:
+            out, z = _dense_epilogue_kernel(y, bias, out_dtype, gelu, save_z=True)
+        ctx.gelu = gelu
+        ctx.save_for_backward(x, kernel, z if gelu else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, kernel, z = ctx.saved_tensors
+        need_x, need_kernel, need_bias = ctx.needs_input_grad[:3]
+        need_dz = need_x or need_kernel
+        if _on_cpu(dout):
+            dz, dbias = dense_epilogue_backward_reference(dout, z, ctx.gelu, need_bias)
+        else:
+            dz, dbias = _dense_epilogue_backward_kernel(dout, z, ctx.gelu, need_dz, need_bias)
+        dx = dkernel = None
+        if need_dz:
+            dx, dkernel = dot_f32_backward(x, kernel, dz, need_x, need_kernel)
+        return dx, dkernel, dbias, None, None
+
+
+class _AddLayerNorm(torch.autograd.Function):
+    """F2, saving x, the residual, the scale and each row's mean and rstd;
+    backward runs F2's backward kernel, whose one dx goes to x and to the
+    residual."""
+
+    @staticmethod
+    def forward(ctx, x, residual, scale, bias, eps):
+        if _on_cpu(x):
+            out, mean, rstd = _layer_norm_plain(x, residual, scale, bias, eps)
+        else:
+            out, mean, rstd = _add_layer_norm_kernel(x, residual, scale, bias, eps,
+                                                     save_stats=True)
+        ctx.save_for_backward(x, residual, scale, mean, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, residual, scale, mean, rstd = ctx.saved_tensors
+        need_x, need_res, need_scale, need_bias = ctx.needs_input_grad[:4]
+        need_params = need_scale or need_bias
+        if _on_cpu(dy):
+            dx, dscale, dbias = add_layer_norm_backward_reference(dy, x, residual, mean, rstd,
+                                                                  scale, need_params)
+        else:
+            dx, dscale, dbias = _add_layer_norm_backward_kernel(
+                dy, x, residual, mean, rstd, scale, need_x or need_res, need_params)
+        return (dx if need_x else None, dx if need_res else None,
+                dscale if need_scale else None, dbias if need_bias else None, None)
+
+
+def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, out_dtype: torch.dtype,
+          gelu: bool = False) -> torch.Tensor:
+    """A dense layer where autograd records a graph: round(x @ kernel + bias)
+    in out_dtype, the product in f32 (dot_f32) and the kernel in x's dtype;
+    with gelu, round(gelu(that)). Its gradient is the plain chain's
+    (F1's backward kernel, then dot_f32's products)."""
+    if _EAGER:
+        return dense_epilogue_reference(dot_f32(x, kernel), bias, out_dtype, gelu)
+    return _Dense.apply(x, kernel, bias, out_dtype, gelu)
+
+
+def add_layer_norm_grad(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.Tensor,
+                        bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """add_layer_norm where autograd records a graph, with F2's backward
+    kernel for its gradient."""
+    if _EAGER:
+        return add_layer_norm_reference(x, residual, scale, bias, eps)
+    return _AddLayerNorm.apply(x, residual, scale, bias, eps)

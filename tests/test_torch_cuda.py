@@ -1306,9 +1306,11 @@ def test_fused_epilogues_reject_what_they_do_not_take(cuda):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_encoder_with_fused_epilogues_matches_autograd_route(cuda, dtype):
     """A BERT-base-width context tower (two layers, T = 128): inference mode
-    (F1 and F2 on every dense layer and LayerNorm) against the same weights
-    and inputs with grad on (the differentiable ops) on the card, within the
-    encoder tolerances; F1 and F2 launch 6 L + 2 and 2 L + 1 times."""
+    (F1 and F2 on every dense layer and LayerNorm, nothing saved) against the
+    same weights and inputs with grad on (the training route: the same
+    kernels, saving what their backward reads), bit-equal, each launching F1
+    and F2 6 L + 2 and 2 L + 1 times; and against the plain chain under
+    autograd (fused_bert._eager_chain) within the encoder tolerances."""
     cfg = BertConfig(num_layers=2, vocab_size=128, flash_attention=True,
                      dtype=getattr(torch, dtype))
     model = Retriever(cfg).reset_parameters(1).to(cuda).eval()
@@ -1316,15 +1318,266 @@ def test_encoder_with_fused_epilogues_matches_autograd_route(cuda, dtype):
     ids = torch.randint(5, 128, (6, 128), generator=g)
     mask = (torch.arange(128) < torch.tensor([128, 100, 64, 7, 1, 128])[:, None]).int()
     ids, mask = (ids * mask).to(cuda), mask.to(cuda)
+    once = (6 * 2 + 2, 2 * 2 + 1)
     launches = fused_bert.dense_launches, fused_bert.layer_norm_launches
     with torch.inference_mode():
         fused = model.encode_context(ids, mask)
     torch.cuda.synchronize()
     assert (fused_bert.dense_launches - launches[0],
-            fused_bert.layer_norm_launches - launches[1]) == (6 * 2 + 2, 2 * 2 + 1)
+            fused_bert.layer_norm_launches - launches[1]) == once
     launches = fused_bert.dense_launches, fused_bert.layer_norm_launches
-    plain = model.encode_context(ids, mask)
+    routed = model.encode_context(ids, mask)
+    assert routed.requires_grad
+    assert (fused_bert.dense_launches - launches[0],
+            fused_bert.layer_norm_launches - launches[1]) == once
+    assert torch.equal(fused, routed.detach())
+    launches = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    with fused_bert._eager_chain():
+        plain = model.encode_context(ids, mask)
     assert plain.requires_grad
     assert (fused_bert.dense_launches, fused_bert.layer_norm_launches) == launches
     assert torch.isfinite(fused).all()
     torch.testing.assert_close(fused, plain.detach(), atol=ENCODER_TOL[dtype], rtol=0)
+
+
+# --- the training route: F1's and F2's backward kernels ---
+
+# F2's dx against its plain versions: two bf16 ulps at magnitudes of at least
+# LN_ULP_FLOOR (g - mean(g) - x^ mean(g x^) sums O(1) terms whose f32 sums run
+# in another order, which moves a near-zero dx by a few f32 ulps of 1); f32
+# within LN_F32_TOL
+BWD_ULPS = 2.0
+# column sums: within this share of the sum of the column's |terms|
+COLSUM_REL = 1e-5
+
+
+def _colsum_ok(got, want, terms) -> bool:
+    """got within COLSUM_REL of want, relative to the sum of the column's
+    |terms| (terms [rows, cols])."""
+    limit = COLSUM_REL * terms.double().abs().sum(0) + 1e-30
+    return bool(((got.double() - want.double()).abs() <= limit).all())
+
+
+def _dense_bwd_inputs(rows, cols, device, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    z = (torch.randn(rows, cols, generator=g) * 2.0).to(device, dtype)
+    dout = torch.randn(rows, cols, generator=g).to(device, dtype)
+    return dout, z
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,cols", [(1, 768), (37, 768), (5003, 768), (1029, 3072),
+                                       (300, 2), (7, 1), (9, 40), (11, 12)])
+def test_dense_epilogue_backward_kernel_matches_plain(cuda, rows, cols, dtype, gelu):
+    """F1's backward: with GELU, dz bit-equal to the plain chain's
+    (aten::gelu_backward in f32, one rounding); the bias gradient within
+    COLSUM_REL of the plain column sum, and two launches bit-equal; row
+    counts off the blocks' 8 rows, widths of the vector body (768, 3,072,
+    40) and of the element body (2, 1, 12)."""
+    dt = getattr(torch, dtype)
+    dout, z = _dense_bwd_inputs(rows, cols, cuda, dt, seed=rows + cols)
+    before = fused_bert.dense_backward_launches
+    dz, db = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
+    torch.cuda.synchronize()
+    assert fused_bert.dense_backward_launches == before + 1
+    want_dz, want_db = fused_bert.dense_epilogue_backward_reference(dout, z, gelu)
+    assert dz.dtype == dt and db.dtype == torch.float32 and db.shape == (cols,)
+    assert torch.equal(dz, want_dz)
+    assert _colsum_ok(db, want_db, 1.2 * dout.float())
+    dz2, db2 = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
+    assert torch.equal(dz2, dz) and torch.equal(db2, db)
+
+
+@pytest.mark.parametrize("need_dz,need_dbias", [(True, False), (False, True), (False, False)])
+@pytest.mark.parametrize("gelu", [False, True])
+def test_dense_epilogue_backward_kernel_frozen(cuda, gelu, need_dz, need_dbias):
+    """A frozen bias (no column sum) or no input wanting dz: what is computed
+    equals the full call's, bit for bit; nothing asked launches nothing."""
+    dout, z = _dense_bwd_inputs(513, 768, cuda, torch.bfloat16, seed=4)
+    full_dz, full_db = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
+    before = fused_bert.dense_backward_launches
+    dz, db = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, need_dz, need_dbias)
+    launched = fused_bert.dense_backward_launches - before
+    assert launched == int(need_dbias or (gelu and need_dz))
+    assert (dz is None) == (not need_dz) and (db is None) == (not need_dbias)
+    if need_dz:
+        assert torch.equal(dz, full_dz)
+    if need_dbias:
+        assert torch.equal(db, full_db)
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+def test_dense_epilogue_backward_kernel_unaligned(cuda, gelu):
+    """dout 2 bytes past a 16-byte boundary takes the element body."""
+    dout, z = _dense_bwd_inputs(37, 768, cuda, torch.bfloat16, seed=6)
+    shifted = torch.empty(dout.numel() + 1, device=cuda, dtype=dout.dtype)[1:].view_as(dout)
+    shifted.copy_(dout)
+    dz, db = fused_bert._dense_epilogue_backward_kernel(shifted, z, gelu, True, True)
+    want_dz, want_db = fused_bert.dense_epilogue_backward_reference(dout, z, gelu)
+    assert torch.equal(dz, want_dz) and _colsum_ok(db, want_db, 1.2 * dout.float())
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(37, 3072), (9, 12)])
+def test_dense_epilogue_training_forward_saves_z(cuda, shape, out_dtype):
+    """The training forward with GELU: the same output as the inference one,
+    and z = round(y + b) bit for bit."""
+    y, b = _epilogue_inputs(shape, cuda, seed=sum(shape))
+    dt = getattr(torch, out_dtype)
+    out, z = fused_bert._dense_epilogue_kernel(y, b, dt, True, save_z=True)
+    assert torch.equal(out, fused_bert.dense_epilogue(y, b, dt, True))
+    assert torch.equal(z, (y + b).to(dt))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("rows,h", [(1, 768), (37, 768), (5003, 768), (9, 32), (7, 1024),
+                                    (5, 100), (3, 1), (11, 40)])
+def test_add_layer_norm_backward_kernel_matches_plain(cuda, rows, h, residual, dtype):
+    """F2's forward mean and rstd against the plain ones, and its backward:
+    dx within BWD_ULPS bf16 ulps (at magnitudes of at least LN_ULP_FLOOR;
+    LN_F32_TOL in f32) of the plain formula and of autograd through the plain
+    chain, the share of differing elements printed; dscale and dbias within
+    COLSUM_REL; two launches bit-equal. Row counts off the blocks' 8 rows,
+    widths of the vector body and of the element body (100, 1)."""
+    dt = getattr(torch, dtype)
+    x, r, scale, bias = _ln_inputs(rows, h, cuda, dt, seed=rows * h + 1)
+    r = r if residual else None
+    dy = torch.randn(rows, h, generator=torch.Generator().manual_seed(h)).to(cuda, dt)
+    out, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12,
+                                                        save_stats=True)
+    _, want_mean, want_rstd = fused_bert._layer_norm_plain(x, r, scale, bias, 1e-12)
+    assert torch.equal(out, fused_bert.add_layer_norm(x, r, scale, bias, 1e-12))
+    torch.testing.assert_close(mean, want_mean, atol=LN_F32_TOL, rtol=0)
+    torch.testing.assert_close(rstd, want_rstd, atol=0, rtol=LN_F32_TOL)
+    before = fused_bert.layer_norm_backward_launches
+    dx, dscale, dbias = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale,
+                                                                   True, True)
+    torch.cuda.synchronize()
+    assert fused_bert.layer_norm_backward_launches == before + 1
+    plain = fused_bert.add_layer_norm_backward_reference(dy, x, r, mean, rstd, scale)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, scale, bias)]
+    fused_bert.add_layer_norm_reference(leaves[0], r, leaves[1], leaves[2], 1e-12).backward(dy)
+    for name, want in (("plain", plain[0]), ("autograd", leaves[0].grad)):
+        assert dx.dtype == dt and dx.shape == x.shape
+        if dtype == "bfloat16":
+            ulps = _bf16_ulps(dx, want)
+            print(f"F2 backward [{rows}, {h}] vs {name}: {ulps} bf16 ulps, "
+                  f"{(dx != want).float().mean().item():.4%} of elements differ")
+            assert ulps <= BWD_ULPS
+        else:
+            torch.testing.assert_close(dx, want, atol=LN_F32_TOL, rtol=0)
+    s = (x if r is None else x + r).float()
+    xh = (s - mean[:, None]) * rstd[:, None]
+    terms = (dy.float() * xh, dy.float())
+    for got, want, t in zip((dscale, dbias), plain[1:], terms):
+        assert got.dtype == torch.float32 and _colsum_ok(got, want, t)
+    again = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dscale, dbias)))
+
+
+@pytest.mark.parametrize("need_dx,need_params", [(True, False), (False, True), (False, False)])
+def test_add_layer_norm_backward_kernel_frozen(cuda, need_dx, need_params):
+    """A frozen scale and bias (no column sums) or no input wanting dx: what
+    is computed equals the full call's bit for bit; nothing asked launches
+    nothing."""
+    x, r, scale, bias = _ln_inputs(515, 768, cuda, torch.bfloat16, seed=9)
+    dy = torch.randn(515, 768, generator=torch.Generator().manual_seed(1)).to(cuda).bfloat16()
+    _, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12, save_stats=True)
+    full = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, True)
+    before = fused_bert.layer_norm_backward_launches
+    got = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, need_dx,
+                                                     need_params)
+    assert fused_bert.layer_norm_backward_launches - before == int(need_dx or need_params)
+    wanted = (need_dx, need_params, need_params)
+    for g, f, w in zip(got, full, wanted):
+        assert (g is None) == (not w) and (g is None or torch.equal(g, f))
+
+
+def test_training_route_rejects_what_it_does_not_take(cuda):
+    """The Functions raise on the card where a kernel cannot take a shape:
+    no fallback to the plain chain."""
+    x = torch.randn(4, 8, device=cuda).bfloat16().requires_grad_(True)
+    kernel = torch.randn(8, 12_289, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="columns"):
+        fused_bert.dense(x, kernel, torch.zeros(12_289, device=cuda), torch.bfloat16)
+    wide = torch.randn(4, 1025, device=cuda).bfloat16().requires_grad_(True)
+    with pytest.raises(ValueError, match="widths"):
+        fused_bert.add_layer_norm_grad(wide, None, torch.ones(1025, device=cuda),
+                                       torch.zeros(1025, device=cuda), 1e-12)
+
+
+@pytest.mark.parametrize("gelu,out", [(False, None), (True, None), (False, "float32")])
+@pytest.mark.parametrize("cols", [768, 3072, 2])
+def test_dense_function_matches_the_eager_chain(cuda, cols, gelu, out):
+    """fused_bert.dense on the card (F1 forward saving z, F1's backward, the
+    products) against the plain chain under autograd (_eager_chain): the same
+    output bit for bit, dz's products on the same operands, so dx and
+    dkernel bit-equal and dbias within COLSUM_REL; frozen kernel and bias."""
+    g = torch.Generator().manual_seed(cols)
+    x = torch.randn(4, 33, 64, generator=g).to(cuda).bfloat16()
+    kernel = (torch.randn(64, cols, generator=g) * 0.2).to(cuda)
+    bias = (torch.randn(cols, generator=g) * 0.1).to(cuda)
+    out_dt = torch.float32 if out else torch.bfloat16
+    dout = torch.randn(4, 33, cols, generator=g).to(cuda, out_dt)
+
+    def run(frozen=()):
+        leaves = {"x": x.clone().requires_grad_("x" not in frozen),
+                  "kernel": kernel.clone().requires_grad_("kernel" not in frozen),
+                  "bias": bias.clone().requires_grad_("bias" not in frozen)}
+        y = fused_bert.dense(leaves["x"], leaves["kernel"].bfloat16(), leaves["bias"], out_dt,
+                             gelu)
+        y.backward(dout)
+        return y.detach(), {k: v.grad for k, v in leaves.items()}
+
+    before = fused_bert.dense_launches, fused_bert.dense_backward_launches
+    y_k, g_k = run()
+    assert (fused_bert.dense_launches - before[0],
+            fused_bert.dense_backward_launches - before[1]) == (1, 1)
+    with fused_bert._eager_chain():
+        y_p, g_p = run()
+    assert torch.equal(y_k, y_p)
+    assert torch.equal(g_k["x"], g_p["x"]) and torch.equal(g_k["kernel"], g_p["kernel"])
+    dz = dout.float() * (1.2 if gelu else 1.0)
+    assert _colsum_ok(g_k["bias"], g_p["bias"], dz.reshape(-1, cols))
+    for frozen in (("bias",), ("kernel", "bias")):
+        _, g_f = run(frozen)
+        for name, grad in g_f.items():
+            assert (grad is None) if name in frozen else torch.equal(grad, g_k[name])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_remat_step_is_bit_equal_on_the_card(cuda, dtype):
+    """A BERT-base-width retriever (two layers, T = 128, dropout on, K2/K3/K4,
+    F1/F2 and their backward kernels): every gradient with remat (layer and
+    MLP scope) equals the one without, bit for bit; the backward kernels
+    launch on every route."""
+    from proqa_tpu_torch.train.retriever_trainer import in_batch_loss
+
+    g = torch.Generator().manual_seed(8)
+    ids = torch.randint(5, 128, (6, 128), generator=g)
+    mask = (torch.arange(128) < torch.tensor([128, 100, 64, 7, 1, 128])[:, None]).int()
+    batch = {"input_ids_q": ids[:, :16].to(cuda), "input_mask_q": torch.ones(6, 16,
+                                                                            dtype=torch.int32,
+                                                                            device=cuda),
+             "input_ids_c": (ids * mask).to(cuda), "input_mask_c": mask.to(cuda)}
+    grads = []
+    torch.use_deterministic_algorithms(True, warn_only=True)  # the embeddings' index_put
+    try:
+        for remat, scope in ((False, "layer"), (True, "layer"), (True, "mlp")):
+            cfg = BertConfig(num_layers=2, vocab_size=128, max_position_embeddings=128,
+                             flash_attention=True, remat=remat, remat_scope=scope,
+                             dtype=getattr(torch, dtype))
+            model = Retriever(cfg).reset_parameters(0).to(cuda).train()
+            before = fused_bert.dense_backward_launches, fused_bert.layer_norm_backward_launches
+            loss, _ = in_batch_loss(model(batch, generator=torch.Generator().manual_seed(5)))
+            loss.backward()
+            assert (fused_bert.dense_backward_launches > before[0]
+                    and fused_bert.layer_norm_backward_launches > before[1])
+            grads.append({k: p.grad.clone() for k, p in model.named_parameters()})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for other in grads[1:]:
+        bad = [k for k in grads[0] if not torch.equal(other[k], grads[0][k])]
+        assert not bad, bad[:5]
