@@ -161,10 +161,14 @@ The BERT layer's fused epilogues:
      (the column sum alone), F2's with a residual at [N, 768] (dx within
      BWD_ULPS bf16 ulps at magnitudes of at least LN_ULP_FLOOR of the plain
      formula and of autograd through the plain chain; dscale, dbias within
-     COLSUM_REL), two launches of each bit-equal; each timed beside its plain
-     version, its bound and one library call (aten::gelu_backward,
-     torch.sum(dim=0), aten::native_layer_norm_backward). Their launches are
-     counted on the training paths of phases 8, 9, 19, 20, 22 and 27.
+     COLSUM_REL), two launches of each bit-equal; each timed by one call,
+     queued and by its kernels alone (kernel_ms) beside its plain version,
+     its bound and one library call (aten::gelu_backward, torch.sum(dim=0),
+     aten::native_layer_norm_backward). F1's GELU form's bound is the larger
+     of its bytes bound and an instruction-issue bound from the SASS of its
+     loop (proqa_tpu_torch/sass_count.py). Every run is an entry of the
+     kernels line. Their launches are counted on the training paths of
+     phases 8, 9, 19, 20, 22 and 27.
 Phases 23-25 run after phase 18, phase 26 after phase 22, 27-29 after 20,
 30 and 31 after 2. Each of phases 12-14 first drives its kernel's public pipeline
 once with the counters at 0 and reads them, then compares and times the
@@ -292,6 +296,25 @@ def cuda_ms(fn, reps: int = 5, calls: int = 1) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int = 3) -> float:
+    """Median over reps calls of the device time of the kernels one call of
+    fn launches (torch.profiler's kernel events, summed), after one warm-up:
+    the kernels alone, without the host path that one call between CUDA
+    events also holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times.append(sum(e.device_time_total for e in prof.key_averages()) / 1e3)
     return statistics.median(times)
 
 
@@ -503,7 +526,31 @@ def _colsum_err(got, want, terms) -> float:
     return ((got.double() - want.double()).abs() / scale).max().item()
 
 
-def phase_fused_bert_backward(device) -> tuple[dict, dict]:
+def gelu_backward_issue(device) -> dict:
+    """The instruction-issue bound of F1's GELU backward: the SASS of its
+    main loop (proqa_tpu_torch/sass_count.py: instructions, and the 16-byte
+    dz stores, one a row of 8 columns, which give the elements an
+    iteration) at one warp instruction a clock on each of an SM's 4
+    schedulers, at the card's top SM clock (nvidia-smi clocks.max.sm)."""
+    import torch
+
+    from proqa_tpu_torch import _build, sass_count
+
+    loop = sass_count.loop_counts(str(_build.library_path()),
+                                  {"gelu": sass_count.KERNELS["F1 backward GELU"]})["gelu"]
+    check(loop is not None and loop["global_stores_128"] > 0,
+          f"F1 backward GELU: no main loop with 16-byte stores in its SASS: {loop}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True)
+    mhz = float(smi.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_element = loop["instructions"] / (8 * loop["global_stores_128"])
+    return {**loop, "instructions_per_element": per_element, "sm_clock_mhz": mhz, "sms": sms,
+            # thread instructions a second: 4 warp instructions a clock an SM
+            "issue_rate": sms * 4 * 32 * mhz * 1e6}
+
+
+def phase_fused_bert_backward(device) -> list[tuple[str, str, dict]]:
     """F1's and F2's backward kernels at the training steps' shapes
     (TRAIN_ROWS rows of BERT-base widths, bf16): F1 with GELU at [N, 3,072]
     (dz bit-equal to the plain chain's aten::gelu_backward, the bias column
@@ -512,18 +559,21 @@ def phase_fused_bert_backward(device) -> tuple[dict, dict]:
     of at least LN_ULP_FLOOR of the plain formula and of autograd through
     the plain chain, the share of differing elements logged; dscale and dbias
     within COLSUM_REL); two launches of each bit-equal. Each timed by one call
-    beside its plain version, its bound and one library call
-    (aten::gelu_backward, torch.sum(dim=0), aten::native_layer_norm_backward).
-    The kernels line takes the retriever step's F1 GELU and F2 entries, with
-    max_abs_err the largest error of dz (F1) or dx (F2) over the runs and
-    colsum_rel_err the largest of the column sums'."""
+    and queued (10 back-to-back calls) beside its plain version, its bound
+    and one library call (aten::gelu_backward, torch.sum(dim=0),
+    aten::native_layer_norm_backward); F1's GELU form's bound is the larger of
+    its bytes bound and its instruction-issue bound (gelu_backward_issue).
+    Returns (kernel, shape label, result) for every run, in the kernels
+    line's order."""
     import torch
 
     from proqa_tpu_torch.ops import fused_bert
 
     h, inter, eps = 768, 3072, 1e-12
     g = torch.Generator(device=device).manual_seed(31)
-    runs = {}
+    issue = gelu_backward_issue(device)
+    log(f"F1 backward GELU's main loop (SASS): {json.dumps(issue)}")
+    runs = []
     for step, n in TRAIN_ROWS.items():
         for cols, gelu in ((inter, True), (h, False)):
             dout = torch.randn(n, cols, device=device, generator=g).bfloat16()
@@ -533,32 +583,40 @@ def phase_fused_bert_backward(device) -> tuple[dict, dict]:
             again = fused_bert._dense_epilogue_backward_kernel(dout, zz, gelu, True, True)
             want = fused_bert.dense_epilogue_backward_reference(dout, zz, gelu)
             torch.cuda.synchronize()
-            label = f"F1 backward [{n}, {cols}]{' GELU' if gelu else ''} bf16 ({step} step)"
-            check(torch.equal(got[0], want[0]), f"{label}: dz not bit-equal to the plain chain's")
+            label = f"[{n}, {cols}]{' GELU' if gelu else ''} bf16 ({step} step)"
+            check(torch.equal(got[0], want[0]), f"F1 backward {label}: dz not bit-equal to the "
+                                                f"plain chain's")
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                  f"{label}: two launches differ")
+                  f"F1 backward {label}: two launches differ")
             sum_err = _colsum_err(got[1], want[1], want[0].float())
-            check(sum_err <= COLSUM_REL, f"{label}: bias column sum off by {sum_err} of its "
-                                         f"terms (tol {COLSUM_REL})")
+            check(sum_err <= COLSUM_REL, f"F1 backward {label}: bias column sum off by "
+                                         f"{sum_err} of its terms (tol {COLSUM_REL})")
             err = (got[0].float() - want[0].float()).abs().max().item()  # dz's
             del got, again, want
             if gelu:
                 library = cuda_ms(lambda: torch.ops.aten.gelu_backward(dout, z,
                                                                        approximate="none"))
-                # read dout and z, write dz, write the f32 bias gradient; erff,
-                # expf and ~10 more operations an element at the f32 rate
-                bound_ms, by = bound(n * cols * 6 + cols * 4, n * cols * 35, PEAK_F32_FLOPS)
+                # read dout and z, write dz, write the f32 bias gradient; or
+                # issue the loop's instructions for every element
+                bytes_ms = bound(n * cols * 6 + cols * 4, 0)[0]
+                issue_ms = n * cols * issue["instructions_per_element"] / issue["issue_rate"] * 1e3
+                bound_ms, by = max((bytes_ms, "bytes"), (issue_ms, "operations"))
+                extra = {"bytes_bound_ms": bytes_ms, "issue_bound_ms": issue_ms}
             else:
                 library = cuda_ms(lambda: torch.sum(dout, dim=0, dtype=torch.float32))
                 bound_ms, by = bound(n * cols * 2 + cols * 4, n * cols, PEAK_F32_FLOPS)
-            runs[label] = {
+                extra = {}
+            run = lambda: fused_bert._dense_epilogue_backward_kernel(  # noqa: E731
+                dout, zz, gelu, True, True)
+            result = {
                 "max_abs_err": err, "colsum_rel_err": sum_err, "bound_ms": bound_ms,
-                "bound_by": by, "library_ms": library,
-                "ms": cuda_ms(lambda: fused_bert._dense_epilogue_backward_kernel(
-                    dout, zz, gelu, True, True)),
+                "bound_by": by, **extra, "library_ms": library, "ms": cuda_ms(run),
+                "queued_ms": cuda_ms(run, calls=10), "kernel_ms": kernel_ms(run),
                 "plain_ms": cuda_ms(lambda: fused_bert.dense_epilogue_backward_reference(
                     dout, zz, gelu))}
-            log(f"{label}: dz bit-equal, two launches bit-equal; {json.dumps(runs[label])}")
+            runs.append(("F1", label, result))
+            log(f"F1 backward {label}: dz bit-equal, two launches bit-equal; "
+                f"{json.dumps(result)}")
             del dout, z, zz
         x = torch.randn(n, h, device=device, generator=g).bfloat16()
         r = (torch.randn(n, h, device=device, generator=g) * 0.5 + 0.25).bfloat16()
@@ -573,21 +631,22 @@ def phase_fused_bert_backward(device) -> tuple[dict, dict]:
         leaves = [t.detach().clone().requires_grad_(True) for t in (x, scale, bias)]
         fused_bert.add_layer_norm_reference(leaves[0], r, leaves[1], leaves[2], eps).backward(dy)
         torch.cuda.synchronize()
-        label = f"F2 backward [{n}, {h}] bf16 + residual ({step} step)"
-        check(all(torch.equal(a, b) for a, b in zip(got, again)), f"{label}: two launches differ")
+        label = f"[{n}, {h}] bf16 + residual ({step} step)"
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"F2 backward {label}: two launches differ")
         ulps = {name: _bf16_ulps(got[0], w, LN_ULP_FLOOR)
                 for name, w in (("plain", want[0]), ("autograd", leaves[0].grad))}
         differ = {name: (got[0] != w).float().mean().item()
                   for name, w in (("plain", want[0]), ("autograd", leaves[0].grad))}
         check(max(ulps.values()) <= BWD_ULPS,
-              f"{label}: dx {ulps} bf16 ulps (at magnitudes of at least {LN_ULP_FLOOR}) from "
-              f"its plain versions (tol {BWD_ULPS})")
+              f"F2 backward {label}: dx {ulps} bf16 ulps (at magnitudes of at least "
+              f"{LN_ULP_FLOOR}) from its plain versions (tol {BWD_ULPS})")
         s32 = (x + r).float()
         xh = (s32 - mean[:, None]) * rstd[:, None]
         sum_err = max(_colsum_err(got[1], want[1], dy.float() * xh),
                       _colsum_err(got[2], want[2], dy.float()))
-        check(sum_err <= COLSUM_REL, f"{label}: dscale/dbias off by {sum_err} of their terms "
-                                     f"(tol {COLSUM_REL})")
+        check(sum_err <= COLSUM_REL, f"F2 backward {label}: dscale/dbias off by {sum_err} of "
+                                     f"their terms (tol {COLSUM_REL})")
         err = (got[0].float() - want[0].float()).abs().max().item()  # dx's
         del got, again, want, leaves, s32, xh
         # the library call: ATen's LayerNorm backward of the rounded sum, with
@@ -597,25 +656,22 @@ def phase_fused_bert_backward(device) -> tuple[dict, dict]:
         _, a_mean, a_rstd = torch.ops.aten.native_layer_norm(s, [h], sc, bi, eps)
         bound_ms, by = bound(n * h * 2 * 4 + n * 8 + h * 4 + 2 * h * 4, n * h * 12,
                              PEAK_F32_FLOPS)
-        runs[label] = {
+        run = lambda: fused_bert._add_layer_norm_backward_kernel(  # noqa: E731
+            dy, x, r, mean, rstd, scale, True, True)
+        result = {
             "max_abs_err": err, "bf16_ulps": ulps, "differ_share": differ,
             "colsum_rel_err": sum_err, "bound_ms": bound_ms, "bound_by": by,
-            "ms": cuda_ms(lambda: fused_bert._add_layer_norm_backward_kernel(
-                dy, x, r, mean, rstd, scale, True, True)),
+            "ms": cuda_ms(run), "queued_ms": cuda_ms(run, calls=10), "kernel_ms": kernel_ms(run),
             "plain_ms": cuda_ms(lambda: fused_bert.add_layer_norm_backward_reference(
                 dy, x, r, mean, rstd, scale)),
             "library_ms": cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
                 dy, s, [h], a_mean, a_rstd, sc, bi, [True, True, True]))}
-        log(f"{label}: {json.dumps(runs[label])}")
+        runs.append(("F2", label, result))
+        log(f"F2 backward {label}: {json.dumps(result)}")
         del x, r, dy, s, mean, rstd, a_mean, a_rstd
         torch.cuda.empty_cache()
-    n = TRAIN_ROWS["retriever"]
-    f1b = dict(runs[f"F1 backward [{n}, {inter}] GELU bf16 (retriever step)"])
-    f2b = dict(runs[f"F2 backward [{n}, {h}] bf16 + residual (retriever step)"])
-    for out, kernel in ((f1b, "F1"), (f2b, "F2")):
-        for key in ("max_abs_err", "colsum_rel_err"):
-            out[key] = max(v[key] for k, v in runs.items() if k.startswith(kernel))
-    return f1b, f2b
+    order = {"F1": 0, "F2": 1}
+    return sorted(runs, key=lambda run: order[run[0]])
 
 
 def grouped_against_plain(name, queries, corpus, *, block, chunk_groups=128, reps=3,
@@ -3283,7 +3339,7 @@ def main() -> int:
         # the dense-retrieval slice
         timed("encoder", phase_encoder, device)
         f1, f2 = timed("fused_bert", phase_fused_bert, device)
-        f1b, f2b = timed("fused_bert_backward", phase_fused_bert_backward, device)
+        f_backward = timed("fused_bert_backward", phase_fused_bert_backward, device)
         k1 = timed("mips", phase_mips, device)
         with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root, \
                 tempfile.TemporaryDirectory(prefix="proqa_smoke_") as pretrain_root:
@@ -3335,7 +3391,9 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": f"proqa_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
                 **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                "library_ms", "colsum_rel_err") if key in result}}
+                                                "library_ms", "colsum_rel_err", "queued_ms",
+                                                "kernel_ms", "bytes_bound_ms", "issue_bound_ms")
+                   if key in result}}
 
     qa_runs = [*qa["launches"].values(), serve["launches"]]
     at_shards = sharded["launches"]
@@ -3394,12 +3452,15 @@ def main() -> int:
               retrieval["F1"] + qa_launches["F1"] + trained["F1"], f1),
         entry("add_layer_norm (F2)", "layer_norm.cu", "proqa_tpu/models/bert.py:137",
               retrieval["F2"] + qa_launches["F2"] + trained["F2"], f2),
-        # their backward kernels: the transposes of the same fusions
-        entry("dense_epilogue backward (F1)", "dense_epilogue.cu",
-              "proqa_tpu/models/bert.py:147", trained["F1 backward"], f1b),
-        entry("add_layer_norm backward (F2)", "layer_norm.cu", "proqa_tpu/models/bert.py:137",
-              trained["F2 backward"], f2b),
     ]
+    # their backward kernels, the transposes of the same fusions, at both
+    # train steps' shapes (launches: the kernel's, in each of its entries)
+    backward_of = {"F1": ("dense_epilogue", "dense_epilogue.cu", "proqa_tpu/models/bert.py:147"),
+                   "F2": ("add_layer_norm", "layer_norm.cu", "proqa_tpu/models/bert.py:137")}
+    for kernel, label, result in f_backward:
+        name, source, replaces = backward_of[kernel]
+        kernels.append(entry(f"{name} backward ({kernel}) {label}", source, replaces,
+                             trained[f"{kernel} backward"], result))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

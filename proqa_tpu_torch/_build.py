@@ -7,8 +7,8 @@ together, then one link. The name carries a hash of the sources and flags,
 so an edited source builds anew. The library is loaded with ctypes: every
 pointer and the stream pass as `c_void_p`, and every entry point that
 launches returns a cudaError_t code that `check` turns into an exception; the
-backward kernels' size queries (`*_bwd_slabs`, `*_bwd_blocks`, see `query`)
-return the number of per-block partials the kernel writes.
+backward kernels' size queries (`*_bwd_workspace`, see `query`) return the
+bytes of scratch the kernel's column sums take.
 
 Nothing here runs at import: the package imports on machines without nvcc or
 a GPU, where only the kernels' plain PyTorch versions run.
@@ -57,19 +57,21 @@ _SIGNATURES = {
     "proqa_dropout": [_P, _P, _L, _U64, _U, _F, _I, _P],
     # y, bias, out, z (None for none), rows, cols, out_bf16, gelu, stream
     "proqa_dense_epilogue": [_P] * 4 + [_L, _I, _I, _I, _P],
-    # dout, z, dz, partials, dbias (None for none), rows, cols, is_bf16, gelu, stream
+    # dout, z, dz, workspace, dbias (None for none), rows, cols, is_bf16, gelu, stream
     "proqa_dense_epilogue_bwd": [_P] * 5 + [_L, _I, _I, _I, _P],
-    # rows, cols, device: the slabs of the backward's partials
-    "proqa_dense_epilogue_bwd_slabs": [_L, _I, _I],
+    # rows, cols, gelu, device: the bytes of the backward's scratch
+    "proqa_dense_epilogue_bwd_workspace": [_L, _I, _I, _I],
     # x, residual (None for none), scale, bias, out, mean, rstd (None for none), rows, h,
     # eps, is_bf16, stream
     "proqa_add_layer_norm": [_P] * 7 + [_L, _I, _F, _I, _P],
-    # dy, x, residual, mean, rstd, scale, dx, partials, dparams (None for none), rows, h,
+    # dy, x, residual, mean, rstd, scale, dx, workspace, dparams (None for none), rows, h,
     # is_bf16, stream
     "proqa_add_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _P],
-    # rows, device: the blocks of the backward's partials
-    "proqa_add_layer_norm_bwd_blocks": [_L, _I],
+    # rows, h, is_bf16, device: the bytes of the backward's scratch
+    "proqa_add_layer_norm_bwd_workspace": [_L, _I, _I, _I],
 }
+# entry points that return a size, not a cudaError_t code
+_SIZES = ("proqa_dense_epilogue_bwd_workspace", "proqa_add_layer_norm_bwd_workspace")
 
 _lib: ctypes.CDLL | None = None
 
@@ -150,7 +152,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = ctypes.c_longlong if name in _SIZES else ctypes.c_int
         lib.proqa_error_string.argtypes = [ctypes.c_int]
         lib.proqa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -167,7 +169,8 @@ def check(code: int, kernel: str) -> None:
 
 def query(entry: str, *args) -> int:
     """Calls the library's size query `entry`: the kernel's source decides
-    how many blocks write partials, and the caller sizes their scratch by it."""
+    its grid and the scratch that grid takes, and the caller sizes the
+    scratch by the answer."""
     return getattr(_lib if _lib is not None else library(), entry)(*args)
 
 

@@ -35,14 +35,30 @@
 // GeluBackwardCUDAKernelImpl, each operation rounded on its own), so dz is
 // the plain chain's aten::gelu_backward bit for bit; and
 // the bias gradient, the column sum of f32(dz) (of f32(dout) without GELU).
-// Bound by bytes: with GELU it reads dout and z and writes dz, 6 B an element
-// in bf16 (0.225 ms for [40,960, 3,072] at 3.35 TB/s); the sum alone reads
-// dout, 2 B. The column sum is deterministic: a block takes 32 column groups
-// of 8 side by side and 8 rows at a time over a slab of rows, each thread
-// keeps its 8 sums in registers over the slab, the block adds its 8 row lanes
-// in order into one f32 partial per slab, and a second kernel
-// (column_sums.cuh) adds the slabs in order. No atomics: two launches give
-// the same bits.
+//
+// What bounds the backward on the H100: bytes. The sum alone reads dout, 2 B
+// an element in bf16 (0.019 ms for [40,960, 768] at 3.35 TB/s). With GELU it
+// reads dout and z and writes dz, 6 B an element (0.225 ms for [40,960,
+// 3,072]); ATen's unfused order (erff, expf and ~10 more operations, each
+// rounded on its own, no fast math) costs ~46 SASS instructions an element,
+// an issue bound of ~0.17 ms there, close behind (chip_smoke.py counts the
+// loop's SASS and gives both bounds). What the design does about it:
+//   - a block takes 32 column groups of 8 side by side and 8 row lanes over a
+//     slab of rows; each thread issues the loads of kUnroll rows (16 without
+//     GELU, 4 with; fewer in f32 and in the element body) before it uses
+//     any, the slab's last rows in one guarded step of the same kind;
+//   - a persistent grid of two blocks an SM, the rows cut into as few slabs
+//     as fill it (88 at width 768, 22 at 3,072), and fewer where the sum
+//     alone would get under 64 rows a slab: few partials, and every thread
+//     with loads enough in flight;
+//   - the sum ends in the same launch: each block adds its 8 row lanes in
+//     order into its slab's f32 partial and takes a ticket; the last block
+//     of each group of 16 slabs adds its group's partials in order, and the
+//     last group's the group sums (column_sums.cuh). No block waits.
+// The slabs and the order of every sum follow from the row count, the width,
+// the form (GELU or not) and the SM count alone, so two launches give the
+// same bits; odd widths and unaligned pointers load element by element in
+// the same groups, slabs and order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -66,8 +82,9 @@ constexpr float kGeluBeta =
     static_cast<float>(1.12837916709551257390 * 0.70710678118654752440 * 0.5);
 constexpr int kColThreads = 32;  // backward: column groups a block takes side by side
 constexpr int kRowThreads = 8;   // backward: rows a block takes at a time
-constexpr int kBwdBlocksPerSm = 8;
-constexpr int kMaxSlabs = 65535;  // gridDim.y
+constexpr int kBwdBlocksPerSm = 2;  // backward: blocks an SM (its registers allow two)
+constexpr int kMinSlabRows = 64;    // backward, the sum alone: rows a slab takes at least
+constexpr int kMaxDevices = 64;
 
 template <typename Out>
 __device__ inline Out to_out(float x);
@@ -163,100 +180,127 @@ dense_epilogue_scalar_kernel(const float* __restrict__ y, const float* __restric
   }
 }
 
-// kG elements of one row from p to f32: one 16-byte load a 16 bytes (kG = 8),
-// or element by element (kG = 1)
-template <int kG>
-__device__ inline void load_f32(const bf16* p, float (&v)[kG]) {
-  if constexpr (kG == 8) {
-    const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
+// A group of kGroup elements of one row at p: one 16-byte load a 16 bytes
+// (kVector: the group is whole and aligned), else the first `width` element
+// by element. Raw: the loads of several rows are issued before any is used.
+template <typename T, bool kVector>
+__device__ inline void load_group(const T* p, int width, T (&v)[kGroup]) {
+  if constexpr (kVector) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+    for (int s = 0; s < (int)(kGroup * sizeof(T) / 16); ++s)
+      reinterpret_cast<uint4*>(v)[s] = __ldcs(reinterpret_cast<const uint4*>(p) + s);
   } else {
 #pragma unroll
-    for (int i = 0; i < kG; ++i) v[i] = __bfloat162float(p[i]);
-  }
-}
-template <int kG>
-__device__ inline void load_f32(const float* p, float (&v)[kG]) {
-  if constexpr (kG == 8) {
-    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < kG; ++i) v[i] = p[i];
-  }
-}
-template <typename T, int kG>
-__device__ inline void store(T* p, const T (&v)[kG]) {
-  if constexpr (kG * sizeof(T) % 16 == 0) {
-#pragma unroll
-    for (int s = 0; s < (int)(kG * sizeof(T) / 16); ++s)
-      reinterpret_cast<uint4*>(p)[s] = reinterpret_cast<const uint4*>(v)[s];
-  } else {
-#pragma unroll
-    for (int i = 0; i < kG; ++i) p[i] = v[i];
+    for (int e = 0; e < kGroup; ++e)
+      if (e < width) v[e] = p[e];
   }
 }
 
-// The backward. Thread (tx, ty) of block (bx, slab) takes column group
-// bx * 32 + tx (kG columns) over rows slab_start + ty, + 8, ... of its slab:
-// with GELU it writes dz there (when dz is not null), and with kSum it adds
-// f32(dz) (f32(dout) without GELU) per column over those rows; the block then
-// adds its 8 row lanes in order into partials[slab, column].
-template <typename T, int kG, bool kGelu, bool kSum>
-__global__ void __launch_bounds__(kColThreads * kRowThreads)
-dense_epilogue_bwd_kernel(const T* __restrict__ dout, const T* __restrict__ z,
-                          T* __restrict__ dz, float* __restrict__ partials, long long rows,
-                          int cols) {
-  __shared__ float lane_sums[kRowThreads][kColThreads * kG];
-  const int groups = cols / kG;
-  const int group = blockIdx.x * kColThreads + threadIdx.x;
-  const long long per_slab = (rows + gridDim.y - 1) / gridDim.y;
-  const long long first = (long long)blockIdx.y * per_slab;
-  const long long last = first + per_slab < rows ? first + per_slab : rows;
-  float sum[kG] = {};
-  if (group < groups) {
-    for (long long row = first + threadIdx.y; row < last; row += kRowThreads) {
-      const long long at = row * cols + (long long)group * kG;
-      float d[kG];
-      load_f32<kG>(dout + at, d);
-      if constexpr (kGelu) {
-        float x[kG];
-        load_f32<kG>(z + at, x);
-        alignas(16) T g[kG];
+template <typename T, bool kVector>
+__device__ inline void store_group(T* p, int width, const T (&v)[kGroup]) {
+  if constexpr (kVector) {
 #pragma unroll
-        for (int e = 0; e < kG; ++e) {
-          g[e] = to_out<T>(gelu_erf_grad(d[e], x[e]));
-          d[e] = to_f32(g[e]);  // the sum adds the rounded dz
-        }
-        if (dz != nullptr) store<T, kG>(dz + at, g);
-      }
-      if constexpr (kSum) {
+    for (int s = 0; s < (int)(kGroup * sizeof(T) / 16); ++s)
+      reinterpret_cast<uint4*>(p)[s] = reinterpret_cast<const uint4*>(v)[s];
+  } else {
 #pragma unroll
-        for (int e = 0; e < kG; ++e) sum[e] = __fadd_rn(sum[e], d[e]);
-      }
+    for (int e = 0; e < kGroup; ++e)
+      if (e < width) p[e] = v[e];
+  }
+}
+
+// kUnroll rows of the backward, rows row, row + 8, ... (kFull: all in the
+// slab; else those before `last`): the loads of all of them first, then for
+// each in order dz = round(gelu'(z) dout) (with GELU), stored when kDz, and
+// its terms added to the column sums (with kSum): f32 of the rounded dz, or
+// of dout without GELU.
+template <typename T, bool kVector, bool kGelu, bool kDz, bool kSum, int kUnroll, bool kFull>
+__device__ inline void backward_rows(const T* __restrict__ dout, const T* __restrict__ z,
+                                     T* __restrict__ dz, long long row, long long last, int cols,
+                                     int c0, int width, float (&sum)[kGroup]) {
+  alignas(16) T d[kUnroll][kGroup], x[kUnroll][kGroup];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long at = (row + (long long)kRowThreads * u) * cols + c0;
+    if (kFull || row + kRowThreads * u < last) {
+      load_group<T, kVector>(dout + at, width, d[u]);
+      if constexpr (kGelu) load_group<T, kVector>(z + at, width, x[u]);
     }
   }
-  if constexpr (kSum) {
 #pragma unroll
-    for (int e = 0; e < kG; ++e) lane_sums[threadIdx.y][threadIdx.x * kG + e] = sum[e];
-    __syncthreads();
-    // the block's kColThreads * kG columns, one thread a column
-    const int tid = threadIdx.y * kColThreads + threadIdx.x;
-    for (int c = tid; c < kColThreads * kG; c += kColThreads * kRowThreads) {
-      const int col = blockIdx.x * kColThreads * kG + c;
-      if (col < cols) {
-        float total = lane_sums[0][c];
+  for (int u = 0; u < kUnroll; ++u) {
+    if (!kFull && row + kRowThreads * u >= last) break;
+    if constexpr (kGelu) {
 #pragma unroll
-        for (int j = 1; j < kRowThreads; ++j) total = __fadd_rn(total, lane_sums[j][c]);
-        partials[(long long)blockIdx.y * cols + col] = total;
-      }
+      for (int e = 0; e < kGroup; ++e)
+        d[u][e] = to_out<T>(gelu_erf_grad(to_f32(d[u][e]), to_f32(x[u][e])));
+      if constexpr (kDz)
+        store_group<T, kVector>(dz + (row + (long long)kRowThreads * u) * cols + c0, width,
+                                d[u]);
+    }
+    if constexpr (kSum) {
+#pragma unroll
+      for (int e = 0; e < kGroup; ++e) sum[e] = __fadd_rn(sum[e], to_f32(d[u][e]));
     }
   }
 }
+
+// The backward. Thread (tx, ty) of block (bx, slab) takes the columns
+// c0 = (bx * 32 + tx) * 8 .. c0 + 7 (fewer at the right edge) over rows
+// slab_start + ty, + 8, ... of its slab, kUnroll rows at a time, the rest in
+// one more such step: with GELU it writes dz (kDz), and with kSum it adds f32(dz)
+// (f32(dout) without GELU) per column in row order. The block adds its 8 row
+// lanes in order into its row of the partials [slabs, cols] in `workspace`,
+// and the last blocks of each column block add the slabs' partials in slab
+// order into dbias (column_sums.cuh).
+template <typename T, bool kVector, bool kGelu, bool kDz, bool kSum>
+__global__ void __launch_bounds__(kColThreads * kRowThreads, kBwdBlocksPerSm)
+dense_epilogue_bwd_kernel(const T* __restrict__ dout, const T* __restrict__ z,
+                          T* __restrict__ dz, void* workspace, float* dbias, long long rows,
+                          int cols) {
+  // rows in flight a thread: 16-byte loads pack 8 bf16 in 4 registers, the
+  // element body keeps one a register, so it takes fewer
+  constexpr int kUnroll = (kVector ? (kGelu ? 4 : 16) : (kGelu ? 2 : 4)) * 2 / (int)sizeof(T);
+  const int c0 = (blockIdx.x * kColThreads + threadIdx.x) * kGroup;
+  const int width = cols - c0 < kGroup ? cols - c0 : kGroup;  // <= 0: no columns
+  const long long per_slab = (rows + gridDim.y - 1) / gridDim.y;
+  const long long first = (long long)blockIdx.y * per_slab;
+  const long long last = first + per_slab < rows ? first + per_slab : rows;
+  float sum[kGroup] = {};
+  if (width > 0) {
+    long long row = first + threadIdx.y;
+    for (; row + (long long)kRowThreads * (kUnroll - 1) < last; row += kRowThreads * kUnroll)
+      backward_rows<T, kVector, kGelu, kDz, kSum, kUnroll, true>(dout, z, dz, row, last, cols,
+                                                                 c0, width, sum);
+    if (row < last)
+      backward_rows<T, kVector, kGelu, kDz, kSum, kUnroll, false>(dout, z, dz, row, last, cols,
+                                                                  c0, width, sum);
+  }
+  if constexpr (kSum) {
+    __shared__ float lane_sums[kRowThreads][kColThreads * kGroup];
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e) lane_sums[threadIdx.y][threadIdx.x * kGroup + e] = sum[e];
+    __syncthreads();
+    // the block's kColThreads * kGroup columns, one thread a column
+    const int tid = threadIdx.y * kColThreads + threadIdx.x;
+    const int col0 = blockIdx.x * kColThreads * kGroup;
+    const int ncols = cols - col0 < kColThreads * kGroup ? cols - col0 : kColThreads * kGroup;
+    const column_sums::Layout ws = column_sums::layout(workspace, gridDim.y, cols);
+    if (tid < ncols) {
+      float total = lane_sums[0][tid];
+#pragma unroll
+      for (int j = 1; j < kRowThreads; ++j) total = __fadd_rn(total, lane_sums[j][tid]);
+      ws.partials[(long long)blockIdx.y * cols + col0 + tid] = total;
+    }
+    column_sums::finish(ws.partials + col0, ws.group_sums + col0, cols, gridDim.y, ncols,
+                        blockIdx.y,
+                        ws.tickets + blockIdx.x * (column_sums::groups(gridDim.y) + 1),
+                        dbias + col0);
+  }
+}
+
+static_assert(kColThreads * kRowThreads == column_sums::kThreads && kGroup == kRowThreads,
+              "a block's threads: column_sums' block, and one a column of its columns");
 
 int grid_for(long long work) {
   int device = 0, sms = 132;
@@ -267,19 +311,34 @@ int grid_for(long long work) {
   return (int)(blocks < most ? blocks : most);
 }
 
-// The backward's slabs of rows on `device`: enough blocks to fill the card,
-// at least kRowThreads rows a slab. The row count, the width and the card
-// alone fix them, and with them the order of the bias gradient's sum.
-int bwd_slabs(long long rows, int cols, int device) {
+// The SM count of `device`, read once a device
+int sm_count(int device) {
+  static int counts[kMaxDevices] = {};
+  if (device >= 0 && device < kMaxDevices && counts[device] > 0) return counts[device];
   int sms = 132;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long groups = cols % kGroup == 0 ? cols / kGroup : cols;
-  const long long across = (groups + kColThreads - 1) / kColThreads;
-  const long long most = (long long)sms * kBwdBlocksPerSm / across;
-  long long slabs = (rows + kRowThreads - 1) / kRowThreads;
-  if (slabs > most) slabs = most;
-  if (slabs > kMaxSlabs) slabs = kMaxSlabs;
-  return slabs > 1 ? (int)slabs : 1;
+  if (device >= 0 && device < kMaxDevices) counts[device] = sms;
+  return sms;
+}
+
+// The backward's blocks across the columns: 32 groups of 8 columns a block
+int bwd_across(int cols) {
+  return ((cols + kGroup - 1) / kGroup + kColThreads - 1) / kColThreads;
+}
+
+// The backward's slabs of rows on `device`: kBwdBlocksPerSm blocks an SM over
+// the column blocks (a persistent grid), fewer where that would leave a slab
+// under its least rows: kMinSlabRows for the sum alone (few rows: each
+// thread still has rows enough to keep its loads in flight, and the
+// partials stay few), a row a row lane with GELU (its arithmetic wants every
+// thread it can get). The row count, the width, the form and the card alone
+// fix them, and with them the order of the bias gradient's sum.
+int bwd_slabs(long long rows, int cols, int gelu, int device) {
+  long long most = (long long)sm_count(device) * kBwdBlocksPerSm / bwd_across(cols);
+  if (most < 1) most = 1;
+  const int least = gelu ? kRowThreads : kMinSlabRows;
+  const long long slabs = (rows + least - 1) / least;
+  return slabs < 1 ? 1 : (int)(slabs < most ? slabs : most);
 }
 
 template <typename Out, bool kGelu, bool kSaveZ>
@@ -312,28 +371,36 @@ cudaError_t launch_gelu(const void* y, const void* bias, void* out, void* z, lon
                        : launch<Out, true, false>(yf, bf, o, nullptr, rows, cols, stream);
 }
 
-// The second stage of the bias gradient (column_sums.cuh)
-__global__ void __launch_bounds__(column_sums::kThreads)
-dense_epilogue_bwd_sums_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                               int slabs, int cols) {
-  column_sums::sum_slabs(partials, out, slabs, cols);
+template <typename T, bool kVector, bool kGelu, bool kDz, bool kSum>
+cudaError_t launch_bwd_kernel(const T* dout, const T* z, T* dz, void* workspace, float* dbias,
+                              long long rows, int cols, int slabs, cudaStream_t stream) {
+  const dim3 grid(bwd_across(cols), slabs);
+  const dim3 block(kColThreads, kRowThreads);
+  dense_epilogue_bwd_kernel<T, kVector, kGelu, kDz, kSum><<<grid, block, 0, stream>>>(
+      dout, z, dz, workspace, dbias, rows, cols);
+  return cudaGetLastError();
 }
 
-template <typename T, int kG, bool kGelu>
-void launch_bwd_body(const T* dout, const T* z, T* dz, float* partials, long long rows,
-                     int cols, int slabs, cudaStream_t stream) {
-  const dim3 grid((cols / kG + kColThreads - 1) / kColThreads, slabs);
-  const dim3 block(kColThreads, kRowThreads);
-  if (partials != nullptr)
-    dense_epilogue_bwd_kernel<T, kG, kGelu, true><<<grid, block, 0, stream>>>(
-        dout, z, dz, partials, rows, cols);
-  else
-    dense_epilogue_bwd_kernel<T, kG, kGelu, false><<<grid, block, 0, stream>>>(
-        dout, z, dz, partials, rows, cols);
+// The forms the backward takes: with GELU, dz and the sum, dz alone, or the
+// sum alone (dz not wanted); without, the sum alone
+template <typename T, bool kVector>
+cudaError_t launch_bwd_form(const T* dout, const T* z, T* dz, void* workspace, float* dbias,
+                            long long rows, int cols, int slabs, int gelu, cudaStream_t stream) {
+  if (!gelu)
+    return launch_bwd_kernel<T, kVector, false, false, true>(dout, z, dz, workspace, dbias, rows,
+                                                             cols, slabs, stream);
+  if (dz == nullptr)
+    return launch_bwd_kernel<T, kVector, true, false, true>(dout, z, dz, workspace, dbias, rows,
+                                                            cols, slabs, stream);
+  if (dbias == nullptr)
+    return launch_bwd_kernel<T, kVector, true, true, false>(dout, z, dz, workspace, dbias, rows,
+                                                            cols, slabs, stream);
+  return launch_bwd_kernel<T, kVector, true, true, true>(dout, z, dz, workspace, dbias, rows,
+                                                         cols, slabs, stream);
 }
 
 template <typename T>
-cudaError_t launch_bwd(const void* doutp, const void* zp, void* dzp, float* partials,
+cudaError_t launch_bwd(const void* doutp, const void* zp, void* dzp, void* workspace,
                        float* dbias, long long rows, int cols, int slabs, int gelu,
                        cudaStream_t stream) {
   const T* dout = static_cast<const T*>(doutp);
@@ -341,18 +408,11 @@ cudaError_t launch_bwd(const void* doutp, const void* zp, void* dzp, float* part
   T* dz = static_cast<T*>(dzp);
   const bool aligned = ((reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(z) |
                          reinterpret_cast<uintptr_t>(dz)) % 16) == 0;
-  if (aligned && cols % kGroup == 0) {
-    if (gelu) launch_bwd_body<T, kGroup, true>(dout, z, dz, partials, rows, cols, slabs, stream);
-    else launch_bwd_body<T, kGroup, false>(dout, z, dz, partials, rows, cols, slabs, stream);
-  } else {
-    if (gelu) launch_bwd_body<T, 1, true>(dout, z, dz, partials, rows, cols, slabs, stream);
-    else launch_bwd_body<T, 1, false>(dout, z, dz, partials, rows, cols, slabs, stream);
-  }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || dbias == nullptr) return err;
-  dense_epilogue_bwd_sums_kernel<<<column_sums::grid(cols), column_sums::block(), 0,
-                                   stream>>>(partials, dbias, slabs, cols);
-  return cudaGetLastError();
+  return aligned && cols % kGroup == 0
+             ? launch_bwd_form<T, true>(dout, z, dz, workspace, dbias, rows, cols, slabs, gelu,
+                                        stream)
+             : launch_bwd_form<T, false>(dout, z, dz, workspace, dbias, rows, cols, slabs, gelu,
+                                         stream);
 }
 
 }  // namespace
@@ -373,10 +433,16 @@ extern "C" int proqa_dense_epilogue(const void* y, const void* bias, void* out, 
                   : launch_gelu<float>(y, bias, out, z, rows, cols, gelu, s);
 }
 
-// The number of slabs the backward's bias gradient takes partials of, on
-// CUDA device `device`: its partials are [slabs, cols] f32.
-extern "C" int proqa_dense_epilogue_bwd_slabs(long long rows, int cols, int device) {
-  return bwd_slabs(rows, cols, device);
+// The bytes of scratch the backward's bias gradient takes for [rows, cols]
+// (with GELU when gelu) on CUDA device `device`: ticket counters and [slabs, cols] f32 partials
+// (column_sums.cuh). The scratch must be zero the first time; each launch
+// leaves it fit for the next on the same stream. cols in 1 .. 12,288.
+extern "C" long long proqa_dense_epilogue_bwd_workspace(long long rows, int cols, int gelu,
+                                                        int device) {
+  if (cols < 1 || cols > kMaxCols) return 0;
+  if (rows < 1) return column_sums::kTicketBytes;  // nothing to add up
+  return column_sums::workspace_bytes(bwd_across(cols), bwd_slabs(rows, cols, gelu, device),
+                                     cols);
 }
 
 // The backward of the epilogue, on the current device. dout, z, dz: [rows,
@@ -384,13 +450,15 @@ extern "C" int proqa_dense_epilogue_bwd_slabs(long long rows, int cols, int devi
 // round(gelu'(z) * dout) (dz nullptr when no product needs it; z is the
 // forward's pre-activation); without, dz is dout itself and is not written
 // (dz and z nullptr). dbias: [cols] f32, the column sum of f32(dz) (f32(dout)
-// without gelu), nullptr for none; partials: f32 scratch for it, of the size
-// proqa_dense_epilogue_bwd_slabs gives. Returns a cudaError_t code.
+// without gelu), nullptr for none; workspace: the scratch for it (nullptr
+// with dbias), of at least the bytes proqa_dense_epilogue_bwd_workspace
+// gives. Returns a cudaError_t code.
 extern "C" int proqa_dense_epilogue_bwd(const void* dout, const void* z, void* dz,
-                                        void* partials, void* dbias, long long rows, int cols,
+                                        void* workspace, void* dbias, long long rows, int cols,
                                         int is_bf16, int gelu, void* stream) {
-  if (rows < 0 || cols < 1 || (gelu && z == nullptr) ||
-      (!gelu && (z != nullptr || dz != nullptr)) || ((dbias == nullptr) != (partials == nullptr)))
+  if (rows < 0 || cols < 1 || cols > kMaxCols || (gelu && z == nullptr) ||
+      (!gelu && (z != nullptr || dz != nullptr)) ||
+      ((dbias == nullptr) != (workspace == nullptr)))
     return cudaErrorInvalidValue;
   if (rows == 0 && dbias != nullptr) return cudaMemsetAsync(dbias, 0, cols * sizeof(float),
                                                             static_cast<cudaStream_t>(stream));
@@ -398,10 +466,11 @@ extern "C" int proqa_dense_epilogue_bwd(const void* dout, const void* z, void* d
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const int slabs = bwd_slabs(rows, cols, device);
+  const int slabs = bwd_slabs(rows, cols, gelu, device);
+  if (dbias != nullptr && column_sums::workspace_bytes(bwd_across(cols), slabs, cols) == 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* p = static_cast<float*>(partials);
   float* db = static_cast<float*>(dbias);
-  return is_bf16 ? launch_bwd<bf16>(dout, z, dz, p, db, rows, cols, slabs, gelu, s)
-                 : launch_bwd<float>(dout, z, dz, p, db, rows, cols, slabs, gelu, s);
+  return is_bf16 ? launch_bwd<bf16>(dout, z, dz, workspace, db, rows, cols, slabs, gelu, s)
+                 : launch_bwd<float>(dout, z, dz, workspace, db, rows, cols, slabs, gelu, s);
 }

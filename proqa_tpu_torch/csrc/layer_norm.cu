@@ -35,20 +35,41 @@
 // x^ = (s - mean) * rstd and g = f32(dy) * scale it writes
 // dx = round(rstd * (g - mean(g) - x^ * mean(g * x^))), the one gradient of
 // both x and the residual (the add's backward), and the column sums
-// dscale = sum of dy * x^ and dbias = sum of dy over the rows. Bound by bytes:
-// dy, x and r read and dx written, 8 B an element in bf16 (6 B without a
-// residual): 0.075 ms for [40,960, 768] at 3.35 TB/s. The design is the
-// forward's: a warp a row with the row in registers, the two means by two
-// warp reductions, one rounding of dx. The column sums are deterministic: a
-// warp keeps its lanes' columns' sums in registers over the rows it takes,
-// the block adds its warps' sums in warp order through shared memory into
-// one f32 partial per block, and a second kernel (column_sums.cuh) adds the
-// blocks in order. No atomics: two launches give the same bits.
+// dscale = sum of dy * x^ and dbias = sum of dy over the rows.
+//
+// What bounds the backward on the H100: bytes. dy, x and r read and dx
+// written, 8 B an element in bf16 (6 B without a residual): 0.075 ms for
+// [40,960, 768] at 3.35 TB/s; ~20 operations an element are far below the
+// f32 rate. A warp a row with each lane carrying its columns' sums across
+// its rows needs 48 sums a lane at width 768 and spills; a second launch for
+// the sums costs a launch. What the design does about it:
+//   - each reduction has its own owner. A block stages a tile of R rows of
+//     dy, x and the residual (R = tile_rows: 8 at [*, 768] bf16) in shared
+//     memory; warps take the tile's rows (the two row means by warp
+//     reductions, one rounding of dx, 16-byte stores), then each thread adds
+//     the tile's dy x^ and dy down its own h / 256 columns (3 at 768) in row
+//     order. A thread carries 2 x 4 column sums, not 48;
+//   - a ring of two stages: thread 0 copies each tile's three row blocks by
+//     1D bulk copies (cp.async.bulk, completing on the stage's mbarrier, as
+//     gather_rescore.cu's ring does), so the next tile arrives while this one
+//     is reduced;
+//   - the warps also leave each element's dy x^ in shared memory, so the
+//     column pass reads two values an element and adds, nothing more;
+//   - a persistent grid of two blocks an SM over fixed slabs of tiles;
+//   - the column sums end in the same launch: each block writes its slab's
+//     f32 partial row and takes a ticket; the last block of each group of 16
+//     adds its group's rows in order, and the last group's the group sums
+//     (column_sums.cuh). No block waits on another.
+// The slabs and the order of every sum follow from the row count, the width,
+// the dtype and the SM count alone, so two launches give the same bits. Odd
+// widths and unaligned pointers stage the same tiles by plain loads: the
+// same slabs and the same order of sums.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "block_maxima_common.cuh"  // mbarriers and the 1D bulk copy
 #include "column_sums.cuh"
 
 namespace {
@@ -59,7 +80,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;  // rows a block holds at a time
 constexpr int kBlocksPerSm = 8;        // 2,048 threads: a full SM
 constexpr int kMaxWidth = 1024;        // 32 floats a lane
-constexpr int kBwdBlocksPerSm = 2;     // the backward's registers allow two blocks an SM
 
 __device__ inline float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ inline float to_f32(float x) { return x; }
@@ -276,23 +296,94 @@ cudaError_t launch(const void* xp, const void* rp, const float* scale, const flo
 
 // --- the backward ---
 
-// One element of a row's backward, as it is loaded: x^ = (s - mean) * rstd
-// into *xh, the column sums' terms dy x^ and dy, and g = dy * scale, which it
-// returns and adds to the row sums of g and g x^.
-template <bool kParams>
-__device__ inline float element_backward(float s, float dy, float scale, float mean, float rstd,
-                                         float* xh, float& ds, float& db, float& sum_g,
-                                         float& sum_gx) {
-  const float x = normalized(s, mean, rstd);
-  if constexpr (kParams) {
-    ds = __fadd_rn(ds, __fmul_rn(dy, x));
-    db = __fadd_rn(db, dy);
+constexpr int kBwdBlocksPerSm = 2;  // the backward's ring and products allow two blocks an SM
+constexpr int kStages = 2;          // tiles in a block's ring
+constexpr int kStageBytes = 40 * 1024;  // a tile's rows of dy, x and the residual
+// the ring (each row block rounded up to 16 bytes), then the tile's f32
+// products dy x^ (at most 4 / (3 * 2) of a stage, in bf16)
+constexpr int kRingBytes = kStages * (kStageBytes + 48);
+constexpr int kSharedBytes = kRingBytes + kStageBytes * 2 / 3 + 16;
+constexpr int kMaxTileRows = 16;
+constexpr int kMinTilesPerBlock = 2;  // where the rows allow: the ring has a tile in flight
+constexpr int kColsPerThread = kMaxWidth / kThreads;  // column sums a thread owns
+constexpr int kMaxDevices = 64;
+static_assert(kThreads == column_sums::kThreads, "column_sums' block");
+
+// The rows of the backward's tiles: as many as three rows (dy, x and the
+// residual) of h elements of `elem` bytes fit in a stage, at most
+// kMaxTileRows, a multiple of kWarps where that is at least kWarps.
+int tile_rows(int h, int elem) {
+  int rows = kStageBytes / (3 * h * elem);
+  if (rows > kMaxTileRows) rows = kMaxTileRows;
+  if (rows >= kWarps) rows -= rows % kWarps;
+  return rows;
+}
+
+// The bytes one tensor's rows of a tile take in a stage, rounded up to 16
+// (the bulk copy's alignment)
+__host__ __device__ inline int row_block_bytes(int rows, int h, int elem) {
+  return (rows * h * elem + 15) / 16 * 16;
+}
+
+__device__ inline uint32_t shared_address(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// kVec elements from shared memory as f32: one 16-byte load (kVec > 1), or
+// one element
+template <typename Elem, int kVec>
+__device__ inline void load_vec(const Elem* p, float (&v)[kVec]) {
+  if constexpr (kVec == 1) {
+    v[0] = to_f32(*p);
+  } else {
+    alignas(16) Elem a[kVec];
+    *reinterpret_cast<uint4*>(a) = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) v[e] = to_f32(a[e]);
   }
-  const float g = __fmul_rn(dy, scale);
-  sum_g = __fadd_rn(sum_g, g);
-  sum_gx = __fadd_rn(sum_gx, __fmul_rn(g, x));
-  *xh = x;
-  return g;
+}
+
+// kVec f32 parameters, as float4 loads (kVec > 1) or one
+template <int kVec>
+__device__ inline void load_params(const float* p, float (&v)[kVec]) {
+  if constexpr (kVec == 1) {
+    v[0] = __ldg(p);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kVec / 4; ++q)
+      reinterpret_cast<float4*>(v)[q] = __ldg(reinterpret_cast<const float4*>(p) + q);
+  }
+}
+
+// kVec f32 values into shared memory: 16-byte stores, or one
+template <int kVec>
+__device__ inline void store_f32(float* p, const float (&v)[kVec]) {
+  if constexpr (kVec == 1) {
+    *p = v[0];
+  } else {
+#pragma unroll
+    for (int q = 0; q < kVec / 4; ++q)
+      reinterpret_cast<float4*>(p)[q] = reinterpret_cast<const float4*>(v)[q];
+  }
+}
+
+// kVec values rounded to Elem into global memory: one 16-byte store, or one
+template <typename Elem, int kVec>
+__device__ inline void store_vec(Elem* p, const float (&v)[kVec]) {
+  if constexpr (kVec == 1) {
+    *p = from_f32<Elem>(v[0]);
+  } else {
+    alignas(16) Elem a[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) a[e] = from_f32<Elem>(v[e]);
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(a);
+  }
+}
+
+// round(a + b) to Elem, as f32
+template <typename Elem>
+__device__ inline float rounded_add(float a, float b) {
+  return to_f32(from_f32<Elem>(__fadd_rn(a, b)));
 }
 
 // rstd * (g - mean(g) - x^ * mean(g x^))
@@ -300,188 +391,257 @@ __device__ inline float input_grad(float g, float xh, float rstd, float mean_g, 
   return __fmul_rn(rstd, __fsub_rn(__fsub_rn(g, mean_g), __fmul_rn(xh, mean_gx)));
 }
 
-// The block's column sums: slot k of lane l holds column
-// (l + 32 (k / kVec)) kVec + k % kVec when l + 32 (k / kVec) < nvec. The
-// warps add theirs in warp order through shared [2, h] (every warp holds
-// every column), which goes to partials[block, 2, h].
-template <int kPer, int kVec>
-__device__ inline void block_column_sums(const float (&ds)[kPer], const float (&db)[kPer],
-                                         float* shared, float* __restrict__ partials, int h,
-                                         int nvec) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  for (int w = 0; w < kWarps; ++w) {
-    if (warp == w) {
+// A tile's n rows (the first is row0), from the tile in shared memory (sr
+// null without a residual): warp w takes the tile's rows w, w + kWarps, ...;
+// lane l holds the row's vectors l, l + 32, ... of kVec elements, kVecs of
+// them at most. It writes dx (when dx is not null) and, when prod is not
+// null, the products dy x^ into prod [n, h] for the column sums.
+template <typename Elem, int kVec, int kVecs>
+__device__ inline void tile_rows_backward(const Elem* sdy, const Elem* sx, const Elem* sr,
+                                          const float* __restrict__ mean,
+                                          const float* __restrict__ rstd,
+                                          const float* __restrict__ scale, Elem* __restrict__ dx,
+                                          float* prod, long long row0, int n, int h,
+                                          float inv_h) {
+  constexpr int kPer = kVec * kVecs;
+  const int lane = threadIdx.x & 31;
+  const int nvec = h / kVec;
+  for (int j = threadIdx.x / 32; j < n; j += kWarps) {
+    const long long row = row0 + j;
+    const float m = __ldg(mean + row), rs = __ldg(rstd + row);
+    const Elem* dyj = sdy + j * h;
+    const Elem* xj = sx + j * h;
+    float xh[kPer], g[kPer], sum_g = 0.0f, sum_gx = 0.0f;
 #pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const int i = lane + 32 * (k / kVec);
-        if (i < nvec) {
-          const int c = i * kVec + k % kVec;
-          shared[c] = w == 0 ? ds[k] : __fadd_rn(shared[c], ds[k]);
-          shared[h + c] = w == 0 ? db[k] : __fadd_rn(shared[h + c], db[k]);
+    for (int v = 0; v < kVecs; ++v) {
+      const int i = lane + 32 * v;
+      if (i < nvec) {
+        float d[kVec], s[kVec];
+        alignas(16) float sc[kVec];
+        load_vec<Elem, kVec>(dyj + i * kVec, d);
+        load_vec<Elem, kVec>(xj + i * kVec, s);
+        if (sr != nullptr) {
+          float b[kVec];
+          load_vec<Elem, kVec>(sr + j * h + i * kVec, b);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) s[e] = rounded_add<Elem>(s[e], b[e]);
         }
+        load_params<kVec>(scale + i * kVec, sc);
+        alignas(16) float dxh[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int k = v * kVec + e;
+          xh[k] = normalized(s[e], m, rs);
+          g[k] = __fmul_rn(d[e], sc[e]);
+          sum_g = __fadd_rn(sum_g, g[k]);
+          sum_gx = __fadd_rn(sum_gx, __fmul_rn(g[k], xh[k]));
+          dxh[e] = __fmul_rn(d[e], xh[k]);
+        }
+        if (prod != nullptr) store_f32<kVec>(prod + j * h + i * kVec, dxh);
       }
+    }
+    if (dx == nullptr) continue;
+    const float mean_g = __fmul_rn(warp_sum(sum_g), inv_h);
+    const float mean_gx = __fmul_rn(warp_sum(sum_gx), inv_h);
+#pragma unroll
+    for (int v = 0; v < kVecs; ++v) {
+      const int i = lane + 32 * v;
+      if (i < nvec) {
+        float o[kVec];
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const int k = v * kVec + e;
+          o[e] = input_grad(g[k], xh[k], rs, mean_g, mean_gx);
+        }
+        store_vec<Elem, kVec>(dx + row * h + i * kVec, o);
+      }
+    }
+  }
+}
+
+// A tile's terms of the scale and bias gradients, added in row order to the
+// thread's columns threadIdx.x + kThreads * k: ds += dy x^ (the products the
+// rows' warps left in prod), db += dy.
+template <typename Elem>
+__device__ inline void tile_column_sums(const Elem* sdy, const float* prod, int n, int h,
+                                        float (&ds)[kColsPerThread],
+                                        float (&db)[kColsPerThread]) {
+  for (int j = 0; j < n; ++j) {
+#pragma unroll
+    for (int k = 0; k < kColsPerThread; ++k) {
+      const int c = threadIdx.x + kThreads * k;
+      if (c < h) {
+        ds[k] = __fadd_rn(ds[k], prod[j * h + c]);
+        db[k] = __fadd_rn(db[k], to_f32(sdy[j * h + c]));
+      }
+    }
+  }
+}
+
+// The backward. Block b takes the tiles [tiles * b / grid, tiles * (b + 1) /
+// grid) of tile_rows(h) rows each, in order, through a ring of kStages
+// stages in shared memory: kVec > 1 (h a multiple of the 16-byte vector,
+// every pointer 16-byte aligned) copies a tile's rows of dy, x and the
+// residual by one bulk copy each, thread 0 issuing the copies kStages tiles
+// ahead; kVec = 1 stages the tile by plain loads into one stage. The rows'
+// warps write dx (null when no input wants it) and, with kParams, the
+// products dy x^ into shared memory; then each thread adds its columns'
+// terms over the block's rows, the block writes them to its row of the
+// partials [blocks, 2, h] in `workspace`, and the last blocks add the
+// partials in block order into dparams [2, h] (column_sums.cuh).
+template <typename Elem, int kVec, int kVecs, bool kParams>
+__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
+add_layer_norm_bwd_kernel(const Elem* __restrict__ dy, const Elem* __restrict__ x,
+                          const Elem* __restrict__ r, const float* __restrict__ mean,
+                          const float* __restrict__ rstd, const float* __restrict__ scale,
+                          Elem* __restrict__ dx, void* workspace, float* dparams, long long rows,
+                          int h, float inv_h, int tile) {
+  constexpr bool kBulk = kVec > 1;
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  const int block_bytes = row_block_bytes(tile, h, (int)sizeof(Elem));
+  const int stage_bytes = 3 * block_bytes;
+  float* prod =
+      kParams ? reinterpret_cast<float*>(ring + (kBulk ? kStages : 1) * stage_bytes) : nullptr;
+  const long long tiles = (rows + tile - 1) / tile;
+  const long long first = tiles * blockIdx.x / gridDim.x;
+  const long long last = tiles * (blockIdx.x + 1) / gridDim.x;
+  if constexpr (kBulk) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) bmax::mbar_init(shared_address(&full[s]), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
   }
-  float* out = partials + (long long)blockIdx.x * 2 * h;
-  for (int c = threadIdx.x; c < 2 * h; c += kThreads) out[c] = shared[c];
-}
+  // thread 0: tile t's rows of dy, x (and the residual) into stage `stage`
+  auto issue = [&](long long t, int stage) {
+    const long long row0 = t * tile;
+    const long long n = rows - row0 < tile ? rows - row0 : tile;
+    const uint32_t bytes = (uint32_t)(n * h * (long long)sizeof(Elem));
+    const uint32_t bar = shared_address(&full[stage]);
+    const uint32_t dst = shared_address(ring + stage * stage_bytes);
+    bmax::mbar_expect_tx(bar, bytes * (r != nullptr ? 3 : 2));
+    bmax::bulk_load(dst, dy + row0 * h, bytes, bar);
+    bmax::bulk_load(dst + block_bytes, x + row0 * h, bytes, bar);
+    if (r != nullptr) bmax::bulk_load(dst + 2 * block_bytes, r + row0 * h, bytes, bar);
+  };
+  if (kBulk && threadIdx.x == 0)
+    for (int s = 0; s < kStages && first + s < last; ++s) issue(first + s, s);
 
-// h % (16 / sizeof(Elem)) == 0, every pointer 16-byte aligned: lane l holds
-// the row's vectors l, l + 32, ... as the forward does. dx may be null (no
-// input wants it); with kParams the block writes partials[block, 2, h].
-template <typename Elem, int kVecs, bool kParams>
-__global__ void __launch_bounds__(kThreads, kBwdBlocksPerSm)
-add_layer_norm_bwd_vec_kernel(const Elem* __restrict__ dy, const Elem* __restrict__ x,
-                              const Elem* __restrict__ r, const float* __restrict__ mean,
-                              const float* __restrict__ rstd, const float* __restrict__ scale,
-                              Elem* __restrict__ dx, float* __restrict__ partials, long long rows,
-                              int h, float inv_h) {
-  constexpr int kVec = 16 / sizeof(Elem);
-  constexpr int kPer = kVecs * kVec;
-  extern __shared__ float shared[];
-  const int lane = threadIdx.x & 31;
-  const int nvec = h / kVec;
-  float ds[kPer] = {}, db[kPer] = {};
-  const long long warps = (long long)gridDim.x * kWarps;
-  for (long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32; row < rows;
-       row += warps) {
-    const uint4* dyr = reinterpret_cast<const uint4*>(dy + row * h);
-    const uint4* xr = reinterpret_cast<const uint4*>(x + row * h);
-    const uint4* rr = r == nullptr ? nullptr : reinterpret_cast<const uint4*>(r + row * h);
-    uint4 dv[kVecs] = {}, xv[kVecs] = {}, rv[kVecs] = {};
-#pragma unroll
-    for (int j = 0; j < kVecs; ++j) {
-      const int i = lane + 32 * j;
-      if (i < nvec) {
-        dv[j] = __ldcs(dyr + i);
-        xv[j] = __ldcs(xr + i);
-        if (rr != nullptr) rv[j] = __ldcs(rr + i);
+  float ds[kColsPerThread] = {}, db[kColsPerThread] = {};
+  for (long long t = first; t < last; ++t) {
+    const int i = (int)(t - first);
+    const int stage = kBulk ? i % kStages : 0;
+    const long long row0 = t * tile;
+    const int n = (int)(rows - row0 < tile ? rows - row0 : tile);
+    unsigned char* st = ring + stage * stage_bytes;
+    const Elem* sdy = reinterpret_cast<const Elem*>(st);
+    const Elem* sx = reinterpret_cast<const Elem*>(st + block_bytes);
+    const Elem* sr = r == nullptr ? nullptr : reinterpret_cast<const Elem*>(st + 2 * block_bytes);
+    if constexpr (kBulk) {
+      bmax::mbar_wait(shared_address(&full[stage]), (i / kStages) & 1);
+    } else {
+      Elem* w = reinterpret_cast<Elem*>(st);
+      const int stride = block_bytes / (int)sizeof(Elem);
+      const long long at = row0 * h;
+      for (int e = threadIdx.x; e < n * h; e += kThreads) {
+        w[e] = dy[at + e];
+        w[stride + e] = x[at + e];
+        if (r != nullptr) w[2 * stride + e] = r[at + e];
       }
+      __syncthreads();
     }
-    const float m = mean[row], rs = rstd[row];
-    float xh[kPer], g[kPer], sum_g = 0.0f, sum_gx = 0.0f;
-#pragma unroll
-    for (int j = 0; j < kVecs; ++j) {
-      const int i = lane + 32 * j;
-      if (i < nvec) {
-        alignas(16) Elem a[kVec], b[kVec], d[kVec];
-        alignas(16) float sc[kVec];
-        *reinterpret_cast<uint4*>(a) = xv[j];
-        *reinterpret_cast<uint4*>(b) = rv[j];
-        *reinterpret_cast<uint4*>(d) = dv[j];
-        const float4* scv = reinterpret_cast<const float4*>(scale + i * kVec);
-#pragma unroll
-        for (int q = 0; q < kVec / 4; ++q) reinterpret_cast<float4*>(sc)[q] = __ldg(scv + q);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          const int k = j * kVec + e;
-          const float s = rr == nullptr
-                              ? to_f32(a[e])
-                              : to_f32(from_f32<Elem>(__fadd_rn(to_f32(a[e]), to_f32(b[e]))));
-          g[k] = element_backward<kParams>(s, to_f32(d[e]), sc[e], m, rs, &xh[k], ds[k], db[k],
-                                           sum_g, sum_gx);
-        }
-      }
+    tile_rows_backward<Elem, kVec, kVecs>(sdy, sx, sr, mean, rstd, scale, dx, prod, row0, n, h,
+                                          inv_h);
+    if constexpr (kParams) {
+      __syncthreads();  // the products of every row
+      tile_column_sums<Elem>(sdy, prod, n, h, ds, db);
     }
-    const float mean_g = __fmul_rn(warp_sum(sum_g), inv_h);
-    const float mean_gx = __fmul_rn(warp_sum(sum_gx), inv_h);
-    if (dx != nullptr) {
-      uint4* dxr = reinterpret_cast<uint4*>(dx + row * h);
-#pragma unroll
-      for (int j = 0; j < kVecs; ++j) {
-        const int i = lane + 32 * j;
-        if (i < nvec) {
-          alignas(16) Elem o[kVec];
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) {
-            const int k = j * kVec + e;
-            o[e] = from_f32<Elem>(input_grad(g[k], xh[k], rs, mean_g, mean_gx));
-          }
-          dxr[i] = *reinterpret_cast<const uint4*>(o);
-        }
-      }
+    __syncthreads();  // the stage and the products are read: free for the next tiles
+    if (kBulk && threadIdx.x == 0 && t + kStages < last) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      issue(t + kStages, stage);
     }
   }
-  if constexpr (kParams) block_column_sums<kPer, kVec>(ds, db, shared, partials, h, nvec);
-}
-
-// Any width up to kMaxWidth, any alignment: lane l holds the row's elements
-// l, l + 32, ... (32 at most).
-template <typename Elem, bool kParams>
-__global__ void __launch_bounds__(kThreads)
-add_layer_norm_bwd_scalar_kernel(const Elem* __restrict__ dy, const Elem* __restrict__ x,
-                                 const Elem* __restrict__ r, const float* __restrict__ mean,
-                                 const float* __restrict__ rstd,
-                                 const float* __restrict__ scale, Elem* __restrict__ dx,
-                                 float* __restrict__ partials, long long rows, int h,
-                                 float inv_h) {
-  constexpr int kPer = kMaxWidth / 32;
-  extern __shared__ float shared[];
-  const int lane = threadIdx.x & 31;
-  float ds[kPer] = {}, db[kPer] = {};
-  const long long warps = (long long)gridDim.x * kWarps;
-  for (long long row = (long long)blockIdx.x * kWarps + threadIdx.x / 32; row < rows;
-       row += warps) {
-    const long long base = row * h;
-    const float m = mean[row], rs = rstd[row];
-    float xh[kPer], g[kPer], sum_g = 0.0f, sum_gx = 0.0f;
+  if constexpr (kParams) {
+    const column_sums::Layout ws = column_sums::layout(workspace, gridDim.x, 2 * h);
+    float* mine = ws.partials + (long long)blockIdx.x * 2 * h;
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const int c = lane + 32 * k;
-      if (c < h)
-        g[k] = element_backward<kParams>(rounded_sum<Elem>(x[base + c], r, base + c),
-                                         to_f32(dy[base + c]), scale[c], m, rs, &xh[k], ds[k],
-                                         db[k], sum_g, sum_gx);
-    }
-    const float mean_g = __fmul_rn(warp_sum(sum_g), inv_h);
-    const float mean_gx = __fmul_rn(warp_sum(sum_gx), inv_h);
-    if (dx != nullptr) {
-#pragma unroll
-      for (int k = 0; k < kPer; ++k) {
-        const int c = lane + 32 * k;
-        if (c < h) dx[base + c] = from_f32<Elem>(input_grad(g[k], xh[k], rs, mean_g, mean_gx));
+    for (int k = 0; k < kColsPerThread; ++k) {
+      const int c = threadIdx.x + kThreads * k;
+      if (c < h) {
+        mine[c] = ds[k];
+        mine[h + c] = db[k];
       }
     }
+    column_sums::finish(ws.partials, ws.group_sums, 2 * h, gridDim.x, 2 * h, blockIdx.x,
+                        ws.tickets, dparams);
   }
-  if constexpr (kParams) block_column_sums<kPer, 1>(ds, db, shared, partials, h, h);
 }
 
-// The second stage of the scale and bias gradients (column_sums.cuh)
-__global__ void __launch_bounds__(column_sums::kThreads)
-add_layer_norm_bwd_sums_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                               int slabs, int cols) {
-  column_sums::sum_slabs(partials, out, slabs, cols);
-}
-
-// The backward's blocks on `device`: kBwdBlocksPerSm an SM, or fewer where
-// the rows do not fill them. The row count and the card alone fix them, and
-// with them the order of the scale and bias gradients' sums.
-int bwd_blocks(long long rows, int device) {
+// The SM count of `device`, read once a device
+int sm_count(int device) {
+  static int counts[kMaxDevices] = {};
+  if (device >= 0 && device < kMaxDevices && counts[device] > 0) return counts[device];
   int sms = 132;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long most = (long long)sms * kBwdBlocksPerSm;
-  const long long blocks = (rows + kWarps - 1) / kWarps;
+  if (device >= 0 && device < kMaxDevices) counts[device] = sms;
+  return sms;
+}
+
+// The backward's blocks on `device`: one a kMinTilesPerBlock tiles of
+// tile_rows(h, elem) rows, at most kBwdBlocksPerSm an SM (a persistent
+// grid). The row count, the width, the dtype and the card alone fix them,
+// and with them the order of the scale and bias gradients' sums.
+int bwd_blocks(long long rows, int h, int elem, int device) {
+  const int tile = tile_rows(h, elem);
+  const long long rows_a_block = (long long)tile * kMinTilesPerBlock;
+  const long long blocks = (rows + rows_a_block - 1) / rows_a_block;
+  const long long most = (long long)sm_count(device) * kBwdBlocksPerSm;
   return blocks < 1 ? 1 : (int)(blocks < most ? blocks : most);
 }
 
-template <typename Elem, int kVecs>
-void launch_bwd_vec(const Elem* dy, const Elem* x, const Elem* r, const float* mean,
-                    const float* rstd, const float* scale, Elem* dx, float* partials,
-                    long long rows, int h, int blocks, cudaStream_t stream) {
-  const size_t smem = partials != nullptr ? 2 * h * sizeof(float) : 0;
-  if (partials != nullptr)
-    add_layer_norm_bwd_vec_kernel<Elem, kVecs, true><<<blocks, kThreads, smem, stream>>>(
-        dy, x, r, mean, rstd, scale, dx, partials, rows, h, 1.0f / (float)h);
-  else
-    add_layer_norm_bwd_vec_kernel<Elem, kVecs, false><<<blocks, kThreads, smem, stream>>>(
-        dy, x, r, mean, rstd, scale, dx, partials, rows, h, 1.0f / (float)h);
+template <typename Elem, int kVec, int kVecs, bool kParams>
+cudaError_t launch_bwd_kernel(const Elem* dy, const Elem* x, const Elem* r, const float* mean,
+                              const float* rstd, const float* scale, Elem* dx, void* workspace,
+                              float* dparams, long long rows, int h, int blocks, int device,
+                              cudaStream_t stream) {
+  const auto kernel = add_layer_norm_bwd_kernel<Elem, kVec, kVecs, kParams>;
+  static bool allowed[kMaxDevices] = {};  // the ring's shared memory, once a device
+  if (device < 0 || device >= kMaxDevices || !allowed[device]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedBytes);
+    if (err != cudaSuccess) return err;
+    if (device >= 0 && device < kMaxDevices) allowed[device] = true;
+  }
+  const int tile = tile_rows(h, (int)sizeof(Elem));
+  const int block_bytes = row_block_bytes(tile, h, (int)sizeof(Elem));
+  const size_t smem = (size_t)(kVec > 1 ? kStages : 1) * 3 * block_bytes +
+                      (kParams ? row_block_bytes(tile, h, 4) : 0);
+  kernel<<<blocks, kThreads, smem, stream>>>(dy, x, r, mean, rstd, scale, dx, workspace, dparams,
+                                             rows, h, 1.0f / (float)h, tile);
+  return cudaGetLastError();
+}
+
+template <typename Elem, int kVec, int kVecs>
+cudaError_t launch_bwd_body(const Elem* dy, const Elem* x, const Elem* r, const float* mean,
+                            const float* rstd, const float* scale, Elem* dx, void* workspace,
+                            float* dparams, long long rows, int h, int blocks, int device,
+                            cudaStream_t stream) {
+  return dparams != nullptr
+             ? launch_bwd_kernel<Elem, kVec, kVecs, true>(dy, x, r, mean, rstd, scale, dx,
+                                                          workspace, dparams, rows, h, blocks,
+                                                          device, stream)
+             : launch_bwd_kernel<Elem, kVec, kVecs, false>(dy, x, r, mean, rstd, scale, dx,
+                                                           workspace, dparams, rows, h, blocks,
+                                                           device, stream);
 }
 
 template <typename Elem>
 cudaError_t launch_bwd(const void* dyp, const void* xp, const void* rp, const float* mean,
-                       const float* rstd, const float* scale, void* dxp, float* partials,
-                       float* dparams, long long rows, int h, int blocks, cudaStream_t stream) {
+                       const float* rstd, const float* scale, void* dxp, void* workspace,
+                       float* dparams, long long rows, int h, int blocks, int device,
+                       cudaStream_t stream) {
   constexpr int kVec = 16 / sizeof(Elem);
   const Elem* dy = static_cast<const Elem*>(dyp);
   const Elem* x = static_cast<const Elem*>(xp);
@@ -490,34 +650,28 @@ cudaError_t launch_bwd(const void* dyp, const void* xp, const void* rp, const fl
   const bool aligned = ((reinterpret_cast<uintptr_t>(dy) | reinterpret_cast<uintptr_t>(x) |
                          reinterpret_cast<uintptr_t>(r) | reinterpret_cast<uintptr_t>(dx) |
                          reinterpret_cast<uintptr_t>(scale)) % 16) == 0;
-  if (!aligned || h % kVec != 0) {
-    const size_t smem = partials != nullptr ? 2 * h * sizeof(float) : 0;
-    if (partials != nullptr)
-      add_layer_norm_bwd_scalar_kernel<Elem, true><<<blocks, kThreads, smem, stream>>>(
-          dy, x, r, mean, rstd, scale, dx, partials, rows, h, 1.0f / (float)h);
-    else
-      add_layer_norm_bwd_scalar_kernel<Elem, false><<<blocks, kThreads, smem, stream>>>(
-          dy, x, r, mean, rstd, scale, dx, partials, rows, h, 1.0f / (float)h);
-  } else {
-#define PROQA_LN_BWD(n) \
-  launch_bwd_vec<Elem, n>(dy, x, r, mean, rstd, scale, dx, partials, rows, h, blocks, stream)
-    switch ((h / kVec + 31) / 32) {
-      case 1: PROQA_LN_BWD(1); break;
-      case 2: PROQA_LN_BWD(2); break;
-      case 3: PROQA_LN_BWD(3); break;
-      case 4: PROQA_LN_BWD(4); break;
-      case 5: PROQA_LN_BWD(5); break;
-      case 6: PROQA_LN_BWD(6); break;
-      case 7: PROQA_LN_BWD(7); break;
-      default: PROQA_LN_BWD(8); break;
+#define PROQA_LN_BWD(vec, n)                                                                  \
+  return launch_bwd_body<Elem, vec, n>(dy, x, r, mean, rstd, scale, dx, workspace, dparams,  \
+                                       rows, h, blocks, device, stream)
+  if (!aligned || h % kVec != 0) PROQA_LN_BWD(1, kMaxWidth / 32);
+  // vectors a lane holds: 1-4 in bf16 (3 at 768); in f32 an even count up to 8
+  const int vecs = (h / kVec + 31) / 32;
+  if constexpr (kVec == 8) {
+    switch (vecs) {
+      case 1: PROQA_LN_BWD(8, 1);
+      case 2: PROQA_LN_BWD(8, 2);
+      case 3: PROQA_LN_BWD(8, 3);
+      default: PROQA_LN_BWD(8, 4);
     }
-#undef PROQA_LN_BWD
+  } else {
+    switch ((vecs + 1) / 2) {
+      case 1: PROQA_LN_BWD(kVec, 2);
+      case 2: PROQA_LN_BWD(kVec, 4);
+      case 3: PROQA_LN_BWD(kVec, 6);
+      default: PROQA_LN_BWD(kVec, 8);
+    }
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || partials == nullptr) return err;
-  add_layer_norm_bwd_sums_kernel<<<column_sums::grid(2 * h), column_sums::block(), 0,
-                                   stream>>>(partials, dparams, blocks, 2 * h);
-  return cudaGetLastError();
+#undef PROQA_LN_BWD
 }
 
 }  // namespace
@@ -542,25 +696,31 @@ extern "C" int proqa_add_layer_norm(const void* x, const void* residual, const v
                  : launch<float>(x, residual, sc, bi, out, m, rs, rows, h, eps, s);
 }
 
-// The number of blocks the backward's scale and bias gradients take partials
-// of, on CUDA device `device`: its partials are [blocks, 2, h] f32.
-extern "C" int proqa_add_layer_norm_bwd_blocks(long long rows, int device) {
-  return bwd_blocks(rows, device);
+// The bytes of scratch the backward's scale and bias gradients take for
+// [rows, h] inputs (bf16 when is_bf16, else f32) on CUDA device `device`:
+// ticket counters and [blocks, 2, h] f32 partials (column_sums.cuh). The
+// scratch must be zero the first time; each launch leaves it fit for the
+// next on the same stream.
+extern "C" long long proqa_add_layer_norm_bwd_workspace(long long rows, int h, int is_bf16,
+                                                        int device) {
+  if (h < 1 || h > kMaxWidth) return 0;
+  if (rows < 1) return column_sums::kTicketBytes;  // nothing to add up
+  return column_sums::workspace_bytes(1, bwd_blocks(rows, h, is_bf16 ? 2 : 4, device), 2 * h);
 }
 
 // The backward, on the current device. dy, x, residual (nullptr for none),
 // dx: [rows, h] contiguous, bf16 when is_bf16, else f32; mean, rstd: [rows]
 // f32 from the forward; scale: [h] f32. dx (nullptr when no input wants it)
 // receives the gradient of x and of the residual; dparams (nullptr for
-// none): [2, h] f32, the scale's gradient then the bias's; partials: f32
-// scratch for it (nullptr with dparams), of the size
-// proqa_add_layer_norm_bwd_blocks gives. h in 1 .. 1,024. Returns a
+// none): [2, h] f32, the scale's gradient then the bias's; workspace: the
+// scratch for it (nullptr with dparams), of at least the bytes
+// proqa_add_layer_norm_bwd_workspace gives. h in 1 .. 1,024. Returns a
 // cudaError_t code.
 extern "C" int proqa_add_layer_norm_bwd(const void* dy, const void* x, const void* residual,
                                         const void* mean, const void* rstd, const void* scale,
-                                        void* dx, void* partials, void* dparams, long long rows,
+                                        void* dx, void* workspace, void* dparams, long long rows,
                                         int h, int is_bf16, void* stream) {
-  if (rows < 0 || h < 1 || h > kMaxWidth || ((partials == nullptr) != (dparams == nullptr)))
+  if (rows < 0 || h < 1 || h > kMaxWidth || ((workspace == nullptr) != (dparams == nullptr)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0 && dparams != nullptr)
@@ -569,12 +729,15 @@ extern "C" int proqa_add_layer_norm_bwd(const void* dy, const void* x, const voi
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const int blocks = bwd_blocks(rows, device);
+  const int blocks = bwd_blocks(rows, h, is_bf16 ? 2 : 4, device);
   const float* m = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
   const float* sc = static_cast<const float*>(scale);
-  float* p = static_cast<float*>(partials);
+  if (dparams != nullptr && column_sums::workspace_bytes(1, blocks, 2 * h) == 0)
+    return cudaErrorInvalidValue;
   float* dp = static_cast<float*>(dparams);
-  return is_bf16 ? launch_bwd<bf16>(dy, x, residual, m, rs, sc, dx, p, dp, rows, h, blocks, s)
-                 : launch_bwd<float>(dy, x, residual, m, rs, sc, dx, p, dp, rows, h, blocks, s);
+  return is_bf16 ? launch_bwd<bf16>(dy, x, residual, m, rs, sc, dx, workspace, dp, rows, h,
+                                    blocks, device, s)
+                 : launch_bwd<float>(dy, x, residual, m, rs, sc, dx, workspace, dp, rows, h,
+                                     blocks, device, s);
 }

@@ -5,7 +5,9 @@ and the card.
 every context embedding moves each query's in-batch scores alike, so the
 softmax's loss does not change. What a train step gives there is rounding
 noise, and tests/test_torch_cuda.py::test_train_step_on_gpu_matches_cpu holds
-the card's noise to the CPU's within about 1e-9. This script takes that
+it, on each device and between the two, to ZERO_GRAD_ULPS units of f32
+rounding of the CPU's column sums of |dout| (proqa_tpu_torch/testing.py).
+This script takes that
 test's step (tiny f32 retriever, dropout 0, remat, K2/K3 on and off) on the
 CPU, on the card's kernel route and on the card's plain chain
 (fused_bert._eager_chain), records the gradient that reaches `proj_c`'s
@@ -16,7 +18,10 @@ on the card:
 - `exact_vs_cpu`: the same for dout's column sum taken exactly (in f64, one
   rounding to f32): the nearest any order of summing this dout can come;
 - `dout_vs_cpu`: the largest |dout - the CPU's dout|;
-- `exact_dout_sums_apart`: |exact column sum of dout - that of the CPU's|.
+- `exact_dout_sums_apart`: |exact column sum of dout - that of the CPU's|;
+- `ratio_cpu`, `ratio`, `ratio_vs_cpu`: the CPU's bias gradient, this
+  route's and their difference, in those units (the test's limit is
+  ZERO_GRAD_ULPS).
 
     python -m proqa_tpu_torch.head_bias_noise
 
@@ -31,6 +36,7 @@ import torch
 from proqa_tpu_torch.models.bert import BertConfig
 from proqa_tpu_torch.models.retriever import Retriever
 from proqa_tpu_torch.ops import fused_bert
+from proqa_tpu_torch.testing import zero_grad_ratio, zero_grad_unit
 from proqa_tpu_torch.train.retriever_trainer import in_batch_loss
 
 
@@ -64,6 +70,7 @@ def main() -> int:
                               flash_attention=flash, hidden_dropout=0.0, attention_dropout=0.0,
                               remat=True)
         dout_c, bias_c = _step(cfg, batch, "cpu", eager=False)
+        unit = zero_grad_unit(dout_c)
         for route, eager in (("kernels", False), ("eager_chain", True)):
             dout, bias = _step(cfg, batch, "cuda:0", eager)
             exact = dout.double().sum(0)
@@ -72,7 +79,10 @@ def main() -> int:
                 "exact_vs_cpu": (exact.float() - bias_c).abs().max().item(),
                 "dout_vs_cpu": (dout - dout_c).abs().max().item(),
                 "exact_dout_sums_apart": (exact - dout_c.double().sum(0)).abs().max().item(),
-                "cpu_bias_max": bias_c.abs().max().item()}
+                "cpu_bias_max": bias_c.abs().max().item(),
+                "ratio_cpu": zero_grad_ratio(bias_c, unit),
+                "ratio": zero_grad_ratio(bias, unit),
+                "ratio_vs_cpu": zero_grad_ratio(bias - bias_c, unit)}
     print(json.dumps(report))
     return 0
 

@@ -11,8 +11,10 @@ the card. Only functions both checkouts share are called.
 
 Device times are CUDA events around one call ("one call": the host path is
 included, as the card sits idle until the launch) and around 10
-back-to-back calls divided by 10 ("queued": the device time alone), medians
-of repeated rounds:
+back-to-back calls divided by 10 ("queued": the device time alone where the
+host keeps ahead), medians of repeated rounds; beside them the kernels'
+own time in a torch.profiler trace of one call ("kernel ms") and the host
+time of a call while the card keeps up ("host us", 20 calls a round):
   K1  block_maxima_grouped, bf16, 4,194,304 x 128 corpus, block 16, group
       128, at Q = 2,048 and Q = 32;
   K8  block_maxima (block-major), the same corpus, Q = 2,048, block 256,
@@ -35,12 +37,13 @@ of repeated rounds:
   F2  residual add + LayerNorm at [262,144, 768] bf16, with and without the
       residual, beside F.layer_norm on the same rows (checkouts without
       ops/fused_bert.py skip F1 and F2);
-  F1, F2 backward  at the retriever train step's 40,960 context rows, bf16:
-      F1's with GELU at [40,960, 3,072] beside aten::gelu_backward, F1's
-      bias column sum alone at [40,960, 768] beside torch.sum(dim=0), F2's
-      with a residual at [40,960, 768] beside
-      aten::native_layer_norm_backward (checkouts without the backward
-      kernels skip them).
+  F1, F2 backward  at the retriever train step's 40,960 context rows, the
+      QA train step's 10,240 reader rows, and the question rows of the
+      retriever step (2,560) and of the QA step (120), bf16: F1's with GELU at
+      [N, 3,072] beside aten::gelu_backward, F1's bias column sum alone at
+      [N, 768] beside torch.sum(dim=0), F2's with a residual at [N, 768]
+      beside aten::native_layer_norm_backward (checkouts without the
+      backward kernels skip them).
 Host pieces of K4 (time.perf_counter_ns, mean over 1,000 calls, median of
 5 rounds, on a [80, 768] bf16 tensor so that the card keeps up): each step
 the earlier dropout wrapper took (an autograd node always, the rate checked
@@ -82,8 +85,9 @@ def _events_ms(fn, calls: int, rounds: int) -> float:
     return statistics.median(times)
 
 
-def _kernel_names(fn) -> list[str]:
-    """The names of the GPU kernels one call of fn launches."""
+def _kernel_trace(fn) -> tuple[list[str], float]:
+    """The names of the GPU kernels one call of fn launches, and their
+    summed device time in ms (torch.profiler's kernel events)."""
     import tempfile
 
     import torch
@@ -99,7 +103,8 @@ def _kernel_names(fn) -> list[str]:
         prof.export_chrome_trace(path)
         with open(path) as f:
             events = json.load(f)["traceEvents"]
-    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return sorted({e["name"] for e in kernels}), sum(e.get("dur", 0.0) for e in kernels) / 1e3
 
 
 def _host_us(fn, calls: int = 1000, rounds: int = 5) -> float:
@@ -171,10 +176,17 @@ def host_pieces(x) -> dict:
 
 def backward_times(time_kernel, fused_bert, dev, g) -> None:
     """F1's and F2's backward kernels at the retriever train step's context
-    rows (80 x 512), bf16, beside one library call each."""
+    rows (80 x 512), the QA train step's reader rows (4 x 5 x 512), the
+    retriever step's question rows (80 x 32) and the QA step's (4 x 30),
+    bf16, beside one library call each."""
+    for n in (80 * 512, 4 * 5 * 512, 80 * 32, 4 * 30):
+        _backward_times(time_kernel, fused_bert, dev, g, n)
+
+
+def _backward_times(time_kernel, fused_bert, dev, g, n) -> None:
     import torch
 
-    n, h = 80 * 512, 768
+    h = 768
     for cols, gelu in ((4 * h, True), (h, False)):
         dout = torch.randn(n, cols, device=dev, generator=g).bfloat16()
         z = (torch.randn(n, cols, device=dev, generator=g) * 2.0).bfloat16() if gelu else None
@@ -230,7 +242,8 @@ def main(argv=None) -> int:
             return
         out[f"{name} one call ms"] = _events_ms(fn, 1, rounds)
         out[f"{name} queued ms"] = _events_ms(fn, 10, queued_rounds)
-        out["kernels"][name] = _kernel_names(fn)
+        out["kernels"][name], out[f"{name} kernel ms"] = _kernel_trace(fn)
+        out[f"{name} host us"] = _host_us(fn, calls=20)
 
     for q in (2048, 32):
         qs = queries[:q].contiguous()

@@ -24,8 +24,10 @@ is recorded, `dense_epilogue` and `add_layer_norm` run the forward kernels
 and save nothing; where one is, `dense` (the product, bias and GELU of a
 dense layer in one autograd Function) and `add_layer_norm_grad` run the same
 kernels, keep what their backward kernels read, and run those in backward.
-The column sums are deterministic (per-block partials, then one reduce in a
-fixed order), so a rematerialised forward and backward give the same bits.
+The column sums are deterministic (per-block partials, then sums in a fixed
+order, in the same launch; the scratch for them is one zeroed buffer a
+stream, `_workspace`), so a rematerialised forward and backward give the
+same bits.
 
 CUDA tensors run the kernels and raise where a kernel cannot take them;
 `dense_epilogue` and `add_layer_norm` raise where a gradient is asked for.
@@ -38,6 +40,7 @@ training route run the plain chain there, under autograd.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -166,6 +169,31 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+# (device index, stream) -> the backward kernels' scratch on that stream
+_WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_bytes(entry: str, *args) -> int:
+    """The C side's size query `entry` (_build.query), once for each shape
+    and device: the answer follows from them and the card alone."""
+    return _build.query(entry, *args)
+
+
+def _workspace(device: torch.device, nbytes: int) -> torch.Tensor:
+    """The backward kernels' scratch for their column sums on `device`'s
+    current stream, at least nbytes: per-block partials and ticket counters
+    that must be zero the first time and that every launch leaves at zero.
+    So one zeroed buffer a stream serves every call, F1's and F2's in turn
+    (launches on one stream run in order); it grows where a call needs more."""
+    key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < nbytes:
+        ws = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+        _WORKSPACES[key] = ws
+    return ws
+
+
 def _dense_epilogue_kernel(y, bias, out_dtype, gelu, save_z=False):
     """F1; with save_z (gelu only) also the rounded pre-activation z."""
     global dense_launches
@@ -200,17 +228,19 @@ def _dense_epilogue_backward_kernel(dout, z, gelu, need_dz, need_dbias):
     if not (gelu and need_dz) and not need_dbias:
         return dz, None
     rows = dout.numel() // cols
-    dbias = partials = None
+    device = dout.device
+    dbias = workspace = None
     if need_dbias:
         # the kernel picks its slabs of rows (from the rows, the width and
-        # the card, which fixes the sum's order); each writes a row of partials
-        slabs = _build.query("proqa_dense_epilogue_bwd_slabs", rows, cols, dout.device.index)
-        dbias = torch.empty(cols, dtype=torch.float32, device=dout.device)
-        partials = torch.empty(slabs, cols, dtype=torch.float32, device=dout.device)
-    _build.launch("proqa_dense_epilogue_bwd", dout.device, dout.data_ptr(),
+        # the card, which fixes the sum's order) and the scratch they take
+        nbytes = _scratch_bytes("proqa_dense_epilogue_bwd_workspace", rows, cols, int(gelu),
+                                device.index)
+        dbias = torch.empty(cols, dtype=torch.float32, device=device)
+        workspace = _workspace(device, nbytes)
+    _build.launch("proqa_dense_epilogue_bwd", device, dout.data_ptr(),
                   _ptr(z.contiguous()) if gelu else None,
-                  _ptr(dz) if gelu and need_dz else None, _ptr(partials), _ptr(dbias), rows, cols,
-                  int(dout.dtype == torch.bfloat16), int(gelu))
+                  _ptr(dz) if gelu and need_dz else None, _ptr(workspace), _ptr(dbias), rows,
+                  cols, int(dout.dtype == torch.bfloat16), int(gelu))
     dense_backward_launches += 1
     return dz, dbias
 
@@ -255,14 +285,16 @@ def _add_layer_norm_backward_kernel(dy, x, residual, mean, rstd, scale, need_dx,
         return None, None, None
     dx = torch.empty_like(x) if need_dx else None
     rows = x.numel() // h
-    dparams = partials = None
+    device = x.device
+    dparams = workspace = None
     if need_params:
-        blocks = _build.query("proqa_add_layer_norm_bwd_blocks", rows, x.device.index)
-        dparams = torch.empty(2, h, dtype=torch.float32, device=x.device)
-        partials = torch.empty(blocks, 2, h, dtype=torch.float32, device=x.device)
-    _build.launch("proqa_add_layer_norm_bwd", x.device, dy.data_ptr(), x.data_ptr(),
+        nbytes = _scratch_bytes("proqa_add_layer_norm_bwd_workspace", rows, h,
+                                int(x.dtype == torch.bfloat16), device.index)
+        dparams = torch.empty(2, h, dtype=torch.float32, device=device)
+        workspace = _workspace(device, nbytes)
+    _build.launch("proqa_add_layer_norm_bwd", device, dy.data_ptr(), x.data_ptr(),
                   _ptr(residual), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), _ptr(dx),
-                  _ptr(partials), _ptr(dparams), rows, h, int(x.dtype == torch.bfloat16))
+                  _ptr(workspace), _ptr(dparams), rows, h, int(x.dtype == torch.bfloat16))
     layer_norm_backward_launches += 1
     if dparams is None:
         return dx, None, None

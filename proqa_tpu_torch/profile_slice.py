@@ -86,8 +86,11 @@ GROUPS = (
     ("K3 attention backward", ("attention_bwd_",)),  # attention_bwd_rows_ and _cols_kernel
     ("K4 dropout", ("dropout_vec_kernel", "dropout_scalar_kernel")),
     # the backward kernels and their column sums before the forward's keys claim them
-    ("F1 backward", ("dense_epilogue_bwd",)),      # dense_epilogue_bwd_kernel, _sums_kernel
-    ("F2 backward", ("add_layer_norm_bwd",)),      # add_layer_norm_bwd_vec_kernel, _scalar_, _sums_
+    # (dense_epilogue_bwd_kernel, add_layer_norm_bwd_kernel; an older checkout
+    # profiled with this script also has their _sums_kernel and F2's _vec_
+    # and _scalar_ bodies, which the same prefixes group)
+    ("F1 backward", ("dense_epilogue_bwd",)),
+    ("F2 backward", ("add_layer_norm_bwd",)),
     ("F1 dense epilogue", ("dense_epilogue_",)),    # dense_epilogue_vec_kernel, _scalar_
     ("F2 add+LayerNorm", ("add_layer_norm_",)),     # add_layer_norm_vec_kernel, _scalar_
     ("GEMM", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),

@@ -1,0 +1,127 @@
+"""Instruction counts of a built kernel's main loop, from its SASS: the
+ground for an instruction-issue bound beside a kernel's bytes bound.
+
+    python -m proqa_tpu_torch.sass_count [FRAGMENT ...]
+
+`cuobjdump -sass` of the kernel library (`_build.library_path()`, built
+first) lists each kernel's instructions with their addresses. A loop is a
+backward branch: the instructions from its target to the branch. A kernel's
+largest loop is its main loop; its instructions, over the elements one
+thread takes in an iteration, are what a thread issues an element. A loop
+that holds both sides of a branch is counted whole: a warp whose lanes take
+both sides issues both. FRAGMENT picks kernels by a piece of their mangled
+name (default: the backward epilogue kernels). Needs the CUDA toolkit's
+cuobjdump (on PATH or under CUDA_HOME); prints one JSON object.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+# F1's backward with GELU over bf16, summing (dense_epilogue_bwd_kernel<bf16,
+# vector, GELU, sum>), and its sum alone; F2's backward over bf16 at width 768
+# with the scale and bias gradients (add_layer_norm_bwd_kernel<bf16, 8, 3, true>)
+KERNELS = {
+    "F1 backward GELU": "dense_epilogue_bwd_kernelI13__nv_bfloat16Lb1ELb1ELb1E",
+    "F1 backward sum": "dense_epilogue_bwd_kernelI13__nv_bfloat16Lb1ELb0ELb1E",
+    "F2 backward": "add_layer_norm_bwd_kernelI13__nv_bfloat16Li8ELi3ELb1E",
+}
+
+_FUNCTION = re.compile(r"Function\s*:\s*(\S+)")
+_INSTRUCTION = re.compile(r"/\*([0-9a-f]+)\*/\s+([^;]*);")
+_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+|\.L_x_\d+)\)?$")
+
+
+def functions(sass: str) -> dict[str, list[tuple[int, str]]]:
+    """Each function's (address, instruction) list; a label line is kept in
+    its place as (-1, label)."""
+    out: dict[str, list[tuple[int, str]]] = {}
+    current = None
+    for line in sass.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            current = out.setdefault(m.group(1), [])
+            continue
+        if current is None:
+            continue
+        m = _LABEL.match(line)
+        if m:
+            current.append((-1, m.group(1)))
+            continue
+        m = _INSTRUCTION.search(line)
+        if m:
+            current.append((int(m.group(1), 16), m.group(2).strip()))
+    return out
+
+
+def main_loop(instructions: list[tuple[int, str]]) -> dict:
+    """The largest loop of one function: its instruction count and the
+    counts of its global 16-byte loads and stores and its MUFU (special
+    function unit) instructions. None if it has no loop."""
+    labels, code = {}, []
+    for addr, text in instructions:
+        if addr < 0:
+            labels[text] = None  # resolved by the next instruction
+            continue
+        for name, at in labels.items():
+            if at is None:
+                labels[name] = addr
+        code.append((addr, text))
+    best = None
+    for addr, text in code:
+        m = _BRANCH.search(text)
+        if not m:
+            continue
+        target = m.group(1)
+        start = int(target, 16) if target.startswith("0x") else labels.get(target)
+        if start is None or start > addr:
+            continue
+        body = [t for a, t in code if start <= a <= addr]
+        if best is None or len(body) > len(best):
+            best = body
+    if best is None:
+        return None
+    ops = [t.split()[1] if t.startswith("@") else t.split()[0] for t in best]
+    return {"instructions": len(best),
+            "global_loads_128": sum(o.startswith("LDG") and ".128" in o for o in ops),
+            "global_stores_128": sum(o.startswith("STG") and ".128" in o for o in ops),
+            "mufu": sum(o.startswith("MUFU") for o in ops)}
+
+
+def _cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "cuobjdump")
+
+
+def loop_counts(library: str, fragments: dict[str, str]) -> dict[str, dict | None]:
+    """main_loop of the first kernel in `library` whose mangled name holds
+    each fragment (None where none does)."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = functions(sass)
+    out = {}
+    for key, fragment in fragments.items():
+        names = [n for n in funcs if fragment in n]
+        out[key] = main_loop(funcs[names[0]]) if names else None
+    return out
+
+
+def main(argv=None) -> int:
+    from proqa_tpu_torch import _build
+
+    argv = sys.argv[1:] if argv is None else argv
+    fragments = {f: f for f in argv} or KERNELS
+    print(json.dumps(loop_counts(str(_build.build()), fragments)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,6 @@
 """Helpers for the tests, chip_smoke.py and profile_slice: holding one top-k
-search result against another, and making an int8 corpus on the device."""
+search result against another, making an int8 corpus on the device, and the
+bound on a gradient that is zero in exact arithmetic."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,6 +26,29 @@ def topk_disagreements(va, ia, vb, ib, *, atol: float) -> int:
         if any(abs(score[i] - kth) > atol for i in diff):
             bad += 1
     return bad
+
+
+# A bias gradient that is zero in exact arithmetic (the retriever's context
+# head: a constant added to every context embedding moves each query's
+# in-batch scores alike, so the loss does not move) is rounding noise. It is
+# held to this many units of f32 rounding (2^-24) of the column sums' terms:
+# a few ulps of error in each element of the gradient reaching the layer
+# (the softmax chain above it), and the rows' sum.
+ZERO_GRAD_ULPS = 64
+
+
+def zero_grad_unit(dout: torch.Tensor) -> float:
+    """One f32 rounding unit of the largest column sum of |dout| (dout: the
+    gradient at the biased layer's output, [rows, cols]): 2^-24 * max_c
+    sum_r |dout[r, c]|. A zero bias gradient is noise within ZERO_GRAD_ULPS
+    of it."""
+    return 2.0 ** -24 * dout.double().abs().reshape(-1, dout.shape[-1]).sum(0).max().item()
+
+
+def zero_grad_ratio(grad: torch.Tensor, unit: float) -> float:
+    """max |grad| in units of zero_grad_unit: at most ZERO_GRAD_ULPS for a
+    gradient that is zero in exact arithmetic."""
+    return grad.double().abs().max().item() / unit
 
 
 def random_int8_corpus(n: int, d: int, block: int, *, seed: int, device,

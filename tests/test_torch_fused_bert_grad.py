@@ -18,6 +18,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from proqa_tpu.models import bert as jax_bert  # noqa: E402
+from proqa_tpu_torch import _build  # noqa: E402
 from proqa_tpu_torch.models import bert  # noqa: E402
 from proqa_tpu_torch.models.retriever import Retriever  # noqa: E402
 from proqa_tpu_torch.ops import fused_bert  # noqa: E402
@@ -391,3 +392,94 @@ def test_training_route_refuses_other_devices():
         fused_bert.add_layer_norm_grad(torch.empty(2, 8, device="meta"), None,
                                        torch.empty(8, device="meta"),
                                        torch.empty(8, device="meta"), EPS)
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The kernel library's size queries and launches and the scratch the
+    wrappers take, recorded instead of run: each query answers 4,160 bytes
+    (the C side decides the real size)."""
+    calls = []
+    fused_bert._scratch_bytes.cache_clear()  # the answers below are not the card's
+    monkeypatch.setattr(_build, "query",
+                        lambda entry, *args: (calls.append((entry, args)), 4160)[1])
+    monkeypatch.setattr(_build, "launch",
+                        lambda entry, device, *args: calls.append((entry, args)))
+
+    def workspace(device, nbytes):
+        calls.append(("workspace", nbytes))
+        return torch.zeros(nbytes, dtype=torch.uint8)
+
+    monkeypatch.setattr(fused_bert, "_workspace", workspace)
+    yield calls
+    fused_bert._scratch_bytes.cache_clear()
+
+
+@pytest.mark.parametrize("gelu,need_dz,need_dbias", [
+    (True, True, True), (True, True, False), (True, False, True), (True, False, False),
+    (False, True, True), (False, True, False), (False, False, True)])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_dense_backward_wrapper_host_side(fake_library, dtype, gelu, need_dz, need_dbias):
+    """F1's backward wrapper without the card: it asks the C side for the
+    scratch of the [rows, cols] problem (rows of a [2, 3, cols] input), takes
+    a workspace of that size, passes null for what is not asked, launches
+    once where anything is asked (the bias gradient, or dz with GELU) and
+    returns dz (dout itself without GELU) and an f32 bias gradient [cols]."""
+    dt = getattr(torch, dtype)
+    dout, z = torch.zeros(2, 3, 40, dtype=dt), torch.zeros(2, 3, 40, dtype=dt)
+    before = fused_bert.dense_backward_launches
+    dz, db = fused_bert._dense_epilogue_backward_kernel(dout, z if gelu else None, gelu,
+                                                        need_dz, need_dbias)
+    launched = need_dbias or (gelu and need_dz)
+    assert fused_bert.dense_backward_launches - before == int(launched)
+    queries = [c for c in fake_library if c[0] == "proqa_dense_epilogue_bwd_workspace"]
+    assert queries == ([("proqa_dense_epilogue_bwd_workspace", (6, 40, int(gelu), None))]
+                       if need_dbias else [])
+    launches = [args for entry, args in fake_library if entry == "proqa_dense_epilogue_bwd"]
+    assert len(launches) == int(launched)
+    assert (("workspace", 4160) in fake_library) == need_dbias
+    if launched:
+        _, zp, dzp, workspace, dbias, rows, cols, is_bf16, g = launches[0]
+        assert (rows, cols, is_bf16, g) == (6, 40, int(dtype == "bfloat16"), int(gelu))
+        assert (zp is None) == (not gelu) and (dzp is None) == (not (gelu and need_dz))
+        assert (workspace is None) == (dbias is None) == (not need_dbias)
+    assert (dz is None) == (not need_dz) and (db is None) == (not need_dbias)
+    if need_dz:
+        assert dz.shape == dout.shape and dz.dtype == dt and (gelu or dz is dout)
+    if need_dbias:
+        assert db.shape == (40,) and db.dtype == torch.float32
+
+
+@pytest.mark.parametrize("need_dx,need_params", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_layer_norm_backward_wrapper_host_side(fake_library, dtype, residual, need_dx,
+                                               need_params):
+    """F2's backward wrapper without the card: it asks the C side for the
+    scratch of the [rows, h] problem in its dtype (the tiles' rows follow the
+    width and the dtype), takes a workspace of that size, passes null for
+    what is not asked, launches once, and returns dx like x and the f32
+    scale and bias gradients [h]."""
+    dt = getattr(torch, dtype)
+    x = torch.zeros(2, 3, 24, dtype=dt)
+    r = torch.zeros_like(x) if residual else None
+    stats = torch.zeros(2, 3)
+    before = fused_bert.layer_norm_backward_launches
+    dx, dscale, dbias = fused_bert._add_layer_norm_backward_kernel(
+        torch.zeros_like(x), x, r, stats, stats, torch.ones(24), need_dx, need_params)
+    assert fused_bert.layer_norm_backward_launches - before == 1
+    queries = [c for c in fake_library if c[0] == "proqa_add_layer_norm_bwd_workspace"]
+    assert queries == ([("proqa_add_layer_norm_bwd_workspace",
+                         (6, 24, int(dtype == "bfloat16"), None))] if need_params else [])
+    assert (("workspace", 4160) in fake_library) == need_params
+    (entry, args), = [c for c in fake_library if c[0] == "proqa_add_layer_norm_bwd"]
+    _, _, rp, _, _, _, dxp, workspace, dparams, rows, h, is_bf16 = args
+    assert (rows, h, is_bf16) == (6, 24, int(dtype == "bfloat16"))
+    assert (rp is None) == (not residual) and (dxp is None) == (not need_dx)
+    assert (workspace is None) == (dparams is None) == (not need_params)
+    assert (dx is None) == (not need_dx)
+    assert (dscale is None) == (dbias is None) == (not need_params)
+    if need_dx:
+        assert dx.shape == x.shape and dx.dtype == dt
+    if need_params:
+        assert dscale.shape == dbias.shape == (24,) and dscale.dtype == torch.float32

@@ -15,12 +15,13 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from proqa_tpu.models import bert as jax_bert  # noqa: E402
-from proqa_tpu.models.retriever import init_retriever_params  # noqa: E402
+from proqa_tpu.models.retriever import init_retriever_params, retriever_forward  # noqa: E402
 from proqa_tpu.train import optim as jax_optim  # noqa: E402
 from proqa_tpu.train import retriever_trainer as jax_trainer  # noqa: E402
 from proqa_tpu_torch.models import convert  # noqa: E402
 from proqa_tpu_torch.models.bert import BertConfig  # noqa: E402
 from proqa_tpu_torch.models.retriever import Retriever  # noqa: E402
+from proqa_tpu_torch.testing import ZERO_GRAD_ULPS, zero_grad_ratio, zero_grad_unit  # noqa: E402,E501
 from proqa_tpu_torch.train import optim  # noqa: E402
 from proqa_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint  # noqa: E402
 from proqa_tpu_torch.train.retriever_trainer import (  # noqa: E402
@@ -172,6 +173,54 @@ def test_train_step_matches_jax(flash, scope, accum):
         noise_only = keys[-3:] == ("layers", "k", "bias") or keys == ("proj_c", "bias")
         atol = len(batches) * tx_kw["learning_rate"] if noise_only else TOL
         np.testing.assert_allclose(a, b, atol=atol, rtol=0, err_msg=str(path))
+
+
+@pytest.mark.parametrize("flash", [True, False])
+def test_head_bias_gradient_is_zero_in_both_packages(flash):
+    """proj_c.bias's gradient is zero in exact arithmetic: a constant added to
+    every context embedding moves each query's in-batch scores alike. On the
+    step of tests/test_torch_cuda.py::test_train_step_on_gpu_matches_cpu
+    (tiny f32 retriever, dropout 0, remat), with the same weights in both
+    packages, the port's gradient and the JAX package's are each within
+    ZERO_GRAD_ULPS f32 rounding units of their column sums of |dout| (the
+    gradient at proj_c's output), and within that of each other: noise in
+    both, not a fault of the port."""
+    kw = dict(max_position_embeddings=128, flash_attention=flash, hidden_dropout=0.0,
+              attention_dropout=0.0)
+    jcfg = jax_bert.BertConfig.tiny(dtype=jnp.float32, **kw)
+    jparams = jax.tree.map(np.asarray, init_retriever_params(jax.random.PRNGKey(4), jcfg))
+    g = torch.Generator().manual_seed(4)
+    batch = {"input_ids_q": torch.randint(5, 128, (8, 16), generator=g),
+             "input_ids_c": torch.randint(5, 128, (8, 128), generator=g),
+             "input_mask_q": torch.ones(8, 16, dtype=torch.int32)}
+    batch["input_mask_c"] = (torch.arange(128)[None] < torch.arange(60, 124, 8)[:, None]).int()
+
+    model = Retriever(BertConfig.tiny(dtype=torch.float32, remat=True, **kw)).train()
+    model.load_state_dict(convert.params_from_jax(jparams))
+    douts = []
+
+    def keep_dout(module, args, out):  # returns None: the output stays as it is
+        out.register_hook(douts.append)
+
+    model.proj_c.register_forward_hook(keep_dout)
+    in_batch_loss(model(batch, generator=torch.Generator().manual_seed(0)))[0].backward()
+    bias_t = model.proj_c.bias.grad.detach()
+
+    jbatch = {k: jnp.asarray(v.numpy().astype(np.int32)) for k, v in batch.items()}
+    out = retriever_forward(jparams, jcfg, jbatch)
+    dout_j = jax.grad(lambda c: jax_trainer.in_batch_loss({"q": out["q"], "c": c})[0])(out["c"])
+    grads = jax.grad(lambda p: jax_trainer.in_batch_loss(
+        retriever_forward(p, jcfg, jbatch))[0])(jparams)
+    bias_j = torch.tensor(np.asarray(grads["proj_c"]["bias"]))
+
+    unit_t, unit_j = zero_grad_unit(douts[0]), zero_grad_unit(torch.tensor(np.asarray(dout_j)))
+    assert unit_t > 0 and abs(unit_j / unit_t - 1) < 1e-5  # the same dout in both packages
+    ratios = {"port": zero_grad_ratio(bias_t, unit_t), "jax": zero_grad_ratio(bias_j, unit_j),
+              "port - jax": zero_grad_ratio(bias_t - bias_j, unit_t)}
+    print(f"proj_c.bias gradient (flash={flash}) in units of {unit_t:.4e}: {ratios}")
+    assert all(r <= ZERO_GRAD_ULPS for r in ratios.values()), ratios
+    # the bound is not vacuous: the kernel's gradient (not zero) is far above it
+    assert zero_grad_ratio(model.proj_c.kernel.grad, unit_t) > 100 * ZERO_GRAD_ULPS
 
 
 @pytest.fixture
