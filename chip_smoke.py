@@ -169,8 +169,26 @@ The BERT layer's fused epilogues:
      loop (proqa_tpu_torch/sass_count.py). Every run is an entry of the
      kernels line. Their launches are counted on the training paths of
      phases 8, 9, 19, 20, 22 and 27.
+MiniLM-L12-H384 (microsoft/MiniLM-L12-H384-uncased's config.json: BERT, 12
+heads of 32, hidden 384, intermediate 1,536; random seeded weights):
+ 32. (a) K2 and K3 at head dims 32 and 128 and at 48 (the wrapper pads it to
+     64) against their plain versions, bf16 and f32, T in 128, 512, 1,024,
+     rates 0 and 0.1, one all-padding row (ATTN_TOL, BWD_TOL), K3's two
+     launches bit-equal, and each new form timed at the slice's shapes
+     beside its plain version, SDPA and its bound; (b) the context tower
+     over 512 rows at T = 512 with K2 and F1/F2 against the vanilla path
+     (ENCODER_COS), then 2,048 encoded questions searched over those rows
+     and a seeded bf16 corpus (262,144 rows) against the exact top-80; (c)
+     the QA reader over 8 x 5 x 512 rows with K2 against the vanilla path
+     (READER_REL, beside the e4m3 control); (d) the retriever train step at
+     80 x (32 + 512), remat, dropout 0.1: the loss falls over 3 steps, and a
+     dropout-0 step's gradients against the vanilla path and the plain
+     epilogue chain (GRAD_COS, else GRAD_NOISE against f32); then a tower
+     of 8 heads of 128 (hidden 1,024, 2 layers): an encode against vanilla
+     and a train step. K2/K3 launches are counted in (b)-(d) and on that
+     tower; (b)-(d) log wall time and peak memory.
 Phases 23-25 run after phase 18, phase 26 after phase 22, 27-29 after 20,
-30 and 31 after 2. Each of phases 12-14 first drives its kernel's public pipeline
+30 and 31 after 2, 32 last. Each of phases 12-14 first drives its kernel's public pipeline
 once with the counters at 0 and reads them, then compares and times the
 kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -3303,6 +3321,432 @@ def _dp_step_at_full_width(root: str, steps: int = 8) -> None:
         f"within 1e-3 ({l_d[-1]:.4f} vs {l_p[-1]:.4f})")
 
 
+# --- MiniLM-L12-H384: head dim 32 on the card ----------------------------------
+
+# microsoft/MiniLM-L12-H384-uncased's config.json (named, not downloaded):
+# the BERT architecture with exact GELU, 12 heads of 32
+MINILM = dict(vocab_size=30522, hidden_size=384, num_layers=12, num_heads=12,
+              intermediate_size=1536, max_position_embeddings=512, type_vocab_size=2)
+MINILM_T = (128, 512, 1024)  # K2/K3 checks: both ends of the range and the slice's length
+PADDED_DH = 48               # a head dim without its own kernel: padded to 64
+
+
+def _attention_checks(device, dh: int, heads: int, b: int = 8) -> dict:
+    """K2 and K3 at head dim dh against their plain versions: bf16 and f32,
+    T in MINILM_T, rates 0 and 0.1, random key padding with one all-padding
+    row; K3 twice on the same inputs bit-equal. Returns the largest errors."""
+    import torch
+
+    from proqa_tpu_torch.ops import attention
+
+    fwd_err = bwd_err = 0.0
+    for t in MINILM_T:
+        q, k, v, do, mask = _attention_inputs(device, b, heads, t, dh, seed=t + dh)
+        for dtype in (torch.bfloat16, torch.float32):
+            qd, kd, vd, dod = (x.to(dtype) for x in (q, k, v, do))
+            for rate in (0.0, 0.1):
+                kw = dict(sm_scale=dh ** -0.5, dropout_rate=rate, seed=2**45 + t)
+                got = attention.fused_attention(qd, kd, vd, mask, **kw)
+                want = attention.fused_attention_reference(qd, kd, vd, mask, **kw)
+                err = (got.float() - want.float()).abs().max().item()
+                check(got.shape == qd.shape and bool(torch.isfinite(got.float()).all())
+                      and err <= ATTN_TOL, f"K2 Dh={dh} T={t} {dtype} rate {rate}: max abs "
+                                           f"err {err} > {ATTN_TOL}")
+                fwd_err = max(fwd_err, err)
+                grads = attention._backward_kernel(qd, kd, vd, mask, dod, kw["sm_scale"], rate,
+                                                   kw["seed"])
+                again = attention._backward_kernel(qd, kd, vd, mask, dod, kw["sm_scale"], rate,
+                                                   kw["seed"])
+                want = attention.fused_attention_backward_reference(qd, kd, vd, mask, dod, **kw)
+                check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+                      f"K3 Dh={dh} T={t} {dtype} rate {rate}: two launches differ")
+                err = max((x.float() - w.float()).abs().max().item() for x, w in zip(grads, want))
+                check(all(bool(torch.isfinite(x.float()).all()) for x in grads)
+                      and err <= BWD_TOL, f"K3 Dh={dh} T={t} {dtype} rate {rate}: max abs err "
+                                          f"{err} > {BWD_TOL}")
+                bwd_err = max(bwd_err, err)
+                del got, want, grads, again
+        del q, k, v, do, mask
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err}
+
+
+def _attention_form(device, b, h, t, dh, rate) -> tuple[dict, dict]:
+    """K2 and K3 at [b, h, t, dh] bf16: error against the plain version, one
+    call's time beside the plain version, SDPA (rate 0) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from proqa_tpu_torch.ops import attention
+
+    q, k, v, do, mask = _attention_inputs(device, b, h, t, dh, seed=7 * dh)
+    kw, seed = dict(sm_scale=dh ** -0.5, dropout_rate=rate, seed=2**44 + 1), 2**44 + 1
+    scale = kw["sm_scale"]
+    got = attention.fused_attention(q, k, v, mask, **kw)
+    want = attention.fused_attention_reference(q, k, v, mask, **kw)
+    fwd = {"max_abs_err": (got.float() - want.float()).abs().max().item()}
+    del got, want
+    grads = attention._backward_kernel(q, k, v, mask, do, scale, rate, seed)
+    want = attention.fused_attention_backward_reference(q, k, v, mask, do, **kw)
+    bwd = {"max_abs_err": max((x.float() - w.float()).abs().max().item()
+                              for x, w in zip(grads, want))}
+    del grads, want
+    check(fwd["max_abs_err"] <= ATTN_TOL and bwd["max_abs_err"] <= BWD_TOL,
+          f"K2/K3 [{b}, {h}, {t}, {dh}] rate {rate}: max abs err {fwd['max_abs_err']}, "
+          f"{bwd['max_abs_err']}")
+    bias = torch.where(mask[:, None, None, :] != 0, 0.0, attention.MASK_BIAS).to(q.dtype)
+    fwd["ms"] = cuda_ms(lambda: attention.fused_attention(q, k, v, mask, **kw))
+    fwd["plain_ms"] = cuda_ms(lambda: attention.fused_attention_reference(q, k, v, mask, **kw),
+                              reps=3)
+    fwd["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+    bwd["ms"] = cuda_ms(lambda: attention._backward_kernel(q, k, v, mask, do, scale, rate, seed))
+    bwd["plain_ms"] = cuda_ms(lambda: attention.fused_attention_backward_reference(
+        q, k, v, mask, do, **kw), reps=3)
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias)
+    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(lib_out, (qs, ks, vs), do,
+                                                            retain_graph=True))
+    n = b * h * t * dh * 2  # bytes of one bf16 [B, H, T, Dh] tensor
+    fwd["bound_ms"], fwd["bound_by"] = bound(4 * n + mask.numel() * 4, 4 * b * h * t * t * dh)
+    bwd["bound_ms"], bwd["bound_by"] = bound(7 * n + mask.numel() * 4, 10 * b * h * t * t * dh)
+    log(f"K2/K3 [{b}, {h}, {t}, {dh}] bf16 rate {rate}: max_abs_err {fwd['max_abs_err']:.3g}, "
+        f"{bwd['max_abs_err']:.3g}; K2 {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, SDPA "
+        f"rate 0 {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f} {fwd['bound_by']}); K3 "
+        f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, SDPA backward rate 0 "
+        f"{bwd['library_ms']:.4f}, bound {bwd['bound_ms']:.4f} {bwd['bound_by']})")
+    return fwd, bwd
+
+
+def _attention_counts() -> dict:
+    from proqa_tpu_torch.ops import attention
+
+    return {"K2": attention.launches, "K3": attention.backward_launches}
+
+
+def _reset_kernel_counts() -> None:
+    from proqa_tpu_torch.ops import attention, dropout
+
+    attention.launches = attention.backward_launches = dropout.launches = 0
+    _reset_fused_counts()
+
+
+def _minilm_batch(device, b, tq, tc, seed, vocab):
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    ids_c = torch.randint(5, vocab, (b, tc), device=device, generator=g)
+    lengths = torch.randint(tc // 2, tc + 1, (b,), device=device, generator=g)
+    mask_c = (torch.arange(tc, device=device)[None] < lengths[:, None]).to(torch.int32)
+    ids_c = ids_c * mask_c
+    return {"input_ids_q": ids_c[:, :tq].clone(),  # each question is its paragraph's opening
+            "input_mask_q": torch.ones(b, tq, dtype=torch.int32, device=device),
+            "input_ids_c": ids_c, "input_mask_c": mask_c}
+
+
+def _grad_check(label, state, cfg0, batch, device) -> dict:
+    """The dropout-0 step's gradients on four routes (K2/K3 with F1/F2; the
+    vanilla attention path; K2/K3 with the plain epilogue chain; vanilla in
+    f32), held as phase 19 holds them: cosine >= GRAD_COS to the vanilla
+    path and to the plain chain, else the kernels' distance from the f32
+    gradient at most GRAD_NOISE times the other route's."""
+    import dataclasses
+
+    import torch
+
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.ops import fused_bert
+
+    routes = {"kernels": dict(flash_attention=True), "vanilla": dict(flash_attention=False),
+              "plain chain": dict(flash_attention=True),
+              "f32": dict(flash_attention=False, dtype=torch.float32)}
+    losses, grads = {}, {}
+    gen = torch.Generator().manual_seed(0)
+    for route, kw in routes.items():
+        model = Retriever(dataclasses.replace(cfg0, **kw))
+        model.load_state_dict(state)
+        model = model.to(device)
+        chain = fused_bert._eager_chain() if route == "plain chain" else contextlib.nullcontext()
+        with chain:
+            losses[route], grads[route] = _grads(model, batch, gen)
+        del model
+
+    def cosine(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    out = {}
+    for other in ("vanilla", "plain chain"):
+        cos, ratio = {}, {}
+        for name, gk in grads["kernels"].items():
+            # zero in exact arithmetic, only rounding noise (phase 8)
+            if name.endswith(".k.bias") or name == "proj_c.bias":
+                continue
+            g32 = grads["f32"][name]
+            cos[name] = cosine(gk, grads[other][name])
+            ratio[name] = ((gk - g32).double().norm() / (grads[other][name] - g32).double().norm()
+                           ).item()
+        bad = [n for n in cos if cos[n] < GRAD_COS and not ratio[n] <= GRAD_NOISE]
+        worst = sorted(cos, key=cos.get)[:3]
+        log(f"{label} dropout-0 step, kernels vs {other}: loss {losses['kernels']:.6f} vs "
+            f"{losses[other]:.6f} (f32 {losses['f32']:.6f}); lowest gradient cosines over "
+            f"{len(cos)} tensors (|kernels - f32| / |{other} - f32|): "
+            + ", ".join(f"{n} {cos[n]:.6f} ({ratio[n]:.3f})" for n in worst)
+            + f"; tol: cosine {GRAD_COS}, else error ratio {GRAD_NOISE}")
+        check(not bad, f"{label} dropout-0 gradients, kernels vs {other}: {len(bad)} tensors "
+                       f"under cosine {GRAD_COS} with the kernels' error from the f32 gradient "
+                       f"over {GRAD_NOISE}x, e.g. {bad[:3]}")
+        out[other] = cos[worst[0]]
+    return out
+
+
+def phase_minilm(device) -> tuple[list, dict]:
+    """MiniLM-L12-H384 (12 heads of 32) on the card, random seeded weights:
+    (a) K2 and K3 at Dh 32 and 128 and a padded head dim against their plain
+    versions, and timed at the slice's shapes; (b) the context tower over
+    512 rows at T = 512 (K2, F1/F2, no graph) against the vanilla attention
+    path, then 2,048 encoded questions searched over those rows and a seeded
+    bf16 corpus against the exact search; (c) the QA reader over 8 x 5 x 512
+    rows with K2 against the vanilla path; (d) the retriever train step at
+    80 x (32 + 512), remat, dropout 0.1, three steps, and a dropout-0 step's
+    gradients; K2/K3 counted in (b)-(d). Then a tower of 8 heads of 128
+    (hidden 1,024, 2 layers): an encode and a train step, K2/K3 counted.
+    Returns the kernels line's entries of the new forms and the phase's
+    numbers."""
+    import dataclasses
+
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.ops import mips, mips_kernel, rescore
+    from proqa_tpu_torch.testing import topk_disagreements
+    from proqa_tpu_torch.train.optim import AdamW, init_train_state
+    from proqa_tpu_torch.train.retriever_trainer import train_step
+
+    gpu = gpu_line()
+    cfg = BertConfig(**MINILM, flash_attention=True)
+    check(cfg.head_dim == 32, f"MiniLM head dim {cfg.head_dim}")
+    vanilla_cfg = dataclasses.replace(cfg, flash_attention=False)
+
+    # (a) the kernels
+    t0 = time.perf_counter()
+    errs = {32: _attention_checks(device, 32, 12), 128: _attention_checks(device, 128, 8),
+            PADDED_DH: _attention_checks(device, PADDED_DH, 8)}
+    forms = {32: _attention_form(device, 512, 12, 512, 32, 0.0),
+             "32 train": _attention_form(device, 80, 12, 512, 32, 0.1),
+             128: _attention_form(device, 64, 8, 512, 128, 0.1)}
+    log(f"{gpu}: MiniLM (a) K2/K3 at Dh 32, 128 and {PADDED_DH} (padded to 64), bf16 and f32, "
+        f"T in {MINILM_T}, rates 0 and 0.1: max abs err {json.dumps(errs)} (tol {ATTN_TOL}, "
+        f"{BWD_TOL}); K3 two launches bit-equal; {time.perf_counter() - t0:.1f} s")
+
+    # (b) encode, then search
+    model = Retriever(cfg).reset_parameters(21).to(device).eval()
+    vanilla = Retriever(vanilla_cfg).to(device).eval()
+    vanilla.load_state_dict(model.state_dict())
+    batch = _minilm_batch(device, 512, 32, 512, 22, cfg.vocab_size)
+    ids, mask = batch["input_ids_c"], batch["input_mask_c"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _reset_kernel_counts()
+    with torch.inference_mode():
+        rows = model.encode_context(ids, mask)
+        torch.cuda.synchronize()
+        counts = {"encode": {**_attention_counts(), **_fused_counts()}}
+        encode_peak = torch.cuda.max_memory_allocated() / 2**30  # the kernels' encode alone
+        plain_rows = vanilla.encode_context(ids, mask)
+        encode_ms = cuda_ms(lambda: model.encode_context(ids, mask), reps=3)
+    cos = torch.nn.functional.cosine_similarity(rows, plain_rows, dim=1).min().item()
+    check(bool(torch.isfinite(rows).all()) and rows.shape == (512, 128),
+          "MiniLM encode: bad embeddings")
+    check(cos >= ENCODER_COS, f"MiniLM encode with K2 vs vanilla: min cosine {cos} < "
+                              f"{ENCODER_COS}")
+    check(counts["encode"]["K2"] == cfg.num_layers and counts["encode"]["F1"] > 0,
+          f"MiniLM encode: launches {counts['encode']}")
+    del vanilla, plain_rows
+    # 2,048 questions (T = 32: the vanilla path) over the 512 rows and a
+    # seeded bf16 corpus of the rows' scale, 262,144 rows in all
+    qbatch = _minilm_batch(device, 2048, 32, 128, 23, cfg.vocab_size)
+    n_q = qbatch["input_ids_q"].shape[0]
+    with torch.inference_mode():
+        questions = torch.cat([model.encode_query(qbatch["input_ids_q"][i:i + 512],
+                                                  qbatch["input_mask_q"][i:i + 512])
+                               for i in range(0, n_q, 512)])
+    g = torch.Generator(device=device).manual_seed(24)
+    filler = torch.randn(262_144 - len(rows), 128, device=device, generator=g) * rows.std()
+    corpus = torch.cat([rows, filler]).bfloat16()
+    del filler
+    index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
+    mips_kernel.launches = rescore.launches = 0
+    vals, idx = index.search(questions, 80)
+    counts["search"] = {"K1": mips_kernel.launches, "K6": rescore.launches}
+    bad = 0
+    qb = questions.bfloat16()
+    for s in range(0, n_q, 256):
+        rv, ri = mips.mips_topk_reference(qb[s:s + 256], corpus, 80)
+        bad += topk_disagreements(vals[s:s + 256], idx[s:s + 256], rv.cpu().numpy(),
+                                  ri.cpu().numpy(), atol=TOPK_TOL)
+    check(bad == 0, f"MiniLM search: {bad} of {n_q} questions disagree with the exact top-80")
+    check(all(n > 0 for n in counts["search"].values()), f"MiniLM search: {counts['search']}")
+    hits = int((torch.from_numpy(idx[:, :1]) < len(rows)).sum())
+    encode_wall = time.perf_counter() - t0
+    log(f"{gpu}: MiniLM (b) encode 512 x 512 bf16 with K2 (Dh 32) and F1/F2: min cosine "
+        f"{cos:.6f} to vanilla (tol {ENCODER_COS}); {encode_ms:.2f} ms per batch = "
+        f"{512 * 512 / encode_ms * 1e3:.0f} padded tokens/s (CUDA events); search of 2,048 "
+        f"encoded questions over 262,144 rows (512 encoded): all agree with the exact top-80 up "
+        f"to ties ({hits} top-1 among the encoded rows); launches {json.dumps(counts)}; wall "
+        f"{encode_wall:.1f} s; peak of the kernels' encode {encode_peak:.2f} GiB")
+    del index, corpus, questions, rows, model
+
+    # (c) the reader over 8 questions x 5 paragraphs of 512
+    t0 = time.perf_counter()
+    reader = QAModel(cfg, QAConfig()).reset_parameters(25).to(device).eval()
+    plain = QAModel(vanilla_cfg, QAConfig()).to(device).eval()
+    plain.load_state_dict(reader.state_dict())
+    qpb, k, t, tq = 8, 5, 512, 30
+    rel_err, rel_ctrl, reader_ms, reader_peak = 0.0, float("inf"), None, 0.0
+    counts["reader"] = {"K2": 0, "F1": 0}
+    for bi in range(READER_BATCHES):
+        g = torch.Generator(device=device).manual_seed(26 + bi)
+        ids = torch.randint(5, cfg.vocab_size, (qpb, k, t), device=device, generator=g)
+        lengths = torch.randint(t // 2, t + 1, (qpb, k), device=device, generator=g)
+        pos = torch.arange(t, device=device)
+        in_mask = (pos < lengths[..., None]).to(torch.int32)
+        segment = (pos >= tq + 2).to(torch.int32).expand(qpb, k, t) * in_mask
+        dev = {"input_ids": ids * in_mask, "input_mask": in_mask, "segment_ids": segment,
+               "paragraph_mask": segment,
+               "input_ids_q": torch.randint(5, cfg.vocab_size, (qpb, tq), device=device,
+                                            generator=g),
+               "input_mask_q": torch.ones(qpb, tq, dtype=torch.int32, device=device),
+               "para_embed": torch.randn(qpb, 16, 128, device=device, generator=g)}
+        before = {**_attention_counts(), **_fused_counts()}
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode():
+            out_k2 = reader(dev)
+            after = {**_attention_counts(), **_fused_counts()}
+            reader_peak = max(reader_peak, torch.cuda.max_memory_allocated() / 2**30)
+            out_v = plain(dev)
+            if bi == 0:
+                reader_ms = cuda_ms(lambda: reader(dev), reps=3)
+        for name in counts["reader"]:
+            counts["reader"][name] += after[name] - before[name]
+        in_para = dev["paragraph_mask"] == 1
+        keys = ("start_logits", "end_logits")
+        scale = max(out_v[key][in_para].abs().max().item() for key in keys)
+        err = max((out_k2[key] - out_v[key])[in_para].abs().max().item() for key in keys)
+        ctrl = max((out_v[key][in_para].to(torch.float8_e4m3fn).float()
+                    - out_v[key][in_para]).abs().max().item() for key in keys)
+        rel_err, rel_ctrl = max(rel_err, err / scale), min(rel_ctrl, ctrl / scale)
+        check(err <= READER_REL * scale, f"MiniLM reader with K2 vs vanilla, batch {bi}: span "
+                                         f"logits differ by {err} > {READER_REL} x {scale}")
+    check(rel_ctrl > READER_REL, f"MiniLM reader: the e4m3 control ({rel_ctrl}) passes "
+                                 f"{READER_REL}: the check would not see one coarser rounding")
+    check(counts["reader"]["K2"] == READER_BATCHES * cfg.num_layers,
+          f"MiniLM reader: launches {counts['reader']}")
+    reader_wall = time.perf_counter() - t0
+    log(f"{gpu}: MiniLM (c) reader {qpb} x {k} x {t} bf16 with K2 vs vanilla over "
+        f"{READER_BATCHES} batches: span logits max abs err {rel_err:.4g} of the batch's "
+        f"largest (tol {READER_REL}; e4m3 control {rel_ctrl:.4g}); one reader batch "
+        f"{reader_ms:.3f} ms = {qpb * k * t / reader_ms * 1e3:.0f} reader tokens/s (CUDA "
+        f"events); launches {json.dumps(counts['reader'])}; wall {reader_wall:.1f} s; peak of "
+        f"the kernels' reader {reader_peak:.2f} GiB")
+    del reader, plain, out_k2, out_v, dev
+
+    # (d) the retriever train step, then the dropout-0 gradients
+    b, tq, tc, steps = 80, 32, 512, 3
+    tcfg = dataclasses.replace(cfg, remat=True)  # dropout 0.1
+    batch = _minilm_batch(device, b, tq, tc, 27, cfg.vocab_size)
+    model = Retriever(tcfg).reset_parameters(28).to(device)
+    state = init_train_state(dict(model.named_parameters()))
+    tx, gen = AdamW(1e-4), torch.Generator().manual_seed(29)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _reset_kernel_counts()
+    losses, walls = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, m = train_step(model, state, tx, batch, gen)
+        losses.append(float(m["loss"]))  # synchronises
+        walls.append(time.perf_counter() - t1)
+    counts["train"] = {**_attention_counts(), **_fused_counts()}
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"MiniLM train step: loss {losses} did not fall")
+    check(all(n > 0 for n in counts["train"].values()), f"MiniLM train step: a kernel never ran "
+                                                        f"{counts['train']}")
+    cfg0 = dataclasses.replace(tcfg, hidden_dropout=0.0, attention_dropout=0.0)
+    trained = {name: p.detach().clone() for name, p in model.state_dict().items()}
+    del model, state
+    torch.cuda.empty_cache()
+    grad_cos = _grad_check("MiniLM", trained, cfg0, batch, device)
+    train_wall = time.perf_counter() - t0
+    step_ms = statistics.median(walls) * 1e3
+    log(f"{gpu}: MiniLM (d) train step bf16 remat flash dropout 0.1, {b} x ({tq} + {tc}): "
+        f"losses {' -> '.join(f'{x:.4f}' for x in losses)}; {step_ms:.1f} ms per step (median "
+        f"of {steps}, host clock, synchronised, the first step included), "
+        f"{b * (tq + tc) / step_ms * 1e3:.0f} tokens/s; launches in {steps} steps "
+        f"{json.dumps(counts['train'])}; wall {train_wall:.1f} s, peak {train_peak:.2f} GiB")
+    del trained, batch
+
+    # a tower of 8 heads of 128 (hidden 1,024, 2 layers): encode and train step
+    t0 = time.perf_counter()
+    wide = BertConfig(**{**MINILM, "hidden_size": 1024, "num_heads": 8,
+                         "intermediate_size": 4096, "num_layers": 2}, flash_attention=True,
+                      remat=True)
+    check(wide.head_dim == 128, f"wide head dim {wide.head_dim}")
+    model = Retriever(wide).reset_parameters(30).to(device)
+    batch = _minilm_batch(device, 64, 32, 512, 31, wide.vocab_size)
+    vanilla = Retriever(dataclasses.replace(wide, flash_attention=False)).to(device).eval()
+    vanilla.load_state_dict(model.state_dict())
+    _reset_kernel_counts()
+    with torch.inference_mode():
+        rows = model.eval().encode_context(batch["input_ids_c"], batch["input_mask_c"])
+        counts["dh128 encode"] = _attention_counts()
+        wide_cos = torch.nn.functional.cosine_similarity(
+            rows, vanilla.encode_context(batch["input_ids_c"], batch["input_mask_c"]),
+            dim=1).min().item()
+    del vanilla, rows
+    check(wide_cos >= ENCODER_COS, f"Dh 128 encode with K2 vs vanilla: min cosine {wide_cos}")
+    state = init_train_state(dict(model.named_parameters()))
+    _reset_kernel_counts()
+    _, m = train_step(model.train(), state, AdamW(1e-4), batch, torch.Generator().manual_seed(32))
+    check(math.isfinite(float(m["loss"])), f"Dh 128 train step: loss {m['loss']}")
+    counts["dh128 train"] = _attention_counts()
+    check(counts["dh128 encode"]["K2"] == wide.num_layers and counts["dh128 train"]["K3"] > 0,
+          f"Dh 128 tower: launches {counts['dh128 encode']}, {counts['dh128 train']}")
+    del model, state, batch
+    log(f"{gpu}: Dh 128 tower (8 heads of 128, hidden 1,024, 2 layers), 64 x 512 bf16: encode "
+        f"with K2 min cosine {wide_cos:.6f} to vanilla (tol {ENCODER_COS}); one train step; "
+        f"launches {json.dumps({n: counts[n] for n in ('dh128 encode', 'dh128 train')})}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    k2_32 = counts["encode"]["K2"] + counts["reader"]["K2"] + counts["train"]["K2"]
+    k2_128 = counts["dh128 encode"]["K2"] + counts["dh128 train"]["K2"]
+    fwd32, bwd32 = forms[32][0], forms["32 train"][1]
+    entries = [
+        ("fused_attention (K2) Dh=32 [512, 12, 512, 32]", "attention_fwd.cu",
+         "proqa_tpu/ops/pallas_attention.py:65", k2_32,
+         {**fwd32, "max_abs_err": max(errs[32]["fwd_err"], errs[PADDED_DH]["fwd_err"],
+                                      fwd32["max_abs_err"], forms["32 train"][0]["max_abs_err"])}),
+        ("fused_attention backward (K3) Dh=32 [80, 12, 512, 32]", "attention_bwd.cu",
+         "proqa_tpu/ops/pallas_attention.py:83", counts["train"]["K3"],
+         {**bwd32, "max_abs_err": max(errs[32]["bwd_err"], errs[PADDED_DH]["bwd_err"],
+                                      bwd32["max_abs_err"], forms[32][1]["max_abs_err"])}),
+        ("fused_attention (K2) Dh=128 [64, 8, 512, 128]", "attention_fwd.cu",
+         "proqa_tpu/ops/pallas_attention.py:65", k2_128,
+         {**forms[128][0], "max_abs_err": max(errs[128]["fwd_err"],
+                                              forms[128][0]["max_abs_err"])}),
+        ("fused_attention backward (K3) Dh=128 [64, 8, 512, 128]", "attention_bwd.cu",
+         "proqa_tpu/ops/pallas_attention.py:83", counts["dh128 train"]["K3"],
+         {**forms[128][1], "max_abs_err": max(errs[128]["bwd_err"],
+                                              forms[128][1]["max_abs_err"])}),
+    ]
+    return entries, {"counts": counts, "grad_cos": grad_cos, "losses": losses,
+                     "encode_cos": cos, "reader_rel": rel_err}
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -3377,6 +3821,8 @@ def main() -> int:
         k6, k9, rescore_launches = timed("rescore", phase_rescore, device)
         # the f32 parity path
         k1_f32 = timed("f32", phase_f32, device)
+        # MiniLM-L12-H384: head dim 32 (and 128, and a padded one) on the card
+        minilm, _ = timed("minilm", phase_minilm, device)
         log(f"phase seconds: {json.dumps(phases)}")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "proqa_tpu"))
@@ -3461,6 +3907,9 @@ def main() -> int:
         name, source, replaces = backward_of[kernel]
         kernels.append(entry(f"{name} backward ({kernel}) {label}", source, replaces,
                              trained[f"{kernel} backward"], result))
+    # K2/K3 at head dims 32 and 128 (launches: the MiniLM path's encode,
+    # reader and train steps at Dh 32; the Dh 128 tower's encode and step)
+    kernels += [entry(*form) for form in minilm]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

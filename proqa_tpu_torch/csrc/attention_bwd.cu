@@ -23,15 +23,16 @@
 // latency of that per-score work: the tensor cores are busy a small part of
 // the time.
 //
-// What the design does about it (bf16): two kernels with no atomics, each a
-// block of two warpgroups (128 threads each) that own a 64-row tile apiece
-// and share the streamed tiles. Every product is a wgmma with f32
-// accumulators in registers. The resident tiles are loaded once into shared
-// memory; the streamed tiles of 64 rows go through a ring of kStages
-// buffers filled by cp.async one item ahead. The softmax, the mask, dp, ds
-// and the bf16 rounding happen in registers on the accumulator fragments;
-// the rounded pd or ds is the register A operand of the next product. No
-// float atomics, so two launches on the same inputs give the same bits.
+// What the design does about it (bf16): two kernels (three launches at
+// Dh = 128, see ColPart) with no atomics, each a block of two warpgroups
+// (128 threads each) that own a 64-row tile apiece and share the streamed
+// tiles. Every product is a wgmma with f32 accumulators in registers. The
+// resident tiles are loaded once into shared memory; the streamed tiles of
+// 64 rows go through a ring of kStages buffers filled by cp.async one item
+// ahead. The softmax, the mask, dp, ds and the bf16 rounding happen in
+// registers on the accumulator fragments; the rounded pd or ds is the
+// register A operand of the next product. No float atomics, so two launches
+// on the same inputs give the same bits.
 //   Row kernel, one block per (batch, head, 128 query rows), q and do
 //   resident, k and v streamed, three sweeps over the keys: (0) q k^T, 128
 //   keys an item, for each row's maximum and sum in K2's arithmetic
@@ -46,6 +47,10 @@
 //   row kernel's statistics (the forward's own arithmetic, not a stored
 //   log-sum-exp), pd and ds, then dv += pd^T do and dk += ds^T q, whose wait
 //   runs on into the next item.
+// Head dims 16, 32, 64 and 128 each have their instantiations; at Dh = 128
+// (and at Dh = 32 with dropout) the row kernel runs one block an SM
+// (rows_blocks_per_sm), and at Dh = 128 the column kernel runs as two
+// launches, dv then dk (ColPart).
 //
 // f32 keeps the simple body (attention_tiles.cuh): 16 rows a block, whole
 // f32 score rows in shared memory, plain FMA products, the same two passes,
@@ -70,6 +75,20 @@ enum Stat { kMax = 0, kSum = 1, kRcp = 2, kD = 3 };
 // an SM should hold, which bounds the registers a thread may use
 constexpr int kRowGroups = 2, kRowBlocksPerSM = 2;
 constexpr int kColGroups = 2, kColBlocksPerSM = 1;
+// The row kernel's blocks an SM for the head dims added after 16 and 64: at
+// Dh = 128 its tiles take up to 180 KB of shared memory (T = 1,024 with
+// dropout), so one block fits an SM, and acc[64] beside the s and dp tiles
+// needs more than the 128 registers of two blocks. At Dh = 32 with dropout,
+// ptxas spilled 4 bytes under the 128-register cap of two blocks, and one
+// block fits: one block, 255 registers, no spill.
+__host__ __device__ constexpr int rows_blocks_per_sm(int dh, bool drop) {
+  return dh == 128 || (dh == 32 && drop) ? 1 : kRowBlocksPerSM;
+}
+// Which of dv and dk a column kernel launch accumulates: both up to Dh = 64.
+// At Dh = 128, acc_v[64] and acc_k[64] beside the s and dp tiles and the
+// products' register operands pass 255 registers (ptxas spilled), so two
+// launches take one each; the dk launch recomputes p.
+enum ColPart { kBoth = 0, kDv = 1, kDk = 2 };
 
 template <int DH, bool DROP>
 size_t rows_smem_bytes(int seq) {
@@ -110,7 +129,7 @@ __device__ __forceinline__ bool kept(const uint32_t (&words)[2][2], int i) {
 }
 
 template <int DH, bool DROP>
-__global__ void __launch_bounds__(kRowGroups * kWarpgroup, kRowBlocksPerSM)
+__global__ void __launch_bounds__(kRowGroups * kWarpgroup, rows_blocks_per_sm(DH, DROP))
 attention_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
                           const int* __restrict__ key_mask, bf16* __restrict__ dq,
@@ -299,7 +318,7 @@ attention_bwd_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
 }
 
-template <int DH, bool DROP>
+template <int DH, bool DROP, int PART>
 __global__ void __launch_bounds__(kColGroups * kWarpgroup, kColBlocksPerSM)
 attention_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                           const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -310,6 +329,7 @@ attention_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   constexpr int NT = kColGroups * kWarpgroup;
   constexpr uint32_t kBytes = Tile<DH>::kBytes, kStage = cols_stage_bytes<DH>();
   constexpr uint32_t kRing = 2 * kColGroups * kBytes;  // the ring's offset
+  constexpr bool kV = PART != kDk, kK = PART != kDv;    // accumulates dv, dk
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, wg = tid / kWarpgroup, t = tid % kWarpgroup;
   const int b = blockIdx.z, h = blockIdx.y, key_block = blockIdx.x * kColGroups * kTile;
@@ -322,7 +342,7 @@ attention_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int w = 0; w < kColGroups; ++w) {
     const size_t off = slice + (size_t)(key_block + w * kTile) * DH;
     load_tile<DH, NT>(k_tiles + w * kBytes, k + off, tid);
-    load_tile<DH, NT>(v_tiles + w * kBytes, v + off, tid);
+    if constexpr (kK) load_tile<DH, NT>(v_tiles + w * kBytes, v + off, tid);
   }
   const int nt = seq / kTile;
   auto issue = [&](int item) {
@@ -351,7 +371,7 @@ attention_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int j0 = key_block + wg * kTile + frag_row(t);
   const float bias[2] = {key_mask[(size_t)b * seq + j0] != 0 ? 0.0f : kMaskBias,
                          key_mask[(size_t)b * seq + j0 + 8] != 0 ? 0.0f : kMaskBias};
-  float acc_v[DH / 2], acc_k[DH / 2];
+  float acc_v[DH / 2], acc_k[DH / 2];  // the one a part does not take is never used
 #pragma unroll
   for (int i = 0; i < DH / 2; ++i) acc_v[i] = acc_k[i] = 0.0f;
 
@@ -369,13 +389,13 @@ attention_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     float s[32], dp[32];
     wgmma_fence();
     issue_scores<DH>(s, k_tile, q_tile);
-    issue_scores<DH>(dp, v_tile, do_tile);
+    if constexpr (kK) issue_scores<DH>(dp, v_tile, do_tile);
     wgmma_commit();
     wgmma_wait<0>();  // these scores, and the previous tile's products
     fence_regs(s);
-    fence_regs(dp);
-    fence_regs(acc_v);
-    fence_regs(acc_k);
+    if constexpr (kK) fence_regs(dp);
+    if constexpr (kV) fence_regs(acc_v);
+    if constexpr (kK) fence_regs(acc_k);
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int col = 8 * n + c;
@@ -389,34 +409,54 @@ attention_bwd_cols_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
         const bool odd = e % 2;
         const float x = logit(s[i], scale, bias[r]);
         const float p = div_rn(expf(x - (odd ? m.y : m.x)), odd ? l.y : l.x, odd ? rl.y : rl.x);
-        float pd = p, d = dp[i];
+        float pd = p, d = kK ? dp[i] : 0.0f;
         if constexpr (DROP) {  // bit j0 + 8 r - (the tile's first key) of query row col + odd
           const bool keep = (bits[col + odd] >> (frag_row(t) + 8 * r)) & 1u;
           pd = apply_keep(p, keep, drop.inv_keep);
           d = apply_keep(d, keep, drop.inv_keep);
         }
         s[i] = pd;
-        dp[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, odd ? dd.y : dd.x)), scale);  // ds
+        if constexpr (kK)
+          dp[i] = __fmul_rn(__fmul_rn(p, __fsub_rn(d, odd ? dd.y : dd.x)), scale);  // ds
       }
     }
     uint32_t pa[4][4], da[4][4];
-    pack_rows(s, pa);
-    pack_rows(dp, da);
+    if constexpr (kV) pack_rows(s, pa);
+    if constexpr (kK) pack_rows(dp, da);
     wgmma_fence();
-    issue_weigh<DH>(acc_v, pa, do_tile);  // waited for in the next item, or below
-    issue_weigh<DH>(acc_k, da, q_tile);
+    // waited for in the next item, or below
+    if constexpr (kV) issue_weigh<DH>(acc_v, pa, do_tile);
+    if constexpr (kK) issue_weigh<DH>(acc_k, da, q_tile);
     wgmma_commit();
   }
   wgmma_wait<0>();
-  fence_regs(acc_v);
-  fence_regs(acc_k);
+  if constexpr (kV) fence_regs(acc_v);
+  if constexpr (kK) fence_regs(acc_k);
 
 #pragma unroll
   for (int i = 0; i < DH / 2; i += 2) {
     const size_t at = slice + (size_t)(j0 + 8 * ((i / 2) % 2)) * DH + 8 * (i / 4) + c;
-    *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(acc_k[i], acc_k[i + 1]);
+    if constexpr (kV)
+      *reinterpret_cast<__nv_bfloat162*>(dv + at) = __floats2bfloat162_rn(acc_v[i], acc_v[i + 1]);
+    if constexpr (kK)
+      *reinterpret_cast<__nv_bfloat162*>(dk + at) = __floats2bfloat162_rn(acc_k[i], acc_k[i + 1]);
   }
+}
+
+template <int DH, bool DROP, int PART>
+cudaError_t launch_cols(const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                        const int* key_mask, const float* stats, const uint64_t* keep_bits,
+                        void* dk, void* dv, int batch, int heads, int seq, float scale,
+                        DropoutParams drop, cudaStream_t stream) {
+  const size_t smem = cols_smem_bytes<DH>();
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_cols_kernel<DH, DROP, PART>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_cols_kernel<DH, DROP, PART>
+      <<<dim3(seq / (kColGroups * kTile), heads, batch), kColGroups * kWarpgroup, smem,
+         stream>>>(q, k, v, dout, key_mask, stats, keep_bits, static_cast<bf16*>(dk),
+                   static_cast<bf16*>(dv), heads, seq, scale, drop);
+  return cudaGetLastError();
 }
 
 template <int DH, bool DROP>
@@ -424,13 +464,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
                          const void* key_mask, void* dq, void* dk, void* dv, void* stats,
                          void* keep_bits, int batch, int heads, int seq, float scale,
                          DropoutParams drop, cudaStream_t stream) {
-  const size_t rows_smem = rows_smem_bytes<DH, DROP>(seq), cols_smem = cols_smem_bytes<DH>();
+  const size_t rows_smem = rows_smem_bytes<DH, DROP>(seq);
   cudaError_t err = cudaFuncSetAttribute(attention_bwd_rows_kernel<DH, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)rows_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_bwd_cols_kernel<DH, DROP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)cols_smem);
   if (err != cudaSuccess) return err;
   const bf16* qe = static_cast<const bf16*>(q);
   const bf16* ke = static_cast<const bf16*>(k);
@@ -445,11 +482,16 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
                    drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_cols_kernel<DH, DROP>
-      <<<dim3(seq / (kColGroups * kTile), heads, batch), kColGroups * kWarpgroup, cols_smem,
-         stream>>>(qe, ke, ve, de, mask, st, bits, static_cast<bf16*>(dk),
-                   static_cast<bf16*>(dv), heads, seq, scale, drop);
-  return cudaGetLastError();
+  if constexpr (DH <= 64) {
+    return launch_cols<DH, DROP, kBoth>(qe, ke, ve, de, mask, st, bits, dk, dv, batch, heads,
+                                        seq, scale, drop, stream);
+  } else {
+    err = launch_cols<DH, DROP, kDv>(qe, ke, ve, de, mask, st, bits, dk, dv, batch, heads, seq,
+                                     scale, drop, stream);
+    if (err != cudaSuccess) return err;
+    return launch_cols<DH, DROP, kDk>(qe, ke, ve, de, mask, st, bits, dk, dv, batch, heads, seq,
+                                      scale, drop, stream);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -676,7 +718,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv [batch, heads, seq, head_dim] row-major (bf16
-// when is_bf16, else f32; 32-byte aligned); head_dim 16 or 64; key_mask int32
+// when is_bf16, else f32; 32-byte aligned); head_dim 16, 32, 64 or 128
+// (ops/attention.py pads any other head dim up to 128); key_mask int32
 // [batch, seq], nonzero = attend; stats f32 scratch [4, batch * heads * seq];
 // keep_bits u64 scratch [batch * heads * seq / 64 * seq], needed by bf16 with
 // dropout (else may be null). Dropout as in proqa_attention_fwd. Returns a
@@ -696,9 +739,15 @@ extern "C" int proqa_attention_bwd(const void* q, const void* k, const void* v,
     case 16:
       return launch<16>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads, seq,
                         scale, is_bf16, drop, s);
+    case 32:
+      return launch<32>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads, seq,
+                        scale, is_bf16, drop, s);
     case 64:
       return launch<64>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads, seq,
                         scale, is_bf16, drop, s);
+    case 128:
+      return launch<128>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads,
+                         seq, scale, is_bf16, drop, s);
     default: return cudaErrorInvalidValue;
   }
 }

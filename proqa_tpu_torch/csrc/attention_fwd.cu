@@ -10,7 +10,7 @@
 //
 // What bounds it on the H100: a (batch, head) slice moves 4 T Dh elements
 // (q, k, v, out) for 4 T^2 Dh FLOP, T / 2 FLOP per bf16 byte, under the
-// card's 295 FLOP a byte: at Dh = 64 and T <= 1024 the bound is bytes. What
+// card's 295 FLOP a byte: at T <= 1024 the bound is bytes, whatever Dh. What
 // the kernel spends instead is issue slots: per score two exps (the sum, then
 // p), a correctly rounded division and, at a dropout rate above 0, the
 // mask hash's integer operations (random.cuh), against 6 Dh tensor-core FLOP.
@@ -36,7 +36,10 @@
 // reference gives, never NaN. The dropout mask of element (b, h, i, j) is the
 // counter-based hash of its flat index ((b H + h) T + i) T + j (random.cuh),
 // so K3 and the plain version draw it exactly; the work a row of a tile
-// shares is done once (ProqaKeepRow).
+// shares is done once (ProqaKeepRow). Head dims 16, 32, 64 and 128 each
+// have their instantiation (p v is one m64nDHk16 wgmma a k-step); the
+// per-score softmax work does not shrink with Dh, so Dh = 32 sits further
+// from its bytes bound than Dh = 64.
 //
 // f32 keeps the simple body (attention_tiles.cuh): 16 query rows a block,
 // whole f32 score rows in shared memory, plain FMA products.
@@ -53,6 +56,13 @@ using namespace attn;
 
 constexpr int kFwdGroups = 2;  // warpgroups of 64 query rows a block
 
+// The blocks an SM should hold, which caps a thread's registers (65,536 /
+// (256 threads x blocks)). Two up to Dh = 64 (at most 128 registers). At
+// Dh = 128 a block's tiles take 132 KB of shared memory, so one block fits
+// an SM anyway, and the cap of 255 lets a thread keep o[64] beside a score
+// tile without spilling.
+__host__ __device__ constexpr int fwd_blocks_per_sm(int dh) { return dh <= 64 ? 2 : 1; }
+
 template <int DH>
 size_t fwd_smem_bytes(int seq) {
   // q tiles, the ring of two-tile stages, the key bias
@@ -60,7 +70,7 @@ size_t fwd_smem_bytes(int seq) {
 }
 
 template <int DH, bool DROP>
-__global__ void __launch_bounds__(kFwdGroups * kWarpgroup, 2)
+__global__ void __launch_bounds__(kFwdGroups * kWarpgroup, fwd_blocks_per_sm(DH))
 attention_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                            const bf16* __restrict__ v, const int* __restrict__ key_mask,
                            bf16* __restrict__ out, int heads, int seq, float scale,
@@ -289,7 +299,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
 }  // namespace
 
 // q, k, v, out [batch, heads, seq, head_dim] row-major (bf16 when is_bf16,
-// else f32; 32-byte aligned); head_dim 16 or 64; key_mask int32 [batch, seq],
+// else f32; 32-byte aligned); head_dim 16, 32, 64 or 128 (ops/attention.py
+// pads any other head dim up to 128 with zero columns); key_mask int32 [batch, seq],
 // nonzero = attend. Dropout on the probabilities when `dropout` is nonzero,
 // with the keys, threshold and 1/(1-rate) of ops/random.py. Returns a
 // cudaError_t code.
@@ -305,7 +316,10 @@ extern "C" int proqa_attention_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16: return launch<16>(q, k, v, key_mask, out, batch, heads, seq, scale, is_bf16, drop, s);
+    case 32: return launch<32>(q, k, v, key_mask, out, batch, heads, seq, scale, is_bf16, drop, s);
     case 64: return launch<64>(q, k, v, key_mask, out, batch, heads, seq, scale, is_bf16, drop, s);
+    case 128:
+      return launch<128>(q, k, v, key_mask, out, batch, heads, seq, scale, is_bf16, drop, s);
     default: return cudaErrorInvalidValue;
   }
 }

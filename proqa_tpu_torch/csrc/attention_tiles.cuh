@@ -63,6 +63,11 @@ struct Tile {
   static constexpr uint32_t kGroup = 128;          // between column groups of 8
   static constexpr uint32_t kRowBlock = 16 * DH;   // between row blocks of 8
   static constexpr uint32_t kBytes = kTile * DH * 2;
+  // a wgmma product takes N = DH in one instruction (n16 .. n128), and a
+  // descriptor's offsets are 14-bit counts of 16 bytes: kRowBlock at DH = 128
+  // is 2,048 bytes, 128 units
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128, "head dims 16, 32, 64, 128");
+  static_assert(kRowBlock / 16 < (1u << 14), "descriptor offset out of range");
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -199,6 +204,42 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x 32] += a[64 x 16] b[16 x 32], a in registers, b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 128] += a[64 x 16] b[16 x 128], a in registers, b MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
+        "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // s[64 x 64] = a b^T for two K-major Tiles in shared memory (a: the 64 rows
 // of the accumulator, b: its 64 columns), contraction over DH. Issued, not
 // waited for.
@@ -210,7 +251,8 @@ __device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t a, uint32_
 }
 
 // o[64 x DH] += p[64 x 64] b for p as bf16 A fragments (see pack_rows) and a
-// Tile b whose 64 rows are the contraction. Issued, not waited for.
+// Tile b whose 64 rows are the contraction: one m64nDHk16 wgmma a k-step (the
+// wgmma_rs overload of DH / 2 accumulators). Issued, not waited for.
 template <int DH>
 __device__ __forceinline__ void issue_weigh(float (&o)[DH / 2], const uint32_t (&p)[4][4],
                                             uint32_t b) {

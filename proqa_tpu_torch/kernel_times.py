@@ -1,6 +1,6 @@
-"""Times kernels K1, K5, K6, K7, K8, K4, F1 and F2 (and their backward) of a
-checkout of the port on one NVIDIA GPU, and the host path of one K4 call
-piece by piece.
+"""Times kernels K1, K5, K6, K7, K8, K4, F1 and F2 (and their backward), K2
+and K3 of a checkout of the port on one NVIDIA GPU, and the host path of one
+K4 call piece by piece.
 
     python proqa_tpu_torch/kernel_times.py [--root DIR] [--out FILE] [--only K6,K1]
 
@@ -43,7 +43,19 @@ time of a call while the card keeps up ("host us", 20 calls a round):
       [N, 3,072] beside aten::gelu_backward, F1's bias column sum alone at
       [N, 768] beside torch.sum(dim=0), F2's with a residual at [N, 768]
       beside aten::native_layer_norm_backward (checkouts without the
-      backward kernels skip them).
+      backward kernels skip them);
+  K2, K3  fused attention forward and backward, bf16, random key padding
+      with one all-padding row, at rates 0.1 and 0, beside
+      F.scaled_dot_product_attention and its backward at rate 0 (the
+      yardstick; the port never calls it), each with its bound by
+      chip_smoke.py:bound ("bound ms", "bound by"): Dh = 32 at [512, 12,
+      512, 32] (MiniLM's encode) and [80, 12, 512, 32] (its train step),
+      Dh = 128 at [64, 8, 512, 128], Dh = 64 at [80, 12, 512, 64]
+      (BERT-base's train step) and Dh = 16 at [80, 12, 512, 16]; each
+      shape's inputs come from a generator seeded by the shape, and each
+      call's outputs are recorded as a SHA-256 digest ("digest"), so two
+      checkouts' kernels can be held bit for bit; a checkout whose kernels
+      lack a head dim (attention.HEAD_DIMS) skips its shapes.
 Host pieces of K4 (time.perf_counter_ns, mean over 1,000 calls, median of
 5 rounds, on a [80, 768] bf16 tensor so that the card keeps up): each step
 the earlier dropout wrapper took (an autograd node always, the rate checked
@@ -213,6 +225,67 @@ def _backward_times(time_kernel, fused_bert, dev, g, n) -> None:
                     dy, s, [h], a_mean, a_rstd, sc, bi, [True, True, True]))
 
 
+ATTENTION_SHAPES = ((512, 12, 512, 32), (80, 12, 512, 32), (64, 8, 512, 128), (80, 12, 512, 64),
+                    (80, 12, 512, 16))
+
+
+def _digest(tensors) -> str:
+    """SHA-256 of the tensors' bytes, in order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def attention_times(time_kernel, attention, dev, out) -> None:
+    """K2 and K3 at ATTENTION_SHAPES, rates 0.1 and 0, beside SDPA and its
+    backward, each shape's bounds, and the digests of the kernels' outputs."""
+    import torch
+    import torch.nn.functional as F
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    seed = 2**50 + 3
+    for b, h, t, dh in ATTENTION_SHAPES:
+        if dh not in attention.HEAD_DIMS:
+            continue
+        g = torch.Generator(device=dev).manual_seed(b * h * t + dh)
+        q, k, v, do = (torch.randn(b, h, t, dh, device=dev, generator=g).bfloat16()
+                       for _ in range(4))
+        lengths = torch.randint(1, t + 1, (b,), device=dev, generator=g)
+        lengths[0] = 0  # one all-padding row
+        mask = (torch.arange(t, device=dev)[None] < lengths[:, None]).to(torch.int32)
+        bias = torch.where(mask[:, None, None, :] != 0, 0.0, attention.MASK_BIAS).to(q.dtype)
+        scale, shape = dh ** -0.5, f"[{b}, {h}, {t}, {dh}]"
+        for rate in (0.1, 0.0):
+            calls = {"K2": lambda: (attention.fused_attention(
+                         q, k, v, mask, sm_scale=scale, dropout_rate=rate, seed=seed),),
+                     "K3": lambda: attention._backward_kernel(q, k, v, mask, do, scale, rate,
+                                                              seed)}
+            for name, fn in calls.items():
+                time_kernel(f"{name} {shape} rate {rate}", fn)
+                out[f"{name} {shape} rate {rate} digest"] = _digest(fn())
+        time_kernel(f"SDPA {shape}",
+                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias))
+        qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias)
+        time_kernel(f"SDPA backward {shape}", lambda: torch.autograd.grad(
+            lib_out, (qs, ks, vs), do, retain_graph=True))
+        n = b * h * t * dh * 2  # bytes of one bf16 [B, H, T, Dh] tensor
+        for name, tensors, flops in (("K2", 4, 4), ("K3", 7, 10)):
+            out[f"{name} {shape} bound ms"], out[f"{name} {shape} bound by"] = smoke.bound(
+                tensors * n + mask.numel() * 4, flops * b * h * t * t * dh)
+        del q, k, v, do, mask, bias, qs, ks, vs, lib_out
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -227,15 +300,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
         return 1
-    from proqa_tpu_torch.ops import dropout, mips_kernel, rescore
+    from proqa_tpu_torch.ops import attention, dropout, mips_kernel, rescore
 
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(4)
-    corpus = (torch.randn(4_194_304, 128, device=dev, generator=g) / 128 ** 0.5).bfloat16()
-    queries = (torch.randn(2048, 128, device=dev, generator=g) / 128 ** 0.5).bfloat16()
     out = {"gpu": gpu, "root": os.path.abspath(args.root), "kernels": {}}
+
+    def wanted(*names):  # whether --only selects any kernel of a section
+        return not only or any(n.startswith(p) or p.startswith(n) for n in names for p in only)
 
     def time_kernel(name, fn, rounds=5, queued_rounds=3):
         if only and not name.startswith(only):
@@ -245,53 +319,58 @@ def main(argv=None) -> int:
         out["kernels"][name], out[f"{name} kernel ms"] = _kernel_trace(fn)
         out[f"{name} host us"] = _host_us(fn, calls=20)
 
-    for q in (2048, 32):
-        qs = queries[:q].contiguous()
-        time_kernel(f"K1 Q={q}", lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
-    time_kernel("K8 Q=2048", lambda: mips_kernel.block_maxima(queries, corpus, block=256,
-                                                              tile_n=2048))
-    ids = mips_kernel.select_blocks(queries, corpus, 80, block=16)
-    blocks = corpus.view(-1, 16, 128)
-    time_kernel("K6 Q=2048 kb=80 block=16",
-                lambda: rescore.gather_rescore(queries, blocks, ids, block=16), rounds=20)
-    q256 = queries[:256].contiguous()
-    ids256 = torch.topk(mips_kernel.block_maxima(q256, corpus, block=256, tile_n=2048).T,
-                        128).indices
-    blocks256 = corpus.view(-1, 256, 128)
-    time_kernel("K6 Q=256 kb=128 block=256",
-                lambda: rescore.gather_rescore(q256, blocks256, ids256, block=256), rounds=20)
-    del corpus, blocks, blocks256
-    corpus = torch.randn(4_194_304, 128, device=dev, generator=g) / 128 ** 0.5
-    queries_f32 = torch.randn(2048, 128, device=dev, generator=g) / 128 ** 0.5
-    for q in (2048, 32):
-        qs = queries_f32[:q].contiguous()
-        time_kernel(f"K1 f32 Q={q}",
-                    lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
-    blocks = corpus.view(-1, 16, 128)
-    time_kernel("K6 f32 Q=2048 kb=80 block=16",
-                lambda: rescore.gather_rescore(queries_f32, blocks, ids, block=16), rounds=20)
-    del corpus, queries_f32, blocks, ids
-    # int8 codes and scales made on the device (uniform codes in [-127, 127])
-    codes = torch.randint(-127, 128, (4_194_304, 128), device=dev, generator=g,
-                          dtype=torch.int8)
-    scales = torch.rand(4_194_304 // 16, device=dev, generator=g) * 0.02 + 1e-3
-    rows = (torch.rand(4_194_304, device=dev, generator=g) * 0.02 + 1e-3).view(-1, 16)
-    bounds = (rows.amax(dim=1), rows.amin(dim=1))
-    for name, q, kw in (("K5", 2048, {"scales": scales}), ("K5", 32, {"scales": scales}),
-                        ("K7", 2048, {"scale_bounds": bounds})):
-        qs = queries[:q].contiguous()
-        time_kernel(f"{name} Q={q}",
-                    lambda: mips_kernel.block_maxima_grouped(qs, codes, block=16, **kw))
-    del codes, scales, rows, bounds, queries
-    x = torch.randn(80, 512, 768, device=dev, generator=g).bfloat16()
-    for name, fn in (("K4", lambda: dropout.dropout(x, 0.1, seed=3)),
-                     ("F.dropout", lambda: F.dropout(x, 0.1, training=True))):
-        time_kernel(name, fn, rounds=20, queued_rounds=5)
-    if not only or "K4".startswith(only):
-        out["K4 host pieces us"] = host_pieces(
-            torch.randn(80, 768, device=dev, generator=g).bfloat16())
-    del x
-    if importlib.util.find_spec("proqa_tpu_torch.ops.fused_bert") is not None:
+    if wanted("K1", "K8", "K6", "K5", "K7"):
+        corpus = (torch.randn(4_194_304, 128, device=dev, generator=g) / 128 ** 0.5).bfloat16()
+        queries = (torch.randn(2048, 128, device=dev, generator=g) / 128 ** 0.5).bfloat16()
+        for q in (2048, 32):
+            qs = queries[:q].contiguous()
+            time_kernel(f"K1 Q={q}", lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
+        time_kernel("K8 Q=2048", lambda: mips_kernel.block_maxima(queries, corpus, block=256,
+                                                                  tile_n=2048))
+        ids = mips_kernel.select_blocks(queries, corpus, 80, block=16)
+        blocks = corpus.view(-1, 16, 128)
+        time_kernel("K6 Q=2048 kb=80 block=16",
+                    lambda: rescore.gather_rescore(queries, blocks, ids, block=16), rounds=20)
+        q256 = queries[:256].contiguous()
+        ids256 = torch.topk(mips_kernel.block_maxima(q256, corpus, block=256, tile_n=2048).T,
+                            128).indices
+        blocks256 = corpus.view(-1, 256, 128)
+        time_kernel("K6 Q=256 kb=128 block=256",
+                    lambda: rescore.gather_rescore(q256, blocks256, ids256, block=256), rounds=20)
+        del corpus, blocks, blocks256
+        corpus = torch.randn(4_194_304, 128, device=dev, generator=g) / 128 ** 0.5
+        queries_f32 = torch.randn(2048, 128, device=dev, generator=g) / 128 ** 0.5
+        for q in (2048, 32):
+            qs = queries_f32[:q].contiguous()
+            time_kernel(f"K1 f32 Q={q}",
+                        lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
+        blocks = corpus.view(-1, 16, 128)
+        time_kernel("K6 f32 Q=2048 kb=80 block=16",
+                    lambda: rescore.gather_rescore(queries_f32, blocks, ids, block=16), rounds=20)
+        del corpus, queries_f32, blocks, ids
+        # int8 codes and scales made on the device (uniform codes in [-127, 127])
+        codes = torch.randint(-127, 128, (4_194_304, 128), device=dev, generator=g,
+                              dtype=torch.int8)
+        scales = torch.rand(4_194_304 // 16, device=dev, generator=g) * 0.02 + 1e-3
+        rows = (torch.rand(4_194_304, device=dev, generator=g) * 0.02 + 1e-3).view(-1, 16)
+        bounds = (rows.amax(dim=1), rows.amin(dim=1))
+        for name, q, kw in (("K5", 2048, {"scales": scales}), ("K5", 32, {"scales": scales}),
+                            ("K7", 2048, {"scale_bounds": bounds})):
+            qs = queries[:q].contiguous()
+            time_kernel(f"{name} Q={q}",
+                        lambda: mips_kernel.block_maxima_grouped(qs, codes, block=16, **kw))
+        del codes, scales, rows, bounds, queries
+    if wanted("K4", "F.dropout"):
+        x = torch.randn(80, 512, 768, device=dev, generator=g).bfloat16()
+        for name, fn in (("K4", lambda: dropout.dropout(x, 0.1, seed=3)),
+                         ("F.dropout", lambda: F.dropout(x, 0.1, training=True))):
+            time_kernel(name, fn, rounds=20, queued_rounds=5)
+        if not only or "K4".startswith(only):
+            out["K4 host pieces us"] = host_pieces(
+                torch.randn(80, 768, device=dev, generator=g).bfloat16())
+        del x
+    if wanted("F1", "F2", "F.layer_norm", "aten::", "torch.sum") and importlib.util.find_spec(
+            "proqa_tpu_torch.ops.fused_bert") is not None:
         from proqa_tpu_torch.ops import fused_bert
 
         n, h = 512 * 512, 768
@@ -312,6 +391,8 @@ def main(argv=None) -> int:
         del x, r
         if hasattr(fused_bert, "_dense_epilogue_backward_kernel"):
             backward_times(time_kernel, fused_bert, dev, g)
+    if wanted("K2", "K3", "SDPA"):
+        attention_times(time_kernel, attention, dev, out)
     line = json.dumps(out)
     print(line)
     if args.out:

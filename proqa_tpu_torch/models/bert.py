@@ -38,7 +38,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from proqa_tpu_torch.ops.attention import MASK_BIAS, fused_attention
+from proqa_tpu_torch.ops.attention import (
+    MASK_BIAS, fused_attention, kernel_head_dim, pad_head_dim,
+)
 from proqa_tpu_torch.ops.dot import dot_f32
 from proqa_tpu_torch.ops.dropout import dropout
 from proqa_tpu_torch.ops.fused_bert import (
@@ -166,10 +168,15 @@ class BertLayer(nn.Module):
         q, k, v = heads(self.q(x)), heads(self.k(x)), heads(self.v(x))
         # same rule as bert.py:190: the fused kernel takes block-divisible lengths
         if cfg.flash_attention and t % 128 == 0 and t <= 1024:
-            ctx = fused_attention(q.contiguous(), k.contiguous(), v.contiguous(), key_mask,
+            # on the card a head dim without its own kernel reaches the next
+            # one zero-padded, in the copy that makes q, k and v contiguous
+            built = kernel_head_dim(hd) if x.is_cuda else hd
+            ctx = fused_attention(*(pad_head_dim(y, built) for y in (q, k, v)), key_mask,
                                   sm_scale=1.0 / math.sqrt(hd),
                                   dropout_rate=0.0 if seed is None else cfg.attention_dropout,
                                   seed=seed or 0)
+            if built != hd:
+                ctx = ctx[..., :hd]
         else:
             scores = dot_f32(q, k.transpose(-1, -2)) / math.sqrt(hd) + mask_bias
             probs = _drop(torch.softmax(scores, dim=-1), cfg.attention_dropout, seed)

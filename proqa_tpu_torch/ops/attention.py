@@ -10,17 +10,28 @@ backward regenerates it: only q, k, v, the key mask and the seed are saved
 kernels csrc/attention_fwd.cu and csrc/attention_bwd.cu; CPU tensors run
 `fused_attention_reference` and `fused_attention_backward_reference`, their
 plain PyTorch versions, which draw the same bits.
+
+The kernels are built for head dims 16, 32, 64 and 128 (HEAD_DIMS). On the
+card any other head dim up to 128 reaches the next of them zero-padded along
+Dh (`kernel_head_dim`, `pad_head_dim`): a zero column adds an exact zero to
+every q k^T product and gives zero output columns, which are sliced off, so
+only the order of the f32 sums can differ from a kernel built for that dh.
+`sm_scale` stays the caller's. Above 128 the kernels raise. The plain
+versions take any head dim as it is.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from proqa_tpu_torch import _build
 from proqa_tpu_torch.ops import random
 from proqa_tpu_torch.ops.dot import dot_f32
 
 MASK_BIAS = -1e30  # pallas_attention.py:32; -inf would turn all-padding rows into NaN
-HEAD_DIMS = (16, 64)  # BertConfig.tiny and BERT-base; the kernels are instantiated for these
+# the kernels' instantiations: BertConfig.tiny, MiniLM (hidden 384 over 12
+# heads), BERT-base and -large, and 8 heads over 1,024
+HEAD_DIMS = (16, 32, 64, 128)
 STREAM = 1  # the stream id of attention-probability masks (ops/random.py:keys)
 
 # kernel launches since the last reset (the main path's proof of use)
@@ -66,13 +77,31 @@ def fused_attention_backward_reference(q, k, v, key_mask, do, *, sm_scale: float
     return dq, dk, dv
 
 
-def _check_kernel_inputs(tensors, dh):
+def kernel_head_dim(dh: int) -> int:
+    """The head dim of the kernel instantiation that runs head dim dh: dh
+    itself where one is built for it, else the next larger, reached by
+    zero-padding. Raises above HEAD_DIMS[-1]."""
+    for built in HEAD_DIMS:
+        if dh <= built:
+            return built
+    raise ValueError(f"head dim {dh} > {HEAD_DIMS[-1]}: the attention kernels are built for head "
+                     f"dims up to {HEAD_DIMS[-1]} (no public BERT has wider heads); set "
+                     f"flash_attention=False for the plain attention path")
+
+
+def pad_head_dim(x: torch.Tensor, dh: int) -> torch.Tensor:
+    """x [..., d] as a contiguous [..., dh] tensor, zero columns after x's
+    own: one copy (none if x is contiguous and d == dh)."""
+    if x.shape[-1] == dh:
+        return x.contiguous()
+    return F.pad(x, (0, dh - x.shape[-1])).contiguous()
+
+
+def _check_kernel_inputs(tensors):
     q = tensors[0]
     if q.dtype not in (torch.bfloat16, torch.float32) or any(x.dtype != q.dtype for x in tensors):
         raise TypeError(f"q, k, v (and do) must share a dtype of bf16 or f32, got "
                         f"{[x.dtype for x in tensors]}")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
 
 
 def _aligned(name, x, device):
@@ -90,7 +119,12 @@ def _dropout_args(rate: float, seed: int):
 def _forward_kernel(q, k, v, key_mask, sm_scale, rate, seed):
     global launches
     bsz, nh, t, dh = q.shape
-    _check_kernel_inputs((q, k, v), dh)
+    built = kernel_head_dim(dh)
+    if built != dh:
+        out = _forward_kernel(*(pad_head_dim(x, built) for x in (q, k, v)), key_mask, sm_scale,
+                              rate, seed)
+        return out[..., :dh].contiguous()
+    _check_kernel_inputs((q, k, v))
     if key_mask.dtype != torch.int32:
         raise TypeError(f"key_mask must be int32, got {key_mask.dtype}")
     for name, x in (("q", q), ("k", k), ("v", v), ("key_mask", key_mask)):
@@ -106,7 +140,12 @@ def _forward_kernel(q, k, v, key_mask, sm_scale, rate, seed):
 def _backward_kernel(q, k, v, key_mask, do, sm_scale, rate, seed):
     global backward_launches
     bsz, nh, t, dh = q.shape
-    _check_kernel_inputs((q, k, v, do), dh)
+    built = kernel_head_dim(dh)
+    if built != dh:
+        q, k, v, do = (pad_head_dim(x, built) for x in (q, k, v, do))
+        grads = _backward_kernel(q, k, v, key_mask, do, sm_scale, rate, seed)
+        return tuple(g[..., :dh].contiguous() for g in grads)
+    _check_kernel_inputs((q, k, v, do))
     for name, x in (("q", q), ("k", k), ("v", v), ("do", do), ("key_mask", key_mask)):
         _aligned(name, x, q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -155,9 +194,10 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q, k, v, key_mask, *, sm_scale: float, dropout_rate: float = 0.0,
                     seed: int = 0) -> torch.Tensor:
-    """q, k, v [B, H, T, Dh] (T % 128 == 0, T <= 1024); key_mask [B, T],
-    nonzero = attend. Returns [B, H, T, Dh] in q's dtype, differentiable in
-    q, k and v. At dropout_rate > 0, `seed` (64-bit) chooses the mask."""
+    """q, k, v [B, H, T, Dh] (T % 128 == 0, T <= 1024; on the card Dh <=
+    128); key_mask [B, T], nonzero = attend. Returns [B, H, T, Dh] in q's
+    dtype, differentiable in q, k and v. At dropout_rate > 0, `seed` (64-bit)
+    chooses the mask."""
     bsz, nh, t, dh = q.shape
     if t % 128 or t > 1024:
         raise ValueError(f"T={t} must be a multiple of 128 and <= 1024")

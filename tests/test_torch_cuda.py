@@ -45,7 +45,8 @@ def _attention_inputs(t, b, h, dh, device, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16), (1024, 64), (128, 16)])
+@pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16), (1024, 64), (128, 16),
+                                  (128, 32), (512, 32), (256, 128), (1024, 128), (256, 48)])
 def test_attention_kernel_matches_plain(cuda, t, dh, dtype):
     q, k, v, mask = _attention_inputs(t, 3, 4, dh, cuda, getattr(torch, dtype))
     before = attention.launches
@@ -143,7 +144,8 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                          block=16)
     with pytest.raises(TypeError):
         mips_kernel.block_maxima_grouped(q, c.float(), block=16)
-    q, k, v, mask = _attention_inputs(128, 2, 2, 48, cuda, torch.bfloat16)
+    # head dims up to 128 run (padded where no kernel is built for them); above, none
+    q, k, v, mask = _attention_inputs(128, 2, 2, 160, cuda, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         attention.fused_attention(q, k, v, mask, sm_scale=0.1)
 
@@ -581,6 +583,48 @@ def test_towers_on_gpu_match_cpu(cuda, dtype):
         torch.testing.assert_close(got.cpu(), want, atol=ENCODER_TOL[dtype], rtol=0)
 
 
+@pytest.mark.parametrize("heads", [12, 8])
+def test_towers_at_head_dims_on_gpu_match_cpu(cuda, heads):
+    """Two layers at MiniLM's widths (hidden 384, intermediate 1,536): 12
+    heads of 32, which K2/K3 are built for, and 8 heads of 48, which the
+    encoder pads to 64 in its copy of q, k and v. f32, dropout 0: the card's
+    embeddings, loss and gradients against the CPU's plain versions (held
+    to the JAX package by tests/test_torch_head_dims.py), one K2 and one K3
+    launch a context layer."""
+    from proqa_tpu_torch.train.retriever_trainer import in_batch_loss
+
+    cfg = BertConfig(vocab_size=128, hidden_size=384, num_layers=2, num_heads=heads,
+                     intermediate_size=1536, max_position_embeddings=128, flash_attention=True,
+                     dtype=torch.float32, hidden_dropout=0.0, attention_dropout=0.0)
+    g = torch.Generator().manual_seed(6)
+    batch = {"input_ids_q": torch.randint(5, 128, (8, 16), generator=g),
+             "input_ids_c": torch.randint(5, 128, (8, 128), generator=g),
+             "input_mask_q": torch.ones(8, 16, dtype=torch.int32)}
+    batch["input_mask_c"] = (torch.arange(128)[None] < torch.arange(60, 124, 8)[:, None]).int()
+    results = []
+    for device in ("cpu", cuda):
+        model = Retriever(cfg).reset_parameters(0).to(device).train()
+        fwd, bwd = attention.launches, attention.backward_launches
+        out = model({k: v.to(device) for k, v in batch.items()},
+                    generator=torch.Generator().manual_seed(0))
+        loss, _ = in_batch_loss(out)
+        loss.backward()
+        if device != "cpu":  # the context tower at T = 128; queries at T = 16 are vanilla
+            assert (attention.launches - fwd, attention.backward_launches - bwd) == (2, 2)
+        results.append((loss.item(), out["c"].detach().cpu(),
+                        {k: p.grad.detach().cpu() for k, p in model.named_parameters()}))
+    (loss_c, emb_c, grads_c), (loss_g, emb_g, grads_g) = results
+    assert abs(loss_c - loss_g) < 1e-5
+    torch.testing.assert_close(emb_g, emb_c, atol=ENCODER_TOL["float32"], rtol=0)
+    for k, gc in grads_c.items():
+        # zero in exact arithmetic, rounding noise on both devices
+        # (test_train_step_on_gpu_matches_cpu, tests/test_torch_train.py)
+        if k == "proj_c.bias" or k.endswith(".k.bias"):
+            continue
+        torch.testing.assert_close(grads_g[k], gc, atol=1e-4 * gc.abs().max().item() + 1e-9,
+                                   rtol=0, msg=k)
+
+
 # --- the training slice: K4 dropout, K2 with dropout, K3, dot_f32's gradient ---
 
 # K3's outputs are bf16 (or f32) sums over T products; the kernel recomputes
@@ -644,7 +688,8 @@ def test_dropout_kernel_without_autograd(cuda, shape, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16)])
+@pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16), (256, 32), (512, 128),
+                                  (128, 48)])
 def test_attention_dropout_kernel_matches_plain(cuda, t, dh, dtype):
     q, k, v, mask = _attention_inputs(t, 3, 4, dh, cuda, getattr(torch, dtype))
     got = attention.fused_attention(q, k, v, mask, sm_scale=dh ** -0.5, dropout_rate=0.1,
@@ -659,7 +704,8 @@ def test_attention_dropout_kernel_matches_plain(cuda, t, dh, dtype):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16), (1024, 64)])
+@pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16), (1024, 64), (128, 32),
+                                  (512, 32), (256, 128), (1024, 128), (256, 48)])
 def test_attention_backward_kernel_matches_plain(cuda, t, dh, dtype, rate):
     q, k, v, mask = _attention_inputs(t, 2, 3, dh, cuda, getattr(torch, dtype))
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, q.dtype)
@@ -691,7 +737,7 @@ def _edge_inputs(t, dh, device, dtype):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [16, 64])
+@pytest.mark.parametrize("dh", [16, 64, 32, 128])
 @pytest.mark.parametrize("t", [128, 384, 640, 1024])
 def test_attention_kernels_at_tile_edges(cuda, t, dh, dtype, rate):
     """K2 and K3 at sequence lengths that are odd multiples of 64 keys of a
@@ -718,6 +764,33 @@ def test_attention_backward_kernel_is_deterministic(cuda, dtype, rate):
     second = attention._backward_kernel(q, k, v, mask, do, 0.125, rate, 77)
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [32, 128, 48])
+def test_attention_backward_kernel_is_deterministic_at_head_dim(cuda, dh, dtype, rate):
+    """The same at the head dims added after 16 and 64, built (32, 128) and
+    padded (48)."""
+    q, k, v, do, mask = _edge_inputs(384, dh, cuda, getattr(torch, dtype))
+    first = attention._backward_kernel(q, k, v, mask, do, dh ** -0.5, rate, 78)
+    second = attention._backward_kernel(q, k, v, mask, do, dh ** -0.5, rate, 78)
+    for a, b in zip(first, second):
+        assert a.shape == q.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 48, 100])
+def test_attention_kernels_launch_once_a_call(cuda, dh):
+    """Each forward and each backward is one launch of K2 and of K3, padded
+    head dims too (the padding is a copy, not a launch of either)."""
+    q, k, v, mask = _attention_inputs(256, 2, 3, dh, cuda, torch.bfloat16)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    fwd, bwd = attention.launches, attention.backward_launches
+    out = attention.fused_attention(*leaves, mask, sm_scale=dh ** -0.5, dropout_rate=0.1, seed=5)
+    assert (attention.launches, attention.backward_launches) == (fwd + 1, bwd)
+    out.backward(torch.ones_like(out))
+    assert (attention.launches, attention.backward_launches) == (fwd + 1, bwd + 1)
+    assert out.shape == q.shape and all(x.grad.shape == q.shape for x in leaves)
 
 
 def test_attention_arithmetic_is_exact(cuda, tmp_path):
