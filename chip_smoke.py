@@ -187,8 +187,30 @@ heads of 32, hidden 384, intermediate 1,536; random seeded weights):
      of 8 heads of 128 (hidden 1,024, 2 layers): an encode against vanilla
      and a train step. K2/K3 launches are counted in (b)-(d) and on that
      tower; (b)-(d) log wall time and peak memory.
+BERT-xlarge (ALBERT, arXiv:1909.11942, Table 1: 24 layers, hidden 2,048, 32
+heads of 64, FFN 8,192; random weights drawn on the card):
+ 33. (a) F2 at widths 1,025-32,768 (its row and stream forms, an odd width;
+     bf16 and f32, with and without a residual, one unaligned) and F1 at
+     12,289-40,000 columns (its wide form, with and without GELU), forward
+     and backward, against their plain versions (F1 bit-equal, F2 within one
+     bf16 ulp at >= LN_ULP_FLOOR, dx BWD_ULPS, column sums COLSUM_REL; two
+     backward launches bit-equal), and the new forms timed at the slice's
+     shapes beside plain, bound and library; (b) the context tower over 256
+     rows at T = 512 (K2, F1/F2, no graph) against the plain epilogue chain
+     (ENCODER_COS), then 2,048 encoded questions searched over those rows
+     and a seeded bf16 corpus against the exact top-80; (c) the reader over
+     8 x 5 x 512 rows with K2, at 24 layers finite (its distances from the
+     vanilla and f32 routes logged) and cut to 4 layers against the vanilla
+     path (READER_REL, beside the e4m3 control); (d) three retriever train
+     steps at 80 x (32 + 512), remat, dropout 0.1, the loss falling, and a
+     dropout-0 step's gradients at 16 pairs against the plain chain, at 24
+     layers finite (cosines logged) and cut to 4 layers at GRAD_COS; (e) a
+     2-layer tower at ALBERT-xxlarge's widths (hidden 4,096, FFN 16,384): an
+     encode against the plain chain and a train step. The wide forms'
+     launches are counted in (b)-(e), the reader's on its K2 route alone;
+     each part logs its wall time and peak memory.
 Phases 23-25 run after phase 18, phase 26 after phase 22, 27-29 after 20,
-30 and 31 after 2, 32 last. Each of phases 12-14 first drives its kernel's public pipeline
+30 and 31 after 2, 32 and 33 last. Each of phases 12-14 first drives its kernel's public pipeline
 once with the counters at 0 and reads them, then compares and times the
 kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -317,23 +339,35 @@ def cuda_ms(fn, reps: int = 5, calls: int = 1) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps: int = 3) -> float:
-    """Median over reps calls of the device time of the kernels one call of
-    fn launches (torch.profiler's kernel events, summed), after one warm-up:
-    the kernels alone, without the host path that one call between CUDA
-    events also holds."""
+def kernel_ms(fn, reps: int = 3, tries: int = 40) -> dict:
+    """The device time of the kernels one call of fn launches, after one
+    warm-up: the kernels alone, without the host path that one call between
+    CUDA events also holds. On the H100 machine torch.profiler loses most
+    kernel records (a trace holds the cudaLaunchKernel call but not its
+    kernel, in 4-8 of 8 traces whether or not the CPU is traced too or the
+    card idles 5 ms before or after the call; one trace around three calls
+    kept one kernel), so a trace counts only if it holds as many kernels as
+    the fullest trace seen: up to `tries` traces, one a call, until `reps`
+    count. Returns {"kernel_ms": the median of those (None if no trace held
+    a kernel), "kernel_traces": [traces counted, traces taken]}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+    traces = []  # (kernels, ms) a trace
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        times.append(sum(e.device_time_total for e in prof.key_averages()) / 1e3)
-    return statistics.median(times)
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        traces.append((len(kernels), sum(e.device_time_total for e in kernels) / 1e3))
+        most = max(n for n, _ in traces)
+        full = [ms for n, ms in traces if n == most and n > 0]
+        if len(full) >= reps:
+            break
+    return {"kernel_ms": statistics.median(full) if full else None,
+            "kernel_traces": [len(full), len(traces)]}
 
 
 K2_BUCKETS = (128, 256, 384, 512)  # encode buckets that reach K2 (T % 128 == 0)
@@ -407,19 +441,19 @@ def phase_encoder(device) -> None:
     check(cos >= ENCODER_COS, f"encoder with K2 vs vanilla: min cosine {cos} < {ENCODER_COS}")
     # grad on and the parameters requiring it: the training route, the same
     # F1/F2 kernels saving what their backward reads, so the same bits
-    f1, f2 = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    f1, f2 = fused_bert.launches("F1"), fused_bert.launches("F2")
     routed = model.encode_context(ids, mask)
-    check(routed.requires_grad and fused_bert.dense_launches > f1
-          and fused_bert.layer_norm_launches > f2, "encoder with grad on: F1/F2 not launched")
+    check(routed.requires_grad and fused_bert.launches("F1") > f1
+          and fused_bert.launches("F2") > f2, "encoder with grad on: F1/F2 not launched")
     check(torch.equal(routed.detach(), fused), "encoder with grad on: not the inference bits")
     del routed
     route_ms = cuda_ms(lambda: model.encode_context(ids, mask), reps=3)
     # the plain chain under autograd, the yardstick of the kernels
-    f1, f2 = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    f1, f2 = fused_bert.launches("F1"), fused_bert.launches("F2")
     with fused_bert._eager_chain():
         plain_out = model.encode_context(ids, mask).detach()
         plain_ms = cuda_ms(lambda: model.encode_context(ids, mask), reps=3)
-    check((fused_bert.dense_launches, fused_bert.layer_norm_launches) == (f1, f2),
+    check((fused_bert.launches("F1"), fused_bert.launches("F2")) == (f1, f2),
           "encoder under _eager_chain: F1/F2 launched")
     route_cos = torch.nn.functional.cosine_similarity(fused, plain_out, dim=1).min().item()
     route_err = (fused - plain_out).abs().max().item()
@@ -629,7 +663,7 @@ def phase_fused_bert_backward(device) -> list[tuple[str, str, dict]]:
             result = {
                 "max_abs_err": err, "colsum_rel_err": sum_err, "bound_ms": bound_ms,
                 "bound_by": by, **extra, "library_ms": library, "ms": cuda_ms(run),
-                "queued_ms": cuda_ms(run, calls=10), "kernel_ms": kernel_ms(run),
+                "queued_ms": cuda_ms(run, calls=10), **kernel_ms(run),
                 "plain_ms": cuda_ms(lambda: fused_bert.dense_epilogue_backward_reference(
                     dout, zz, gelu))}
             runs.append(("F1", label, result))
@@ -679,7 +713,7 @@ def phase_fused_bert_backward(device) -> list[tuple[str, str, dict]]:
         result = {
             "max_abs_err": err, "bf16_ulps": ulps, "differ_share": differ,
             "colsum_rel_err": sum_err, "bound_ms": bound_ms, "bound_by": by,
-            "ms": cuda_ms(run), "queued_ms": cuda_ms(run, calls=10), "kernel_ms": kernel_ms(run),
+            "ms": cuda_ms(run), "queued_ms": cuda_ms(run, calls=10), **kernel_ms(run),
             "plain_ms": cuda_ms(lambda: fused_bert.add_layer_norm_backward_reference(
                 dy, x, r, mean, rstd, scale)),
             "library_ms": cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
@@ -856,7 +890,7 @@ def phase_cli(device, root: str) -> dict:
 
     attention.launches = 0
     mips_kernel.launches = rescore.launches = 0
-    fused_bert.dense_launches = fused_bert.layer_norm_launches = 0
+    fused_bert.form_launches.clear()
     walls = {}
     _, walls["build-db"] = run_cli(["build-db", "--corpus", p("corpus.jsonl"), "--db", p("docs.db")])
     built, walls["build-index"] = run_cli(["build-index", *common, "--max-seq-length", "512",
@@ -870,8 +904,8 @@ def phase_cli(device, root: str) -> dict:
     hit, walls["retrieve"] = run_cli(["retrieve", *common, "--question", "what is about tok3 tok7",
                                       "--index", p("index"), "--db", p("docs.db"), "--topk", "5"])
     launches = {"attention": attention.launches, "block_maxima": mips_kernel.launches,
-                "rescore": rescore.launches, "F1": fused_bert.dense_launches,
-                "F2": fused_bert.layer_norm_launches}
+                "rescore": rescore.launches, "F1": fused_bert.launches("F1"),
+                "F2": fused_bert.launches("F2")}
     log(f"kernel launches during the CLI run: {json.dumps(launches)}")
     check(launches["attention"] > 0, "K2 was not launched on the main path")
     check(launches["F1"] > 0, "F1 was not launched on the main path")
@@ -1065,16 +1099,15 @@ def _fused_counts() -> dict:
     """F1's and F2's launch counters, forward and backward."""
     from proqa_tpu_torch.ops import fused_bert
 
-    return {"F1": fused_bert.dense_launches, "F2": fused_bert.layer_norm_launches,
-            "F1 backward": fused_bert.dense_backward_launches,
-            "F2 backward": fused_bert.layer_norm_backward_launches}
+    return {"F1": fused_bert.launches("F1"), "F2": fused_bert.launches("F2"),
+            "F1 backward": fused_bert.launches("F1 backward"),
+            "F2 backward": fused_bert.launches("F2 backward")}
 
 
 def _reset_fused_counts() -> None:
     from proqa_tpu_torch.ops import fused_bert
 
-    fused_bert.dense_launches = fused_bert.layer_norm_launches = 0
-    fused_bert.dense_backward_launches = fused_bert.layer_norm_backward_launches = 0
+    fused_bert.form_launches.clear()
 
 
 def _cosines(grads_a: dict, grads_b: dict, skip=()) -> dict:
@@ -1779,12 +1812,13 @@ def phase_qa(device, root: str) -> dict:
 
     def counted(argv):
         attention.launches = mips_kernel.launches = mips_kernel.scaled_launches = 0
-        rescore.launches = fused_bert.dense_launches = fused_bert.layer_norm_launches = 0
+        rescore.launches = 0
+        fused_bert.form_launches.clear()
         out, wall = run_cli(argv)
         return out, wall, {"K1": mips_kernel.launches, "K2": attention.launches,
                            "K5": mips_kernel.scaled_launches, "K6": rescore.launches,
-                           "F1": fused_bert.dense_launches,
-                           "F2": fused_bert.layer_norm_launches}
+                           "F1": fused_bert.launches("F1"),
+                           "F2": fused_bert.launches("F2")}
 
     em, wall_eval, launches_eval = counted(["eval-qa", *qa_args, "--predict-file",
                                             p("qa_eval.jsonl"), "--save-pred", p("pred.jsonl")])
@@ -2721,12 +2755,13 @@ def _serve_run(device, root: str, label: str, flags: list) -> dict:
         *flags])
     def zero():
         attention.launches = mips_kernel.launches = mips_kernel.scaled_launches = 0
-        rescore.launches = fused_bert.dense_launches = fused_bert.layer_norm_launches = 0
+        rescore.launches = 0
+        fused_bert.form_launches.clear()
 
     def read():
         return {"K1": mips_kernel.launches, "K2": attention.launches,
                 "K5": mips_kernel.scaled_launches, "K6": rescore.launches,
-                "F1": fused_bert.dense_launches, "F2": fused_bert.layer_norm_launches}
+                "F1": fused_bert.launches("F1"), "F2": fused_bert.launches("F2")}
 
     search = ("K5",) if "--int8-index" in flags else ("K1", "K6")
     served_runs = {}
@@ -3747,6 +3782,680 @@ def phase_minilm(device) -> tuple[list, dict]:
                      "encode_cos": cos, "reader_rel": rel_err}
 
 
+# --- BERT-xlarge: F1 and F2 at every width ------------------------------------
+
+# Lan et al., ALBERT (ICLR 2020, arXiv:1909.11942), Table 1: BERT-xlarge, 24
+# layers, hidden and embedding 2,048, 1,270M parameters; feed-forward 4H =
+# 8,192 and H / 64 = 32 heads of 64 as that paper sets them (Megatron-LM's
+# 1.3B BERT, arXiv:1909.08053, has the same widths). BERT's vocabulary, 512
+# positions, 2 token types, exact GELU, post-LN as the JAX package builds it.
+XLARGE = dict(vocab_size=30522, hidden_size=2048, num_layers=24, num_heads=32,
+              intermediate_size=8192, max_position_embeddings=512, type_vocab_size=2)
+# albert-xxlarge-v2's config.json (named, not downloaded): hidden 4,096, 64
+# heads of 64, intermediate 16,384; as a 2-layer tower of the JAX package's
+# BERT layer (it has no parameter sharing and no factorised embedding)
+XXLARGE = dict(XLARGE, hidden_size=4096, num_layers=2, num_heads=64, intermediate_size=16384)
+# F2's widths past 1,024 (both ends of the row forms, the stream form, an
+# odd width) and F1's past 12,288, held against their plain versions
+WIDE_LN = (1025, 1152, 2048, 2560, 3001, 4096, 8192, 32768)
+WIDE_COLS = (12289, 16384, 40000)
+XLARGE_GRAD_BATCH = 16  # the dropout-0 gradient check's pairs (the train steps take 80)
+# the depths at which the reader's K2 route is held to the vanilla path
+# within READER_REL, and the dropout-0 gradients to the plain chain at
+# GRAD_COS: at XLARGE's widths with random weights two bf16 routes part
+# with depth until, at 24 layers, they are as far from each other as each
+# is from the f32 route (phase 33 logs both at 24: the reader's logits 0.2
+# of the largest apart, the gradients' cosines near 0), so no tolerance
+# there could tell a defect from rounding. At 4 layers the bf16 routes sit
+# well inside both tolerances (the gradients' plain chain reads cosine
+# 0.999 to f32 there, logged beside the check)
+XLARGE_READER_LAYERS = 4
+XLARGE_GRAD_LAYERS = 4
+# the train steps' learning rate: the retriever trainer's default
+# (RetrieverTrainerConfig); the other phases' 1e-4 with no warmup is too
+# large a first step for 2.5B parameters (an earlier run of this phase at
+# 1e-4 read losses 5.80 -> 6.31 -> 6.66)
+XLARGE_LR = 1e-5
+
+
+def _on_device(make, cfg, device, seed: int):
+    """make() built on the card and given the JAX package's random
+    initialisation there from a seeded CUDA generator (the two towers'
+    2.5B f32 parameters drawn on the host would cost tens of seconds)."""
+    import torch
+
+    from proqa_tpu_torch.models.bert import init_parameters
+
+    with torch.device(device):
+        model = make()
+    init_parameters(model, cfg.initializer_range,
+                    torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def _sharing(make, model):
+    """make() on the meta device, then given model's tensors (no copy): the
+    same weights on another route."""
+    import torch
+
+    with torch.device("meta"):
+        other = make()
+    other.load_state_dict(model.state_dict(), assign=True)
+    return other
+
+
+def _wide_ln_check(device, rows: int, h: int, dt, residual: bool, unaligned: bool,
+                   g) -> dict:
+    """F2 and its backward at [rows, h] against their plain versions; two
+    backward launches bit-equal. Returns the errors."""
+    import torch
+
+    from proqa_tpu_torch.ops import fused_bert
+
+    x = torch.randn(rows, h, device=device, generator=g).to(dt)
+    if unaligned:  # 2 bytes past a 16-byte boundary: the element bodies
+        x = torch.empty(x.numel() + 1, device=device, dtype=dt)[1:].view_as(x).copy_(x)
+    r = (torch.randn(rows, h, device=device, generator=g) * 0.5 + 0.25).to(dt) if residual \
+        else None
+    dy = torch.randn(rows, h, device=device, generator=g).to(dt)
+    scale = 1.0 + 0.1 * torch.randn(h, device=device, generator=g)
+    bias = 0.1 * torch.randn(h, device=device, generator=g)
+    label = (f"F2 [{rows}, {h}] {str(dt)[6:]}{' + residual' if residual else ''}"
+             f"{' unaligned' if unaligned else ''}")
+    out, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12,
+                                                        save_stats=True)
+    want, want_mean, want_rstd = fused_bert._layer_norm_plain(x, r, scale, bias, 1e-12)
+    got = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, True)
+    again = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, True)
+    plain = fused_bert.add_layer_norm_backward_reference(dy, x, r, mean, rstd, scale)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{label} backward: two launches differ")
+    s32 = (x if r is None else x + r).float()
+    xh = (s32 - mean[:, None]) * rstd[:, None]
+    sum_err = max(_colsum_err(got[1], plain[1], dy.float() * xh),
+                  _colsum_err(got[2], plain[2], dy.float()))
+    check(sum_err <= COLSUM_REL, f"{label} backward: dscale/dbias off by {sum_err} of their "
+                                 f"terms (tol {COLSUM_REL})")
+    stats_err = max((mean - want_mean).abs().max().item(),
+                    ((rstd - want_rstd).abs() / want_rstd).max().item())
+    check(stats_err <= LN_F32_TOL, f"{label}: mean/rstd off by {stats_err} (tol {LN_F32_TOL})")
+    if dt is torch.bfloat16:
+        ulps, dx_ulps = _bf16_ulps(out, want, LN_ULP_FLOOR), _bf16_ulps(got[0], plain[0],
+                                                                         LN_ULP_FLOOR)
+        check(ulps <= 1.0 and dx_ulps <= BWD_ULPS,
+              f"{label}: {ulps} bf16 ulps forward (tol 1), dx {dx_ulps} (tol {BWD_ULPS})")
+    else:
+        ulps = dx_ulps = None
+        for name, a, b in (("forward", out, want), ("dx", got[0], plain[0])):
+            check(torch.allclose(a, b, atol=LN_F32_TOL, rtol=LN_F32_TOL),
+                  f"{label} {name}: max abs err {(a - b).abs().max().item()} > {LN_F32_TOL}")
+    return {"max_abs_err": (out.float() - want.float()).abs().max().item(),
+            "dx_max_abs_err": (got[0].float() - plain[0].float()).abs().max().item(),
+            "bf16_ulps": ulps, "dx_bf16_ulps": dx_ulps, "colsum_rel_err": sum_err}
+
+
+def _wide_dense_check(device, rows: int, cols: int, gelu: bool, g) -> dict:
+    """F1 (bf16 and f32 out) and its backward at [rows, cols] against their
+    plain versions, bit for bit where they allow; two backward launches
+    bit-equal. Returns the column sum's error."""
+    import torch
+
+    from proqa_tpu_torch.ops import fused_bert
+
+    y = torch.randn(rows, cols, device=device, generator=g) * 2.0
+    b = torch.randn(cols, device=device, generator=g) * 0.1
+    label = f"F1 [{rows}, {cols}]{' GELU' if gelu else ''}"
+    for dt in (torch.bfloat16, torch.float32):
+        out, z = fused_bert._dense_epilogue_kernel(y, b, dt, gelu, save_z=gelu)
+        check(torch.equal(out, fused_bert.dense_epilogue_reference(y, b, dt, gelu))
+              and (not gelu or torch.equal(z, (y + b).to(dt))),
+              f"{label} {dt}: not bit-equal to its plain version")
+    dout = torch.randn(rows, cols, device=device, generator=g).bfloat16()
+    z = (y + b).bfloat16() if gelu else None
+    got = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
+    again = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
+    want = fused_bert.dense_epilogue_backward_reference(dout, z, gelu)
+    torch.cuda.synchronize()
+    check(torch.equal(got[0], want[0]), f"{label} backward: dz not bit-equal")
+    check(all(torch.equal(a, c) for a, c in zip(got, again)),
+          f"{label} backward: two launches differ")
+    sum_err = _colsum_err(got[1], want[1], want[0].float())
+    check(sum_err <= COLSUM_REL, f"{label} backward: bias sum off by {sum_err} (tol "
+                                 f"{COLSUM_REL})")
+    return {"colsum_rel_err": sum_err}
+
+
+def _wide_checks(device) -> dict:
+    """(a): F2 at WIDE_LN (bf16 and f32, with and without a residual, one
+    unaligned row pointer in bf16) and F1 at WIDE_COLS (with and without
+    GELU), forward and backward, against their plain versions; every
+    launch's form counted."""
+    import torch
+
+    from proqa_tpu_torch.ops import fused_bert
+
+    g = torch.Generator(device=device).manual_seed(33)
+    fused_bert.form_launches.clear()
+    worst = {"F2 bf16 ulps": 0.0, "F2 dx bf16 ulps": 0.0, "F2 max_abs_err": 0.0,
+             "F2 colsum_rel_err": 0.0, "F1 colsum_rel_err": 0.0}
+    for h in WIDE_LN:
+        rows = max(8, min(130, 2 ** 21 // h))  # a few sub-slabs and blocks, small inputs
+        for dt in (torch.bfloat16, torch.float32):
+            for residual in (True, False):
+                for unaligned in ((False, True) if dt is torch.bfloat16 and residual else (False,)):
+                    e = _wide_ln_check(device, rows, h, dt, residual, unaligned, g)
+                    worst["F2 max_abs_err"] = max(worst["F2 max_abs_err"], e["max_abs_err"])
+                    worst["F2 colsum_rel_err"] = max(worst["F2 colsum_rel_err"],
+                                                     e["colsum_rel_err"])
+                    if dt is torch.bfloat16:
+                        worst["F2 bf16 ulps"] = max(worst["F2 bf16 ulps"], e["bf16_ulps"])
+                        worst["F2 dx bf16 ulps"] = max(worst["F2 dx bf16 ulps"], e["dx_bf16_ulps"])
+    for cols in WIDE_COLS:
+        for gelu in (False, True):
+            e = _wide_dense_check(device, 257, cols, gelu, g)
+            worst["F1 colsum_rel_err"] = max(worst["F1 colsum_rel_err"], e["colsum_rel_err"])
+    forms = dict(fused_bert.form_launches)
+    for form in ("F2 row", "F2 stream", "F2 backward row", "F2 backward stream", "F1 wide"):
+        check(forms.get(form, 0) > 0, f"wide checks: form {form} never launched: {forms}")
+    return {**worst, "forms": forms}
+
+
+def _wide_times(device) -> list:
+    """The new forms timed at the slice's shapes, each against its plain
+    version first: F2's row form at the xlarge encode's [131,072, 2,048] bf16
+    with a residual and its backward at the xlarge train step's [40,960,
+    2,048]; F1's wide form at the xxlarge tower's [32,768, 16,384] with GELU
+    and F1's backward there. Each by one call between CUDA events and its
+    kernels alone (kernel_ms) beside its plain version, its bound and one
+    library call where one computes the same function. Returns (name, shape,
+    result) a form."""
+    import torch
+
+    from proqa_tpu_torch.ops import fused_bert
+
+    g = torch.Generator(device=device).manual_seed(34)
+    runs = []
+    n, h = 256 * 512, 2048
+    x, r = (torch.randn(n, h, device=device, generator=g).bfloat16() for _ in range(2))
+    scale = 1.0 + 0.1 * torch.randn(h, device=device, generator=g)
+    bias = 0.1 * torch.randn(h, device=device, generator=g)
+    got = fused_bert.add_layer_norm(x, r, scale, bias, 1e-12)
+    ulps = _bf16_ulps(got, fused_bert.add_layer_norm_reference(x, r, scale, bias, 1e-12),
+                      LN_ULP_FLOOR)
+    check(ulps <= 1.0, f"F2 [{n}, {h}]: {ulps} bf16 ulps")
+    run = lambda: fused_bert.add_layer_norm(x, r, scale, bias, 1e-12)  # noqa: E731
+    sc, bi = scale.bfloat16(), bias.bfloat16()
+    bound_ms, by = bound(3 * n * h * 2 + 2 * h * 4, 10 * n * h, PEAK_F32_FLOPS)
+    runs.append(("F2", f"row form [{n}, {h}] bf16 + residual (xlarge encode)", {
+        "max_abs_err": (got.float() - fused_bert.add_layer_norm_reference(
+            x, r, scale, bias, 1e-12).float()).abs().max().item(), "bf16_ulps": ulps,
+        "ms": cuda_ms(run), "queued_ms": cuda_ms(run, calls=10), **kernel_ms(run),
+        "plain_ms": cuda_ms(lambda: fused_bert.add_layer_norm_reference(x, r, scale, bias,
+                                                                        1e-12)),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.layer_norm(x, (h,), sc, bi, 1e-12)),
+        "bound_ms": bound_ms, "bound_by": by}))
+    del x, r, got
+    n = 80 * 512
+    x, r, dy = (torch.randn(n, h, device=device, generator=g).bfloat16() for _ in range(3))
+    _, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12, save_stats=True)
+    got = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, True)
+    want = fused_bert.add_layer_norm_backward_reference(dy, x, r, mean, rstd, scale)
+    dx_ulps = _bf16_ulps(got[0], want[0], LN_ULP_FLOOR)
+    check(dx_ulps <= BWD_ULPS, f"F2 backward [{n}, {h}]: dx {dx_ulps} bf16 ulps")
+    s = x + r
+    _, a_mean, a_rstd = torch.ops.aten.native_layer_norm(s, [h], sc, bi, 1e-12)
+    run = lambda: fused_bert._add_layer_norm_backward_kernel(  # noqa: E731
+        dy, x, r, mean, rstd, scale, True, True)
+    bound_ms, by = bound(n * h * 2 * 4 + n * 8 + h * 4 + 2 * h * 4, n * h * 12, PEAK_F32_FLOPS)
+    runs.append(("F2 backward", f"row form [{n}, {h}] bf16 + residual (xlarge step)", {
+        "max_abs_err": (got[0].float() - want[0].float()).abs().max().item(),
+        "bf16_ulps": dx_ulps, "ms": cuda_ms(run), "queued_ms": cuda_ms(run, calls=10),
+        **kernel_ms(run),
+        "plain_ms": cuda_ms(lambda: fused_bert.add_layer_norm_backward_reference(
+            dy, x, r, mean, rstd, scale)),
+        "library_ms": cuda_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, s, [h], a_mean, a_rstd, sc, bi, [True, True, True])),
+        "bound_ms": bound_ms, "bound_by": by}))
+    del x, r, dy, s, got, want, mean, rstd, a_mean, a_rstd
+    n, cols = 64 * 512, 16384
+    y = torch.randn(n, cols, device=device, generator=g) * 2.0
+    b = torch.randn(cols, device=device, generator=g) * 0.1
+    got = fused_bert.dense_epilogue(y, b, torch.bfloat16, True)
+    check(torch.equal(got, fused_bert.dense_epilogue_reference(y, b, torch.bfloat16, True)),
+          f"F1 [{n}, {cols}] GELU: not bit-equal")
+    run = lambda: fused_bert.dense_epilogue(y, b, torch.bfloat16, True)  # noqa: E731
+    bound_ms, by = bound(n * cols * 6 + cols * 4, n * cols * 25, PEAK_F32_FLOPS)
+    out = torch.empty(n, cols, device=device, dtype=torch.bfloat16)
+    no_gelu = {"ms": cuda_ms(lambda: fused_bert.dense_epilogue(y, b, torch.bfloat16)),
+               "library_ms": cuda_ms(lambda: torch.add(y, b, out=out))}
+    runs.append(("F1", f"wide form [{n}, {cols}] GELU bf16 (xxlarge tower)", {
+        "max_abs_err": 0.0, "ms": cuda_ms(run), "queued_ms": cuda_ms(run, calls=10),
+        **kernel_ms(run),
+        "plain_ms": cuda_ms(lambda: fused_bert.dense_epilogue_reference(y, b, torch.bfloat16,
+                                                                        True)),
+        "library_ms": None, "bound_ms": bound_ms, "bound_by": by,
+        "without GELU (torch.add into bf16 as library)": no_gelu}))
+    del y, out, got
+    issue = gelu_backward_issue(device)
+    dout = torch.randn(n, cols, device=device, generator=g).bfloat16()
+    z = (torch.randn(n, cols, device=device, generator=g) * 2.0).bfloat16()
+    got = fused_bert._dense_epilogue_backward_kernel(dout, z, True, True, True)
+    want = fused_bert.dense_epilogue_backward_reference(dout, z, True)
+    check(torch.equal(got[0], want[0]), f"F1 backward [{n}, {cols}]: dz not bit-equal")
+    sum_err = _colsum_err(got[1], want[1], want[0].float())
+    check(sum_err <= COLSUM_REL, f"F1 backward [{n}, {cols}]: bias sum off by {sum_err}")
+    run = lambda: fused_bert._dense_epilogue_backward_kernel(dout, z, True, True, True)  # noqa
+    bytes_ms = bound(n * cols * 6 + cols * 4, 0)[0]
+    issue_ms = n * cols * issue["instructions_per_element"] / issue["issue_rate"] * 1e3
+    bound_ms, by = max((bytes_ms, "bytes"), (issue_ms, "operations"))
+    runs.append(("F1 backward", f"[{n}, {cols}] GELU bf16 (xxlarge step)", {
+        "max_abs_err": 0.0, "colsum_rel_err": sum_err, "ms": cuda_ms(run),
+        "queued_ms": cuda_ms(run, calls=10), **kernel_ms(run),
+        "plain_ms": cuda_ms(lambda: fused_bert.dense_epilogue_backward_reference(dout, z, True)),
+        "library_ms": cuda_ms(lambda: torch.ops.aten.gelu_backward(dout, z, approximate="none")),
+        "bound_ms": bound_ms, "bound_by": by, "bytes_bound_ms": bytes_ms,
+        "issue_bound_ms": issue_ms}))
+    del dout, z, got, want
+    torch.cuda.empty_cache()
+    for kernel, label, result in runs:
+        log(f"{kernel} {label}: {json.dumps(result)}")
+    return runs
+
+
+def _form_counts() -> dict:
+    import torch
+
+    from proqa_tpu_torch.ops import fused_bert
+
+    torch.cuda.synchronize()
+    return dict(fused_bert.form_launches)
+
+
+def _lean_grads(model, batch, generator):
+    """The loss and every parameter's gradient of one step, the gradients
+    taken from the parameters (no copy)."""
+    import torch
+
+    from proqa_tpu_torch.train.retriever_trainer import in_batch_loss
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = in_batch_loss(model(batch, generator=generator))
+    loss.backward()
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    return loss.item(), grads
+
+
+def _xlarge_grad_check(model, cfg0, batch, device) -> dict:
+    """(d)'s dropout-0 gradients, K2/K3 with F1/F2 against the plain epilogue
+    chain (fused_bert._eager_chain) on the same weights and batch. At full
+    depth, on the trained model: every gradient finite, the cosines logged
+    (not held: see XLARGE_GRAD_LAYERS). Cut to XLARGE_GRAD_LAYERS at the same
+    widths, fresh weights: every tensor at cosine >= GRAD_COS, the plain
+    chain's own cosine to the f32 gradient (vanilla attention, f32
+    activations) logged beside."""
+    import dataclasses
+
+    import torch
+
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.ops import fused_bert
+
+    gen = lambda: torch.Generator().manual_seed(0)  # noqa: E731
+    zero = ("proj_c.bias",)  # with every k.bias: zero in exact arithmetic (phase 8)
+    kern = _sharing(lambda: Retriever(cfg0), model)
+    loss_k, grads_k = _lean_grads(kern, batch, gen())
+    check(all(bool(torch.isfinite(g).all()) for g in grads_k.values()),
+          "xlarge dropout-0 gradients: not finite")
+    with fused_bert._eager_chain():
+        loss_p, grads_p = _lean_grads(kern, batch, gen())
+    cos = _cosines(grads_k, grads_p, skip=zero)
+    full = {"loss": loss_k, "plain_loss": loss_p, "tensors": len(cos),
+            "median cosine": statistics.median(cos.values()),
+            "lowest cosines": {n: cos[n] for n in sorted(cos, key=cos.get)[:3]}}
+    del kern, grads_k, grads_p
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg0, num_layers=XLARGE_GRAD_LAYERS)
+    kern = _on_device(lambda: Retriever(cut), cut, device, 48)
+    loss_k, grads_k = _lean_grads(kern, batch, gen())
+    with fused_bert._eager_chain():
+        loss_p, grads_p = _lean_grads(kern, batch, gen())
+    f32 = _sharing(lambda: Retriever(dataclasses.replace(cut, flash_attention=False,
+                                                         dtype=torch.float32)), kern)
+    _, grads_f = _lean_grads(f32, batch, gen())
+    cos = _cosines(grads_k, grads_p, skip=zero)
+    cos_f = _cosines(grads_p, grads_f, skip=zero)
+    worst = sorted(cos, key=cos.get)[:3]
+    worst_f = min(cos_f, key=cos_f.get)
+    del kern, f32, grads_k, grads_p, grads_f
+    torch.cuda.empty_cache()
+    check(cos[worst[0]] >= GRAD_COS,
+          f"xlarge dropout-0 gradients ({XLARGE_GRAD_LAYERS} layers), kernels vs the plain "
+          f"chain: cosine {cos[worst[0]]} < {GRAD_COS} ({worst[0]})")
+    return {f"{cfg0.num_layers} layers (logged)": full,
+            f"{XLARGE_GRAD_LAYERS} layers (tol {GRAD_COS})": {
+                "loss": loss_k, "plain_loss": loss_p, "tensors": len(cos),
+                "lowest cosines": {n: cos[n] for n in worst},
+                "plain chain vs f32, lowest cosine": {worst_f: cos_f[worst_f]}}}
+
+
+def _reader_batches(device, cfg, seed: int):
+    """READER_BATCHES batches of 8 questions x 5 paragraphs of 512 (phase
+    18's shapes), random ids of cfg's vocabulary."""
+    import torch
+
+    qpb, k, t, tq = 8, 5, 512, 30
+    for bi in range(READER_BATCHES):
+        g = torch.Generator(device=device).manual_seed(seed + bi)
+        ids = torch.randint(5, cfg.vocab_size, (qpb, k, t), device=device, generator=g)
+        lengths = torch.randint(t // 2, t + 1, (qpb, k), device=device, generator=g)
+        pos = torch.arange(t, device=device)
+        in_mask = (pos < lengths[..., None]).to(torch.int32)
+        segment = (pos >= tq + 2).to(torch.int32).expand(qpb, k, t) * in_mask
+        yield {"input_ids": ids * in_mask, "input_mask": in_mask, "segment_ids": segment,
+               "paragraph_mask": segment,
+               "input_ids_q": torch.randint(5, cfg.vocab_size, (qpb, tq), device=device,
+                                            generator=g),
+               "input_mask_q": torch.ones(qpb, tq, dtype=torch.int32, device=device),
+               "para_embed": torch.randn(qpb, 16, 128, device=device, generator=g)}
+
+
+def _span_logits(model, dev):
+    import torch
+
+    with torch.inference_mode():
+        out = model(dev)
+    in_para = dev["paragraph_mask"] == 1
+    return torch.stack([out["start_logits"][in_para], out["end_logits"][in_para]])
+
+
+def _counted(fn, into: dict):
+    """fn(), with the launches it makes (F1/F2 by form, K2, K3) added into
+    `into`: the counters zeroed just before and read just after."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    out = fn()
+    for key, n in {**_form_counts(), **_attention_counts()}.items():
+        into[key] = into.get(key, 0) + n
+    return out
+
+
+def _xlarge_reader(device, cfg, launched: dict) -> dict:
+    """(c): the QA reader at XLARGE's widths over READER_BATCHES batches of 8
+    x 5 x 512 rows. Cut to XLARGE_READER_LAYERS, K2 against the vanilla path
+    on the same weights within READER_REL of the batch's largest logit,
+    beside phase 18's e4m3 control. At full depth the K2 route's logits must
+    be finite; their distances from the vanilla bf16 and f32 routes are
+    logged, not held (XLARGE_GRAD_LAYERS says why). Only the K2 route's
+    launches are counted, into `launched`."""
+    import dataclasses
+
+    import torch
+
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel
+
+    vanilla_cfg = dataclasses.replace(cfg, flash_attention=False)
+    reader = _on_device(lambda: QAModel(cfg, QAConfig()), cfg, device, 39).eval()
+    plain = _sharing(lambda: QAModel(vanilla_cfg, QAConfig()), reader).eval()
+    f32 = _sharing(lambda: QAModel(dataclasses.replace(vanilla_cfg, dtype=torch.float32),
+                                   QAConfig()), reader).eval()
+    full = {"k2_from_vanilla": 0.0, "vanilla_from_f32": 0.0, "k2_from_f32": 0.0}
+    for dev in _reader_batches(device, cfg, 40):
+        got = _counted(lambda: _span_logits(reader, dev), launched)
+        check(bool(torch.isfinite(got).all()), f"xlarge reader ({cfg.num_layers} layers): "
+                                               f"logits not finite")
+        van, ref = _span_logits(plain, dev), _span_logits(f32, dev)
+        scale = ref.abs().max().item()
+        for key, a, b in (("k2_from_vanilla", got, van), ("vanilla_from_f32", van, ref),
+                          ("k2_from_f32", got, ref)):
+            full[key] = max(full[key], (a - b).abs().max().item() / scale)
+    del reader, plain, f32
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=XLARGE_READER_LAYERS)
+    reader = _on_device(lambda: QAModel(cut, QAConfig()), cut, device, 47).eval()
+    plain = _sharing(lambda: QAModel(dataclasses.replace(cut, flash_attention=False),
+                                     QAConfig()), reader).eval()
+    rel_err, rel_ctrl = 0.0, float("inf")
+    for bi, dev in enumerate(_reader_batches(device, cut, 48)):
+        got = _counted(lambda: _span_logits(reader, dev), launched)
+        van = _span_logits(plain, dev)
+        scale = van.abs().max().item()
+        err = (got - van).abs().max().item()
+        ctrl = (van.to(torch.float8_e4m3fn).float() - van).abs().max().item()
+        rel_err, rel_ctrl = max(rel_err, err / scale), min(rel_ctrl, ctrl / scale)
+        check(err <= READER_REL * scale, f"xlarge reader ({XLARGE_READER_LAYERS} layers) with K2 "
+                                         f"vs vanilla, batch {bi}: span logits differ by {err} > "
+                                         f"{READER_REL} x {scale}")
+    check(rel_ctrl > READER_REL, f"xlarge reader: the e4m3 control ({rel_ctrl}) passes "
+                                 f"{READER_REL}: the check would not see one coarser rounding")
+    del reader, plain
+    torch.cuda.empty_cache()
+    return {f"{cfg.num_layers} layers (logged), largest logit shares": full,
+            f"{XLARGE_READER_LAYERS} layers, K2 from vanilla (tol {READER_REL})": rel_err,
+            "e4m3 control": rel_ctrl}
+
+
+def phase_xlarge(device) -> tuple[list, dict]:
+    """BERT-xlarge (XLARGE; hidden 2,048, F2 past its warp form) on the card,
+    random seeded weights built there: (a) F1 and F2 at every width form
+    (WIDE_LN, WIDE_COLS) against their plain versions, and the new forms
+    timed at the slice's shapes; (b) the context tower over 256 rows at T =
+    512 (K2, F1/F2, no graph) against the plain epilogue chain, then 2,048
+    encoded questions searched over those rows and a seeded bf16 corpus; (c)
+    the QA reader over 8 x 5 x 512 rows with K2, cut to 4 layers against the
+    vanilla path; (d) three retriever train steps at 80 x (32 + 512), remat,
+    dropout 0.1, and a dropout-0 step's gradients against the plain chain,
+    cut to 4 layers; (e) a 2-layer
+    tower at ALBERT-xxlarge's widths (XXLARGE): an encode and a train step,
+    F1 at 16,384 columns and F2 at 4,096. The forms' launches are counted in
+    (b)-(e); each part logs its wall time and peak memory. Returns the
+    kernels line's entries of the new forms and the phase's numbers."""
+    import dataclasses
+
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.ops import fused_bert, mips, mips_kernel, rescore
+    from proqa_tpu_torch.testing import topk_disagreements
+    from proqa_tpu_torch.train.optim import AdamW, init_train_state
+    from proqa_tpu_torch.train.retriever_trainer import train_step
+
+    gpu = gpu_line()
+    cfg = BertConfig(**XLARGE, flash_attention=True)
+    check(cfg.head_dim == 64, f"xlarge head dim {cfg.head_dim}")
+    counts, walls, peaks = {}, {}, {}
+
+    def part(name):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_kernel_counts()
+        return time.perf_counter()
+
+    def done(name, t0, launched=None):
+        counts[name] = launched or {**_form_counts(), **_attention_counts()}
+        walls[name] = round(time.perf_counter() - t0, 1)
+        peaks[name] = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+
+    # (a) the kernels
+    t0 = time.perf_counter()
+    errs = _wide_checks(device)
+    times = _wide_times(device)
+    walls["kernels"] = round(time.perf_counter() - t0, 1)
+    log(f"{gpu}: xlarge (a) F2 at widths {WIDE_LN} (bf16 and f32, with and without a residual, "
+        f"one unaligned) and F1 at {WIDE_COLS} columns (with and without GELU), forward and "
+        f"backward: {json.dumps(errs)} (tol: F1 bit-equal, F2 1 bf16 ulp at >= {LN_ULP_FLOOR}, "
+        f"dx {BWD_ULPS}, column sums {COLSUM_REL}); two backward launches bit-equal; "
+        f"{walls['kernels']} s")
+
+    # (b) encode against the plain chain, then search
+    model = _on_device(lambda: Retriever(cfg), cfg, device, 35).eval()
+    batch = _minilm_batch(device, 256, 32, 512, 36, cfg.vocab_size)
+    ids, mask = batch["input_ids_c"], batch["input_mask_c"]
+    t0 = part("encode")
+    with torch.inference_mode():
+        rows = model.encode_context(ids, mask)
+    done("encode", t0)
+    with torch.inference_mode():
+        encode_ms = cuda_ms(lambda: model.encode_context(ids, mask), reps=3)
+    plain_rows = []
+    with fused_bert._eager_chain():  # the plain chain under autograd, 8 rows at a time
+        for i in range(0, len(ids), 8):
+            plain_rows.append(model.encode_context(ids[i:i + 8], mask[i:i + 8]).detach())
+    plain_rows = torch.cat(plain_rows)
+    cos = torch.nn.functional.cosine_similarity(rows, plain_rows, dim=1).min().item()
+    del plain_rows
+    check(bool(torch.isfinite(rows).all()) and rows.shape == (256, 128), "xlarge encode: bad rows")
+    check(cos >= ENCODER_COS, f"xlarge encode with F1/F2 vs the plain chain: min cosine {cos} < "
+                              f"{ENCODER_COS}")
+    check(counts["encode"].get("F2 row", 0) == 2 * cfg.num_layers + 1
+          and counts["encode"]["K2"] == cfg.num_layers, f"xlarge encode: {counts['encode']}")
+    qbatch = _minilm_batch(device, 2048, 32, 128, 37, cfg.vocab_size)
+    with torch.inference_mode():
+        questions = torch.cat([model.encode_query(qbatch["input_ids_q"][i:i + 512],
+                                                  qbatch["input_mask_q"][i:i + 512])
+                               for i in range(0, 2048, 512)])
+    g = torch.Generator(device=device).manual_seed(38)
+    filler = torch.randn(262_144 - len(rows), 128, device=device, generator=g) * rows.std()
+    corpus = torch.cat([rows, filler]).bfloat16()
+    del filler
+    index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
+    mips_kernel.launches = rescore.launches = 0
+    vals, idx = index.search(questions, 80)
+    counts["search"] = {"K1": mips_kernel.launches, "K6": rescore.launches}
+    qb, bad = questions.bfloat16(), 0
+    for s in range(0, 2048, 256):
+        rv, ri = mips.mips_topk_reference(qb[s:s + 256], corpus, 80)
+        bad += topk_disagreements(vals[s:s + 256], idx[s:s + 256], rv.cpu().numpy(),
+                                  ri.cpu().numpy(), atol=TOPK_TOL)
+    check(bad == 0, f"xlarge search: {bad} of 2048 questions disagree with the exact top-80")
+    check(all(n > 0 for n in counts["search"].values()), f"xlarge search: {counts['search']}")
+    walls["encode"] = round(time.perf_counter() - t0, 1)
+    log(f"{gpu}: xlarge (b) encode 256 x 512 bf16 with K2 and F1/F2 (no graph): min cosine "
+        f"{cos:.6f} to the plain epilogue chain (tol {ENCODER_COS}); {encode_ms:.2f} ms per "
+        f"batch = {256 * 512 / encode_ms * 1e3:.0f} padded tokens/s (CUDA events); search of "
+        f"2,048 encoded questions over 262,144 rows (256 encoded): all agree with the exact "
+        f"top-80 up to ties; launches {json.dumps(counts['encode'])}, search "
+        f"{json.dumps(counts['search'])}; wall {walls['encode']} s; peak of the encode "
+        f"{peaks['encode']} GiB")
+    del index, corpus, questions, rows, model
+    torch.cuda.empty_cache()
+
+    # (c) the reader over 8 questions x 5 paragraphs of 512: at full depth,
+    # and cut to XLARGE_READER_LAYERS against vanilla; the K2 route counted
+    t0 = part("reader")
+    reader_launches = {}
+    reader = _xlarge_reader(device, cfg, reader_launches)
+    done("reader", t0, reader_launches)
+    check(counts["reader"].get("F2 row", 0) > 0 and counts["reader"]["K2"] > 0,
+          f"xlarge reader: {counts['reader']}")
+    log(f"{gpu}: xlarge (c) reader {json.dumps(reader)}; launches (the K2 route alone) "
+        f"{json.dumps(counts['reader'])}; wall {walls['reader']} s, peak {peaks['reader']} GiB")
+    torch.cuda.empty_cache()
+
+    # (d) the retriever train step, then the dropout-0 gradients
+    b, tq, tc, steps = 80, 32, 512, 3
+    tcfg = dataclasses.replace(cfg, remat=True)  # dropout 0.1
+    batch = _minilm_batch(device, b, tq, tc, 41, cfg.vocab_size)
+    model = _on_device(lambda: Retriever(tcfg), tcfg, device, 42)
+    state = init_train_state(dict(model.named_parameters()))
+    tx, gen = AdamW(XLARGE_LR), torch.Generator().manual_seed(43)
+    losses, step_walls = [], []
+    t0 = part("train")
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, m = train_step(model, state, tx, batch, gen)
+        losses.append(float(m["loss"]))  # synchronises
+        step_walls.append(time.perf_counter() - t1)
+    done("train", t0)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"xlarge train step: loss {losses} did not fall")
+    for form in ("F2 row", "F2 backward row", "F1 staged", "F1 backward slabs"):
+        check(counts["train"].get(form, 0) > 0, f"xlarge train step: {form} never ran: "
+                                                f"{counts['train']}")
+    del state
+    torch.cuda.empty_cache()
+    cfg0 = dataclasses.replace(tcfg, hidden_dropout=0.0, attention_dropout=0.0)
+    small = {key: v[:XLARGE_GRAD_BATCH] for key, v in batch.items()}
+    t1 = time.perf_counter()
+    grad = _xlarge_grad_check(model, cfg0, small, device)
+    grad_wall = round(time.perf_counter() - t1, 1)
+    step_ms = statistics.median(step_walls) * 1e3
+    log(f"{gpu}: xlarge (d) train step bf16 remat flash dropout 0.1 AdamW lr {XLARGE_LR}, "
+        f"{b} x ({tq} + {tc}): "
+        f"losses {' -> '.join(f'{x:.4f}' for x in losses)}; {step_ms:.1f} ms per step (median "
+        f"of {steps}, host clock, synchronised, the first included), "
+        f"{b * (tq + tc) / step_ms * 1e3:.0f} tokens/s; launches in {steps} steps "
+        f"{json.dumps(counts['train'])}; wall {walls['train']} s, peak {peaks['train']} GiB; "
+        f"dropout-0 gradients at {XLARGE_GRAD_BATCH} x ({tq} + {tc}) against the plain chain: "
+        f"{json.dumps(grad)}; {grad_wall} s")
+    del model, batch, small
+    torch.cuda.empty_cache()
+
+    # (e) a 2-layer tower at ALBERT-xxlarge's widths: encode and train step
+    wide = BertConfig(**XXLARGE, flash_attention=True, remat=True)
+    check(wide.head_dim == 64, f"xxlarge head dim {wide.head_dim}")
+    model = _on_device(lambda: Retriever(wide), wide, device, 44)
+    batch = _minilm_batch(device, 64, 32, 512, 45, wide.vocab_size)
+    t0 = part("xxlarge encode")
+    with torch.inference_mode():
+        rows = model.eval().encode_context(batch["input_ids_c"], batch["input_mask_c"])
+    done("xxlarge encode", t0)
+    plain_rows = []
+    with fused_bert._eager_chain():
+        for i in range(0, 64, 16):
+            plain_rows.append(model.encode_context(batch["input_ids_c"][i:i + 16],
+                                                   batch["input_mask_c"][i:i + 16]).detach())
+    wide_cos = torch.nn.functional.cosine_similarity(rows, torch.cat(plain_rows),
+                                                     dim=1).min().item()
+    del rows, plain_rows
+    check(wide_cos >= ENCODER_COS, f"xxlarge encode vs the plain chain: min cosine {wide_cos}")
+    state = init_train_state(dict(model.named_parameters()))
+    t0 = part("xxlarge train")
+    _, m = train_step(model.train(), state, AdamW(1e-4), batch, torch.Generator().manual_seed(46))
+    check(math.isfinite(float(m["loss"])), f"xxlarge train step: loss {m['loss']}")
+    done("xxlarge train", t0)
+    for name, forms in (("xxlarge encode", ("F1 wide", "F2 row")),
+                        ("xxlarge train", ("F1 wide", "F2 row", "F2 backward row",
+                                           "F1 backward slabs"))):
+        for form in forms:
+            check(counts[name].get(form, 0) > 0, f"{name}: {form} never ran: {counts[name]}")
+    del model, state, batch
+    torch.cuda.empty_cache()
+    parts = ("xxlarge encode", "xxlarge train")
+    log(f"{gpu}: xxlarge tower (hidden 4,096, 64 heads of 64, FFN 16,384, 2 layers), 64 x 512 "
+        f"bf16: encode min cosine {wide_cos:.6f} to the plain chain (tol {ENCODER_COS}); one "
+        f"train step; launches {json.dumps({n: counts[n] for n in parts})}; walls "
+        f"{json.dumps({n: walls[n] for n in parts})} s, peaks "
+        f"{json.dumps({n: peaks[n] for n in parts})} GiB")
+
+    on_path = ("encode", "reader", "train", "xxlarge encode", "xxlarge train")
+    launched = lambda form: sum(counts[n].get(form, 0) for n in on_path)  # noqa: E731
+    of = {"F2": ("add_layer_norm (F2)", "layer_norm.cu", "proqa_tpu/models/bert.py:137",
+                 launched("F2 row")),
+          "F2 backward": ("add_layer_norm backward (F2)", "layer_norm.cu",
+                          "proqa_tpu/models/bert.py:137", launched("F2 backward row")),
+          "F1": ("dense_epilogue (F1)", "dense_epilogue.cu", "proqa_tpu/models/bert.py:147",
+                 launched("F1 wide")),
+          "F1 backward": ("dense_epilogue backward (F1)", "dense_epilogue.cu",
+                          "proqa_tpu/models/bert.py:147", launched("F1 backward slabs"))}
+    entries = []
+    for kernel, label, result in times:
+        name, source, replaces, launches = of[kernel]
+        entries.append((f"{name} {label}", source, replaces, launches, result))
+    return entries, {"counts": counts, "walls": walls, "peaks": peaks, "errs": errs,
+                     "encode_cos": cos, "reader": reader, "losses": losses, "grad": grad,
+                     "xxlarge_cos": wide_cos}
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -3823,6 +4532,8 @@ def main() -> int:
         k1_f32 = timed("f32", phase_f32, device)
         # MiniLM-L12-H384: head dim 32 (and 128, and a padded one) on the card
         minilm, _ = timed("minilm", phase_minilm, device)
+        # BERT-xlarge: F1 and F2 past their first forms (hidden 2,048; 4,096 and 16,384)
+        xlarge, _ = timed("xlarge", phase_xlarge, device)
         log(f"phase seconds: {json.dumps(phases)}")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "proqa_tpu"))
@@ -3838,7 +4549,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launches, "max_abs_err": max_abs_err,
                 **{key: result[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                 "library_ms", "colsum_rel_err", "queued_ms",
-                                                "kernel_ms", "bytes_bound_ms", "issue_bound_ms")
+                                                "kernel_ms", "kernel_traces", "bytes_bound_ms",
+                                                "issue_bound_ms")
                    if key in result}}
 
     qa_runs = [*qa["launches"].values(), serve["launches"]]
@@ -3910,6 +4622,10 @@ def main() -> int:
     # K2/K3 at head dims 32 and 128 (launches: the MiniLM path's encode,
     # reader and train steps at Dh 32; the Dh 128 tower's encode and step)
     kernels += [entry(*form) for form in minilm]
+    # F1's and F2's wide forms at the xlarge path's shapes (launches: the form's
+    # on the xlarge encode, reader and train step and the xxlarge tower; F1's
+    # backward at 16,384 columns: the xxlarge train step's)
+    kernels += [entry(*form) for form in xlarge]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -55,18 +55,18 @@ _SIGNATURES = {
     "proqa_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
     # x, y, n, seed, threshold, inv_keep, is_bf16, stream
     "proqa_dropout": [_P, _P, _L, _U64, _U, _F, _I, _P],
-    # y, bias, out, z (None for none), rows, cols, out_bf16, gelu, stream
-    "proqa_dense_epilogue": [_P] * 4 + [_L, _I, _I, _I, _P],
-    # dout, z, dz, workspace, dbias (None for none), rows, cols, is_bf16, gelu, stream
-    "proqa_dense_epilogue_bwd": [_P] * 5 + [_L, _I, _I, _I, _P],
+    # y, bias, out, z (None for none), rows, cols, out_bf16, gelu, form, stream
+    "proqa_dense_epilogue": [_P] * 4 + [_L, _I, _I, _I, _I, _P],
+    # dout, z, dz, workspace, dbias (None for none), rows, cols, is_bf16, gelu, form, stream
+    "proqa_dense_epilogue_bwd": [_P] * 5 + [_L, _I, _I, _I, _I, _P],
     # rows, cols, gelu, device: the bytes of the backward's scratch
     "proqa_dense_epilogue_bwd_workspace": [_L, _I, _I, _I],
     # x, residual (None for none), scale, bias, out, mean, rstd (None for none), rows, h,
-    # eps, is_bf16, stream
-    "proqa_add_layer_norm": [_P] * 7 + [_L, _I, _F, _I, _P],
+    # eps, is_bf16, form, stream
+    "proqa_add_layer_norm": [_P] * 7 + [_L, _I, _F, _I, _I, _P],
     # dy, x, residual, mean, rstd, scale, dx, workspace, dparams (None for none), rows, h,
-    # is_bf16, stream
-    "proqa_add_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _P],
+    # is_bf16, form, stream
+    "proqa_add_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _I, _P],
     # rows, h, is_bf16, device: the bytes of the backward's scratch
     "proqa_add_layer_norm_bwd_workspace": [_L, _I, _I, _I],
 }

@@ -23,7 +23,12 @@
 // stride's remainder so that no division runs in the loop; the bias row is
 // staged in shared memory once a block. Widths that are not a multiple of 8
 // (the span head's 2, the selection head's 1) and unaligned pointers take the
-// element-at-a-time loop.
+// element-at-a-time loop. Past 12,288 columns (kMaxCols: the bias row in the
+// 48 KB of shared memory a block takes without opting in; ALBERT-xxlarge's
+// feed-forward has 16,384) the wide forms take the same groups and read the
+// bias through the read-only cache instead: a row of 64 KB at 16,384 stays
+// in L1, and no width is too wide. The wrapper names the form
+// (ops/fused_bert.py:dense_form), and the entry point refuses any other.
 //
 // Training adds two things. The forward with GELU also stores the rounded
 // pre-activation z = round(y + b) (2 B an element more in bf16), which the
@@ -58,7 +63,10 @@
 // The slabs and the order of every sum follow from the row count, the width,
 // the form (GELU or not) and the SM count alone, so two launches give the
 // same bits; odd widths and unaligned pointers load element by element in
-// the same groups, slabs and order.
+// the same groups, slabs and order. The slabs take any width up to 131,072
+// columns (kMaxSlabCols, where the column blocks' ticket counters fill their
+// 4 KB); past it the column blocks alone fill the card, so the direct form
+// takes every row in one slab and writes each column's sum with no partials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -84,6 +92,9 @@ constexpr int kColThreads = 32;  // backward: column groups a block takes side b
 constexpr int kRowThreads = 8;   // backward: rows a block takes at a time
 constexpr int kBwdBlocksPerSm = 2;  // backward: blocks an SM (its registers allow two)
 constexpr int kMinSlabRows = 64;    // backward, the sum alone: rows a slab takes at least
+// backward: the widest the slabs take, where the column blocks' ticket
+// counters (two a column block at one slab) fill column_sums' 4 KB
+constexpr int kMaxSlabCols = kColThreads * kGroup * (column_sums::kTicketBytes / 4 / 2);
 constexpr int kMaxDevices = 64;
 
 template <typename Out>
@@ -176,6 +187,57 @@ dense_epilogue_scalar_kernel(const float* __restrict__ y, const float* __restric
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
     Out t;
     out[i] = epilogue<Out, kGelu>(y[i], sbias[i % cols], &t);
+    if constexpr (kSaveZ) z[i] = t;
+  }
+}
+
+// cols > kMaxCols (the bias row would not fit the shared memory a block
+// takes without opting in): the vector body with the bias read through the
+// read-only cache, element by element, where the staged kernels read shared
+// memory. The same groups, the same arithmetic, the same bits.
+template <typename Out, bool kGelu, bool kSaveZ>
+__global__ void __launch_bounds__(kThreads)
+dense_epilogue_wide_vec_kernel(const float4* __restrict__ y, const float* __restrict__ bias,
+                               Out* __restrict__ out, Out* __restrict__ z, long long groups,
+                               int cols) {
+  const int per_row = cols / kGroup;
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  int col = (int)(g % per_row);  // the group's column, in groups
+  const int step = (int)(stride % per_row);
+  for (; g < groups; g += stride) {
+    const float4 a = __ldcs(y + 2 * g), b = __ldcs(y + 2 * g + 1);
+    const float acc[kGroup] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+    alignas(16) Out o[kGroup], t[kGroup];
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e)
+      o[e] = epilogue<Out, kGelu>(acc[e], __ldg(bias + kGroup * col + e), &t[e]);
+    uint4* dst = reinterpret_cast<uint4*>(out + kGroup * g);
+#pragma unroll
+    for (int s = 0; s < (int)(kGroup * sizeof(Out) / 16); ++s)
+      dst[s] = reinterpret_cast<const uint4*>(o)[s];
+    if constexpr (kSaveZ) {
+      uint4* zdst = reinterpret_cast<uint4*>(z + kGroup * g);
+#pragma unroll
+      for (int s = 0; s < (int)(kGroup * sizeof(Out) / 16); ++s)
+        zdst[s] = reinterpret_cast<const uint4*>(t)[s];
+    }
+    col += step;
+    if (col >= per_row) col -= per_row;
+  }
+}
+
+// cols > kMaxCols, any width and alignment: one element at a time, the bias
+// through the read-only cache.
+template <typename Out, bool kGelu, bool kSaveZ>
+__global__ void __launch_bounds__(kThreads)
+dense_epilogue_wide_scalar_kernel(const float* __restrict__ y, const float* __restrict__ bias,
+                                  Out* __restrict__ out, Out* __restrict__ z, long long n,
+                                  int cols) {
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+    Out t;
+    out[i] = epilogue<Out, kGelu>(y[i], __ldg(bias + i % cols), &t);
     if constexpr (kSaveZ) z[i] = t;
   }
 }
@@ -302,6 +364,45 @@ dense_epilogue_bwd_kernel(const T* __restrict__ dout, const T* __restrict__ z,
 static_assert(kColThreads * kRowThreads == column_sums::kThreads && kGroup == kRowThreads,
               "a block's threads: column_sums' block, and one a column of its columns");
 
+// cols > kMaxSlabCols: the rows in one slab (the column blocks alone fill
+// the card, and the ticket counters of column_sums would not fit), so the
+// block's 8 row lanes, added in order, are the column's sum: it goes to
+// dbias with no partials. The element body, the same rows a thread, the
+// same order of sums as a slab of the kernel above.
+template <typename T, bool kGelu, bool kDz, bool kSum>
+__global__ void __launch_bounds__(kColThreads * kRowThreads, kBwdBlocksPerSm)
+dense_epilogue_bwd_direct_kernel(const T* __restrict__ dout, const T* __restrict__ z,
+                                 T* __restrict__ dz, float* __restrict__ dbias, long long rows,
+                                 int cols) {
+  constexpr int kUnroll = (kGelu ? 2 : 4) * 2 / (int)sizeof(T);
+  const int c0 = (blockIdx.x * kColThreads + threadIdx.x) * kGroup;
+  const int width = cols - c0 < kGroup ? cols - c0 : kGroup;  // <= 0: no columns
+  float sum[kGroup] = {};
+  if (width > 0) {
+    long long row = threadIdx.y;
+    for (; row + (long long)kRowThreads * (kUnroll - 1) < rows; row += kRowThreads * kUnroll)
+      backward_rows<T, false, kGelu, kDz, kSum, kUnroll, true>(dout, z, dz, row, rows, cols, c0,
+                                                               width, sum);
+    if (row < rows)
+      backward_rows<T, false, kGelu, kDz, kSum, kUnroll, false>(dout, z, dz, row, rows, cols,
+                                                                c0, width, sum);
+  }
+  if constexpr (kSum) {
+    __shared__ float lane_sums[kRowThreads][kColThreads * kGroup];
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e) lane_sums[threadIdx.y][threadIdx.x * kGroup + e] = sum[e];
+    __syncthreads();
+    const int tid = threadIdx.y * kColThreads + threadIdx.x;
+    const int col0 = blockIdx.x * kColThreads * kGroup;
+    if (tid < cols - col0) {
+      float total = lane_sums[0][tid];
+#pragma unroll
+      for (int j = 1; j < kRowThreads; ++j) total = __fadd_rn(total, lane_sums[j][tid]);
+      dbias[col0 + tid] = total;
+    }
+  }
+}
+
 int grid_for(long long work) {
   int device = 0, sms = 132;
   if (cudaGetDevice(&device) == cudaSuccess)
@@ -341,10 +442,40 @@ int bwd_slabs(long long rows, int cols, int gelu, int device) {
   return slabs < 1 ? 1 : (int)(slabs < most ? slabs : most);
 }
 
+// The forms, as ops/fused_bert.py names them (DENSE_FORMS, DENSE_BWD_FORMS)
+enum Form { kStagedVec = 0, kStagedScalar = 1, kWideVec = 2, kWideScalar = 3 };
+enum BwdForm { kSlabsVec = 0, kSlabsScalar = 1, kDirect = 2 };
+
+// The vector bodies want the width a multiple of the group and every pointer
+// 16-byte aligned
+bool vector_body(int cols, const void* a, const void* b, const void* c) {
+  return cols % kGroup == 0 && ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                                 reinterpret_cast<uintptr_t>(c)) % 16) == 0;
+}
+
+int form_of(int cols, bool vector) {
+  return (cols <= kMaxCols ? kStagedVec : kWideVec) + (vector ? 0 : 1);
+}
+
+int bwd_form_of(int cols, bool vector) {
+  return cols > kMaxSlabCols ? kDirect : vector ? kSlabsVec : kSlabsScalar;
+}
+
 template <typename Out, bool kGelu, bool kSaveZ>
 cudaError_t launch(const float* y, const float* bias, Out* out, Out* z, long long rows, int cols,
-                   cudaStream_t stream) {
+                   int form, cudaStream_t stream) {
   const long long n = rows * cols;
+  if (form == kWideVec) {
+    const long long groups = n / kGroup;
+    dense_epilogue_wide_vec_kernel<Out, kGelu, kSaveZ><<<grid_for(groups), kThreads, 0, stream>>>(
+        reinterpret_cast<const float4*>(y), bias, out, z, groups, cols);
+    return cudaGetLastError();
+  }
+  if (form == kWideScalar) {
+    dense_epilogue_wide_scalar_kernel<Out, kGelu, kSaveZ><<<grid_for(n), kThreads, 0, stream>>>(
+        y, bias, out, z, n, cols);
+    return cudaGetLastError();
+  }
   const size_t smem = (size_t)cols * sizeof(float);
   const bool aligned = ((reinterpret_cast<uintptr_t>(y) | reinterpret_cast<uintptr_t>(out) |
                          reinterpret_cast<uintptr_t>(z)) % 16) == 0;
@@ -361,14 +492,14 @@ cudaError_t launch(const float* y, const float* bias, Out* out, Out* z, long lon
 
 template <typename Out>
 cudaError_t launch_gelu(const void* y, const void* bias, void* out, void* z, long long rows,
-                        int cols, int gelu, cudaStream_t stream) {
+                        int cols, int gelu, int form, cudaStream_t stream) {
   const float* yf = static_cast<const float*>(y);
   const float* bf = static_cast<const float*>(bias);
   Out* o = static_cast<Out*>(out);
   Out* zo = static_cast<Out*>(z);
-  if (!gelu) return launch<Out, false, false>(yf, bf, o, nullptr, rows, cols, stream);
-  return zo != nullptr ? launch<Out, true, true>(yf, bf, o, zo, rows, cols, stream)
-                       : launch<Out, true, false>(yf, bf, o, nullptr, rows, cols, stream);
+  if (!gelu) return launch<Out, false, false>(yf, bf, o, nullptr, rows, cols, form, stream);
+  return zo != nullptr ? launch<Out, true, true>(yf, bf, o, zo, rows, cols, form, stream)
+                       : launch<Out, true, false>(yf, bf, o, nullptr, rows, cols, form, stream);
 }
 
 template <typename T, bool kVector, bool kGelu, bool kDz, bool kSum>
@@ -399,13 +530,41 @@ cudaError_t launch_bwd_form(const T* dout, const T* z, T* dz, void* workspace, f
                                                          cols, slabs, stream);
 }
 
+// The direct forms (one slab): with GELU, dz and the sum, dz alone, or the
+// sum alone; without, the sum alone
+template <typename T, bool kGelu, bool kDz, bool kSum>
+cudaError_t launch_bwd_direct_kernel(const T* dout, const T* z, T* dz, float* dbias,
+                                     long long rows, int cols, cudaStream_t stream) {
+  const dim3 grid(bwd_across(cols));
+  const dim3 block(kColThreads, kRowThreads);
+  dense_epilogue_bwd_direct_kernel<T, kGelu, kDz, kSum><<<grid, block, 0, stream>>>(
+      dout, z, dz, dbias, rows, cols);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_direct(const T* dout, const T* z, T* dz, float* dbias, long long rows,
+                              int cols, int gelu, cudaStream_t stream) {
+  if (!gelu)
+    return launch_bwd_direct_kernel<T, false, false, true>(dout, z, dz, dbias, rows, cols,
+                                                           stream);
+  if (dz == nullptr)
+    return launch_bwd_direct_kernel<T, true, false, true>(dout, z, dz, dbias, rows, cols,
+                                                          stream);
+  if (dbias == nullptr)
+    return launch_bwd_direct_kernel<T, true, true, false>(dout, z, dz, dbias, rows, cols,
+                                                          stream);
+  return launch_bwd_direct_kernel<T, true, true, true>(dout, z, dz, dbias, rows, cols, stream);
+}
+
 template <typename T>
 cudaError_t launch_bwd(const void* doutp, const void* zp, void* dzp, void* workspace,
-                       float* dbias, long long rows, int cols, int slabs, int gelu,
+                       float* dbias, long long rows, int cols, int slabs, int gelu, int form,
                        cudaStream_t stream) {
   const T* dout = static_cast<const T*>(doutp);
   const T* z = static_cast<const T*>(zp);
   T* dz = static_cast<T*>(dzp);
+  if (form == kDirect) return launch_bwd_direct<T>(dout, z, dz, dbias, rows, cols, gelu, stream);
   const bool aligned = ((reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(z) |
                          reinterpret_cast<uintptr_t>(dz)) % 16) == 0;
   return aligned && cols % kGroup == 0
@@ -421,26 +580,31 @@ cudaError_t launch_bwd(const void* doutp, const void* zp, void* dzp, void* works
 // [rows, cols] bf16 when out_bf16, else f32 (may not alias y). gelu applies
 // the exact GELU after the first rounding and rounds again; z (nullptr for
 // none; only with gelu), like out, receives the rounded pre-activation.
-// cols in 1 .. 12,288. Returns a cudaError_t code.
+// cols >= 1. form: the index of the form in ops/fused_bert.py's DENSE_FORMS,
+// which must be form_of's for cols and the alignment of y, out and z.
+// Returns a cudaError_t code.
 extern "C" int proqa_dense_epilogue(const void* y, const void* bias, void* out, void* z,
-                                    long long rows, int cols, int out_bf16, int gelu,
+                                    long long rows, int cols, int out_bf16, int gelu, int form,
                                     void* stream) {
-  if (rows < 0 || cols < 1 || cols > kMaxCols || (z != nullptr && !gelu))
+  if (rows < 0 || cols < 1 || (z != nullptr && !gelu) ||
+      form != form_of(cols, vector_body(cols, y, out, z)))
     return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? launch_gelu<bf16>(y, bias, out, z, rows, cols, gelu, s)
-                  : launch_gelu<float>(y, bias, out, z, rows, cols, gelu, s);
+  return out_bf16 ? launch_gelu<bf16>(y, bias, out, z, rows, cols, gelu, form, s)
+                  : launch_gelu<float>(y, bias, out, z, rows, cols, gelu, form, s);
 }
 
 // The bytes of scratch the backward's bias gradient takes for [rows, cols]
-// (with GELU when gelu) on CUDA device `device`: ticket counters and [slabs, cols] f32 partials
-// (column_sums.cuh). The scratch must be zero the first time; each launch
-// leaves it fit for the next on the same stream. cols in 1 .. 12,288.
+// (with GELU when gelu) on CUDA device `device`: ticket counters and [slabs,
+// cols] f32 partials (column_sums.cuh); past kMaxSlabCols the counters'
+// bytes alone, which the direct form leaves untouched. The scratch must be
+// zero the first time; each launch leaves it fit for the next on the same
+// stream. cols >= 1.
 extern "C" long long proqa_dense_epilogue_bwd_workspace(long long rows, int cols, int gelu,
                                                         int device) {
-  if (cols < 1 || cols > kMaxCols) return 0;
-  if (rows < 1) return column_sums::kTicketBytes;  // nothing to add up
+  if (cols < 1) return 0;
+  if (rows < 1 || cols > kMaxSlabCols) return column_sums::kTicketBytes;  // nothing to add up
   return column_sums::workspace_bytes(bwd_across(cols), bwd_slabs(rows, cols, gelu, device),
                                      cols);
 }
@@ -452,13 +616,16 @@ extern "C" long long proqa_dense_epilogue_bwd_workspace(long long rows, int cols
 // (dz and z nullptr). dbias: [cols] f32, the column sum of f32(dz) (f32(dout)
 // without gelu), nullptr for none; workspace: the scratch for it (nullptr
 // with dbias), of at least the bytes proqa_dense_epilogue_bwd_workspace
-// gives. Returns a cudaError_t code.
+// gives. form: the index of the form in ops/fused_bert.py's
+// DENSE_BWD_FORMS, which must be bwd_form_of's for cols and the alignment of
+// dout, z and dz. Returns a cudaError_t code.
 extern "C" int proqa_dense_epilogue_bwd(const void* dout, const void* z, void* dz,
                                         void* workspace, void* dbias, long long rows, int cols,
-                                        int is_bf16, int gelu, void* stream) {
-  if (rows < 0 || cols < 1 || cols > kMaxCols || (gelu && z == nullptr) ||
+                                        int is_bf16, int gelu, int form, void* stream) {
+  if (rows < 0 || cols < 1 || (gelu && z == nullptr) ||
       (!gelu && (z != nullptr || dz != nullptr)) ||
-      ((dbias == nullptr) != (workspace == nullptr)))
+      ((dbias == nullptr) != (workspace == nullptr)) ||
+      form != bwd_form_of(cols, vector_body(cols, dout, z, dz)))
     return cudaErrorInvalidValue;
   if (rows == 0 && dbias != nullptr) return cudaMemsetAsync(dbias, 0, cols * sizeof(float),
                                                             static_cast<cudaStream_t>(stream));
@@ -466,11 +633,13 @@ extern "C" int proqa_dense_epilogue_bwd(const void* dout, const void* z, void* d
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const int slabs = bwd_slabs(rows, cols, gelu, device);
-  if (dbias != nullptr && column_sums::workspace_bytes(bwd_across(cols), slabs, cols) == 0)
+  const int slabs = form == kDirect ? 1 : bwd_slabs(rows, cols, gelu, device);
+  if (dbias != nullptr && form != kDirect &&
+      column_sums::workspace_bytes(bwd_across(cols), slabs, cols) == 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* db = static_cast<float*>(dbias);
-  return is_bf16 ? launch_bwd<bf16>(dout, z, dz, workspace, db, rows, cols, slabs, gelu, s)
-                 : launch_bwd<float>(dout, z, dz, workspace, db, rows, cols, slabs, gelu, s);
+  return is_bf16
+             ? launch_bwd<bf16>(dout, z, dz, workspace, db, rows, cols, slabs, gelu, form, s)
+             : launch_bwd<float>(dout, z, dz, workspace, db, rows, cols, slabs, gelu, form, s);
 }

@@ -27,6 +27,17 @@
 // SM keep 64 rows in flight an SM. Widths that are not a multiple of the
 // vector, and unaligned pointers, take an element-at-a-time body.
 //
+// Rows wider than 1,024 (kMaxWidth; BERT-xlarge's 2,048, ALBERT-xxlarge's
+// 4,096) take a block a row. Up to 8,192 (kRowWidth) each of its 256 threads
+// holds its vectors t, t + 256, ... in registers, 8 to 32 floats, loaded
+// once, and the two row sums meet in shared memory (block_sum: each warp's
+// butterfly, then the 8 warp sums in order). Past 8,192 the stream form
+// reads the row three times (the sum, the squared deviations, the output;
+// again mostly from L2), so no width is too wide. The same rounding points
+// in the same order; only the row sums' order differs again. The wrapper
+// names the form (ops/fused_bert.py:layer_norm_form), and the entry point
+// refuses any other.
+//
 // Training: the forward also writes each row's f32 mean and rsqrt(var + eps)
 // when asked (8 B a row). The backward, `proqa_add_layer_norm_bwd`, is the
 // transpose of the same fusion. It recomputes the rounded sum s = round(x + r)
@@ -64,10 +75,24 @@
 // the dtype and the SM count alone, so two launches give the same bits. Odd
 // widths and unaligned pointers stage the same tiles by plain loads: the
 // same slabs and the same order of sums.
+//
+// Rows wider than 1,024 would leave a stage fewer than one tile's rows, and
+// a thread h / 256 column sums of each gradient. Up to 4,096 (kBwdRowWidth)
+// a block takes its slab's rows one at a time: its threads hold a row's
+// vectors of dy, x and the residual in registers (the next row's loads in
+// flight while this one is summed, where 32 bytes of each a thread allow),
+// the two row means come from block_sum, and each thread adds the terms of
+// its own columns, 8 or 16 of each gradient, in row order. Past 4,096 the
+// stream form first sums each row of a sub-slab of 16 for its two means,
+// then walks its columns down those rows, carrying the column sums from one
+// sub-slab to the next in its row of the partials. Both end in the same
+// ticketed column sums, over two blocks an SM at most one a row, so the
+// order again follows from the row count and the card alone.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <initializer_list>
 
 #include "block_maxima_common.cuh"  // mbarriers and the 1D bulk copy
 #include "column_sums.cuh"
@@ -674,24 +699,572 @@ cudaError_t launch_bwd(const void* dyp, const void* xp, const void* rp, const fl
 #undef PROQA_LN_BWD
 }
 
+// --- rows wider than a warp holds: a block a row ---
+
+constexpr int kRowWidth = 8192;     // forward: a block holds a row, 32 floats a thread
+constexpr int kBwdRowWidth = 4096;  // backward: a block holds a row, 16 floats a thread
+constexpr int kWideBwdBlocksPerSm = 2;
+constexpr int kSubRows = 16;        // streamed backward: rows whose means a block keeps at once
+constexpr int kUnrollStream = 4;    // streamed passes: vectors (or rows) loaded before any is used
+static_assert(kUnrollStream == 4, "the streamed loops' #pragma unroll 4");
+
+// The forms, as ops/fused_bert.py names them (LN_FORMS, LN_BWD_FORMS): the
+// layout (a warp a row / the backward's tiles; a block a row in registers;
+// a block a row streamed) times two, plus one for the element body
+enum Layout { kWarp = 0, kRow = 1, kStream = 2 };
+int form_of(int h, bool vector, bool backward) {
+  const int layout = h <= kMaxWidth ? kWarp : h <= (backward ? kBwdRowWidth : kRowWidth) ? kRow
+                                                                                        : kStream;
+  return 2 * layout + (vector ? 0 : 1);
+}
+
+// The sum of every thread's v over the block: butterflies within the warps,
+// then the kWarps warp sums in warp order, read by every thread. red: kWarps
+// floats of shared memory; a block that calls this with two buffers in turn
+// may call it again at once (each call's barrier orders the other buffer's
+// reads before its next writes).
+__device__ inline float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = red[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) s = __fadd_rn(s, red[w]);
+  return s;
+}
+
+// kVec elements at p (one 16-byte load when kVec > 1)
+template <typename Elem, int kVec>
+__device__ inline void load_raw(const Elem* p, Elem (&a)[kVec]) {
+  if constexpr (kVec == 1) {
+    a[0] = *p;
+  } else {
+    *reinterpret_cast<uint4*>(a) = *reinterpret_cast<const uint4*>(p);
+  }
+}
+
+// The rounded sums of x's and the residual's kVec elements (x's alone when
+// there is no residual), as f32
+template <typename Elem, int kVec>
+__device__ inline void rounded_sums(const Elem (&a)[kVec], const Elem (&b)[kVec], bool residual,
+                                    float (&v)[kVec]) {
+#pragma unroll
+  for (int e = 0; e < kVec; ++e)
+    v[e] = residual ? rounded_add<Elem>(to_f32(a[e]), to_f32(b[e])) : to_f32(a[e]);
+}
+
+// The row's kVec rounded sums at element `at` (x alone without a residual)
+template <typename Elem, int kVec>
+__device__ inline void load_sums(const Elem* x, const Elem* r, long long at, float (&v)[kVec]) {
+  alignas(16) Elem a[kVec], b[kVec];
+  load_raw<Elem, kVec>(x + at, a);
+  if (r != nullptr) load_raw<Elem, kVec>(r + at, b);
+  rounded_sums<Elem, kVec>(a, b, r != nullptr, v);
+}
+
+// The row's mean and rstd from the block's sums (thread 0 saves them when
+// asked), the two passes of row_stats with block_sum in place of warp_sum
+__device__ inline RowStats finish_stats(float sq, float mean_v, float inv_h, float eps,
+                                        float* red, float* mean, float* rstd, long long row) {
+  const float var = __fmul_rn(block_sum(sq, red), inv_h);
+  const RowStats s = {mean_v, rsqrtf(__fadd_rn(var, eps))};
+  if (mean != nullptr && threadIdx.x == 0) {
+    mean[row] = s.mean;
+    rstd[row] = s.rstd;
+  }
+  return s;
+}
+
+// kMaxWidth < h <= kRowWidth: a block a row (the blocks walk the rows by a
+// grid stride); thread t holds the row's vectors t, t + kThreads, ... of
+// kVec elements (kVec = 1: elements), kVecs of them at most, loaded before
+// any is used and kept in registers through both sums and the output.
+template <typename Elem, int kVec, int kVecs>
+__global__ void __launch_bounds__(kThreads)
+add_layer_norm_row_kernel(const Elem* __restrict__ x, const Elem* __restrict__ r,
+                          const float* __restrict__ scale, const float* __restrict__ bias,
+                          Elem* __restrict__ out, float* __restrict__ mean,
+                          float* __restrict__ rstd, long long rows, int h, float inv_h,
+                          float eps) {
+  constexpr int kPer = kVec * kVecs;
+  __shared__ float red[2][kWarps];
+  const int nvec = h / kVec;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long base = row * h;
+    alignas(16) Elem a[kVecs][kVec], b[kVecs][kVec];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      if (i < nvec) {
+        load_raw<Elem, kVec>(x + base + (long long)i * kVec, a[j]);
+        if (r != nullptr) load_raw<Elem, kVec>(r + base + (long long)i * kVec, b[j]);
+      }
+    }
+    float v[kVecs][kVec], sum = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      if (threadIdx.x + kThreads * j < nvec) {
+        rounded_sums<Elem, kVec>(a[j], b[j], r != nullptr, v[j]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) sum = __fadd_rn(sum, v[j][e]);
+      }
+    }
+    const float m = __fmul_rn(block_sum(sum, red[0]), inv_h);
+    float sq = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      if (threadIdx.x + kThreads * j < nvec) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          const float d = __fsub_rn(v[j][e], m);
+          sq = __fadd_rn(sq, __fmul_rn(d, d));
+        }
+      }
+    }
+    const RowStats s = finish_stats(sq, m, inv_h, eps, red[1], mean, rstd, row);
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      if (i < nvec) {
+        alignas(16) float sc[kVec], bi[kVec], o[kVec];
+        load_params<kVec>(scale + i * kVec, sc);
+        load_params<kVec>(bias + i * kVec, bi);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) o[e] = normalize(v[j][e], s, sc[e], bi[e]);
+        store_vec<Elem, kVec>(out + base + (long long)i * kVec, o);
+      }
+    }
+  }
+}
+
+// h > kRowWidth: a block a row, the row read three times (its sum, its
+// squared deviations, the output; the second and third reads mostly from
+// L2), thread t taking vectors t, t + kThreads, ..., kUnrollStream loaded
+// before any is used. No width is too wide.
+template <typename Elem, int kVec>
+__global__ void __launch_bounds__(kThreads)
+add_layer_norm_stream_kernel(const Elem* __restrict__ x, const Elem* __restrict__ r,
+                             const float* __restrict__ scale, const float* __restrict__ bias,
+                             Elem* __restrict__ out, float* __restrict__ mean,
+                             float* __restrict__ rstd, long long rows, int h, float inv_h,
+                             float eps) {
+  __shared__ float red[2][kWarps];
+  const int nvec = h / kVec;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x) {
+    const long long base = row * h;
+    float sum = 0.0f;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      float v[kVec];
+      load_sums<Elem, kVec>(x, r, base + (long long)i * kVec, v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) sum = __fadd_rn(sum, v[e]);
+    }
+    const float m = __fmul_rn(block_sum(sum, red[0]), inv_h);
+    float sq = 0.0f;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      float v[kVec];
+      load_sums<Elem, kVec>(x, r, base + (long long)i * kVec, v);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        const float d = __fsub_rn(v[e], m);
+        sq = __fadd_rn(sq, __fmul_rn(d, d));
+      }
+    }
+    const RowStats s = finish_stats(sq, m, inv_h, eps, red[1], mean, rstd, row);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      alignas(16) float v[kVec], sc[kVec], bi[kVec], o[kVec];
+      load_sums<Elem, kVec>(x, r, base + (long long)i * kVec, v);
+      load_params<kVec>(scale + i * kVec, sc);
+      load_params<kVec>(bias + i * kVec, bi);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) o[e] = normalize(v[e], s, sc[e], bi[e]);
+      store_vec<Elem, kVec>(out + base + (long long)i * kVec, o);
+    }
+  }
+}
+
+// The wide forms' grid: a block a row, up to what a grid holds
+int row_grid(long long rows) { return (int)(rows < (1LL << 30) ? rows : (1LL << 30)); }
+
+template <typename Elem>
+cudaError_t launch_wide(const Elem* x, const Elem* r, const float* scale, const float* bias,
+                        Elem* out, float* mean, float* rstd, long long rows, int h, float eps,
+                        int form, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(Elem);
+  const float inv_h = 1.0f / (float)h;
+  const int grid = row_grid(rows);
+#define PROQA_LN_ROW(vec, n)                                                             \
+  add_layer_norm_row_kernel<Elem, vec, n><<<grid, kThreads, 0, stream>>>(x, r, scale, bias, \
+                                                                       out, mean, rstd,   \
+                                                                       rows, h, inv_h, eps)
+  if (form == 2 * kRow + 1) {
+    PROQA_LN_ROW(1, kRowWidth / kThreads);
+  } else if (form == 2 * kRow) {
+    // vectors a thread holds: 1-4 in bf16, 2-8 in f32 (8 to 32 elements)
+    const int vecs = (h / kVec + kThreads - 1) / kThreads;
+    if (vecs <= 8 / kVec) PROQA_LN_ROW(kVec, 8 / kVec);
+    else if (vecs <= 16 / kVec) PROQA_LN_ROW(kVec, 16 / kVec);
+    else PROQA_LN_ROW(kVec, 32 / kVec);
+  } else if (form == 2 * kStream) {
+    add_layer_norm_stream_kernel<Elem, kVec><<<grid, kThreads, 0, stream>>>(
+        x, r, scale, bias, out, mean, rstd, rows, h, inv_h, eps);
+  } else {
+    add_layer_norm_stream_kernel<Elem, 1><<<grid, kThreads, 0, stream>>>(
+        x, r, scale, bias, out, mean, rstd, rows, h, inv_h, eps);
+  }
+#undef PROQA_LN_ROW
+  return cudaGetLastError();
+}
+
+// The wide backward's blocks on `device`: kWideBwdBlocksPerSm an SM, at
+// most one a row. The row count and the card alone fix them, and with them
+// the order of the scale and bias gradients' sums.
+int wide_bwd_blocks(long long rows, int device) {
+  const long long most = (long long)sm_count(device) * kWideBwdBlocksPerSm;
+  return rows < 1 ? 1 : (int)(rows < most ? rows : most);
+}
+
+// The row's f32 sums of g = dy * scale and of g x^ (x^ = (s - mean) * rstd),
+// and with kParams the terms of dscale (dy x^) and dbias (dy) at kVec
+// columns, added to ds and db
+template <typename Elem, int kVec, bool kParams>
+__device__ inline void backward_terms(const Elem (&d)[kVec], const float (&s)[kVec],
+                                      const float (&sc)[kVec], float m, float rs, float& sum_g,
+                                      float& sum_gx, float (&ds)[kVec], float (&db)[kVec]) {
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) {
+    const float dy = to_f32(d[e]), xh = normalized(s[e], m, rs), g = __fmul_rn(dy, sc[e]);
+    sum_g = __fadd_rn(sum_g, g);
+    sum_gx = __fadd_rn(sum_gx, __fmul_rn(g, xh));
+    if constexpr (kParams) {
+      ds[e] = __fadd_rn(ds[e], __fmul_rn(dy, xh));
+      db[e] = __fadd_rn(db[e], dy);
+    }
+  }
+}
+
+// dx at kVec columns of a row whose two means are known
+template <typename Elem, int kVec>
+__device__ inline void store_input_grad(Elem* p, const Elem (&d)[kVec], const float (&s)[kVec],
+                                        const float (&sc)[kVec], float m, float rs, float mean_g,
+                                        float mean_gx) {
+  float o[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e)
+    o[e] = input_grad(__fmul_rn(to_f32(d[e]), sc[e]), normalized(s[e], m, rs), rs, mean_g,
+                      mean_gx);
+  store_vec<Elem, kVec>(p, o);
+}
+
+// The block's row of partials [blocks, 2, h] for column_sums, then its finish
+template <int kVec>
+__device__ inline void write_partials(float* mine, int i, int h, const float (&ds)[kVec],
+                                      const float (&db)[kVec]) {
+  if constexpr (kVec == 1) {
+    mine[i] = ds[0];
+    mine[h + i] = db[0];
+  } else {
+    store_f32<kVec>(mine + i * kVec, ds);
+    store_f32<kVec>(mine + h + i * kVec, db);
+  }
+}
+
+// kMaxWidth < h <= kBwdRowWidth: block b takes the rows [rows * b / grid,
+// rows * (b + 1) / grid) one at a time; thread t holds the row's vectors t,
+// t + kThreads, ... (kVecs at most) of dy, x and the residual. With
+// kPrefetch the next row's loads are issued before this row's sums. The
+// two row means come from block_sum (only where dx is wanted); with kParams
+// each thread adds its columns' terms in row order, writes them to the
+// block's row of the partials [blocks, 2, h] in `workspace`, and the last
+// blocks add the partials in block order into dparams (column_sums.cuh).
+template <typename Elem, int kVec, int kVecs, bool kParams>
+__global__ void __launch_bounds__(kThreads, kWideBwdBlocksPerSm)
+add_layer_norm_bwd_row_kernel(const Elem* __restrict__ dy, const Elem* __restrict__ x,
+                              const Elem* __restrict__ r, const float* __restrict__ mean,
+                              const float* __restrict__ rstd, const float* __restrict__ scale,
+                              Elem* __restrict__ dx, void* workspace, float* dparams,
+                              long long rows, int h, float inv_h) {
+  // the next row in registers where they allow: 16-byte loads of at most 32
+  // bytes of each tensor a thread
+  constexpr bool kPrefetch = kVec > 1 && kVec * kVecs * sizeof(Elem) <= 32;
+  constexpr int kNext = kPrefetch ? kVecs : 1;
+  __shared__ float red[2][kWarps];
+  const int nvec = h / kVec;
+  const long long first = rows * blockIdx.x / gridDim.x;
+  const long long last = rows * (blockIdx.x + 1) / gridDim.x;
+  alignas(16) float ds[kVecs][kVec] = {}, db[kVecs][kVec] = {};
+  alignas(16) Elem d[kVecs][kVec], a[kVecs][kVec], b[kVecs][kVec];
+  alignas(16) Elem nd[kNext][kVec], na[kNext][kVec], nb[kNext][kVec];
+  auto load = [&](long long row, Elem (&pd)[kVecs][kVec], Elem (&pa)[kVecs][kVec],
+                  Elem (&pb)[kVecs][kVec]) {
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      if (i < nvec) {
+        const long long at = row * h + (long long)i * kVec;
+        load_raw<Elem, kVec>(dy + at, pd[j]);
+        load_raw<Elem, kVec>(x + at, pa[j]);
+        if (r != nullptr) load_raw<Elem, kVec>(r + at, pb[j]);
+      }
+    }
+  };
+  if (first < last) load(first, d, a, b);
+  for (long long row = first; row < last; ++row) {
+    if constexpr (kPrefetch) {
+      if (row + 1 < last) load(row + 1, nd, na, nb);
+    }
+    const float m = __ldg(mean + row), rs = __ldg(rstd + row);
+    float sum_g = 0.0f, sum_gx = 0.0f;
+    // the rounded sums and the scale are made again for dx, not kept
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      if (i < nvec) {
+        float s[kVec];
+        alignas(16) float sc[kVec];
+        rounded_sums<Elem, kVec>(a[j], b[j], r != nullptr, s);
+        load_params<kVec>(scale + i * kVec, sc);
+        backward_terms<Elem, kVec, kParams>(d[j], s, sc, m, rs, sum_g, sum_gx, ds[j], db[j]);
+      }
+    }
+    if (dx != nullptr) {
+      const float mean_g = __fmul_rn(block_sum(sum_g, red[0]), inv_h);
+      const float mean_gx = __fmul_rn(block_sum(sum_gx, red[1]), inv_h);
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) {
+        const int i = threadIdx.x + kThreads * j;
+        if (i < nvec) {
+          float s[kVec];
+          alignas(16) float sc[kVec];
+          rounded_sums<Elem, kVec>(a[j], b[j], r != nullptr, s);
+          load_params<kVec>(scale + i * kVec, sc);
+          store_input_grad<Elem, kVec>(dx + row * h + (long long)i * kVec, d[j], s, sc, m, rs,
+                                       mean_g, mean_gx);
+        }
+      }
+    }
+    if constexpr (kPrefetch) {
+#pragma unroll
+      for (int j = 0; j < kVecs; ++j) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          d[j][e] = nd[j][e];
+          a[j][e] = na[j][e];
+          b[j][e] = nb[j][e];
+        }
+      }
+    } else if (row + 1 < last) {
+      load(row + 1, d, a, b);
+    }
+  }
+  if constexpr (kParams) {
+    const column_sums::Layout ws = column_sums::layout(workspace, gridDim.x, 2 * h);
+    float* mine = ws.partials + (long long)blockIdx.x * 2 * h;
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      if (i < nvec) write_partials<kVec>(mine, i, h, ds[j], db[j]);
+    }
+    column_sums::finish(ws.partials, ws.group_sums, 2 * h, gridDim.x, 2 * h, blockIdx.x,
+                        ws.tickets, dparams);
+  }
+}
+
+// h > kBwdRowWidth: block b takes the same rows as above, kSubRows at a
+// time. Where dx is wanted, a first pass over each row gives its two means
+// (block_sum); then thread t walks its vectors t, t + kThreads, ... and for
+// each the sub-slab's rows in order (kUnrollStream rows' loads at a time):
+// dx, and with kParams its columns' terms of dscale and dbias, carried from
+// one sub-slab to the next in the block's row of the partials. No width is
+// too wide.
+template <typename Elem, int kVec, bool kParams>
+__global__ void __launch_bounds__(kThreads, kWideBwdBlocksPerSm)
+add_layer_norm_bwd_stream_kernel(const Elem* __restrict__ dy, const Elem* __restrict__ x,
+                                 const Elem* __restrict__ r, const float* __restrict__ mean,
+                                 const float* __restrict__ rstd, const float* __restrict__ scale,
+                                 Elem* __restrict__ dx, void* workspace, float* dparams,
+                                 long long rows, int h, float inv_h) {
+  __shared__ float red[2][kWarps];
+  __shared__ float4 stats[kSubRows];  // mean, rstd, mean(g), mean(g x^) of the sub-slab's rows
+  const int nvec = h / kVec;
+  const long long first = rows * blockIdx.x / gridDim.x;
+  const long long last = rows * (blockIdx.x + 1) / gridDim.x;
+  float* mine = nullptr;
+  column_sums::Layout ws{};
+  if constexpr (kParams) {
+    ws = column_sums::layout(workspace, gridDim.x, 2 * h);
+    mine = ws.partials + (long long)blockIdx.x * 2 * h;
+  }
+  for (long long r0 = first; r0 < last; r0 += kSubRows) {
+    const int n = (int)(last - r0 < kSubRows ? last - r0 : kSubRows);
+    if (threadIdx.x < n)
+      stats[threadIdx.x] = make_float4(__ldg(mean + r0 + threadIdx.x),
+                                       __ldg(rstd + r0 + threadIdx.x), 0.0f, 0.0f);
+    __syncthreads();
+    if (dx != nullptr) {
+      for (int k = 0; k < n; ++k) {
+        const long long base = (r0 + k) * h;
+        const float m = stats[k].x, rs = stats[k].y;
+        float sum_g = 0.0f, sum_gx = 0.0f;
+#pragma unroll 4
+        for (int i = threadIdx.x; i < nvec; i += kThreads) {
+          alignas(16) Elem d[kVec];
+          alignas(16) float s[kVec], sc[kVec], unused[kVec];
+          load_raw<Elem, kVec>(dy + base + (long long)i * kVec, d);
+          load_sums<Elem, kVec>(x, r, base + (long long)i * kVec, s);
+          load_params<kVec>(scale + i * kVec, sc);
+          backward_terms<Elem, kVec, false>(d, s, sc, m, rs, sum_g, sum_gx, unused, unused);
+        }
+        const float mean_g = __fmul_rn(block_sum(sum_g, red[0]), inv_h);
+        const float mean_gx = __fmul_rn(block_sum(sum_gx, red[1]), inv_h);
+        if (threadIdx.x == 0) {
+          stats[k].z = mean_g;
+          stats[k].w = mean_gx;
+        }
+      }
+      __syncthreads();
+    }
+    for (int i = threadIdx.x; i < nvec; i += kThreads) {
+      alignas(16) float ds[kVec] = {}, db[kVec] = {}, sc[kVec];
+      if (kParams && r0 != first) {  // this thread's sums of the earlier sub-slabs
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) {
+          ds[e] = mine[i * kVec + e];
+          db[e] = mine[h + i * kVec + e];
+        }
+      }
+      load_params<kVec>(scale + i * kVec, sc);
+      for (int k0 = 0; k0 < n; k0 += kUnrollStream) {
+        alignas(16) Elem d[kUnrollStream][kVec];
+        float s[kUnrollStream][kVec];
+#pragma unroll
+        for (int u = 0; u < kUnrollStream; ++u) {
+          if (k0 + u < n) {
+            const long long at = (r0 + k0 + u) * h + (long long)i * kVec;
+            load_raw<Elem, kVec>(dy + at, d[u]);
+            load_sums<Elem, kVec>(x, r, at, s[u]);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnrollStream; ++u) {
+          if (k0 + u >= n) break;
+          const float4 st = stats[k0 + u];
+          float unused_g = 0.0f, unused_gx = 0.0f;
+          backward_terms<Elem, kVec, kParams>(d[u], s[u], sc, st.x, st.y, unused_g, unused_gx,
+                                              ds, db);
+          if (dx != nullptr)
+            store_input_grad<Elem, kVec>(dx + (r0 + k0 + u) * h + (long long)i * kVec, d[u],
+                                         s[u], sc, st.x, st.y, st.z, st.w);
+        }
+      }
+      if constexpr (kParams) write_partials<kVec>(mine, i, h, ds, db);
+    }
+    __syncthreads();  // the sub-slab's stats are read: free for the next
+  }
+  if constexpr (kParams) {
+    if (first == last)  // no rows: a zero partial row
+      for (int c = threadIdx.x; c < 2 * h; c += kThreads) mine[c] = 0.0f;
+    column_sums::finish(ws.partials, ws.group_sums, 2 * h, gridDim.x, 2 * h, blockIdx.x,
+                        ws.tickets, dparams);
+  }
+}
+
+template <typename Elem, int kVec, int kVecs>
+cudaError_t launch_bwd_row(const Elem* dy, const Elem* x, const Elem* r, const float* mean,
+                           const float* rstd, const float* scale, Elem* dx, void* workspace,
+                           float* dparams, long long rows, int h, int blocks,
+                           cudaStream_t stream) {
+  const float inv_h = 1.0f / (float)h;
+  if (dparams != nullptr)
+    add_layer_norm_bwd_row_kernel<Elem, kVec, kVecs, true><<<blocks, kThreads, 0, stream>>>(
+        dy, x, r, mean, rstd, scale, dx, workspace, dparams, rows, h, inv_h);
+  else
+    add_layer_norm_bwd_row_kernel<Elem, kVec, kVecs, false><<<blocks, kThreads, 0, stream>>>(
+        dy, x, r, mean, rstd, scale, dx, workspace, dparams, rows, h, inv_h);
+  return cudaGetLastError();
+}
+
+template <typename Elem, int kVec>
+cudaError_t launch_bwd_stream(const Elem* dy, const Elem* x, const Elem* r, const float* mean,
+                              const float* rstd, const float* scale, Elem* dx, void* workspace,
+                              float* dparams, long long rows, int h, int blocks,
+                              cudaStream_t stream) {
+  const float inv_h = 1.0f / (float)h;
+  if (dparams != nullptr)
+    add_layer_norm_bwd_stream_kernel<Elem, kVec, true><<<blocks, kThreads, 0, stream>>>(
+        dy, x, r, mean, rstd, scale, dx, workspace, dparams, rows, h, inv_h);
+  else
+    add_layer_norm_bwd_stream_kernel<Elem, kVec, false><<<blocks, kThreads, 0, stream>>>(
+        dy, x, r, mean, rstd, scale, dx, workspace, dparams, rows, h, inv_h);
+  return cudaGetLastError();
+}
+
+template <typename Elem>
+cudaError_t launch_bwd_wide(const Elem* dy, const Elem* x, const Elem* r, const float* mean,
+                            const float* rstd, const float* scale, Elem* dx, void* workspace,
+                            float* dparams, long long rows, int h, int form, int blocks,
+                            cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(Elem);
+#define PROQA_LN_BWD_WIDE(kind, ...)                                                        \
+  return launch_bwd_##kind<Elem, __VA_ARGS__>(dy, x, r, mean, rstd, scale, dx, workspace, \
+                                             dparams, rows, h, blocks, stream)
+  if (form == 2 * kRow + 1) PROQA_LN_BWD_WIDE(row, 1, kBwdRowWidth / kThreads);
+  if (form == 2 * kRow) {
+    // vectors a thread holds: 1-2 in bf16, 2-4 in f32 (8 or 16 elements)
+    if ((h / kVec + kThreads - 1) / kThreads <= 8 / kVec) PROQA_LN_BWD_WIDE(row, kVec, 8 / kVec);
+    PROQA_LN_BWD_WIDE(row, kVec, 16 / kVec);
+  }
+  if (form == 2 * kStream) PROQA_LN_BWD_WIDE(stream, kVec);
+  PROQA_LN_BWD_WIDE(stream, 1);
+#undef PROQA_LN_BWD_WIDE
+}
+
+// Whether every pointer is 16-byte aligned
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return bits % 16 == 0;
+}
+
+// The backward's blocks for [rows, h] (elem bytes an element) on `device`
+int blocks_for(long long rows, int h, int elem, int device) {
+  return h <= kMaxWidth ? bwd_blocks(rows, h, elem, device) : wide_bwd_blocks(rows, device);
+}
+
 }  // namespace
 
 // x, residual (nullptr for none), out: [rows, h] contiguous, bf16 when
 // is_bf16, else f32 (out may not alias x or residual); scale, bias: [h] f32;
-// mean, rstd: [rows] f32 for the backward, or both nullptr. h in 1 .. 1,024.
+// mean, rstd: [rows] f32 for the backward, or both nullptr. h >= 1. form:
+// the index of the form in ops/fused_bert.py's LN_FORMS, which must be the
+// one form_of gives for h and the pointers' alignment (the vector bodies
+// want h a multiple of the 16-byte vector and every pointer aligned to 16).
 // Returns a cudaError_t code.
 extern "C" int proqa_add_layer_norm(const void* x, const void* residual, const void* scale,
                                     const void* bias, void* out, void* mean, void* rstd,
-                                    long long rows, int h, float eps, int is_bf16,
+                                    long long rows, int h, float eps, int is_bf16, int form,
                                     void* stream) {
-  if (rows < 0 || h < 1 || h > kMaxWidth || ((mean == nullptr) != (rstd == nullptr)))
+  if (rows < 0 || h < 1 || ((mean == nullptr) != (rstd == nullptr)))
     return cudaErrorInvalidValue;
+  const bool vector = aligned16({x, residual, scale, bias, out}) && h % (is_bf16 ? 8 : 4) == 0;
+  if (form != form_of(h, vector, false)) return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
   const float* sc = static_cast<const float*>(scale);
   const float* bi = static_cast<const float*>(bias);
   float* m = static_cast<float*>(mean);
   float* rs = static_cast<float*>(rstd);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (h > kMaxWidth) {
+    return is_bf16 ? launch_wide<bf16>(static_cast<const bf16*>(x),
+                                       static_cast<const bf16*>(residual), sc, bi,
+                                       static_cast<bf16*>(out), m, rs, rows, h, eps, form, s)
+                   : launch_wide<float>(static_cast<const float*>(x),
+                                        static_cast<const float*>(residual), sc, bi,
+                                        static_cast<float*>(out), m, rs, rows, h, eps, form, s);
+  }
   return is_bf16 ? launch<bf16>(x, residual, sc, bi, out, m, rs, rows, h, eps, s)
                  : launch<float>(x, residual, sc, bi, out, m, rs, rows, h, eps, s);
 }
@@ -703,9 +1276,9 @@ extern "C" int proqa_add_layer_norm(const void* x, const void* residual, const v
 // next on the same stream.
 extern "C" long long proqa_add_layer_norm_bwd_workspace(long long rows, int h, int is_bf16,
                                                         int device) {
-  if (h < 1 || h > kMaxWidth) return 0;
+  if (h < 1) return 0;
   if (rows < 1) return column_sums::kTicketBytes;  // nothing to add up
-  return column_sums::workspace_bytes(1, bwd_blocks(rows, h, is_bf16 ? 2 : 4, device), 2 * h);
+  return column_sums::workspace_bytes(1, blocks_for(rows, h, is_bf16 ? 2 : 4, device), 2 * h);
 }
 
 // The backward, on the current device. dy, x, residual (nullptr for none),
@@ -714,14 +1287,18 @@ extern "C" long long proqa_add_layer_norm_bwd_workspace(long long rows, int h, i
 // receives the gradient of x and of the residual; dparams (nullptr for
 // none): [2, h] f32, the scale's gradient then the bias's; workspace: the
 // scratch for it (nullptr with dparams), of at least the bytes
-// proqa_add_layer_norm_bwd_workspace gives. h in 1 .. 1,024. Returns a
+// proqa_add_layer_norm_bwd_workspace gives. h >= 1. form: the index of the
+// form in ops/fused_bert.py's LN_BWD_FORMS, which must be form_of's for h
+// and the alignment of dy, x, the residual, dx and scale. Returns a
 // cudaError_t code.
 extern "C" int proqa_add_layer_norm_bwd(const void* dy, const void* x, const void* residual,
                                         const void* mean, const void* rstd, const void* scale,
                                         void* dx, void* workspace, void* dparams, long long rows,
-                                        int h, int is_bf16, void* stream) {
-  if (rows < 0 || h < 1 || h > kMaxWidth || ((workspace == nullptr) != (dparams == nullptr)))
+                                        int h, int is_bf16, int form, void* stream) {
+  if (rows < 0 || h < 1 || ((workspace == nullptr) != (dparams == nullptr)))
     return cudaErrorInvalidValue;
+  const bool vector = aligned16({dy, x, residual, dx, scale}) && h % (is_bf16 ? 8 : 4) == 0;
+  if (form != form_of(h, vector, true)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows == 0 && dparams != nullptr)
     return cudaMemsetAsync(dparams, 0, 2 * h * sizeof(float), s);
@@ -729,13 +1306,25 @@ extern "C" int proqa_add_layer_norm_bwd(const void* dy, const void* x, const voi
   int device = 0;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const int blocks = bwd_blocks(rows, h, is_bf16 ? 2 : 4, device);
+  const int blocks = blocks_for(rows, h, is_bf16 ? 2 : 4, device);
   const float* m = static_cast<const float*>(mean);
   const float* rs = static_cast<const float*>(rstd);
   const float* sc = static_cast<const float*>(scale);
   if (dparams != nullptr && column_sums::workspace_bytes(1, blocks, 2 * h) == 0)
     return cudaErrorInvalidValue;
   float* dp = static_cast<float*>(dparams);
+  if (h > kMaxWidth) {
+    return is_bf16
+               ? launch_bwd_wide<bf16>(static_cast<const bf16*>(dy), static_cast<const bf16*>(x),
+                                       static_cast<const bf16*>(residual), m, rs, sc,
+                                       static_cast<bf16*>(dx), workspace, dp, rows, h, form,
+                                       blocks, s)
+               : launch_bwd_wide<float>(static_cast<const float*>(dy),
+                                        static_cast<const float*>(x),
+                                        static_cast<const float*>(residual), m, rs, sc,
+                                        static_cast<float*>(dx), workspace, dp, rows, h, form,
+                                        blocks, s);
+  }
   return is_bf16 ? launch_bwd<bf16>(dy, x, residual, m, rs, sc, dx, workspace, dp, rows, h,
                                     blocks, device, s)
                  : launch_bwd<float>(dy, x, residual, m, rs, sc, dx, workspace, dp, rows, h,

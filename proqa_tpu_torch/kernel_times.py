@@ -13,8 +13,10 @@ Device times are CUDA events around one call ("one call": the host path is
 included, as the card sits idle until the launch) and around 10
 back-to-back calls divided by 10 ("queued": the device time alone where the
 host keeps ahead), medians of repeated rounds; beside them the kernels'
-own time in a torch.profiler trace of one call ("kernel ms") and the host
-time of a call while the card keeps up ("host us", 20 calls a round):
+own time in torch.profiler traces of one call ("kernel ms": the median of
+three traces that hold every kernel, "kernel traces": [those counted, those
+taken], since the profiler drops kernel records) and the host time of a call
+while the card keeps up ("host us", 20 calls a round):
   K1  block_maxima_grouped, bf16, 4,194,304 x 128 corpus, block 16, group
       128, at Q = 2,048 and Q = 32;
   K8  block_maxima (block-major), the same corpus, Q = 2,048, block 256,
@@ -43,7 +45,12 @@ time of a call while the card keeps up ("host us", 20 calls a round):
       [N, 3,072] beside aten::gelu_backward, F1's bias column sum alone at
       [N, 768] beside torch.sum(dim=0), F2's with a residual at [N, 768]
       beside aten::native_layer_norm_backward (checkouts without the
-      backward kernels skip them);
+      backward kernels skip them); the outputs of these calls, and of F2 at
+      [262,144, 1,024] (the widest warp form), as SHA-256 digests ("digest");
+  F1, F2 wide  the forms past 12,288 columns and past width 1,024
+      (`wide_times`: BERT-xlarge's and ALBERT-xxlarge's widths, each beside
+      its plain version, a library call and its bound; checkouts without
+      fused_bert.layer_norm_form skip them);
   K2, K3  fused attention forward and backward, bf16, random key padding
       with one all-padding row, at rates 0.1 and 0, beside
       F.scaled_dot_product_attention and its backward at rate 0 (the
@@ -97,9 +104,13 @@ def _events_ms(fn, calls: int, rounds: int) -> float:
     return statistics.median(times)
 
 
-def _kernel_trace(fn) -> tuple[list[str], float]:
-    """The names of the GPU kernels one call of fn launches, and their
-    summed device time in ms (torch.profiler's kernel events)."""
+def _kernel_trace(fn, reps: int = 3, tries: int = 40) -> tuple[list[str], float | None, list]:
+    """The names of the GPU kernels one call of fn launches, their summed
+    device time in ms (torch.profiler's kernel events) and [traces counted,
+    traces taken]. torch.profiler loses most kernel records on the H100
+    machine (chip_smoke.kernel_ms), so a trace counts only if it holds as
+    many kernels as the fullest trace seen: up to `tries` traces, until
+    `reps` count; the time is their median (None if no trace held one)."""
     import tempfile
 
     import torch
@@ -107,16 +118,25 @@ def _kernel_trace(fn) -> tuple[list[str], float]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    return sorted({e["name"] for e in kernels}), sum(e.get("dur", 0.0) for e in kernels) / 1e3
+    traces = []  # the kernel events of each trace
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        traces.append([e for e in events if e.get("cat") == "kernel"])
+        most = max(map(len, traces))
+        full = [t for t in traces if len(t) == most and most > 0]
+        if len(full) >= reps:
+            break
+    if not full:
+        return [], None, [0, len(traces)]
+    ms = statistics.median(sum(e.get("dur", 0.0) for e in t) / 1e3 for t in full)
+    return sorted({e["name"] for e in full[0]}), ms, [len(full), len(traces)]
 
 
 def _host_us(fn, calls: int = 1000, rounds: int = 5) -> float:
@@ -186,25 +206,27 @@ def host_pieces(x) -> dict:
     return {name: _host_us(fn) for name, fn in pieces.items()}
 
 
-def backward_times(time_kernel, fused_bert, dev, g) -> None:
+def backward_times(time_kernel, digest, fused_bert, dev, g) -> None:
     """F1's and F2's backward kernels at the retriever train step's context
     rows (80 x 512), the QA train step's reader rows (4 x 5 x 512), the
     retriever step's question rows (80 x 32) and the QA step's (4 x 30),
     bf16, beside one library call each."""
     for n in (80 * 512, 4 * 5 * 512, 80 * 32, 4 * 30):
-        _backward_times(time_kernel, fused_bert, dev, g, n)
+        _backward_times(time_kernel, digest, fused_bert, dev, g, n)
 
 
-def _backward_times(time_kernel, fused_bert, dev, g, n) -> None:
+def _backward_times(time_kernel, digest, fused_bert, dev, g, n) -> None:
     import torch
 
     h = 768
     for cols, gelu in ((4 * h, True), (h, False)):
         dout = torch.randn(n, cols, device=dev, generator=g).bfloat16()
         z = (torch.randn(n, cols, device=dev, generator=g) * 2.0).bfloat16() if gelu else None
-        time_kernel(f"F1 backward [{n}, {cols}]{' GELU' if gelu else ''} bf16",
-                    lambda: fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True,
-                                                                       True))
+        name = f"F1 backward [{n}, {cols}]{' GELU' if gelu else ''} bf16"
+        time_kernel(name, lambda: fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True,
+                                                                             True))
+        digest(name, lambda: fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True,
+                                                                        True))
         if gelu:
             time_kernel(f"aten::gelu_backward [{n}, {cols}] bf16",
                         lambda: torch.ops.aten.gelu_backward(dout, z, approximate="none"))
@@ -215,14 +237,110 @@ def _backward_times(time_kernel, fused_bert, dev, g, n) -> None:
     x, r, dy = (torch.randn(n, h, device=dev, generator=g).bfloat16() for _ in range(3))
     scale, bias = torch.ones(h, device=dev), torch.zeros(h, device=dev)
     _, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12, save_stats=True)
-    time_kernel(f"F2 backward [{n}, {h}] bf16 + residual",
-                lambda: fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale,
-                                                                   True, True))
+    name = f"F2 backward [{n}, {h}] bf16 + residual"
+    time_kernel(name, lambda: fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd,
+                                                                         scale, True, True))
+    digest(name, lambda: fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale,
+                                                                    True, True))
     s, sc, bi = x + r, scale.bfloat16(), bias.bfloat16()
     _, a_mean, a_rstd = torch.ops.aten.native_layer_norm(s, [h], sc, bi, 1e-12)
     time_kernel(f"aten::native_layer_norm_backward [{n}, {h}] bf16",
                 lambda: torch.ops.aten.native_layer_norm_backward(
                     dy, s, [h], a_mean, a_rstd, sc, bi, [True, True, True]))
+
+
+def _smoke():
+    """chip_smoke.py of the checkout this file lies in, for its `bound`."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                   "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def wide_times(time_kernel, fused_bert, dev, g, out) -> None:
+    """F1's and F2's forms past their first widths (BERT-xlarge's 2,048 and
+    8,192, ALBERT-xxlarge's 4,096 and 16,384), each beside its plain version
+    ("plain ..."), one library call and its bound ("... bound ms", "... bound
+    by"): F2 at [131,072, 2,048] and [65,536, 4,096] bf16 with a residual
+    and in f32, and the stream form at [8,192, 32,768] bf16 (beside
+    F.layer_norm without the residual); F1 at [131,072, 2,048] (beside
+    torch.add into bf16), [131,072, 8,192] and [32,768, 16,384] with GELU
+    (the first on the staged form, the last on the wide one); the backward
+    kernels at the BERT-xlarge train step's rows (80 x 512 context rows, 80
+    x 32 question rows): F2's with a residual at [N, 2,048] beside
+    aten::native_layer_norm_backward, F1's with GELU at [N, 8,192] beside
+    aten::gelu_backward, and at the xxlarge tower's [32,768, 16,384]."""
+    import torch
+
+    smoke = _smoke()
+    for n, h, dt in ((131_072, 2048, torch.bfloat16), (65_536, 4096, torch.bfloat16),
+                     (131_072, 2048, torch.float32), (65_536, 4096, torch.float32),
+                     (8192, 32_768, torch.bfloat16)):
+        x, r = (torch.randn(n, h, device=dev, generator=g).to(dt) for _ in range(2))
+        scale, bias = torch.ones(h, device=dev), torch.zeros(h, device=dev)
+        shape = f"[{n}, {h}] {str(dt)[6:]}"
+        time_kernel(f"F2 {shape} + residual",
+                    lambda: fused_bert.add_layer_norm(x, r, scale, bias, 1e-12))
+        time_kernel(f"plain F2 {shape} + residual",
+                    lambda: fused_bert.add_layer_norm_reference(x, r, scale, bias, 1e-12))
+        sc, bi = scale.to(dt), bias.to(dt)
+        time_kernel(f"F.layer_norm {shape}",
+                    lambda: torch.nn.functional.layer_norm(x, (h,), sc, bi, 1e-12))
+        out[f"F2 {shape} + residual bound ms"], out[f"F2 {shape} + residual bound by"] = \
+            smoke.bound(3 * n * h * dt.itemsize + 2 * h * 4, 10 * n * h, smoke.PEAK_F32_FLOPS)
+        del x, r
+    for n, cols, gelu in ((131_072, 2048, False), (131_072, 8192, True), (32_768, 16_384, True)):
+        y = torch.randn(n, cols, device=dev, generator=g) * 2.0
+        b = torch.randn(cols, device=dev, generator=g) * 0.1
+        shape = f"[{n}, {cols}]{' GELU' if gelu else ''} bf16"
+        time_kernel(f"F1 {shape}", lambda: fused_bert.dense_epilogue(y, b, torch.bfloat16, gelu))
+        time_kernel(f"plain F1 {shape}",
+                    lambda: fused_bert.dense_epilogue_reference(y, b, torch.bfloat16, gelu))
+        if not gelu:
+            o = torch.empty(n, cols, device=dev, dtype=torch.bfloat16)
+            time_kernel(f"torch.add [{n}, {cols}] bf16", lambda: torch.add(y, b, out=o))
+            del o
+        out[f"F1 {shape} bound ms"], out[f"F1 {shape} bound by"] = smoke.bound(
+            n * cols * 6 + cols * 4, n * cols * (25 if gelu else 1), smoke.PEAK_F32_FLOPS)
+        del y
+    h = 2048
+    for n in (80 * 512, 80 * 32):
+        x, r, dy = (torch.randn(n, h, device=dev, generator=g).bfloat16() for _ in range(3))
+        scale, bias = torch.ones(h, device=dev), torch.zeros(h, device=dev)
+        _, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12,
+                                                          save_stats=True)
+        shape = f"[{n}, {h}] bf16"
+        time_kernel(f"F2 backward {shape} + residual",
+                    lambda: fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd,
+                                                                       scale, True, True))
+        time_kernel(f"plain F2 backward {shape} + residual",
+                    lambda: fused_bert.add_layer_norm_backward_reference(dy, x, r, mean, rstd,
+                                                                         scale))
+        s, sc, bi = x + r, scale.bfloat16(), bias.bfloat16()
+        _, a_mean, a_rstd = torch.ops.aten.native_layer_norm(s, [h], sc, bi, 1e-12)
+        time_kernel(f"aten::native_layer_norm_backward {shape}",
+                    lambda: torch.ops.aten.native_layer_norm_backward(
+                        dy, s, [h], a_mean, a_rstd, sc, bi, [True, True, True]))
+        out[f"F2 backward {shape} + residual bound ms"], \
+            out[f"F2 backward {shape} + residual bound by"] = smoke.bound(
+                n * h * 2 * 4 + n * 8 + h * 4 + 2 * h * 4, n * h * 12, smoke.PEAK_F32_FLOPS)
+        del x, r, dy, s
+    for n, cols in ((80 * 512, 8192), (80 * 32, 8192), (32_768, 16_384)):
+        dout = torch.randn(n, cols, device=dev, generator=g).bfloat16()
+        z = (torch.randn(n, cols, device=dev, generator=g) * 2.0).bfloat16()
+        shape = f"[{n}, {cols}] GELU bf16"
+        time_kernel(f"F1 backward {shape}",
+                    lambda: fused_bert._dense_epilogue_backward_kernel(dout, z, True, True, True))
+        time_kernel(f"plain F1 backward {shape}",
+                    lambda: fused_bert.dense_epilogue_backward_reference(dout, z, True))
+        time_kernel(f"aten::gelu_backward [{n}, {cols}] bf16",
+                    lambda: torch.ops.aten.gelu_backward(dout, z, approximate="none"))
+        out[f"F1 backward {shape} bound ms"], out[f"F1 backward {shape} bound by"] = \
+            smoke.bound(n * cols * 6 + cols * 4, 0)
+        del dout, z
+    torch.cuda.empty_cache()
 
 
 ATTENTION_SHAPES = ((512, 12, 512, 32), (80, 12, 512, 32), (64, 8, 512, 128), (80, 12, 512, 64),
@@ -247,11 +365,7 @@ def attention_times(time_kernel, attention, dev, out) -> None:
     import torch
     import torch.nn.functional as F
 
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                                   "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _smoke()
     seed = 2**50 + 3
     for b, h, t, dh in ATTENTION_SHAPES:
         if dh not in attention.HEAD_DIMS:
@@ -316,8 +430,13 @@ def main(argv=None) -> int:
             return
         out[f"{name} one call ms"] = _events_ms(fn, 1, rounds)
         out[f"{name} queued ms"] = _events_ms(fn, 10, queued_rounds)
-        out["kernels"][name], out[f"{name} kernel ms"] = _kernel_trace(fn)
+        (out["kernels"][name], out[f"{name} kernel ms"],
+         out[f"{name} kernel traces"]) = _kernel_trace(fn)
         out[f"{name} host us"] = _host_us(fn, calls=20)
+
+    def digest(name, fn):  # the outputs' SHA-256, to hold two checkouts bit for bit
+        if not only or name.startswith(only):
+            out[f"{name} digest"] = _digest(t for t in fn() if t is not None)
 
     if wanted("K1", "K8", "K6", "K5", "K7"):
         corpus = (torch.randn(4_194_304, 128, device=dev, generator=g) / 128 ** 0.5).bfloat16()
@@ -377,20 +496,31 @@ def main(argv=None) -> int:
         for cols, gelu in ((h, False), (4 * h, True)):
             y = torch.randn(n, cols, device=dev, generator=g) * 2.0
             b = torch.randn(cols, device=dev, generator=g) * 0.1
-            time_kernel(f"F1 [{n}, {cols}]{' GELU' if gelu else ''} bf16",
-                        lambda: fused_bert.dense_epilogue(y, b, torch.bfloat16, gelu))
+            name = f"F1 [{n}, {cols}]{' GELU' if gelu else ''} bf16"
+            time_kernel(name, lambda: fused_bert.dense_epilogue(y, b, torch.bfloat16, gelu))
+            digest(name, lambda: (fused_bert.dense_epilogue(y, b, torch.bfloat16, gelu),))
             del y
         x, r = (torch.randn(n, h, device=dev, generator=g).bfloat16() for _ in range(2))
         scale, bias = torch.ones(h, device=dev), torch.zeros(h, device=dev)
         for res, label in ((r, " + residual"), (None, "")):
-            time_kernel(f"F2 [{n}, {h}] bf16{label}",
-                        lambda: fused_bert.add_layer_norm(x, res, scale, bias, 1e-12))
+            name = f"F2 [{n}, {h}] bf16{label}"
+            time_kernel(name, lambda: fused_bert.add_layer_norm(x, res, scale, bias, 1e-12))
+            digest(name, lambda: (fused_bert.add_layer_norm(x, res, scale, bias, 1e-12),))
         scale16, bias16 = scale.bfloat16(), bias.bfloat16()
         time_kernel(f"F.layer_norm [{n}, {h}] bf16",
                     lambda: torch.nn.functional.layer_norm(x, (h,), scale16, bias16, 1e-12))
         del x, r
+        # the widest row the warp form takes
+        x, r = (torch.randn(n, 1024, device=dev, generator=g).bfloat16() for _ in range(2))
+        scale, bias = torch.ones(1024, device=dev), torch.zeros(1024, device=dev)
+        name = f"F2 [{n}, 1024] bf16 + residual"
+        time_kernel(name, lambda: fused_bert.add_layer_norm(x, r, scale, bias, 1e-12))
+        digest(name, lambda: (fused_bert.add_layer_norm(x, r, scale, bias, 1e-12),))
+        del x, r
         if hasattr(fused_bert, "_dense_epilogue_backward_kernel"):
-            backward_times(time_kernel, fused_bert, dev, g)
+            backward_times(time_kernel, digest, fused_bert, dev, g)
+        if hasattr(fused_bert, "layer_norm_form"):
+            wide_times(time_kernel, fused_bert, dev, g, out)
     if wanted("K2", "K3", "SDPA"):
         attention_times(time_kernel, attention, dev, out)
     line = json.dumps(out)

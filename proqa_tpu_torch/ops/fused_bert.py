@@ -29,6 +29,16 @@ order, in the same launch; the scratch for them is one zeroed buffer a
 stream, `_workspace`), so a rematerialised forward and backward give the
 same bits.
 
+Every width runs on the card. Each kernel has forms for the widths it
+meets (`dense_form`, `layer_norm_form`: from the width, the dtype and the
+pointers' alignment alone): F1 stages the bias row in shared memory up to
+12,288 columns and reads it through the read-only cache past that; F2 gives
+a warp a row up to 1,024, a block a row in registers up to 8,192 (its
+backward 4,096), and a block a streamed row past that; F1's backward sums
+in ticketed slabs up to 131,072 columns and in one slab past that. The
+wrapper passes the form's index, and the entry point refuses a form it
+would not pick itself.
+
 CUDA tensors run the kernels and raise where a kernel cannot take them;
 `dense_epilogue` and `add_layer_norm` raise where a gradient is asked for.
 CPU tensors run the plain PyTorch versions: the chains the model ran before
@@ -47,16 +57,34 @@ import torch
 from proqa_tpu_torch import _build
 from proqa_tpu_torch.ops.dot import dot_f32, dot_f32_backward, product_f32
 
-MAX_DENSE_COLS = 12_288  # F1 stages the bias row in 48 KB of shared memory
-MAX_LN_WIDTH = 1_024     # F2 holds a row in a warp's registers, 32 floats a lane
 _DTYPES = (torch.bfloat16, torch.float32)
 
-# kernel launches since the last reset (the main path's proof of use): the
-# forward kernels on both routes, and the backward kernels
-dense_launches = 0
-layer_norm_launches = 0
-dense_backward_launches = 0
-layer_norm_backward_launches = 0
+# where each kernel's forms change. The choosers run on the CPU too, where no
+# kernel library is built, so they keep these here; each entry point refuses
+# a form that its own copy (kMaxCols and kMaxSlabCols in csrc/dense_epilogue.cu;
+# kMaxWidth, kRowWidth and kBwdRowWidth in csrc/layer_norm.cu) would not pick
+DENSE_STAGED_COLS = 12_288  # F1: the bias row in 48 KB of shared memory up to here
+DENSE_SLAB_COLS = 131_072   # F1 backward: ticketed slabs up to here (4 KB of counters)
+LN_WARP_WIDTH = 1_024       # F2: a warp a row up to here, 32 floats a lane
+LN_ROW_WIDTH = 8_192        # F2: a block a row in registers up to here, then streamed
+LN_BWD_ROW_WIDTH = 4_096    # F2 backward: the same, 16 floats a thread
+# the forms, in the order of the entry points' form indices
+DENSE_FORMS = ("staged", "staged_scalar", "wide", "wide_scalar")
+DENSE_BWD_FORMS = ("slabs", "slabs_scalar", "direct")
+LN_FORMS = ("warp", "warp_scalar", "row", "row_scalar", "stream", "stream_scalar")
+LN_BWD_FORMS = ("tile", "tile_scalar", "row", "row_scalar", "stream", "stream_scalar")
+
+# kernel launches since the last clear() (the main path's proof of use), by
+# kernel and form: "F1 staged", "F2 backward row" and so on; the forward
+# kernels count on both routes. launches() sums a kernel's forms.
+form_launches: dict[str, int] = {}
+
+
+def launches(kernel: str) -> int:
+    """The launches of `kernel` ("F1", "F2", "F1 backward" or "F2
+    backward") in form_launches, over its forms."""
+    return sum(n for key, n in form_launches.items() if key.rsplit(" ", 1)[0] == kernel)
+
 
 _EAGER = False  # _eager_chain(): the training route runs the plain chain
 
@@ -169,6 +197,46 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+def _aligned(*tensors) -> bool:
+    """Every tensor (None skipped) starts on a 16-byte boundary."""
+    return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def dense_form(cols: int, aligned: bool, backward: bool = False) -> str:
+    """The form F1 (or its backward) takes for rows of `cols` columns whose
+    pointers are all 16-byte aligned or not (the product, the output and z;
+    the backward's dout, z and dz): a name of DENSE_FORMS (DENSE_BWD_FORMS).
+    The vector bodies want whole groups of 8 columns and aligned pointers."""
+    if cols < 1:
+        raise ValueError(f"dense_epilogue: {cols} columns")
+    scalar = "" if aligned and cols % 8 == 0 else "_scalar"
+    if backward:
+        return "direct" if cols > DENSE_SLAB_COLS else "slabs" + scalar
+    return ("staged" if cols <= DENSE_STAGED_COLS else "wide") + scalar
+
+
+def layer_norm_form(h: int, dtype: torch.dtype, aligned: bool, backward: bool = False) -> str:
+    """The form F2 (or its backward) takes for rows of width h in `dtype`
+    whose pointers are all 16-byte aligned or not (x, the residual, the
+    output and the parameters; the backward's dy, x, the residual, dx and
+    the scale): a name of LN_FORMS (LN_BWD_FORMS). The vector bodies want h
+    a multiple of the 16-byte vector (8 bf16, 4 f32) and aligned pointers."""
+    if h < 1:
+        raise ValueError(f"add_layer_norm: width {h}")
+    if h <= LN_WARP_WIDTH:
+        layout = "tile" if backward else "warp"
+    elif h <= (LN_BWD_ROW_WIDTH if backward else LN_ROW_WIDTH):
+        layout = "row"
+    else:
+        layout = "stream"
+    return layout if aligned and h % (16 // dtype.itemsize) == 0 else layout + "_scalar"
+
+
+def _count(kernel: str, form: str) -> None:
+    key = f"{kernel} {form.removesuffix('_scalar')}"
+    form_launches[key] = form_launches.get(key, 0) + 1
+
+
 # (device index, stream) -> the backward kernels' scratch on that stream
 _WORKSPACES: dict[tuple[int, int], torch.Tensor] = {}
 
@@ -196,28 +264,25 @@ def _workspace(device: torch.device, nbytes: int) -> torch.Tensor:
 
 def _dense_epilogue_kernel(y, bias, out_dtype, gelu, save_z=False):
     """F1; with save_z (gelu only) also the rounded pre-activation z."""
-    global dense_launches
     if y.dtype != torch.float32 or out_dtype not in _DTYPES:
         raise TypeError(f"dense_epilogue kernel takes an f32 product to bf16 or f32, got "
                         f"{y.dtype} to {out_dtype}")
     cols = y.shape[-1]
-    if not 1 <= cols <= MAX_DENSE_COLS:
-        raise ValueError(f"dense_epilogue kernel takes 1 to {MAX_DENSE_COLS} columns, got {cols}")
     _check_params("dense_epilogue", cols, y.device, bias)
     y, bias = y.contiguous(), bias.contiguous()
     out = torch.empty(y.shape, dtype=out_dtype, device=y.device)
     z = torch.empty_like(out) if save_z and gelu else None
+    form = dense_form(cols, _aligned(y, out, z))
     if out.numel():
         _build.launch("proqa_dense_epilogue", y.device, y.data_ptr(), bias.data_ptr(),
                       out.data_ptr(), _ptr(z), y.numel() // cols, cols,
-                      int(out_dtype == torch.bfloat16), int(gelu))
-        dense_launches += 1
+                      int(out_dtype == torch.bfloat16), int(gelu), DENSE_FORMS.index(form))
+        _count("F1", form)
     return out, z
 
 
 def _dense_epilogue_backward_kernel(dout, z, gelu, need_dz, need_dbias):
     """F1's backward on the card: (dz, dbias) as dense_epilogue_backward_reference."""
-    global dense_backward_launches
     if dout.dtype not in _DTYPES:
         raise TypeError(f"dense_epilogue backward takes bf16 or f32, got {dout.dtype}")
     cols = dout.shape[-1]
@@ -229,6 +294,8 @@ def _dense_epilogue_backward_kernel(dout, z, gelu, need_dz, need_dbias):
         return dz, None
     rows = dout.numel() // cols
     device = dout.device
+    z = z.contiguous() if gelu else None
+    form = dense_form(cols, _aligned(dout, z, dz if gelu else None), backward=True)
     dbias = workspace = None
     if need_dbias:
         # the kernel picks its slabs of rows (from the rows, the width and
@@ -237,17 +304,16 @@ def _dense_epilogue_backward_kernel(dout, z, gelu, need_dz, need_dbias):
                                 device.index)
         dbias = torch.empty(cols, dtype=torch.float32, device=device)
         workspace = _workspace(device, nbytes)
-    _build.launch("proqa_dense_epilogue_bwd", device, dout.data_ptr(),
-                  _ptr(z.contiguous()) if gelu else None,
+    _build.launch("proqa_dense_epilogue_bwd", device, dout.data_ptr(), _ptr(z),
                   _ptr(dz) if gelu and need_dz else None, _ptr(workspace), _ptr(dbias), rows,
-                  cols, int(dout.dtype == torch.bfloat16), int(gelu))
-    dense_backward_launches += 1
+                  cols, int(dout.dtype == torch.bfloat16), int(gelu),
+                  DENSE_BWD_FORMS.index(form))
+    _count("F1 backward", form)
     return dz, dbias
 
 
 def _add_layer_norm_kernel(x, residual, scale, bias, eps, save_stats=False):
     """F2; with save_stats also each row's f32 mean and rstd [x.shape[:-1]]."""
-    global layer_norm_launches
     if x.dtype not in _DTYPES:
         raise TypeError(f"add_layer_norm kernel takes bf16 or f32, got {x.dtype}")
     if residual is not None and (residual.dtype != x.dtype or residual.shape != x.shape
@@ -255,8 +321,6 @@ def _add_layer_norm_kernel(x, residual, scale, bias, eps, save_stats=False):
         raise ValueError(f"add_layer_norm: residual {residual.dtype} {tuple(residual.shape)} "
                          f"does not match x {x.dtype} {tuple(x.shape)}")
     h = x.shape[-1]
-    if not 1 <= h <= MAX_LN_WIDTH:
-        raise ValueError(f"add_layer_norm kernel takes widths 1 to {MAX_LN_WIDTH}, got {h}")
     _check_params("add_layer_norm", h, x.device, scale, bias)
     x, scale, bias = x.contiguous(), scale.contiguous(), bias.contiguous()
     residual = None if residual is None else residual.contiguous()
@@ -265,18 +329,19 @@ def _add_layer_norm_kernel(x, residual, scale, bias, eps, save_stats=False):
     if save_stats:
         mean = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
         rstd = torch.empty_like(mean)
+    form = layer_norm_form(h, x.dtype, _aligned(x, residual, scale, bias, out))
     if out.numel():
         _build.launch("proqa_add_layer_norm", x.device, x.data_ptr(), _ptr(residual),
                       scale.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(mean), _ptr(rstd),
-                      x.numel() // h, h, eps, int(x.dtype == torch.bfloat16))
-        layer_norm_launches += 1
+                      x.numel() // h, h, eps, int(x.dtype == torch.bfloat16),
+                      LN_FORMS.index(form))
+        _count("F2", form)
     return out, mean, rstd
 
 
 def _add_layer_norm_backward_kernel(dy, x, residual, mean, rstd, scale, need_dx, need_params):
     """F2's backward on the card: (dx, dscale, dbias) as
     add_layer_norm_backward_reference, None where not needed."""
-    global layer_norm_backward_launches
     h = x.shape[-1]
     dy = dy.contiguous()
     _check_like("add_layer_norm backward", "dy", dy, x)
@@ -286,6 +351,7 @@ def _add_layer_norm_backward_kernel(dy, x, residual, mean, rstd, scale, need_dx,
     dx = torch.empty_like(x) if need_dx else None
     rows = x.numel() // h
     device = x.device
+    form = layer_norm_form(h, x.dtype, _aligned(dy, x, residual, dx, scale), backward=True)
     dparams = workspace = None
     if need_params:
         nbytes = _scratch_bytes("proqa_add_layer_norm_bwd_workspace", rows, h,
@@ -294,8 +360,9 @@ def _add_layer_norm_backward_kernel(dy, x, residual, mean, rstd, scale, need_dx,
         workspace = _workspace(device, nbytes)
     _build.launch("proqa_add_layer_norm_bwd", device, dy.data_ptr(), x.data_ptr(),
                   _ptr(residual), mean.data_ptr(), rstd.data_ptr(), scale.data_ptr(), _ptr(dx),
-                  _ptr(workspace), _ptr(dparams), rows, h, int(x.dtype == torch.bfloat16))
-    layer_norm_backward_launches += 1
+                  _ptr(workspace), _ptr(dparams), rows, h, int(x.dtype == torch.bfloat16),
+                  LN_BWD_FORMS.index(form))
+    _count("F2 backward", form)
     if dparams is None:
         return dx, None, None
     return dx, dparams[0], dparams[1]

@@ -12,6 +12,13 @@ that holds both sides of a branch is counted whole: a warp whose lanes take
 both sides issues both. FRAGMENT picks kernels by a piece of their mangled
 name (default: the backward epilogue kernels). Needs the CUDA toolkit's
 cuobjdump (on PATH or under CUDA_HOME); prints one JSON object.
+
+    python -m proqa_tpu_torch.sass_count --ptxas LOG [OTHER_LOG]
+
+reads instead the ptxas report that `_build.build` keeps beside the library
+(`<library>.log`): each kernel's registers, spill bytes, barriers and shared
+memory, keyed by its mangled name; with a second log (another checkout's
+build), only the kernels whose lines differ and those in one log alone.
 """
 from __future__ import annotations
 
@@ -114,10 +121,49 @@ def loop_counts(library: str, fragments: dict[str, str]) -> dict[str, dict | Non
     return out
 
 
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PROPERTIES = re.compile(r"Function properties for (\S+)")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(.*)")
+# the anonymous namespace's name carries hashes that change with each build
+_ANONYMOUS = re.compile(r"(_GLOBAL__N__)[0-9a-f]{8}(_\d+_\w+?_cu_)[0-9a-f]{8}")
+
+
+def ptxas_report(log: str) -> dict[str, dict]:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads",
+    "resources"}} from `nvcc -Xptxas -v` output (the rest of the "Used"
+    line: barriers, shared and constant memory); the anonymous namespace's
+    build hashes are taken out of the names, so two builds compare."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = _ENTRY.search(line) or _PROPERTIES.search(line)
+        if m:
+            name = _ANONYMOUS.sub(r"\1\2", m.group(1))
+            report.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        if m := _SPILLS.search(line):
+            report[name].update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif m := _USED.search(line):
+            report[name].update(registers=int(m.group(1)), resources=m.group(2).strip(", "))
+    return {k: v for k, v in report.items() if "registers" in v}
+
+
+def ptxas_diff(a: dict[str, dict], b: dict[str, dict]) -> dict[str, list]:
+    """The kernels whose reports differ, and those in one report alone."""
+    return {"differ": sorted(k for k in a.keys() & b.keys() if a[k] != b[k]),
+            "first_only": sorted(a.keys() - b.keys()), "second_only": sorted(b.keys() - a.keys())}
+
+
 def main(argv=None) -> int:
     from proqa_tpu_torch import _build
 
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--ptxas"]:
+        reports = [ptxas_report(open(path).read()) for path in argv[1:3]]
+        print(json.dumps(reports[0] if len(reports) == 1 else ptxas_diff(*reports)))
+        return 0
     fragments = {f: f for f in argv} or KERNELS
     print(json.dumps(loop_counts(str(_build.build()), fragments)))
     return 0

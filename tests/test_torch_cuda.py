@@ -1318,10 +1318,10 @@ def test_dense_epilogue_kernel_equals_plain(cuda, shape, out_dtype, gelu):
     vector body (multiples of 8) and the element body (2, 1, 12)."""
     y, b = _epilogue_inputs(shape, cuda, seed=sum(shape))
     dt = getattr(torch, out_dtype)
-    before = fused_bert.dense_launches
+    before = fused_bert.launches("F1")
     got = fused_bert.dense_epilogue(y, b, dt, gelu)
     torch.cuda.synchronize()
-    assert fused_bert.dense_launches == before + 1
+    assert fused_bert.launches("F1") == before + 1
     want = fused_bert.dense_epilogue_reference(y, b, dt, gelu)
     assert got.dtype == dt and got.shape == y.shape
     assert torch.equal(got, want)
@@ -1357,10 +1357,10 @@ def test_add_layer_norm_kernel_matches_plain(cuda, rows, h, residual, dtype):
     widths that take the vector body and the element body (100, 1, 36)."""
     x, r, scale, bias = _ln_inputs(rows, h, cuda, getattr(torch, dtype), seed=rows * h)
     r = r if residual else None
-    before = fused_bert.layer_norm_launches
+    before = fused_bert.launches("F2")
     got = fused_bert.add_layer_norm(x, r, scale, bias, 1e-12)
     torch.cuda.synchronize()
-    assert fused_bert.layer_norm_launches == before + 1
+    assert fused_bert.launches("F2") == before + 1
     want = fused_bert.add_layer_norm_reference(x, r, scale, bias, 1e-12)
     assert got.dtype == x.dtype and got.shape == x.shape and torch.isfinite(got).all()
     if dtype == "bfloat16":
@@ -1379,14 +1379,18 @@ def test_add_layer_norm_kernel_unaligned(cuda):
 
 
 def test_fused_epilogues_reject_what_they_do_not_take(cuda):
+    """Wrong dtypes, a mismatched residual and a gradient asked of the
+    no-graph route raise; every width runs (12,289 columns, width 1,025:
+    the first of the wide forms, equal to their plain versions)."""
     y, b = _epilogue_inputs((4, 12_289), cuda, seed=1)
-    with pytest.raises(ValueError, match="columns"):
-        fused_bert.dense_epilogue(y, b, torch.bfloat16)
+    assert torch.equal(fused_bert.dense_epilogue(y, b, torch.bfloat16),
+                       fused_bert.dense_epilogue_reference(y, b, torch.bfloat16))
     with pytest.raises(TypeError):
         fused_bert.dense_epilogue(y[:, :8].bfloat16(), b[:8], torch.bfloat16)
     x, r, scale, bias = _ln_inputs(4, 1025, cuda, torch.bfloat16, seed=2)
-    with pytest.raises(ValueError, match="widths"):
-        fused_bert.add_layer_norm(x, r, scale, bias, 1e-12)
+    assert _bf16_ulps(fused_bert.add_layer_norm(x, r, scale, bias, 1e-12),
+                      fused_bert.add_layer_norm_reference(x, r, scale, bias, 1e-12),
+                      LN_ULP_FLOOR) <= 1.0
     with pytest.raises(TypeError):
         fused_bert.add_layer_norm(x[:, :8].half(), None, scale[:8], bias[:8], 1e-12)
     with pytest.raises(ValueError, match="residual"):
@@ -1414,23 +1418,23 @@ def test_encoder_with_fused_epilogues_matches_autograd_route(cuda, dtype):
     mask = (torch.arange(128) < torch.tensor([128, 100, 64, 7, 1, 128])[:, None]).int()
     ids, mask = (ids * mask).to(cuda), mask.to(cuda)
     once = (6 * 2 + 2, 2 * 2 + 1)
-    launches = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    launches = fused_bert.launches("F1"), fused_bert.launches("F2")
     with torch.inference_mode():
         fused = model.encode_context(ids, mask)
     torch.cuda.synchronize()
-    assert (fused_bert.dense_launches - launches[0],
-            fused_bert.layer_norm_launches - launches[1]) == once
-    launches = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    assert (fused_bert.launches("F1") - launches[0],
+            fused_bert.launches("F2") - launches[1]) == once
+    launches = fused_bert.launches("F1"), fused_bert.launches("F2")
     routed = model.encode_context(ids, mask)
     assert routed.requires_grad
-    assert (fused_bert.dense_launches - launches[0],
-            fused_bert.layer_norm_launches - launches[1]) == once
+    assert (fused_bert.launches("F1") - launches[0],
+            fused_bert.launches("F2") - launches[1]) == once
     assert torch.equal(fused, routed.detach())
-    launches = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    launches = fused_bert.launches("F1"), fused_bert.launches("F2")
     with fused_bert._eager_chain():
         plain = model.encode_context(ids, mask)
     assert plain.requires_grad
-    assert (fused_bert.dense_launches, fused_bert.layer_norm_launches) == launches
+    assert (fused_bert.launches("F1"), fused_bert.launches("F2")) == launches
     assert torch.isfinite(fused).all()
     torch.testing.assert_close(fused, plain.detach(), atol=ENCODER_TOL[dtype], rtol=0)
 
@@ -1484,10 +1488,10 @@ def test_dense_epilogue_backward_kernel_matches_plain(cuda, rows, cols, dtype, g
     (2, 1, 12, 30)."""
     dt = getattr(torch, dtype)
     dout, z = _dense_bwd_inputs(rows, cols, cuda, dt, seed=rows + cols)
-    before = fused_bert.dense_backward_launches
+    before = fused_bert.launches("F1 backward")
     dz, db = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
     torch.cuda.synchronize()
-    assert fused_bert.dense_backward_launches == before + 1
+    assert fused_bert.launches("F1 backward") == before + 1
     want_dz, want_db = fused_bert.dense_epilogue_backward_reference(dout, z, gelu)
     assert dz.dtype == dt and db.dtype == torch.float32 and db.shape == (cols,)
     assert torch.equal(dz, want_dz)
@@ -1506,9 +1510,9 @@ def test_dense_epilogue_backward_kernel_frozen(cuda, gelu, need_dz, need_dbias, 
     vector body (768) and the element body (12)."""
     dout, z = _dense_bwd_inputs(rows, cols, cuda, torch.bfloat16, seed=4)
     full_dz, full_db = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
-    before = fused_bert.dense_backward_launches
+    before = fused_bert.launches("F1 backward")
     dz, db = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, need_dz, need_dbias)
-    launched = fused_bert.dense_backward_launches - before
+    launched = fused_bert.launches("F1 backward") - before
     assert launched == int(need_dbias or (gelu and need_dz))
     assert (dz is None) == (not need_dz) and (db is None) == (not need_dbias)
     if need_dz:
@@ -1567,11 +1571,11 @@ def test_add_layer_norm_backward_kernel_matches_plain(cuda, rows, h, residual, d
     assert torch.equal(out, fused_bert.add_layer_norm(x, r, scale, bias, 1e-12))
     torch.testing.assert_close(mean, want_mean, atol=LN_F32_TOL, rtol=0)
     torch.testing.assert_close(rstd, want_rstd, atol=0, rtol=LN_F32_TOL)
-    before = fused_bert.layer_norm_backward_launches
+    before = fused_bert.launches("F2 backward")
     dx, dscale, dbias = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale,
                                                                    True, True)
     torch.cuda.synchronize()
-    assert fused_bert.layer_norm_backward_launches == before + 1
+    assert fused_bert.launches("F2 backward") == before + 1
     plain = fused_bert.add_layer_norm_backward_reference(dy, x, r, mean, rstd, scale)
     leaves = [t.detach().clone().requires_grad_(True) for t in (x, scale, bias)]
     fused_bert.add_layer_norm_reference(leaves[0], r, leaves[1], leaves[2], 1e-12).backward(dy)
@@ -1606,26 +1610,47 @@ def test_add_layer_norm_backward_kernel_frozen(cuda, need_dx, need_params, rows,
     dy = torch.randn(rows, h, generator=torch.Generator().manual_seed(1)).to(cuda, dt)
     _, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12, save_stats=True)
     full = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, True)
-    before = fused_bert.layer_norm_backward_launches
+    before = fused_bert.launches("F2 backward")
     got = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, need_dx,
                                                      need_params)
-    assert fused_bert.layer_norm_backward_launches - before == int(need_dx or need_params)
+    assert fused_bert.launches("F2 backward") - before == int(need_dx or need_params)
     wanted = (need_dx, need_params, need_params)
     for g, f, w in zip(got, full, wanted):
         assert (g is None) == (not w) and (g is None or torch.equal(g, f))
 
 
 def test_training_route_rejects_what_it_does_not_take(cuda):
-    """The Functions raise on the card where a kernel cannot take a shape:
-    no fallback to the plain chain."""
+    """The Functions raise on the card where a kernel cannot take its
+    inputs: no fallback to the plain chain. Every width runs: 12,289 columns
+    and width 1,025 launch the wide forms, forward and backward, and match
+    the plain chain under autograd."""
     x = torch.randn(4, 8, device=cuda).bfloat16().requires_grad_(True)
     kernel = torch.randn(8, 12_289, device=cuda).bfloat16()
-    with pytest.raises(ValueError, match="columns"):
-        fused_bert.dense(x, kernel, torch.zeros(12_289, device=cuda), torch.bfloat16)
+    bias = torch.zeros(12_289, device=cuda, requires_grad=True)
+    dout = torch.randn(4, 12_289, device=cuda).bfloat16()
+    launches = fused_bert.launches("F1"), fused_bert.launches("F1 backward")
+    y = fused_bert.dense(x, kernel, bias, torch.bfloat16)
+    got = torch.autograd.grad(y, (x, bias), dout)
+    assert (fused_bert.launches("F1") - launches[0],
+            fused_bert.launches("F1 backward") - launches[1]) == (1, 1)
+    with fused_bert._eager_chain():
+        y_p = fused_bert.dense(x, kernel, bias, torch.bfloat16)
+        want = torch.autograd.grad(y_p, (x, bias), dout)
+    assert torch.equal(y, y_p) and torch.equal(got[0], want[0])
+    assert _colsum_ok(got[1], want[1], dout.float())
     wide = torch.randn(4, 1025, device=cuda).bfloat16().requires_grad_(True)
-    with pytest.raises(ValueError, match="widths"):
-        fused_bert.add_layer_norm_grad(wide, None, torch.ones(1025, device=cuda),
-                                       torch.zeros(1025, device=cuda), 1e-12)
+    scale, ln_bias = torch.ones(1025, device=cuda), torch.zeros(1025, device=cuda)
+    dy = torch.randn(4, 1025, device=cuda).bfloat16()
+    launches = fused_bert.launches("F2"), fused_bert.launches("F2 backward")
+    out = fused_bert.add_layer_norm_grad(wide, None, scale, ln_bias, 1e-12)
+    (dx,) = torch.autograd.grad(out, (wide,), dy)
+    assert (fused_bert.launches("F2") - launches[0],
+            fused_bert.launches("F2 backward") - launches[1]) == (1, 1)
+    with fused_bert._eager_chain():
+        out_p = fused_bert.add_layer_norm_grad(wide, None, scale, ln_bias, 1e-12)
+        (dx_p,) = torch.autograd.grad(out_p, (wide,), dy)
+    assert _bf16_ulps(out, out_p, LN_ULP_FLOOR) <= 1.0
+    assert _bf16_ulps(dx, dx_p, LN_ULP_FLOOR) <= BWD_ULPS
 
 
 @pytest.mark.parametrize("gelu,out", [(False, None), (True, None), (False, "float32")])
@@ -1651,10 +1676,10 @@ def test_dense_function_matches_the_eager_chain(cuda, cols, gelu, out):
         y.backward(dout)
         return y.detach(), {k: v.grad for k, v in leaves.items()}
 
-    before = fused_bert.dense_launches, fused_bert.dense_backward_launches
+    before = fused_bert.launches("F1"), fused_bert.launches("F1 backward")
     y_k, g_k = run()
-    assert (fused_bert.dense_launches - before[0],
-            fused_bert.dense_backward_launches - before[1]) == (1, 1)
+    assert (fused_bert.launches("F1") - before[0],
+            fused_bert.launches("F1 backward") - before[1]) == (1, 1)
     with fused_bert._eager_chain():
         y_p, g_p = run()
     assert torch.equal(y_k, y_p)
@@ -1690,14 +1715,178 @@ def test_remat_step_is_bit_equal_on_the_card(cuda, dtype):
                              flash_attention=True, remat=remat, remat_scope=scope,
                              dtype=getattr(torch, dtype))
             model = Retriever(cfg).reset_parameters(0).to(cuda).train()
-            before = fused_bert.dense_backward_launches, fused_bert.layer_norm_backward_launches
+            before = fused_bert.launches("F1 backward"), fused_bert.launches("F2 backward")
             loss, _ = in_batch_loss(model(batch, generator=torch.Generator().manual_seed(5)))
             loss.backward()
-            assert (fused_bert.dense_backward_launches > before[0]
-                    and fused_bert.layer_norm_backward_launches > before[1])
+            assert (fused_bert.launches("F1 backward") > before[0]
+                    and fused_bert.launches("F2 backward") > before[1])
             grads.append({k: p.grad.clone() for k, p in model.named_parameters()})
     finally:
         torch.use_deterministic_algorithms(False)
     for other in grads[1:]:
         bad = [k for k in grads[0] if not torch.equal(other[k], grads[0][k])]
         assert not bad, bad[:5]
+
+
+# --- the wide forms: F1 past 12,288 columns, F2 past 1,024 ---
+
+def _form_counts() -> dict:
+    torch.cuda.synchronize()
+    return dict(fused_bert.form_launches)
+
+
+def _rose(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape", [(3, 12_289), (5, 16_384), (2, 40_000), (3, 131_080),
+                                   "unaligned"])
+def test_wide_dense_epilogue_equals_plain(cuda, shape, out_dtype, gelu):
+    """F1's wide forms (the bias through the read-only cache) bit-equal to
+    the plain version, with z bit-equal where the training forward saves
+    it; one launch a call, counted under its form."""
+    dt = getattr(torch, out_dtype)
+    if shape == "unaligned":
+        y, b = _epilogue_inputs((3, 16_384), cuda, seed=9)
+        shifted = torch.empty(y.numel() + 1, device=cuda)[1:].view_as(y)
+        y = shifted.copy_(y)
+    else:
+        y, b = _epilogue_inputs(shape, cuda, seed=sum(shape))
+    before = _form_counts()
+    got, z = fused_bert._dense_epilogue_kernel(y, b, dt, gelu, save_z=gelu)
+    form = fused_bert.dense_form(y.shape[-1], y.data_ptr() % 16 == 0)
+    assert _rose(before, _form_counts()) == {f"F1 {form.removesuffix('_scalar')}": 1}
+    assert form.startswith("wide")
+    assert torch.equal(got, fused_bert.dense_epilogue_reference(y, b, dt, gelu))
+    if gelu:
+        assert torch.equal(z, (y + b).to(dt))
+
+
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,cols", [(37, 12_289), (1029, 16_384), (5, 40_000),
+                                       (9, 131_080)])
+def test_wide_dense_epilogue_backward_matches_plain(cuda, rows, cols, dtype, gelu):
+    """F1's backward past 12,288 columns: the ticketed slabs up to 131,072
+    (16,384: 64 column blocks and 4 slabs on 132 SMs), one slab past it
+    (131,080: the direct form). dz bit-equal with GELU, the bias sum within
+    COLSUM_REL, two launches bit-equal, the counters left at zero."""
+    dt = getattr(torch, dtype)
+    dout, z = _dense_bwd_inputs(rows, cols, cuda, dt, seed=rows + cols)
+    before = _form_counts()
+    dz, db = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
+    form = fused_bert.dense_form(cols, True, backward=True)
+    assert _rose(before, _form_counts()) == {f"F1 backward {form.removesuffix('_scalar')}": 1}
+    want_dz, want_db = fused_bert.dense_epilogue_backward_reference(dout, z, gelu)
+    assert torch.equal(dz, want_dz)
+    assert _colsum_ok(db, want_db, 1.2 * dout.float())
+    again = fused_bert._dense_epilogue_backward_kernel(dout, z, gelu, True, True)
+    assert torch.equal(again[0], dz) and torch.equal(again[1], db)
+    assert _tickets_left_at_zero()
+
+
+WIDE_LN = [(3, 1025), (5, 1152), (9, 2048), (4, 2560), (3, 3001), (6, 4096), (2, 8192),
+           (3, 8200), (2, 32_768), (3, 65_536)]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("rows,h", WIDE_LN)
+def test_wide_add_layer_norm_matches_plain(cuda, rows, h, residual, dtype):
+    """F2's wide forms, a block a row in registers (to 8,192) and streamed
+    (past it), the element body at odd widths: within one bf16 ulp of the
+    plain version (LN_F32_TOL in f32), the saved mean and rstd with them,
+    one launch counted under its form."""
+    dt = getattr(torch, dtype)
+    x, r, scale, bias = _ln_inputs(rows, h, cuda, dt, seed=rows * h)
+    r = r if residual else None
+    before = _form_counts()
+    got, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12,
+                                                        save_stats=True)
+    form = fused_bert.layer_norm_form(h, dt, True)
+    assert _rose(before, _form_counts()) == {f"F2 {form.removesuffix('_scalar')}": 1}
+    want, want_mean, want_rstd = fused_bert._layer_norm_plain(x, r, scale, bias, 1e-12)
+    assert torch.equal(got, fused_bert.add_layer_norm(x, r, scale, bias, 1e-12))
+    if dtype == "bfloat16":
+        assert _bf16_ulps(got, want) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, atol=LN_F32_TOL, rtol=LN_F32_TOL)
+    torch.testing.assert_close(mean, want_mean, atol=LN_F32_TOL, rtol=0)
+    torch.testing.assert_close(rstd, want_rstd, atol=0, rtol=LN_F32_TOL)
+
+
+@pytest.mark.parametrize("h", [2048, 8200])
+def test_wide_add_layer_norm_unaligned(cuda, h):
+    """Rows 2 bytes past a 16-byte boundary take the wide forms' element
+    bodies."""
+    x, r, scale, bias = _ln_inputs(5, h, cuda, torch.bfloat16, seed=h)
+    shifted = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)[1:].view_as(x)
+    shifted.copy_(x)
+    got = fused_bert.add_layer_norm(shifted, r, scale, bias, 1e-12)
+    assert _bf16_ulps(got, fused_bert.add_layer_norm_reference(x, r, scale, bias, 1e-12)) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("rows,h", [(1, 1152), (7, 2048), (265, 2048), (600, 2048), (3, 3001),
+                                    (37, 4096), (5, 4104), (40, 8192), (3, 32_768)])
+def test_wide_add_layer_norm_backward_matches_plain(cuda, rows, h, residual, dtype):
+    """F2's backward past 1,024: the row form (to 4,096) and the stream
+    form (past it; 40 rows: sub-slabs of 16 carried in the partials), one
+    row a block and several (265, 600 rows on 264 blocks). dx within
+    BWD_ULPS of the plain formula and of autograd through the plain chain,
+    dscale and dbias within COLSUM_REL, two launches bit-equal, the
+    counters left at zero, one launch counted under its form."""
+    dt = getattr(torch, dtype)
+    x, r, scale, bias = _ln_inputs(rows, h, cuda, dt, seed=rows * h + 1)
+    r = r if residual else None
+    dy = torch.randn(rows, h, generator=torch.Generator().manual_seed(h)).to(cuda, dt)
+    _, mean, rstd = fused_bert._add_layer_norm_kernel(x, r, scale, bias, 1e-12, save_stats=True)
+    before = _form_counts()
+    dx, dscale, dbias = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale,
+                                                                   True, True)
+    form = fused_bert.layer_norm_form(h, dt, True, backward=True)
+    assert _rose(before, _form_counts()) == {f"F2 backward {form.removesuffix('_scalar')}": 1}
+    plain = fused_bert.add_layer_norm_backward_reference(dy, x, r, mean, rstd, scale)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, scale, bias)]
+    fused_bert.add_layer_norm_reference(leaves[0], r, leaves[1], leaves[2], 1e-12).backward(dy)
+    for want in (plain[0], leaves[0].grad):
+        if dtype == "bfloat16":
+            assert _bf16_ulps(dx, want) <= BWD_ULPS
+        else:
+            torch.testing.assert_close(dx, want, atol=LN_F32_TOL, rtol=0)
+    s = (x if r is None else x + r).float()
+    xh = (s - mean[:, None]) * rstd[:, None]
+    for got, want, t in zip((dscale, dbias), plain[1:], (dy.float() * xh, dy.float())):
+        assert _colsum_ok(got, want, t)
+    again = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(again, (dx, dscale, dbias)))
+    assert _tickets_left_at_zero()
+    # what is computed alone equals the full call's
+    only_dx = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, True, False)
+    only_params = fused_bert._add_layer_norm_backward_kernel(dy, x, r, mean, rstd, scale, False,
+                                                             True)
+    assert torch.equal(only_dx[0], dx)
+    assert torch.equal(only_params[1], dscale) and torch.equal(only_params[2], dbias)
+
+
+def test_entry_points_refuse_a_form_they_would_not_pick(cuda):
+    """The C side checks the wrapper's form: a launch naming another one is
+    refused before it runs."""
+    from proqa_tpu_torch import _build
+
+    x, r, scale, bias = _ln_inputs(4, 2048, cuda, torch.bfloat16, seed=3)
+    out = torch.empty_like(x)
+    warp = fused_bert.LN_FORMS.index("warp")  # the form of widths up to 1,024
+    with pytest.raises(RuntimeError, match="proqa_add_layer_norm"):
+        _build.launch("proqa_add_layer_norm", x.device, x.data_ptr(), r.data_ptr(),
+                      scale.data_ptr(), bias.data_ptr(), out.data_ptr(), None, None, 4, 2048,
+                      1e-12, 1, warp)
+    y, b = _epilogue_inputs((4, 768), cuda, seed=4)
+    o = torch.empty(4, 768, device=cuda, dtype=torch.bfloat16)
+    wide = fused_bert.DENSE_FORMS.index("wide")
+    with pytest.raises(RuntimeError, match="proqa_dense_epilogue"):
+        _build.launch("proqa_dense_epilogue", y.device, y.data_ptr(), b.data_ptr(),
+                      o.data_ptr(), None, 4, 768, 1, 0, wide)

@@ -115,7 +115,7 @@ def test_cpu_wrappers_run_the_plain_versions():
     launch nothing; another device raises."""
     y, b = _product(9, 64, seed=1)
     x, r, scale, bias = (torch.from_numpy(a) for a in _ln_inputs(9, 64, seed=2))
-    before = fused_bert.dense_launches, fused_bert.layer_norm_launches
+    before = fused_bert.launches("F1"), fused_bert.launches("F2")
     for gelu in (False, True):
         assert torch.equal(
             fused_bert.dense_epilogue(torch.from_numpy(y), torch.from_numpy(b), torch.bfloat16,
@@ -126,7 +126,7 @@ def test_cpu_wrappers_run_the_plain_versions():
         assert torch.equal(fused_bert.add_layer_norm(x.bfloat16(), res, scale, bias, EPS),
                            fused_bert.add_layer_norm_reference(x.bfloat16(), res, scale, bias,
                                                                EPS))
-    assert (fused_bert.dense_launches, fused_bert.layer_norm_launches) == before
+    assert (fused_bert.launches("F1"), fused_bert.launches("F2")) == before
     with pytest.raises(ValueError, match="unsupported device"):
         fused_bert.dense_epilogue(torch.empty(2, 8, device="meta"), torch.empty(8),
                                   torch.bfloat16)

@@ -422,16 +422,17 @@ def fake_library(monkeypatch):
 def test_dense_backward_wrapper_host_side(fake_library, dtype, gelu, need_dz, need_dbias):
     """F1's backward wrapper without the card: it asks the C side for the
     scratch of the [rows, cols] problem (rows of a [2, 3, cols] input), takes
-    a workspace of that size, passes null for what is not asked, launches
-    once where anything is asked (the bias gradient, or dz with GELU) and
-    returns dz (dout itself without GELU) and an f32 bias gradient [cols]."""
+    a workspace of that size, passes null for what is not asked and the
+    index of its form, launches once where anything is asked (the bias
+    gradient, or dz with GELU) and returns dz (dout itself without GELU) and
+    an f32 bias gradient [cols]."""
     dt = getattr(torch, dtype)
     dout, z = torch.zeros(2, 3, 40, dtype=dt), torch.zeros(2, 3, 40, dtype=dt)
-    before = fused_bert.dense_backward_launches
+    before = fused_bert.launches("F1 backward")
     dz, db = fused_bert._dense_epilogue_backward_kernel(dout, z if gelu else None, gelu,
                                                         need_dz, need_dbias)
     launched = need_dbias or (gelu and need_dz)
-    assert fused_bert.dense_backward_launches - before == int(launched)
+    assert fused_bert.launches("F1 backward") - before == int(launched)
     queries = [c for c in fake_library if c[0] == "proqa_dense_epilogue_bwd_workspace"]
     assert queries == ([("proqa_dense_epilogue_bwd_workspace", (6, 40, int(gelu), None))]
                        if need_dbias else [])
@@ -439,8 +440,9 @@ def test_dense_backward_wrapper_host_side(fake_library, dtype, gelu, need_dz, ne
     assert len(launches) == int(launched)
     assert (("workspace", 4160) in fake_library) == need_dbias
     if launched:
-        _, zp, dzp, workspace, dbias, rows, cols, is_bf16, g = launches[0]
+        _, zp, dzp, workspace, dbias, rows, cols, is_bf16, g, form = launches[0]
         assert (rows, cols, is_bf16, g) == (6, 40, int(dtype == "bfloat16"), int(gelu))
+        assert fused_bert.DENSE_BWD_FORMS[form] == "slabs"
         assert (zp is None) == (not gelu) and (dzp is None) == (not (gelu and need_dz))
         assert (workspace is None) == (dbias is None) == (not need_dbias)
     assert (dz is None) == (not need_dz) and (db is None) == (not need_dbias)
@@ -458,23 +460,24 @@ def test_layer_norm_backward_wrapper_host_side(fake_library, dtype, residual, ne
     """F2's backward wrapper without the card: it asks the C side for the
     scratch of the [rows, h] problem in its dtype (the tiles' rows follow the
     width and the dtype), takes a workspace of that size, passes null for
-    what is not asked, launches once, and returns dx like x and the f32
-    scale and bias gradients [h]."""
+    what is not asked and the index of its form, launches once, and returns
+    dx like x and the f32 scale and bias gradients [h]."""
     dt = getattr(torch, dtype)
     x = torch.zeros(2, 3, 24, dtype=dt)
     r = torch.zeros_like(x) if residual else None
     stats = torch.zeros(2, 3)
-    before = fused_bert.layer_norm_backward_launches
+    before = fused_bert.launches("F2 backward")
     dx, dscale, dbias = fused_bert._add_layer_norm_backward_kernel(
         torch.zeros_like(x), x, r, stats, stats, torch.ones(24), need_dx, need_params)
-    assert fused_bert.layer_norm_backward_launches - before == 1
+    assert fused_bert.launches("F2 backward") - before == 1
     queries = [c for c in fake_library if c[0] == "proqa_add_layer_norm_bwd_workspace"]
     assert queries == ([("proqa_add_layer_norm_bwd_workspace",
                          (6, 24, int(dtype == "bfloat16"), None))] if need_params else [])
     assert (("workspace", 4160) in fake_library) == need_params
     (entry, args), = [c for c in fake_library if c[0] == "proqa_add_layer_norm_bwd"]
-    _, _, rp, _, _, _, dxp, workspace, dparams, rows, h, is_bf16 = args
+    _, _, rp, _, _, _, dxp, workspace, dparams, rows, h, is_bf16, form = args
     assert (rows, h, is_bf16) == (6, 24, int(dtype == "bfloat16"))
+    assert fused_bert.LN_BWD_FORMS[form] == "tile"
     assert (rp is None) == (not residual) and (dxp is None) == (not need_dx)
     assert (workspace is None) == (dparams is None) == (not need_params)
     assert (dx is None) == (not need_dx)

@@ -50,3 +50,36 @@ def test_labelled_loop_of_an_nvdisasm_listing():
     listing = "\t\tFunction : _Z4loopv\n" + NVDISASM
     loop = sass_count.main_loop(sass_count.functions(listing)["_Z4loopv"])
     assert loop == {"instructions": 3, "global_loads_128": 0, "global_stores_128": 0, "mufu": 0}
+
+
+PTXAS = """ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 128 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 392 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_and_diff():
+    """The ptxas report `_build.build` keeps, read kernel by kernel, and two
+    builds' reports compared (the existing forms' lines, parent against
+    change)."""
+    report = sass_count.ptxas_report(PTXAS)
+    assert report == {
+        "_Z1av": {"registers": 40, "spill_stores": 0, "spill_loads": 0,
+                  "resources": "used 1 barriers, 128 bytes smem, 400 bytes cmem[0]"},
+        "_Z1bv": {"registers": 255, "spill_stores": 4, "spill_loads": 4,
+                  "resources": "used 0 barriers, 392 bytes cmem[0]"}}
+    other = {**report, "_Z1bv": {**report["_Z1bv"], "registers": 254}, "_Z1cv": {}}
+    assert sass_count.ptxas_diff(report, other) == {
+        "differ": ["_Z1bv"], "first_only": [], "second_only": ["_Z1cv"]}
+    assert sass_count.ptxas_diff(report, report) == {
+        "differ": [], "first_only": [], "second_only": []}
+    # a kernel in an anonymous namespace: the same key from two builds
+    builds = [PTXAS.replace("_Z1av", f"_ZN49_GLOBAL__N__{h}_16_layer_norm_cu_{g}1kEv")
+              for h, g in (("62b87636", "22fc95b7"), ("ca68b704", "0123abcd"))]
+    keys = [set(sass_count.ptxas_report(b)) for b in builds]
+    assert keys[0] == keys[1] == {"_ZN49_GLOBAL__N___16_layer_norm_cu_1kEv", "_Z1bv"}
