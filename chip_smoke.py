@@ -209,8 +209,26 @@ heads of 64, FFN 8,192; random weights drawn on the card):
      encode against the plain chain and a train step. The wide forms'
      launches are counted in (b)-(e), the reader's on its K2 route alone;
      each part logs its wall time and peak memory.
+Every embedding width (DPR's Wikipedia index, psgs_w100 of Karpukhin et al.
+2020: 21,015,324 passages x 768):
+ 34. (a) at D = 64, 96, 256, 384, 768 and 1,024 over 262,144 rows: K1 (bf16
+     and f32), K5 and K7 at Q = 2,048 and 32, K8, K6 and K9 at blocks 16 and
+     64, and the simple body (f32 queries over int8, f32 K8) against their
+     plain versions (BMAX_TOL), and mips_topk in bf16 and f32 against the
+     exact top-80 (TOPK_TOL); the K-loop forms timed at D = 768 beside plain,
+     take path (K6) and bound, and the pipelines of K7, K8 and K9 driven
+     once at D = 768 with the counters at 0; (b) the 21,015,324 x 768 index
+     made on the card as a DenseIndex, searched top-80 at Q = 2,048 through
+     K1 and K6 (counters at 0 before, read after), 256 queries against the
+     exact top-80, qps and K1's time beside its bound; then int8 codes of the
+     same size through K5, and 4,194,304 x 768 f32 through K1's f32 body,
+     each corpus freed before the next; (c) a BERT-base retriever with
+     768-wide projections (random weights) through build-db, build-index,
+     encode-queries and eval-retrieval on 4,608 paragraphs (K1, K2, K6
+     counted), the eval's top-80 against the exact search, and one eval-qa
+     group over the 768-wide index; each part's seconds logged.
 Phases 23-25 run after phase 18, phase 26 after phase 22, 27-29 after 20,
-30 and 31 after 2, 32 and 33 last. Each of phases 12-14 first drives its kernel's public pipeline
+30 and 31 after 2, 32, 33 and 34 last. Each of phases 12-14 first drives its kernel's public pipeline
 once with the counters at 0 and reads them, then compares and times the
 kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -1339,8 +1357,9 @@ def _search_qps(fn, q: int, reps: int = 3) -> float:
 
 
 def _exact_top(queries, codes, row_scales, k: int, chunk: int):
-    """The exact top-k of scale * (query . codes) over the whole corpus, a
-    chunk of rows at a time (the global top-k is the top-k of the chunks')."""
+    """The exact top-k of (scale *) query . codes over the whole corpus, a
+    chunk of rows at a time (the global top-k is the top-k of the chunks');
+    row_scales None: the rows unscaled."""
     import torch
 
     from proqa_tpu_torch.ops import mips
@@ -1348,7 +1367,8 @@ def _exact_top(queries, codes, row_scales, k: int, chunk: int):
     cand_v, cand_i = [], []
     for r0 in range(0, codes.shape[0], chunk):
         v, i = mips.mips_topk_reference(queries, codes[r0:r0 + chunk], k,
-                                        scales=row_scales[r0:r0 + chunk])
+                                        scales=None if row_scales is None
+                                        else row_scales[r0:r0 + chunk])
         cand_v.append(v)
         cand_i.append(i + r0)
     vals, sel = torch.topk(torch.cat(cand_v, dim=1), k)
@@ -4456,6 +4476,397 @@ def phase_xlarge(device) -> tuple[list, dict]:
                      "xxlarge_cos": wide_cos}
 
 
+# phase 34: the exact search at every embedding width; DPR's index on the card
+EMBED_WIDTHS = (64, 96, 256, 384, 768, 1024)  # (a): each kernel against its plain version
+WIDTH_ROWS = 262_144
+# (b): DPR's Wikipedia index, psgs_w100 (Karpukhin et al. 2020): 21,015,324
+# passages of width 768; f32 cut to 4,194,304 rows (12.9 GB)
+DPR_ROWS, DPR_DIM, DPR_F32_ROWS = 21_015_324, 768, 4_194_304
+WIDE_PARAS = 4608  # (c): past the naive search's 4,096 rows, so the kernels run
+
+
+def _rescore_against_plain(name, fn, queries, corpus, ids, block, timed: bool) -> dict:
+    """K6 or K9 on the candidate blocks ids against the plain gather and
+    product (64 queries at a time: its [Q, kb, block, D] gather); timed
+    beside the take path (gather + dot_f32, 256 queries at a time) and the
+    bound (each distinct candidate block read once) when `timed`."""
+    import torch
+
+    from proqa_tpu_torch.ops import rescore
+    from proqa_tpu_torch.ops.dot import dot_f32
+
+    d = corpus.shape[1]
+    blocks = corpus.view(-1, block, d)
+    nq, kb = ids.shape
+    got = fn(queries, blocks, ids, block=block)
+    err = 0.0
+    for s in range(0, nq, 64):
+        want = rescore.gather_rescore_reference(queries[s:s + 64], blocks, ids[s:s + 64],
+                                                block=block)
+        err = max(err, (got[s:s + 64] - want).abs().max().item())
+    check(err <= BMAX_TOL, f"{name}: max abs err {err} > {BMAX_TOL}")
+    if not timed:
+        return {"max_abs_err": err}
+
+    def plain():
+        for s in range(0, nq, 64):
+            rescore.gather_rescore_reference(queries[s:s + 64], blocks, ids[s:s + 64],
+                                             block=block)
+
+    def take_path():
+        for s in range(0, nq, 256):
+            cand = blocks[ids[s:s + 256]].view(-1, kb * block, d)
+            dot_f32(cand, queries[s:s + 256, :, None])
+
+    ms = cuda_ms(lambda: fn(queries, blocks, ids, block=block), reps=10)
+    plain_ms, library_ms = cuda_ms(plain, reps=2), cuda_ms(take_path, reps=3)
+    elt = corpus.element_size()
+    nbytes = (torch.unique(ids).numel() * block * d * elt + queries.numel() * elt
+              + ids.numel() * 8 + nq * kb * block * 4)
+    bound_ms, bound_by = bound(nbytes, 2.0 * nq * kb * block * d)
+    log(f"{name} Q={nq} kb={kb} block={block} D={d} {corpus.dtype}: max_abs_err {err:.3g} "
+        f"(tol {BMAX_TOL}), kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, take path (gather + "
+        f"dot_f32, 256 queries at a time) {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def _width_checks(device) -> tuple[dict, dict]:
+    """Phase 34 (a): at each width of EMBED_WIDTHS over WIDTH_ROWS rows, K1
+    (bf16 and f32), K5 and K7 at Q = 2,048 and 32, K8, K6 and K9 at blocks
+    16 and 64, the simple body (f32 queries over int8 codes, f32 K8) against
+    their plain versions (BMAX_TOL), and mips_topk over bf16 and f32 against
+    the exact top-80 up to ties (TOPK_TOL). Returns the D = 768 results
+    (timed, for the kernels line) and each kernel's largest error over the
+    widths; also the K7 and K8 pipelines' and K9's launches at D = 768,
+    counted from 0."""
+    import torch
+
+    from proqa_tpu_torch.ops import mips, mips_kernel, rescore
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    at768, errs, launches = {}, {}, {}
+    k = 80
+    for d in EMBED_WIDTHS:
+        t0 = time.perf_counter()
+        timed = d == DPR_DIM
+        g = torch.Generator(device=device).manual_seed(d)
+        corpus = torch.randn(WIDTH_ROWS, d, device=device, generator=g) / d ** 0.5
+        queries = torch.randn(2048, d, device=device, generator=g) / d ** 0.5
+        cb, qb = corpus.bfloat16(), queries.bfloat16()
+        codes = torch.randint(-127, 128, (WIDTH_ROWS, d), device=device, generator=g,
+                              dtype=torch.int8)
+        scales = torch.rand(WIDTH_ROWS // 16, device=device, generator=g) * 0.02 + 1e-3
+        rows = torch.rand(WIDTH_ROWS, device=device, generator=g) * 0.02 + 1e-3
+        bounds = (rows.view(-1, 16).amax(dim=1), rows.view(-1, 16).amin(dim=1))
+        for q in (2048, 32):
+            reps = 3 if timed and q == 2048 else 1
+            for name, qs, c, kw, peak in (
+                    ("K1", qb, cb, {}, PEAK_BF16_FLOPS),
+                    ("K1 f32", queries, corpus, {}, PEAK_F32_FLOPS),
+                    ("K5", qb, codes, {"scales": scales}, PEAK_BF16_FLOPS),
+                    ("K7", qb, codes, {"scale_bounds": bounds}, PEAK_BF16_FLOPS)):
+                r = grouped_against_plain(f"{name} D={d} Q={q}", qs[:q].contiguous(), c,
+                                          block=16, reps=reps, peak=peak, **kw)
+                del r["out"]
+                errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
+                if timed and q == 2048:
+                    at768[name] = r
+        # K8, block-major (its v1 pipeline's block and tile)
+        run = lambda: mips_kernel.block_maxima(qb, cb, block=256, tile_n=2048)  # noqa: E731
+        got = run()
+        want = mips_kernel.block_maxima_reference(qb, cb, block=256, tile_n=2048)
+        err = (got - want).abs().max().item()
+        check(err <= BMAX_TOL, f"K8 D={d}: max abs err {err} > {BMAX_TOL}")
+        errs["K8"] = max(errs.get("K8", 0.0), err)
+        if timed:
+            ms = cuda_ms(run, reps=3)
+            plain_ms = cuda_ms(lambda: mips_kernel.block_maxima_reference(
+                qb, cb, block=256, tile_n=2048), reps=2)
+            bound_ms, bound_by = bound(cb.numel() * 2 + qb.numel() * 2 + got.numel() * 4,
+                                       2.0 * 2048 * WIDTH_ROWS * d)
+            at768["K8"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            log(f"K8 D={d} Q=2048 block=256: max_abs_err {err:.3g}, kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by})")
+        del got, want
+        # the simple body: f32 queries over int8 codes, and f32 K8 (Q = 32)
+        q32 = queries[:32].contiguous()
+        check(mips_kernel.kernel_for(torch.float32, torch.int8, block=16, group=128,
+                                     grouped=True, scaled=True) == "simple", "simple route")
+        got = mips_kernel.block_maxima_grouped(q32, codes, block=16, scales=scales)
+        want = mips_kernel.block_maxima_grouped_reference(q32, codes, block=16, scales=scales)
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        got = mips_kernel.block_maxima(q32, corpus, block=32, tile_n=1024)
+        want = mips_kernel.block_maxima_reference(q32, corpus, block=32, tile_n=1024)
+        err = max(err, (got - want).abs().max().item())
+        check(err <= BMAX_TOL, f"simple body D={d}: max abs err {err} > {BMAX_TOL}")
+        errs["simple"] = max(errs.get("simple", 0.0), err)
+        del got, want
+        # K6 and K9 at blocks 16 and 64 on the candidates the K1 pipeline selects
+        for block in (16, 64):
+            for label, qs, c in (("bf16", qb, cb), ("f32", queries, corpus)):
+                ids = mips_kernel.select_blocks(qs, c, k, block=block)
+                for name, fn in (("K6", rescore.gather_rescore), ("K9", rescore.gather_score)):
+                    r = _rescore_against_plain(f"{name} D={d} {label}", fn, qs, c, ids, block,
+                                               timed and block == 64 and label == "bf16")
+                    errs[name] = max(errs.get(name, 0.0), r["max_abs_err"])
+                    if "ms" in r:
+                        at768[name] = r
+                del ids
+        # the search, both dtypes, against the exact top-80
+        for label, qs, c in (("bf16", qb, cb), ("f32", queries, corpus)):
+            gv, gi = mips.mips_topk(qs, c, k)
+            rv, ri = mips.mips_topk_reference(qs, c, k)
+            bad = topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
+                                     ri.cpu().numpy(), atol=TOPK_TOL)
+            check(bad == 0, f"mips_topk D={d} {label}: {bad} of 2048 queries disagree with "
+                            f"the exact top-{k}")
+        if timed:
+            # the pipelines of K7 (row scales, kb = 16k) and K8 (v1), and K9,
+            # each driven once with the counters at 0
+            mips_kernel.bounded_launches = mips_kernel.block_major_launches = 0
+            rescore.score_launches = 0
+            mips_kernel.mips_topk_v2(qb, codes, 20, block=16, row_scales=rows, kb=320)
+            mips_kernel.mips_topk_v1(qb, cb, k, block=256, tile_n=2048)
+            ids = mips_kernel.select_blocks(qb, cb, k, block=64)
+            rescore.gather_score(qb, cb.view(-1, 64, d), ids, block=64)
+            torch.cuda.synchronize()
+            launches = {"K7": mips_kernel.bounded_launches,
+                        "K8": mips_kernel.block_major_launches, "K9": rescore.score_launches}
+            check(all(v > 0 for v in launches.values()), f"D={d} pipelines: {launches}")
+        del corpus, queries, cb, qb, codes, scales, rows, bounds
+        torch.cuda.empty_cache()
+        log(f"D={d}: every search kernel within BMAX_TOL of its plain version, mips_topk "
+            f"(bf16, f32) equal to the exact top-{k} up to ties ({time.perf_counter() - t0:.1f} s)")
+    return at768, errs, launches
+
+
+def _dpr_search(device, label: str, index, queries, k: int, counters: dict,
+                row_scales=None) -> dict:
+    """index.search of 2,048 queries with the counters at 0 just before and
+    read just after; qps over 3 more searches (host clock; each ends in a
+    copy to the host); 256 queries against the exact top-k."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    for module, name in counters.values():
+        setattr(module, name, 0)
+    vals, idx = index.search(queries, k)
+    launched = {key: getattr(module, name) for key, (module, name) in counters.items()}
+    check(all(v > 0 for v in launched.values()), f"DPR {label} search: {launched}")
+    check(vals.shape == (queries.shape[0], k) and np.isfinite(vals).all(),
+          f"DPR {label} search: bad values")
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        index.search(queries, k)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    q256 = queries[:256].to(device, index._query_dtype)
+    n = index.n
+    rv, ri = _exact_top(q256, index.embeddings[:n], None if row_scales is None
+                        else row_scales[:n], k, 1 << 21)
+    bad = topk_disagreements(vals[:256], idx[:256], rv.cpu().numpy(), ri.cpu().numpy(),
+                             atol=TOPK_TOL)
+    check(bad == 0, f"DPR {label} search: {bad} of 256 queries disagree with the exact top-{k}")
+    log(f"DPR {label} search top-{k} over {index.n:,} x {index.dim}: {queries.shape[0] / wall:.1f} "
+        f"qps ({wall * 1e3:.1f} ms a batch of {queries.shape[0]}, host clock); launches "
+        f"{json.dumps(launched)}; 256 queries equal the exact top-{k} up to ties")
+    return {**launched, "qps": queries.shape[0] / wall}
+
+
+def _dpr_index(device) -> dict:
+    """Phase 34 (b): DPR's 21,015,324 x 768 index in bf16, built on the card
+    from a seed as a DenseIndex (rows padded to 1,024 with zeros, as a built
+    index is; searched where they lie), searched through K1 and K6; then the
+    same rows' size in int8 codes through K5; then 4,194,304 x 768 in f32
+    through K1's f32 body. Each corpus is freed before the next."""
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.ops import mips, mips_kernel, rescore
+
+    n, d, q, k = DPR_ROWS, DPR_DIM, 2048, 80
+    cap = n + (-n) % 1024
+    g = torch.Generator(device=device).manual_seed(34)
+    queries = (torch.randn(q, d, device=device, generator=g) / d ** 0.5).bfloat16()
+    out = {}
+    t0 = time.perf_counter()
+    rows = torch.zeros(cap, d, device=device, dtype=torch.bfloat16)
+    for r0 in range(0, n, 1 << 20):
+        r1 = min(r0 + (1 << 20), n)
+        rows[r0:r1] = torch.randn(r1 - r0, d, device=device, generator=g) / d ** 0.5
+    index = DenseIndex(embeddings=rows, n=n)
+    torch.cuda.synchronize()
+    log(f"DPR bf16 index {n:,} x {d} ({rows.numel() * 2 / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["bf16"] = _dpr_search(device, "bf16", index, queries, k,
+                              {"K1": (mips_kernel, "launches"), "K6": (rescore, "launches")})
+    block = mips.envelope_block(cap, q)
+    k1_ms = cuda_ms(lambda: mips_kernel.block_maxima_grouped(queries, rows, block=block), reps=3)
+    k1_bound, k1_by = bound(rows.numel() * 2 + queries.numel() * 2
+                            + (-(-cap // (128 * block)) * 128 * q * 4), 2.0 * q * cap * d)
+    out["bf16"].update(k1_ms=k1_ms, k1_bound_ms=k1_bound, block=block)
+    log(f"DPR K1 Q={q} N={cap:,} D={d} block {block}: {k1_ms:.2f} ms against its bound "
+        f"{k1_bound:.2f} ms ({k1_by}; the bytes alone {rows.numel() * 2 / PEAK_BYTES_PER_S * 1e3:.2f} ms)")
+    del index, rows
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    qb = mips.envelope_block(cap, q)
+    codes = torch.zeros(cap, d, device=device, dtype=torch.int8)
+    for r0 in range(0, n, 1 << 21):
+        r1 = min(r0 + (1 << 21), n)
+        codes[r0:r1] = torch.randint(-127, 128, (r1 - r0, d), device=device, generator=g,
+                                     dtype=torch.int8)
+    scales = torch.rand(cap // qb, device=device, generator=g) * 0.02 + 1e-3
+    index = DenseIndex._from_quantized(codes, scales, n, qb, None)
+    torch.cuda.synchronize()
+    log(f"DPR int8 index {n:,} x {d} ({codes.numel() / 1e9:.2f} GB, quant block {qb}) made on "
+        f"the card in {time.perf_counter() - t0:.1f} s")
+    row_scales = scales.repeat_interleave(qb)
+    out["int8"] = _dpr_search(device, "int8", index, queries, k,
+                              {"K5": (mips_kernel, "scaled_launches")}, row_scales=row_scales)
+    k5_ms = cuda_ms(lambda: mips_kernel.block_maxima_grouped(queries, codes, block=qb,
+                                                             scales=scales), reps=3)
+    k5_bound, k5_by = bound(codes.numel() + queries.numel() * 2 + scales.numel() * 4
+                            + (-(-cap // (128 * qb)) * 128 * q * 4), 2.0 * q * cap * d)
+    out["int8"].update(k5_ms=k5_ms, k5_bound_ms=k5_bound)
+    log(f"DPR K5 Q={q} N={cap:,} D={d} block {qb}: {k5_ms:.2f} ms against its bound "
+        f"{k5_bound:.2f} ms ({k5_by})")
+    del index, codes, scales, row_scales
+    torch.cuda.empty_cache()
+
+    n32 = DPR_F32_ROWS
+    t0 = time.perf_counter()
+    rows = torch.randn(n32, d, device=device, generator=g) / d ** 0.5
+    index = DenseIndex(embeddings=rows, n=n32)
+    qf = queries.float()
+    torch.cuda.synchronize()
+    log(f"f32 index {n32:,} x {d} ({rows.numel() * 4 / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    out["f32"] = _dpr_search(device, "f32", index, qf, k,
+                             {"K1 f32": (mips_kernel, "f32_launches"),
+                              "K6": (rescore, "launches")})
+    block = mips.envelope_block(n32, q)
+    f_ms = cuda_ms(lambda: mips_kernel.block_maxima_grouped(qf, rows, block=block), reps=2)
+    f_bound, f_by = bound(rows.numel() * 4 + qf.numel() * 4 + n32 // block * q * 4,
+                          2.0 * q * n32 * d, PEAK_F32_FLOPS)
+    out["f32"].update(k1_ms=f_ms, k1_bound_ms=f_bound)
+    log(f"f32 K1 Q={q} N={n32:,} D={d} block {block}: {f_ms:.2f} ms against its bound "
+        f"{f_bound:.2f} ms ({f_by}, the f32 FMA rate)")
+    del index, rows
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wide_cli(device, root: str) -> dict:
+    """Phase 34 (c): a BERT-base retriever with 768-wide projections (random
+    weights from a seed, saved as phase_cli saves its retriever) through
+    build-db, build-index, encode-queries and eval-retrieval on a world of
+    WIDE_PARAS paragraphs, with the counters reset before and read after;
+    the eval's top-80 held to the exact search of the same index; then one
+    eval-qa group (8 questions) over the 768-wide index with that retriever
+    (--retriever-path) and a reader of random weights."""
+    import numpy as np
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.convert import params_to_jax, save_npz
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.ops import attention, mips, mips_kernel, rescore
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    n_q, k, d = 64, 80, DPR_DIM
+    write_world(root, WIDE_PARAS, n_q, seed=34)
+    p = lambda name: os.path.join(root, name)  # noqa: E731
+    ckpt = p("retriever768.npz")
+    save_npz(ckpt, params_to_jax(Retriever(BertConfig(), d).reset_parameters(34).state_dict()))
+    common = ["--vocab", p("vocab.txt"), "--init-checkpoint", ckpt, "--device", str(device)]
+    attention.launches = mips_kernel.launches = rescore.launches = 0
+    run_cli(["build-db", "--corpus", p("corpus.jsonl"), "--db", p("docs.db")])
+    built, _ = run_cli(["build-index", *common, "--max-seq-length", "512",
+                        "--predict-batch-size", "512", "--corpus", p("corpus.jsonl"),
+                        "--output-dir", p("index")])
+    run_cli(["encode-queries", *common, "--queries", p("qa.jsonl"), "--output", p("q.npy")])
+    recall, _ = run_cli(["eval-retrieval", p("qa.jsonl"), p("index"), p("q.npy"), p("docs.db"),
+                         "--topk", str(k), "--device", str(device)])
+    launches = {"K1": mips_kernel.launches, "K2": attention.launches, "K6": rescore.launches}
+    log(f"kernel launches on the 768-wide retrieval CLI: {json.dumps(launches)}")
+    check(all(v > 0 for v in launches.values()), f"768-wide CLI: {launches}")
+    check(built == {"rows": WIDE_PARAS, "dim": d, "saved": p("index")}, f"build-index: {built}")
+    check(set(recall) == {f"recall@{r}" for r in (5, 10, 20, 50, 80)}, f"recall keys {recall}")
+    q = np.load(p("q.npy"))
+    check(q.shape == (n_q, d) and np.isfinite(q).all(), "encode-queries: bad embeddings")
+    index = DenseIndex.load(p("index"), device=device)
+    vals, idx = index.search(q, k)
+    qt = torch.from_numpy(q).to(device, torch.bfloat16)
+    rv, ri = mips.mips_topk_reference(qt, index.embeddings, k, n_valid=index.n)
+    bad = topk_disagreements(vals, idx, rv.cpu().numpy(), ri.cpu().numpy(), atol=TOPK_TOL)
+    check(bad == 0, f"768-wide eval top-{k}: {bad} of {n_q} queries disagree with the exact "
+                    "search")
+    with open(p("qa8.jsonl"), "w") as f:
+        for i in range(8):
+            f.write(json.dumps({"question": f"what is about tok{i} tok{i + 9}",
+                                "answer": [f"tok{i + 9}"]}) + "\n")
+    mips_kernel.launches = rescore.launches = 0
+    em, _ = run_cli(["eval-qa", "--vocab", p("vocab.txt"), "--db", p("docs.db"), "--index",
+                     p("index"), "--retriever-path", ckpt, "--device", str(device),
+                     "--max-seq-length", "512", "--eval-k", "5", "--questions-per-batch", "8",
+                     "--predict-file", p("qa8.jsonl"), "--output-dir", p("qa_run")])
+    qa_launches = {"K1": mips_kernel.launches, "K6": rescore.launches}
+    check(all(v > 0 for v in qa_launches.values()), f"768-wide eval-qa: {qa_launches}")
+    log(f"768-wide recall: {json.dumps(recall)}; eval top-{k}: all {n_q} queries equal the "
+        f"exact search up to ties; eval-qa (one group of 8): {json.dumps(em)}, launches "
+        f"{json.dumps(qa_launches)}")
+    return {"K1": launches["K1"] + qa_launches["K1"], "K6": launches["K6"] + qa_launches["K6"]}
+
+
+def phase_embed_widths(device) -> tuple[list, dict]:
+    """Phase 34: (a) _width_checks, (b) _dpr_index, (c) _wide_cli. Returns the
+    kernels line's entries of the K-loop forms (times at D = 768 over
+    262,144 rows; launches from (b) and (c) and, for K7, K8 and K9, their
+    own pipelines at D = 768) and the seconds of each part."""
+    import torch
+
+    seconds = {}
+    t0 = time.perf_counter()
+    at768, errs, own = _width_checks(device)
+    seconds["a"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    dpr = _dpr_index(device)
+    seconds["b"] = round(time.perf_counter() - t0, 1)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="proqa_smoke_") as root:
+        cli = _wide_cli(device, root)
+    seconds["c"] = round(time.perf_counter() - t0, 1)
+    torch.cuda.empty_cache()
+    log(f"phase 34 seconds: {json.dumps(seconds)}")
+    wgmma, f32, gather = "block_maxima_wgmma.cu", "block_maxima_f32.cu", "gather_rescore.cu"
+    forms = [
+        ("block_maxima_grouped (K1) D=768", wgmma, "proqa_tpu/ops/pallas_mips.py:83",
+         dpr["bf16"]["K1"] + cli["K1"], "K1"),
+        ("block_maxima_grouped f32 (K1) D=768", f32, "proqa_tpu/ops/pallas_mips.py:83",
+         dpr["f32"]["K1 f32"], "K1 f32"),
+        ("block_maxima_grouped scaled (K5) D=768", wgmma, "proqa_tpu/ops/pallas_mips.py:97",
+         dpr["int8"]["K5"], "K5"),
+        ("block_maxima_grouped bounded (K7) D=768", wgmma, "proqa_tpu/ops/pallas_mips.py:111",
+         own["K7"], "K7"),
+        ("block_maxima (K8) D=768", wgmma, "proqa_tpu/ops/pallas_mips.py:32", own["K8"], "K8"),
+        ("gather_rescore (K6) D=768", gather, "proqa_tpu/ops/pallas_rescore.py:58",
+         dpr["bf16"]["K6"] + dpr["f32"]["K6"] + cli["K6"], "K6"),
+        ("gather_score (K9) D=768", gather, "proqa_tpu/ops/pallas_gather_score.py:35", own["K9"],
+         "K9"),
+    ]
+    return [(name, source, replaces, launches, {**at768[key], "max_abs_err": errs[key]})
+            for name, source, replaces, launches, key in forms], seconds
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -4534,6 +4945,8 @@ def main() -> int:
         minilm, _ = timed("minilm", phase_minilm, device)
         # BERT-xlarge: F1 and F2 past their first forms (hidden 2,048; 4,096 and 16,384)
         xlarge, _ = timed("xlarge", phase_xlarge, device)
+        # the exact search at every embedding width; DPR's 21M x 768 index
+        wide_search, _ = timed("embed_widths", phase_embed_widths, device)
         log(f"phase seconds: {json.dumps(phases)}")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "proqa_tpu"))
@@ -4626,6 +5039,10 @@ def main() -> int:
     # on the xlarge encode, reader and train step and the xxlarge tower; F1's
     # backward at 16,384 columns: the xxlarge train step's)
     kernels += [entry(*form) for form in xlarge]
+    # the search kernels' K-loop forms at D = 768 (launches: DPR's index in
+    # bf16, int8 and f32 and the 768-wide CLI; K7, K8, K9: their own
+    # pipelines at D = 768)
+    kernels += [entry(*form) for form in wide_search]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -60,10 +60,11 @@ def _tokenizer(args):
 
 def _load_model(args, cfg):
     from proqa_tpu_torch.models.convert import load_params
-    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.models.retriever import Retriever, embed_dim_of
 
-    model = Retriever(cfg)
-    model.load_state_dict(load_params(args.init_checkpoint))
+    params = load_params(args.init_checkpoint)
+    model = Retriever(cfg, embed_dim_of(params))  # the checkpoint's width
+    model.load_state_dict(params)
     return model.to(args.device).eval()
 
 
@@ -357,6 +358,7 @@ def _qa_setup(args, data_parallel: bool = True):
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.models.convert import load_params
     from proqa_tpu_torch.models.reader import QAConfig
+    from proqa_tpu_torch.models.retriever import embed_dim_of
     from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
     from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
 
@@ -402,14 +404,20 @@ def _qa_setup(args, data_parallel: bool = True):
         profile_dir=args.profile_dir,
     )
     tcfg.questions_per_batch //= world  # this rank's share of each batch
-    trainer = QATrainer(cfg, qcfg, tcfg, device=args.device)  # random weights from --seed
-    if args.retriever_path:
-        trainer.model.retriever.load_state_dict(load_params(args.retriever_path))
+    # the embedding width of the checkpoint that brings a retriever
+    retriever = load_params(args.retriever_path) if args.retriever_path else None
+    full = load_params(args.init_checkpoint) if args.init_checkpoint else None
+    embed_dim = (embed_dim_of(full, "retriever.") if full is not None
+                 else embed_dim_of(retriever or {}))
+    # random weights from --seed
+    trainer = QATrainer(cfg, qcfg, tcfg, device=args.device, embed_dim=embed_dim)
+    if retriever is not None:
+        trainer.model.retriever.load_state_dict(retriever)
     if args.reader_path:
         # a pretrained reader tower (e.g. a converted SpanBERT; pair with --cased)
         trainer.model.bert.load_state_dict(load_params(args.reader_path))
-    if args.init_checkpoint:
-        trainer.model.load_state_dict(load_params(args.init_checkpoint))
+    if full is not None:
+        trainer.model.load_state_dict(full)
 
     db = DocDB(args.db)
     index = DenseIndex.load(args.index, dtype=_index_dtype(args),

@@ -14,6 +14,12 @@
 
 namespace bmax {
 
+// Every search kernel (K1, K5, K7, K8, the simple body, K6/K9) takes the
+// embedding widths that are multiples of this: a row of int8 codes is then
+// whole 16-byte vectors, as TMA's global strides and the bulk copies need.
+// ops/rescore.py:DIM_MULTIPLE holds the same rule.
+constexpr int kDimMultiple = 16;
+
 // ---------------------------------------------------------------------------
 // TMA and mbarriers
 // ---------------------------------------------------------------------------
@@ -79,11 +85,15 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// A corpus [n, 128] of `type` (elements of `bytes` bytes) as TMA boxes of
-// 128 rows x 128 bytes with the 128-byte swizzle, boxes of 1024-byte-aligned
-// stages: byte b of row r of a box lies at r * 128 + (b ^ (r % 8) * 16).
-inline cudaError_t corpus_map(CUtensorMap* map, CUtensorMapDataType type, int bytes,
-                              const void* corpus, int n) {
+// A row-major [rows, cols] tensor of `type` (elements of `bytes` bytes, rows
+// cols * bytes apart, a multiple of 16) as TMA boxes of box_rows rows x
+// box_cols columns with the 128-byte swizzle (box_cols * bytes == 128), boxes
+// of 1024-byte-aligned stages: byte b of row r of a box lies at r * 128 +
+// (b ^ (r % 8) * 16). Elements past either edge arrive as zeros, and a copy
+// completes the whole box's bytes on its barrier all the same.
+inline cudaError_t tile_map(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+                            const void* base, long long cols, long long rows, int box_cols,
+                            int box_rows) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -94,15 +104,21 @@ inline cudaError_t corpus_map(CUtensorMap* map, CUtensorMapDataType type, int by
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return cudaErrorNotSupported;
     encode = reinterpret_cast<EncodeTiled>(fn);
   }
-  const cuuint64_t dims[2] = {128, (cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)128 * bytes};
-  const cuuint32_t box[2] = {(cuuint32_t)(128 / bytes), 128};
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t steps[2] = {1, 1};
-  const CUresult res = encode(map, type, 2, const_cast<void*>(corpus), dims, strides, box, steps,
+  const CUresult res = encode(map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
                               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A corpus [n, 128] of `type` as boxes of 128 rows x 128 bytes (tile_map).
+inline cudaError_t corpus_map(CUtensorMap* map, CUtensorMapDataType type, int bytes,
+                              const void* corpus, int n) {
+  return tile_map(map, type, bytes, corpus, 128, n, 128 / bytes, 128);
 }
 
 // ---------------------------------------------------------------------------

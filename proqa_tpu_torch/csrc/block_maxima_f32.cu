@@ -71,6 +71,14 @@
 //   tiles); block (x, y) walks groups y, y + gridDim.y, ..., so the blocks
 //   that read one group are resident together and a chunk comes from device
 //   memory once and from L2 after that.
+// Widths: the above is the D = 128 form (bmax_f32_kernel). Every other width
+// that is a multiple of 16, with no upper limit, runs bmax_f32_wide_kernel:
+// the query tile moves from resident shared memory into the ring, each stage
+// one 32-column box of the chunk beside the same box of the tile, and a
+// chunk's products loop over ceil(D / 32) boxes (the FMA pipe still bounds
+// it; the tile's boxes add a third of a stage's bytes at QT = 16, from L2).
+// The last group may be partial (n a multiple of block): its rows past n
+// arrive as zeros.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -326,10 +334,104 @@ bmax_f32_kernel(const __grid_constant__ CUtensorMap corpus, const float* __restr
   }
 }
 
+// ---------------------------------------------------------------------------
+// Every other width: the K loop (bmax_f32_wide_kernel)
+// ---------------------------------------------------------------------------
+
+// The wide form's ring: step t is box t % boxes (32 columns) of a chunk, its
+// stage that corpus box and then the query tile's box of the same columns
+// (16 QT rows x 32 columns, the layout load_queries gives one box).
+template <int QT>
+struct WideTile {
+  static constexpr uint32_t kQueryBox = Tile<QT>::kQueryBoxBytes;
+  static constexpr uint32_t kStageBytes = kBoxBytes + kQueryBox;
+  static constexpr int kStages = (kSmemLimit - 1024 - 256) / kStageBytes;
+  static constexpr size_t kSmem = kStages * kStageBytes + 1024 + 16 * kStages;
+  static_assert(kStages >= 4 && kSmem <= kSmemLimit, "the ring must hold four steps");
+};
+
+// bmax_f32_kernel at any width D (a multiple of 16): the query tile (16 QT
+// rows x D f32, 1 MB at D = 1,024 and QT = 16) no longer fits in shared
+// memory, so it moves into the ring: each step's stage holds one 32-column
+// box of the chunk and the same box of the tile, both copied by TMA (a box
+// past D arrives zero-filled, and zeros add nothing). A chunk's products run
+// over ceil(D / 32) steps into the same accumulators, in column order; the
+// maxima, the stores and the walk are bmax_f32_kernel's.
+template <int BLOCK, int QT>
+__global__ void __launch_bounds__(kThreads, 1)
+bmax_f32_wide_kernel(const __grid_constant__ CUtensorMap corpus,
+                     const __grid_constant__ CUtensorMap queries, float* __restrict__ bmax,
+                     float* __restrict__ gmax, int num_q, int group, int num_groups, int boxes) {
+  using W = WideTile<QT>;
+  constexpr int kStages = W::kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t ring = (static_cast<uint32_t>(__cvta_generic_to_shared(smem)) + 1023) & ~1023u;
+  const uint32_t full = ring + kStages * W::kStageBytes, empty = full + 8 * kStages;
+  const int tid = threadIdx.x, warp = tid / 32, l = tid % 32;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int per_group = group * BLOCK / kChunk;  // chunks a group
+  const int total = (num_groups - 1 - (int)blockIdx.y) / (int)gridDim.y * per_group + per_group;
+  auto group_of = [&](int s) { return (int)blockIdx.y + s / per_group * (int)gridDim.y; };
+  const int q0 = (int)blockIdx.x * Tile<QT>::kQueries;
+
+  if (tid >= kConsumers) {  // the producer: step t into stage t % kStages
+    set_max_registers<false, kProducerRegs>();
+    if (tid == kConsumers)
+      for (int t = 0; t < boxes * total; ++t) {
+        const int stage = t % kStages, s = t / boxes, col = 32 * (t % boxes);
+        const uint32_t dst = ring + stage * W::kStageBytes, bar = full + 8 * stage;
+        mbar_wait(empty + 8 * stage, ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar, W::kStageBytes);
+        tma_load(dst, &corpus, col, (group_of(s) * per_group + s % per_group) * kChunk, bar);
+        tma_load(dst + kBoxBytes, &queries, col, q0, bar);
+      }
+    return;
+  }
+
+  set_max_registers<true, kConsumerRegs>();
+  const int qg = 2 * warp + l / 16, rg = l % 16;
+  const uint32_t qa = kBoxBytes + swizzled(qg, 0), ca = swizzled(rg, 0);
+  const int my_q = q0 + qg + 16 * lane_query<QT>(rg);
+  const bool q_valid = my_q < num_q;
+
+  float part[Blocks<BLOCK, QT>::kValues];
+  float gm = -INFINITY;
+  for (int s = 0; s < total; ++s) {
+    float acc[QT][8];
+#pragma unroll
+    for (int j = 0; j < QT; ++j)
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[j][i] = 0.0f;
+#pragma unroll 1
+    for (int b = 0; b < boxes; ++b) {
+      const int t = boxes * s + b, stage = t % kStages;
+      const uint32_t st = ring + stage * W::kStageBytes;
+      mbar_wait(full + 8 * stage, (t / kStages) & 1);
+      products<QT>(acc, st + qa, st + ca);
+      mbar_arrive(empty + 8 * stage);
+    }
+    const int c = s % per_group;
+    const size_t row = (size_t)group_of(s) * num_q + my_q;
+    take_maxima<BLOCK, QT>(acc, c, q_valid ? bmax + row * group : nullptr, rg, part, gm);
+    if (c == per_group - 1) {
+      if constexpr (QT == 8) gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 8));
+      if (q_valid && (QT == 16 || (rg & 8) == 0)) gmax[row] = gm;
+      gm = -INFINITY;
+    }
+  }
+}
+
 struct Args {
   const void *queries, *corpus;
   void *bmax, *gmax;
-  int num_q, n, group, num_groups;
+  int num_q, n, dim, group, num_groups;
   cudaStream_t stream;
 };
 
@@ -354,27 +456,55 @@ cudaError_t launch(const Args& x) {
   return cudaGetLastError();
 }
 
+template <int BLOCK, int QT>
+cudaError_t launch_wide(const Args& x) {
+  using W = WideTile<QT>;
+  auto kernel = bmax_f32_wide_kernel<BLOCK, QT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)W::kSmem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap cmap, qmap;
+  if ((err = tile_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x.corpus, x.dim, x.n, 32,
+                      kChunk)) != cudaSuccess ||
+      (err = tile_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x.queries, x.dim, x.num_q, 32,
+                      Tile<QT>::kQueries)) != cudaSuccess)
+    return err;
+  int sms = 0;
+  if ((err = multiprocessors(&sms)) != cudaSuccess) return err;
+  const int tiles = (x.num_q + Tile<QT>::kQueries - 1) / Tile<QT>::kQueries;
+  int gy = sms / tiles;
+  gy = gy < 1 ? 1 : (gy > x.num_groups ? x.num_groups : gy);
+  kernel<<<dim3(tiles, gy), kThreads, W::kSmem, x.stream>>>(
+      cmap, qmap, static_cast<float*>(x.bmax), static_cast<float*>(x.gmax), x.num_q, x.group,
+      x.num_groups, (x.dim + 31) / 32);
+  return cudaGetLastError();
+}
+
+// D = 128: bmax_f32_kernel (the query tile resident); any other width:
+// bmax_f32_wide_kernel
 template <int BLOCK>
 cudaError_t launch_tile(const Args& x) {
+  if (x.dim != kDim) return x.num_q > 128 ? launch_wide<BLOCK, 16>(x) : launch_wide<BLOCK, 8>(x);
   return x.num_q > 128 ? launch<BLOCK, 16>(x) : launch<BLOCK, 8>(x);
 }
 
 }  // namespace
 
-// queries [num_q, 128] and corpus [n, 128] f32, row-major and 16-byte
-// aligned; bmax [n / (group * block), num_q, group] and gmax
-// [n / (group * block), 1, num_q] f32. block in {16, 32, 64, 128, 256},
-// group * block a multiple of 128 (ops/mips_kernel.py:kernel_for). Returns a
-// cudaError_t code.
+// queries [num_q, dim] and corpus [n, dim] f32, row-major and 16-byte
+// aligned, dim a multiple of 16; bmax [CG, num_q, group] and gmax
+// [CG, 1, num_q] f32, CG = ceil(n / (group * block)): n is a multiple of
+// block, and the last group's rows past n arrive as zeros (TMA's fill).
+// block in {16, 32, 64, 128, 256}, group * block a multiple of 128
+// (ops/mips_kernel.py:kernel_for). Returns a cudaError_t code.
 extern "C" int proqa_block_maxima_f32(const void* queries, const void* corpus, void* bmax,
                                       void* gmax, int num_q, int n, int dim, int block,
                                       int group, void* stream) {
-  if (dim != kDim || num_q <= 0 || n <= 0 || block <= 0 || group <= 0 ||
-      (group * block) % kChunk != 0 || n % (group * block) != 0 ||
-      n / (group * block) > kMaxGrid)
+  if (dim <= 0 || dim % kDimMultiple != 0 || num_q <= 0 || n <= 0 || block <= 0 || group <= 0 ||
+      (group * block) % kChunk != 0 || n % block != 0 ||
+      (n + group * block - 1) / (group * block) > kMaxGrid)
     return cudaErrorInvalidValue;
-  const Args x{queries, corpus, bmax, gmax, num_q, n, group, n / (group * block),
-               static_cast<cudaStream_t>(stream)};
+  const Args x{queries, corpus, bmax, gmax, num_q, n, dim, group,
+               (n + group * block - 1) / (group * block), static_cast<cudaStream_t>(stream)};
   switch (block) {
     case 16: return launch_tile<16>(x);
     case 32: return launch_tile<32>(x);

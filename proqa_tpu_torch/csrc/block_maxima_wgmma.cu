@@ -106,7 +106,24 @@
 //   side by side (64 bytes), and at K8's block 256 a lane stores one value
 //   every two chunks (bmax is 16x smaller than K1's bmax3 at block 16), so
 //   the strided store costs no staging through shared memory.
-// The TMA and mbarrier helpers, the tensor map and the exchange of halves
+// Widths. The design above is the D = 128 form (bmax_wgmma_kernel). Every
+// other width D that is a multiple of 16, with no upper limit, runs
+// bmax_wgmma_wide_kernel (the JAX package's Pallas kernel takes d % 128 ==
+// 0, its XLA path any d): at D = 768 the queries' fragments would take 192
+// registers a thread and 128 queries 192 KB of shared memory, so a chunk's
+// products run as a K loop over 128-column slices, each ring stage carrying
+// one slice of the chunk (its corpus part in the layout above) and the same
+// slice of the CUDA block's queries, both read by wgmma from shared memory
+// (m64n128k16, A and B by descriptor). The accumulators persist across a
+// chunk's slices, the maxima are taken after its last, and the epilogues,
+// stores and walk are the D = 128 form's. The queries' slices cross from L2
+// once a chunk, as many bytes as the corpus's at 128 queries a block: at
+// 64 FLOP a byte of L2 traffic against 128 at D = 128. int8 codes keep K5's
+// raw ring: one raw box is one slice of 128 codes, widened as at D = 128.
+// The last group may be partial (n a multiple of block, not of group *
+// block): TMA fills its rows past n with zeros, so a search needs no padded
+// copy of the corpus (ops/mips_kernel.py:mips_topk_v2).
+// The TMA and mbarrier helpers, the tensor maps and the exchange of halves
 // are shared with block_maxima_f32.cu (block_maxima_common.cuh).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -181,6 +198,32 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d[64 x 128] (+)= a[64 x 16] b[16 x 128], a and b K-major in shared memory
+// (the wide form streams the queries beside the corpus).
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // ---------------------------------------------------------------------------
@@ -586,10 +629,239 @@ bmax_wgmma_kernel(const __grid_constant__ CUtensorMap corpus, const bf16* __rest
   }
 }
 
+// ---------------------------------------------------------------------------
+// Every other width: the K loop (bmax_wgmma_wide_kernel)
+// ---------------------------------------------------------------------------
+
+constexpr int kSlice = 128;  // columns of D a step of the wide form carries
+
+// The wide form's ring. A step is one 128-column slice of one chunk: its
+// stage holds the corpus part (128 rows x 128 columns as two boxes of 64
+// columns, a D = 128 chunk's layout: desc_sw128) and then the queries' part
+// (64 NWG rows x 128 columns as two boxes of 64: desc_query). int8 keeps
+// K5's raw ring of two stages beside it.
+template <typename S, int NWG>
+struct WideRing {
+  static constexpr uint32_t kQueryHalf = 64 * NWG * 128;  // one query box
+  static constexpr uint32_t kStageBytes = kChunkBytes + 2 * kQueryHalf;
+  static constexpr int kRawStages = sizeof(S) == 1 ? 2 : 0;
+  static constexpr int kStages =
+      (232448 - 1024 - 16 * 4 - kRawStages * (int)kRawBytes) / (int)kStageBytes;
+  static constexpr size_t kSmem =
+      kStages * kStageBytes + kRawStages * kRawBytes + 1024 + 16 * (kStages + kRawStages);
+  // bf16: the TMA thread's expect_tx; int8: every producer thread after its
+  // stores, and the TMA thread's expect_tx for the queries' part
+  static constexpr uint32_t kFullCount = sizeof(S) == 1 ? 129 : 1;
+  static_assert(kStages >= 3 && kSmem <= 232448, "a block may take 227 KB of shared memory");
+};
+
+// The A descriptor of warpgroup wg's 64 queries at k-step ks of a wide stage
+// (the 128-byte swizzle of the corpus part; 64 rows are 8 atoms of 1024 bytes).
+template <int NWG>
+__device__ __forceinline__ uint64_t desc_query(uint32_t stage, int wg, int ks) {
+  return attn::make_desc(stage + kChunkBytes + (ks / 4) * (64 * NWG * 128) + wg * 8192 +
+                             (ks % 4) * 32,
+                         16, 1024) |
+         (1ull << 62);
+}
+
+// bmax_wgmma_kernel at any width D (a multiple of 16), each chunk's products
+// summed over ceil(D / 128) steps. The queries no longer fit in registers
+// (D / 4 a thread) nor whole in shared memory beside a ring (128 x 768 x 2
+// bytes is 192 KB), so each step's stage carries the queries' slice beside
+// the corpus's and wgmma reads both from shared memory. Columns past D
+// arrive zero-filled by TMA, so every step runs its 8 k-steps: the zeros add
+// nothing (a width that is not a multiple of 128 pays for the rest of its
+// last slice). A chunk's accumulators persist across its steps; while chunk
+// c's first step runs, chunk c - 1's maxima are taken (two accumulator sets,
+// as at D = 128); a step's stage goes back to the producer once the next
+// step is issued and all products but that step's are done. The epilogues,
+// the output layouts and the walk are bmax_wgmma_kernel's.
+template <int BLOCK, int NWG, typename S, template <int> class E, typename L>
+__global__ void __launch_bounds__(kThreads<NWG>, 1)
+bmax_wgmma_wide_kernel(const __grid_constant__ CUtensorMap corpus,
+                       const __grid_constant__ CUtensorMap queries,
+                       const float* __restrict__ scale_a, const float* __restrict__ scale_b,
+                       float* __restrict__ bmax, float* __restrict__ gmax, int num_q, int group,
+                       int num_groups, int slices) {
+  using W = WideRing<S, NWG>;
+  using R = Ring<S>;
+  constexpr int kStages = W::kStages, kRawStages = W::kRawStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t ring = (attn::smem_addr(smem) + 1023) & ~1023u;
+  const uint32_t raw = ring + kStages * W::kStageBytes;
+  const uint32_t full = raw + kRawStages * kRawBytes, empty = full + 8 * kStages;
+  const uint32_t raw_full = empty + 8 * kStages, raw_empty = raw_full + 8 * kRawStages;
+  const int tid = threadIdx.x, t = tid % 128, lane = t % 4;
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, W::kFullCount);
+      mbar_init(empty + 8 * i, NWG * 128);
+    }
+    for (int i = 0; i < kRawStages; ++i) {
+      mbar_init(raw_full + 8 * i, 1);
+      mbar_init(raw_empty + 8 * i, 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int per_group = group * BLOCK / kChunk;  // chunks a group
+  const int total = (num_groups - 1 - (int)blockIdx.y) / (int)gridDim.y * per_group + per_group;
+  const int steps = total * slices;  // step g: slice g % slices of chunk g / slices
+  auto group_of = [&](int s) { return (int)blockIdx.y + s / per_group * (int)gridDim.y; };
+  auto row_of = [&](int s) { return (group_of(s) * per_group + s % per_group) * kChunk; };
+  const int q0 = (int)blockIdx.x * 64 * NWG;
+
+  if (tid >= NWG * 128) {  // the producer
+    if constexpr (NWG == 2) set_max_registers<false, R::kProducerRegs>();
+    // the queries' part of step g's stage at dst
+    auto copy_queries = [&](uint32_t dst, int g, uint32_t bar) {
+      const int col = g % slices * kSlice;
+      tma_load(dst + kChunkBytes, &queries, col, q0, bar);
+      tma_load(dst + kChunkBytes + W::kQueryHalf, &queries, col + 64, q0, bar);
+    };
+    if constexpr (sizeof(S) == 2) {
+      if (tid == NWG * 128) {
+        for (int g = 0; g < steps; ++g) {
+          const int stage = g % kStages, col = g % slices * kSlice, row = row_of(g / slices);
+          mbar_wait(empty + 8 * stage, ((g / kStages) & 1) ^ 1);
+          mbar_expect_tx(full + 8 * stage, W::kStageBytes);
+          const uint32_t dst = ring + stage * W::kStageBytes;
+          tma_load(dst, &corpus, col, row, full + 8 * stage);
+          tma_load(dst + kHalfBytes, &corpus, col + 64, row, full + 8 * stage);
+          copy_queries(dst, g, full + 8 * stage);
+        }
+      }
+    } else {
+      // bmax_wgmma_kernel's int8 producer, step by step: a raw box is one
+      // slice's 128 codes of 128 rows; the TMA thread also copies the
+      // queries' part once the stage is free
+      const bool copier = tid == NWG * 128;
+      auto copy = [&](int g) {
+        const int stage = g % kRawStages;
+        mbar_expect_tx(raw_full + 8 * stage, kRawBytes);
+        tma_load(raw + stage * kRawBytes, &corpus, g % slices * kSlice, row_of(g / slices),
+                 raw_full + 8 * stage);
+      };
+      if (copier)
+        for (int g = 0; g < kRawStages && g < steps; ++g) copy(g);
+      const WidenShare share = widen_share(t);
+      for (int g = 0; g < steps; ++g) {
+        const int rs = g % kRawStages, stage = g % kStages;
+        const uint32_t dst = ring + stage * W::kStageBytes;
+        mbar_wait(raw_full + 8 * rs, (g / kRawStages) & 1);
+        mbar_wait(empty + 8 * stage, ((g / kStages) & 1) ^ 1);
+        if (copier) {
+          mbar_expect_tx(full + 8 * stage, 2 * W::kQueryHalf);
+          copy_queries(dst, g, full + 8 * stage);
+        }
+        widen_chunk(raw + rs * kRawBytes, dst, share);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(full + 8 * stage);
+        mbar_arrive(raw_empty + 8 * rs);
+        if (copier && g + kRawStages < steps) {
+          mbar_wait(raw_empty + 8 * rs, (g / kRawStages) & 1);
+          copy(g + kRawStages);
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (NWG == 2) set_max_registers<true, R::kConsumerRegs>();
+  const int wg = tid / 128;
+  const int row0 = q0 + wg * 64 + attn::frag_row(t);
+  const int my_q = row0 + 8 * (lane & 1);  // the query row whose maxima this lane stores
+  const bool q_valid = my_q < num_q;
+
+  using Ep = E<Blocks<BLOCK>::kRun>;
+  float part[Blocks<BLOCK>::kValues];
+  float gm = -INFINITY;
+  auto operands = [&](int s) {
+    Ep ep;
+    ep.load(scale_a, scale_b, group_of(s) * group + Blocks<BLOCK>::first(s % per_group, lane));
+    return ep;
+  };
+  auto epilogue = [&](const float (&d)[64], int s, const Ep& ep) {
+    const int c = s % per_group;
+    if constexpr (L::kBlockMajor) {
+      const size_t col = (size_t)group_of(s) * group * num_q + my_q;
+      take_maxima<BLOCK, L>(d, c, q_valid ? bmax + col : nullptr, num_q, lane, part, gm, ep);
+    } else {
+      const size_t row = (size_t)group_of(s) * num_q + my_q;
+      take_maxima<BLOCK, L>(d, c, q_valid ? bmax + row * group : nullptr, num_q, lane, part, gm,
+                            ep);
+      if (c == per_group - 1) {
+        gm = fmaxf(gm, __shfl_xor_sync(0xffffffffu, gm, 2));
+        if (q_valid && (lane >> 1) == 0) gmax[row] = gm;
+        gm = -INFINITY;
+      }
+    }
+  };
+  // step g's products into acc once its stage is full (a chunk's first step
+  // overwrites acc); issued, not waited for
+  auto issue = [&](float (&acc)[64], int g) {
+    const int stage = g % kStages;
+    const uint32_t st = ring + stage * W::kStageBytes;
+    mbar_wait(full + 8 * stage, (g / kStages) & 1);
+    attn::wgmma_fence();
+    const int fresh = g % slices == 0;
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+      wgmma_ss_n128(acc, desc_query<NWG>(st, wg, ks), desc_sw128(st, ks), !(fresh && ks == 0));
+    attn::wgmma_commit();
+  };
+  // all but the last issued products are done: step g - 1's stage goes back
+  auto retire = [&](int g) {
+    attn::wgmma_wait<1>();
+    mbar_arrive(empty + 8 * ((g - 1) % kStages));
+  };
+  // chunk s (>= 1) into acc; chunk s - 1's maxima from prev once its last
+  // step is done, while chunk s's first step runs
+  auto chunk = [&](float (&acc)[64], float (&prev)[64], int s) {
+    const Ep ep = operands(s - 1);
+    const int g = s * slices;
+    issue(acc, g);
+    retire(g);
+    attn::fence_regs(prev);
+    epilogue(prev, s - 1, ep);
+    for (int j = 1; j < slices; ++j) {
+      issue(acc, g + j);
+      retire(g + j);
+    }
+  };
+  // the last chunk s, in acc
+  auto finish = [&](float (&acc)[64], int s) {
+    const Ep ep = operands(s);
+    attn::wgmma_wait<0>();
+    attn::fence_regs(acc);
+    mbar_arrive(empty + 8 * ((steps - 1) % kStages));
+    epilogue(acc, s, ep);
+  };
+
+  float acc0[64], acc1[64];
+  issue(acc0, 0);
+  for (int j = 1; j < slices; ++j) {
+    issue(acc0, j);
+    retire(j);
+  }
+  int s = 1;
+  for (; s + 1 < total; s += 2) {
+    chunk(acc1, acc0, s);
+    chunk(acc0, acc1, s + 1);
+  }
+  if (s < total) {
+    chunk(acc1, acc0, s);
+    finish(acc1, s);
+  } else {
+    finish(acc0, s - 1);
+  }
+}
+
 struct Args {
   const void *queries, *corpus, *scale_a, *scale_b;
   void *bmax, *gmax;
-  int num_q, n, group, num_groups;
+  int num_q, n, dim, group, num_groups;
   cudaStream_t stream;
 };
 
@@ -616,56 +888,96 @@ cudaError_t launch(const Args& x) {
   return cudaGetLastError();
 }
 
+template <int BLOCK, int NWG, typename S, template <int> class E, typename L>
+cudaError_t launch_wide(const Args& x) {
+  using W = WideRing<S, NWG>;
+  auto kernel = bmax_wgmma_wide_kernel<BLOCK, NWG, S, E, L>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)W::kSmem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap cmap, qmap;
+  err = sizeof(S) == 1
+            ? tile_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, x.corpus, x.dim, x.n, 128, kChunk)
+            : tile_map(&cmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x.corpus, x.dim, x.n, 64,
+                       kChunk);
+  if (err != cudaSuccess) return err;
+  err = tile_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x.queries, x.dim, x.num_q, 64,
+                 64 * NWG);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = multiprocessors(&sms)) != cudaSuccess) return err;
+  const int tiles = (x.num_q + 64 * NWG - 1) / (64 * NWG);
+  int gy = sms / tiles;
+  gy = gy < 1 ? 1 : (gy > x.num_groups ? x.num_groups : gy);
+  kernel<<<dim3(tiles, gy), kThreads<NWG>, W::kSmem, x.stream>>>(
+      cmap, qmap, static_cast<const float*>(x.scale_a), static_cast<const float*>(x.scale_b),
+      static_cast<float*>(x.bmax), static_cast<float*>(x.gmax), x.num_q, x.group, x.num_groups,
+      (x.dim + kSlice - 1) / kSlice);
+  return cudaGetLastError();
+}
+
+// D = 128: bmax_wgmma_kernel (the queries' fragments in registers); any
+// other width: bmax_wgmma_wide_kernel
+template <int BLOCK, int NWG, typename S, template <int> class E, typename L>
+cudaError_t launch_dim(const Args& x) {
+  return x.dim == kDim ? launch<BLOCK, NWG, S, E, L>(x) : launch_wide<BLOCK, NWG, S, E, L>(x);
+}
+
 template <typename S, template <int> class E, typename L = Grouped>
 cudaError_t launch_block(int block, const Args& x) {
   const bool two = x.num_q > 64;  // two consumer warpgroups
   switch (block) {
-    case 16: return two ? launch<16, 2, S, E, L>(x) : launch<16, 1, S, E, L>(x);
-    case 32: return two ? launch<32, 2, S, E, L>(x) : launch<32, 1, S, E, L>(x);
-    case 64: return two ? launch<64, 2, S, E, L>(x) : launch<64, 1, S, E, L>(x);
-    case 128: return two ? launch<128, 2, S, E, L>(x) : launch<128, 1, S, E, L>(x);
-    case 256: return two ? launch<256, 2, S, E, L>(x) : launch<256, 1, S, E, L>(x);
+    case 16: return two ? launch_dim<16, 2, S, E, L>(x) : launch_dim<16, 1, S, E, L>(x);
+    case 32: return two ? launch_dim<32, 2, S, E, L>(x) : launch_dim<32, 1, S, E, L>(x);
+    case 64: return two ? launch_dim<64, 2, S, E, L>(x) : launch_dim<64, 1, S, E, L>(x);
+    case 128: return two ? launch_dim<128, 2, S, E, L>(x) : launch_dim<128, 1, S, E, L>(x);
+    case 256: return two ? launch_dim<256, 2, S, E, L>(x) : launch_dim<256, 1, S, E, L>(x);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// n a multiple of block; the last group may be partial: its rows past n
+// arrive as zeros (TMA's fill), so they score 0, as zero padding rows would,
+// and its blocks past n are stored like any other
 bool valid_shape(int num_q, int n, int dim, int block, int group) {
-  return dim == kDim && num_q > 0 && n > 0 && block > 0 && group > 0 &&
-         (group * block) % kChunk == 0 && n % (group * block) == 0 &&
-         n / (group * block) <= kMaxGrid;
+  return dim > 0 && dim % kDimMultiple == 0 && num_q > 0 && n > 0 && block > 0 && group > 0 &&
+         (group * block) % kChunk == 0 && n % block == 0 &&
+         (n + group * block - 1) / (group * block) <= kMaxGrid;
 }
+
+int num_groups(int n, int block, int group) { return (n + group * block - 1) / (group * block); }
 
 }  // namespace
 
-// queries [num_q, 128] and corpus [n, 128] bf16, row-major and 16-byte
-// aligned; bmax [n / (group * block), num_q, group] and gmax
-// [n / (group * block), 1, num_q] f32. block in {16, 32, 64, 128, 256},
-// group * block a multiple of 128 (ops/mips_kernel.py:kernel_for). Returns a
-// cudaError_t code.
+// queries [num_q, dim] and corpus [n, dim] bf16, row-major and 16-byte
+// aligned, dim a multiple of 16; bmax [CG, num_q, group] and gmax
+// [CG, 1, num_q] f32, CG = ceil(n / (group * block)). block in {16, 32, 64,
+// 128, 256}, group * block a multiple of 128 (ops/mips_kernel.py:kernel_for),
+// n a multiple of block. Returns a cudaError_t code.
 extern "C" int proqa_block_maxima_wgmma(const void* queries, const void* corpus, void* bmax,
                                         void* gmax, int num_q, int n, int dim, int block,
                                         int group, void* stream) {
   if (!valid_shape(num_q, n, dim, block, group)) return cudaErrorInvalidValue;
-  const Args x{queries, corpus, nullptr, nullptr, bmax, gmax, num_q, n, group,
-               n / (group * block), static_cast<cudaStream_t>(stream)};
+  const Args x{queries, corpus, nullptr, nullptr, bmax, gmax, num_q, n, dim, group,
+               num_groups(n, block, group), static_cast<cudaStream_t>(stream)};
   return launch_block<bf16, RawMaxima>(block, x);
 }
 
 // K8: as proqa_block_maxima_wgmma, the block maxima stored block-major,
-// bmax [n / block, num_q] f32, with no group level. group = tile_n / block,
+// bmax [CG * group, num_q] f32, with no group level. group = tile_n / block,
 // the blocks of one unit of the persistent walk.
 extern "C" int proqa_block_maxima_wgmma_block_major(const void* queries, const void* corpus,
                                                     void* bmax, int num_q, int n, int dim,
                                                     int block, int group, void* stream) {
   if (!valid_shape(num_q, n, dim, block, group)) return cudaErrorInvalidValue;
-  const Args x{queries, corpus, nullptr, nullptr, bmax, nullptr, num_q, n, group,
-               n / (group * block), static_cast<cudaStream_t>(stream)};
+  const Args x{queries, corpus, nullptr, nullptr, bmax, nullptr, num_q, n, dim, group,
+               num_groups(n, block, group), static_cast<cudaStream_t>(stream)};
   return launch_block<bf16, RawMaxima, BlockMajor>(block, x);
 }
 
-// As proqa_block_maxima_wgmma over int8 codes [n, 128], with the epilogue
-// of K5 (scale_a [n / block] f32, scale_b null: each block maximum times its
-// scale) or of K7 (scale_a = smax and scale_b = smin [n / block] f32: the
+// As proqa_block_maxima_wgmma over int8 codes [n, dim], with the epilogue
+// of K5 (scale_a [CG * group] f32, scale_b null: each block maximum times its
+// scale) or of K7 (scale_a = smax and scale_b = smin [CG * group] f32: the
 // bound m >= 0 ? m * smax : m * smin); both 16-byte aligned.
 extern "C" int proqa_block_maxima_wgmma_int8(const void* queries, const void* corpus,
                                              const void* scale_a, const void* scale_b,
@@ -673,8 +985,8 @@ extern "C" int proqa_block_maxima_wgmma_int8(const void* queries, const void* co
                                              int block, int group, void* stream) {
   if (!valid_shape(num_q, n, dim, block, group) || scale_a == nullptr)
     return cudaErrorInvalidValue;
-  const Args x{queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, group,
-               n / (group * block), static_cast<cudaStream_t>(stream)};
+  const Args x{queries, corpus, scale_a, scale_b, bmax, gmax, num_q, n, dim, group,
+               num_groups(n, block, group), static_cast<cudaStream_t>(stream)};
   return scale_b == nullptr ? launch_block<int8_t, BlockScales>(block, x)
                             : launch_block<int8_t, RowBounds>(block, x);
 }

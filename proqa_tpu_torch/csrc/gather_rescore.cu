@@ -46,6 +46,13 @@
 //     32 consecutive scores. The warp then frees the stage (empty mbarrier).
 // The products of bf16 values are exact in f32; the sums run in another
 // order than the plain version's (tests/test_torch_cuda.py: 1e-4).
+// Widths: the above is the D = 128 form (gather_score_ring_kernel). Every
+// other width that is a multiple of 16, with a row of at most 16 KB (D <=
+// 8,192 in bf16, 4,096 in f32: a stage holds two beside the query's),
+// runs gather_score_wide_kernel: four 48 KB stages, one a consumer warp, of
+// as many whole rows as fit beside the query's (at most 64; 31 at D = 768 in
+// bf16), a lane summing its 16-byte vectors of a row in order and the warp's
+// exchange of halves finishing 32 rows at once, whatever the row's length.
 // tests/test_torch_gather_rescore_split.py mirrors the work split, the
 // ring's slots and phases and every lane's rows thread by thread.
 #include <cuda_bf16.h>
@@ -285,19 +292,191 @@ cudaError_t launch(const void* queries, const void* corpus, const void* ids, voi
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Every other width: gather_score_wide_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kWideStageBytes = 49152;  // a wide stage: its rows, then the query's row
+constexpr int kWideStages = 4;          // ring stages: 192 KB, one CUDA block an SM
+constexpr int kWideMaxRows = 64;        // rows a wide stage holds at most
+constexpr int kWideSmem = kWideStages * kWideStageBytes + 2 * kWideStages * 8;
+// the widest row a stage takes, two of them beside the query's: 16 KB (D <=
+// 8,192 in bf16, 4,096 in f32)
+constexpr int kWideMaxRowBytes = kWideStageBytes / 3;
+
+// Consumer warp w takes the tiles n with n % kConsumers == w and tile n lies
+// in stage n % kWideStages, so each stage must have one reader. Were a stage
+// shared by two warps (6 stages, 4 warps: tile n on warp w, tile n + 6 on
+// warp w + 2), the warp of tile n + 6 could wait on the stage while tile n's
+// copies are still in flight: its parity is then that of the phase already
+// completed, the wait passes at once, and it reads stale rows.
+static_assert(kWideStages % kConsumers == 0, "a consumer warp owns whole ring slots");
+
+// gather_score_ring_kernel at any width D (a multiple of 16): a stage holds
+// `rows` candidate rows of row_bytes (at most 64, as many as 48 KB holds
+// beside the query's row), copied as at D = 128, one bulk copy a piece of a
+// candidate block. A consumer warp takes a stage's rows 32 at a time: for
+// each row every lane sums the products of its 16-byte vectors v = lane,
+// lane + 32, ... of the row with the query's same vectors (in f32, vectors
+// in order), then the 32 lanes' partial sums of the 32 rows finish by
+// exchanges of halves (sum_rows over 5 bits), which leaves lane l the sum of
+// row l, and the warp stores 32 consecutive scores.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+gather_score_wide_kernel(const T* __restrict__ queries, const T* __restrict__ corpus,
+                         const int64_t* __restrict__ ids, float* __restrict__ out, int num_q,
+                         int kb, int block, int row_bytes, int rows_per_stage) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t ring = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t full = ring + kWideStages * kWideStageBytes, empty = full + 8 * kWideStages;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kWideStages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int per_q = (kb + kRunBlocks - 1) / kRunBlocks;
+  const int num_items = num_q * per_q;
+  const int query_at = rows_per_stage * row_bytes;  // the query's row in a stage
+
+  if (warp == kConsumers) {  // the producer: tile n into stage n % kWideStages
+    const char* qbase = reinterpret_cast<const char*>(queries);
+    const char* cbase = reinterpret_cast<const char*>(corpus);
+    auto load_ids = [&](int it) -> int64_t {
+      if (it >= num_items) return 0;
+      const Item w = work_item(it, kb, per_q);
+      return lane < w.nblk ? ids[(int64_t)w.q * kb + w.first + lane] : 0;
+    };
+    int n = 0;
+    int64_t next = load_ids(blockIdx.x);
+    for (int it = blockIdx.x; it < num_items; it += gridDim.x) {
+      const Item w = work_item(it, kb, per_q);
+      const int64_t id = next;
+      next = load_ids(it + gridDim.x);
+      const int rows = w.nblk * block;
+      const char* qrow = qbase + (int64_t)w.q * row_bytes;
+      for (int r0 = 0; r0 < rows; r0 += rows_per_stage, ++n) {
+        const int stage = n % kWideStages;
+        const uint32_t dst = ring + stage * kWideStageBytes, bar = full + 8 * stage;
+        const int nrows = min(rows_per_stage, rows - r0);
+        const int b0 = r0 / block, pieces = (r0 + nrows - 1) / block - b0 + 1;
+        const long long cand =
+            __shfl_sync(0xffffffffu, (long long)id, min(b0 + lane, kRunBlocks - 1));
+        if (lane == 0) {
+          mbar_wait(empty + 8 * stage, ((n / kWideStages) & 1) ^ 1);
+          mbar_expect_tx(bar, (uint32_t)(nrows + 1) * row_bytes);
+          bulk_load(dst + query_at, qrow, row_bytes, bar);
+        }
+        __syncwarp();
+        if (lane < pieces) {
+          const int b = b0 + lane;
+          const int lo = max(r0, b * block), hi = min(r0 + nrows, (b + 1) * block);
+          const char* src = cbase + (cand * block + (lo - b * block)) * row_bytes;
+          bulk_load(dst + (lo - r0) * row_bytes, src, (uint32_t)(hi - lo) * row_bytes, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  constexpr int kVec = 16 / (int)sizeof(T);
+  const int vecs = row_bytes / 16;  // 16-byte vectors a row
+  int n = 0;
+  for (int it = blockIdx.x; it < num_items; it += gridDim.x) {
+    const Item w = work_item(it, kb, per_q);
+    const int rows = w.nblk * block;
+    float* qout = out + ((int64_t)w.q * kb + w.first) * block;
+    for (int r0 = 0; r0 < rows; r0 += rows_per_stage, ++n) {
+      if (n % kConsumers != warp) continue;
+      const int stage = n % kWideStages;
+      const int nrows = min(rows_per_stage, rows - r0);
+      const unsigned char* st = smem + stage * kWideStageBytes;
+      const unsigned char* qv = st + query_at;
+      mbar_wait(full + 8 * stage, (n / kWideStages) & 1);
+      float sums[kWideMaxRows / 32];
+#pragma unroll
+      for (int g = 0; g < kWideMaxRows / 32; ++g) {
+        float p[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) {
+          const int row = 32 * g + k;
+          float acc = 0.0f;
+          if (row < nrows)
+            for (int v = lane; v < vecs; v += 32) {
+              float c[kVec], q[kVec];
+              widen<T>(*reinterpret_cast<const uint4*>(st + row * row_bytes + 16 * v), c);
+              widen<T>(*reinterpret_cast<const uint4*>(qv + 16 * v), q);
+#pragma unroll
+              for (int i = 0; i < kVec; ++i) acc = fmaf(c[i], q[i], acc);
+            }
+          p[k] = acc;
+        }
+        sums[g] = 32 * g < nrows ? sum_rows<16>(p, lane) : 0.0f;
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+#pragma unroll
+      for (int g = 0; g < kWideMaxRows / 32; ++g)
+        if (32 * g + lane < nrows) qout[r0 + 32 * g + lane] = sums[g];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const void* queries, const void* corpus, const void* ids, void* out,
+                        int num_q, int kb, int block, int dim, cudaStream_t stream) {
+  constexpr int kMaxDevices = 64;
+  static int caps[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  auto kernel = gather_score_wide_kernel<T>;
+  int cap = device < kMaxDevices ? caps[device] : 0;
+  if (cap == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    if ((err = bmax::multiprocessors(&sms)) != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, kWideSmem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cap = sms * per_sm;
+    if (device < kMaxDevices) caps[device] = cap;
+  }
+  const int row_bytes = dim * (int)sizeof(T);
+  int rows = (kWideStageBytes - row_bytes) / row_bytes;
+  rows = rows > kWideMaxRows ? kWideMaxRows : rows;
+  const long long items = (long long)num_q * ((kb + kRunBlocks - 1) / kRunBlocks);
+  const int grid = (int)(items < cap ? items : cap);
+  kernel<<<grid, kThreads, kWideSmem, stream>>>(
+      static_cast<const T*>(queries), static_cast<const T*>(corpus),
+      static_cast<const int64_t*>(ids), static_cast<float*>(out), num_q, kb, block, row_bytes,
+      rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // queries [num_q, dim] and corpus [nb * block, dim] (both bf16 when is_bf16,
-// else f32, row-major, 16-byte aligned); ids [num_q, kb] int64, each in
+// else f32, row-major, 16-byte aligned; dim a multiple of 16, its row at most
+// 16 KB: dim <= 8,192 in bf16, 4,096 in f32); ids [num_q, kb] int64, each in
 // [0, nb); out [num_q, kb * block] f32. Returns a cudaError_t code.
 extern "C" int proqa_gather_score(const void* queries, const void* corpus, const void* ids,
                                   void* out, int num_q, int nb, int kb, int block, int dim,
                                   int is_bf16, void* stream) {
-  if (dim != kDim || num_q <= 0 || nb <= 0 || kb <= 0 || block <= 0 ||
+  if (dim <= 0 || dim % bmax::kDimMultiple != 0 || dim * (is_bf16 ? 2 : 4) > kWideMaxRowBytes ||
+      num_q <= 0 || nb <= 0 || kb <= 0 || block <= 0 ||
       (long long)num_q * ((kb + kRunBlocks - 1) / kRunBlocks) > 0x7fffffffLL ||
       block > (1 << 20))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dim != kDim)
+    return is_bf16
+               ? launch_wide<__nv_bfloat16>(queries, corpus, ids, out, num_q, kb, block, dim, s)
+               : launch_wide<float>(queries, corpus, ids, out, num_q, kb, block, dim, s);
   return is_bf16 ? launch<__nv_bfloat16>(queries, corpus, ids, out, num_q, kb, block, s)
                  : launch<float>(queries, corpus, ids, out, num_q, kb, block, s);
 }

@@ -32,6 +32,10 @@ while the card keeps up ("host us", 20 calls a round):
       Q = 2,048 and Q = 32;
   K7  the same codes with the bounds (smax, smin) of per-row scales, at
       Q = 2,048;
+  K1, K1 f32, K5, K7, K8, K6 at D = 768  the K-loop forms at DPR's width
+      over 1,048,576 rows, beside their plain versions, the take path (K6)
+      and their bounds (`width_times`; checkouts whose kernels take D = 128
+      alone skip them);
   K4  dropout at [80, 512, 768] bf16, rate 0.1, beside F.dropout;
   F1  the dense epilogue at the encode's shapes (build-index's 512 rows of
       T = 512: 262,144 rows), an f32 product of [262,144, 768] to bf16 and
@@ -343,6 +347,105 @@ def wide_times(time_kernel, fused_bert, dev, g, out) -> None:
     torch.cuda.empty_cache()
 
 
+WIDTH = 768          # DPR's embedding width (and ANCE's, Contriever's, GTR-base's)
+WIDTH_ROWS = 1_048_576
+
+
+def width_times(time_kernel, mips_kernel, rescore, dev, g, out) -> None:
+    """The search kernels' K-loop forms at D = 768 over 1,048,576 rows, each
+    beside its plain version ("plain ...") and its bound ("... bound ms",
+    "... bound by", chip_smoke.py:bound): K1 over bf16 at Q = 2,048 and 32
+    and over f32 at Q = 2,048 (the f32 FMA rate), block 16; K5 and K7 over
+    int8 codes at Q = 2,048, block 16; K8 block-major at block 256, tile_n
+    2,048; K6 on the candidate blocks the K1 pipeline selects (Q = 2,048,
+    k = kb = 80) at block 16, beside the take path (the gather and one
+    batched product), and at block 64 (the 21M-row search's block). The
+    plain versions run 128 groups at a time (their [Q, N] f32 scores would
+    not fit) and are timed as the sum of their parts. Checkouts whose
+    kernels take D = 128 alone skip this."""
+    import torch
+
+    from proqa_tpu_torch.ops import mips
+    from proqa_tpu_torch.ops.dot import dot_f32
+
+    smoke = _smoke()
+    n, d, q = WIDTH_ROWS, WIDTH, 2048
+
+    def plain_grouped(name, queries, corpus, block, **kw):
+        def run():
+            for r0 in range(0, n, 128 * block * 16):
+                sl = slice(r0 // block, (r0 + 128 * block * 16) // block)
+                part = {k: tuple(x[sl] for x in v) if isinstance(v, tuple) else v[sl]
+                        for k, v in kw.items()}
+                mips_kernel.block_maxima_grouped_reference(
+                    queries, corpus[r0:r0 + 128 * block * 16], block=block, **part)
+        time_kernel(f"plain {name}", run, rounds=3, queued_rounds=1)
+
+    def bound(name, queries, corpus, outputs, peak=smoke.PEAK_BF16_FLOPS, extra=0):
+        nbytes = (corpus.numel() * corpus.element_size()
+                  + queries.numel() * queries.element_size() + extra
+                  + sum(o.numel() * o.element_size() for o in outputs))
+        out[f"{name} bound ms"], out[f"{name} bound by"] = smoke.bound(
+            nbytes, 2.0 * queries.shape[0] * corpus.shape[0] * d, peak)
+
+    corpus = (torch.randn(n, d, device=dev, generator=g) / d ** 0.5).bfloat16()
+    queries = (torch.randn(q, d, device=dev, generator=g) / d ** 0.5).bfloat16()
+    for qn in (2048, 32):
+        qs = queries[:qn].contiguous()
+        name = f"K1 D={d} Q={qn}"
+        time_kernel(name, lambda: mips_kernel.block_maxima_grouped(qs, corpus, block=16))
+        plain_grouped(name, qs, corpus, 16)
+        bound(name, qs, corpus, mips_kernel.block_maxima_grouped(qs, corpus, block=16))
+    name = f"K8 D={d} Q={q}"
+    time_kernel(name, lambda: mips_kernel.block_maxima(queries, corpus, block=256, tile_n=2048))
+    time_kernel(f"plain {name}", lambda: [
+        mips_kernel.block_maxima_reference(queries, corpus[r0:r0 + 65536], block=256,
+                                           tile_n=2048) for r0 in range(0, n, 65536)],
+        rounds=3, queued_rounds=1)
+    bound(name, queries, corpus, (mips_kernel.block_maxima(queries, corpus, block=256,
+                                                           tile_n=2048),))
+    for block in (16, 64):
+        ids = mips_kernel.select_blocks(queries, corpus, 80, block=block)
+        blocks = corpus.view(-1, block, d)
+        name = f"K6 D={d} Q={q} kb=80 block={block}"
+        time_kernel(name, lambda: rescore.gather_rescore(queries, blocks, ids, block=block),
+                    rounds=10)
+        distinct = torch.unique(ids).numel() * block * d * 2
+        out[f"{name} bound ms"], out[f"{name} bound by"] = smoke.bound(
+            distinct + q * d * 2 + q * 80 * block * 4 + ids.numel() * 8, 2.0 * q * 80 * block * d)
+        if block == 16:
+            time_kernel(f"take {name}", lambda: dot_f32(
+                blocks[ids].view(q, 80 * block, d), queries[:, :, None]).view(q, -1), rounds=5)
+            time_kernel(f"plain {name}", lambda: torch.cat([
+                rescore.gather_rescore_reference(queries[s:s + 256], blocks, ids[s:s + 256],
+                                                 block=block) for s in range(0, q, 256)]),
+                rounds=3, queued_rounds=1)
+        del ids
+    del corpus
+    corpus = torch.randn(n, d, device=dev, generator=g) / d ** 0.5
+    qf = torch.randn(q, d, device=dev, generator=g) / d ** 0.5
+    name = f"K1 f32 D={d} Q={q}"
+    time_kernel(name, lambda: mips_kernel.block_maxima_grouped(qf, corpus, block=16), rounds=3)
+    plain_grouped(name, qf, corpus, 16)
+    bound(name, qf, corpus, mips_kernel.block_maxima_grouped(qf, corpus, block=16),
+          smoke.PEAK_F32_FLOPS)
+    del corpus, qf
+    codes = torch.randint(-127, 128, (n, d), device=dev, generator=g, dtype=torch.int8)
+    scales = torch.rand(n // 16, device=dev, generator=g) * 0.02 + 1e-3
+    rows = (torch.rand(n, device=dev, generator=g) * 0.02 + 1e-3).view(-1, 16)
+    bounds = (rows.amax(dim=1), rows.amin(dim=1))
+    for name, kw in ((f"K5 D={d} Q={q}", {"scales": scales}),
+                     (f"K7 D={d} Q={q}", {"scale_bounds": bounds})):
+        time_kernel(name, lambda: mips_kernel.block_maxima_grouped(queries, codes, block=16,
+                                                                   **kw))
+        plain_grouped(name, queries, codes, 16, **kw)
+        bound(name, queries, codes,
+              mips_kernel.block_maxima_grouped(queries, codes, block=16, **kw),
+              extra=scales.numel() * 4 * (1 if "scales" in kw else 2))
+    del codes, scales, rows, bounds, queries
+    torch.cuda.empty_cache()
+
+
 ATTENTION_SHAPES = ((512, 12, 512, 32), (80, 12, 512, 32), (64, 8, 512, 128), (80, 12, 512, 64),
                     (80, 12, 512, 16))
 
@@ -479,6 +582,9 @@ def main(argv=None) -> int:
             time_kernel(f"{name} Q={q}",
                         lambda: mips_kernel.block_maxima_grouped(qs, codes, block=16, **kw))
         del codes, scales, rows, bounds, queries
+    if wanted("K1 D=", "K1 f32 D=", "K5 D=", "K7 D=", "K8 D=", "K6 D=") and getattr(
+            mips_kernel, "kernel_takes_dim", lambda d: False)(WIDTH):
+        width_times(time_kernel, mips_kernel, rescore, dev, g, out)
     if wanted("K4", "F.dropout"):
         x = torch.randn(80, 512, 768, device=dev, generator=g).bfloat16()
         for name, fn in (("K4", lambda: dropout.dropout(x, 0.1, seed=3)),

@@ -4,6 +4,11 @@ Counterpart of proqa_tpu/models/retriever.py: separate question and context
 BERT towers, each followed by a Linear(hidden, 128) over the pooled CLS
 output. The projection multiplies in the activation dtype and accumulates in
 f32, and the f32 bias gives f32 embeddings.
+
+The embedding width is 128 by default, as the reference's; a checkpoint of
+another width (the JAX package's init_retriever_params(embed_dim=)) builds
+its model at that width (`embed_dim_of`), as the JAX CLI's load into its
+params template takes whatever width the checkpoint holds.
 """
 from __future__ import annotations
 
@@ -13,6 +18,14 @@ from torch import nn
 from proqa_tpu_torch.models.bert import BertConfig, BertEncoder, Dense, init_parameters
 
 EMBED_DIM = 128  # the reference hardcodes 128
+
+
+def embed_dim_of(state: dict, prefix: str = "") -> int:
+    """The embedding width of a retriever state dict: its proj_q kernel's
+    columns (keys under `prefix`, e.g. "retriever." in a QAModel's), or
+    EMBED_DIM when it holds none."""
+    kernel = state.get(f"{prefix}proj_q.kernel")
+    return EMBED_DIM if kernel is None else int(kernel.shape[-1])
 
 
 class Retriever(nn.Module):

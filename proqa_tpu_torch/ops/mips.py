@@ -26,9 +26,13 @@ import torch
 
 from proqa_tpu_torch.ops.dot import dot_f32
 from proqa_tpu_torch.ops.quant import expand_scales
-from proqa_tpu_torch.ops.rescore import KERNEL_DIM, gather_rescore
+from proqa_tpu_torch.ops.rescore import gather_rescore, kernel_takes
 
 NEG_INF = float(np.float32(-3.0e38))  # finite in bf16 too; the f32 value exactly
+# the `take` rescore gathers [Q, kb, block, D] candidate rows: at most this
+# many bytes at once (Q = 2,048, kb = 80, block 64, D = 768 would be 16 GB
+# of bf16), the queries taken in as many chunks as that needs
+TAKE_BYTES = 1 << 30
 
 
 def _scores(queries: torch.Tensor, corpus: torch.Tensor) -> torch.Tensor:
@@ -70,13 +74,14 @@ def rescore_impl_for(device, queries_dtype, corpus_dtype, dim: int, scaled: bool
     """The rescore a search takes by default, from its arguments alone,
     before any launch: "stream" (kernel K6, ops/rescore.py) for CUDA tensors
     whose queries and corpus share a dtype of bf16 or f32, with no int8
-    scales, at D = 128; "take" everywhere else (the CPU, int8 corpora, other
-    widths). The JAX package defaults to "take" everywhere, since its stream
-    kernel lost on a v5e (proqa_tpu/ops/pallas_rescore.py:3-11); on the H100
+    scales, at every width the kernel takes (ops/rescore.py:kernel_takes);
+    "take" everywhere else (the CPU, int8 corpora, other widths). The JAX
+    package defaults to "take" everywhere, since its stream kernel lost on a
+    v5e (proqa_tpu/ops/pallas_rescore.py:3-11); on the H100
     K6 is the faster of the two (PERF.md section 6)."""
-    if (torch.device(device).type == "cuda" and not scaled and dim == KERNEL_DIM
-            and corpus_dtype == queries_dtype
-            and queries_dtype in (torch.bfloat16, torch.float32)):
+    if (torch.device(device).type == "cuda" and not scaled and corpus_dtype == queries_dtype
+            and queries_dtype in (torch.bfloat16, torch.float32)
+            and kernel_takes(dim, queries_dtype)):
         return "stream"
     return "take"
 
@@ -90,15 +95,20 @@ def rescore_block_candidates(q_emb, blocks_ids, corpus_blocks, *, k: int, block:
     q_emb [QC, D]; blocks_ids [QC, kb] candidate block ids; corpus_blocks
     [NB, block, D]. Returns (values [QC, k] f32, row indices [QC, k] int64).
 
-    impl: "take" gathers the candidate rows ([QC, kb, block, D]) and scores
-    them with one batched product; "stream" scores them where they lie,
+    impl: "take" gathers the candidate rows ([QC, kb, block, D], at most
+    TAKE_BYTES of them at once) and scores them with batched products;
+    "stream" scores them where they lie,
     kernel K6 (ops/rescore.py), and takes no int8 scales; None picks by
     rescore_impl_for.
     block_scales: per-block f32 [NB] of an int8 corpus; row_scales: per-row
     f32 [NB * block] (the row-scored paths). Candidate scores are multiplied
-    by them before the selection."""
+    by them before the selection. A candidate id past corpus_blocks (a block
+    of zero rows past the corpus, mips_kernel.select_blocks) reads the last
+    block and is masked as padding."""
     qc, kb = blocks_ids.shape
     d = q_emb.shape[1]
+    flat_ids = blocks_ids
+    blocks_ids = blocks_ids.clamp(max=corpus_blocks.shape[0] - 1)
     if block_scales is not None and row_scales is not None:
         raise ValueError("pass block_scales or row_scales, not both")
     if impl is None:
@@ -109,8 +119,14 @@ def rescore_block_candidates(q_emb, blocks_ids, corpus_blocks, *, k: int, block:
             raise ValueError("stream rescore does not support int8")
         s = gather_rescore(q_emb.contiguous(), corpus_blocks, blocks_ids, block=block)
     elif impl == "take":
-        cand = corpus_blocks[blocks_ids].to(q_emb.dtype).view(qc, kb * block, d)
-        s = dot_f32(cand, q_emb[:, :, None]).view(qc, kb * block)
+        row_bytes = kb * block * d * max(corpus_blocks.element_size(), q_emb.element_size())
+        step = max(1, TAKE_BYTES // row_bytes)
+
+        def take(lo):
+            cand = corpus_blocks[blocks_ids[lo:lo + step]].to(q_emb.dtype).view(-1, kb * block, d)
+            return dot_f32(cand, q_emb[lo:lo + step, :, None]).view(-1, kb * block)
+
+        s = take(0) if step >= qc else torch.cat([take(lo) for lo in range(0, qc, step)])
     else:
         raise ValueError(f"unknown rescore impl {impl!r}")
     if block_scales is not None:
@@ -118,7 +134,7 @@ def rescore_block_candidates(q_emb, blocks_ids, corpus_blocks, *, k: int, block:
     elif row_scales is not None:
         s = s * row_scales.view(-1, block)[blocks_ids].view(qc, kb * block)
     offs = torch.arange(block, device=blocks_ids.device)
-    flat_idx = (blocks_ids[:, :, None] * block + offs).view(qc, kb * block)
+    flat_idx = (flat_ids[:, :, None] * block + offs).view(qc, kb * block)
     s = torch.where(flat_idx < n_valid, s, NEG_INF)
     vals, sel = exact_topk(s, k)
     return vals, torch.gather(flat_idx, 1, sel)

@@ -22,6 +22,18 @@ all with bf16 queries, and K8 over bf16 in csrc/block_maxima_wgmma.cu; K1
 over f32 in csrc/block_maxima_f32.cu; f32 K8, f32 queries over int8 codes
 and the shapes neither takes in csrc/block_maxima.cu. CPU tensors run their
 plain PyTorch versions (`*_reference`).
+
+Widths: every kernel takes any embedding width D that is a multiple of 16
+(`kernel_takes_dim`), with no upper limit: D = 128 runs the forms first
+built for it, every other width their K-loop forms, which stream the
+queries' slices beside the corpus's. Another width raises on the card,
+naming it; the JAX package's Pallas kernel takes d % 128 == 0 and its XLA
+path any d (ROADMAP Queue 3).
+
+The last group of the grouped output may be partial: N need only be a
+multiple of block, and the rows past N score 0, as zero padding rows would.
+So mips_topk_v2 searches an index's rows where they lie, with no padded copy
+of the corpus (a 21M x 768 bf16 index is 32 GB).
 """
 from __future__ import annotations
 
@@ -32,9 +44,9 @@ from proqa_tpu_torch.ops.dot import dot_f32
 from proqa_tpu_torch.ops.mips import (
     NEG_INF, exact_topk, pad_ones, pad_rows, rescore_block_candidates,
 )
+from proqa_tpu_torch.ops.rescore import DIM_MULTIPLE, kernel_takes_dim
 
 GROUP = 128  # blocks per group, as the JAX package pins it
-KERNEL_DIM = 128  # the embedding width the CUDA kernel takes
 
 # kernel launches since the last reset (the main path's proof of use), one
 # count for each TPU kernel this module replaces
@@ -47,19 +59,20 @@ block_major_launches = 0  # K8: block_maxima
 
 def _check_shapes(queries, corpus, block: int, group: int, scales=None,
                   scale_bounds=None) -> int:
+    """The number of groups, the last one possibly partial."""
     if queries.dim() != 2 or corpus.dim() != 2 or queries.shape[1] != corpus.shape[1]:
         raise ValueError(f"queries {tuple(queries.shape)} and corpus {tuple(corpus.shape)} "
                          "must be [Q, D] and [N, D]")
     n = corpus.shape[0]
-    if n % (group * block):
-        raise ValueError(f"N={n} must be a multiple of group*block={group * block}")
+    if n % block:
+        raise ValueError(f"N={n} must be a multiple of block={block}")
     if scales is not None and scale_bounds is not None:
         raise ValueError("pass scales or scale_bounds, not both")
     for s in (scales,) if scale_bounds is None else scale_bounds:
         if s is not None and tuple(s.shape) != (n // block,):
             raise ValueError(f"need per-block scales [{n // block}], got {tuple(s.shape)}: the "
                              "quantization block must equal the kernel block")
-    return n // (group * block)
+    return -(-n // (group * block))
 
 
 def _epilogue(bm, scales, scale_bounds):
@@ -79,10 +92,23 @@ def _raw_block_maxima(queries, corpus, block: int):
     return s.view(-1, block, queries.shape[0]).amax(dim=1)
 
 
+def _grid_scales(scales, scale_bounds, nb: int):
+    """The scales (K5) or bounds (K7) padded with 1.0 to the nb blocks of the
+    whole groups (the blocks past N hold zero rows)."""
+    if scales is not None:
+        scales = pad_ones(scales, nb)
+    if scale_bounds is not None:
+        scale_bounds = tuple(pad_ones(s, nb) for s in scale_bounds)
+    return scales, scale_bounds
+
+
 def block_maxima_grouped_reference(queries, corpus, *, block: int, group: int = GROUP,
                                    scales=None, scale_bounds=None):
-    """Plain PyTorch version of K1, K5 and K7: the full score matrix, reduced."""
+    """Plain PyTorch version of K1, K5 and K7: the full score matrix, reduced
+    (a partial last group completed with zero rows)."""
     cg = _check_shapes(queries, corpus, block, group, scales, scale_bounds)
+    scales, scale_bounds = _grid_scales(scales, scale_bounds, cg * group)
+    corpus = pad_rows(corpus, group * block)
     bm = _epilogue(_raw_block_maxima(queries, corpus, block), scales, scale_bounds)
     bmax3 = bm.view(cg, group, -1).transpose(1, 2).contiguous()  # [CG, Q, G]
     return bmax3, bmax3.amax(dim=2)[:, None, :]
@@ -124,8 +150,9 @@ def _launch(queries, corpus, bmax, gmax, *, block: int, group: int, scales=None,
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     q, d = queries.shape
-    if d != KERNEL_DIM:
-        raise ValueError(f"the block-maxima kernel takes D={KERNEL_DIM}, got D={d}")
+    if not kernel_takes_dim(d):
+        raise ValueError(f"the block-maxima kernels take D a multiple of {DIM_MULTIPLE}, "
+                         f"got D={d}")
     if queries.dtype not in (torch.bfloat16, torch.float32) or corpus.dtype not in (
             queries.dtype, torch.int8):
         raise TypeError(f"queries must be bf16 or f32 and the corpus of their dtype or int8, "
@@ -172,7 +199,8 @@ def block_maxima_grouped(queries, corpus, *, block: int, group: int = GROUP, sca
                          scale_bounds=None):
     """Fused scoring + two-level maxima: bmax3 [CG, Q, G] (block maxima, the G
     blocks of a group contiguous per query) and gmax [CG, 1, Q] (group
-    maxima), both f32. N must be a multiple of group * block.
+    maxima), both f32. N must be a multiple of block; CG = ceil(N / (group *
+    block)), and the rows past N in the last group score 0.
 
     The corpus is the queries' dtype, or int8 codes (scored exactly in the
     queries' dtype). scales [N / block] f32: each block maximum times its
@@ -185,6 +213,7 @@ def block_maxima_grouped(queries, corpus, *, block: int, group: int = GROUP, sca
         return block_maxima_grouped_reference(queries, corpus, block=block, group=group,
                                               scales=scales, scale_bounds=scale_bounds)
     q = queries.shape[0]
+    scales, scale_bounds = _grid_scales(scales, scale_bounds, cg * group)
     bmax3 = torch.empty(cg, q, group, dtype=torch.float32, device=queries.device)
     gmax = torch.empty(cg, 1, q, dtype=torch.float32, device=queries.device)
     route = _launch(queries, corpus, bmax3, gmax, block=block, group=group, scales=scales,
@@ -249,13 +278,15 @@ def select_blocks(queries, corpus, k: int, *, block: int, group: int = GROUP,
                   kb: int | None = None, n_valid: int | None = None, scales=None,
                   row_scales=None):
     """Stages 1 and 2 of mips_topk_v2: each query's candidate block ids
-    [Q, min(kb, NB)] int64. The corpus (and scales) must already be padded to
-    a multiple of group * block rows; kb defaults to k."""
+    [Q, min(kb, NB)] int64, NB the blocks of the whole groups (those past the
+    corpus's N rows, a multiple of block, hold zero rows and never a result:
+    rescore_block_candidates masks them); kb defaults to k."""
     q = queries.shape[0]
     n = corpus.shape[0]
     if n_valid is None:
         n_valid = n
-    nb, cg = n // block, n // (group * block)
+    cg = -(-n // (group * block))
+    nb = cg * group
     if kb is None:
         kb = k
     kb_g, kb_b = min(kb, cg), min(kb, nb)   # groups, blocks to visit
@@ -264,12 +295,12 @@ def select_blocks(queries, corpus, k: int, *, block: int, group: int = GROUP,
 
     scale_bounds = None
     if row_scales is not None:
-        rs = row_scales.view(nb, block)
+        rs = row_scales.view(n // block, block)
         scale_bounds = (rs.amax(dim=1), rs.amin(dim=1))
     bmax3, gmax = block_maxima_grouped(queries, corpus, block=block, group=group,
                                        scales=scales, scale_bounds=scale_bounds)
 
-    if n_valid != n:
+    if n_valid != nb * block:
         # blocks wholly past n_valid can never hold a result
         block_ids = torch.arange(nb, device=bmax3.device).view(cg, 1, group)
         bmax3 = bmax3.masked_fill(block_ids * block >= n_valid, NEG_INF)
@@ -308,7 +339,8 @@ def mips_topk_v2(queries, corpus, k: int, *, block: int, group: int = GROUP,
         raise ValueError("pass scales or row_scales, not both")
     if corpus.dtype != torch.int8:
         corpus = corpus.to(queries.dtype)
-    corpus = pad_rows(corpus, group * block)   # keeps the corpus's dtype
+    # whole blocks only: the kernels search a partial last group in place
+    corpus = pad_rows(corpus, block)   # keeps the corpus's dtype
     n = corpus.shape[0]
     nb = n // block
     if scales is not None:

@@ -20,6 +20,11 @@ eval-retrieval and retrieve commands with and without --f32, and
 mips_topk_v1; int8 corpora keep the `take` rescore. The TPU's layout limits
 (128 % block == 0, Q % 8 == 0, per-call query chunks) do not apply. CPU
 tensors run `gather_rescore_reference`, the plain version.
+
+Widths: the kernel takes every embedding width D that is a multiple of 16
+whose row is at most 16 KB (D <= 8,192 in bf16, 4,096 in f32: a ring stage
+holds two rows beside the query's), `kernel_takes`; D = 128 runs the form first
+built for it. Another width raises on the card, naming it.
 """
 from __future__ import annotations
 
@@ -27,11 +32,26 @@ import torch
 
 from proqa_tpu_torch import _build
 
-KERNEL_DIM = 128  # the embedding width the CUDA kernel takes
+# every search kernel (K1, K5, K7, K8, the simple body, K6/K9) takes the
+# embedding widths that are multiples of this (csrc/block_maxima_common.cuh:
+# kDimMultiple); ops/mips_kernel.py takes the rule from here
+DIM_MULTIPLE = 16
+MAX_ROW_BYTES = 16384  # and K6/K9 take rows of at most this many bytes
 
 # kernel launches since the last reset (the main path's proof of use)
 launches = 0        # K6: gather_rescore
 score_launches = 0  # K9: gather_score
+
+
+def kernel_takes_dim(d: int) -> bool:
+    """Whether the search kernels take embedding width d."""
+    return d > 0 and d % DIM_MULTIPLE == 0
+
+
+def kernel_takes(dim: int, dtype) -> bool:
+    """Whether the K6/K9 kernel takes rows of `dim` elements of `dtype`."""
+    return (kernel_takes_dim(dim)
+            and dim * torch.empty((), dtype=dtype).element_size() <= MAX_ROW_BYTES)
 
 
 def _check_shapes(queries, corpus_blocked, block_ids, block: int) -> None:
@@ -57,11 +77,12 @@ def _launch(queries, corpus_blocked, block_ids, block: int):
     if queries.device.type != "cuda":
         raise ValueError(f"unsupported device {queries.device}")
     q, d = queries.shape
-    if d != KERNEL_DIM:
-        raise ValueError(f"the K6/K9 kernel takes D={KERNEL_DIM}, got D={d}")
     if queries.dtype not in (torch.bfloat16, torch.float32) or corpus_blocked.dtype != queries.dtype:
         raise TypeError(f"queries and corpus must share a dtype of bf16 or f32, "
                         f"got {queries.dtype} and {corpus_blocked.dtype}")
+    if not kernel_takes(d, queries.dtype):
+        raise ValueError(f"the K6/K9 kernel takes D a multiple of {DIM_MULTIPLE} with rows of at "
+                         f"most {MAX_ROW_BYTES} bytes, got D={d} in {queries.dtype}")
     if block_ids.dtype.is_floating_point or block_ids.dtype == torch.bool:
         raise TypeError(f"block_ids must be integers, got {block_ids.dtype}")
     ids = block_ids.to(torch.int64).contiguous()

@@ -19,6 +19,15 @@ reads instead the ptxas report that `_build.build` keeps beside the library
 (`<library>.log`): each kernel's registers, spill bytes, barriers and shared
 memory, keyed by its mangled name; with a second log (another checkout's
 build), only the kernels whose lines differ and those in one log alone.
+
+    python -m proqa_tpu_torch.sass_count --sass LIBRARY OTHER_LIBRARY
+
+compares two builds' kernels instruction by instruction: each kernel keyed
+by its demangled name (template arguments included; the anonymous
+namespace's build hashes vanish in demangling), its SASS with the
+addresses dropped and its labels numbered in order; prints the count of
+kernels whose SASS is the same, those that differ and those in one build
+alone. Needs cu++filt beside cuobjdump.
 """
 from __future__ import annotations
 
@@ -121,6 +130,46 @@ def loop_counts(library: str, fragments: dict[str, str]) -> dict[str, dict | Non
     return out
 
 
+def _demangle(names: list[str]) -> list[str]:
+    tool = os.path.join(os.path.dirname(_cuobjdump()), "cu++filt")
+    out = subprocess.run([tool], input="\n".join(names) + "\n", capture_output=True, text=True,
+                         check=True).stdout.splitlines()
+    assert len(out) == len(names)
+    return out
+
+
+def normalized(funcs: dict[str, list[tuple[int, str]]],
+               names: list[str]) -> dict[str, list[str]]:
+    """{names[i]: the instructions of the i-th function of `funcs`}, the
+    addresses dropped and the labels renumbered in their order within the
+    function."""
+    out = {}
+    for (_, instructions), name in zip(funcs.items(), names):
+        labels: dict[str, str] = {}
+
+        def label(m):
+            return labels.setdefault(m.group(0), f".L{len(labels)}")
+        out[name] = [re.sub(r"\.L_x_\d+", label, text) for _, text in instructions]
+    return out
+
+
+def kernel_sass(library: str) -> dict[str, list[str]]:
+    """{demangled kernel name: its normalized instructions} of a library."""
+    sass = subprocess.run([_cuobjdump(), "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = functions(sass)
+    return normalized(funcs, _demangle(list(funcs)))
+
+
+def sass_diff(a: dict[str, list[str]], b: dict[str, list[str]]) -> dict:
+    """The kernels of both builds whose SASS is the same (a count), those
+    whose SASS differs, and those in one build alone."""
+    both = a.keys() & b.keys()
+    return {"same": sum(a[k] == b[k] for k in both),
+            "differ": sorted(k for k in both if a[k] != b[k]),
+            "first_only": sorted(a.keys() - b.keys()), "second_only": sorted(b.keys() - a.keys())}
+
+
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
 _PROPERTIES = re.compile(r"Function properties for (\S+)")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -160,6 +209,9 @@ def main(argv=None) -> int:
     from proqa_tpu_torch import _build
 
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--sass"]:
+        print(json.dumps(sass_diff(*(kernel_sass(lib) for lib in argv[1:3]))))
+        return 0
     if argv[:1] == ["--ptxas"]:
         reports = [ptxas_report(open(path).read()) for path in argv[1:3]]
         print(json.dumps(reports[0] if len(reports) == 1 else ptxas_diff(*reports)))

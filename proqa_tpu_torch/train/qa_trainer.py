@@ -49,6 +49,7 @@ from proqa_tpu_torch.models.bert import BertConfig, init_parameters
 from proqa_tpu_torch.models.reader import (
     QAConfig, QAModel, decode_spans, qa_frozen_mask, qa_loss, qa_loss_keys,
 )
+from proqa_tpu_torch.models.retriever import embed_dim_of
 from proqa_tpu_torch.ops.dot import pin_f32_precision
 from proqa_tpu_torch.parallel.dist import data_parallel, rank_seed
 from proqa_tpu_torch.text.metrics import (
@@ -99,9 +100,12 @@ class QATrainerConfig:
 
 class QATrainer:
     def __init__(self, bert_cfg: BertConfig, qa_cfg: QAConfig, tcfg: QATrainerConfig, *,
-                 params: dict | None = None, device: str | torch.device = "cuda"):
+                 params: dict | None = None, device: str | torch.device = "cuda",
+                 embed_dim: int | None = None):
         """params: a state dict of the whole QAModel (strict), or None for
-        random weights from tcfg.seed. The model stays in eval mode outside
+        random weights from tcfg.seed. embed_dim: the retriever's embedding
+        width, by default params' (models/retriever.py:embed_dim_of), else
+        128. The model stays in eval mode outside
         the train step. Under data parallelism (parallel/dist.py) `device`
         names the device type, and questions_per_batch is this rank's."""
         pin_f32_precision()
@@ -119,7 +123,9 @@ class QATrainer:
                              f"rank {self.dp.rank}, device {self.device}")
         # one generator: initial weights first, then every dropout seed
         self.generator = torch.Generator().manual_seed(tcfg.seed)
-        self.model = QAModel(bert_cfg, qa_cfg)
+        if embed_dim is None:
+            embed_dim = embed_dim_of(params or {}, "retriever.")
+        self.model = QAModel(bert_cfg, qa_cfg, embed_dim)
         if params is None:
             init_parameters(self.model, bert_cfg.initializer_range, self.generator)
         else:

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from proqa_tpu_torch.models.bert import BertConfig, init_parameters
-from proqa_tpu_torch.models.retriever import Retriever
+from proqa_tpu_torch.models.retriever import Retriever, embed_dim_of
 from proqa_tpu_torch.ops.dot import pin_f32_precision
 from proqa_tpu_torch.parallel.dist import DataParallel, data_parallel, rank_seed
 from proqa_tpu_torch.train import checkpoint as ckpt
@@ -130,7 +130,8 @@ class RetrieverTrainer:
                              f"rank {self.dp.rank}, device {self.device}")
         # one generator: initial weights first, then every dropout seed
         self.generator = torch.Generator().manual_seed(tcfg.seed)
-        self.model = Retriever(bert_cfg)
+        # the checkpoint's embedding width (128 for random weights)
+        self.model = Retriever(bert_cfg, embed_dim_of(params or {}))
         if params is None:
             init_parameters(self.model, bert_cfg.initializer_range, self.generator)
         else:

@@ -139,8 +139,9 @@ def test_mips_topk_on_gpu_matches_reference(cuda, dtype):
 
 def test_kernels_reject_what_they_do_not_take(cuda):
     q, c = _mips_inputs(64, 2048, cuda, torch.bfloat16)
-    with pytest.raises(ValueError, match="D=128"):
-        mips_kernel.block_maxima_grouped(q[:, :64].contiguous(), c[:, :64].contiguous(),
+    # every width that is a multiple of 16 runs; another raises, naming it
+    with pytest.raises(ValueError, match="D=72"):
+        mips_kernel.block_maxima_grouped(q[:, :72].contiguous(), c[:, :72].contiguous(),
                                          block=16)
     with pytest.raises(TypeError):
         mips_kernel.block_maxima_grouped(q, c.float(), block=16)
@@ -230,16 +231,16 @@ def test_v1_topk_matches_exact(cuda, block, tile_n):
                                    "proqa_block_maxima_wgmma_block_major"])
 def test_hopper_block_maxima_entry_points_reject_what_they_do_not_take(cuda, entry):
     """The two entry points' own checks: a block outside 16-256, a group of
-    64 rows, N not a multiple of a group, D other than 128; each launch is
-    refused with an error, never run."""
+    64 rows, N not a multiple of a block (a partial last group runs), D not
+    a multiple of 16; each launch is refused with an error, never run."""
     from proqa_tpu_torch import _build
 
     dtype = torch.float32 if entry.endswith("f32") else torch.bfloat16
     q, c = _mips_inputs(64, 4096, cuda, dtype)
     out = torch.empty(4096 * 64, device=cuda)
     extra = (out.data_ptr(),) if entry.endswith("f32") else ()  # gmax
-    for n, dim, block, group in ((4096, 128, 8, 16), (4096, 128, 16, 4), (4000, 128, 16, 8),
-                                 (4096, 64, 16, 8)):
+    for n, dim, block, group in ((4096, 128, 8, 16), (4096, 128, 16, 4), (4008, 128, 16, 8),
+                                 (4096, 72, 16, 8)):
         with pytest.raises(RuntimeError, match="CUDA error"):
             _build.launch(entry, q.device, q.data_ptr(), c.data_ptr(), out.data_ptr(), *extra,
                           64, n, dim, block, group)
@@ -548,17 +549,20 @@ def test_search_kernels_reject_what_they_do_not_take(cuda):
                                          scale_bounds=(torch.ones(128, device=cuda),) * 2)
     with pytest.raises(ValueError, match="multiple of tile_n"):
         mips_kernel.block_maxima(q, c[:1000], block=256)
-    with pytest.raises(ValueError, match="D=128"):
-        mips_kernel.block_maxima(q[:, :64].contiguous(), c[:, :64].contiguous(), block=16,
+    with pytest.raises(ValueError, match="D=72"):
+        mips_kernel.block_maxima(q[:, :72].contiguous(), c[:, :72].contiguous(), block=16,
                                  tile_n=128)
     ids = torch.zeros(64, 4, dtype=torch.int64, device=cuda)
     with pytest.raises(TypeError):
         rescore.gather_rescore(q, c.float().view(128, 16, 128), ids, block=16)
     with pytest.raises(TypeError):
         rescore.gather_score(q, c.view(128, 16, 128), ids.float(), block=16)
-    with pytest.raises(ValueError, match="D=128"):
-        rescore.gather_rescore(q[:, :64].contiguous(), c[:, :64].contiguous().view(128, 16, 64),
+    with pytest.raises(ValueError, match="D=72"):
+        rescore.gather_rescore(q[:, :72].contiguous(), c[:, :72].contiguous().view(128, 16, 72),
                                ids, block=16)
+    with pytest.raises(ValueError, match="D=4112"):   # an f32 row past 16 KB
+        wide = torch.zeros(16, 4112, device=cuda)
+        rescore.gather_rescore(wide[:4], wide.view(1, 16, 4112), ids[:4, :1], block=16)
     with pytest.raises(ValueError, match="corpus_blocked"):
         rescore.gather_rescore(q, c.view(64, 32, 128), ids, block=16)
 
@@ -1890,3 +1894,227 @@ def test_entry_points_refuse_a_form_they_would_not_pick(cuda):
     with pytest.raises(RuntimeError, match="proqa_dense_epilogue"):
         _build.launch("proqa_dense_epilogue", y.device, y.data_ptr(), b.data_ptr(),
                       o.data_ptr(), None, 4, 768, 1, 0, wide)
+
+
+# --- the search kernels at every embedding width (the K-loop forms) ---
+
+# the narrowest widths the kernels take (TMA boxes and slices wider than the
+# row), then chip_smoke.py phase 34 (a)'s; 128 runs the forms first built for it
+WIDTHS = (16, 32, 48, 64, 96, 256, 384, 768, 1024)
+
+
+def _width_inputs(q, n, d, device, dtype, seed):
+    """Queries and corpus rows of unit scale at width d."""
+    g = torch.Generator().manual_seed(seed)
+    queries = torch.randn(q, d, generator=g) / d ** 0.5
+    corpus = torch.randn(n, d, generator=g) / d ** 0.5
+    return queries.to(device, dtype), corpus.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("q", [32, 300])
+@pytest.mark.parametrize("d", WIDTHS + (128,))
+def test_block_maxima_at_every_width(cuda, d, q, dtype):
+    """K1 over bf16 (the wgmma kernel's K loop) and over f32 (the FMA
+    kernel's) at each width, one and two warpgroups / query tiles, over a
+    corpus whose last group is partial (its rows past N score 0). MIPS_ATOL:
+    f32 sums of d exact products of unit-scale rows in another order."""
+    block, group = 16, 128
+    queries, corpus = _width_inputs(q, block * group * 2 + block * 40, d, cuda,
+                                    getattr(torch, dtype), seed=d + q)
+    before = getattr(mips_kernel, _k1_counter(dtype))
+    got = mips_kernel.block_maxima_grouped(queries, corpus, block=block, group=group)
+    torch.cuda.synchronize()
+    assert getattr(mips_kernel, _k1_counter(dtype)) == before + 1
+    want = mips_kernel.block_maxima_grouped_reference(queries, corpus, block=block, group=group)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.shape[0] == 3
+        torch.testing.assert_close(g, w, atol=MIPS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["scales", "scale_bounds"])
+@pytest.mark.parametrize("block", [16, 64])
+@pytest.mark.parametrize("d", WIDTHS)
+def test_int8_block_maxima_at_every_width(cuda, d, block, kind):
+    """K5 and K7 (int8 codes widened slice by slice) at each width, against
+    their plain versions, with test_int8_block_maxima_kernels_match_plain's
+    tolerance (scores of ~100 summed in another order)."""
+    g = torch.Generator().manual_seed(d + block)
+    n = block * 128 * 2
+    emb = torch.randn(n, d, generator=g) * torch.empty(n, 1).uniform_(0.25, 4.0, generator=g)
+    codes, sc = quant.quantize_rows(emb.numpy(), block=1 if kind == "scale_bounds" else block)
+    queries = torch.randn(300, d, generator=g).to(cuda, torch.bfloat16)
+    codes, sc = torch.from_numpy(codes).to(cuda), torch.from_numpy(sc).to(cuda)
+    kw, counter = _int8_kwargs(kind, sc, block)
+    assert mips_kernel.kernel_for(torch.bfloat16, torch.int8, block=block, group=128,
+                                  grouped=True, scaled=True) == "wgmma"
+    before = getattr(mips_kernel, counter)
+    got = mips_kernel.block_maxima_grouped(queries, codes, block=block, **kw)
+    torch.cuda.synchronize()
+    assert getattr(mips_kernel, counter) == before + 1
+    want = mips_kernel.block_maxima_grouped_reference(queries, codes, block=block, **kw)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=MIPS_ATOL * 100, rtol=1e-6)
+
+
+@pytest.mark.parametrize("d", WIDTHS)
+def test_block_major_at_every_width(cuda, d):
+    """K8 (the wgmma kernel's block-major store) at each width."""
+    queries, corpus = _width_inputs(300, 8192, d, cuda, torch.bfloat16, seed=d)
+    before = mips_kernel.block_major_launches
+    got = mips_kernel.block_maxima(queries, corpus, block=32, tile_n=1024)
+    torch.cuda.synchronize()
+    assert mips_kernel.block_major_launches == before + 1
+    want = mips_kernel.block_maxima_reference(queries, corpus, block=32, tile_n=1024)
+    torch.testing.assert_close(got, want, atol=MIPS_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["f32 over int8", "bf16 block 48", "f32 block-major"])
+@pytest.mark.parametrize("d", WIDTHS + (128,))
+def test_simple_body_at_every_width(cuda, d, case):
+    """csrc/block_maxima.cu's body over 128-column slices: f32 queries over
+    int8 codes, a block the Hopper kernels do not reduce at, and f32 K8,
+    each over a partial last group where the entry takes one."""
+    g = torch.Generator().manual_seed(d)
+    if case == "f32 over int8":
+        codes = torch.randint(-127, 128, (16 * 128 + 16 * 9, d), generator=g,
+                              dtype=torch.int8).to(cuda)
+        queries = torch.randn(70, d, generator=g).to(cuda)
+        sc = (torch.rand(codes.shape[0] // 16, generator=g) * 0.01 + 1e-3).to(cuda)
+        assert mips_kernel.kernel_for(torch.float32, torch.int8, block=16, group=128,
+                                      grouped=True, scaled=True) == "simple"
+        got = mips_kernel.block_maxima_grouped(queries, codes, block=16, scales=sc)
+        want = mips_kernel.block_maxima_grouped_reference(queries, codes, block=16, scales=sc)
+        atol = MIPS_ATOL * 100
+    elif case == "bf16 block 48":
+        queries, corpus = _width_inputs(70, 48 * 8 * 3 + 48, d, cuda, torch.bfloat16, seed=d)
+        assert mips_kernel.kernel_for(torch.bfloat16, torch.bfloat16, block=48, group=8,
+                                      grouped=True, scaled=False) == "simple"
+        got = mips_kernel.block_maxima_grouped(queries, corpus, block=48, group=8)
+        want = mips_kernel.block_maxima_grouped_reference(queries, corpus, block=48, group=8)
+        atol = MIPS_ATOL
+    else:
+        queries, corpus = _width_inputs(70, 4096, d, cuda, torch.float32, seed=d)
+        got = (mips_kernel.block_maxima(queries, corpus, block=32, tile_n=1024),)
+        want = (mips_kernel.block_maxima_reference(queries, corpus, block=32, tile_n=1024),)
+        atol = MIPS_ATOL
+    torch.cuda.synchronize()
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, atol=atol, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [16, 64])
+@pytest.mark.parametrize("d", WIDTHS + (4096,))
+def test_gather_rescore_at_every_width(cuda, d, block, dtype):
+    """K6 and K9 (gather_score_wide_kernel) at each width, up to a 16 KB f32
+    row (two rows a stage), against the plain gather and product: BMAX_TOL,
+    f32 sums of d exact products of unit-scale rows in another order."""
+    g = torch.Generator().manual_seed(d + block)
+    nb, kb, q = 41, 33, 70
+    corpus = (torch.randn(nb, block, d, generator=g) / d ** 0.5).to(cuda, getattr(torch, dtype))
+    queries = (torch.randn(q, d, generator=g) / d ** 0.5).to(cuda, getattr(torch, dtype))
+    ids = torch.randint(0, nb, (q, kb), generator=g).to(cuda)
+    assert rescore.kernel_takes(d, getattr(torch, dtype))
+    want = _rescore_reference(queries, corpus, ids, block)
+    for fn, counter in ((rescore.gather_rescore, "launches"),
+                        (rescore.gather_score, "score_launches")):
+        before = getattr(rescore, counter)
+        got = fn(queries, corpus, ids, block=block)
+        torch.cuda.synchronize()
+        assert getattr(rescore, counter) == before + 1
+        torch.testing.assert_close(got, want, atol=BMAX_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [16, 64])
+@pytest.mark.parametrize("d", [96, 768])
+def test_gather_rescore_wide_at_the_search_shape(cuda, d, block, dtype):
+    """K6's wide form at a search's shape (Q = 2,048, kb = 80 over 4,096
+    blocks): thousands of turns of each ring stage a CTA, every candidate
+    block of a query distinct, against the plain version. BMAX_TOL as above."""
+    g = torch.Generator().manual_seed(d * block)
+    nb, kb, q = 4096, 80, 2048
+    corpus = (torch.randn(nb, block, d, generator=g) / d ** 0.5).to(cuda, getattr(torch, dtype))
+    queries = (torch.randn(q, d, generator=g) / d ** 0.5).to(cuda, getattr(torch, dtype))
+    ids = torch.argsort(torch.rand(q, nb, generator=g), dim=1)[:, :kb].to(cuda)
+    got = rescore.gather_rescore(queries, corpus, ids, block=block)
+    torch.testing.assert_close(got, _rescore_reference(queries, corpus, ids, block, chunk=16),
+                               atol=BMAX_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [16, 48, 96, 768])
+def test_search_at_every_width_matches_reference(cuda, d, dtype):
+    """mips_topk through K1 and K6 at a width other than 128, over an index
+    whose rows end inside a block and inside the last group (searched where
+    they lie), against the exact top-80 up to ties."""
+    n_valid = 16 * 128 * 3 + 16 * 7 + 5
+    queries, corpus = _width_inputs(300, 16 * 128 * 3 + 16 * 8, d, cuda, getattr(torch, dtype),
+                                    seed=d)
+    k1 = _k1_counter(dtype)
+    before, before_k6 = getattr(mips_kernel, k1), rescore.launches
+    gv, gi = mips.mips_topk(queries, corpus, 80, n_valid=n_valid)
+    assert getattr(mips_kernel, k1) == before + 1 and rescore.launches == before_k6 + 1
+    rv, ri = mips.mips_topk_reference(queries, corpus, 80, n_valid=n_valid)
+    assert topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
+                              ri.cpu().numpy(), atol=MIPS_ATOL) == 0
+    assert (gi < n_valid).all()
+
+
+def d128_outputs(device) -> dict:
+    """Each search kernel's outputs at D = 128 on inputs drawn from seeds:
+    K1 over bf16 and f32, K5, K7, K8, K6 over bf16 and f32, and the simple
+    body (f32 queries over int8 codes)."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        queries, corpus = _mips_inputs(300, 16 * 128 * 3, device, dtype, seed=11)
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        out[f"K1 {name}"] = mips_kernel.block_maxima_grouped(queries, corpus, block=16)
+        ids = torch.randint(0, 16 * 3 * 8, (300, 80),
+                            generator=torch.Generator().manual_seed(12)).to(device)
+        out[f"K6 {name}"] = (rescore.gather_rescore(queries, corpus.view(-1, 16, 128), ids,
+                                                    block=16),)
+        if dtype == torch.bfloat16:
+            out["K8"] = (mips_kernel.block_maxima(queries, corpus, block=32, tile_n=1024),)
+    for qdtype, kind in ((torch.bfloat16, "scales"), (torch.bfloat16, "scale_bounds"),
+                         (torch.float32, "scales")):
+        queries, codes, sc = _int8_inputs(300, 16 * 128 * 3, 16, device, qdtype, seed=13,
+                                          per_row=kind == "scale_bounds")
+        kw, _ = _int8_kwargs(kind, sc, 16)
+        name = {"scales": "K5", "scale_bounds": "K7"}[kind]
+        if qdtype == torch.float32:
+            name = "simple K5 f32 queries"
+        out[name] = mips_kernel.block_maxima_grouped(queries, codes, block=16, **kw)
+    return out
+
+
+def output_digests(outputs: dict) -> dict:
+    import hashlib
+
+    digests = {}
+    for name, tensors in outputs.items():
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()
+    return digests
+
+
+# SHA-256 of d128_outputs as the forms first built for D = 128 gave them,
+# before the K-loop forms existed (NVIDIA H100 80GB HBM3, 700 W; the same
+# on the tree that added them): the D = 128 kernels are unchanged
+D128_DIGESTS = {
+    "K1 bf16": "6cccf0d06d937ee9352cb1ddd27336a7e8b17afb747a8fe8aae89d99930e6971",
+    "K6 bf16": "3a814249290515077da7ec347f52308e4f8bcb4df5627dfe6721817b22d390c9",
+    "K8": "646f8bf1dd995097f2dcf8607ce4345098ef78b37b4f17c31844a98e81f85b65",
+    "K1 f32": "66856f5fef7e362015b3100abaed120502c951f523926c4de39148cf115f5bf6",
+    "K6 f32": "daccfe0abe11f90e261473659ad15b4f3b3606d10e5ab7afebf7a8e871056bd7",
+    "K5": "796ce7607e92b19fe65f3111ffca265f0acb246e4c0709c3bcb906a3b6fa2dca",
+    "K7": "78440ceb6706f93a88460e2baac31630117cf49ba74ac864e129c786aad99566",
+    "simple K5 f32 queries": "8c91dec1a49227c3cfc22f318045fcf232c6167a9178020017380939170c59f4"
+}
+
+
+def test_d128_outputs_are_bit_equal_to_the_first_forms(cuda):
+    assert output_digests(d128_outputs(cuda)) == D128_DIGESTS

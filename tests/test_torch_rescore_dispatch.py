@@ -1,7 +1,7 @@
 """Which rescore a search takes by default (ops/mips.py:rescore_impl_for):
 kernel K6 ("stream") for CUDA tensors over a bf16 or f32 corpus of the
-queries' dtype, without int8 scales, at D = 128; the `take` gather
-everywhere else. The rule reads the device and dtypes only, so it is
+queries' dtype, without int8 scales, at every width the kernel takes (a
+multiple of 16, rows of at most 16 KB); the `take` gather everywhere else. The rule reads the device and dtypes only, so it is
 checked here without a card; on CPU and meta tensors the default rescore
 runs the take path and never reaches the kernel's wrapper."""
 import numpy as np
@@ -23,7 +23,12 @@ BF16, F32 = torch.bfloat16, torch.float32
     (CUDA, F32, torch.int8, 128, True, "take"),
     (CUDA, BF16, torch.int8, 128, False, "take"),
     (CUDA, BF16, BF16, 128, True, "take"),           # scales: K6 takes none
-    (CUDA, BF16, BF16, 64, False, "take"),           # the kernel's width is 128
+    (CUDA, BF16, BF16, 64, False, "stream"),         # every multiple of 16 (was 128 alone)
+    (CUDA, BF16, BF16, 768, False, "stream"),        # DPR's width
+    (CUDA, F32, F32, 768, False, "stream"),
+    (CUDA, BF16, BF16, 72, False, "take"),           # not a multiple of 16: no kernel
+    (CUDA, F32, F32, 8192, False, "take"),           # a 32 KB row: wider than a stage takes
+    (CUDA, BF16, BF16, 8192, False, "stream"),       # the same width in bf16: 16 KB rows
     (CUDA, F32, BF16, 128, False, "take"),           # the kernel wants one dtype
     (CUDA, torch.float16, torch.float16, 128, False, "take"),
     (torch.device("cpu"), BF16, BF16, 128, False, "take"),

@@ -83,3 +83,20 @@ def test_ptxas_report_and_diff():
               for h, g in (("62b87636", "22fc95b7"), ("ca68b704", "0123abcd"))]
     keys = [set(sass_count.ptxas_report(b)) for b in builds]
     assert keys[0] == keys[1] == {"_ZN49_GLOBAL__N___16_layer_norm_cu_1kEv", "_Z1bv"}
+
+
+def test_sass_diff_by_demangled_name():
+    """Two builds' kernels compared by demangled name: label numbers that
+    differ between the builds do not count, an instruction that differs
+    does."""
+    first = sass_count.normalized(sass_count.functions(
+        "\t\tFunction : _Z4loopv\n" + NVDISASM + "\t\tFunction : _Z5otherv\n"
+        "        /*0000*/                   EXIT ;\n"), ["loop()", "other()"])
+    relabelled = NVDISASM.replace(".L_x_0", ".L_x_9")
+    second = sass_count.normalized(sass_count.functions(
+        "\t\tFunction : _ZN12_GLOBAL__N_14loopEv\n" + relabelled), ["loop()"])
+    assert first["loop()"][1] == ".L0" and second["loop()"] == first["loop()"]
+    assert sass_count.sass_diff(first, second) == {
+        "same": 1, "differ": [], "first_only": ["other()"], "second_only": []}
+    changed = {"loop()": [t.replace("FADD", "FMUL") for t in second["loop()"]]}
+    assert sass_count.sass_diff(first, changed)["differ"] == ["loop()"]
