@@ -173,9 +173,11 @@ MiniLM-L12-H384 (microsoft/MiniLM-L12-H384-uncased's config.json: BERT, 12
 heads of 32, hidden 384, intermediate 1,536; random seeded weights):
  32. (a) K2 and K3 at head dims 32 and 128 and at 48 (the wrapper pads it to
      64) against their plain versions, bf16 and f32, T in 128, 512, 1,024,
-     rates 0 and 0.1, one all-padding row (ATTN_TOL, BWD_TOL), K3's two
-     launches bit-equal, and each new form timed at the slice's shapes
-     beside its plain version, SDPA and its bound; (b) the context tower
+     rates 0 and 0.1, one all-padding row (ATTN_TOL, BWD_TOL; row by row
+     ATTN_ROW_REL, BWD_ROW_REL, beside controls that leave out a key tile
+     or a head-dim chunk), K3's two launches bit-equal, and each new form
+     timed at the slice's shapes beside its plain version, SDPA and its
+     bound; (b) the context tower
      over 512 rows at T = 512 with K2 and F1/F2 against the vanilla path
      (ENCODER_COS), then 2,048 encoded questions searched over those rows
      and a seeded bf16 corpus (262,144 rows) against the exact top-80; (c)
@@ -227,8 +229,22 @@ Every embedding width (DPR's Wikipedia index, psgs_w100 of Karpukhin et al.
      encode-queries and eval-retrieval on 4,608 paragraphs (K1, K2, K6
      counted), the eval's top-80 against the exact search, and one eval-qa
      group over the 768-wide index; each part's seconds logged.
+Heads wider than 128 (no public BERT has them; Gemma's decoders and the
+EmbeddingGemma encoder attend with heads of 256):
+ 35. (a) K2 and K3 at head dims 192 (padded to 256), 256 and the loop forms'
+     384 and 768 against their plain versions (bf16 and f32, T in 128,
+     512, 1,024, rates 0 and 0.1; row by row, beside controls that leave
+     out a key tile or a head-dim chunk; K3's two launches bit-equal), each new
+     form timed beside its plain version, SDPA and its bound; (b) BERT-base's
+     widths with 3 heads of 256 (WIDE_HEADS, random weights drawn on the
+     card): the context tower over 512 x 512 and the reader over 8 x 5 x
+     512 against the vanilla path, three retriever train steps at 80 x (32
+     + 512) and a dropout-0 step's gradients; (c) 2-layer towers at hidden
+     768 with 2 heads of 384 and 1 of 768: an encode against the vanilla
+     path, a train step and its dropout-0 gradients. K2/K3 launches counted
+     in (b) and (c).
 Phases 23-25 run after phase 18, phase 26 after phase 22, 27-29 after 20,
-30 and 31 after 2, 32, 33 and 34 last. Each of phases 12-14 first drives its kernel's public pipeline
+30 and 31 after 2, 32-35 last. Each of phases 12-14 first drives its kernel's public pipeline
 once with the counters at 0 and reads them, then compares and times the
 kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -237,7 +253,9 @@ back-to-back calls ("queued").
 
 Prints the GPU's name and power limit first, a JSON line of per-kernel
 results second to last, and {"ok": true, "device": ...} last. Exits non-zero,
-printing no result, when there is no GPU or any phase fails.
+printing no result, when there is no GPU or any phase fails. Runs under
+PYTHONHASHSEED=0, re-executing itself when that is unset (pin_hash_seed);
+qa_dropout0_sweep.py runs phase 19 under other hash seeds.
 """
 from __future__ import annotations
 
@@ -279,6 +297,17 @@ ENCODE_TOKENS = 512 * 512  # build-index's batch: 512 rows at the 512 bucket
 # of ds or pd before a T-long product moves an output by a few bf16 ulps of
 # values of magnitude ~1 (tests/test_torch_cuda.py holds the same bound)
 BWD_TOL = 6e-2
+# K2 and K3 against their plain versions row by row (_row_rel: an output
+# row's largest error over its largest plain value), by dtype. In bf16 both
+# round at the same points, and a flipped rounding moves an element by one
+# ulp, 2^-8 of it and at most 2^-7 of its row's largest: on an H100 the
+# largest reading over head dims 16-768 and the timed shapes was 0.0078
+# (K2) and 0.0084 (K3), so the limit is 2^-6. In f32 the sums differ in
+# order only: K2 read 0 and K3 at most 1.3e-6. The controls beside them,
+# the plain version with one key tile or one head-dim chunk left out
+# (_attention_controls), read 0.75 and more in both dtypes
+ATTN_ROW_REL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
+BWD_ROW_REL = {"bfloat16": 2.0 ** -6, "float32": 1e-5}
 # K3 against torch autograd through K2's plain version: autograd rounds do v^T
 # to bf16 (the backward of the probabilities' cast) where the TPU kernel's
 # formula keeps it in f32, one more rounding before each product; dv and dk
@@ -2114,6 +2143,78 @@ def _qa_kernel_checks(device, key_mask, tq: int, qpb: int) -> dict:
     return out
 
 
+def _qa_dropout0(device, state: dict, dev: dict, cfg,
+                 kernels_route=contextlib.nullcontext) -> dict:
+    """The QA step at dropout 0 on four routes (the kernels; vanilla
+    attention; the kernels' attention with the plain epilogue chain; vanilla
+    in f32) from the same weights and batch: each route's loss and, for
+    every gradient tensor that is not zero in exact arithmetic, its cosine
+    to the kernels' and the distances from the f32 gradient. The kernels'
+    route runs inside `kernels_route()` (qa_dropout0_sweep.py audits F1/F2
+    there)."""
+    import dataclasses
+
+    import torch
+
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel, qa_loss
+    from proqa_tpu_torch.ops import fused_bert
+
+    cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0, attention_dropout=0.0)
+    # the kernels' route and the vanilla one in bf16, the kernels' attention
+    # with the plain epilogue chain under autograd (no F1/F2), and the vanilla
+    # one in f32 on the same weights: the bf16 routes' distance from it is the
+    # rounding noise each carries
+    routes = {"kernels": dict(flash_attention=True), "vanilla": dict(flash_attention=False),
+              "plain chain": dict(flash_attention=True),
+              "f32": dict(flash_attention=False, dtype=torch.float32)}
+    losses0, grads = {}, {}
+    _reset_fused_counts()
+    for route, kw in routes.items():
+        model = QAModel(dataclasses.replace(cfg0, **kw), QAConfig())
+        model.load_state_dict(state)
+        model = model.to(device).train()
+        counts = _fused_counts()
+        chain = fused_bert._eager_chain() if route == "plain chain" else contextlib.nullcontext()
+        audited = kernels_route() if route == "kernels" else contextlib.nullcontext()
+        with chain, audited:
+            loss = qa_loss(model(dev), dev, model.qcfg)["loss"]
+            loss.backward()
+        if route == "plain chain":
+            check(_fused_counts() == counts, "QA dropout-0 step under _eager_chain: F1/F2 ran")
+        losses0[route] = loss.item()
+        grads[route] = {name: q.grad.float() for name, q in model.named_parameters()
+                        if q.grad is not None}
+        del model, loss
+
+    def cosine(a, b):
+        # no eps: torch's cosine_similarity clamps the product of the norms
+        # at 1e-8, which reads tensors of tiny gradient as unrelated
+        a, b = a.double().flatten(), b.double().flatten()
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    # zero gradient in exact arithmetic, so only rounding noise: the key bias
+    # (softmax ignores a constant added to a row), and the span head's bias
+    # and the reader's last LayerNorm bias (each shifts every logit of a
+    # paragraph's softmax alike)
+    exact_zero = (f"bert.layers.{cfg.num_layers - 1}.mlp_ln.bias", "qa_outputs.bias")
+    out = {"losses": losses0, "cos": {}, "cos_e": {}, "stats": {}}
+    for name, gk in grads["kernels"].items():
+        if name.endswith(".k.bias") or name in exact_zero:
+            continue
+        gv, ge, g32 = grads["vanilla"][name], grads["plain chain"][name], grads["f32"][name]
+        out["cos"][name] = cosine(gk, gv)
+        out["cos_e"][name] = cosine(gk, ge)
+        out["stats"][name] = {"cos_k32": cosine(gk, g32), "cos_v32": cosine(gv, g32),
+                              "cos_e32": cosine(ge, g32), "norm": g32.norm().item(),
+                              "err_k": (gk - g32).double().norm().item(),
+                              "err_v": (gv - g32).double().norm().item(),
+                              "err_e": (ge - g32).double().norm().item()}
+    st = out["stats"]
+    out["ratio"] = {n: s["err_k"] / s["err_v"] for n, s in st.items()}
+    out["ratio_e"] = {n: s["err_k"] / s["err_e"] for n, s in st.items()}
+    return out
+
+
 def phase_qa_train(device, root: str) -> dict:
     """The QA train step at full width on phase_cli's retrieval world: a
     BERT-base reader and retriever (phase_cli's weights, the index's) in
@@ -2125,8 +2226,6 @@ def phase_qa_train(device, root: str) -> dict:
     against the vanilla attention path (gradient cosine, and where that is
     under GRAD_COS, each route's distance from the vanilla f32 gradient),
     and K2, K3, K4 at these shapes against their plain versions."""
-    import dataclasses
-
     import numpy as np
     import torch
 
@@ -2135,8 +2234,8 @@ def phase_qa_train(device, root: str) -> dict:
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.models.bert import BertConfig
     from proqa_tpu_torch.models.convert import load_params
-    from proqa_tpu_torch.models.reader import QAConfig, QAModel, qa_loss
-    from proqa_tpu_torch.ops import attention, dropout, fused_bert
+    from proqa_tpu_torch.models.reader import QAConfig
+    from proqa_tpu_torch.ops import attention, dropout
     from proqa_tpu_torch.qa.sampler import OnlineSampler, OnlineSamplerConfig
     from proqa_tpu_torch.text.wordpiece import BertTokenizer
     from proqa_tpu_torch.train.qa_trainer import QATrainer, QATrainerConfig
@@ -2167,7 +2266,7 @@ def phase_qa_train(device, root: str) -> dict:
     attention.launches = attention.backward_launches = dropout.launches = 0
     _reset_fused_counts()
     losses, walls = [], []
-    for _ in range(steps):
+    for step in range(steps):
         t0 = time.perf_counter()
         comp = trainer._train_step(dict(net))
         losses.append(float(comp["loss"]))  # synchronises
@@ -2197,65 +2296,37 @@ def phase_qa_train(device, root: str) -> dict:
     state = trainer.model.state_dict()
     del trainer, sampler
     torch.cuda.empty_cache()
-    cfg0 = dataclasses.replace(cfg, hidden_dropout=0.0, attention_dropout=0.0)
-    # the kernels' route and the vanilla one in bf16, the kernels' attention
-    # with the plain epilogue chain under autograd (no F1/F2), and the vanilla
-    # one in f32 on the same weights: the bf16 routes' distance from it is the
-    # rounding noise each carries
-    routes = {"kernels": dict(flash_attention=True), "vanilla": dict(flash_attention=False),
-              "plain chain": dict(flash_attention=True),
-              "f32": dict(flash_attention=False, dtype=torch.float32)}
-    losses0, grads = {}, {}
-    _reset_fused_counts()
-    for route, kw in routes.items():
-        model = QAModel(dataclasses.replace(cfg0, **kw), QAConfig())
-        model.load_state_dict(state)
-        model = model.to(device).train()
-        counts = _fused_counts()
-        chain = fused_bert._eager_chain() if route == "plain chain" else contextlib.nullcontext()
-        with chain:
-            loss = qa_loss(model(dev), dev, model.qcfg)["loss"]
-            loss.backward()
-        if route == "plain chain":
-            check(_fused_counts() == counts, "QA dropout-0 step under _eager_chain: F1/F2 ran")
-        losses0[route] = loss.item()
-        grads[route] = {name: q.grad.float() for name, q in model.named_parameters()
-                        if q.grad is not None}
-        del model, loss
+    res = _qa_dropout0(device, state, dev, cfg)
+    del state, dev
+    _check_qa_dropout0(res)
+    torch.cuda.empty_cache()
+    kernels = _qa_kernel_checks(device, key_mask.repeat(2, 1), tq, qpb)
+    return {"step_ms": step_ms, "peak_gib": peak, "launches": launches, "losses": losses,
+            "min_grad_cos": min(res["cos"].values()),
+            "min_grad_cos_plain_chain": min(res["cos_e"].values()), "kernels": kernels}
 
-    def cosine(a, b):
-        # no eps: torch's cosine_similarity clamps the product of the norms
-        # at 1e-8, which reads tensors of tiny gradient as unrelated
-        a, b = a.double().flatten(), b.double().flatten()
-        return (a @ b / (a.norm() * b.norm())).item()
 
-    # zero gradient in exact arithmetic, so only rounding noise: the key bias
-    # (softmax ignores a constant added to a row), and the span head's bias
-    # and the reader's last LayerNorm bias (each shifts every logit of a
-    # paragraph's softmax alike)
-    exact_zero = (f"bert.layers.{cfg.num_layers - 1}.mlp_ln.bias", "qa_outputs.bias")
-    cos, stats, cos_e, ratio_e = {}, {}, {}, {}
-    for name, gk in grads["kernels"].items():
-        if name.endswith(".k.bias") or name in exact_zero:
-            continue
-        gv, ge, g32 = grads["vanilla"][name], grads["plain chain"][name], grads["f32"][name]
-        cos[name] = cosine(gk, gv)
-        stats[name] = {"cos_k32": cosine(gk, g32), "cos_v32": cosine(gv, g32),
-                       "norm": g32.norm().item(), "err_k": (gk - g32).double().norm().item(),
-                       "err_v": (gv - g32).double().norm().item()}
-        cos_e[name] = cosine(gk, ge)
-        ratio_e[name] = stats[name]["err_k"] / (ge - g32).double().norm().item()
-    ratio = {n: st["err_k"] / st["err_v"] for n, st in stats.items()}
+def _check_qa_dropout0(res: dict) -> None:
+    """Logs and holds _qa_dropout0's readings: every gradient at cosine >=
+    GRAD_COS to the vanilla route and to the plain chain, or else the
+    kernels' distance from the f32 gradient at most GRAD_NOISE times that
+    route's."""
+    cos, cos_e, ratio, ratio_e = res["cos"], res["cos_e"], res["ratio"], res["ratio_e"]
+    stats, losses0 = res["stats"], res["losses"]
     # where the two bf16 gradients part below GRAD_COS, the f32 one decides
     bad = [n for n in cos if cos[n] < GRAD_COS and not ratio[n] <= GRAD_NOISE]
     bad_e = [n for n in cos_e if cos_e[n] < GRAD_COS and not ratio_e[n] <= GRAD_NOISE]
     worst_e = sorted(cos_e, key=cos_e.get)[:3]
+    far_e = max(ratio_e, key=ratio_e.get)
     log(f"QA dropout-0 step, F1/F2 and their backward kernels vs the plain chain (both with "
         f"K2/K3; F1/F2 launches {json.dumps(_fused_counts())}): loss {losses0['kernels']:.6f} "
         f"vs {losses0['plain chain']:.6f}; lowest gradient cosines (|kernels - f32| / "
         f"|plain chain - f32|): "
         + ", ".join(f"{n} {cos_e[n]:.6f} ({ratio_e[n]:.3f})" for n in worst_e)
-        + f"; tol: cosine {GRAD_COS}, else error ratio {GRAD_NOISE}")
+        + f"; largest error ratio {ratio_e[far_e]:.3f} ({far_e}: cosine {cos_e[far_e]:.6f}, "
+        f"|kernels - f32| {stats[far_e]['err_k']:.4g}, |plain chain - f32| "
+        f"{stats[far_e]['err_e']:.4g}, |f32| {stats[far_e]['norm']:.4g}, plain chain-f32 cosine "
+        f"{stats[far_e]['cos_e32']:.6f}); tol: cosine {GRAD_COS}, else error ratio {GRAD_NOISE}")
     check(not bad_e, f"QA dropout-0 gradients, kernels vs the plain chain: {len(bad_e)} tensors "
                      f"under cosine {GRAD_COS} with the kernels' error from the f32 gradient "
                      f"over {GRAD_NOISE}x the plain chain's, e.g. {bad_e[:3]}")
@@ -2273,13 +2344,6 @@ def phase_qa_train(device, root: str) -> dict:
     check(not bad, f"QA dropout-0 gradients: {len(bad)} tensors under cosine {GRAD_COS} with the "
                    f"kernels' error from the f32 gradient over {GRAD_NOISE}x vanilla's, e.g. "
                    f"{first}: cosine {cos[first]}, error ratio {ratio[first]}")
-    worst = worst[0]
-    del grads, dev
-    torch.cuda.empty_cache()
-    kernels = _qa_kernel_checks(device, key_mask.repeat(2, 1), tq, qpb)
-    return {"step_ms": step_ms, "peak_gib": peak, "launches": launches, "losses": losses,
-            "min_grad_cos": cos[worst], "min_grad_cos_plain_chain": cos_e[worst_e[0]],
-            "kernels": kernels}
 
 
 def phase_finetune_cli(device, root: str, pretrain_root: str) -> dict:
@@ -3386,43 +3450,100 @@ MINILM_T = (128, 512, 1024)  # K2/K3 checks: both ends of the range and the slic
 PADDED_DH = 48               # a head dim without its own kernel: padded to 64
 
 
+def _row_rel(got, want) -> float:
+    """The largest error of an output row (the last dim) as a share of that
+    row's largest |plain value|, the share taken of at least the median of
+    the tensor's nonzero row maxima: a dk or dv row of a padding key is zero
+    in exact arithmetic, and a row that cancels is held at a typical row's
+    scale."""
+    import torch
+
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(-1)
+    size = w.abs().amax(-1)
+    nonzero = size[size > 0]
+    floor = nonzero.median() if nonzero.numel() else torch.ones((), device=size.device)
+    return (err / torch.maximum(size, floor)).max().item()
+
+
+def _attention_controls(q, k, v, do, mask, kw) -> tuple[float, list]:
+    """_row_rel of the plain versions on inputs that leave out one key tile
+    (keys 0-63 masked) or one head-dim chunk (q's last 128 columns zeroed,
+    its last quarter below Dh 256) against the plain versions on the inputs
+    themselves: K2's, and dq's, dk's and dv's, each the smaller of the two
+    controls. A limit these pass would not see a kernel drop a key tile or
+    a chunk."""
+    from proqa_tpu_torch.ops import attention
+
+    fwd, bwd = attention.fused_attention_reference, attention.fused_attention_backward_reference
+    want, grads = fwd(q, k, v, mask, **kw), bwd(q, k, v, mask, do, **kw)
+    dh = q.shape[-1]
+    tile, chunk = mask.clone(), q.clone()
+    tile[:, :64] = 0
+    chunk[..., dh - (128 if dh >= 256 else dh // 4):] = 0
+    out_f, out_b = [], []
+    for args in ((q, k, v, tile), (chunk, k, v, mask)):
+        out_f.append(_row_rel(fwd(*args, **kw), want))
+        out_b.append([_row_rel(x, w) for x, w in zip(bwd(*args, do, **kw), grads)])
+    return min(out_f), [min(c) for c in zip(*out_b)]
+
+
 def _attention_checks(device, dh: int, heads: int, b: int = 8) -> dict:
     """K2 and K3 at head dim dh against their plain versions: bf16 and f32,
     T in MINILM_T, rates 0 and 0.1, random key padding with one all-padding
-    row; K3 twice on the same inputs bit-equal. Returns the largest errors."""
+    row; each output within ATTN_TOL/BWD_TOL and, row by row (_row_rel),
+    within ATTN_ROW_REL/BWD_ROW_REL of its dtype, while the controls that
+    leave out a key tile or a head-dim chunk (_attention_controls) exceed
+    those limits for K2 and for each of dq, dk, dv; K3 twice on the same
+    inputs bit-equal. Returns the largest errors, the largest row errors and
+    the smallest control readings, by dtype."""
     import torch
 
     from proqa_tpu_torch.ops import attention
 
     fwd_err = bwd_err = 0.0
+    rel, ctrl = {}, {}
     for t in MINILM_T:
         q, k, v, do, mask = _attention_inputs(device, b, heads, t, dh, seed=t + dh)
         for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            lim_f, lim_b = ATTN_ROW_REL[name], BWD_ROW_REL[name]
+            r, c = rel.setdefault(name, [0.0, 0.0]), ctrl.setdefault(name, [math.inf, math.inf])
             qd, kd, vd, dod = (x.to(dtype) for x in (q, k, v, do))
             for rate in (0.0, 0.1):
+                case = f"Dh={dh} T={t} {name} rate {rate}"
                 kw = dict(sm_scale=dh ** -0.5, dropout_rate=rate, seed=2**45 + t)
                 got = attention.fused_attention(qd, kd, vd, mask, **kw)
                 want = attention.fused_attention_reference(qd, kd, vd, mask, **kw)
                 err = (got.float() - want.float()).abs().max().item()
+                row = _row_rel(got, want)
                 check(got.shape == qd.shape and bool(torch.isfinite(got.float()).all())
-                      and err <= ATTN_TOL, f"K2 Dh={dh} T={t} {dtype} rate {rate}: max abs "
-                                           f"err {err} > {ATTN_TOL}")
-                fwd_err = max(fwd_err, err)
+                      and err <= ATTN_TOL and row <= lim_f,
+                      f"K2 {case}: max abs err {err} (tol {ATTN_TOL}), row error {row} (tol "
+                      f"{lim_f})")
+                fwd_err, r[0] = max(fwd_err, err), max(r[0], row)
                 grads = attention._backward_kernel(qd, kd, vd, mask, dod, kw["sm_scale"], rate,
                                                    kw["seed"])
                 again = attention._backward_kernel(qd, kd, vd, mask, dod, kw["sm_scale"], rate,
                                                    kw["seed"])
                 want = attention.fused_attention_backward_reference(qd, kd, vd, mask, dod, **kw)
                 check(all(torch.equal(x, y) for x, y in zip(grads, again)),
-                      f"K3 Dh={dh} T={t} {dtype} rate {rate}: two launches differ")
+                      f"K3 {case}: two launches differ")
                 err = max((x.float() - w.float()).abs().max().item() for x, w in zip(grads, want))
+                rows = [_row_rel(x, w) for x, w in zip(grads, want)]
                 check(all(bool(torch.isfinite(x.float()).all()) for x in grads)
-                      and err <= BWD_TOL, f"K3 Dh={dh} T={t} {dtype} rate {rate}: max abs err "
-                                          f"{err} > {BWD_TOL}")
-                bwd_err = max(bwd_err, err)
+                      and err <= BWD_TOL and max(rows) <= lim_b,
+                      f"K3 {case}: max abs err {err} (tol {BWD_TOL}), dq, dk, dv row errors "
+                      f"{rows} (tol {lim_b})")
+                bwd_err, r[1] = max(bwd_err, err), max([r[1]] + rows)
                 del got, want, grads, again
+                cf, cb = _attention_controls(qd, kd, vd, dod, mask, kw)
+                check(cf > lim_f and min(cb) > lim_b,
+                      f"K2/K3 {case}: a control that leaves out a key tile or a head-dim chunk "
+                      f"reads {cf} and dq, dk, dv {cb}, within the limits {lim_f}, {lim_b}")
+                c[0], c[1] = min(c[0], cf), min([c[1]] + cb)
         del q, k, v, do, mask
-    return {"fwd_err": fwd_err, "bwd_err": bwd_err}
+    return {"fwd_err": fwd_err, "bwd_err": bwd_err, "row_err": rel, "control": ctrl}
 
 
 def _attention_form(device, b, h, t, dh, rate) -> tuple[dict, dict]:
@@ -3439,15 +3560,19 @@ def _attention_form(device, b, h, t, dh, rate) -> tuple[dict, dict]:
     got = attention.fused_attention(q, k, v, mask, **kw)
     want = attention.fused_attention_reference(q, k, v, mask, **kw)
     fwd = {"max_abs_err": (got.float() - want.float()).abs().max().item()}
+    row_f = _row_rel(got, want)
     del got, want
     grads = attention._backward_kernel(q, k, v, mask, do, scale, rate, seed)
     want = attention.fused_attention_backward_reference(q, k, v, mask, do, **kw)
     bwd = {"max_abs_err": max((x.float() - w.float()).abs().max().item()
                               for x, w in zip(grads, want))}
+    row_b = max(_row_rel(x, w) for x, w in zip(grads, want))
     del grads, want
-    check(fwd["max_abs_err"] <= ATTN_TOL and bwd["max_abs_err"] <= BWD_TOL,
+    check(fwd["max_abs_err"] <= ATTN_TOL and bwd["max_abs_err"] <= BWD_TOL
+          and row_f <= ATTN_ROW_REL["bfloat16"] and row_b <= BWD_ROW_REL["bfloat16"],
           f"K2/K3 [{b}, {h}, {t}, {dh}] rate {rate}: max abs err {fwd['max_abs_err']}, "
-          f"{bwd['max_abs_err']}")
+          f"{bwd['max_abs_err']} (tol {ATTN_TOL}, {BWD_TOL}); row errors {row_f}, {row_b} (tol "
+          f"{ATTN_ROW_REL['bfloat16']}, {BWD_ROW_REL['bfloat16']})")
     bias = torch.where(mask[:, None, None, :] != 0, 0.0, attention.MASK_BIAS).to(q.dtype)
     fwd["ms"] = cuda_ms(lambda: attention.fused_attention(q, k, v, mask, **kw))
     fwd["plain_ms"] = cuda_ms(lambda: attention.fused_attention_reference(q, k, v, mask, **kw),
@@ -3464,7 +3589,8 @@ def _attention_form(device, b, h, t, dh, rate) -> tuple[dict, dict]:
     fwd["bound_ms"], fwd["bound_by"] = bound(4 * n + mask.numel() * 4, 4 * b * h * t * t * dh)
     bwd["bound_ms"], bwd["bound_by"] = bound(7 * n + mask.numel() * 4, 10 * b * h * t * t * dh)
     log(f"K2/K3 [{b}, {h}, {t}, {dh}] bf16 rate {rate}: max_abs_err {fwd['max_abs_err']:.3g}, "
-        f"{bwd['max_abs_err']:.3g}; K2 {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, SDPA "
+        f"{bwd['max_abs_err']:.3g}, row errors {row_f:.3g}, {row_b:.3g}; K2 {fwd['ms']:.4f} ms "
+        f"(plain {fwd['plain_ms']:.4f}, SDPA "
         f"rate 0 {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f} {fwd['bound_by']}); K3 "
         f"{bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, SDPA backward rate 0 "
         f"{bwd['library_ms']:.4f}, bound {bwd['bound_ms']:.4f} {bwd['bound_by']})")
@@ -3592,8 +3718,10 @@ def phase_minilm(device) -> tuple[list, dict]:
              "32 train": _attention_form(device, 80, 12, 512, 32, 0.1),
              128: _attention_form(device, 64, 8, 512, 128, 0.1)}
     log(f"{gpu}: MiniLM (a) K2/K3 at Dh 32, 128 and {PADDED_DH} (padded to 64), bf16 and f32, "
-        f"T in {MINILM_T}, rates 0 and 0.1: max abs err {json.dumps(errs)} (tol {ATTN_TOL}, "
-        f"{BWD_TOL}); K3 two launches bit-equal; {time.perf_counter() - t0:.1f} s")
+        f"T in {MINILM_T}, rates 0 and 0.1: max abs err, row errors and controls "
+        f"{json.dumps(errs)} (tol {ATTN_TOL}, {BWD_TOL}; rows {json.dumps(ATTN_ROW_REL)}, "
+        f"{json.dumps(BWD_ROW_REL)}); K3 two launches bit-equal; "
+        f"{time.perf_counter() - t0:.1f} s")
 
     # (b) encode, then search
     model = Retriever(cfg).reset_parameters(21).to(device).eval()
@@ -4867,6 +4995,208 @@ def phase_embed_widths(device) -> tuple[list, dict]:
             for name, source, replaces, launches, key in forms], seconds
 
 
+# --- heads wider than 128: K2 and K3 past Dh = 128 ----------------------------
+
+# No public BERT has heads wider than 128; Gemma's decoders and the
+# EmbeddingGemma retrieval encoder attend with heads of 256. BERT-base's
+# widths (12 layers, hidden 768, FFN 3,072, BERT's vocabulary and positions)
+# with 3 heads of 256; random weights drawn on the card
+WIDE_HEADS = dict(vocab_size=30522, hidden_size=768, num_layers=12, num_heads=3,
+                  intermediate_size=3072, max_position_embeddings=512, type_vocab_size=2)
+# (a): head dim -> heads of the checks; 192 runs padded to 256, 384 and 768
+# the loop forms
+WIDE_HEAD_DIMS = {192: 4, 256: 3, 384: 2, 768: 1}
+
+
+def phase_wide_heads(device) -> tuple[list, dict]:
+    """Heads wider than 128 on the card: (a) K2 and K3 at head dims 192
+    (padded to 256), 256, 384 and 768 (the loop forms) against their plain
+    versions (bf16 and f32, T in 128, 512, 1,024, rates 0 and 0.1, one
+    all-padding row; row by row, beside controls that leave out a key tile
+    or a head-dim chunk; K3's two launches bit-equal), and the new forms timed
+    beside their plain versions, SDPA and their bounds; (b) a tower at
+    BERT-base's widths with 3 heads of 256 (WIDE_HEADS, random weights drawn
+    on the card): the context tower over 512 x 512 against the vanilla path
+    (ENCODER_COS), the QA reader over 8 x 5 x 512 against it (READER_REL,
+    beside the e4m3 control), three retriever train steps at 80 x (32 +
+    512), remat, dropout 0.1, the loss falling, and a dropout-0 step's
+    gradients (_grad_check); (c) 2-layer towers at hidden 768 with 2 heads of
+    384 and 1 of 768: an encode against the vanilla path, a train step, and
+    the dropout-0 step's gradients (_grad_check). K2/K3 launches are counted in (b) and (c), each tower at one head dim.
+    Returns the kernels line's entries of the new forms and the phase's
+    numbers."""
+    import dataclasses
+
+    import torch
+
+    from proqa_tpu_torch.models.bert import BertConfig
+    from proqa_tpu_torch.models.reader import QAConfig, QAModel
+    from proqa_tpu_torch.models.retriever import Retriever
+    from proqa_tpu_torch.train.optim import AdamW, init_train_state
+    from proqa_tpu_torch.train.retriever_trainer import train_step
+
+    gpu = gpu_line()
+    cfg = BertConfig(**WIDE_HEADS, flash_attention=True)
+    check(cfg.head_dim == 256, f"wide-heads head dim {cfg.head_dim}")
+    vanilla_cfg = dataclasses.replace(cfg, flash_attention=False)
+
+    # (a) the kernels
+    t0 = time.perf_counter()
+    errs = {dh: _attention_checks(device, dh, heads) for dh, heads in WIDE_HEAD_DIMS.items()}
+    forms = {"256 encode": _attention_form(device, 512, 3, 512, 256, 0.0),
+             "256 train": _attention_form(device, 80, 3, 512, 256, 0.1),
+             384: _attention_form(device, 64, 2, 512, 384, 0.1),
+             768: _attention_form(device, 64, 1, 512, 768, 0.1)}
+    log(f"{gpu}: wide heads (a) K2/K3 at Dh {list(WIDE_HEAD_DIMS)} (192 padded to 256; 384 "
+        f"and 768 the loop forms), bf16 and f32, T in {MINILM_T}, rates 0 and 0.1: max abs "
+        f"err, row errors and controls {json.dumps(errs)} (tol {ATTN_TOL}, {BWD_TOL}; rows "
+        f"{json.dumps(ATTN_ROW_REL)}, {json.dumps(BWD_ROW_REL)}); K3 two launches bit-equal; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # (b) the 12-layer tower: encode, reader, train steps, dropout-0 gradients
+    t0 = time.perf_counter()
+    counts = {}
+    model = _on_device(lambda: Retriever(cfg), cfg, device, 51).eval()
+    vanilla = _sharing(lambda: Retriever(vanilla_cfg), model).eval()
+    batch = _minilm_batch(device, 512, 32, 512, 52, cfg.vocab_size)
+    ids, mask = batch["input_ids_c"], batch["input_mask_c"]
+    with torch.inference_mode():
+        rows = _counted(lambda: model.encode_context(ids, mask), counts.setdefault("encode", {}))
+        plain_rows = vanilla.encode_context(ids, mask)
+        encode_ms = cuda_ms(lambda: model.encode_context(ids, mask), reps=3)
+    cos = torch.nn.functional.cosine_similarity(rows, plain_rows, dim=1).min().item()
+    check(bool(torch.isfinite(rows).all()) and rows.shape == (512, 128),
+          "wide-heads encode: bad embeddings")
+    check(cos >= ENCODER_COS, f"wide-heads encode with K2 vs vanilla: min cosine {cos} < "
+                              f"{ENCODER_COS}")
+    check(counts["encode"]["K2"] == cfg.num_layers, f"wide-heads encode: {counts['encode']}")
+    del model, vanilla, rows, plain_rows, batch
+
+    reader = _on_device(lambda: QAModel(cfg, QAConfig()), cfg, device, 53).eval()
+    plain = _sharing(lambda: QAModel(vanilla_cfg, QAConfig()), reader).eval()
+    rel_err, rel_ctrl = 0.0, float("inf")
+    for bi, dev in enumerate(_reader_batches(device, cfg, 54)):
+        got = _counted(lambda: _span_logits(reader, dev), counts.setdefault("reader", {}))
+        van = _span_logits(plain, dev)
+        scale = van.abs().max().item()
+        err = (got - van).abs().max().item()
+        ctrl = (van.to(torch.float8_e4m3fn).float() - van).abs().max().item()
+        rel_err, rel_ctrl = max(rel_err, err / scale), min(rel_ctrl, ctrl / scale)
+        check(bool(torch.isfinite(got).all()) and err <= READER_REL * scale,
+              f"wide-heads reader with K2 vs vanilla, batch {bi}: span logits differ by {err} > "
+              f"{READER_REL} x {scale}")
+    check(rel_ctrl > READER_REL, f"wide-heads reader: the e4m3 control ({rel_ctrl}) passes "
+                                 f"{READER_REL}: the check would not see one coarser rounding")
+    check(counts["reader"]["K2"] == READER_BATCHES * cfg.num_layers,
+          f"wide-heads reader: launches {counts['reader']}")
+    del reader, plain
+    torch.cuda.empty_cache()
+
+    b, tq, tc, steps = 80, 32, 512, 3
+    tcfg = dataclasses.replace(cfg, remat=True)  # dropout 0.1
+    batch = _minilm_batch(device, b, tq, tc, 55, cfg.vocab_size)
+    model = _on_device(lambda: Retriever(tcfg), tcfg, device, 56)
+    state = init_train_state(dict(model.named_parameters()))
+    tx, gen = AdamW(1e-4), torch.Generator().manual_seed(57)
+    losses, walls = [], []
+    _reset_kernel_counts()
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, m = train_step(model, state, tx, batch, gen)
+        losses.append(float(m["loss"]))  # synchronises
+        walls.append(time.perf_counter() - t1)
+    counts["train"] = _attention_counts()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"wide-heads train step: loss {losses} did not fall")
+    check(all(n > 0 for n in counts["train"].values()), f"wide-heads train step: a kernel never "
+                                                        f"ran {counts['train']}")
+    cfg0 = dataclasses.replace(tcfg, hidden_dropout=0.0, attention_dropout=0.0)
+    trained = {name: p.detach().clone() for name, p in model.state_dict().items()}
+    del model, state
+    torch.cuda.empty_cache()
+    grad_cos = _grad_check("wide heads", trained, cfg0, batch, device)
+    del trained, batch
+    torch.cuda.empty_cache()
+    log(f"{gpu}: wide heads (b) BERT-base widths, 3 heads of 256: encode 512 x 512 bf16 min "
+        f"cosine {cos:.6f} to vanilla (tol {ENCODER_COS}), {encode_ms:.2f} ms per batch = "
+        f"{512 * 512 / encode_ms * 1e3:.0f} padded tokens/s (CUDA events); reader 8 x 5 x 512 "
+        f"span logits max abs err {rel_err:.4g} of the batch's largest (tol {READER_REL}; e4m3 "
+        f"control {rel_ctrl:.4g}); train step {b} x ({tq} + {tc}) remat dropout 0.1: losses "
+        f"{' -> '.join(f'{x:.4f}' for x in losses)}, {statistics.median(walls) * 1e3:.1f} ms "
+        f"per step (median of {steps}, host clock, synchronised, the first included); "
+        f"launches {json.dumps(counts)}; wall {time.perf_counter() - t0:.1f} s")
+
+    # (c) 2-layer towers of 2 heads of 384 and 1 of 768: encode and a train step
+    t0 = time.perf_counter()
+    tower_cos, tower_grad = {}, {}
+    for heads in (2, 1):
+        wide = dataclasses.replace(cfg, num_heads=heads, num_layers=2, remat=True)
+        dh = wide.head_dim
+        model = _on_device(lambda: Retriever(wide), wide, device, 58 + heads)
+        vanilla = _sharing(lambda: Retriever(dataclasses.replace(wide, flash_attention=False)),
+                           model).eval()
+        batch = _minilm_batch(device, 64, 32, 512, 60 + heads, wide.vocab_size)
+        with torch.inference_mode():
+            rows = _counted(lambda: model.eval().encode_context(batch["input_ids_c"],
+                                                                batch["input_mask_c"]),
+                            counts.setdefault(f"dh{dh} encode", {}))
+            tower_cos[dh] = torch.nn.functional.cosine_similarity(
+                rows, vanilla.encode_context(batch["input_ids_c"], batch["input_mask_c"]),
+                dim=1).min().item()
+        del vanilla, rows
+        check(tower_cos[dh] >= ENCODER_COS, f"Dh {dh} encode with K2 vs vanilla: min cosine "
+                                            f"{tower_cos[dh]}")
+        state = init_train_state(dict(model.named_parameters()))
+        _, m = _counted(lambda: train_step(model.train(), state, AdamW(1e-4), batch,
+                                           torch.Generator().manual_seed(62)),
+                        counts.setdefault(f"dh{dh} train", {}))
+        check(math.isfinite(float(m["loss"])), f"Dh {dh} train step: loss {m['loss']}")
+        check(counts[f"dh{dh} encode"]["K2"] == wide.num_layers
+              and counts[f"dh{dh} train"]["K3"] > 0,
+              f"Dh {dh} tower: launches {counts[f'dh{dh} encode']}, {counts[f'dh{dh} train']}")
+        trained = {name: p.detach().clone() for name, p in model.state_dict().items()}
+        del model, state
+        torch.cuda.empty_cache()
+        tower_grad[dh] = _grad_check(f"Dh {dh} tower", trained, dataclasses.replace(
+            wide, hidden_dropout=0.0, attention_dropout=0.0), batch, device)
+        del trained, batch
+        torch.cuda.empty_cache()
+    log(f"{gpu}: wide heads (c) 2-layer towers at hidden 768, 64 x 512 bf16: encode with K2 min "
+        f"cosine to vanilla {json.dumps(tower_cos)} (tol {ENCODER_COS}); one train step each, "
+        f"then its dropout-0 gradients' lowest cosine to vanilla and to the plain chain "
+        f"{json.dumps(tower_grad)} (_grad_check); "
+        f"launches {json.dumps({n: counts[n] for n in counts if n.startswith('dh')})}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def err_of(dh, key, *results):
+        return max([errs[dh][key]] + [r["max_abs_err"] for r in results])
+
+    fwd256, bwd256 = forms["256 encode"][0], forms["256 train"][1]
+    k2_256 = counts["encode"]["K2"] + counts["reader"]["K2"] + counts["train"]["K2"]
+    entries = [
+        ("fused_attention (K2) Dh=256 [512, 3, 512, 256]", "attention_fwd.cu",
+         "proqa_tpu/ops/pallas_attention.py:65", k2_256,
+         {**fwd256, "max_abs_err": err_of(256, "fwd_err", fwd256, forms["256 train"][0])}),
+        ("fused_attention backward (K3) Dh=256 loop [80, 3, 512, 256]", "attention_bwd.cu",
+         "proqa_tpu/ops/pallas_attention.py:83", counts["train"]["K3"],
+         {**bwd256, "max_abs_err": err_of(256, "bwd_err", bwd256, forms["256 encode"][1])}),
+    ]
+    for dh in (384, 768):
+        fwd, bwd = forms[dh]
+        shape = f"[64, {WIDE_HEAD_DIMS[dh]}, 512, {dh}]"
+        entries += [
+            (f"fused_attention (K2) Dh={dh} loop {shape}", "attention_fwd.cu",
+             "proqa_tpu/ops/pallas_attention.py:65",
+             counts[f"dh{dh} encode"]["K2"] + counts[f"dh{dh} train"]["K2"],
+             {**fwd, "max_abs_err": err_of(dh, "fwd_err", fwd)}),
+            (f"fused_attention backward (K3) Dh={dh} loop {shape}", "attention_bwd.cu",
+             "proqa_tpu/ops/pallas_attention.py:83", counts[f"dh{dh} train"]["K3"],
+             {**bwd, "max_abs_err": err_of(dh, "bwd_err", bwd)})]
+    return entries, {"counts": counts, "grad_cos": grad_cos, "losses": losses,
+                     "encode_cos": cos, "reader_rel": rel_err, "tower_cos": tower_cos,
+                     "tower_grad_cos": tower_grad}
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -4947,6 +5277,8 @@ def main() -> int:
         xlarge, _ = timed("xlarge", phase_xlarge, device)
         # the exact search at every embedding width; DPR's 21M x 768 index
         wide_search, _ = timed("embed_widths", phase_embed_widths, device)
+        # heads wider than 128: 3 heads of 256 at BERT-base's widths, 384 and 768
+        wide_heads, _ = timed("wide_heads", phase_wide_heads, device)
         log(f"phase seconds: {json.dumps(phases)}")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "proqa_tpu"))
@@ -5043,6 +5375,9 @@ def main() -> int:
     # bf16, int8 and f32 and the 768-wide CLI; K7, K8, K9: their own
     # pipelines at D = 768)
     kernels += [entry(*form) for form in wide_search]
+    # K2/K3 past Dh = 128 (launches: the 3-heads-of-256 tower's encode, reader
+    # and train steps; the loop forms: the Dh 384 and 768 towers' encode and step)
+    kernels += [entry(*form) for form in wide_heads]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -5050,7 +5385,20 @@ def main() -> int:
     return 0
 
 
+def pin_hash_seed() -> None:
+    """Re-executes this script with PYTHONHASHSEED=0 unless it runs so. The
+    QA sampler, as the reference and the JAX package do, keeps the first
+    max_spans answer spans of a paragraph in the iteration order of a set of
+    strings (text/matching.py:match_answer_span), which follows Python's
+    per-process string hash: unpinned, phase 19's train batch, and so its
+    trained weights and dropout-0 inputs, differed in every process."""
+    if os.environ.get("PYTHONHASHSEED") != "0":
+        os.execve(sys.executable, [sys.executable, *sys.argv],
+                  {**os.environ, "PYTHONHASHSEED": "0"})
+
+
 if __name__ == "__main__":
+    pin_hash_seed()
     if len(sys.argv) > 2 and sys.argv[1] == "--cli-worker":
         sys.exit(cli_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -47,12 +47,12 @@ _SIGNATURES = {
     "proqa_block_maxima_wgmma_int8": [_P] * 6 + [_I] * 5 + [_P],
     # queries, corpus, ids, out, num_q, nb, kb, block, dim, is_bf16, stream
     "proqa_gather_score": [_P] * 4 + [_I] * 6 + [_P],
-    # q, k, v, key_mask, out, batch, heads, seq, head_dim, scale, is_bf16,
+    # q, k, v, key_mask, out, frags, batch, heads, seq, head_dim, scale, is_bf16,
     # dropout, k0, k1, threshold, inv_keep, stream
-    "proqa_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
-    # q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads, seq,
-    # head_dim, scale, is_bf16, dropout, k0, k1, threshold, inv_keep, stream
-    "proqa_attention_bwd": [_P] * 10 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
+    "proqa_attention_fwd": [_P] * 6 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
+    # q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, frags, batch, heads,
+    # seq, head_dim, scale, is_bf16, dropout, k0, k1, threshold, inv_keep, stream
+    "proqa_attention_bwd": [_P] * 11 + [_I, _I, _I, _I, _F, _I, _I, *_DROPOUT, _P],
     # x, y, n, seed, threshold, inv_keep, is_bf16, stream
     "proqa_dropout": [_P, _P, _L, _U64, _U, _F, _I, _P],
     # y, bias, out, z (None for none), rows, cols, out_bf16, gelu, form, stream

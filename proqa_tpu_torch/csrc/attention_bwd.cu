@@ -52,9 +52,25 @@
 // (rows_blocks_per_sm), and at Dh = 128 the column kernel runs as two
 // launches, dv then dk (ColPart).
 //
-// f32 keeps the simple body (attention_tiles.cuh): 16 rows a block, whole
-// f32 score rows in shared memory, plain FMA products, the same two passes,
-// the mask regenerated in both.
+// From Dh = 256 (the loop forms, any multiple of kChunk = 128), a scores
+// kernel and three slice kernels. The scores kernel runs the row kernel's
+// three sweeps once a (batch, head, 64 query rows), one warpgroup a block,
+// q, do, k and v streamed in 128-column chunks through a two-stage ring, q
+// k^T and do v^T accumulated over the chunks in the wgmma accumulators, the
+// mask drawn once and kept as bits in shared memory; its last sweep writes
+// each (query tile, key tile)'s ds, ds^T and pd^T as bf16 wgmma A
+// fragments to a scratch array (the transposes through shared memory). The
+// slice kernels (attention_tiles.cuh), a block a 64-row, 128-column slice
+// of dq, dk or dv, only sum those fragments' products with k, q or do: so
+// the scores are computed once, not once a slice, and the work grows as
+// Dh, not Dh^2. At Dh = 256 this form took 3.4 ms where a native form with
+// a block a 128-column half of each output took 4.8 ([80, 3, 512, 256],
+// rate 0.1, H100), so 256 has no native form.
+//
+// f32 runs one simple body at every head dim (attention_tiles.cuh): 16 rows a
+// block, whole f32 score rows in shared memory, plain FMA products over
+// operands read from device memory, the same two passes, the mask
+// regenerated in both.
 #include "attention_tiles.cuh"
 #include "random.cuh"
 
@@ -495,78 +511,261 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void
 }
 
 // ---------------------------------------------------------------------------
+// bf16 from Dh = 256: the loop forms
+// ---------------------------------------------------------------------------
+
+// The scores kernel's ring: stages of a q, a do, a k and a v chunk tile.
+constexpr uint32_t kScoresStage = 4 * kChunkBytes;
+// A 64 x 64 bf16 tile staged for its transpose, rows padded to 72 elements
+// (144 bytes: a warp's 4-byte writes and 2-byte transposed reads fall in
+// distinct banks).
+constexpr int kTransLd = kTile + 8;
+constexpr uint32_t kTransBytes = kTile * kTransLd * sizeof(bf16);
+
+// The scores kernel's scratch, three of frag_tile's arrays: ds (rows
+// queries, for dq = ds k), ds^T and pd^T (rows keys, for dk = ds^T q and
+// dv = pd^T do), each of `tiles` = batch * heads * nt^2 tiles.
+enum FragKind { kDs = 0, kDsT = 1, kPdT = 2 };
+
+// The A fragments of the transpose of the 64 x 64 tile whose fragments are
+// `a`, through `buf` (kTransBytes of shared memory): register a[ks][r] holds
+// row frag_row(t) + 8 (r % 2), columns 16 ks + 8 (r / 2) + frag_col(t) and
+// the next (low half first); the transpose's element (j, i) is (i, j).
+__device__ __forceinline__ void transpose_frags(const uint32_t (&a)[4][4], uint32_t (&at)[4][4],
+                                                bf16* buf, int t) {
+  const int row = frag_row(t), col = frag_col(t);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      *reinterpret_cast<uint32_t*>(buf + (row + 8 * (r % 2)) * kTransLd + 16 * ks +
+                                   8 * (r / 2) + col) = a[ks][r];
+  __syncthreads();
+  const uint16_t* b16 = reinterpret_cast<const uint16_t*>(buf);
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int j = row + 8 * (r % 2), i = 16 * ks + 8 * (r / 2) + col;
+      at[ks][r] = b16[i * kTransLd + j] | (uint32_t)b16[(i + 1) * kTransLd + j] << 16;
+    }
+}
+
+template <bool DROP>
+size_t scores_loop_smem_bytes(int seq) {
+  // the ring, two transpose buffers, the key bias, the row bits
+  return kLoopStages * kScoresStage + 2 * kTransBytes + (size_t)seq * sizeof(float) +
+         (DROP ? (size_t)seq * sizeof(uint64_t) : 0);
+}
+
+// One block per (batch, head, 64 query rows): the sweeps of the native row
+// kernel, each key tile's scores and do v^T accumulated over the head dim's
+// chunks, once. Sweep 2 writes each key tile's ds (bf16, the rounding K3's
+// products take) as dq's A fragments, and ds^T and the dropped-out pd^T as
+// dk's and dv's (FragKind); attention_slice_kernel then does only the
+// products.
+template <bool DROP>
+__global__ void __launch_bounds__(kWarpgroup, 1)
+attention_bwd_scores_loop_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                                 const int* __restrict__ key_mask, uint32_t* __restrict__ frags,
+                                 int heads, int seq, int dh, float scale, DropoutParams drop) {
+  constexpr int NT = kWarpgroup;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t = threadIdx.x;
+  const int nc = dh / kChunk, nt = seq / kTile;
+  const int row_tile = blockIdx.x, row0 = row_tile * kTile;
+  const int b = blockIdx.z, h = blockIdx.y;
+  const size_t bh = (size_t)b * heads + h, slice = bh * seq * dh;
+  const size_t tiles = (size_t)gridDim.z * heads * nt * nt;
+  const uint32_t ring = smem_addr(smem);
+  bf16* trans = reinterpret_cast<bf16*>(smem + kLoopStages * kScoresStage);
+  float* bias = reinterpret_cast<float*>(smem + kLoopStages * kScoresStage + 2 * kTransBytes);
+  uint64_t* row_bits = reinterpret_cast<uint64_t*>(bias + seq);  // [nt][kTile], with dropout
+
+  for (int c = t; c < seq; c += NT)
+    bias[c] = key_mask[(size_t)b * seq + c] != 0 ? 0.0f : kMaskBias;
+
+  // item sweep * n + kt * nc + cc: chunk cc of key tile kt in sweep 0, 1 or 2
+  const int n = nt * nc, items = 3 * n;
+  auto issue = [&](int item) {
+    if (item < items) {
+      const int sweep = item / n, kt = item % n / nc, cc = item % nc;
+      const uint32_t stage = ring + (item % kLoopStages) * kScoresStage;
+      const size_t rows = slice + (size_t)row0 * dh + cc * kChunk;
+      const size_t keys = slice + (size_t)kt * kTile * dh + cc * kChunk;
+      load_tile<kChunk, NT>(stage, q + rows, t, dh);
+      load_tile<kChunk, NT>(stage + 2 * kChunkBytes, k + keys, t, dh);
+      if (sweep > 0) {
+        load_tile<kChunk, NT>(stage + kChunkBytes, dout + rows, t, dh);
+        load_tile<kChunk, NT>(stage + 3 * kChunkBytes, v + keys, t, dh);
+      }
+    }
+    cp_async_commit();
+  };
+  issue(0);
+
+  const int c = frag_col(t);
+  const int i0 = row0 + frag_row(t);  // the thread's rows: i0 and i0 + 8
+  const uint64_t counter0 = (bh * seq + i0) * (uint64_t)seq;
+
+  RowStats st;
+  float s[32], dp[32], dsum[2] = {0.0f, 0.0f};
+  for (int item = 0; item < items; ++item) {
+    stage_ready();
+    issue(item + 1);
+    const int sweep = item / n, kt = item % n / nc, cc = item % nc, key0 = kt * kTile;
+    const uint32_t stage = ring + (item % kLoopStages) * kScoresStage;
+    wgmma_fence();
+    issue_scores<kChunk>(s, stage, stage + 2 * kChunkBytes, cc > 0);
+    if (sweep > 0)
+      issue_scores<kChunk>(dp, stage + kChunkBytes, stage + 3 * kChunkBytes, cc > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    if (cc < nc - 1) continue;  // the tile's products are not complete yet
+    add_logits(s, bias, key0, c, scale);
+    if (sweep == 0) {  // each row's maximum and sum, in K2's arithmetic
+      st.update(s);
+      if (kt == nt - 1) st.finish();
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = st.prob(s[i], (i / 2) % 2);
+    if (sweep == 1) {  // D = rowsum(p * dp), drawing the mask and keeping it as bits
+      if constexpr (DROP) {
+        const uint64_t n0c = counter0 + key0 + c;
+        const ProqaKeepRow mask[2] = {ProqaKeepRow(drop.k0, drop.k1, n0c),
+                                      ProqaKeepRow(drop.k0, drop.k1, n0c + 8 * (uint64_t)seq)};
+        uint32_t words[2][2] = {};
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int r = (i / 2) % 2, m = i / 4;
+          const bool keep = mask[r].keep(8 * m + i % 2, drop.threshold);
+          dp[i] = apply_keep(dp[i], keep, drop.inv_keep);
+          if (keep) words[r][m / 4] |= 1u << (8 * (m % 4) + i % 2);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          uint32_t half[2];
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {  // the quad's 4 x 16 bits make the row's word
+            half[a] = words[r][a] << c;
+            half[a] |= __shfl_xor_sync(0xffffffffu, half[a], 1);
+            half[a] |= __shfl_xor_sync(0xffffffffu, half[a], 2);
+          }
+          if (c == 0)
+            row_bits[kt * kTile + frag_row(t) + 8 * r] = half[0] | (uint64_t)half[1] << 32;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i / 2) % 2;
+        dsum[r] = __fadd_rn(dsum[r], __fmul_rn(s[i], dp[i]));
+      }
+      if (kt == nt - 1) {
+        dsum[0] = quad_sum(dsum[0]);
+        dsum[1] = quad_sum(dsum[1]);
+      }
+      continue;
+    }
+    // sweep 2: pd and ds, as fragments
+    float pd[32];
+    if constexpr (DROP) {  // the mask sweep 1 drew
+      uint32_t words[2][2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const uint64_t word = row_bits[kt * kTile + frag_row(t) + 8 * r] >> c;
+        words[r][0] = static_cast<uint32_t>(word);
+        words[r][1] = static_cast<uint32_t>(word >> 32);
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool keep = kept(words, i);
+        dp[i] = apply_keep(dp[i], keep, drop.inv_keep);
+        pd[i] = apply_keep(s[i], keep, drop.inv_keep);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pd[i] = s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i)  // ds
+      s[i] = __fmul_rn(__fmul_rn(s[i], __fsub_rn(dp[i], dsum[(i / 2) % 2])), scale);
+    uint32_t a[4][4], at[4][4];
+    pack_rows(s, a);
+    const size_t at_tile = frag_tile(bh, nt, row_tile, kt);
+    store_frags(frags + kDs * tiles * kFragWords + at_tile, a, t);
+    transpose_frags(a, at, trans, t);
+    store_frags(frags + kDsT * tiles * kFragWords + at_tile, at, t);
+    pack_rows(pd, a);
+    transpose_frags(a, at, trans + kTile * kTransLd, t);
+    store_frags(frags + kPdT * tiles * kFragWords + at_tile, at, t);
+  }
+}
+
+template <bool DROP>
+cudaError_t launch_loop(const void* q, const void* k, const void* v, const void* dout,
+                        const void* key_mask, void* dq, void* dk, void* dv, void* frags,
+                        int batch, int heads, int seq, int dh, float scale, DropoutParams drop,
+                        cudaStream_t stream) {
+  const bf16* qe = static_cast<const bf16*>(q);
+  const bf16* ke = static_cast<const bf16*>(k);
+  const bf16* de = static_cast<const bf16*>(dout);
+  uint32_t* fr = static_cast<uint32_t*>(frags);
+  const size_t smem = scores_loop_smem_bytes<DROP>(seq);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_scores_loop_kernel<DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  attention_bwd_scores_loop_kernel<DROP><<<dim3(seq / kTile, heads, batch), kWarpgroup, smem,
+                                           stream>>>(
+      qe, ke, static_cast<const bf16*>(v), de, static_cast<const int*>(key_mask), fr, heads, seq,
+      dh, scale, drop);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t words = (size_t)batch * heads * (seq / kTile) * (seq / kTile) * kFragWords;
+  err = launch_slices<false>(ke, fr + kDs * words, static_cast<bf16*>(dq), batch, heads, seq, dh,
+                             stream);
+  if (err != cudaSuccess) return err;
+  err = launch_slices<true>(qe, fr + kDsT * words, static_cast<bf16*>(dk), batch, heads, seq, dh,
+                            stream);
+  if (err != cudaSuccess) return err;
+  return launch_slices<true>(de, fr + kPdT * words, static_cast<bf16*>(dv), batch, heads, seq,
+                             dh, stream);
+}
+
+// ---------------------------------------------------------------------------
 // f32: the simple body
 // ---------------------------------------------------------------------------
 
-template <int DH>
-size_t simple_smem_bytes(int seq) {
-  // two f32 score tiles, the key bias (pass 1) or the row statistics (pass 2),
-  // two output tiles, two staged row tiles
-  return (2 * (size_t)kRows * (seq + 4) + 3 * (size_t)seq + 2 * (size_t)kRows * (DH + 4) +
-          2 * (size_t)kRows * DH) * sizeof(float);
-}
-
-struct Tiles {
-  float* s;      // [kRows][s_ld] scores, then p (pass 1) or pd (pass 2)
-  float* dpd;    // [kRows][s_ld] do v^T, then ds
-  float* vec;    // [3][seq]: key bias (pass 1) or max, sum, D per query (pass 2)
-  float* o1;     // [kRows][o_ld]
-  float* o2;     // [kRows][o_ld]
-  float* stage;  // [2][kRows][DH] staged rows
-};
-
-template <int DH>
-__device__ Tiles carve(unsigned char* smem, int seq) {
-  // every region starts on a 16-byte boundary: seq % 128 == 0, DH % 16 == 0
-  Tiles t;
-  const int s_ld = seq + 4, o_ld = DH + 4;
-  t.s = reinterpret_cast<float*>(smem);
-  t.dpd = t.s + kRows * s_ld;
-  t.vec = t.dpd + kRows * s_ld;
-  t.o1 = t.vec + 3 * seq;
-  t.o2 = t.o1 + kRows * o_ld;
-  t.stage = t.o2 + kRows * o_ld;
-  return t;
-}
-
-// a_tile . b^T for the block's rows of `a` against every row of `b`, into s.
-template <int DH>
-__device__ void scores(const float* a_tile, const float* b, float* s, int s_ld, int seq,
-                       float* stage) {
-  stage_rows<DH>(a_tile, stage);
-  __syncthreads();
-  score_rows<DH>(stage, b, s, s_ld, seq);
-}
-
 // Pass 1: one block per (batch, head, 16 query rows); writes dq and the rows'
-// statistics.
-template <int DH>
+// statistics. q, k, v and do are read from device memory and dq written there,
+// so shared memory holds the two score tiles and the row vectors.
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_simple_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                 const float* __restrict__ v, const float* __restrict__ dout,
-                                 const int* __restrict__ key_mask, float* __restrict__ dq,
-                                 float* __restrict__ stats, int heads, int seq, float scale,
-                                 DropoutParams drop) {
+attention_bwd_f32_rows_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const int* __restrict__ key_mask, float* __restrict__ dq,
+                               float* __restrict__ stats, int heads, int seq, int dh, float scale,
+                               DropoutParams drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * kRows;
-  const size_t bh = (size_t)b * heads + h, slice = bh * seq * DH;
+  const size_t bh = (size_t)b * heads + h, slice = bh * seq * dh;
   const size_t rows_total = (size_t)gridDim.z * heads * seq;
-  const int s_ld = seq + 4, o_ld = DH + 4;
-  Tiles t = carve<DH>(smem, seq);
-  float* bias = t.vec;
+  const int s_ld = seq + 4;
+  float* s = reinterpret_cast<float*>(smem);  // [kRows][s_ld]: scores, then p, then ds
+  float* dpd = s + kRows * s_ld;              // [kRows][s_ld]: do v^T, then dp
+  float* bias = dpd + kRows * s_ld;           // [seq]
   for (int c = threadIdx.x; c < seq; c += kThreads)
     bias[c] = key_mask[(size_t)b * seq + c] != 0 ? 0.0f : kMaskBias;
-
-  scores<DH>(q + slice + (size_t)row0 * DH, k + slice, t.s, s_ld, seq, t.stage);
-  __syncthreads();
-  scores<DH>(dout + slice + (size_t)row0 * DH, v + slice, t.dpd, s_ld, seq,
-             t.stage + kRows * DH);
+  score_rows(q + slice + (size_t)row0 * dh, k + slice, s, s_ld, seq, dh);
+  score_rows(dout + slice + (size_t)row0 * dh, v + slice, dpd, s_ld, seq, dh);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kRows; r += kWarps) {
-    float* srow = t.s + r * s_ld;
-    float* drow = t.dpd + r * s_ld;
+    float* srow = s + r * s_ld;
+    float* drow = dpd + r * s_ld;
     // the forward's softmax, step for step (attention_fwd.cu:softmax_rows)
     float m = -INFINITY;
     for (int c = lane; c < seq; c += 32) {
@@ -605,49 +804,43 @@ attention_bwd_simple_rows_kernel(const float* __restrict__ q, const float* __res
     }
   }
   __syncthreads();
-  weigh_values<DH>(t.s, s_ld, k + slice, t.o1, o_ld, seq);
-  __syncthreads();
-  write_rows<DH>(t.o1, o_ld, dq + slice + (size_t)row0 * DH);
+  weigh_rows(s, s_ld, k + slice, dq + slice + (size_t)row0 * dh, seq, dh);
 }
 
 // Pass 2: one block per (batch, head, 16 keys); writes dv and dk.
-template <int DH>
 __global__ void __launch_bounds__(kThreads)
-attention_bwd_simple_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                 const float* __restrict__ v, const float* __restrict__ dout,
-                                 const int* __restrict__ key_mask,
-                                 const float* __restrict__ stats, float* __restrict__ dk,
-                                 float* __restrict__ dv, int heads, int seq, float scale,
-                                 DropoutParams drop) {
+attention_bwd_f32_cols_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const int* __restrict__ key_mask, const float* __restrict__ stats,
+                               float* __restrict__ dk, float* __restrict__ dv, int heads, int seq,
+                               int dh, float scale, DropoutParams drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * kRows;
-  const size_t bh = (size_t)b * heads + h, slice = bh * seq * DH;
+  const size_t bh = (size_t)b * heads + h, slice = bh * seq * dh;
   const size_t rows_total = (size_t)gridDim.z * heads * seq;
-  const int s_ld = seq + 4, o_ld = DH + 4;
-  Tiles t = carve<DH>(smem, seq);
-  float* row_max = t.vec;
-  float* row_sum = t.vec + seq;
-  float* row_d = t.vec + 2 * seq;
+  const int s_ld = seq + 4;
+  float* s = reinterpret_cast<float*>(smem);  // [kRows][s_ld]: k q^T, then pd
+  float* dpd = s + kRows * s_ld;              // [kRows][s_ld]: v do^T, then ds
+  float* row_max = dpd + kRows * s_ld;        // [3][seq]
+  float* row_sum = row_max + seq;
+  float* row_d = row_sum + seq;
   for (int c = threadIdx.x; c < seq; c += kThreads) {
     const size_t i = bh * seq + c;
     row_max[c] = stats[kMax * rows_total + i];
     row_sum[c] = stats[kSum * rows_total + i];
     row_d[c] = stats[kD * rows_total + i];
   }
-
   // transposed tiles: row r is key key0 + r, column c is query c
-  scores<DH>(k + slice + (size_t)key0 * DH, q + slice, t.s, s_ld, seq, t.stage);
-  __syncthreads();
-  scores<DH>(v + slice + (size_t)key0 * DH, dout + slice, t.dpd, s_ld, seq,
-             t.stage + kRows * DH);
+  score_rows(k + slice + (size_t)key0 * dh, q + slice, s, s_ld, seq, dh);
+  score_rows(v + slice + (size_t)key0 * dh, dout + slice, dpd, s_ld, seq, dh);
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < kRows; r += kWarps) {
     const int j = key0 + r;
     const float bias = key_mask[(size_t)b * seq + j] != 0 ? 0.0f : kMaskBias;
-    float* srow = t.s + r * s_ld;
-    float* drow = t.dpd + r * s_ld;
+    float* srow = s + r * s_ld;
+    float* drow = dpd + r * s_ld;
     for (int c = lane; c < seq; c += 32) {
       const float x = logit(srow[c], scale, bias);
       const float p = expf(x - row_max[c]) / row_sum[c];
@@ -663,23 +856,19 @@ attention_bwd_simple_cols_kernel(const float* __restrict__ q, const float* __res
     }
   }
   __syncthreads();
-  weigh_values<DH>(t.s, s_ld, dout + slice, t.o1, o_ld, seq);
-  weigh_values<DH>(t.dpd, s_ld, q + slice, t.o2, o_ld, seq);
-  __syncthreads();
-  write_rows<DH>(t.o1, o_ld, dv + slice + (size_t)key0 * DH);
-  write_rows<DH>(t.o2, o_ld, dk + slice + (size_t)key0 * DH);
+  weigh_rows(s, s_ld, dout + slice, dv + slice + (size_t)key0 * dh, seq, dh);
+  weigh_rows(dpd, s_ld, q + slice, dk + slice + (size_t)key0 * dh, seq, dh);
 }
 
-template <int DH>
-cudaError_t launch_simple(const void* q, const void* k, const void* v, const void* dout,
-                          const void* key_mask, void* dq, void* dk, void* dv, void* stats,
-                          int batch, int heads, int seq, float scale, DropoutParams drop,
-                          cudaStream_t stream) {
-  const size_t smem = simple_smem_bytes<DH>(seq);
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_simple_rows_kernel<DH>,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
+                       const void* key_mask, void* dq, void* dk, void* dv, void* stats, int batch,
+                       int heads, int seq, int dh, float scale, DropoutParams drop,
+                       cudaStream_t stream) {
+  const size_t smem = (2 * (size_t)kRows * (seq + 4) + 3 * (size_t)seq) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_f32_rows_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_bwd_simple_cols_kernel<DH>,
+  err = cudaFuncSetAttribute(attention_bwd_f32_cols_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(seq / kRows, heads, batch);
@@ -689,12 +878,12 @@ cudaError_t launch_simple(const void* q, const void* k, const void* v, const voi
   const float* de = static_cast<const float*>(dout);
   const int* mask = static_cast<const int*>(key_mask);
   float* st = static_cast<float*>(stats);
-  attention_bwd_simple_rows_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      qe, ke, ve, de, mask, static_cast<float*>(dq), st, heads, seq, scale, drop);
+  attention_bwd_f32_rows_kernel<<<grid, kThreads, smem, stream>>>(
+      qe, ke, ve, de, mask, static_cast<float*>(dq), st, heads, seq, dh, scale, drop);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_simple_cols_kernel<DH><<<grid, kThreads, smem, stream>>>(
-      qe, ke, ve, de, mask, st, static_cast<float*>(dk), static_cast<float*>(dv), heads, seq,
+  attention_bwd_f32_cols_kernel<<<grid, kThreads, smem, stream>>>(
+      qe, ke, ve, de, mask, st, static_cast<float*>(dk), static_cast<float*>(dv), heads, seq, dh,
       scale, drop);
   return cudaGetLastError();
 }
@@ -705,8 +894,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
                    void* keep_bits, int batch, int heads, int seq, float scale, int is_bf16,
                    DropoutParams drop, cudaStream_t stream) {
   if (!is_bf16)
-    return launch_simple<DH>(q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads, seq,
-                             scale, drop, stream);
+    return launch_f32(q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads, seq, DH, scale,
+                      drop, stream);
   if (!drop.active)
     return launch_wgmma<DH, false>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch,
                                    heads, seq, scale, drop, stream);
@@ -718,15 +907,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // q, k, v, dout, dq, dk, dv [batch, heads, seq, head_dim] row-major (bf16
-// when is_bf16, else f32; 32-byte aligned); head_dim 16, 32, 64 or 128
-// (ops/attention.py pads any other head dim up to 128); key_mask int32
+// when is_bf16, else f32; 32-byte aligned); head_dim 16, 32, 64, 128, 256 or a
+// larger multiple of 128 (ops/attention.py pads any other head dim to the
+// next of these); key_mask int32
 // [batch, seq], nonzero = attend; stats f32 scratch [4, batch * heads * seq];
 // keep_bits u64 scratch [batch * heads * seq / 64 * seq], needed by bf16 with
-// dropout (else may be null). Dropout as in proqa_attention_fwd. Returns a
-// cudaError_t code.
+// dropout up to head dim 128 (else may be null); frags u32 scratch [3 * batch
+// * heads * (seq / 64)^2 * 2048], needed by bf16 from head dim 256 (else may
+// be null). Dropout as in proqa_attention_fwd. Returns a cudaError_t code.
 extern "C" int proqa_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* dout, const void* key_mask, void* dq, void* dk,
-                                   void* dv, void* stats, void* keep_bits, int batch, int heads,
+                                   void* dv, void* stats, void* keep_bits, void* frags,
+                                   int batch, int heads,
                                    int seq, int head_dim, float scale, int is_bf16, int dropout,
                                    uint32_t k0, uint32_t k1, uint32_t threshold, float inv_keep,
                                    void* stream) {
@@ -748,6 +940,15 @@ extern "C" int proqa_attention_bwd(const void* q, const void* k, const void* v,
     case 128:
       return launch<128>(q, k, v, dout, key_mask, dq, dk, dv, stats, keep_bits, batch, heads,
                          seq, scale, is_bf16, drop, s);
-    default: return cudaErrorInvalidValue;
+    default:
+      if (head_dim < 256 || head_dim % kChunk != 0) return cudaErrorInvalidValue;
+      if (!is_bf16)
+        return launch_f32(q, k, v, dout, key_mask, dq, dk, dv, stats, batch, heads, seq,
+                          head_dim, scale, drop, s);
+      if (frags == nullptr) return cudaErrorInvalidValue;
+      return drop.active ? launch_loop<true>(q, k, v, dout, key_mask, dq, dk, dv, frags, batch,
+                                             heads, seq, head_dim, scale, drop, s)
+                         : launch_loop<false>(q, k, v, dout, key_mask, dq, dk, dv, frags,
+                                              batch, heads, seq, head_dim, scale, drop, s);
   }
 }

@@ -23,11 +23,20 @@
 // and the bf16 rounding stay in the accumulator registers: no f32 score row
 // is ever stored.
 //
+// Head dims past 128 (bf16): K2 at Dh = 256 keeps this shape with tiles of
+// 256 columns. K3 from 256 and K2 past it take the loop forms of
+// attention_fwd.cu and attention_bwd.cu: the head dim is a multiple of
+// kChunk, every operand streams in chunks of kChunk columns, the scores
+// accumulate over the chunks in the wgmma accumulators, and a scores kernel
+// writes the rounded p (or ds, ds^T, pd^T) as A fragments for a slice kernel
+// (below) that sums their products a kChunk-wide output slice at a time.
+//
 // f32, reached only by the full-precision parity runs: the references pin f32
-// products to full precision, which no tensor core offers, so the f32
-// instantiations keep the simple body (16 rows a block, f32 score rows in
-// shared memory, plain FMA products) selected by dtype. It is not a fallback:
-// a bf16 tensor never reaches it.
+// products to full precision, which no tensor core offers, so f32 runs one
+// simple body at every head dim (16 rows a block, f32 score rows in shared
+// memory, plain FMA products over q, k and v read from device memory, the
+// head dim a runtime argument) selected by dtype. It is not a fallback: a
+// bf16 tensor never reaches it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,6 +57,7 @@ constexpr float kMaskBias = -1e30f;  // pallas_attention.py:32
 // ---------------------------------------------------------------------------
 
 constexpr int kTile = 64;          // rows of a warpgroup's tile and of a streamed tile
+constexpr int kChunk = 128;        // columns of a streamed chunk in the loop forms
 constexpr int kWarpgroup = 128;    // threads
 // Stages of the ring of streamed tiles. Item t's tiles are copied into stage
 // t % kStages during item t - 1, and K3's column kernel lets the products
@@ -63,10 +73,11 @@ struct Tile {
   static constexpr uint32_t kGroup = 128;          // between column groups of 8
   static constexpr uint32_t kRowBlock = 16 * DH;   // between row blocks of 8
   static constexpr uint32_t kBytes = kTile * DH * 2;
-  // a wgmma product takes N = DH in one instruction (n16 .. n128), and a
-  // descriptor's offsets are 14-bit counts of 16 bytes: kRowBlock at DH = 128
-  // is 2,048 bytes, 128 units
-  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128, "head dims 16, 32, 64, 128");
+  // a wgmma product takes N = DH in one instruction up to n128 (two at 256),
+  // and a descriptor's offsets are 14-bit counts of 16 bytes: kRowBlock at
+  // DH = 256 is 4,096 bytes, 256 units
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128 || DH == 256,
+                "head dims 16, 32, 64, 128, 256");
   static_assert(kRowBlock / 16 < (1u << 14), "descriptor offset out of range");
 };
 
@@ -90,17 +101,18 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Copies kTile contiguous rows of DH bf16 (src, row stride DH) into a Tile at
-// dst, by NT threads. Chunk c of 16 bytes lands at byte 16 * c of the tile, so
-// the shared-memory writes are contiguous; consecutive threads read the same
-// 16-byte column group of 8 consecutive rows.
+// Copies kTile rows of DH bf16 (src, row stride ld: DH for contiguous rows,
+// the head dim for a chunk of wider rows) into a Tile at dst, by NT threads.
+// Chunk c of 16 bytes lands at byte 16 * c of the tile, so the shared-memory
+// writes are contiguous; consecutive threads read the same 16-byte column
+// group of 8 consecutive rows.
 template <int DH, int NT>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int tid) {
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, int tid, int ld = DH) {
   constexpr int kChunks = kTile * DH / 8, kGroups = DH / 8;
 #pragma unroll
   for (int c = tid; c < kChunks; c += NT) {
     const int rest = c / 8, row = (rest / kGroups) * 8 + c % 8, group = rest % kGroups;
-    cp_async16(dst + 16 * c, src + row * DH + group * 8);
+    cp_async16(dst + 16 * c, src + row * ld + group * 8);
   }
 }
 
@@ -240,24 +252,65 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x 128] += a[64 x 16] b[16 x 128] into accumulators O .. O + 63 of a
+// 64 x 256 tile's d[128] (its columns 128 (O / 64) .. + 127): a in registers,
+// b MN-major in shared memory.
+template <int O>
+__device__ __forceinline__ void wgmma_rs_n128_at(float (&d)[128], const uint32_t (&a)[4],
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[O + 0]), "+f"(d[O + 1]), "+f"(d[O + 2]), "+f"(d[O + 3]), "+f"(d[O + 4]),
+        "+f"(d[O + 5]), "+f"(d[O + 6]), "+f"(d[O + 7]), "+f"(d[O + 8]), "+f"(d[O + 9]),
+        "+f"(d[O + 10]), "+f"(d[O + 11]), "+f"(d[O + 12]), "+f"(d[O + 13]), "+f"(d[O + 14]),
+        "+f"(d[O + 15]), "+f"(d[O + 16]), "+f"(d[O + 17]), "+f"(d[O + 18]), "+f"(d[O + 19]),
+        "+f"(d[O + 20]), "+f"(d[O + 21]), "+f"(d[O + 22]), "+f"(d[O + 23]), "+f"(d[O + 24]),
+        "+f"(d[O + 25]), "+f"(d[O + 26]), "+f"(d[O + 27]), "+f"(d[O + 28]), "+f"(d[O + 29]),
+        "+f"(d[O + 30]), "+f"(d[O + 31]), "+f"(d[O + 32]), "+f"(d[O + 33]), "+f"(d[O + 34]),
+        "+f"(d[O + 35]), "+f"(d[O + 36]), "+f"(d[O + 37]), "+f"(d[O + 38]), "+f"(d[O + 39]),
+        "+f"(d[O + 40]), "+f"(d[O + 41]), "+f"(d[O + 42]), "+f"(d[O + 43]), "+f"(d[O + 44]),
+        "+f"(d[O + 45]), "+f"(d[O + 46]), "+f"(d[O + 47]), "+f"(d[O + 48]), "+f"(d[O + 49]),
+        "+f"(d[O + 50]), "+f"(d[O + 51]), "+f"(d[O + 52]), "+f"(d[O + 53]), "+f"(d[O + 54]),
+        "+f"(d[O + 55]), "+f"(d[O + 56]), "+f"(d[O + 57]), "+f"(d[O + 58]), "+f"(d[O + 59]),
+        "+f"(d[O + 60]), "+f"(d[O + 61]), "+f"(d[O + 62]), "+f"(d[O + 63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // s[64 x 64] = a b^T for two K-major Tiles in shared memory (a: the 64 rows
-// of the accumulator, b: its 64 columns), contraction over DH. Issued, not
+// of the accumulator, b: its 64 columns), contraction over DH; with
+// `accumulate`, s += a b^T (a later chunk of a wider head dim). Issued, not
 // waited for.
 template <int DH>
-__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t a, uint32_t b) {
+__device__ __forceinline__ void issue_scores(float (&s)[32], uint32_t a, uint32_t b,
+                                             bool accumulate = false) {
 #pragma unroll
   for (int ks = 0; ks < DH / 16; ++ks)
-    wgmma_ss_n64(s, desc_k_major<DH>(a, ks), desc_k_major<DH>(b, ks), ks > 0);
+    wgmma_ss_n64(s, desc_k_major<DH>(a, ks), desc_k_major<DH>(b, ks), accumulate || ks > 0);
 }
 
 // o[64 x DH] += p[64 x 64] b for p as bf16 A fragments (see pack_rows) and a
 // Tile b whose 64 rows are the contraction: one m64nDHk16 wgmma a k-step (the
-// wgmma_rs overload of DH / 2 accumulators). Issued, not waited for.
+// wgmma_rs overload of DH / 2 accumulators), two of n128 at DH = 256. Issued,
+// not waited for.
 template <int DH>
 __device__ __forceinline__ void issue_weigh(float (&o)[DH / 2], const uint32_t (&p)[4][4],
                                             uint32_t b) {
+  if constexpr (DH <= 128) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) wgmma_rs(o, p[ks], desc_mn_major<DH>(b, ks));
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs(o, p[ks], desc_mn_major<DH>(b, ks));
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_rs_n128_at<0>(o, p[ks], desc_mn_major<DH>(b, ks));
+      wgmma_rs_n128_at<64>(o, p[ks], desc_mn_major<DH>(b + 16 * Tile<DH>::kGroup, ks));
+    }
+  }
 }
 
 // The wgmma accumulator layout of a 64 x N f32 tile: thread t of the
@@ -372,6 +425,108 @@ struct RowStats {
 };
 
 // ---------------------------------------------------------------------------
+// bf16 loop forms: tiles passed between kernels as wgmma A fragments
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kChunkBytes = Tile<kChunk>::kBytes;  // a 64 x 128 chunk tile
+constexpr int kLoopStages = 2;  // every item waits for its own products
+// A scratch of 64 x 64 bf16 tiles as wgmma A fragments, u32 [batch * heads]
+// [nt][nt][16][128] (nt = seq / 64): tile (it, kt), it a tile of 64 query
+// rows and kt of 64 keys, in the register layout of pack_rows, register r of
+// thread t at [r][t] (a warp's loads of a register are 128 contiguous bytes).
+constexpr int kFragWords = 16 * kWarpgroup;
+
+__device__ __forceinline__ size_t frag_tile(size_t bh, int nt, int it, int kt) {
+  return ((bh * nt + it) * nt + kt) * kFragWords;
+}
+
+__device__ __forceinline__ void store_frags(uint32_t* dst, const uint32_t (&a)[4][4], int t) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dst[(4 * ks + r) * kWarpgroup + t] = a[ks][r];
+}
+
+// One block per (batch, head, 64 output rows, 128 output columns): out =
+// the sum over the 64-row tiles `item` of src of A(item) src[item], A the
+// fragments of tile (row tile, item) (BY_KEYS false: K2's o = p v, K3's dq =
+// ds k) or of tile (item, row tile) (BY_KEYS true: the rows are keys, K3's
+// dk = ds^T q and dv = pd^T do). The 128-column slice of each src tile
+// streams through a two-stage ring; the next item's fragments load while the
+// product runs. Sums in the order of the key (or query) tiles, f32.
+template <bool BY_KEYS>
+__global__ void __launch_bounds__(kWarpgroup, 2)
+attention_slice_kernel(const bf16* __restrict__ src, const uint32_t* __restrict__ frags,
+                       bf16* __restrict__ out, int heads, int seq, int dh) {
+  constexpr int NT = kWarpgroup;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int t = threadIdx.x;
+  const int nc = dh / kChunk, nt = seq / kTile;
+  const int part = blockIdx.x % nc, tile = blockIdx.x / nc;
+  const size_t bh = (size_t)blockIdx.z * heads + blockIdx.y, slice = bh * seq * dh;
+  const uint32_t ring = smem_addr(smem);
+
+  auto issue = [&](int item) {
+    if (item < nt)
+      load_tile<kChunk, NT>(ring + (item % kLoopStages) * kChunkBytes,
+                            src + slice + (size_t)item * kTile * dh + part * kChunk, t, dh);
+    cp_async_commit();
+  };
+  auto fetch = [&](int item, uint32_t (&f)[4][4]) {
+    const uint32_t* at =
+        frags + (BY_KEYS ? frag_tile(bh, nt, item, tile) : frag_tile(bh, nt, tile, item));
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) f[ks][r] = at[(4 * ks + r) * kWarpgroup + t];
+  };
+  issue(0);
+
+  float acc[kChunk / 2];
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; ++i) acc[i] = 0.0f;
+  uint32_t a[4][4], next[4][4];
+  fetch(0, a);
+  for (int item = 0; item < nt; ++item) {
+    stage_ready();
+    issue(item + 1);
+    wgmma_fence();
+    issue_weigh<kChunk>(acc, a, ring + (item % kLoopStages) * kChunkBytes);
+    wgmma_commit();
+    const bool more = item + 1 < nt;
+    if (more) fetch(item + 1, next);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (more)
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) a[ks][r] = next[ks][r];
+  }
+
+  const int row0 = tile * kTile + frag_row(t), c = frag_col(t);
+#pragma unroll
+  for (int i = 0; i < kChunk / 2; i += 2) {
+    const size_t at = slice + (size_t)(row0 + 8 * ((i / 2) % 2)) * dh + part * kChunk +
+                      8 * (i / 4) + c;
+    *reinterpret_cast<__nv_bfloat162*>(out + at) = __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+template <bool BY_KEYS>
+cudaError_t launch_slices(const bf16* src, const uint32_t* frags, bf16* out, int batch,
+                          int heads, int seq, int dh, cudaStream_t stream) {
+  const size_t smem = kLoopStages * kChunkBytes;
+  cudaError_t err = cudaFuncSetAttribute(attention_slice_kernel<BY_KEYS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(seq / kTile * (dh / kChunk), heads, batch);
+  attention_slice_kernel<BY_KEYS><<<grid, kWarpgroup, smem, stream>>>(src, frags, out, heads,
+                                                                      seq, dh);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // f32: the simple body (16 rows a block, score rows in shared memory)
 // ---------------------------------------------------------------------------
 
@@ -389,44 +544,31 @@ __device__ inline float warp_sum(float v) {
   return v;
 }
 
-// s[r][c] = as[r] . b[c] for the block's kRows rows of `a`, already in shared
-// memory, and all `seq` rows of `b` (row-major, DH wide, in device memory).
-template <int DH>
-__device__ void score_rows(const float* as, const float* b, float* s, int s_ld, int seq) {
+// s[r][c] = a[r] . b[c] for the block's kRows rows of `a` and all `seq`
+// rows of `b` (both row-major, dh wide, in device memory).
+__device__ inline void score_rows(const float* a, const float* b, float* s, int s_ld, int seq,
+                                  int dh) {
   for (int c = threadIdx.x; c < seq; c += kThreads) {
     float acc[kRows] = {};
-    const float* br = b + (size_t)c * DH;
-    for (int d = 0; d < DH; ++d) {
+    const float* br = b + (size_t)c * dh;
+    for (int d = 0; d < dh; ++d) {
       const float bv = br[d];
-      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(as[r * DH + d], bv, acc[r]);
+      for (int r = 0; r < kRows; ++r) acc[r] = fmaf(a[(size_t)r * dh + d], bv, acc[r]);
     }
     for (int r = 0; r < kRows; ++r) s[r * s_ld + c] = acc[r];
   }
 }
 
-// o[r][d] = sum_c p[r][c] v[c][d]; p in shared memory, v [seq, DH] row-major
-// in device memory.
-template <int DH>
-__device__ void weigh_values(const float* p, int p_ld, const float* v, float* o, int o_ld,
-                             int seq) {
-  for (int i = threadIdx.x; i < kRows * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
+// out[r][d] = sum_c p[r][c] v[c][d] for the block's kRows rows; p in shared
+// memory, v [seq, dh] row-major and the kRows output rows in device memory.
+__device__ inline void weigh_rows(const float* p, int p_ld, const float* v, float* out, int seq,
+                                  int dh) {
+  for (int i = threadIdx.x; i < kRows * dh; i += kThreads) {
+    const int r = i / dh, d = i % dh;
     float acc = 0.0f;
-    for (int c = 0; c < seq; ++c) acc = fmaf(p[r * p_ld + c], v[(size_t)c * DH + d], acc);
-    o[r * o_ld + d] = acc;
+    for (int c = 0; c < seq; ++c) acc = fmaf(p[r * p_ld + c], v[(size_t)c * dh + d], acc);
+    out[i] = acc;
   }
-}
-
-// Copies the block's kRows x DH rows of `a` into shared memory.
-template <int DH>
-__device__ void stage_rows(const float* a, float* as) {
-  for (int i = threadIdx.x; i < kRows * DH; i += kThreads) as[i] = a[i];
-}
-
-// Writes a [kRows][o_ld] f32 tile to kRows x DH rows of `out`.
-template <int DH>
-__device__ void write_rows(const float* o, int o_ld, float* out) {
-  for (int i = threadIdx.x; i < kRows * DH; i += kThreads) out[i] = o[(i / DH) * o_ld + i % DH];
 }
 
 }  // namespace attn

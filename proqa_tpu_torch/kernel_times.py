@@ -62,11 +62,14 @@ while the card keeps up ("host us", 20 calls a round):
       chip_smoke.py:bound ("bound ms", "bound by"): Dh = 32 at [512, 12,
       512, 32] (MiniLM's encode) and [80, 12, 512, 32] (its train step),
       Dh = 128 at [64, 8, 512, 128], Dh = 64 at [80, 12, 512, 64]
-      (BERT-base's train step) and Dh = 16 at [80, 12, 512, 16]; each
-      shape's inputs come from a generator seeded by the shape, and each
-      call's outputs are recorded as a SHA-256 digest ("digest"), so two
-      checkouts' kernels can be held bit for bit; a checkout whose kernels
-      lack a head dim (attention.HEAD_DIMS) skips its shapes.
+      (BERT-base's train step) and Dh = 16 at [80, 12, 512, 16]; past 128,
+      Dh = 256 at [512, 3, 512, 256] and [80, 3, 512, 256] (BERT-base's
+      widths with 3 heads of 256: its encode and train step) and the loop
+      forms at [64, 2, 512, 384] and [64, 1, 512, 768]; each shape's inputs
+      come from a generator seeded by the shape, and each call's outputs are
+      recorded as a SHA-256 digest ("digest"), so two checkouts' kernels can
+      be held bit for bit; a checkout whose kernels lack a head dim
+      (attention.kernel_head_dim raises for it) skips its shapes.
 Host pieces of K4 (time.perf_counter_ns, mean over 1,000 calls, median of
 5 rounds, on a [80, 768] bf16 tensor so that the card keeps up): each step
 the earlier dropout wrapper took (an autograd node always, the rate checked
@@ -447,7 +450,8 @@ def width_times(time_kernel, mips_kernel, rescore, dev, g, out) -> None:
 
 
 ATTENTION_SHAPES = ((512, 12, 512, 32), (80, 12, 512, 32), (64, 8, 512, 128), (80, 12, 512, 64),
-                    (80, 12, 512, 16))
+                    (80, 12, 512, 16), (512, 3, 512, 256), (80, 3, 512, 256), (64, 2, 512, 384),
+                    (64, 1, 512, 768))
 
 
 def _digest(tensors) -> str:
@@ -471,7 +475,9 @@ def attention_times(time_kernel, attention, dev, out) -> None:
     smoke = _smoke()
     seed = 2**50 + 3
     for b, h, t, dh in ATTENTION_SHAPES:
-        if dh not in attention.HEAD_DIMS:
+        try:
+            attention.kernel_head_dim(dh)
+        except ValueError:  # a checkout from before this head dim ran on the card
             continue
         g = torch.Generator(device=dev).manual_seed(b * h * t + dh)
         q, k, v, do = (torch.randn(b, h, t, dh, device=dev, generator=g).bfloat16()

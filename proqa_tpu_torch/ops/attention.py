@@ -11,13 +11,18 @@ kernels csrc/attention_fwd.cu and csrc/attention_bwd.cu; CPU tensors run
 `fused_attention_reference` and `fused_attention_backward_reference`, their
 plain PyTorch versions, which draw the same bits.
 
-The kernels are built for head dims 16, 32, 64 and 128 (HEAD_DIMS). On the
-card any other head dim up to 128 reaches the next of them zero-padded along
-Dh (`kernel_head_dim`, `pad_head_dim`): a zero column adds an exact zero to
-every q k^T product and gives zero output columns, which are sliced off, so
-only the order of the f32 sums can differ from a kernel built for that dh.
-`sm_scale` stays the caller's. Above 128 the kernels raise. The plain
-versions take any head dim as it is.
+The kernels are built for head dims 16, 32, 64, 128 and 256 (HEAD_DIMS), and
+past 256 for every multiple of LOOP_CHUNK (the loop forms, which stream the
+operands in 128-column chunks and pass the rounded probabilities, or K3's
+ds, ds^T and pd^T, to slice kernels through a scratch array; K3 takes that
+form from 256). On the card any other head dim reaches the
+next of these zero-padded along Dh (`kernel_head_dim`, `pad_head_dim`): 48
+runs as 64, 192 as 256, 320 as 384 (a fifth of the padded columns wasted),
+257 as 384 (a third). A zero column adds an exact zero to every q k^T product
+and gives zero output columns, which are sliced off, so only the order of
+the f32 sums can differ from a kernel built for that dh. `sm_scale` stays
+the caller's. No head dim raises. The plain versions take any head dim as it
+is.
 """
 from __future__ import annotations
 
@@ -30,8 +35,9 @@ from proqa_tpu_torch.ops.dot import dot_f32
 
 MASK_BIAS = -1e30  # pallas_attention.py:32; -inf would turn all-padding rows into NaN
 # the kernels' instantiations: BertConfig.tiny, MiniLM (hidden 384 over 12
-# heads), BERT-base and -large, and 8 heads over 1,024
-HEAD_DIMS = (16, 32, 64, 128)
+# heads), BERT-base and -large, 8 heads over 1,024, and Gemma's head dim
+HEAD_DIMS = (16, 32, 64, 128, 256)
+LOOP_CHUNK = 128  # past HEAD_DIMS[-1]: the loop forms take multiples of this
 STREAM = 1  # the stream id of attention-probability masks (ops/random.py:keys)
 
 # kernel launches since the last reset (the main path's proof of use)
@@ -78,15 +84,16 @@ def fused_attention_backward_reference(q, k, v, key_mask, do, *, sm_scale: float
 
 
 def kernel_head_dim(dh: int) -> int:
-    """The head dim of the kernel instantiation that runs head dim dh: dh
-    itself where one is built for it, else the next larger, reached by
-    zero-padding. Raises above HEAD_DIMS[-1]."""
+    """The head dim of the kernel form that runs head dim dh: dh itself where
+    a form is built for it, else the next larger, reached by zero-padding:
+    the next of HEAD_DIMS up to its last, past it the next multiple of
+    LOOP_CHUNK. Raises only for a head dim below 1."""
+    if dh < 1:
+        raise ValueError(f"head dim {dh}: no such head dim")
     for built in HEAD_DIMS:
         if dh <= built:
             return built
-    raise ValueError(f"head dim {dh} > {HEAD_DIMS[-1]}: the attention kernels are built for head "
-                     f"dims up to {HEAD_DIMS[-1]} (no public BERT has wider heads); set "
-                     f"flash_attention=False for the plain attention path")
+    return -(-dh // LOOP_CHUNK) * LOOP_CHUNK
 
 
 def pad_head_dim(x: torch.Tensor, dh: int) -> torch.Tensor:
@@ -116,6 +123,17 @@ def _dropout_args(rate: float, seed: int):
     return 1, k0, k1, random.threshold(rate), 1.0 / (1.0 - rate)
 
 
+def _loop_scratch(q, arrays: int, first: int):
+    """The bf16 loop forms' scratch from head dim `first` on (else None):
+    `arrays` arrays of every 64 x 64 tile of the scores as wgmma A fragments,
+    8 KB a tile (attention_tiles.cuh:frag_tile)."""
+    bsz, nh, t, dh = q.shape
+    if q.dtype != torch.bfloat16 or dh < first:
+        return None
+    return torch.empty(arrays * bsz * nh * (t // 64) ** 2 * 2048, dtype=torch.int32,
+                       device=q.device)
+
+
 def _forward_kernel(q, k, v, key_mask, sm_scale, rate, seed):
     global launches
     bsz, nh, t, dh = q.shape
@@ -130,9 +148,11 @@ def _forward_kernel(q, k, v, key_mask, sm_scale, rate, seed):
     for name, x in (("q", q), ("k", k), ("v", v), ("key_mask", key_mask)):
         _aligned(name, x, q.device)
     out = torch.empty_like(q)
+    frags = _loop_scratch(q, 1, HEAD_DIMS[-1] + LOOP_CHUNK)  # p, past the Dh 256 form
     _build.launch("proqa_attention_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  key_mask.data_ptr(), out.data_ptr(), bsz, nh, t, dh, float(sm_scale),
-                  int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed))
+                  key_mask.data_ptr(), out.data_ptr(), None if frags is None else frags.data_ptr(),
+                  bsz, nh, t, dh, float(sm_scale), int(q.dtype == torch.bfloat16),
+                  *_dropout_args(rate, seed))
     launches += 1
     return out
 
@@ -152,12 +172,13 @@ def _backward_kernel(q, k, v, key_mask, do, sm_scale, rate, seed):
     # scratch (attention_bwd.cu): each query row's max logit, sum of exps, its
     # reciprocal and D; with dropout in bf16, the mask as bits, 1 per score
     stats = torch.empty(4, bsz * nh * t, dtype=torch.float32, device=q.device)
-    bits = None
-    if rate > 0.0 and q.dtype == torch.bfloat16:
+    bits, frags = None, _loop_scratch(q, 3, HEAD_DIMS[-1])  # ds, ds^T and pd^T, from 256
+    if frags is None and rate > 0.0 and q.dtype == torch.bfloat16:
         bits = torch.empty(bsz * nh * t * t // 64, dtype=torch.int64, device=q.device)
     _build.launch("proqa_attention_bwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   do.data_ptr(), key_mask.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  stats.data_ptr(), None if bits is None else bits.data_ptr(), bsz, nh, t, dh,
+                  stats.data_ptr(), None if bits is None else bits.data_ptr(),
+                  None if frags is None else frags.data_ptr(), bsz, nh, t, dh,
                   float(sm_scale), int(q.dtype == torch.bfloat16), *_dropout_args(rate, seed))
     backward_launches += 1
     return dq, dk, dv
@@ -194,9 +215,9 @@ class _FusedAttention(torch.autograd.Function):
 
 def fused_attention(q, k, v, key_mask, *, sm_scale: float, dropout_rate: float = 0.0,
                     seed: int = 0) -> torch.Tensor:
-    """q, k, v [B, H, T, Dh] (T % 128 == 0, T <= 1024; on the card Dh <=
-    128); key_mask [B, T], nonzero = attend. Returns [B, H, T, Dh] in q's
-    dtype, differentiable in q, k and v. At dropout_rate > 0, `seed` (64-bit)
+    """q, k, v [B, H, T, Dh] (T % 128 == 0, T <= 1024; any Dh); key_mask
+    [B, T], nonzero = attend. Returns [B, H, T, Dh] in q's dtype,
+    differentiable in q, k and v. At dropout_rate > 0, `seed` (64-bit)
     chooses the mask."""
     bsz, nh, t, dh = q.shape
     if t % 128 or t > 1024:

@@ -82,7 +82,7 @@ GROUPS = (
                            "bmax3_kernel<__nv_bfloat16, signed char>")),
     ("K1 block_maxima", ("bmax_wgmma_kernel", "bmax3_kernel")),
     ("K6/K9 gather_score", ("gather_score_ring_kernel", "gather_score_kernel")),
-    ("K2 attention", ("attention_fwd_",)),   # attention_fwd_wgmma_kernel (bf16), _simple_ (f32)
+    ("K2 attention", ("attention_fwd_",)),   # attention_fwd_wgmma_kernel (bf16), _f32_ (f32)
     ("K3 attention backward", ("attention_bwd_",)),  # attention_bwd_rows_ and _cols_kernel
     ("K4 dropout", ("dropout_vec_kernel", "dropout_scalar_kernel")),
     # the backward kernels and their column sums before the forward's keys claim them

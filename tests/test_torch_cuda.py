@@ -46,7 +46,9 @@ def _attention_inputs(t, b, h, dh, device, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16), (1024, 64), (128, 16),
-                                  (128, 32), (512, 32), (256, 128), (1024, 128), (256, 48)])
+                                  (128, 32), (512, 32), (256, 128), (1024, 128), (256, 48),
+                                  (256, 256), (1024, 256), (128, 192), (256, 384), (128, 768),
+                                  (384, 320)])
 def test_attention_kernel_matches_plain(cuda, t, dh, dtype):
     q, k, v, mask = _attention_inputs(t, 3, 4, dh, cuda, getattr(torch, dtype))
     before = attention.launches
@@ -145,10 +147,14 @@ def test_kernels_reject_what_they_do_not_take(cuda):
                                          block=16)
     with pytest.raises(TypeError):
         mips_kernel.block_maxima_grouped(q, c.float(), block=16)
-    # head dims up to 128 run (padded where no kernel is built for them); above, none
+    # every head dim runs (padded where no form is built for it): 160 as 256;
+    # only a head dim that does not exist raises
     q, k, v, mask = _attention_inputs(128, 2, 2, 160, cuda, torch.bfloat16)
+    got = attention.fused_attention(q, k, v, mask, sm_scale=0.1)
+    want = attention.fused_attention_reference(q, k, v, mask, sm_scale=0.1)
+    torch.testing.assert_close(got.float(), want.float(), atol=ATTN_TOL["bfloat16"], rtol=0)
     with pytest.raises(ValueError, match="head dim"):
-        attention.fused_attention(q, k, v, mask, sm_scale=0.1)
+        attention.kernel_head_dim(0)
 
 
 # --- K1 over f32 (csrc/block_maxima_f32.cu) and K8 on the Hopper kernel ---
@@ -587,11 +593,12 @@ def test_towers_on_gpu_match_cpu(cuda, dtype):
         torch.testing.assert_close(got.cpu(), want, atol=ENCODER_TOL[dtype], rtol=0)
 
 
-@pytest.mark.parametrize("heads", [12, 8])
+@pytest.mark.parametrize("heads", [12, 8, 2, 1])
 def test_towers_at_head_dims_on_gpu_match_cpu(cuda, heads):
     """Two layers at MiniLM's widths (hidden 384, intermediate 1,536): 12
     heads of 32, which K2/K3 are built for, and 8 heads of 48, which the
-    encoder pads to 64 in its copy of q, k and v. f32, dropout 0: the card's
+    encoder pads to 64 in its copy of q, k and v; 2 heads of 192 (padded to
+    256) and 1 of 384 (the loop forms). f32, dropout 0: the card's
     embeddings, loss and gradients against the CPU's plain versions (held
     to the JAX package by tests/test_torch_head_dims.py), one K2 and one K3
     launch a context layer."""
@@ -693,7 +700,7 @@ def test_dropout_kernel_without_autograd(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16), (256, 32), (512, 128),
-                                  (128, 48)])
+                                  (128, 48), (512, 256), (128, 384)])
 def test_attention_dropout_kernel_matches_plain(cuda, t, dh, dtype):
     q, k, v, mask = _attention_inputs(t, 3, 4, dh, cuda, getattr(torch, dtype))
     got = attention.fused_attention(q, k, v, mask, sm_scale=dh ** -0.5, dropout_rate=0.1,
@@ -709,7 +716,8 @@ def test_attention_dropout_kernel_matches_plain(cuda, t, dh, dtype):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t,dh", [(128, 64), (512, 64), (256, 16), (1024, 64), (128, 32),
-                                  (512, 32), (256, 128), (1024, 128), (256, 48)])
+                                  (512, 32), (256, 128), (1024, 128), (256, 48), (256, 256),
+                                  (1024, 256), (128, 192), (256, 384), (128, 768), (384, 320)])
 def test_attention_backward_kernel_matches_plain(cuda, t, dh, dtype, rate):
     q, k, v, mask = _attention_inputs(t, 2, 3, dh, cuda, getattr(torch, dtype))
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)).to(cuda, q.dtype)
@@ -741,7 +749,7 @@ def _edge_inputs(t, dh, device, dtype):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [16, 64, 32, 128])
+@pytest.mark.parametrize("dh", [16, 64, 32, 128, 256, 384])
 @pytest.mark.parametrize("t", [128, 384, 640, 1024])
 def test_attention_kernels_at_tile_edges(cuda, t, dh, dtype, rate):
     """K2 and K3 at sequence lengths that are odd multiples of 64 keys of a
@@ -772,10 +780,10 @@ def test_attention_backward_kernel_is_deterministic(cuda, dtype, rate):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("dh", [32, 128, 48])
+@pytest.mark.parametrize("dh", [32, 128, 48, 256, 192, 384])
 def test_attention_backward_kernel_is_deterministic_at_head_dim(cuda, dh, dtype, rate):
-    """The same at the head dims added after 16 and 64, built (32, 128) and
-    padded (48)."""
+    """The same at the head dims added after 16 and 64, built (32, 128, 256),
+    padded (48, 192) and looped (384)."""
     q, k, v, do, mask = _edge_inputs(384, dh, cuda, getattr(torch, dtype))
     first = attention._backward_kernel(q, k, v, mask, do, dh ** -0.5, rate, 78)
     second = attention._backward_kernel(q, k, v, mask, do, dh ** -0.5, rate, 78)
@@ -783,7 +791,7 @@ def test_attention_backward_kernel_is_deterministic_at_head_dim(cuda, dh, dtype,
         assert a.shape == q.shape and torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dh", [16, 32, 64, 128, 48, 100])
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 48, 100, 256, 192, 384, 768])
 def test_attention_kernels_launch_once_a_call(cuda, dh):
     """Each forward and each backward is one launch of K2 and of K3, padded
     head dims too (the padding is a copy, not a launch of either)."""
@@ -2118,3 +2126,71 @@ D128_DIGESTS = {
 
 def test_d128_outputs_are_bit_equal_to_the_first_forms(cuda):
     assert output_digests(d128_outputs(cuda)) == D128_DIGESTS
+
+
+def attention_outputs(device) -> dict:
+    """K2's and K3's outputs at head dims 16, 32, 64 and 128 (and 48, padded
+    to 64) on inputs drawn from seeds: bf16 and f32, rates 0 and 0.1, random
+    key padding with one all-padding row."""
+    out = {}
+    for dh in (16, 32, 64, 128, 48):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do, mask = _edge_inputs(384, dh, device, dtype)
+            for rate in (0.0, 0.1):
+                name = f"Dh {dh} {str(dtype)[6:]} rate {rate}"
+                kw = dict(sm_scale=dh ** -0.5, dropout_rate=rate, seed=2**40 + dh)
+                out[f"K2 {name}"] = (attention.fused_attention(q, k, v, mask, **kw),)
+                out[f"K3 {name}"] = attention._backward_kernel(q, k, v, mask, do, kw["sm_scale"],
+                                                               rate, kw["seed"])
+    return out
+
+
+# SHA-256 of attention_outputs as the kernels built for head dims up to 128
+# gave them before the forms past 128 existed (NVIDIA H100 80GB HBM3, 700 W):
+# those kernels are unchanged
+ATTENTION_DIGESTS = {
+    "K2 Dh 16 bfloat16 rate 0.0": "ab663c3efa6042c22fed8ac30da13af41bebfd65dd3f23113b006e6cf66e8b1a",
+    "K3 Dh 16 bfloat16 rate 0.0": "c5802f1d50b20329044e8b7ac28fa15ae051f9e32140231c3e6703daed37a0f2",
+    "K2 Dh 16 bfloat16 rate 0.1": "4580334ac448ded017be66f089423bd50d2fadd38adbf2e629f12999b63a2258",
+    "K3 Dh 16 bfloat16 rate 0.1": "122679c8dd7d3716019441224bdcfed0f46e512e329c1ce73ba0451b3be938a2",
+    "K2 Dh 16 float32 rate 0.0": "928b52ff817ff00a13bcbe51c81634b4b6307bbebf6bbd37cb9da4c74fe10430",
+    "K3 Dh 16 float32 rate 0.0": "cbb0bcf2be81f643ca8889c6330509564993b75abcb245824d17959c91a83861",
+    "K2 Dh 16 float32 rate 0.1": "4d8c7eb0ff8d3c00b93862fa1f3e704d470fa8ee99bff52944e72d46dd6919d8",
+    "K3 Dh 16 float32 rate 0.1": "fd9ef34997f260b1d2c1e22cdef2f8169b0cb7d652fdf897f5d98be62e643f4d",
+    "K2 Dh 32 bfloat16 rate 0.0": "e57d10b44a98b0b04829259fe6e4a1a5009fb9792bc3c070691841a9436cb746",
+    "K3 Dh 32 bfloat16 rate 0.0": "4218f190199fd9e1b32515fc532cbe60166110a215eff9c578f21dcfcda6c436",
+    "K2 Dh 32 bfloat16 rate 0.1": "a978eef046303b48737956290ca7862ccf28e583d8bc15c46bfa65d7dad3bdab",
+    "K3 Dh 32 bfloat16 rate 0.1": "166c15c1acb9d70f360d0f911f50db6400f631e2b6575b786f791d2c08be7c96",
+    "K2 Dh 32 float32 rate 0.0": "bf946e6d7ba009a2a14d43401a8ab64cbb65a9c8331bfe63164bf0ce1e5db176",
+    "K3 Dh 32 float32 rate 0.0": "20d365aba6f1ceb82045304bee37502601743f2a15c75fe9d09708ed8dfb2977",
+    "K2 Dh 32 float32 rate 0.1": "089f37b00b903afba9600451a283ba5a1a5e214cf314c1be693f4b7e76cf052c",
+    "K3 Dh 32 float32 rate 0.1": "dbf290882773c8df2e25bcda7e64c49b2534b98104fba8fe28a3c0717028319d",
+    "K2 Dh 64 bfloat16 rate 0.0": "f22119d5b9249dca7dff33d7a94fcf7c01633dd127c5a3358e611fc918ac04b5",
+    "K3 Dh 64 bfloat16 rate 0.0": "06b9d915cdbb841405e78c9e0e52b3bb834a806493a5f84d15234da0b0e77e4d",
+    "K2 Dh 64 bfloat16 rate 0.1": "c4c591d402c9e3969739e9d6bc1ec8e59772717ba069af9662d1f7ca44f2eb80",
+    "K3 Dh 64 bfloat16 rate 0.1": "2799efec087c32909a48debf3e31a0f8ff28d447d0a735edc1eaac6a0407602d",
+    "K2 Dh 64 float32 rate 0.0": "00bee581d522a54ac0cc313d0873949cc342ca83117ee90a21e925da8a972700",
+    "K3 Dh 64 float32 rate 0.0": "c5751fd34883d76000df2088f4d262f97c05855b9107ceba169e78309d76ab2a",
+    "K2 Dh 64 float32 rate 0.1": "c5ccc81a83504295ff1f3e5bc3b425033173cb737f63020f56d9cb5bc375a6a1",
+    "K3 Dh 64 float32 rate 0.1": "96f294d6f9ea3090cfec74a72c8a284671986688bb82b0cf38a3b6873b378489",
+    "K2 Dh 128 bfloat16 rate 0.0": "4c79c75446fa74896a1dc59f166f4a4f83c18c62e66730e9ae325125459c2d5d",
+    "K3 Dh 128 bfloat16 rate 0.0": "d8fab97568a975e93024ab8424351661bc2d6f5231d48dc0128f0fb72798d76d",
+    "K2 Dh 128 bfloat16 rate 0.1": "33d19eb48911e23f930e31be9214e4cead09d6aa38d67fc1bcc8aede6c454d58",
+    "K3 Dh 128 bfloat16 rate 0.1": "67db8d636ef1dc2a0ac66e4c382645b25cb83355bb246cade8e05de87602e55e",
+    "K2 Dh 128 float32 rate 0.0": "278227f353b0524e8d91a11127773c163c62ec2e5693dd88deb1e4540dfa6139",
+    "K3 Dh 128 float32 rate 0.0": "0b3f81ed6bcf6026417f36bafc600dbfdb3b118aac62c4176e5c9337bd103333",
+    "K2 Dh 128 float32 rate 0.1": "74c1f8cabd0b20f111c5975f915e190bdc24cd38484c575052c119205b785af2",
+    "K3 Dh 128 float32 rate 0.1": "2599bb756433c8146785b85ecae8e2c4e3b64a90250f88ac4f5fb54d8728a440",
+    "K2 Dh 48 bfloat16 rate 0.0": "ee452ac15794d54a2bb49a0cd4db029bf19679c2a3e9c844ddcf29e82e36746c",
+    "K3 Dh 48 bfloat16 rate 0.0": "7f83acfe6b878b72027525732416d9e2caa5d1fe0950255844fed912db2daad6",
+    "K2 Dh 48 bfloat16 rate 0.1": "3a01b306a95e3b8df7c875d05763f97d770303a46692369dd57b27b7889641d5",
+    "K3 Dh 48 bfloat16 rate 0.1": "d231feb1f4deecf2f2c5de8017bde9f9cb5cfac77a0a8e67b126284750598349",
+    "K2 Dh 48 float32 rate 0.0": "53bdb2735a525c7ccb873702132a8fd0f6b82d205f359950ce400b27a3638d73",
+    "K3 Dh 48 float32 rate 0.0": "4d2b71e591ecdae51a0e4e209d104e563d2083caa6617e8a1712107b09e684ce",
+    "K2 Dh 48 float32 rate 0.1": "0330e2e69ba4516d0bbc1733d55e22a230bdbebaa8f8851940894df973fd0ad8",
+    "K3 Dh 48 float32 rate 0.1": "edc6cb4ae4c77746e772354c96fd972083e07aca06024af60715d4bf65c8cba2",
+}
+
+
+def test_attention_outputs_to_dh128_are_bit_equal_to_the_first_forms(cuda):
+    assert output_digests(attention_outputs(cuda)) == ATTENTION_DIGESTS
