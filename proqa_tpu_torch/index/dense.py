@@ -50,6 +50,7 @@ from proqa_tpu_torch.index.idmap import IdMap
 from proqa_tpu_torch.ops.mips import envelope_block, mips_topk, pad_queries
 from proqa_tpu_torch.ops.quant import quantize_rows
 from proqa_tpu_torch.parallel.search import sharded_mips_topk
+from proqa_tpu_torch.utils.profiling import span
 
 _LOAD_CHUNK = 1 << 20  # rows copied to the device per step when loading
 _PAD_MULTIPLE = 1024   # rows: the padding of a built index and of a grown one
@@ -370,28 +371,32 @@ class DenseIndex:
         cast to the scoring dtype (the index dtype; bf16 for int8). Returns
         (values [Q, k] f32, rows [Q, k] int32) as numpy; padded rows, padded
         queries and tombstoned rows are excluded, and a k beyond the live
-        rows pads with (-inf, row 0)."""
-        if self.n_deleted and not _skip_tombstones:
-            # over-fetch so that k live rows survive the filter even if every
-            # tombstoned row outscored them; the width is a power of two, so
-            # accumulating removals launch few shapes
-            k_fetch = min(self.n, _next_pow2(k + self.n_deleted))
-            vals, idx = self.search(queries, k_fetch, exact=exact, q_pad=q_pad,
-                                    _skip_tombstones=True)
-            return self._filter_deleted(vals, idx, k)
-        q = torch.as_tensor(queries).to(self.device, self._query_dtype)
-        q, q_n = pad_queries(q, q_pad)
-        k_eff = min(k, self.n)
-        search = (mips_topk if self.mesh is None
-                  else functools.partial(sharded_mips_topk, mesh=self.mesh))
-        vals, idx = search(q, self.embeddings, k_eff, exact=exact, n_valid=self.n,
-                           scales=self.scales, quant_block=self.quant_block)
-        vals = vals[:q_n].float().cpu().numpy()
-        idx = idx[:q_n].to(torch.int32).cpu().numpy()
-        if k_eff < k:  # degenerate tiny-corpus case
-            vals = np.pad(vals, ((0, 0), (0, k - k_eff)), constant_values=-np.inf)
-            idx = np.pad(idx, ((0, 0), (0, k - k_eff)), constant_values=0)
-        return vals, idx
+        rows pads with (-inf, row 0). Opens the proqa.search spans
+        (utils/profiling.py) while a profiler collects."""
+        with span("proqa.search"):
+            if self.n_deleted and not _skip_tombstones:
+                # over-fetch so that k live rows survive the filter even if
+                # every tombstoned row outscored them; the width is a power of
+                # two, so accumulating removals launch few shapes
+                k_fetch = min(self.n, _next_pow2(k + self.n_deleted))
+                vals, idx = self.search(queries, k_fetch, exact=exact, q_pad=q_pad,
+                                        _skip_tombstones=True)
+                return self._filter_deleted(vals, idx, k)
+            with span("proqa.search.upload"):
+                q = torch.as_tensor(queries).to(self.device, self._query_dtype)
+                q, q_n = pad_queries(q, q_pad)
+            k_eff = min(k, self.n)
+            search = (mips_topk if self.mesh is None
+                      else functools.partial(sharded_mips_topk, mesh=self.mesh))
+            vals, idx = search(q, self.embeddings, k_eff, exact=exact, n_valid=self.n,
+                               scales=self.scales, quant_block=self.quant_block)
+            with span("proqa.search.download"):
+                vals = vals[:q_n].float().cpu().numpy()
+                idx = idx[:q_n].to(torch.int32).cpu().numpy()
+                if k_eff < k:  # degenerate tiny-corpus case
+                    vals = np.pad(vals, ((0, 0), (0, k - k_eff)), constant_values=-np.inf)
+                    idx = np.pad(idx, ((0, 0), (0, k - k_eff)), constant_values=0)
+            return vals, idx
 
     def search_ids(self, queries, k: int, **kw):
         """Search returning document ids through the IdMap."""

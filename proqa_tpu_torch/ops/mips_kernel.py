@@ -45,6 +45,7 @@ from proqa_tpu_torch.ops.mips import (
     NEG_INF, exact_topk, pad_ones, pad_rows, rescore_block_candidates,
 )
 from proqa_tpu_torch.ops.rescore import DIM_MULTIPLE, kernel_takes_dim
+from proqa_tpu_torch.utils.profiling import span
 
 GROUP = 128  # blocks per group, as the JAX package pins it
 
@@ -293,26 +294,29 @@ def select_blocks(queries, corpus, k: int, *, block: int, group: int = GROUP,
     if kb_g < min(k, cg) or kb_b < min(k, nb):
         raise ValueError("kb < k breaks the exactness guarantee")
 
-    scale_bounds = None
-    if row_scales is not None:
-        rs = row_scales.view(n // block, block)
-        scale_bounds = (rs.amax(dim=1), rs.amin(dim=1))
-    bmax3, gmax = block_maxima_grouped(queries, corpus, block=block, group=group,
-                                       scales=scales, scale_bounds=scale_bounds)
+    with span("proqa.search.block_maxima"):
+        scale_bounds = None
+        if row_scales is not None:
+            rs = row_scales.view(n // block, block)
+            scale_bounds = (rs.amax(dim=1), rs.amin(dim=1))
+        bmax3, gmax = block_maxima_grouped(queries, corpus, block=block, group=group,
+                                           scales=scales, scale_bounds=scale_bounds)
 
-    if n_valid != nb * block:
-        # blocks wholly past n_valid can never hold a result
-        block_ids = torch.arange(nb, device=bmax3.device).view(cg, 1, group)
-        bmax3 = bmax3.masked_fill(block_ids * block >= n_valid, NEG_INF)
-        if n_valid % block:
-            sb, patched = _straddler_maxima(queries, corpus, block, n_valid, scales, row_scales)
-            bmax3[sb // group, :, sb % group] = patched
-        gmax = bmax3.amax(dim=-1)[:, None, :]
+    with span("proqa.search.select"):
+        if n_valid != nb * block:
+            # blocks wholly past n_valid can never hold a result
+            block_ids = torch.arange(nb, device=bmax3.device).view(cg, 1, group)
+            bmax3 = bmax3.masked_fill(block_ids * block >= n_valid, NEG_INF)
+            if n_valid % block:
+                sb, patched = _straddler_maxima(queries, corpus, block, n_valid, scales,
+                                                row_scales)
+                bmax3[sb // group, :, sb % group] = patched
+            gmax = bmax3.amax(dim=-1)[:, None, :]
 
-    top_groups = exact_topk(gmax.view(cg, q).T, kb_g).indices            # [Q, kb_g]
-    cand = bmax3[top_groups, torch.arange(q, device=bmax3.device)[:, None]]  # [Q, kb_g, G]
-    sel = exact_topk(cand.reshape(q, kb_g * group), kb_b).indices
-    return torch.gather(top_groups, 1, sel // group) * group + sel % group
+        top_groups = exact_topk(gmax.view(cg, q).T, kb_g).indices            # [Q, kb_g]
+        cand = bmax3[top_groups, torch.arange(q, device=bmax3.device)[:, None]]  # [Q, kb_g, G]
+        sel = exact_topk(cand.reshape(q, kb_g * group), kb_b).indices
+        return torch.gather(top_groups, 1, sel // group) * group + sel % group
 
 
 def mips_topk_v2(queries, corpus, k: int, *, block: int, group: int = GROUP,
@@ -349,9 +353,10 @@ def mips_topk_v2(queries, corpus, k: int, *, block: int, group: int = GROUP,
         row_scales = pad_ones(row_scales, n)
     top_blocks = select_blocks(queries, corpus, k, block=block, group=group, kb=kb,
                                n_valid=n_valid, scales=scales, row_scales=row_scales)
-    return rescore_block_candidates(queries, top_blocks, corpus.view(nb, block, d), k=k,
-                                    block=block, n_valid=n_valid, impl=rescore_impl,
-                                    block_scales=scales, row_scales=row_scales)
+    with span("proqa.search.rescore"):
+        return rescore_block_candidates(queries, top_blocks, corpus.view(nb, block, d), k=k,
+                                        block=block, n_valid=n_valid, impl=rescore_impl,
+                                        block_scales=scales, row_scales=row_scales)
 
 
 def mips_topk_v1(queries, corpus, k: int, *, block: int = 256, kb: int = 128,

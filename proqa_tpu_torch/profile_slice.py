@@ -44,7 +44,9 @@ For each workload:
     device time: trace events of category kernel, gpu_memcpy and gpu_memset.
     Busy time is the union of their intervals; the idle share is 1 - busy /
     the host-clock wall of the traced calls. Device time is summed by kernel
-    group, by the aten op that launched the kernel, and by kernel name.
+    group, by the aten op that launched the kernel, and by kernel name;
+  - device and idle time by program span (the `proqa.*` spans of
+    utils/profiling.py:span, see span_times).
 
 --only runs the named workloads alone (the encode workloads are named
 encode_T128, encode_T256, encode_T512). Exits non-zero without a CUDA
@@ -53,6 +55,7 @@ device: there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import json
 import os
@@ -65,6 +68,12 @@ import time
 import torch
 
 GPU_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# host calls behind the GPU records: kernel launches, copies and sets
+CALL_PREFIXES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchCooperativeKernel",
+                 "cudaMemcpy", "cudaMemset")
+WINDOW = "profile_slice.window"  # the user annotation around the traced calls
+PROGRAM = "proqa."  # the prefix of the program's span names
+NO_SPAN = "(none)"  # span_times' key for idle time outside every program span
 
 # kernel group: substrings of the kernel name, first match wins. The Hopper
 # block-maxima kernel names its epilogue and output layout
@@ -101,10 +110,10 @@ GROUPS = (
 )
 
 
-# GPU work launched inside these torch.profiler.record_function ranges is
-# grouped by the range's name, before the kernel-name groups
-# (QATrainer._eval_step wraps the span decode in one)
-ANNOTATED_GROUPS = ("decode",)
+# GPU work launched inside these spans (utils/profiling.py:span) is grouped
+# by the span's name, before the kernel-name groups (QATrainer._eval_step
+# wraps the span decode in one)
+ANNOTATED_GROUPS = ("proqa.qa.decode",)
 
 
 def kernel_group(name: str, cat: str) -> str:
@@ -161,6 +170,7 @@ def trace_breakdown(trace: dict, calls: int, wall_ms: float) -> dict:
         return dict(sorted(d.items(), key=lambda kv: -kv[1]))
 
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]
+    span_device, span_idle = span_times(events)
     return {
         "traced_calls": calls,
         "wall_ms_per_call": wall_ms / calls,
@@ -171,7 +181,83 @@ def trace_breakdown(trace: dict, calls: int, wall_ms: float) -> dict:
         "ms_per_call_by_launching_op": ranked(by_op),
         "top_kernels": [{"name": n, "launches_per_call": c / calls, "ms_per_call": t}
                         for n, (c, t) in top],
+        "device_ms_per_call_by_span": ranked({k: v * 1e3 / calls for k, v in span_device.items()}),
+        "idle_ms_per_call_by_span": ranked({k: v * 1e3 / calls for k, v in span_idle.items()}),
     }
+
+
+class _Spans:
+    """One thread's program spans, properly nested: the innermost one open
+    at a time."""
+
+    def __init__(self, spans: list[tuple[float, float, str]]):
+        self.spans = sorted(spans, key=lambda x: (x[0], -x[1]))  # outer first on a tie
+        self.starts = [s for s, _, _ in self.spans]
+        self.parent: list[int] = []
+        stack: list[int] = []
+        for i, (s, _, _) in enumerate(self.spans):
+            while stack and self.spans[stack[-1]][1] <= s:
+                stack.pop()
+            self.parent.append(stack[-1] if stack else -1)
+            stack.append(i)
+
+    def innermost(self, t: float) -> str | None:
+        # the last span to start by t, else the nearest of its enclosing
+        # spans still open at t
+        i = bisect.bisect_right(self.starts, t) - 1
+        while i >= 0 and self.spans[i][1] <= t:
+            i = self.parent[i]
+        return self.spans[i][2] if i >= 0 else None
+
+
+def span_times(events: list[dict]) -> tuple[dict, dict]:
+    """(device, idle) seconds by program span inside the WINDOW annotation,
+    ({}, {}) where the trace has none. Device: each GPU record charged to
+    the innermost `proqa.*` span open on the thread of its host call (a
+    launch, copy or set, matched by correlation id) when that call was made;
+    every span name of the window is a key. Idle: the window's idle gaps cut
+    at the span boundaries on the window's thread, each piece charged to the
+    innermost span open over it or to NO_SPAN, so the values sum to the
+    window's idle time."""
+    windows = [e for e in events if e.get("cat") == "user_annotation" and e["name"] == WINDOW]
+    if not windows:
+        return {}, {}
+    w0 = float(windows[0]["ts"])
+    w1 = w0 + float(windows[0]["dur"])
+    by_tid: dict = {}
+    for e in events:
+        if (e.get("cat") == "user_annotation" and e["name"].startswith(PROGRAM)
+                and w0 <= float(e["ts"]) < w1):
+            by_tid.setdefault(e.get("tid"), []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"]))
+    threads = {tid: _Spans(spans) for tid, spans in by_tid.items()}
+    device = {name: 0.0 for spans in by_tid.values() for _, _, name in spans}
+    calls = {e.get("args", {}).get("correlation"): e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and e["name"].startswith(CALL_PREFIXES)}
+    gpu = [e for e in events if e.get("cat") in GPU_CATEGORIES]
+    for rec in gpu:
+        call = calls.get(rec.get("args", {}).get("correlation"))
+        spans = threads.get(call.get("tid")) if call is not None else None
+        name = spans.innermost(float(call["ts"])) if spans is not None else None
+        if name is not None:
+            device[name] += float(rec["dur"]) / 1e6
+    busy = sorted((max(float(e["ts"]), w0), min(float(e["ts"]) + float(e["dur"]), w1))
+                  for e in gpu)
+    gaps, prev = [], w0
+    for s, e in [(s, e) for s, e in busy if e > s] + [(w1, w1)]:
+        if s > prev:
+            gaps.append((prev, s))
+        prev = max(prev, e)
+    own = threads.get(windows[0].get("tid"))
+    idle = {name: 0.0 for _, _, name in (own.spans if own else [])}
+    cuts = sorted({t for s, e, _ in (own.spans if own else []) for t in (s, e)})
+    for s, e in gaps:
+        points = [s] + cuts[bisect.bisect_right(cuts, s):bisect.bisect_left(cuts, e)] + [e]
+        for a, b in zip(points, points[1:]):
+            name = (own.innermost((a + b) / 2) if own else None) or NO_SPAN
+            idle[name] = idle.get(name, 0.0) + (b - a) / 1e6
+    return device, idle
 
 
 def smi_sampler() -> subprocess.Popen:
@@ -201,7 +287,7 @@ def measure(name: str, fn, *, loop_calls: int, traced_calls: int, trace_dir: str
             extra: dict) -> dict:
     """Steady loop, then a profiled window, of fn() (which must return only
     after its device work is done)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     fn()
     fn()
@@ -222,11 +308,12 @@ def measure(name: str, fn, *, loop_calls: int, traced_calls: int, trace_dir: str
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(traced_calls):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        with record_function(WINDOW):
+            t0 = time.perf_counter()
+            for _ in range(traced_calls):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
     path = os.path.join(trace_dir, f"{name}.json")
     prof.export_chrome_trace(path)
     with open(path) as f:
@@ -241,6 +328,11 @@ def measure(name: str, fn, *, loop_calls: int, traced_calls: int, trace_dir: str
           f"idle share {t['idle_share']:.4f}", flush=True)
     for group, ms in t["ms_per_call_by_group"].items():
         print(f"    {group:<16} {ms:10.3f} ms  {ms / t['device_busy_ms_per_call']:6.1%}")
+    for name, ms in t["device_ms_per_call_by_span"].items():
+        print(f"    {name:<26} {ms:10.3f} ms device, "
+              f"{t['idle_ms_per_call_by_span'].get(name, 0.0):8.3f} ms idle")
+    if NO_SPAN in t["idle_ms_per_call_by_span"]:
+        print(f"    {NO_SPAN:<26} {t['idle_ms_per_call_by_span'][NO_SPAN]:8.3f} ms idle")
     return result
 
 

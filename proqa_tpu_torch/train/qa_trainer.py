@@ -60,7 +60,7 @@ from proqa_tpu_torch.train import checkpoint as ckpt
 from proqa_tpu_torch.train.meta import read_trainer_meta, write_trainer_meta
 from proqa_tpu_torch.train.optim import AdamW, TrainState, apply_gradients, init_train_state
 from proqa_tpu_torch.utils.logging import AverageMeter, MetricLogger, setup_logger
-from proqa_tpu_torch.utils.profiling import StepTimer, TraceWindow
+from proqa_tpu_torch.utils.profiling import StepTimer, TraceWindow, span
 
 ALPHA_GRID = (0, 0.05, 0.1, 0.15, 0.2, 0.25, 0.3, 0.35, 0.5, 0.55, 0.6, 0.7, 0.8, 0.9, 1)
 
@@ -199,7 +199,7 @@ class QATrainer:
         with torch.inference_mode():
             out = self.model(self._device_batch(net))
             # a named range: profile_slice groups the decode's kernels by it
-            with torch.profiler.record_function("decode"):
+            with span("proqa.qa.decode"):
                 start, end, score = decode_spans(out["start_logits"], out["end_logits"],
                                                  self.tcfg.max_answer_len)
             rank = (out["select_logits"] if self.qcfg.add_select

@@ -1,4 +1,4 @@
-"""Step timing and device traces for the trainers.
+"""Step timing, device traces and the program's named spans.
 
 Counterpart of proqa_tpu/utils/profiling.py:
 * StepTimer: wall-clock per-step timing with a percentile summary. On a CUDA
@@ -6,14 +6,46 @@ Counterpart of proqa_tpu/utils/profiling.py:
   before the device has finished.
 * TraceWindow: a torch.profiler trace (CPU and CUDA activity) of a few warm
   train steps, written as a Chrome trace into `log_dir`.
+* span(name): a named range in torch.profiler's trace, beside its kernel and
+  copy records and on its clock, opened only while a profiler collects.
+
+The spans, all named `proqa.*`:
+* proqa.search: DenseIndex.search, the whole call (the tombstone over-fetch
+  nests a second one). Below it, in order:
+  - proqa.search.upload: the queries to the device in the scoring dtype, and
+    their padding;
+  - proqa.search.block_maxima: stage 1 of the exact search, K1/K5/K7 and
+    the block and group maxima's allocation (ops/mips_kernel.py);
+  - proqa.search.select: stage 2, the rest of select_blocks (the padding
+    mask, the straddling block, the group and block top-k);
+  - proqa.search.rescore: stage 3, K6 or the `take` gather and the final
+    top-k (mips_topk_v2);
+  - proqa.search.download: values and rows to numpy on the host.
+  The three stages open in every caller of the exact search: QA evals,
+  serving, each shard of a sharded search. profile_slice.span_times
+  charges a trace's device and idle time to these spans.
+* proqa.qa.decode: QATrainer's span decode (profile_slice groups its kernels
+  by it).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+_profiling = torch._C._autograd._profiler_enabled
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A torch.profiler range named `name` while a profiler collects, else
+    one shared null context: off, a span costs a check and makes nothing.
+    A span never synchronises or touches a tensor."""
+    return record_function(name) if _profiling() else _NO_SPAN
 
 
 class StepTimer:
