@@ -56,6 +56,10 @@ f32_launches = 0          # K1: block_maxima_grouped, f32, csrc/block_maxima_f32
 scaled_launches = 0       # K5: block_maxima_grouped(scales=)
 bounded_launches = 0      # K7: block_maxima_grouped(scale_bounds=)
 block_major_launches = 0  # K8: block_maxima
+# groups of block maxima that select_blocks masked for padding since the
+# last reset (the tail from the first block at or past n_valid; 0 when the
+# valid rows fill whole groups)
+tail_mask_groups = 0
 
 
 def _check_shapes(queries, corpus, block: int, group: int, scales=None,
@@ -281,7 +285,15 @@ def select_blocks(queries, corpus, k: int, *, block: int, group: int = GROUP,
     """Stages 1 and 2 of mips_topk_v2: each query's candidate block ids
     [Q, min(kb, NB)] int64, NB the blocks of the whole groups (those past the
     corpus's N rows, a multiple of block, hold zero rows and never a result:
-    rescore_block_candidates masks them); kb defaults to k."""
+    rescore_block_candidates masks them); kb defaults to k.
+
+    Padding is masked in place in the tail groups alone, from the group of
+    the first block at or past n_valid: their blocks wholly past n_valid
+    are set to NEG_INF, the straddling block is scored over its valid rows,
+    and their group maxima are taken again. The groups before the tail keep
+    the kernel's group maxima, which are exact (tail_mask_groups counts the
+    groups masked)."""
+    global tail_mask_groups
     q = queries.shape[0]
     n = corpus.shape[0]
     if n_valid is None:
@@ -303,15 +315,18 @@ def select_blocks(queries, corpus, k: int, *, block: int, group: int = GROUP,
                                            scales=scales, scale_bounds=scale_bounds)
 
     with span("proqa.search.select"):
-        if n_valid != nb * block:
-            # blocks wholly past n_valid can never hold a result
-            block_ids = torch.arange(nb, device=bmax3.device).view(cg, 1, group)
-            bmax3 = bmax3.masked_fill(block_ids * block >= n_valid, NEG_INF)
+        if n_valid < nb * block:
+            # bmax3 and gmax are this call's own, so they are written in place
+            g0 = n_valid // block // group
+            tail = bmax3[g0:]
+            block_ids = torch.arange((cg - g0) * group, device=bmax3.device).view(-1, 1, group)
+            tail.masked_fill_(block_ids * block >= n_valid - g0 * group * block, NEG_INF)
             if n_valid % block:
                 sb, patched = _straddler_maxima(queries, corpus, block, n_valid, scales,
                                                 row_scales)
                 bmax3[sb // group, :, sb % group] = patched
-            gmax = bmax3.amax(dim=-1)[:, None, :]
+            gmax[g0:, 0, :] = tail.amax(dim=-1)
+            tail_mask_groups += cg - g0
 
         top_groups = exact_topk(gmax.view(cg, q).T, kb_g).indices            # [Q, kb_g]
         cand = bmax3[top_groups, torch.arange(q, device=bmax3.device)[:, None]]  # [Q, kb_g, G]

@@ -1,14 +1,19 @@
 """Where the device time goes in the port's hot workloads, on one NVIDIA GPU.
 
     python -m proqa_tpu_torch.profile_slice [--out build/profile_slice.json]
-        [--only search,search_f32]
+        [--only search,search_21m]
 
-Workloads, at chip_smoke.py's sizes, with random seeded data and weights:
+Workloads, at chip_smoke.py's sizes (search_21m at the benchmark's), with random
+seeded data and weights:
   search      DenseIndex.search, exact top-80 over a 4,194,304 x 128 bf16
               corpus, 2,048 queries per batch (kernel K1, torch select,
               then kernel K6's rescore);
   search_f32  the same over an f32 index (`--f32`; kernel K1's f32 body,
               csrc/block_maxima_f32.cu, and K6 over f32 rows);
+  search_21m  the bf16 search over 21,015,324 rows (psgs_w100's count, the
+              benchmark's 128-d index) in a 21,015,552-row buffer: the
+              rows end inside the last group of block maxima, so the
+              select masks that group for padding;
   search_int8 the same over an int8 index (`--int8-index`): codes and
               per-block scales made on the device, quant block 16 (kernel
               K5, then the select and the scaled `take` rescore);
@@ -46,7 +51,9 @@ For each workload:
     the host-clock wall of the traced calls. Device time is summed by kernel
     group, by the aten op that launched the kernel, and by kernel name;
   - device and idle time by program span (the `proqa.*` spans of
-    utils/profiling.py:span, see span_times).
+    utils/profiling.py:span, see span_times);
+  - for the searches, the groups of block maxima the select masks for
+    padding a call (ops/mips_kernel.py:tail_mask_groups).
 
 --only runs the named workloads alone (the encode workloads are named
 encode_T128, encode_T256, encode_T512). Exits non-zero without a CUDA
@@ -318,7 +325,8 @@ def measure(name: str, fn, *, loop_calls: int, traced_calls: int, trace_dir: str
     prof.export_chrome_trace(path)
     with open(path) as f:
         trace = json.load(f)
-    result = {"workload": name, **extra, "steady_loop": loop,
+    result = {"workload": name, **extra, "calls": 2 + loop_calls + traced_calls,
+              "steady_loop": loop,
               "trace": trace_breakdown(trace, traced_calls, wall_ms)}
     t = result["trace"]
     print(f"{name}: steady {loop['wall_ms_median']:.3f} ms per call "
@@ -336,11 +344,23 @@ def measure(name: str, fn, *, loop_calls: int, traced_calls: int, trace_dir: str
     return result
 
 
-def search_workload(dtype, trace_dir: str, loop_calls: int) -> dict:
-    from proqa_tpu_torch.index.dense import DenseIndex
-    from proqa_tpu_torch.ops import mips
+def tail_masks(result: dict) -> None:
+    """Adds (and prints) the groups the select masked for padding a call,
+    over every call of measure() since mips_kernel.tail_mask_groups was
+    reset."""
+    from proqa_tpu_torch.ops import mips_kernel
 
-    n, q, d, k = 4_194_304, 2048, 128, 80
+    calls = result["calls"]
+    result["tail_mask_groups_per_call"] = mips_kernel.tail_mask_groups / calls
+    print(f"    tail_mask_groups {result['tail_mask_groups_per_call']:.3f} a call "
+          f"({mips_kernel.tail_mask_groups} over {calls} calls)", flush=True)
+
+
+def search_workload(name: str, dtype, n: int, trace_dir: str, loop_calls: int) -> dict:
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.ops import mips, mips_kernel
+
+    q, d, k = 2048, 128, 80
     device = torch.device("cuda", 0)
     g = torch.Generator(device=device).manual_seed(4)
     corpus = (torch.randn(n, d, device=device, generator=g) / d ** 0.5).to(dtype)
@@ -348,19 +368,20 @@ def search_workload(dtype, trace_dir: str, loop_calls: int) -> dict:
     index = DenseIndex.from_embeddings(corpus, device=device, dtype=dtype)
     del corpus
     block = mips.envelope_block(index.embeddings.shape[0], q)
-    name = "search" if dtype == torch.bfloat16 else "search_f32"
+    mips_kernel.tail_mask_groups = 0
     result = measure(name, lambda: index.search(queries, k), loop_calls=loop_calls,
                      traced_calls=3, trace_dir=trace_dir,
                      extra={"shape": {"n": n, "d": d, "q": q, "k": k, "block": block,
                                       "dtype": str(dtype)},
                             "k1_flop_per_call": 2.0 * n * q * d})
+    tail_masks(result)
     result["qps"] = q / result["steady_loop"]["wall_ms_median"] * 1e3
     return result
 
 
 def search_int8_workload(trace_dir: str, loop_calls: int) -> dict:
     from proqa_tpu_torch.index.dense import DenseIndex
-    from proqa_tpu_torch.ops import mips
+    from proqa_tpu_torch.ops import mips, mips_kernel
     from proqa_tpu_torch.testing import random_int8_corpus
 
     n, q, d, k = 4_194_304, 2048, 128, 80
@@ -370,11 +391,13 @@ def search_int8_workload(trace_dir: str, loop_calls: int) -> dict:
     index = DenseIndex._from_quantized(codes, scales, n, block, None)
     g = torch.Generator(device=device).manual_seed(5)
     queries = torch.randn(q, d, device=device, generator=g) / d ** 0.5
+    mips_kernel.tail_mask_groups = 0
     result = measure("search_int8", lambda: index.search(queries, k), loop_calls=loop_calls,
                      traced_calls=3, trace_dir=trace_dir,
                      extra={"shape": {"n": n, "d": d, "q": q, "k": k, "block": block,
                                       "dtype": "int8, bf16 queries"},
                             "k5_flop_per_call": 2.0 * n * q * d})
+    tail_masks(result)
     result["qps"] = q / result["steady_loop"]["wall_ms_median"] * 1e3
     return result
 
@@ -642,10 +665,11 @@ def main(argv=None) -> int:
     report = {"gpu": gpu, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda, "workloads": []}
     with tempfile.TemporaryDirectory(prefix="proqa_profile_") as trace_dir:
-        for name, dtype, calls in (("search", torch.bfloat16, 100),
-                                   ("search_f32", torch.float32, 25)):
+        for name, dtype, n, calls in (("search", torch.bfloat16, 4_194_304, 100),
+                                      ("search_f32", torch.float32, 4_194_304, 25),
+                                      ("search_21m", torch.bfloat16, 21_015_324, 40)):
             if wanted(name):
-                report["workloads"].append(search_workload(dtype, trace_dir, calls))
+                report["workloads"].append(search_workload(name, dtype, n, trace_dir, calls))
                 torch.cuda.empty_cache()
         if wanted("search_int8"):
             report["workloads"].append(search_int8_workload(trace_dir, 100))

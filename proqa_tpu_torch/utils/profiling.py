@@ -17,7 +17,8 @@ The spans, all named `proqa.*`:
   - proqa.search.block_maxima: stage 1 of the exact search, K1/K5/K7 and
     the block and group maxima's allocation (ops/mips_kernel.py);
   - proqa.search.select: stage 2, the rest of select_blocks (the padding
-    mask, the straddling block, the group and block top-k);
+    mask, in place, of the tail groups alone, the straddling block, those
+    groups' maxima again, the group and block top-k);
   - proqa.search.rescore: stage 3, K6 or the `take` gather and the final
     top-k (mips_topk_v2);
   - proqa.search.download: values and rows to numpy on the host.

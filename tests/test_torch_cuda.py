@@ -109,17 +109,24 @@ def test_wgmma_block_maxima_match_plain(cuda, q, block, group):
         torch.testing.assert_close(g, w, atol=MIPS_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("grown", [False, True], ids=["tight", "grown"])
 @pytest.mark.parametrize("block", mips_kernel.WGMMA_BLOCKS)
-def test_wgmma_pipeline_with_n_valid_inside_a_block(cuda, block):
+def test_wgmma_pipeline_with_n_valid_inside_a_block(cuda, block, grown):
     """mips_topk_v2 through the Hopper K1 over a corpus whose last real row
     falls inside a block: the blocks past it are masked, the straddling one
     patched; every real score is negative, so an unmasked zero padding row
-    would win."""
+    would win. Grown: the corpus is a buffer of four groups, so the padding
+    spans the rest of the second group and two whole groups, all three
+    masked in place."""
     n_valid = 128 * block + 3 * block + block // 2
-    queries, corpus = _mips_inputs(64, n_valid, cuda, torch.bfloat16, seed=block, negative=True)
+    n = 4 * 128 * block if grown else n_valid
+    queries, corpus = _mips_inputs(64, n, cuda, torch.bfloat16, seed=block, negative=True)
+    corpus[n_valid:] = 0
     before = mips_kernel.launches
+    mips_kernel.tail_mask_groups = 0
     gv, gi = mips_kernel.mips_topk_v2(queries, corpus, 80, block=block, n_valid=n_valid)
     assert mips_kernel.launches == before + 1
+    assert mips_kernel.tail_mask_groups == (3 if grown else 1)
     rv, ri = mips.mips_topk_reference(queries, corpus, 80, n_valid=n_valid)
     assert topk_disagreements(gv.cpu().numpy(), gi.cpu().numpy(), rv.cpu().numpy(),
                               ri.cpu().numpy(), atol=MIPS_ATOL) == 0

@@ -85,6 +85,90 @@ def test_mips_topk_bf16_matches_jax_pipeline():
     assert topk_disagreements(gv.numpy(), gi.numpy(), pv, pi, atol=ATOL) == 0
 
 
+def _full_mask_select(queries, corpus, k, *, block, group, n_valid, scales=None,
+                      row_scales=None):
+    """select_blocks's stage 2 as it was: the padding mask over every group,
+    out of place, then every group maximum taken again."""
+    q, n = queries.shape[0], corpus.shape[0]
+    cg = -(-n // (group * block))
+    nb = cg * group
+    bounds = None
+    if row_scales is not None:
+        rs = row_scales.view(n // block, block)
+        bounds = (rs.amax(dim=1), rs.amin(dim=1))
+    bmax3, gmax = mips_kernel.block_maxima_grouped_reference(
+        queries, corpus, block=block, group=group, scales=scales, scale_bounds=bounds)
+    if n_valid != nb * block:
+        block_ids = torch.arange(nb).view(cg, 1, group)
+        bmax3 = bmax3.masked_fill(block_ids * block >= n_valid, mips.NEG_INF)
+        if n_valid % block:
+            sb, patched = mips_kernel._straddler_maxima(queries, corpus, block, n_valid, scales,
+                                                        row_scales)
+            bmax3[sb // group, :, sb % group] = patched
+        gmax = bmax3.amax(dim=-1)[:, None, :]
+    kb_g, kb_b = min(k, cg), min(k, nb)
+    top_groups = mips.exact_topk(gmax.view(cg, q).T, kb_g).indices
+    cand = bmax3[top_groups, torch.arange(q)[:, None]]
+    sel = mips.exact_topk(cand.reshape(q, kb_g * group), kb_b).indices
+    return torch.gather(top_groups, 1, sel // group) * group + sel % group
+
+
+# block 16, group 4: 64 rows a group. (corpus rows, n_valid, groups masked)
+TAIL_CASES = {
+    "whole_groups": (640, 640, 0),
+    "block_edge": (608, 608, 1),            # inside the last group, on a block edge
+    "straddler": (624, 613, 1),             # inside the last group, inside a block
+    "grown_tail": (768, 613, 3),            # two whole groups of capacity past it
+    "below_one_group": (48, 37, 1),
+}
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "scales", "row_scales"])
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_tail_group_mask_matches_full_mask(case, kind):
+    """select_blocks masks only the tail groups, in place: its block ids,
+    and mips_topk_v2's values and rows, are those of the full mask over
+    every group, over negative scores (an unmasked zero padding row would
+    win), and tail_mask_groups counts the groups masked."""
+    n, n_valid, groups = TAIL_CASES[case]
+    block, group, k = 16, 4, 6
+    queries, corpus = _data(40, n, seed=n_valid, negative=True)
+    queries, corpus = torch.from_numpy(queries), torch.from_numpy(corpus)
+    corpus[n_valid:] = 0  # padding rows, as an index's capacity tail holds
+    kw = {}
+    if kind in ("float32", "bfloat16"):
+        queries, corpus = queries.to(getattr(torch, kind)), corpus.to(getattr(torch, kind))
+    else:
+        queries = queries.bfloat16()
+        g = torch.Generator().manual_seed(n_valid)
+        corpus = -torch.randint(1, 128, (n, corpus.shape[1]), generator=g, dtype=torch.int8)
+        corpus[n_valid:] = 0
+        count = n // block if kind == "scales" else n
+        kw[kind] = torch.rand(count, generator=g) * 0.05 + 1e-3
+    want_ids = _full_mask_select(queries, corpus, k, block=block, group=group,
+                                 n_valid=n_valid, **kw)
+    mips_kernel.tail_mask_groups = 0
+    ids = mips_kernel.select_blocks(queries, corpus, k, block=block, group=group,
+                                    n_valid=n_valid, **kw)
+    assert mips_kernel.tail_mask_groups == groups
+    assert torch.equal(ids, want_ids)
+
+    vals, rows = mips_kernel.mips_topk_v2(queries, corpus, k, block=block, group=group,
+                                          n_valid=n_valid, **kw)
+    assert mips_kernel.tail_mask_groups == 2 * groups
+    want_vals, want_rows = mips.rescore_block_candidates(
+        queries, want_ids, corpus.view(n // block, block, -1), k=k, block=block,
+        n_valid=n_valid, block_scales=kw.get("scales"), row_scales=kw.get("row_scales"))
+    assert torch.equal(vals, want_vals) and torch.equal(rows, want_rows)
+    assert (rows < n_valid).all() and (vals > mips.NEG_INF).all()
+    if kind != "row_scales":  # selection by K7's bound is a heuristic
+        rv, ri = mips.mips_topk_reference(
+            queries, corpus, k, n_valid=n_valid,
+            scales=None if "scales" not in kw else kw["scales"].repeat_interleave(block))
+        assert topk_disagreements(vals.numpy(), rows.numpy(), rv.numpy(), ri.numpy(),
+                                  atol=ATOL) == 0
+
+
 @pytest.mark.parametrize("path", ["blockmax", "chunked"])
 def test_other_search_paths_match_reference(path):
     queries, corpus = _data(64, 6000, seed=3, negative=True)

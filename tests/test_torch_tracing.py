@@ -96,6 +96,40 @@ def test_results_bit_identical_with_and_without_profiler(dtype, tmp_path):
     assert vals.dtype == want_vals.dtype and rows.dtype == want_rows.dtype
 
 
+def test_select_masks_the_tail_group_in_place():
+    """5,000 rows in a 5,120-row buffer at block 16 and group 128: three
+    groups of block maxima, the padding in the last. Under
+    proqa.search.select the mask is one in-place masked_fill_ of that group;
+    nothing fills or copies the whole of bmax3."""
+    from proqa_tpu_torch.ops import mips, mips_kernel
+
+    index = _index()
+    q = 256  # the 8 queries padded to q_pad
+    block = mips.envelope_block(index.capacity, q)
+    groups = -(-index.capacity // (mips_kernel.GROUP * block))
+    assert (block, groups) == (16, 3)
+    bmax3_numel = groups * q * mips_kernel.GROUP
+    mips_kernel.tail_mask_groups = 0
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        index.search(_queries(), K)
+    assert mips_kernel.tail_mask_groups == 1
+
+    def in_select(e):
+        while e is not None:
+            if e.name == "proqa.search.select":
+                return True
+            e = e.cpu_parent
+        return False
+
+    ops = [e for e in prof.events() if in_select(e.cpu_parent)]
+    numel = lambda shape: int(np.prod(shape)) if shape else 0  # noqa: E731
+    assert "aten::masked_fill" not in {e.name for e in ops}
+    fills = [e for e in ops if e.name == "aten::masked_fill_"]
+    assert [numel(e.input_shapes[0]) for e in fills] == [q * mips_kernel.GROUP]
+    copies = [e for e in ops if e.name in ("aten::clone", "aten::copy_")]
+    assert copies and all(numel(e.input_shapes[0]) < bmax3_numel for e in copies)
+
+
 def test_span_off_is_one_shared_null_context_and_makes_no_record_function(monkeypatch):
     index = _index()
     want_vals, want_rows = index.search(_queries(), K)
