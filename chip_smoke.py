@@ -243,8 +243,23 @@ EmbeddingGemma encoder attend with heads of 256):
      768 with 2 heads of 384 and 1 of 768: an encode against the vanilla
      path, a train step and its dropout-0 gradients. K2/K3 launches counted
      in (b) and (c).
+E5-Mistral-7B (intfloat/e5-mistral-7b-instruct: Mistral-7B's decoder, 32
+layers, hidden 4,096, 32 query heads over 8 kv heads of 128, FFN 14,336;
+random weights drawn on the card):
+ 36. (a) F1's SwiGLU form at [29,696, 2 x 14,336], F2's RMSNorm form at
+     [29,696, 4,096] (with and without a residual) and the RoPE copy at
+     [512, 58, 6,144], the E5 cell's padded shapes, against their plain
+     versions (SwiGLU and RoPE bit-equal; F2's sum bit-equal, its output
+     within one bf16 ulp at >= LN_ULP_FLOOR), each timed beside its plain
+     version, its bound and (F2) torch's rms_norm; (b) the retrieve path:
+     512 host rows of 28-58 ids through encode_query, then DenseIndex.search
+     top-100 over 262,144 seeded 4,096-d bf16 rows, with every counter reset
+     before and read after (the three kernels, K1, K6), the embeddings
+     unit-norm and every query against the exact top-100; the call's time
+     and peak memory logged. The kernels line gains "... (E5 tower)"
+     entries, their launches those of that one call.
 Phases 23-25 run after phase 18, phase 26 after phase 22, 27-29 after 20,
-30 and 31 after 2, 32-35 last. Each of phases 12-14 first drives its kernel's public pipeline
+30 and 31 after 2, 32-36 last. Each of phases 12-14 first drives its kernel's public pipeline
 once with the counters at 0 and reads them, then compares and times the
 kernel. Kernel
 times are device times by CUDA events around one call (cuda_ms); phases 6
@@ -5197,6 +5212,192 @@ def phase_wide_heads(device) -> tuple[list, dict]:
                      "tower_grad_cos": tower_grad}
 
 
+# phase 36: E5-Mistral-7B's decoder (intfloat/e5-mistral-7b-instruct's
+# config.json; random weights drawn on the card): its kernels at the E5
+# cell's padded shapes, 512 rows of 28-58 ids padded to 58, and its retrieve
+# path, encode_query then DenseIndex.search, at the published widths
+E5_ROWS, E5_LENGTHS, E5_K = 512, (28, 58), 100
+E5_CORPUS = 262_144  # 4,096-d bf16 index rows searched (2 GiB), past the naive search
+
+
+def _decoder_kernels(device, cfg) -> list:
+    """F1's SwiGLU form, F2's RMSNorm form and the RoPE copy against their
+    plain versions at the E5 cell's padded shapes (E5_ROWS x the longest
+    length): SwiGLU and RoPE bit-equal, F2's sum bit-equal and its output
+    within one bf16 ulp at magnitudes of at least LN_ULP_FLOOR (with and
+    without a residual). Each timed by one call between CUDA events, queued
+    and by its kernels alone beside its plain version, its bound and, for
+    F2, torch's rms_norm (no residual: a yardstick). Returns (kernel,
+    label, result) a form."""
+    import torch
+
+    from proqa_tpu_torch.ops import fused_bert, rope
+
+    g = torch.Generator(device=device).manual_seed(70)
+    b, t = E5_ROWS, E5_LENGTHS[1]
+    n, h, inter = b * t, cfg.hidden_size, cfg.intermediate_size
+    runs = []
+
+    def timed_run(run, plain, bound_ms, by, **extra):
+        return {**extra, "ms": cuda_ms(run), "queued_ms": cuda_ms(run, calls=10),
+                **kernel_ms(run), "plain_ms": cuda_ms(plain), "bound_ms": bound_ms,
+                "bound_by": by}
+
+    # F1's SwiGLU form: [n, 2 I] -> [n, I]; 6 B an output (two reads, one
+    # write) and silu's exp, add and divide and the product, f32
+    y = (torch.randn(n, 2 * inter, device=device, generator=g) * 2.0).bfloat16()
+    got, want = fused_bert.swiglu(y), fused_bert.swiglu_reference(y)
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.equal(got, want), f"F1 SwiGLU [{n}, {2 * inter}]: max abs err {err}, not "
+                                  f"bit-equal")
+    del got, want
+    runs.append(("F1 swiglu", f"[{n}, {2 * inter}] -> [{n}, {inter}] bf16", timed_run(
+        lambda: fused_bert.swiglu(y), lambda: fused_bert.swiglu_reference(y),
+        *bound(n * inter * 6, n * inter * 4, PEAK_F32_FLOPS), max_abs_err=err,
+        library_ms=None)))
+    del y
+
+    # F2's RMSNorm form: x + r and its norm, [n, H]; 8 B an element with a
+    # residual (x, r read; the output and the sum written), 4 B without
+    x, r = (torch.randn(n, h, device=device, generator=g).bfloat16() for _ in range(2))
+    scale = (1.0 + 0.1 * torch.randn(h, device=device, generator=g)).bfloat16()
+    worst, ulps = 0.0, 0.0
+    for res in (r, None):
+        got, s = fused_bert.add_rms_norm(x, res, scale, cfg.rms_norm_eps)
+        want, want_s = fused_bert.add_rms_norm_reference(x, res, scale, cfg.rms_norm_eps)
+        check(torch.equal(s, want_s), f"F2 RMSNorm [{n}, {h}]: the sum is not bit-equal")
+        u = _bf16_ulps(got, want, LN_ULP_FLOOR)
+        check(u <= 1.0, f"F2 RMSNorm [{n}, {h}]{' + residual' if res is not None else ''}: "
+                        f"{u} bf16 ulps (at magnitudes of at least {LN_ULP_FLOOR})")
+        worst = max(worst, (got.float() - want.float()).abs().max().item())
+        ulps = max(ulps, u)
+        del got, s, want, want_s
+    sx = x + r
+    library = (cuda_ms(lambda: torch.nn.functional.rms_norm(sx, (h,), scale, cfg.rms_norm_eps))
+               if hasattr(torch.nn.functional, "rms_norm") else None)
+    del sx
+    runs.append(("F2 rms_row", f"[{n}, {h}] bf16 + residual", timed_run(
+        lambda: fused_bert.add_rms_norm(x, r, scale, cfg.rms_norm_eps),
+        lambda: fused_bert.add_rms_norm_reference(x, r, scale, cfg.rms_norm_eps),
+        *bound(n * h * 8 + h * 2, n * h * 5, PEAK_F32_FLOPS), max_abs_err=worst,
+        bf16_ulps=ulps, library_ms=library)))
+    del x, r
+
+    # the RoPE copy: the fused product [b, t, (nq + 2 nkv) hd] read once, q,
+    # k and v written once in the grouped layouts; q and k rotated (6
+    # operations an element: two products, an add, the tables' two reads)
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    width = (nq + 2 * nkv) * hd
+    qkv = torch.randn(b, t, width, device=device, generator=g).bfloat16()
+    cos, sin = rope.rope_tables(t, hd, cfg.rope_theta, device)
+    got = rope.rope_qkv(qkv, cos, sin, nq, nkv)
+    want = rope.rope_qkv_reference(qkv, cos, sin, nq, nkv)
+    err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
+    check(all(torch.equal(a, w) for a, w in zip(got, want)),
+          f"RoPE copy [{b}, {t}, {width}]: max abs err {err}, not bit-equal")
+    del got, want
+    runs.append(("RoPE", f"[{b}, {t}, {width}] -> q [{b}, {nkv}, {nq // nkv * t}, {hd}], k, v "
+                         f"[{b}, {nkv}, {t}, {hd}] bf16", timed_run(
+        lambda: rope.rope_qkv(qkv, cos, sin, nq, nkv),
+        lambda: rope.rope_qkv_reference(qkv, cos, sin, nq, nkv),
+        *bound(2 * qkv.numel() * 2 + 2 * t * hd * 4, 6 * b * t * (nq + nkv) * hd,
+               PEAK_F32_FLOPS), max_abs_err=err, library_ms=None)))
+    del qkv
+    torch.cuda.empty_cache()
+    for kernel, label, result in runs:
+        log(f"{kernel} {label}: {json.dumps(result)}")
+    return runs
+
+
+def phase_decoder(device) -> tuple[list, dict]:
+    """E5-Mistral-7B (models/mistral.py at MistralConfig's published
+    widths): (a) its kernels against their plain versions at the E5 cell's
+    shapes, timed (_decoder_kernels); (b) its retrieve path: E5_ROWS host
+    rows of 28-58 ids, right-padded, through encode_query (random weights
+    drawn on the card), then DenseIndex.search top-E5_K over E5_CORPUS
+    seeded 4,096-d bf16 rows, every launch counter reset before and read
+    after (F1's SwiGLU form, F2's RMSNorm form and the RoPE copy once or
+    twice a layer; K1, K6), the embeddings unit-norm and every query's
+    answers against the exact top-E5_K; the call's time and peak memory
+    logged. Returns the kernels line's entries of the three kernels and
+    the phase's numbers."""
+    import torch
+
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models import mistral
+    from proqa_tpu_torch.ops import fused_bert, mips, mips_kernel, rescore, rope
+    from proqa_tpu_torch.testing import topk_disagreements
+
+    gpu = gpu_line()
+    cfg = mistral.MistralConfig()
+    t0 = time.perf_counter()
+    runs = _decoder_kernels(device, cfg)
+    kernels_s = round(time.perf_counter() - t0, 1)
+
+    # (b) the retrieve path, counters at 0
+    t0 = time.perf_counter()
+    model = mistral.MistralRetriever.on_device(cfg, device, 71)
+    lengths = torch.randint(E5_LENGTHS[0], E5_LENGTHS[1] + 1, (E5_ROWS,),
+                            generator=torch.Generator().manual_seed(72))
+    lengths[0] = E5_LENGTHS[1]  # the cell's padded length
+    t = int(lengths.max())
+    mask = (torch.arange(t)[None] < lengths[:, None]).to(torch.int32)
+    ids = torch.randint(3, cfg.vocab_size, (E5_ROWS, t),
+                        generator=torch.Generator().manual_seed(73)) * mask
+    g = torch.Generator(device=device).manual_seed(74)
+    corpus = (torch.randn(E5_CORPUS, cfg.hidden_size, device=device, generator=g)
+              * cfg.hidden_size ** -0.5).bfloat16()
+    index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_bert.form_launches.clear()
+    rope.launches = mips_kernel.launches = rescore.launches = 0
+    mistral.reset_counters()
+    emb = model.encode_query(ids, mask)
+    vals, idx = index.search(emb, E5_K)
+    counts = {**_form_counts(), "RoPE": rope.launches, "K1": mips_kernel.launches,
+              "K6": rescore.launches, "positions": mistral.positions,
+              "tokens": mistral.tokens}
+    peak = round(torch.cuda.max_memory_allocated() / 2**30, 2)
+    layers = cfg.num_layers
+    check(counts.get("F1 swiglu", 0) == layers and counts.get("F2 rms_row", 0) == 2 * layers + 1
+          and counts["RoPE"] == layers and counts["K1"] > 0 and counts["K6"] > 0,
+          f"E5 retrieve path: launches {counts}")
+    norms = emb.norm(dim=-1)
+    check(bool(torch.isfinite(emb).all()) and emb.shape == (E5_ROWS, cfg.hidden_size)
+          and float((norms - 1).abs().max()) < 1e-3, "E5 retrieve path: bad embeddings")
+    qb, bad = emb.bfloat16(), 0
+    for s in range(0, E5_ROWS, 128):
+        rv, ri = mips.mips_topk_reference(qb[s:s + 128], corpus, E5_K)
+        bad += topk_disagreements(vals[s:s + 128], idx[s:s + 128], rv.cpu().numpy(),
+                                  ri.cpu().numpy(), atol=TOPK_TOL)
+    check(bad == 0, f"E5 retrieve path: {bad} of {E5_ROWS} queries disagree with the exact "
+                    f"top-{E5_K}")
+    call_ms = cuda_ms(lambda: index.search(model.encode_query(ids, mask), E5_K), reps=3)
+    path_s = round(time.perf_counter() - t0, 1)
+    log(f"{gpu}: decoder (b) E5-Mistral-7B retrieve path, {E5_ROWS} rows of "
+        f"{int(lengths.min())}-{t} ids ({counts['tokens']} real of {counts['positions']} "
+        f"positions): encode_query then DenseIndex.search top-{E5_K} over {E5_CORPUS} x "
+        f"{cfg.hidden_size} bf16: unit-norm embeddings, every query's answers agree with the "
+        f"exact top-{E5_K} up to ties; launches {json.dumps(counts)}; {call_ms:.2f} ms a call "
+        f"({E5_ROWS / call_ms * 1e3:.1f} queries/s, CUDA events); peak {peak} GiB; kernels "
+        f"{kernels_s} s, path {path_s} s")
+    del index, corpus, model, emb, qb
+    torch.cuda.empty_cache()
+
+    of = {"F1 swiglu": ("dense_epilogue SwiGLU form (F1)", "dense_epilogue.cu",
+                        counts["F1 swiglu"]),
+          "F2 rms_row": ("add_layer_norm RMSNorm form (F2)", "layer_norm.cu",
+                         counts["F2 rms_row"]),
+          "RoPE": ("rope_qkv (RoPE copy)", "rope.cu", counts["RoPE"])}
+    entries = []
+    for kernel, label, result in runs:
+        name, source, launches = of[kernel]
+        entries.append((f"{name} {label} (E5 tower)", source,
+                        "none: the JAX package has no decoder", launches, result))
+    return entries, {"counts": counts, "call_ms": call_ms, "peak_gib": peak}
+
+
 def gpu_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -5279,6 +5480,8 @@ def main() -> int:
         wide_search, _ = timed("embed_widths", phase_embed_widths, device)
         # heads wider than 128: 3 heads of 256 at BERT-base's widths, 384 and 768
         wide_heads, _ = timed("wide_heads", phase_wide_heads, device)
+        # E5-Mistral-7B's decoder: its kernels and its retrieve path
+        decoder, _ = timed("decoder", phase_decoder, device)
         log(f"phase seconds: {json.dumps(phases)}")
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "proqa_tpu"))
@@ -5378,6 +5581,9 @@ def main() -> int:
     # K2/K3 past Dh = 128 (launches: the 3-heads-of-256 tower's encode, reader
     # and train steps; the loop forms: the Dh 384 and 768 towers' encode and step)
     kernels += [entry(*form) for form in wide_heads]
+    # the decoder's F1 and F2 forms and RoPE copy at the E5 cell's shapes
+    # (launches: one E5 retrieve call at the published widths)
+    kernels += [entry(*form) for form in decoder]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -69,6 +69,13 @@ _SIGNATURES = {
     "proqa_add_layer_norm_bwd": [_P] * 9 + [_L, _I, _I, _I, _P],
     # rows, h, is_bf16, device: the bytes of the backward's scratch
     "proqa_add_layer_norm_bwd_workspace": [_L, _I, _I, _I],
+    # y, out, rows, cols, is_bf16, form, stream
+    "proqa_dense_swiglu": [_P] * 2 + [_L, _I, _I, _I, _P],
+    # x, residual (None for none), scale, out, sum_out (None for none), rows, h, eps,
+    # is_bf16, form, stream
+    "proqa_add_rms_norm": [_P] * 5 + [_L, _I, _F, _I, _I, _P],
+    # qkv, cos, sin, q, k, v, batch, t_len, nq, nkv, hd, is_bf16, form, stream
+    "proqa_rope_qkv": [_P] * 6 + [_I] * 7 + [_P],
 }
 # entry points that return a size, not a cudaError_t code
 _SIZES = ("proqa_dense_epilogue_bwd_workspace", "proqa_add_layer_norm_bwd_workspace")

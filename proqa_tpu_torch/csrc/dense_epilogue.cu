@@ -67,6 +67,17 @@
 // columns (kMaxSlabCols, where the column blocks' ticket counters fill their
 // 4 KB); past it the column blocks alone fill the card, so the direct form
 // takes every row in one slab and writes each column's sum with no partials.
+//
+// The SwiGLU form (`proqa_dense_swiglu`, forward only) is the gated MLP's
+// epilogue in the pre-norm decoder (models/mistral.py): one product of the
+// gate and up projections side by side, [rows, 2 I] in the activation dtype
+// (no bias; cuBLAS rounds each f32 sum once), gives round(silu(gate) * up)
+// in f32, ATen's silu expression, [rows, I]. Bound by bytes: 4 B read and
+// 2 B written an output element in bf16 (0.83 ms for [32,256, 14,336] at
+// 3.35 TB/s). The staged kernels' groups of 8 a thread, two 16-byte loads
+// (the gate's and the up's, I columns apart) and one store a group, in the
+// same grid-stride loop; odd widths and unaligned pointers take the element
+// body.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -574,6 +585,71 @@ cudaError_t launch_bwd(const void* doutp, const void* zp, void* dzp, void* works
                                          stream);
 }
 
+// --- F1's SwiGLU form: the gated MLP of a decoder ---
+
+// The forms' indices in ops/fused_bert.py's DENSE_FORMS
+enum SwigluForm { kSwigluVec = 4, kSwigluScalar = 5 };
+
+int swiglu_form_of(bool vector) { return vector ? kSwigluVec : kSwigluScalar; }
+
+// ATen's silu in f32, each operation rounded on its own, in ATen's order
+// (ActivationSiluKernel.cu: x / (1 + exp(-x))), times the up value, rounded
+// on its own
+__device__ inline float swiglu(float g, float u) {
+  return __fmul_rn(__fdiv_rn(g, __fadd_rn(1.0f, expf(-g))), u);
+}
+
+// y: [rows, 2 cols], the gate product in columns [0, cols) and the up
+// product in [cols, 2 cols) of each row; out: [rows, cols]. kVector (cols %
+// 8 == 0, y and out 16-byte aligned): group g is output elements 8 g .. 8 g
+// + 7, all in one row, its gate and up values one 16-byte load each in bf16
+// (two in f32), streamed past L1, and one store; else one element at a time
+// in the same order. A grid-stride loop, the column advanced by the
+// stride's remainder as the staged kernels advance it.
+template <typename T, bool kVector>
+__global__ void __launch_bounds__(kThreads)
+dense_epilogue_swiglu_kernel(const T* __restrict__ y, T* __restrict__ out, long long groups,
+                             int cols) {
+  constexpr int kPer = kVector ? kGroup : 1;  // elements a step takes
+  const int per_row = cols / kPer;
+  const long long stride = (long long)gridDim.x * kThreads;
+  long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  long long row = g / per_row;
+  int col = (int)(g % per_row);
+  const long long row_step = stride / per_row;
+  const int col_step = (int)(stride % per_row);
+  for (; g < groups; g += stride) {
+    const T* src = y + row * 2 * cols + (long long)col * kPer;
+    alignas(16) T gate[kGroup], up[kGroup], o[kGroup];
+    load_group<T, kVector>(src, kPer, gate);
+    load_group<T, kVector>(src + cols, kPer, up);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) o[e] = to_out<T>(swiglu(to_f32(gate[e]), to_f32(up[e])));
+    store_group<T, kVector>(out + row * cols + (long long)col * kPer, kPer, o);
+    row += row_step;
+    col += col_step;
+    if (col >= per_row) {
+      col -= per_row;
+      ++row;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_swiglu(const void* y, void* out, long long rows, int cols, int form,
+                          cudaStream_t stream) {
+  const T* yt = static_cast<const T*>(y);
+  T* o = static_cast<T*>(out);
+  const long long n = rows * cols;
+  if (form == kSwigluVec) {
+    dense_epilogue_swiglu_kernel<T, true><<<grid_for(n / kGroup), kThreads, 0, stream>>>(
+        yt, o, n / kGroup, cols);
+  } else {
+    dense_epilogue_swiglu_kernel<T, false><<<grid_for(n), kThreads, 0, stream>>>(yt, o, n, cols);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // y: [rows, cols] f32 contiguous (the product), bias: [cols] f32, out:
@@ -642,4 +718,20 @@ extern "C" int proqa_dense_epilogue_bwd(const void* dout, const void* z, void* d
   return is_bf16
              ? launch_bwd<bf16>(dout, z, dz, workspace, db, rows, cols, slabs, gelu, form, s)
              : launch_bwd<float>(dout, z, dz, workspace, db, rows, cols, slabs, gelu, form, s);
+}
+
+// F1's SwiGLU form. y: [rows, 2 cols] contiguous, the gate and up products
+// (each rounded once from its f32 sum), bf16 when is_bf16, else f32; out:
+// [rows, cols] of the same dtype, out = round(silu(gate) * up) in f32 (may
+// not alias y). cols >= 1. form: the index of the form in
+// ops/fused_bert.py's DENSE_FORMS, which must be swiglu_form_of's for cols
+// and the alignment of y and out. Returns a cudaError_t code.
+extern "C" int proqa_dense_swiglu(const void* y, void* out, long long rows, int cols,
+                                  int is_bf16, int form, void* stream) {
+  if (rows < 0 || cols < 1 || form != swiglu_form_of(vector_body(cols, y, out, nullptr)))
+    return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_swiglu<bf16>(y, out, rows, cols, form, s)
+                 : launch_swiglu<float>(y, out, rows, cols, form, s);
 }

@@ -88,6 +88,17 @@
 // sub-slab to the next in its row of the partials. Both end in the same
 // ticketed column sums, over two blocks an SM at most one a row, so the
 // order again follows from the row count and the card alone.
+//
+// The RMSNorm form (`proqa_add_rms_norm`, forward only) serves the pre-norm
+// decoder (models/mistral.py): s = round(x + r) is written out as the next
+// residual, and round((s * rsqrt(mean(s^2) + eps)) * scale) in f32, with no
+// mean taken out and no bias, and the scale in the activation dtype (the
+// decoder holds its weights in bf16). Bound by bytes as LayerNorm is: x and
+// r read, the output and s written, 8 B an element in bf16 (0.32 ms for
+// [32,256, 4,096] at 3.35 TB/s). LayerNorm's row layout, a block a row in
+// registers, up to 8,192 (E5-Mistral's 4,096 among them); the one row sum
+// meets in block_sum. No configuration has a wider decoder, so no streamed
+// form is built: the entry point refuses wider rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -1234,6 +1245,93 @@ int blocks_for(long long rows, int h, int elem, int device) {
   return h <= kMaxWidth ? bwd_blocks(rows, h, elem, device) : wide_bwd_blocks(rows, device);
 }
 
+// --- F2's RMSNorm form: the residual add and RMSNorm of a pre-norm decoder ---
+
+// The index of "rms_row" in ops/fused_bert.py's LN_FORMS: the RMSNorm form
+// follows LayerNorm's six, a block a row in registers up to kRowWidth, with
+// its element body after it
+constexpr int kRmsForms = 6;
+
+int rms_form_of(bool vector) { return kRmsForms + (vector ? 0 : 1); }
+
+// round((s * rstd) * scale), each product rounded on its own, scale in Elem
+template <typename Elem, int kVec>
+__device__ inline void rms_out(const float (&v)[kVec], float rstd, const Elem* scale, Elem* out) {
+  alignas(16) Elem sc[kVec];
+  load_raw<Elem, kVec>(scale, sc);
+  float o[kVec];
+#pragma unroll
+  for (int e = 0; e < kVec; ++e) o[e] = __fmul_rn(__fmul_rn(v[e], rstd), to_f32(sc[e]));
+  store_vec<Elem, kVec>(out, o);
+}
+
+// A block a row (the blocks walk the rows by a grid stride);
+// thread t holds the row's vectors t, t + kThreads, ... of kVec elements
+// (kVec = 1: elements), kVecs of them at most, loaded before any is used and
+// kept in registers from the sum of squares to the output.
+template <typename Elem, int kVec, int kVecs>
+__global__ void __launch_bounds__(kThreads)
+add_layer_norm_rms_row_kernel(const Elem* __restrict__ x, const Elem* __restrict__ r,
+                              const Elem* __restrict__ scale, Elem* __restrict__ out,
+                              Elem* __restrict__ sum_out, long long rows, int h, float inv_h,
+                              float eps) {
+  __shared__ float red[2][kWarps];  // alternate rows: block_sum's buffers in turn
+  const int nvec = h / kVec;
+  int turn = 0;
+  for (long long row = blockIdx.x; row < rows; row += gridDim.x, turn ^= 1) {
+    const long long base = row * h;
+    alignas(16) Elem a[kVecs][kVec], b[kVecs][kVec];
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      if (i < nvec) {
+        load_raw<Elem, kVec>(x + base + (long long)i * kVec, a[j]);
+        if (r != nullptr) load_raw<Elem, kVec>(r + base + (long long)i * kVec, b[j]);
+      }
+    }
+    float v[kVecs][kVec], sq = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      if (i < nvec) {
+        rounded_sums<Elem, kVec>(a[j], b[j], r != nullptr, v[j]);
+        if (sum_out != nullptr) store_vec<Elem, kVec>(sum_out + base + (long long)i * kVec, v[j]);
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) sq = __fadd_rn(sq, __fmul_rn(v[j][e], v[j][e]));
+      }
+    }
+    const float rstd = rsqrtf(__fadd_rn(__fmul_rn(block_sum(sq, red[turn]), inv_h), eps));
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const int i = threadIdx.x + kThreads * j;
+      if (i < nvec)
+        rms_out<Elem, kVec>(v[j], rstd, scale + i * kVec, out + base + (long long)i * kVec);
+    }
+  }
+}
+
+template <typename Elem>
+cudaError_t launch_rms(const Elem* x, const Elem* r, const Elem* scale, Elem* out, Elem* sum_out,
+                       long long rows, int h, float eps, int form, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(Elem);
+  const float inv_h = 1.0f / (float)h;
+  const int grid = row_grid(rows);
+#define PROQA_RMS_ROW(vec, n)                                                        \
+  add_layer_norm_rms_row_kernel<Elem, vec, n><<<grid, kThreads, 0, stream>>>(        \
+      x, r, scale, out, sum_out, rows, h, inv_h, eps)
+  if (form == kRmsForms + 1) {
+    PROQA_RMS_ROW(1, kRowWidth / kThreads);
+  } else {
+    // vectors a thread holds: 1-4 in bf16, 2-8 in f32 (8 to 32 elements)
+    const int vecs = (h / kVec + kThreads - 1) / kThreads;
+    if (vecs <= 8 / kVec) PROQA_RMS_ROW(kVec, 8 / kVec);
+    else if (vecs <= 16 / kVec) PROQA_RMS_ROW(kVec, 16 / kVec);
+    else PROQA_RMS_ROW(kVec, 32 / kVec);
+  }
+#undef PROQA_RMS_ROW
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, residual (nullptr for none), out: [rows, h] contiguous, bf16 when
@@ -1329,4 +1427,30 @@ extern "C" int proqa_add_layer_norm_bwd(const void* dy, const void* x, const voi
                                     blocks, device, s)
                  : launch_bwd<float>(dy, x, residual, m, rs, sc, dx, workspace, dp, rows, h,
                                      blocks, device, s);
+}
+
+// F2's RMSNorm form. x, residual (nullptr for none), scale, out, sum_out
+// (nullptr for none): [rows, h] contiguous ([h] for scale), bf16 when
+// is_bf16, else f32; out and sum_out may not alias x or residual. Writes
+// out = round((s * rsqrt(mean(s^2) + eps)) * scale), s = round(x + residual)
+// (x without a residual) in f32, and s into sum_out. 1 <= h <= 8,192. form:
+// the index of the form in ops/fused_bert.py's LN_FORMS, which must be the
+// one rms_form_of gives for the pointers' alignment. Returns a cudaError_t
+// code.
+extern "C" int proqa_add_rms_norm(const void* x, const void* residual, const void* scale,
+                                  void* out, void* sum_out, long long rows, int h, float eps,
+                                  int is_bf16, int form, void* stream) {
+  if (rows < 0 || h < 1 || h > kRowWidth) return cudaErrorInvalidValue;
+  const bool vector = aligned16({x, residual, scale, out, sum_out}) && h % (is_bf16 ? 8 : 4) == 0;
+  if (form != rms_form_of(vector)) return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_bf16 ? launch_rms<bf16>(static_cast<const bf16*>(x),
+                                    static_cast<const bf16*>(residual),
+                                    static_cast<const bf16*>(scale), static_cast<bf16*>(out),
+                                    static_cast<bf16*>(sum_out), rows, h, eps, form, s)
+                 : launch_rms<float>(static_cast<const float*>(x),
+                                     static_cast<const float*>(residual),
+                                     static_cast<const float*>(scale), static_cast<float*>(out),
+                                     static_cast<float*>(sum_out), rows, h, eps, form, s);
 }

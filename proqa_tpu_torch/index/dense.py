@@ -50,6 +50,7 @@ from proqa_tpu_torch.index.idmap import IdMap
 from proqa_tpu_torch.ops.mips import envelope_block, mips_topk, pad_queries
 from proqa_tpu_torch.ops.quant import quantize_rows
 from proqa_tpu_torch.parallel.search import sharded_mips_topk
+from proqa_tpu_torch.utils.host_heap import grow_in_large_steps
 from proqa_tpu_torch.utils.profiling import span
 
 _LOAD_CHUNK = 1 << 20  # rows copied to the device per step when loading
@@ -372,8 +373,12 @@ class DenseIndex:
         (values [Q, k] f32, rows [Q, k] int32) as numpy; padded rows, padded
         queries and tombstoned rows are excluded, and a k beyond the live
         rows pads with (-inf, row 0). Opens the proqa.search spans
-        (utils/profiling.py) while a profiler collects."""
+        (utils/profiling.py) while a profiler collects. On a CUDA index the
+        host heap grows in large steps from the first call on
+        (utils/host_heap.py): callers keep the answers."""
         with span("proqa.search"):
+            if self.device.type == "cuda":
+                grow_in_large_steps()
             if self.n_deleted and not _skip_tombstones:
                 # over-fetch so that k live rows survive the filter even if
                 # every tombstoned row outscored them; the width is a power of

@@ -7,8 +7,10 @@ state dicts of `BertForRetriever` (`bert_q.*`, `bert_c.*`, `proj_q`,
 prefix. The key map builds the JAX package's layer-stacked tree (torch
 Linear weights [out, in] transposed to [in, out] kernels), and
 models/convert.py:params_from_jax turns that tree into the port's state dict,
-so one mapping serves both packages. Imports neither `transformers` nor the
-JAX package.
+so one mapping serves both packages. HF Mistral state dicts (E5-Mistral's
+tower) map straight onto models/mistral.py's state dict, which the JAX
+package has no counterpart of. Imports neither `transformers` nor the JAX
+package.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from proqa_tpu_torch.models.bert import BertConfig
 from proqa_tpu_torch.models.convert import params_from_jax
+from proqa_tpu_torch.models.mistral import MistralConfig
 
 
 def _np(x) -> np.ndarray:
@@ -97,6 +100,37 @@ def retriever_params_from_state_dict(state: Mapping[str, object],
     """Reference `BertForRetriever` state dict -> a state dict of the port's
     Retriever."""
     return params_from_jax(retriever_tree_from_state_dict(state, cfg))
+
+
+def mistral_params_from_state_dict(state: Mapping[str, object],
+                                   cfg: MistralConfig) -> dict[str, torch.Tensor]:
+    """An HF Mistral state dict (`MistralModel`'s keys, as E5-Mistral's
+    checkpoint holds them, or `MistralForCausalLM`'s under `model.`; a
+    `module.` prefix allowed; the LM head, if any, is dropped) -> a state
+    dict of the port's MistralRetriever, in cfg.dtype: torch Linear weights
+    [out, in] transposed to [in, out] kernels, q_proj, k_proj and v_proj
+    side by side in `qkv`, gate_proj and up_proj in `gate_up`."""
+    state = strip_ddp_prefix(state)
+    base = "model." if "model.embed_tokens.weight" in state else ""
+
+    def g(name: str) -> torch.Tensor:
+        x = state[base + name]
+        return torch.as_tensor(np.asarray(x)) if not isinstance(x, torch.Tensor) else x.detach()
+
+    def kernels(*names: str) -> torch.Tensor:
+        return torch.cat([g(n).t() for n in names], dim=1)
+
+    out = {"tower.embed": g("embed_tokens.weight"), "tower.norm.scale": g("norm.weight")}
+    for i in range(cfg.num_layers):
+        hf, port = f"layers.{i}.", f"tower.layers.{i}."
+        out[port + "attn_norm.scale"] = g(hf + "input_layernorm.weight")
+        out[port + "qkv.kernel"] = kernels(*(f"{hf}self_attn.{n}_proj.weight" for n in "qkv"))
+        out[port + "o.kernel"] = g(hf + "self_attn.o_proj.weight").t()
+        out[port + "mlp_norm.scale"] = g(hf + "post_attention_layernorm.weight")
+        out[port + "gate_up.kernel"] = kernels(hf + "mlp.gate_proj.weight",
+                                               hf + "mlp.up_proj.weight")
+        out[port + "down.kernel"] = g(hf + "mlp.down_proj.weight").t()
+    return {k: v.to(cfg.dtype).contiguous() for k, v in out.items()}
 
 
 def load_torch_checkpoint(path: str, *, allow_pickle: bool = False) -> dict:

@@ -1,5 +1,6 @@
 """The BERT layer's fused epilogues: F1, the dense epilogue, and F2, the
-residual add with LayerNorm, with their backward kernels.
+residual add with LayerNorm, with their backward kernels; and the forms of
+both that the pre-norm decoder (models/mistral.py) runs.
 
 On the TPU, XLA fuses the work around each product of a BERT layer into the
 product's output, in the forward and in the backward; there is no Pallas
@@ -18,6 +19,17 @@ activations. Hand-written kernels take their place:
   the embedding LayerNorm at :241 has none). Bound by bytes: 6 B an element
   with a residual, 4 B without. Its backward gives the one gradient of x and
   the residual and the scale and bias gradients, column sums.
+
+The decoder's forms, forward only (the decoder runs no autograd route):
+
+- F1's SwiGLU form, `swiglu` (csrc/dense_epilogue.cu): the gate and up
+  products side by side, [..., 2 I] in the activation dtype, to
+  round(silu(gate) * up) in f32, [..., I]; ATen's silu expression.
+- F2's RMSNorm form, `add_rms_norm` (csrc/layer_norm.cu): s = round(x +
+  residual), then round((s * rsqrt(mean(s^2) + eps)) * scale) in f32 with a
+  scale in the activation dtype; it returns both, s being the next residual.
+  Rows up to LN_ROW_WIDTH (8,192) wide, a block a row; the card refuses
+  wider ones.
 
 Two routes, which the model picks (models/bert.py): where no autograd graph
 is recorded, `dense_epilogue` and `add_layer_norm` run the forward kernels
@@ -69,14 +81,16 @@ LN_WARP_WIDTH = 1_024       # F2: a warp a row up to here, 32 floats a lane
 LN_ROW_WIDTH = 8_192        # F2: a block a row in registers up to here, then streamed
 LN_BWD_ROW_WIDTH = 4_096    # F2 backward: the same, 16 floats a thread
 # the forms, in the order of the entry points' form indices
-DENSE_FORMS = ("staged", "staged_scalar", "wide", "wide_scalar")
+DENSE_FORMS = ("staged", "staged_scalar", "wide", "wide_scalar", "swiglu", "swiglu_scalar")
 DENSE_BWD_FORMS = ("slabs", "slabs_scalar", "direct")
-LN_FORMS = ("warp", "warp_scalar", "row", "row_scalar", "stream", "stream_scalar")
+LN_FORMS = ("warp", "warp_scalar", "row", "row_scalar", "stream", "stream_scalar",
+            "rms_row", "rms_row_scalar")
 LN_BWD_FORMS = ("tile", "tile_scalar", "row", "row_scalar", "stream", "stream_scalar")
 
 # kernel launches since the last clear() (the main path's proof of use), by
-# kernel and form: "F1 staged", "F2 backward row" and so on; the forward
-# kernels count on both routes. launches() sums a kernel's forms.
+# kernel and form: "F1 staged", "F1 swiglu", "F2 rms_row", "F2 backward row"
+# and so on; the forward kernels count on both routes. launches() sums a
+# kernel's forms.
 form_launches: dict[str, int] = {}
 
 
@@ -141,6 +155,25 @@ def _layer_norm_plain(x, residual, scale, bias, eps):
     return (y * scale + bias).to(x.dtype), mean.squeeze(-1), rstd.squeeze(-1)
 
 
+def swiglu_reference(y: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of F1's SwiGLU form: y [..., 2 I] holds the gate
+    product in its first I columns and the up product in the rest;
+    round(silu(gate) * up) in f32, [..., I] in y's dtype."""
+    gate, up = y.float().chunk(2, dim=-1)
+    return (torch.nn.functional.silu(gate) * up).to(y.dtype)
+
+
+def add_rms_norm_reference(x: torch.Tensor, residual: torch.Tensor | None,
+                           scale: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of F2's RMSNorm form: (out, s) with s = x +
+    residual rounded to x's dtype (x itself without a residual) and out =
+    round((s * rsqrt(mean(s^2) + eps)) * scale) in f32."""
+    s = x if residual is None else x + residual
+    s32 = s.float()
+    rstd = torch.rsqrt(s32.square().mean(dim=-1, keepdim=True) + eps)
+    return ((s32 * rstd) * scale.float()).to(x.dtype), s
+
+
 def add_layer_norm_reference(x: torch.Tensor, residual: torch.Tensor | None,
                              scale: torch.Tensor, bias: torch.Tensor,
                              eps: float) -> torch.Tensor:
@@ -202,28 +235,39 @@ def _aligned(*tensors) -> bool:
     return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
 
 
-def dense_form(cols: int, aligned: bool, backward: bool = False) -> str:
-    """The form F1 (or its backward) takes for rows of `cols` columns whose
-    pointers are all 16-byte aligned or not (the product, the output and z;
-    the backward's dout, z and dz): a name of DENSE_FORMS (DENSE_BWD_FORMS).
-    The vector bodies want whole groups of 8 columns and aligned pointers."""
+def dense_form(cols: int, aligned: bool, backward: bool = False, swiglu: bool = False) -> str:
+    """The form F1 (or its backward, or its SwiGLU form) takes for rows of
+    `cols` output columns whose pointers are all 16-byte aligned or not (the
+    product, the output and z; the backward's dout, z and dz): a name of
+    DENSE_FORMS (DENSE_BWD_FORMS). The vector bodies want whole groups of 8
+    columns and aligned pointers."""
     if cols < 1:
         raise ValueError(f"dense_epilogue: {cols} columns")
     scalar = "" if aligned and cols % 8 == 0 else "_scalar"
+    if swiglu:
+        return "swiglu" + scalar
     if backward:
         return "direct" if cols > DENSE_SLAB_COLS else "slabs" + scalar
     return ("staged" if cols <= DENSE_STAGED_COLS else "wide") + scalar
 
 
-def layer_norm_form(h: int, dtype: torch.dtype, aligned: bool, backward: bool = False) -> str:
-    """The form F2 (or its backward) takes for rows of width h in `dtype`
-    whose pointers are all 16-byte aligned or not (x, the residual, the
-    output and the parameters; the backward's dy, x, the residual, dx and
-    the scale): a name of LN_FORMS (LN_BWD_FORMS). The vector bodies want h
-    a multiple of the 16-byte vector (8 bf16, 4 f32) and aligned pointers."""
+def layer_norm_form(h: int, dtype: torch.dtype, aligned: bool, backward: bool = False,
+                    rms: bool = False) -> str:
+    """The form F2 (or its backward, or its RMSNorm form) takes for rows of
+    width h in `dtype` whose pointers are all 16-byte aligned or not (x, the
+    residual, the output and the parameters; the backward's dy, x, the
+    residual, dx and the scale; the RMSNorm form's x, the residual, the
+    scale, the output and the sum): a name of LN_FORMS (LN_BWD_FORMS). The
+    vector bodies want h a multiple of the 16-byte vector (8 bf16, 4 f32)
+    and aligned pointers. The RMSNorm form takes a block a row, up to
+    LN_ROW_WIDTH: no configuration has a wider decoder, so it refuses more."""
     if h < 1:
         raise ValueError(f"add_layer_norm: width {h}")
-    if h <= LN_WARP_WIDTH:
+    if rms:
+        if h > LN_ROW_WIDTH:
+            raise ValueError(f"add_rms_norm: width {h} past the RMSNorm form's {LN_ROW_WIDTH}")
+        layout = "rms_row"
+    elif h <= LN_WARP_WIDTH:
         layout = "tile" if backward else "warp"
     elif h <= (LN_BWD_ROW_WIDTH if backward else LN_ROW_WIDTH):
         layout = "row"
@@ -368,6 +412,48 @@ def _add_layer_norm_backward_kernel(dy, x, residual, mean, rstd, scale, need_dx,
     return dx, dparams[0], dparams[1]
 
 
+def _swiglu_kernel(y):
+    """F1's SwiGLU form on the card."""
+    if y.dtype not in _DTYPES:
+        raise TypeError(f"swiglu kernel takes bf16 or f32, got {y.dtype}")
+    if y.shape[-1] % 2:
+        raise ValueError(f"swiglu: {y.shape[-1]} columns do not split into gate and up")
+    cols = y.shape[-1] // 2
+    y = y.contiguous()
+    out = torch.empty(*y.shape[:-1], cols, dtype=y.dtype, device=y.device)
+    form = dense_form(cols, _aligned(y, out), swiglu=True)
+    if out.numel():
+        _build.launch("proqa_dense_swiglu", y.device, y.data_ptr(), out.data_ptr(),
+                      out.numel() // cols, cols, int(y.dtype == torch.bfloat16),
+                      DENSE_FORMS.index(form))
+        _count("F1", form)
+    return out
+
+
+def _add_rms_norm_kernel(x, residual, scale, eps):
+    """F2's RMSNorm form on the card: (out, s)."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"add_rms_norm kernel takes bf16 or f32, got {x.dtype}")
+    if residual is not None:
+        _check_like("add_rms_norm", "residual", residual, x)
+    h = x.shape[-1]
+    if scale.dtype != x.dtype or scale.shape != (h,) or scale.device != x.device:
+        raise ValueError(f"add_rms_norm: scale must be {x.dtype} [{h}] on {x.device}, got "
+                         f"{scale.dtype} {tuple(scale.shape)} on {scale.device}")
+    x, scale = x.contiguous(), scale.contiguous()
+    residual = None if residual is None else residual.contiguous()
+    out = torch.empty_like(x)
+    s = x if residual is None else torch.empty_like(x)
+    form = layer_norm_form(h, x.dtype, _aligned(x, residual, scale, out, s), rms=True)
+    if out.numel():
+        _build.launch("proqa_add_rms_norm", x.device, x.data_ptr(), _ptr(residual),
+                      scale.data_ptr(), out.data_ptr(), None if residual is None else s.data_ptr(),
+                      x.numel() // h, h, eps, int(x.dtype == torch.bfloat16),
+                      LN_FORMS.index(form))
+        _count("F2", form)
+    return out, s
+
+
 def _on_cpu(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return False
@@ -396,6 +482,28 @@ def add_layer_norm(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.
         return add_layer_norm_reference(x, residual, scale, bias, eps)
     _no_gradient("add_layer_norm", x, residual, scale, bias)
     return _add_layer_norm_kernel(x, residual, scale, bias, eps)[0]
+
+
+def swiglu(y: torch.Tensor) -> torch.Tensor:
+    """round(silu(gate) * up) in f32, [..., I], of y [..., 2 I]: the gate
+    product in its first I columns and the up product in the rest, in the
+    activation dtype."""
+    if _on_cpu(y):
+        return swiglu_reference(y)
+    _no_gradient("swiglu", y)
+    return _swiglu_kernel(y)
+
+
+def add_rms_norm(x: torch.Tensor, residual: torch.Tensor | None, scale: torch.Tensor,
+                 eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """RMSNorm(x + residual) over the last dim, in f32 with a scale in x's
+    dtype, rounded to x's dtype; the sum is rounded to x's dtype first.
+    Returns (the normalised rows, the sum), the sum being x itself without a
+    residual."""
+    if _on_cpu(x):
+        return add_rms_norm_reference(x, residual, scale, eps)
+    _no_gradient("add_rms_norm", x, residual, scale)
+    return _add_rms_norm_kernel(x, residual, scale, eps)
 
 
 # --- the routes where a graph is recorded ---

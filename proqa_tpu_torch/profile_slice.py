@@ -19,6 +19,12 @@ seeded data and weights:
               K5, then the select and the scaled `take` rescore);
   encode_T*   the BERT-base context tower, bf16, 512 rows of T tokens
               (build-index's batch; K2, F1 and F2 at every layer);
+  e5_query    E5-Mistral-7B's retrieve call: 512 right-padded rows of
+              28-58 token ids on the host through the decoder tower's
+              encode_query (32 layers, hidden 4,096, GQA 32/8, F1's SwiGLU
+              and F2's RMSNorm forms, random bf16 weights), then the exact
+              top-100 over a 2,681,468 x 4,096 bf16 index (BEIR NQ's
+              corpus; K1's and K6's K-loop forms);
   train       one retriever train step at bench.py's operating point
               (bench.py:_bench_train_step): BERT-base, bf16, remat, fused
               attention, dropout 0.1, 80 pairs of 32-token questions and
@@ -428,6 +434,51 @@ def encode_workload(model, t: int, trace_dir: str, loop_calls: int) -> dict:
     return result
 
 
+def e5_query_workload(trace_dir: str, loop_calls: int) -> dict:
+    from proqa_tpu_torch.index.dense import DenseIndex
+    from proqa_tpu_torch.models import mistral
+
+    b, n, k = 512, 2_681_468, 100
+    cfg = mistral.MistralConfig()
+    device = torch.device("cuda", 0)
+    model = mistral.MistralRetriever.on_device(cfg, device, 6)
+    g = torch.Generator(device=device).manual_seed(6)
+    corpus = torch.randn(n, cfg.hidden_size, generator=g, device=device,
+                         dtype=torch.bfloat16).mul_(cfg.hidden_size ** -0.5)
+    index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
+    del corpus
+    lengths = torch.randint(28, 59, (b,), generator=torch.Generator().manual_seed(7))
+    t = int(lengths.max())
+    mask = (torch.arange(t)[None] < lengths[:, None]).to(torch.int32)
+    ids = torch.randint(3, cfg.vocab_size, (b, t), generator=torch.Generator().manual_seed(8))
+    ids = ids * mask
+
+    def call():
+        return index.search(model.encode_query(ids, mask), k)  # ends on the host
+
+    tokens = int(lengths.sum())
+    per_token = 2.0 * cfg.num_layers * cfg.hidden_size * (
+        cfg.qkv_width + cfg.num_heads * cfg.head_dim + 3 * cfg.intermediate_size)
+    result = measure("e5_query", call, loop_calls=loop_calls, traced_calls=2,
+                     trace_dir=trace_dir,
+                     extra={"shape": {"batch": b, "seq": t, "tokens": tokens, "n": n,
+                                      "d": cfg.hidden_size, "k": k},
+                            "tower_flop_per_call": per_token * tokens,
+                            "k1_flop_per_call": 2.0 * n * b * cfg.hidden_size})
+    result["qps"] = b / result["steady_loop"]["wall_ms_median"] * 1e3
+    t_ = result["trace"]
+    device_ms = sum(t_["device_ms_per_call_by_span"].values())
+    tower_ms = sum(v for name, v in t_["device_ms_per_call_by_span"].items()
+                   if name.startswith("proqa.tower"))
+    result["span_share_of_device"] = device_ms / sum(t_["ms_per_call_by_group"].values())
+    result["tower_share_of_span_device"] = tower_ms / device_ms
+    print(f"    spans hold {device_ms:.3f} ms device a call ({result['span_share_of_device']:.4%} "
+          f"of kernel and copy time summed by group), the tower's "
+          f"{result['tower_share_of_span_device']:.2%}", flush=True)
+    del index, model
+    return result
+
+
 def train_workload(trace_dir: str, loop_calls: int) -> dict:
     from proqa_tpu_torch.models.bert import BertConfig
     from proqa_tpu_torch.models.retriever import Retriever
@@ -683,6 +734,9 @@ def main(argv=None) -> int:
                 report["workloads"].append(encode_workload(model, t, trace_dir, calls))
                 torch.cuda.empty_cache()
             del model
+        if wanted("e5_query"):
+            report["workloads"].append(e5_query_workload(trace_dir, 5))
+            torch.cuda.empty_cache()
         if wanted("train"):
             report["workloads"].append(train_workload(trace_dir, 10))
             torch.cuda.empty_cache()

@@ -25,6 +25,14 @@ The spans, all named `proqa.*`:
   The three stages open in every caller of the exact search: QA evals,
   serving, each shard of a sharded search. profile_slice.span_times
   charges a trace's device and idle time to these spans.
+* proqa.tower: the decoder tower's forward (models/mistral.py:MistralModel,
+  E5-Mistral's encode_query and encode_context), the ids' upload, the
+  embedding rows, RoPE tables and mask its own. Inside it:
+  - proqa.tower.attention: each layer's n1, q/k/v product, RoPE copy,
+    scores, softmax, p v and o;
+  - proqa.tower.mlp: each layer's n2, gate and up product, SwiGLU, down;
+  - proqa.tower.pool: the last real tokens, the final norm, the L2
+    normalisation.
 * proqa.qa.decode: QATrainer's span decode (profile_slice groups its kernels
   by it).
 """

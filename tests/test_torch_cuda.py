@@ -2201,3 +2201,161 @@ ATTENTION_DIGESTS = {
 
 def test_attention_outputs_to_dh128_are_bit_equal_to_the_first_forms(cuda):
     assert output_digests(attention_outputs(cuda)) == ATTENTION_DIGESTS
+
+
+# --- the decoder's forms: F1's SwiGLU and F2's RMSNorm (models/mistral.py) ---
+
+# a decoder layer at the published widths, the card against the CPU: the
+# same rounding points, the products' f32 sums in another order, which moves
+# a bf16 rounding by an ulp here and there (2^-8 relative); its outputs'
+# norm of differences within 2^-6 of theirs
+DECODER_LAYER_REL = 2.0 ** -6
+
+
+def _swiglu_inputs(rows, cols, device, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(rows, 2 * cols, generator=g) * 3.0).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows,cols", [(1, 14336), (37, 768), (513, 14336), (5, 7), (9, 40),
+                                       (3, 1)])
+def test_swiglu_form_equals_plain(cuda, rows, cols, dtype):
+    """F1's SwiGLU form bit-equal to its plain version on the card: ATen's
+    silu expression in f32, one product, one rounding; the vector body
+    (multiples of 8) and the element body (7, 1)."""
+    y = _swiglu_inputs(rows, cols, cuda, getattr(torch, dtype), seed=rows + cols)
+    before = fused_bert.launches("F1")
+    got = fused_bert.swiglu(y)
+    torch.cuda.synchronize()
+    assert fused_bert.launches("F1") == before + 1
+    assert got.shape == (rows, cols) and got.dtype == y.dtype
+    assert torch.equal(got, fused_bert.swiglu_reference(y))
+
+
+def test_swiglu_form_unaligned(cuda):
+    """A product 2 bytes past a 16-byte boundary takes the element body."""
+    y = _swiglu_inputs(37, 768, cuda, torch.bfloat16, seed=4)
+    shifted = torch.empty(y.numel() + 1, device=cuda, dtype=y.dtype)[1:].view_as(y)
+    shifted.copy_(y)
+    assert torch.equal(fused_bert.swiglu(shifted), fused_bert.swiglu_reference(y))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("rows,h", [(1, 4096), (37, 4096), (513, 4096), (9, 64), (5, 100),
+                                    (3, 1), (7, 8192), (2, 8191)])
+def test_rms_norm_form_matches_plain(cuda, rows, h, residual, dtype):
+    """F2's RMSNorm form: the rounded sum bit-equal to the plain version's,
+    the output within one bf16 ulp (at magnitudes of at least
+    LN_ULP_FLOOR; LN_F32_TOL in f32): the same rounding points, the row sum
+    in another order; a block a row up to 8,192, and the element body
+    (100, 1, 8,191)."""
+    x, r, _, _ = _ln_inputs(rows, h, cuda, getattr(torch, dtype), seed=rows * h + 1)
+    scale = (1.0 + 0.1 * torch.randn(h, generator=torch.Generator().manual_seed(h))).to(
+        cuda, x.dtype)
+    r = r if residual else None
+    before = fused_bert.launches("F2")
+    got, s = fused_bert.add_rms_norm(x, r, scale, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_bert.launches("F2") == before + 1
+    want, want_s = fused_bert.add_rms_norm_reference(x, r, scale, 1e-5)
+    assert torch.equal(s, want_s) and (residual or s is x)
+    assert got.dtype == x.dtype and torch.isfinite(got).all()
+    if dtype == "bfloat16":
+        assert _bf16_ulps(got, want) <= 1.0
+    else:
+        torch.testing.assert_close(got, want, atol=LN_F32_TOL, rtol=LN_F32_TOL)
+
+
+def test_rms_norm_form_unaligned_and_refused(cuda):
+    """Rows 2 bytes past a 16-byte boundary take the element body; a scale
+    in another dtype, a gradient and rows wider than 8,192 are refused."""
+    x, r, _, _ = _ln_inputs(37, 4096, cuda, torch.bfloat16, seed=9)
+    scale = torch.ones(4096, device=cuda, dtype=torch.bfloat16)
+    shifted = torch.empty(x.numel() + 1, device=cuda, dtype=x.dtype)[1:].view_as(x)
+    shifted.copy_(x)
+    got, s = fused_bert.add_rms_norm(shifted, r, scale, 1e-5)
+    want, want_s = fused_bert.add_rms_norm_reference(x, r, scale, 1e-5)
+    assert torch.equal(s, want_s) and _bf16_ulps(got, want) <= 1.0
+    with pytest.raises(ValueError, match="scale"):
+        fused_bert.add_rms_norm(x, r, scale.float(), 1e-5)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_bert.add_rms_norm(x, r, scale.clone().requires_grad_(True), 1e-5)
+    wide = torch.zeros(2, 8200, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="past the RMSNorm form"):
+        fused_bert.add_rms_norm(wide, wide, torch.ones(8200, device=cuda, dtype=wide.dtype), 1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,t,nq,nkv,hd", [(4, 58, 32, 8, 128), (3, 7, 4, 2, 16),
+                                           (2, 5, 4, 2, 24), (2, 3, 2, 1, 2), (5, 1, 6, 6, 64)])
+def test_rope_qkv_kernel_equals_plain(cuda, b, t, nq, nkv, hd, dtype):
+    """The fused q, k, v copy with rotary positions bit-equal to its plain
+    version: the same products and sum in f32, one rounding; the vector body
+    (head dims a multiple of 16) and the element body (24, 2)."""
+    from proqa_tpu_torch.ops import rope
+
+    g = torch.Generator().manual_seed(b * t + hd)
+    qkv = torch.randn(b, t, (nq + 2 * nkv) * hd, generator=g).to(cuda, getattr(torch, dtype))
+    cos, sin = rope.rope_tables(t, hd, 10000.0, cuda)
+    before = rope.launches
+    got = rope.rope_qkv(qkv, cos, sin, nq, nkv)
+    torch.cuda.synchronize()
+    assert rope.launches == before + 1
+    for a, w in zip(got, rope.rope_qkv_reference(qkv, cos, sin, nq, nkv)):
+        assert a.shape == w.shape and torch.equal(a, w)
+
+
+def test_rope_qkv_kernel_unaligned(cuda):
+    """A product 2 bytes past a 16-byte boundary takes the element body."""
+    from proqa_tpu_torch.ops import rope
+
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn(3, 9, 6 * 128, generator=g).to(cuda, torch.bfloat16)
+    shifted = torch.empty(qkv.numel() + 1, device=cuda, dtype=qkv.dtype)[1:].view_as(qkv)
+    shifted.copy_(qkv)
+    cos, sin = rope.rope_tables(9, 128, 10000.0, cuda)
+    for a, w in zip(rope.rope_qkv(shifted, cos, sin, 4, 1),
+                    rope.rope_qkv_reference(qkv, cos, sin, 4, 1)):
+        assert torch.equal(a, w)
+
+
+def test_decoder_layer_at_published_widths_matches_cpu(cuda):
+    """One E5-Mistral layer (hidden 4,096, 32 query heads over 8 kv heads of
+    128, FFN 14,336, bf16) on the card, through F1's SwiGLU and F2's RMSNorm
+    forms and cuBLAS, against the same layer's plain CPU version (the forms'
+    plain versions, f32 products rounded once), on right-padded rows of
+    28-58 tokens; within DECODER_LAYER_REL, and launching each form where
+    the layer has one."""
+    from proqa_tpu_torch.models import mistral
+    from proqa_tpu_torch.ops import rope
+
+    cfg = mistral.MistralConfig(num_layers=1, vocab_size=64)
+    tower = mistral.MistralRetriever(cfg).reset_parameters(7).tower.eval()
+    g = torch.Generator().manual_seed(8)
+    lengths = torch.tensor([28, 41, 58, 33])
+    t = int(lengths.max())
+    mask = (torch.arange(t)[None] < lengths[:, None]).to(torch.int32)
+    ids = torch.randint(3, 64, (4, t), generator=g) * mask
+    x = (torch.randn(4, t, cfg.hidden_size, generator=g)).bfloat16()
+    res = (torch.randn(4, t, cfg.hidden_size, generator=g) * 4).bfloat16()
+    cos, sin = rope.rope_tables(t, cfg.head_dim, cfg.rope_theta, "cpu")
+    bias = mistral.mask_bias(mask, cfg.sliding_window)
+    layer = tower.layers[0]
+    want = layer(x, res, cos, sin, bias)
+    layer = layer.to(cuda)
+    launches = fused_bert.launches("F1"), fused_bert.launches("F2")
+    with torch.no_grad():
+        got = layer(x.to(cuda), res.to(cuda), cos.to(cuda), sin.to(cuda), bias.to(cuda))
+    torch.cuda.synchronize()
+    assert (fused_bert.launches("F1") - launches[0], fused_bert.launches("F2") - launches[1]) \
+        == (1, 2)
+    real = mask.bool()
+    for a, b in zip(got, want):
+        a, b = a.cpu().float()[real], b.float()[real]
+        assert torch.isfinite(a).all()
+        assert (a - b).norm() <= DECODER_LAYER_REL * b.norm()
+    tower = tower.to(cuda)
+    got_emb = tower(ids, mask)
+    assert torch.allclose(got_emb.norm(dim=-1), torch.ones(4, device=cuda), atol=1e-5)
