@@ -246,15 +246,17 @@ EmbeddingGemma encoder attend with heads of 256):
 E5-Mistral-7B (intfloat/e5-mistral-7b-instruct: Mistral-7B's decoder, 32
 layers, hidden 4,096, 32 query heads over 8 kv heads of 128, FFN 14,336;
 random weights drawn on the card):
- 36. (a) F1's SwiGLU form at [29,696, 2 x 14,336], F2's RMSNorm form at
-     [29,696, 4,096] (with and without a residual) and the RoPE copy at
-     [512, 58, 6,144], the E5 cell's padded shapes, against their plain
-     versions (SwiGLU and RoPE bit-equal; F2's sum bit-equal, its output
-     within one bf16 ulp at >= LN_ULP_FLOOR), each timed beside its plain
-     version, its bound and (F2) torch's rms_norm; (b) the retrieve path:
-     512 host rows of 28-58 ids through encode_query, then DenseIndex.search
-     top-100 over 262,144 seeded 4,096-d bf16 rows, with every counter reset
-     before and read after (the three kernels, K1, K6), the embeddings
+ 36. (a) at the E5 cell's batch (512 rows of 28-58 ids, 18,308 real
+     tokens): F1's SwiGLU form at [18,308, 2 x 14,336], F2's RMSNorm form
+     at [18,308, 4,096] (with and without a residual) and the RoPE copy
+     from [18,308, 6,144] into q [512, 8, 232, 128], k and v [512, 8, 58,
+     128], against their plain versions (SwiGLU and RoPE bit-equal; F2's
+     sum bit-equal, its output within one bf16 ulp at >= LN_ULP_FLOOR),
+     each timed beside its plain version, its bound and (F2) torch's
+     rms_norm; (b) the retrieve path: the same 512 rows on the host through
+     encode_query, then DenseIndex.search top-100 over 262,144 seeded
+     4,096-d bf16 rows, with every counter reset before and read after (the
+     three kernels, K1, K6, and the tower's tokens), the embeddings
      unit-norm and every query against the exact top-100; the call's time
      and peak memory logged. The kernels line gains "... (E5 tower)"
      entries, their launches those of that one call.
@@ -5214,28 +5216,33 @@ def phase_wide_heads(device) -> tuple[list, dict]:
 
 # phase 36: E5-Mistral-7B's decoder (intfloat/e5-mistral-7b-instruct's
 # config.json; random weights drawn on the card): its kernels at the E5
-# cell's padded shapes, 512 rows of 28-58 ids padded to 58, and its retrieve
-# path, encode_query then DenseIndex.search, at the published widths
-E5_ROWS, E5_LENGTHS, E5_K = 512, (28, 58), 100
+# cell's shapes, 512 rows of 28-58 ids (profile_slice.e5_cell_lengths, the
+# cell's traffic file) padded to 58, and its retrieve path, encode_query
+# then DenseIndex.search over those rows, at the published widths
+E5_K = 100
 E5_CORPUS = 262_144  # 4,096-d bf16 index rows searched (2 GiB), past the naive search
+
 
 
 def _decoder_kernels(device, cfg) -> list:
     """F1's SwiGLU form, F2's RMSNorm form and the RoPE copy against their
-    plain versions at the E5 cell's padded shapes (E5_ROWS x the longest
-    length): SwiGLU and RoPE bit-equal, F2's sum bit-equal and its output
-    within one bf16 ulp at magnitudes of at least LN_ULP_FLOOR (with and
-    without a residual). Each timed by one call between CUDA events, queued
-    and by its kernels alone beside its plain version, its bound and, for
-    F2, torch's rms_norm (no residual: a yardstick). Returns (kernel,
-    label, result) a form."""
+    plain versions at the shapes of the E5 cell's batch: F1 and F2 over its
+    real tokens (the packed rows the tower hands them), the RoPE copy from
+    those rows into the layouts padded to the longest row. SwiGLU and RoPE
+    bit-equal, F2's sum bit-equal and its output within one bf16 ulp at
+    magnitudes of at least LN_ULP_FLOOR (with and without a residual). Each
+    timed by one call between CUDA events, queued and by its kernels alone
+    beside its plain version, its bound and, for F2, torch's rms_norm (no
+    residual: a yardstick). Returns (kernel, label, result) a kernel."""
     import torch
 
     from proqa_tpu_torch.ops import fused_bert, rope
+    from proqa_tpu_torch.profile_slice import e5_cell_lengths
 
     g = torch.Generator(device=device).manual_seed(70)
-    b, t = E5_ROWS, E5_LENGTHS[1]
-    n, h, inter = b * t, cfg.hidden_size, cfg.intermediate_size
+    lengths = torch.tensor(e5_cell_lengths())
+    b, t, n = lengths.numel(), int(lengths.max()), int(lengths.sum())
+    h, inter = cfg.hidden_size, cfg.intermediate_size
     runs = []
 
     def timed_run(run, plain, bound_ms, by, **extra):
@@ -5283,25 +5290,30 @@ def _decoder_kernels(device, cfg) -> list:
         bf16_ulps=ulps, library_ms=library)))
     del x, r
 
-    # the RoPE copy: the fused product [b, t, (nq + 2 nkv) hd] read once, q,
-    # k and v written once in the grouped layouts; q and k rotated (6
-    # operations an element: two products, an add, the tables' two reads)
+    # the RoPE copy: the n real rows of the fused product [n, (nq + 2 nkv) hd]
+    # read once, every padded position of q, k and v written once (zeros past
+    # a row's length); q and k rotated (6 operations an element: two
+    # products, an add, the tables' two reads)
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     width = (nq + 2 * nkv) * hd
-    qkv = torch.randn(b, t, width, device=device, generator=g).bfloat16()
+    cu = torch.zeros(b + 1, dtype=torch.int64)
+    cu[1:] = lengths.cumsum(0)
+    cu = cu.to(device)
     cos, sin = rope.rope_tables(t, hd, cfg.rope_theta, device)
-    got = rope.rope_qkv(qkv, cos, sin, nq, nkv)
-    want = rope.rope_qkv_reference(qkv, cos, sin, nq, nkv)
+    qkv = torch.randn(n, width, device=device, generator=g).bfloat16()
+    got = rope.rope_qkv_packed(qkv, cu, t, cos, sin, nq, nkv)
+    want = rope.rope_qkv_packed_reference(qkv, cu, t, cos, sin, nq, nkv)
     err = max((a.float() - w.float()).abs().max().item() for a, w in zip(got, want))
-    check(all(torch.equal(a, w) for a, w in zip(got, want)),
-          f"RoPE copy [{b}, {t}, {width}]: max abs err {err}, not bit-equal")
+    check(all(torch.equal(a.view(torch.int16), w.view(torch.int16)) for a, w in zip(got, want)),
+          f"RoPE copy [{n}, {width}]: max abs err {err}, not bit-equal")
     del got, want
-    runs.append(("RoPE", f"[{b}, {t}, {width}] -> q [{b}, {nkv}, {nq // nkv * t}, {hd}], k, v "
-                         f"[{b}, {nkv}, {t}, {hd}] bf16", timed_run(
-        lambda: rope.rope_qkv(qkv, cos, sin, nq, nkv),
-        lambda: rope.rope_qkv_reference(qkv, cos, sin, nq, nkv),
-        *bound(2 * qkv.numel() * 2 + 2 * t * hd * 4, 6 * b * t * (nq + nkv) * hd,
-               PEAK_F32_FLOPS), max_abs_err=err, library_ms=None)))
+    runs.append(("RoPE", f"[{n}, {width}] -> q [{b}, {nkv}, {nq // nkv * t}, {hd}], "
+                         f"k, v [{b}, {nkv}, {t}, {hd}] bf16", timed_run(
+        lambda: rope.rope_qkv_packed(qkv, cu, t, cos, sin, nq, nkv),
+        lambda: rope.rope_qkv_packed_reference(qkv, cu, t, cos, sin, nq, nkv),
+        *bound(qkv.numel() * 2 + b * t * width * 2 + 2 * t * hd * 4 + (b + 1) * 8,
+               6 * n * (nq + nkv) * hd, PEAK_F32_FLOPS), max_abs_err=err,
+        library_ms=None)))
     del qkv
     torch.cuda.empty_cache()
     for kernel, label, result in runs:
@@ -5312,20 +5324,21 @@ def _decoder_kernels(device, cfg) -> list:
 def phase_decoder(device) -> tuple[list, dict]:
     """E5-Mistral-7B (models/mistral.py at MistralConfig's published
     widths): (a) its kernels against their plain versions at the E5 cell's
-    shapes, timed (_decoder_kernels); (b) its retrieve path: E5_ROWS host
-    rows of 28-58 ids, right-padded, through encode_query (random weights
-    drawn on the card), then DenseIndex.search top-E5_K over E5_CORPUS
-    seeded 4,096-d bf16 rows, every launch counter reset before and read
+    shapes, timed (_decoder_kernels); (b) its retrieve path: the E5 cell's
+    batch (profile_slice.e5_cell_lengths) as host rows, right-padded,
+    through encode_query (random weights drawn on the card), then
+    DenseIndex.search top-E5_K over E5_CORPUS seeded 4,096-d bf16 rows, every launch counter reset before and read
     after (F1's SwiGLU form, F2's RMSNorm form and the RoPE copy once or
     twice a layer; K1, K6), the embeddings unit-norm and every query's
     answers against the exact top-E5_K; the call's time and peak memory
-    logged. Returns the kernels line's entries of the three kernels and
-    the phase's numbers."""
+    logged. Returns the kernels line's entries of the three kernels, timed
+    at the shapes this call runs, and the phase's numbers."""
     import torch
 
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.models import mistral
     from proqa_tpu_torch.ops import fused_bert, mips, mips_kernel, rescore, rope
+    from proqa_tpu_torch.profile_slice import e5_cell_lengths
     from proqa_tpu_torch.testing import topk_disagreements
 
     gpu = gpu_line()
@@ -5337,12 +5350,12 @@ def phase_decoder(device) -> tuple[list, dict]:
     # (b) the retrieve path, counters at 0
     t0 = time.perf_counter()
     model = mistral.MistralRetriever.on_device(cfg, device, 71)
-    lengths = torch.randint(E5_LENGTHS[0], E5_LENGTHS[1] + 1, (E5_ROWS,),
-                            generator=torch.Generator().manual_seed(72))
-    lengths[0] = E5_LENGTHS[1]  # the cell's padded length
+    lengths = torch.tensor(e5_cell_lengths())
+    rows = lengths.numel()
+    lengths = lengths[torch.randperm(rows, generator=torch.Generator().manual_seed(72))]
     t = int(lengths.max())
     mask = (torch.arange(t)[None] < lengths[:, None]).to(torch.int32)
-    ids = torch.randint(3, cfg.vocab_size, (E5_ROWS, t),
+    ids = torch.randint(3, cfg.vocab_size, (rows, t),
                         generator=torch.Generator().manual_seed(73)) * mask
     g = torch.Generator(device=device).manual_seed(74)
     corpus = (torch.randn(E5_CORPUS, cfg.hidden_size, device=device, generator=g)
@@ -5356,31 +5369,31 @@ def phase_decoder(device) -> tuple[list, dict]:
     emb = model.encode_query(ids, mask)
     vals, idx = index.search(emb, E5_K)
     counts = {**_form_counts(), "RoPE": rope.launches, "K1": mips_kernel.launches,
-              "K6": rescore.launches, "positions": mistral.positions,
+              "K6": rescore.launches, "calls": mistral.calls, "positions": mistral.positions,
               "tokens": mistral.tokens}
     peak = round(torch.cuda.max_memory_allocated() / 2**30, 2)
     layers = cfg.num_layers
     check(counts.get("F1 swiglu", 0) == layers and counts.get("F2 rms_row", 0) == 2 * layers + 1
-          and counts["RoPE"] == layers and counts["K1"] > 0 and counts["K6"] > 0,
-          f"E5 retrieve path: launches {counts}")
+          and counts["RoPE"] == layers and counts["K1"] > 0 and counts["K6"] > 0
+          and counts["tokens"] == int(lengths.sum()), f"E5 retrieve path: launches {counts}")
     norms = emb.norm(dim=-1)
-    check(bool(torch.isfinite(emb).all()) and emb.shape == (E5_ROWS, cfg.hidden_size)
+    check(bool(torch.isfinite(emb).all()) and emb.shape == (rows, cfg.hidden_size)
           and float((norms - 1).abs().max()) < 1e-3, "E5 retrieve path: bad embeddings")
     qb, bad = emb.bfloat16(), 0
-    for s in range(0, E5_ROWS, 128):
+    for s in range(0, rows, 128):
         rv, ri = mips.mips_topk_reference(qb[s:s + 128], corpus, E5_K)
         bad += topk_disagreements(vals[s:s + 128], idx[s:s + 128], rv.cpu().numpy(),
                                   ri.cpu().numpy(), atol=TOPK_TOL)
-    check(bad == 0, f"E5 retrieve path: {bad} of {E5_ROWS} queries disagree with the exact "
+    check(bad == 0, f"E5 retrieve path: {bad} of {rows} queries disagree with the exact "
                     f"top-{E5_K}")
     call_ms = cuda_ms(lambda: index.search(model.encode_query(ids, mask), E5_K), reps=3)
     path_s = round(time.perf_counter() - t0, 1)
-    log(f"{gpu}: decoder (b) E5-Mistral-7B retrieve path, {E5_ROWS} rows of "
+    log(f"{gpu}: decoder (b) E5-Mistral-7B retrieve path, {rows} rows of "
         f"{int(lengths.min())}-{t} ids ({counts['tokens']} real of {counts['positions']} "
         f"positions): encode_query then DenseIndex.search top-{E5_K} over {E5_CORPUS} x "
         f"{cfg.hidden_size} bf16: unit-norm embeddings, every query's answers agree with the "
         f"exact top-{E5_K} up to ties; launches {json.dumps(counts)}; {call_ms:.2f} ms a call "
-        f"({E5_ROWS / call_ms * 1e3:.1f} queries/s, CUDA events); peak {peak} GiB; kernels "
+        f"({rows / call_ms * 1e3:.1f} queries/s, CUDA events); peak {peak} GiB; kernels "
         f"{kernels_s} s, path {path_s} s")
     del index, corpus, model, emb, qb
     torch.cuda.empty_cache()
@@ -5389,7 +5402,7 @@ def phase_decoder(device) -> tuple[list, dict]:
                         counts["F1 swiglu"]),
           "F2 rms_row": ("add_layer_norm RMSNorm form (F2)", "layer_norm.cu",
                          counts["F2 rms_row"]),
-          "RoPE": ("rope_qkv (RoPE copy)", "rope.cu", counts["RoPE"])}
+          "RoPE": ("rope_qkv_packed (RoPE copy)", "rope.cu", counts["RoPE"])}
     entries = []
     for kernel, label, result in runs:
         name, source, launches = of[kernel]

@@ -74,8 +74,8 @@ _SIGNATURES = {
     # x, residual (None for none), scale, out, sum_out (None for none), rows, h, eps,
     # is_bf16, form, stream
     "proqa_add_rms_norm": [_P] * 5 + [_L, _I, _F, _I, _I, _P],
-    # qkv, cos, sin, q, k, v, batch, t_len, nq, nkv, hd, is_bf16, form, stream
-    "proqa_rope_qkv": [_P] * 6 + [_I] * 7 + [_P],
+    # qkv, cu_seqlens, cos, sin, q, k, v, batch, t_len, nq, nkv, hd, is_bf16, form, stream
+    "proqa_rope_qkv_packed": [_P] * 7 + [_I] * 7 + [_P],
 }
 # entry points that return a size, not a cudaError_t code
 _SIZES = ("proqa_dense_epilogue_bwd_workspace", "proqa_add_layer_norm_bwd_workspace")

@@ -41,15 +41,28 @@ Attention takes the plain route at every length: K2 (ops/attention.py) has
 no causal or grouped-query form, and its rule (T % 128 == 0) would not
 admit a query's lengths anyway.
 
+Packed rows: every position-wise step (the embedding rows, n1 and n2, the
+qkv, o, gate_up and down products, SwiGLU, the residual stream) runs over a
+batch's N real tokens alone, [N, H], the rows laid end to end (row b's token
+t at packed row cu_seqlens[b] + t, `Packing`). Only the attention needs the
+rows apart: the RoPE copy (ops/rope.py:rope_qkv_packed) writes q, k and v
+into the padded grouped layouts, zeros past each row's length, the scores,
+mask, softmax and p v run there, and one gather takes the real rows of the
+context back to [N, nq hd]. A batch without padding is the case N = B x T.
+A real row sees the operands, rounding points, window and mask of a padded
+run over every position; only the products' M differs, so cuBLAS may sum in
+another order.
+
 The tower opens spans (utils/profiling.py:span) while a profiler collects:
 `proqa.tower` around a forward, and inside it `proqa.tower.attention` (n1,
 the qkv product, RoPE, attention, o), `proqa.tower.mlp` (n2, gate and up,
 SwiGLU, down) and `proqa.tower.pool` (the last tokens, the final norm, the
-L2 normalisation); the ids' upload, the embedding rows, the RoPE tables and
-the mask are `proqa.tower`'s own. `positions` and `tokens` count what the
-tower was handed since `reset_counters()`: B x T positions, and the real
-tokens among them (read from the mask where it arrives: a mask on the card
-costs a synchronisation).
+L2 normalisation); the ids' upload, the packing, the embedding rows, the
+RoPE tables and the mask are `proqa.tower`'s own. `positions` and `tokens`
+count what the tower was handed since `reset_counters()`: B x T positions,
+and the real tokens among them, which are the rows its projections run
+over (read from the mask where it arrives: a mask on the card costs a
+synchronisation).
 
 Weights are keyed as this module's state dict; models/hf_convert.py maps HF
 Mistral names onto them.
@@ -174,6 +187,29 @@ def mask_bias(mask: torch.Tensor, window: int | None) -> torch.Tensor:
     return torch.where(seen, 0.0, MASK_BIAS).to(torch.float32)
 
 
+@dataclasses.dataclass(frozen=True)
+class Packing:
+    """The real tokens of a right-padded batch [B, T], laid end to end: row
+    b's token t is packed row cu_seqlens[b] + t. Tensors on the tower's
+    device; `row` and `pos` give each packed row's b and t."""
+    cu_seqlens: torch.Tensor  # [B + 1] int64
+    row: torch.Tensor  # [N] int64
+    pos: torch.Tensor  # [N] int64
+    length: int  # T
+
+    @classmethod
+    def of(cls, lengths: torch.Tensor, length: int, device) -> "Packing":
+        """From the rows' lengths [B] on the host: the offsets uploaded, each
+        packed row's b and t derived from them on the device."""
+        cu = torch.zeros(lengths.numel() + 1, dtype=torch.int64)
+        torch.cumsum(lengths, 0, out=cu[1:])
+        n = int(cu[-1])
+        cu = cu.to(device)
+        row = torch.repeat_interleave(torch.arange(lengths.numel(), device=device), cu.diff(),
+                                      output_size=n)
+        return cls(cu, row, torch.arange(n, device=device) - cu[row], length)
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: MistralConfig):
         super().__init__()
@@ -186,29 +222,38 @@ class DecoderLayer(nn.Module):
         self.gate_up = Linear(h, 2 * cfg.intermediate_size, dt)
         self.down = Linear(cfg.intermediate_size, h, dt)
 
-    def attention(self, x: torch.Tensor, cos, sin, bias) -> torch.Tensor:
-        """Grouped-query attention of the normalised rows x [B, T, H]: the
-        query heads of each kv head stacked along the rows of one product."""
+    def attention(self, x: torch.Tensor, cos, sin, bias, packing: Packing) -> torch.Tensor:
+        """Grouped-query attention of the normalised packed rows x [N, H]:
+        the query heads of each kv head stacked along the rows of one
+        product, over the padded rows."""
         cfg = self.cfg
-        b, t, _ = x.shape
         nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         g = nq // nkv
         # query head j = kv g + i reads kv head j // g: q [B, nkv, g T, hd],
-        # k and v [B, nkv, T, hd], q and k rotated (ops/rope.py)
-        q, k, v = rope.rope_qkv(self.qkv(x), cos, sin, nq, nkv)
+        # k and v [B, nkv, T, hd], q and k rotated (ops/rope.py), zeros past
+        # each row's length
+        q, k, v = rope.rope_qkv_packed(self.qkv(x), packing.cu_seqlens, packing.length, cos, sin,
+                                       nq, nkv)
+        b, t = k.shape[0], k.shape[2]
         scores = dot_f32(q, k.transpose(-1, -2)).view(b, nkv, g, t, t)
         scores = scores / math.sqrt(hd) + bias[:, None, None]
         probs = torch.softmax(scores, dim=-1).to(x.dtype).view(b, nkv, g * t, t)
         ctx = dot_f32(probs, v).to(x.dtype)
-        ctx = ctx.view(b, nkv, g, t, hd).permute(0, 3, 1, 2, 4).reshape(b, t, nq * hd)
-        return self.o(ctx)
+        # the real rows in one gather from the permuted view, each head's
+        # row moved as 8-byte words where they tile it, else 4-byte ones (an
+        # even head dim of at least 2-byte elements): the gather's cost is
+        # per element
+        row_bytes = hd * ctx.element_size()
+        word = torch.int64 if row_bytes % 8 == 0 else torch.int32
+        ctx = ctx.view(word).view(b, nkv, g, t, row_bytes // word.itemsize).permute(0, 3, 1, 2, 4)
+        return self.o(ctx[packing.row, packing.pos].view(x.dtype).view(-1, nq * hd))
 
-    def forward(self, x, residual, cos, sin, bias):
+    def forward(self, x, residual, cos, sin, bias, packing: Packing):
         """(x, residual) -> (the MLP's output, the residual stream before it):
-        the next layer's n1 adds the two."""
+        the next layer's n1 adds the two. Packed rows [N, H]."""
         with span("proqa.tower.attention"):
             normed, h = self.attn_norm(x, residual)
-            attn = self.attention(normed, cos, sin, bias)
+            attn = self.attention(normed, cos, sin, bias, packing)
         with span("proqa.tower.mlp"):
             normed, h = self.mlp_norm(attn, h)
             return self.down(swiglu(self.gate_up(normed))), h
@@ -216,9 +261,10 @@ class DecoderLayer(nn.Module):
 
 class MistralModel(nn.Module):
     """The decoder tower: right-padded token ids and mask [B, T] (on the host
-    or the tower's device) -> [B, H] f32 embeddings on the tower's device:
-    the final hidden state of each row's last real token, RMS-normalised in
-    cfg.dtype, then L2-normalised in f32."""
+    or the tower's device; each row's mask ones, at least one, then zeros, or
+    ValueError) -> [B, H] f32 embeddings on the tower's device: the final
+    hidden state of each row's last real token, RMS-normalised in cfg.dtype,
+    then L2-normalised in f32."""
 
     def __init__(self, cfg: MistralConfig):
         super().__init__()
@@ -228,34 +274,41 @@ class MistralModel(nn.Module):
         self.layers = nn.ModuleList(DecoderLayer(cfg) for _ in range(cfg.num_layers))
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, cfg.dtype)
 
-    def _layers(self, ids: torch.Tensor, mask: torch.Tensor):
-        """The layers over ids and mask on the tower's device: (the last
-        layer's output, the residual stream before it), which the final norm
-        adds; (the embedding rows, None) without layers."""
+    def _layers(self, ids: torch.Tensor, mask: torch.Tensor, packing: Packing):
+        """The layers over the packed ids [N] with their packing and the mask
+        [B, T], on the tower's device: (the last layer's output, the residual
+        stream before it), which the final norm adds; (the embedding rows,
+        None) without layers."""
         x, residual = self.embed[ids], None
-        cos, sin = rope.rope_tables(ids.shape[1], self.cfg.head_dim, self.cfg.rope_theta,
-                                    ids.device)
+        cos, sin = rope.rope_tables(mask.shape[1], self.cfg.head_dim, self.cfg.rope_theta,
+                                    mask.device)
         bias = mask_bias(mask, self.cfg.sliding_window)
         for layer in self.layers:
-            x, residual = layer(x, residual, cos, sin, bias)
+            x, residual = layer(x, residual, cos, sin, bias, packing)
         return x, residual
 
     @torch.no_grad()
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         global calls, positions, tokens
         with span("proqa.tower"):
+            real = attention_mask.to("cpu") != 0
+            t = real.shape[1]
+            lengths = real.sum(dim=1)
+            prefix = torch.equal(real, torch.arange(t) < lengths[:, None])
+            if not prefix or bool((lengths < 1).any()):
+                raise ValueError("the tower takes right-padded rows of at least one token: each "
+                                 "row's mask ones, then zeros")
             calls += 1
-            positions += attention_mask.numel()
-            tokens += int(attention_mask.sum())
+            positions += real.numel()
+            tokens += int(lengths.sum())
             device = self.embed.device
-            ids = input_ids.to(device, torch.int64)
-            mask = attention_mask.to(device)
-            x, residual = self._layers(ids, mask)
+            ids = input_ids[real.to(input_ids.device)].to(device, torch.int64)  # the real ids
+            packing = Packing.of(lengths, t, device)
+            mask = torch.arange(t, device=device) < packing.cu_seqlens.diff()[:, None]
+            x, residual = self._layers(ids, mask, packing)
             with span("proqa.tower.pool"):
-                rows = torch.arange(ids.shape[0], device=device)
-                last = mask.sum(dim=1).long() - 1  # right padding: the last real token
-                pooled = self.norm(x[rows, last],
-                                   None if residual is None else residual[rows, last])[0]
+                last = packing.cu_seqlens[1:] - 1  # each row's last token
+                pooled = self.norm(x[last], None if residual is None else residual[last])[0]
                 return torch.nn.functional.normalize(pooled.float(), dim=-1)
 
 

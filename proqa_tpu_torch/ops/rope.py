@@ -1,14 +1,18 @@
 """Rotary positions fused into the q, k and v copy of the decoder's
 grouped-query attention (models/mistral.py).
 
-One product makes q, k and v side by side, [B, T, (nq + 2 nkv) hd]. The
-attention's products want them head-major, with the g = nq / nkv query
-heads of each kv head stacked along the rows of one product (so k and v are
-never repeated), and q and k rotated by position: HF Mistral's rotate-half
-form, x cos + (-x2, x1) sin, in f32 with f32 tables, rounded once. CUDA
-tensors take the hand-written kernel (csrc/rope.cu): one read of the
-product and one write of each output. CPU tensors take `rope_qkv_reference`,
-the plain chain the kernel equals bit for bit.
+The decoder runs its projections over a batch's real tokens alone, so one
+product makes q, k and v side by side for the B right-padded rows laid end
+to end, [N, (nq + 2 nkv) hd], row b's token t at packed row cu_seqlens[b] +
+t. The attention's products want them padded and head-major, with the g =
+nq / nkv query heads of each kv head stacked along the rows of one product
+(so k and v are never repeated), and q and k rotated by position: HF
+Mistral's rotate-half form, x cos + (-x2, x1) sin, in f32 with f32 tables,
+rounded once, and zeros at every position past a row's length. CUDA tensors
+take the hand-written kernel (csrc/rope.cu): one read of the product and one
+write of each output. CPU tensors take `rope_qkv_packed_reference`, the
+plain chain the kernel equals bit for bit, built on `rope_qkv_reference`,
+the plain copy of a padded [B, T, width] product.
 """
 from __future__ import annotations
 
@@ -45,9 +49,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def rope_qkv_reference(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, nq: int,
                        nkv: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version: (q [B, nkv, g T, hd], k [B, nkv, T, hd],
-    v [B, nkv, T, hd]); row i T + t of q's kv head j is query head j g + i
-    at position t."""
+    """The plain copy of a padded product [B, T, width]: (q [B, nkv, g T,
+    hd], k [B, nkv, T, hd], v [B, nkv, T, hd]); row i T + t of q's kv head j
+    is query head j g + i at position t."""
     b, t, width = qkv.shape
     hd = width // (nq + 2 * nkv)
     g = nq // nkv
@@ -59,41 +63,70 @@ def rope_qkv_reference(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, 
     return q, k, v
 
 
+def rope_qkv_packed_reference(qkv: torch.Tensor, cu_seqlens: torch.Tensor, t: int,
+                              cos: torch.Tensor, sin: torch.Tensor, nq: int,
+                              nkv: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the packed form: the real rows [N, width]
+    placed at their padded positions of [B, T, width], then
+    rope_qkv_reference, then zeros at every position past a row's length."""
+    lengths = cu_seqlens.diff().to(qkv.device)
+    b, width = lengths.numel(), qkv.shape[1]
+    real = torch.arange(t, device=qkv.device)[None] < lengths[:, None]  # [B, T]
+    padded = qkv.new_zeros(b, t, width)
+    padded[real] = qkv
+    q, k, v = rope_qkv_reference(padded, cos, sin, nq, nkv)
+    pad = ~real[:, None, :, None]  # [B, 1, T, 1]
+    q = q.view(b, nkv, nq // nkv, t, k.shape[-1]).masked_fill(pad[:, :, None], 0).view(q.shape)
+    return q, k.masked_fill(pad, 0), v.masked_fill(pad, 0)
+
+
 def rope_form(head_dim: int, aligned: bool) -> str:
     """The form the kernel takes for this head dim and the alignment of its
     pointers (qkv, q, k, v): a name of ROPE_FORMS."""
     return "vec" if aligned and head_dim % 16 == 0 else "scalar"
 
 
-def _rope_qkv_kernel(qkv, cos, sin, nq, nkv):
+def _rope_qkv_packed_kernel(qkv, cu_seqlens, t, cos, sin, nq, nkv):
+    """Checks the product [N, width], width (nq + 2 nkv) hd, its row offsets
+    and the tables [T, hd], allocates q, k and v in the padded grouped
+    layouts of B rows of T, and launches the kernel."""
     global launches
     if qkv.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"rope_qkv kernel takes bf16 or f32, got {qkv.dtype}")
-    b, t, width = qkv.shape
+        raise TypeError(f"rope_qkv_packed takes bf16 or f32, got {qkv.dtype}")
+    if qkv.dim() != 2 or cu_seqlens.dtype != torch.int64 or cu_seqlens.dim() != 1 or \
+            cu_seqlens.device != qkv.device:
+        raise ValueError(f"rope_qkv_packed takes [N, width] rows and 1-D int64 cu_seqlens on "
+                         f"{qkv.device}")
+    width = qkv.shape[-1]
     hd = width // (nq + 2 * nkv)
     if nq % nkv or hd % 2 or width != (nq + 2 * nkv) * hd:
-        raise ValueError(f"rope_qkv: width {width} is not {nq} q and 2 x {nkv} kv heads of an "
-                         f"even head dim")
+        raise ValueError(f"rope_qkv_packed: width {width} is not {nq} q and 2 x {nkv} kv heads "
+                         f"of an even head dim")
     for table in (cos, sin):
         if table.dtype != torch.float32 or table.shape != (t, hd) or table.device != qkv.device:
-            raise ValueError(f"rope_qkv: tables must be f32 [{t}, {hd}] on {qkv.device}")
-    qkv, cos, sin = qkv.contiguous(), cos.contiguous(), sin.contiguous()
+            raise ValueError(f"rope_qkv_packed: tables must be f32 [{t}, {hd}] on {qkv.device}")
+    qkv, cu_seqlens = qkv.contiguous(), cu_seqlens.contiguous()
+    cos, sin = cos.contiguous(), sin.contiguous()
+    b = cu_seqlens.numel() - 1
     q = torch.empty(b, nkv, (nq // nkv) * t, hd, dtype=qkv.dtype, device=qkv.device)
     k = torch.empty(b, nkv, t, hd, dtype=qkv.dtype, device=qkv.device)
     v = torch.empty_like(k)
-    aligned = all(x.data_ptr() % 16 == 0 for x in (qkv, q, k, v))
-    form = rope_form(hd, aligned)
-    _build.launch("proqa_rope_qkv", qkv.device, qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), b, t, nq, nkv, hd,
-                  int(qkv.dtype == torch.bfloat16), ROPE_FORMS.index(form))
+    form = rope_form(hd, all(x.data_ptr() % 16 == 0 for x in (qkv, q, k, v)))
+    _build.launch("proqa_rope_qkv_packed", qkv.device, qkv.data_ptr(), cu_seqlens.data_ptr(),
+                  cos.data_ptr(), sin.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), b, t,
+                  nq, nkv, hd, int(qkv.dtype == torch.bfloat16), ROPE_FORMS.index(form))
     launches += 1
     return q, k, v
 
 
-def rope_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, nq: int,
-             nkv: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, k and v of the fused projection [B, T, (nq + 2 nkv) hd], q and k
-    rotated by position, in the grouped layouts of rope_qkv_reference."""
+def rope_qkv_packed(qkv: torch.Tensor, cu_seqlens: torch.Tensor, t: int, cos: torch.Tensor,
+                    sin: torch.Tensor, nq: int,
+                    nkv: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k and v of the fused projection of a batch's real tokens [N, (nq +
+    2 nkv) hd] (row b's token t at packed row cu_seqlens[b] + t; cu_seqlens
+    [B + 1] int64 on qkv's device, cu_seqlens[B] = N, no row longer than t),
+    q and k rotated at their positions, in the padded grouped layouts of
+    rope_qkv_reference with zeros past each row's length."""
     if qkv.device.type == "cuda":
-        return _rope_qkv_kernel(qkv, cos, sin, nq, nkv)
-    return rope_qkv_reference(qkv, cos, sin, nq, nkv)
+        return _rope_qkv_packed_kernel(qkv, cu_seqlens, t, cos, sin, nq, nkv)
+    return rope_qkv_packed_reference(qkv, cu_seqlens, t, cos, sin, nq, nkv)

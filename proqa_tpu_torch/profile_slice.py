@@ -20,7 +20,9 @@ seeded data and weights:
   encode_T*   the BERT-base context tower, bf16, 512 rows of T tokens
               (build-index's batch; K2, F1 and F2 at every layer);
   e5_query    E5-Mistral-7B's retrieve call: 512 right-padded rows of
-              28-58 token ids on the host through the decoder tower's
+              28-58 token ids (the benchmark E5 cell's lengths, read from
+              its traffic file by e5_cell_lengths) on the host through the
+              decoder tower's
               encode_query (32 layers, hidden 4,096, GQA 32/8, F1's SwiGLU
               and F2's RMSNorm forms, random bf16 weights), then the exact
               top-100 over a 2,681,468 x 4,096 bf16 index (BEIR NQ's
@@ -434,6 +436,26 @@ def encode_workload(model, t: int, trace_dir: str, loop_calls: int) -> dict:
     return result
 
 
+# the benchmark E5 cell's traffic (run from the repository's root)
+E5_TRAFFIC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "benchmark", "traffic", "e5-nq-q512.json")
+
+
+def e5_cell_lengths() -> list[int]:
+    """The row lengths of one batch of the benchmark E5 cell, ascending:
+    its traffic file's question lengths, drawn by the benchmark's own
+    generator (benchmark/traffic.py:lognormal_lengths), behind BOS and the
+    instruction's ids, and EOS (512 rows of 28-58 ids, 18,308 in all)."""
+    from benchmark.traffic import lognormal_lengths
+
+    with open(E5_TRAFFIC) as f:
+        traffic = json.load(f)
+    spec = traffic["question_lengths"]
+    questions = lognormal_lengths(traffic["batch"], spec["median"], spec["sigma"], spec["min"],
+                                  spec["max"])
+    return (questions + traffic["instruction_ids"] + 2).tolist()
+
+
 def e5_query_workload(trace_dir: str, loop_calls: int) -> dict:
     from proqa_tpu_torch.index.dense import DenseIndex
     from proqa_tpu_torch.models import mistral
@@ -447,7 +469,8 @@ def e5_query_workload(trace_dir: str, loop_calls: int) -> dict:
                          dtype=torch.bfloat16).mul_(cfg.hidden_size ** -0.5)
     index = DenseIndex.from_embeddings(corpus, device=device, dtype=torch.bfloat16)
     del corpus
-    lengths = torch.randint(28, 59, (b,), generator=torch.Generator().manual_seed(7))
+    lengths = torch.tensor(e5_cell_lengths())[torch.randperm(
+        b, generator=torch.Generator().manual_seed(7))]
     t = int(lengths.max())
     mask = (torch.arange(t)[None] < lengths[:, None]).to(torch.int32)
     ids = torch.randint(3, cfg.vocab_size, (b, t), generator=torch.Generator().manual_seed(8))

@@ -2291,16 +2291,18 @@ def test_rms_norm_form_unaligned_and_refused(cuda):
 @pytest.mark.parametrize("b,t,nq,nkv,hd", [(4, 58, 32, 8, 128), (3, 7, 4, 2, 16),
                                            (2, 5, 4, 2, 24), (2, 3, 2, 1, 2), (5, 1, 6, 6, 64)])
 def test_rope_qkv_kernel_equals_plain(cuda, b, t, nq, nkv, hd, dtype):
-    """The fused q, k, v copy with rotary positions bit-equal to its plain
-    version: the same products and sum in f32, one rounding; the vector body
+    """The fused q, k, v copy with rotary positions, over a batch without
+    padding (every row T long), bit-equal to the plain copy of the padded
+    product: the same products and sum in f32, one rounding; the vector body
     (head dims a multiple of 16) and the element body (24, 2)."""
     from proqa_tpu_torch.ops import rope
 
     g = torch.Generator().manual_seed(b * t + hd)
     qkv = torch.randn(b, t, (nq + 2 * nkv) * hd, generator=g).to(cuda, getattr(torch, dtype))
+    cu = torch.arange(b + 1, device=cuda) * t
     cos, sin = rope.rope_tables(t, hd, 10000.0, cuda)
     before = rope.launches
-    got = rope.rope_qkv(qkv, cos, sin, nq, nkv)
+    got = rope.rope_qkv_packed(qkv.view(b * t, -1), cu, t, cos, sin, nq, nkv)
     torch.cuda.synchronize()
     assert rope.launches == before + 1
     for a, w in zip(got, rope.rope_qkv_reference(qkv, cos, sin, nq, nkv)):
@@ -2308,17 +2310,97 @@ def test_rope_qkv_kernel_equals_plain(cuda, b, t, nq, nkv, hd, dtype):
 
 
 def test_rope_qkv_kernel_unaligned(cuda):
-    """A product 2 bytes past a 16-byte boundary takes the element body."""
+    """A product 2 bytes past a 16-byte boundary takes the element body (a
+    batch without padding)."""
     from proqa_tpu_torch.ops import rope
 
     g = torch.Generator().manual_seed(3)
     qkv = torch.randn(3, 9, 6 * 128, generator=g).to(cuda, torch.bfloat16)
-    shifted = torch.empty(qkv.numel() + 1, device=cuda, dtype=qkv.dtype)[1:].view_as(qkv)
-    shifted.copy_(qkv)
+    shifted = torch.empty(qkv.numel() + 1, device=cuda, dtype=qkv.dtype)[1:].view(27, -1)
+    shifted.copy_(qkv.view(27, -1))
     cos, sin = rope.rope_tables(9, 128, 10000.0, cuda)
-    for a, w in zip(rope.rope_qkv(shifted, cos, sin, 4, 1),
+    cu = torch.arange(4, device=cuda) * 9
+    for a, w in zip(rope.rope_qkv_packed(shifted, cu, 9, cos, sin, 4, 1),
                     rope.rope_qkv_reference(qkv, cos, sin, 4, 1)):
         assert torch.equal(a, w)
+
+
+def _poison_cache(cuda, nbytes: int) -> None:
+    """Leave NaNs in the caching allocator's free blocks, so that an output
+    the kernel fails to write shows."""
+    torch.full((nbytes // 4,), float("nan"), device=cuda)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("lengths,nq,nkv,hd", [
+    ((58, 28, 41, 33), 32, 8, 128),  # the E5 cell's widths and lengths
+    ((7, 1, 3), 4, 2, 16), ((5, 2), 4, 2, 24), ((3, 1, 2), 2, 1, 2), ((1, 4), 6, 6, 64),
+    ((6, 6), 4, 2, 16),  # no padding
+])
+def test_rope_qkv_packed_kernel_equals_plain(cuda, lengths, nq, nkv, hd, dtype):
+    """The packed form bit-equal to its plain version: each real row read
+    from its packed row and rotated at its position, zeros (+0) at every pad
+    position though the allocator's blocks held NaNs; the vector body (head
+    dims a multiple of 16) and the element body (24, 2)."""
+    from proqa_tpu_torch.ops import rope
+
+    g = torch.Generator().manual_seed(sum(lengths) + hd)
+    cu = torch.zeros(len(lengths) + 1, dtype=torch.int64)
+    cu[1:] = torch.tensor(lengths).cumsum(0)
+    t = max(lengths)
+    qkv = torch.randn(int(cu[-1]), (nq + 2 * nkv) * hd, generator=g).to(cuda, getattr(torch, dtype))
+    cu = cu.to(cuda)
+    cos, sin = rope.rope_tables(t, hd, 10000.0, cuda)
+    _poison_cache(cuda, 4 * len(lengths) * (nq + 2 * nkv) * t * hd * qkv.element_size())
+    before = rope.launches
+    got = rope.rope_qkv_packed(qkv, cu, t, cos, sin, nq, nkv)
+    torch.cuda.synchronize()
+    assert rope.launches == before + 1
+    bits = torch.int16 if qkv.element_size() == 2 else torch.int32
+    for a, w in zip(got, rope.rope_qkv_packed_reference(qkv, cu, t, cos, sin, nq, nkv)):
+        assert a.shape == w.shape and torch.equal(a.view(bits), w.view(bits))
+
+
+def test_rope_qkv_packed_kernel_unaligned(cuda):
+    """A packed product 2 bytes past a 16-byte boundary takes the element body."""
+    from proqa_tpu_torch.ops import rope
+
+    g = torch.Generator().manual_seed(4)
+    qkv = torch.randn(15, 6 * 128, generator=g).to(cuda, torch.bfloat16)
+    shifted = torch.empty(qkv.numel() + 1, device=cuda, dtype=qkv.dtype)[1:].view_as(qkv)
+    shifted.copy_(qkv)
+    cu = torch.tensor([0, 9, 11, 15], device=cuda)
+    cos, sin = rope.rope_tables(9, 128, 10000.0, cuda)
+    for a, w in zip(rope.rope_qkv_packed(shifted, cu, 9, cos, sin, 4, 1),
+                    rope.rope_qkv_packed_reference(qkv, cu, 9, cos, sin, 4, 1)):
+        assert torch.equal(a, w)
+
+
+def test_packed_tower_on_gpu_matches_dense_path(cuda):
+    """The tiny bf16 tower on the card: a padded batch, packed, gives each
+    row's embedding of a run over every padded position, within
+    DECODER_LAYER_REL (cuBLAS may sum a product of another M in another
+    order)."""
+    from proqa_tpu_torch.models import mistral
+
+    cfg = mistral.MistralConfig.tiny(sliding_window=4)
+    tower = mistral.MistralRetriever(cfg).reset_parameters(9).tower.eval().to(cuda)
+    lengths = torch.tensor([1, 9, 3, 14, 6])
+    t = int(lengths.max())
+    mask = (torch.arange(t)[None] < lengths[:, None]).to(torch.int32)
+    ids = torch.randint(3, cfg.vocab_size, (5, t), generator=torch.Generator().manual_seed(10))
+    ids = ids * mask
+    mistral.reset_counters()
+    got = tower(ids, mask)
+    assert (mistral.calls, mistral.tokens) == (1, int(lengths.sum()))
+    every = mistral.Packing.of(torch.full((5,), t), t, cuda)
+    with torch.no_grad():
+        x, residual = tower._layers(ids.to(cuda).view(-1), mask.to(cuda), every)
+        hidden = tower.norm(x, residual)[0].view(5, t, -1)
+    want = torch.nn.functional.normalize(
+        hidden[torch.arange(5, device=cuda), lengths.to(cuda) - 1].float(), dim=-1)
+    assert torch.isfinite(got).all()
+    assert (got - want).norm(dim=-1).max() <= DECODER_LAYER_REL
 
 
 def test_decoder_layer_at_published_widths_matches_cpu(cuda):
@@ -2342,18 +2424,20 @@ def test_decoder_layer_at_published_widths_matches_cpu(cuda):
     res = (torch.randn(4, t, cfg.hidden_size, generator=g) * 4).bfloat16()
     cos, sin = rope.rope_tables(t, cfg.head_dim, cfg.rope_theta, "cpu")
     bias = mistral.mask_bias(mask, cfg.sliding_window)
+    real = mask.bool()
+    x, res = x[real], res[real]  # the packed rows
     layer = tower.layers[0]
-    want = layer(x, res, cos, sin, bias)
+    want = layer(x, res, cos, sin, bias, mistral.Packing.of(lengths, t, "cpu"))
     layer = layer.to(cuda)
     launches = fused_bert.launches("F1"), fused_bert.launches("F2")
     with torch.no_grad():
-        got = layer(x.to(cuda), res.to(cuda), cos.to(cuda), sin.to(cuda), bias.to(cuda))
+        got = layer(x.to(cuda), res.to(cuda), cos.to(cuda), sin.to(cuda), bias.to(cuda),
+                    mistral.Packing.of(lengths, t, cuda))
     torch.cuda.synchronize()
     assert (fused_bert.launches("F1") - launches[0], fused_bert.launches("F2") - launches[1]) \
         == (1, 2)
-    real = mask.bool()
     for a, b in zip(got, want):
-        a, b = a.cpu().float()[real], b.float()[real]
+        a, b = a.cpu().float(), b.float()
         assert torch.isfinite(a).all()
         assert (a - b).norm() <= DECODER_LAYER_REL * b.norm()
     tower = tower.to(cuda)

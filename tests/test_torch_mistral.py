@@ -123,12 +123,19 @@ def test_right_padding_leaves_the_embedding_unchanged():
         assert torch.equal(alone[0], batch[i]), i
 
 
+def _every_position(b: int, t: int) -> mistral.Packing:
+    """The packing of every position of a [B, T] batch, pads included."""
+    return mistral.Packing.of(torch.full((b,), t), t, "cpu")
+
+
 @torch.no_grad()
 def _hidden_states(tower, ids, mask):
-    """The final hidden state at every position, [B, T, H]: the layers and
-    the final norm, which the pooling applies to one position a row."""
-    x, residual = tower._layers(ids, mask)
-    return tower.norm(x, residual)[0]
+    """The final hidden state at every position, [B, T, H]: the layers over
+    every position under the mask, and the final norm, which the pooling
+    applies to one position a row."""
+    b, t = ids.shape
+    x, residual = tower._layers(ids.reshape(-1), mask, _every_position(b, t))
+    return tower.norm(x, residual)[0].view(b, t, -1)
 
 
 def test_appending_tokens_leaves_earlier_positions_unchanged():
@@ -175,7 +182,7 @@ def test_grouped_query_heads_read_kv_head_j_over_group():
     x = torch.randn(b, t, c.hidden_size, generator=g)
     cos, sin = rope.rope_tables(t, c.head_dim, c.rope_theta, "cpu")
     bias = mistral.mask_bias(torch.ones(b, t, dtype=torch.int32), None)
-    got = layer.attention(x, cos, sin, bias)
+    got = layer.attention(x.view(b * t, -1), cos, sin, bias, _every_position(b, t)).view(b, t, -1)
 
     def plain(head_map):
         nq, nkv, hd = c.num_heads, c.num_kv_heads, c.head_dim
@@ -269,6 +276,59 @@ def test_counters_and_spans():
                                      "proqa.tower.pool")] == [1, layers, layers, 1]
     mistral.reset_counters()
     assert (mistral.calls, mistral.positions, mistral.tokens) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("mask,why", [
+    ([[1, 1, 0], [1, 0, 0], [0, 0, 0]], "a row of no token"),
+    ([[0, 1, 1], [1, 1, 1]], "left padding"),
+    ([[1, 0, 1], [1, 1, 1]], "a hole"),
+    ([[0, 0, 0], [1, 1, 1]], "a first row of no token"),
+])
+def test_mask_that_is_not_right_padding_is_refused(mask, why):
+    """The packing reads a row's tokens as a prefix of at least one: a mask
+    that is not (a row of none, left padding, a hole) raises before any
+    work, and counts nothing."""
+    model, _ = _model(_cfg())
+    mask = torch.tensor(mask, dtype=torch.int32)
+    ids = torch.randint(3, TINY["vocab_size"], mask.shape,
+                        generator=torch.Generator().manual_seed(1))
+    mistral.reset_counters()
+    with pytest.raises(ValueError, match="right-padded rows of at least one token"):
+        model.encode_query(ids * mask, mask)
+    assert mistral.calls == 0
+
+
+def test_batch_of_no_rows_gives_no_embeddings():
+    model, _ = _model(_cfg())
+    got = model.encode_query(torch.zeros(0, 5, dtype=torch.long),
+                             torch.zeros(0, 5, dtype=torch.int32))
+    assert got.shape == (0, TINY["hidden_size"]) and got.dtype == torch.float32
+
+
+def _dense_embeddings(tower, ids, mask):
+    """The tower over every padded position, pooled at each row's last real
+    token."""
+    hidden = _hidden_states(tower, ids, mask)
+    last = mask.sum(dim=1).long() - 1
+    return torch.nn.functional.normalize(hidden[torch.arange(len(ids)), last].float(), dim=-1)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("lengths,window,head_dim", [
+    ((1, 5, 9, 2, 17), 4096, 16),  # a row of one token among longer ones
+    ((3, 11, 20, 1, 6), 4, 16),  # rows longer than the window
+    ((3, 11, 20, 1, 6), 4, 6),  # heads of 12 bytes in bf16, gathered as 4-byte words
+    ((7, 7, 7), 4, 16),  # no padding: every position is packed
+])
+def test_packed_tower_equals_padded_dense_path(dtype, lengths, window, head_dim):
+    """A batch through the tower, packed, gives row for row the embeddings
+    of a run over every padded position: the same operands and rounding
+    points, the window and mask kept."""
+    model, _ = _model(_cfg(torch_dtype=dtype, sliding_window=window, head_dim=head_dim))
+    rows = [r[:n] for r, n in zip(_rows(16, [max(n, 2) for n in lengths]), lengths)]
+    ids, mask = _batch(rows)
+    got = model.encode_query(ids, mask)
+    assert torch.equal(got, _dense_embeddings(model.tower, ids, mask))
 
 
 # --- the decoder's F1 and F2 forms ---
@@ -367,7 +427,7 @@ def test_rope_qkv_layout():
     b, t, nq, nkv, hd = 2, 5, 4, 2, 16
     qkv = torch.randn(b, t, (nq + 2 * nkv) * hd, generator=g).bfloat16()
     cos, sin = rope.rope_tables(t, hd, 10000.0, "cpu")
-    q, k, v = rope.rope_qkv(qkv, cos, sin, nq, nkv)
+    q, k, v = rope.rope_qkv_reference(qkv, cos, sin, nq, nkv)
     assert q.shape == (b, nkv, 2 * t, hd) and k.shape == v.shape == (b, nkv, t, hd)
     heads = qkv.view(b, t, nq + 2 * nkv, hd)
     rq = rope.apply_rope(heads[:, :, :nq], cos, sin)
@@ -380,25 +440,65 @@ def test_rope_qkv_layout():
         assert torch.equal(v[:, j], heads[:, :, nq + nkv + j])
 
 
+def _packed_qkv(seed, lengths, nq, nkv, hd, dtype=torch.bfloat16):
+    """A packed product of rows of these lengths, [N, (nq + 2 nkv) hd], and
+    its row offsets."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.tensor(lengths)
+    cu = torch.zeros(len(lengths) + 1, dtype=torch.int64)
+    cu[1:] = lengths.cumsum(0)
+    return torch.randn(int(cu[-1]), (nq + 2 * nkv) * hd, generator=g).to(dtype), cu
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("lengths", [(5, 1, 3), (4, 4), (1,), (2, 7, 7, 3)])
+def test_rope_qkv_packed_plain_version(dtype, lengths):
+    """The packed form's plain version: at every real position
+    rope_qkv_reference's output on the padded copy of the rows, zeros (+0)
+    at every pad position of q, k and v."""
+    nq, nkv, hd = 4, 2, 16
+    qkv, cu = _packed_qkv(17, lengths, nq, nkv, hd, getattr(torch, dtype))
+    t = max(lengths)
+    cos, sin = rope.rope_tables(t, hd, 10000.0, "cpu")
+    q, k, v = rope.rope_qkv_packed(qkv, cu, t, cos, sin, nq, nkv)
+    b, g = len(lengths), nq // nkv
+    padded = qkv.new_full((b, t, qkv.shape[1]), float("nan"))  # pads never read
+    for r, n in enumerate(lengths):
+        padded[r, :n] = qkv[cu[r]:cu[r + 1]]
+    wq, wk, wv = rope.rope_qkv_reference(padded, cos, sin, nq, nkv)
+    assert q.shape == wq.shape and k.shape == wk.shape and v.shape == wv.shape
+    for r, n in enumerate(lengths):
+        for got, want in ((q.view(b, nkv, g, t, hd), wq.view(b, nkv, g, t, hd)), (k, wk),
+                          (v, wv)):
+            assert torch.equal(got[r, ..., :n, :], want[r, ..., :n, :])
+            pad = got[r, ..., n:, :]
+            assert torch.equal(pad, torch.zeros_like(pad))
+            assert not torch.signbit(pad).any()
+
+
 @pytest.mark.parametrize("hd,aligned,form", [(128, True, "vec"), (16, True, "vec"),
                                              (24, True, "scalar"), (128, False, "scalar")])
-def test_rope_qkv_wrapper_passes_its_form(recorded_launches, hd, aligned, form):
-    """The kernel's wrapper passes rope_form's answer for the head dim and
-    the pointers it launches on, and the grouped shapes."""
-    b, t, nq, nkv = 3, 7, 4, 2
-    qkv = torch.zeros(b, t, (nq + 2 * nkv) * hd, dtype=torch.bfloat16)
+def test_rope_qkv_packed_wrapper_passes_its_form(recorded_launches, hd, aligned, form):
+    """The packed form's wrapper passes rope_form's answer, the row offsets'
+    pointer and the padded shapes, and counts the launch in rope.launches."""
+    nq, nkv, t = 4, 2, 7
+    qkv, cu = _packed_qkv(18, (7, 2, 5), nq, nkv, hd)
+    qkv.zero_()
     if not aligned:
         qkv = torch.empty(qkv.numel() + 2, dtype=qkv.dtype)[2:].view_as(qkv).zero_()
     cos = sin = torch.zeros(t, hd)
     before = rope.launches
-    q, k, v = rope._rope_qkv_kernel(qkv, cos, sin, nq, nkv)
+    q, k, v = rope._rope_qkv_packed_kernel(qkv, cu, t, cos, sin, nq, nkv)
     ((entry, args),) = recorded_launches
-    assert entry == "proqa_rope_qkv" and args[6:11] == (b, t, nq, nkv, hd)
+    assert entry == "proqa_rope_qkv_packed" and args[:2] == (qkv.data_ptr(), cu.data_ptr())
+    assert args[7:12] == (3, t, nq, nkv, hd)
     assert rope.ROPE_FORMS[args[-1]] == form == rope.rope_form(hd, aligned)
-    assert q.shape == (b, nkv, 2 * t, hd) and v.shape == (b, nkv, t, hd)
+    assert q.shape == (3, nkv, 2 * t, hd) and k.shape == v.shape == (3, nkv, t, hd)
     assert rope.launches == before + 1
     with pytest.raises(ValueError, match="tables"):
-        rope._rope_qkv_kernel(qkv, cos[:, :2], sin, nq, nkv)
+        rope._rope_qkv_packed_kernel(qkv, cu, t, cos[:, :2], sin, nq, nkv)
+    with pytest.raises(ValueError, match="cu_seqlens"):
+        rope._rope_qkv_packed_kernel(qkv, cu.int(), t, cos, sin, nq, nkv)
 
 
 # --- HF Mistral checkpoints ---
